@@ -1,0 +1,18 @@
+"""PyTorch / CUDA port of the Mirage reproduction, for NVIDIA Hopper.
+
+The module layout mirrors the JAX package ``repro`` so each counterpart is
+easy to find: ``core`` (precision policies, BFP, GEMM backends),
+``kernels`` (hand-written CUDA kernels, their wrappers and plain PyTorch
+versions), ``models`` (the dense LM family), ``runtime`` (the serving
+engine) and ``launch`` (command-line entry points).
+
+This package imports ``torch`` and never ``jax`` or ``repro``. Entry points
+run on the CUDA device unless the caller passes ``device="cpu"``
+(:func:`repro_torch.device.resolve_device`). Inside, the tensor's device
+decides the route: a CUDA tensor launches the hand-written kernel, a CPU
+tensor takes the kernel's plain PyTorch version.
+"""
+
+from repro_torch.device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,92 @@
+"""Model architecture config (port of ``repro.configs.base.ModelConfig``).
+
+``reduced()`` derives the CPU test variant of an architecture (same
+family/topology, tiny dims), exactly as the JAX package does, so both
+packages build the same reduced model from one config.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    arch_id: str
+    family: str                      # dense | ssm | hybrid | moe | encdec | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                # 0 -> d_model // n_heads
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    tie_embeddings: bool = False
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-5
+    norm_type: str = "rmsnorm"       # rmsnorm | layernorm
+    sliding_window: Optional[int] = None   # SWA (mixtral)
+    # --- MoE ---
+    n_experts: int = 0
+    experts_per_token: int = 0
+    moe_d_ff: int = 0                # per-expert FFN width
+    capacity_factor: float = 1.25
+    router_aux_loss: float = 0.01
+    # --- SSM (mamba2 / zamba2) ---
+    ssm_state: int = 0
+    ssm_headdim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 256
+    ssm_conv: int = 4
+    ssm_groups: int = 1
+    attn_every: int = 0              # zamba2: shared attn block period (0 = none)
+    # --- enc-dec ---
+    encoder_layers: int = 0          # >0 -> encoder-decoder (n_layers = decoder)
+    # --- modality frontend stubs ---
+    frontend: Optional[str] = None   # vit_stub | audio_stub
+    frontend_dim: int = 0            # stub embedding width
+    frontend_len: int = 0            # patches / frames per example
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // self.n_heads)
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.encoder_layers > 0
+
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """Per-layer block kind for the unified decoder stack."""
+        if self.family in ("ssm", "hybrid"):
+            return ("mamba",) * self.n_layers
+        if self.family == "moe":
+            return ("attn_moe",) * self.n_layers
+        return ("attn_mlp",) * self.n_layers
+
+    def reduced(self) -> "ModelConfig":
+        """Tiny same-family config for CPU tests (the JAX package's cut)."""
+        return dataclasses.replace(
+            self,
+            n_layers=min(self.n_layers, 4),
+            d_model=64,
+            n_heads=4,
+            n_kv_heads=max(1, min(self.n_kv_heads, 2)),
+            d_ff=128,
+            vocab_size=256,
+            head_dim=16,
+            sliding_window=(32 if self.sliding_window else None),
+            n_experts=min(self.n_experts, 8),
+            experts_per_token=min(self.experts_per_token, 2),
+            moe_d_ff=32 if self.moe_d_ff else 0,
+            capacity_factor=8.0,
+            ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
+            ssm_headdim=8,
+            ssm_chunk=16,
+            attn_every=2 if self.attn_every else 0,
+            encoder_layers=min(self.encoder_layers, 2),
+            frontend_dim=32 if self.frontend_dim else 0,
+            frontend_len=8 if self.frontend_len else 0,
+        )

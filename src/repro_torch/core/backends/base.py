@@ -1,0 +1,112 @@
+"""GEMM backend protocol + registry (port of ``repro.core.backends.base``).
+
+Every execution mode of the GEMM is a :class:`GemmBackend` registered here by
+name. ``core.gemm`` dispatches on ``policy.mode`` through :func:`resolve`, so
+new modes plug in by registration alone.
+
+A backend's ``fn`` has signature ``fn(x, w, policy)``:
+
+  x: (..., K) activations   w: (K, N) weights   policy: MiragePolicy
+
+Capability flags let consumers reason about a mode without comparing mode
+names. Modes of ``GEMM_MODES`` that are not ported yet pass policy
+validation, but :func:`resolve` raises ``NotImplementedError`` naming the
+ROADMAP slice where they wait.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Tuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmBackend:
+    """A registered GEMM execution strategy.
+
+    Attributes:
+      name: registry key; ``MiragePolicy.mode`` strings resolve to this.
+      fn: forward implementation ``(x, w, policy) -> (..., N)``.
+      description: one-liner for listings.
+      quantized: operands are quantized (not an exact-f32 baseline).
+      supports_weight_stationary: honours ``policy.assume_quantized_weights``.
+      weight_stationary_aligned_only: the weight-stationary skip is exact
+        only for an operand quantized along the same contraction grouping.
+      supports_noise: honours the analog-noise policy fields.
+      supports_stationary_residues: accepts pre-encoded stationary residues.
+      reference: an oracle kept for parity testing, not a deployment path.
+    """
+
+    name: str
+    fn: Callable[..., torch.Tensor]
+    description: str = ""
+    quantized: bool = True
+    supports_weight_stationary: bool = False
+    weight_stationary_aligned_only: bool = False
+    supports_noise: bool = False
+    supports_stationary_residues: bool = False
+    reference: bool = False
+
+    def forward(self, x: torch.Tensor, w: torch.Tensor,
+                policy) -> torch.Tensor:
+        return self.fn(x, w, policy)
+
+
+_REGISTRY: Dict[str, GemmBackend] = {}
+
+#: modes of the JAX package that are not ported yet, and where they wait
+NOT_PORTED: Dict[str, str] = {
+    "mirage_faithful": "ROADMAP.md queue 1, slice 3 (hardware-faithful RNS path)",
+    "mirage_rns": "ROADMAP.md queue 1, slice 3 (hardware-faithful RNS path)",
+    "mirage_rns_pallas": "ROADMAP.md queue 1, slice 3 (RNS path; queue 2 kernel 4)",
+    "mirage_faithful_ref": "ROADMAP.md queue 1, slice 3 (RNS path oracles)",
+    "mirage_rns_ref": "ROADMAP.md queue 1, slice 3 (RNS path oracles)",
+    "mirage_rns_noisy": "ROADMAP.md queue 1, slice 4 (analog channel + RRNS)",
+    "mirage_rrns": "ROADMAP.md queue 1, slice 4 (analog channel + RRNS)",
+    "mirage_rrns_ref": "ROADMAP.md queue 1, slice 4 (analog channel + RRNS)",
+}
+
+
+def register(backend: GemmBackend) -> GemmBackend:
+    """Register (or replace) a backend under ``backend.name``."""
+    _REGISTRY[backend.name] = backend
+    return backend
+
+
+def register_fn(name: str, **flags):
+    """Decorator: register a plain forward function as a backend."""
+
+    def deco(fn):
+        register(GemmBackend(name=name, fn=fn, **flags))
+        return fn
+
+    return deco
+
+
+def get_backend(name: str) -> GemmBackend:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        if name in NOT_PORTED:
+            raise NotImplementedError(
+                f"GEMM mode {name!r} is not ported to repro_torch yet; it "
+                f"waits in {NOT_PORTED[name]}") from None
+        raise KeyError(
+            f"no GEMM backend registered under {name!r}; "
+            f"available: {sorted(_REGISTRY)}"
+        ) from None
+
+
+def resolve(policy) -> GemmBackend:
+    """Backend for a policy's mode string."""
+    return get_backend(policy.mode)
+
+
+def available_backends() -> Tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+def is_registered(name: str) -> bool:
+    return name in _REGISTRY

@@ -1,0 +1,51 @@
+"""mirage_fast: BFP-quantize, fold scales into mantissas, one matmul.
+
+Port of ``repro.core.backends.mirage_fast``. Where the JAX backend takes the
+fused Pallas kernel under ``policy.use_pallas``, the port takes the fused
+CUDA kernel whenever the activations lie on the card. Like the Pallas
+kernel, the CUDA kernel quantizes the weight itself, which leaves an
+already-quantized weight bit-identical (re-quantizing an on-grid group
+recovers its exponent and mantissas exactly). The CPU path is the JAX
+package's plain path, ``assume_quantized_weights`` branch included.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import bfp
+from repro_torch.core.backends.base import register_fn
+
+
+def _fold_x(x, policy):
+    """Quantize-and-fold activations along the contraction dim -> (..., Kpad)."""
+    t = bfp.bfp_quantize(x, policy.b_m, policy.g, policy.rounding)
+    xg = t.mantissa * t.scale
+    return xg.reshape(xg.shape[:-2] + (xg.shape[-2] * xg.shape[-1],))
+
+
+@register_fn("mirage_fast",
+             description="BFP quantize -> fold scales -> one matmul",
+             supports_weight_stationary=True)
+def _matmul_mirage_fast(x, w, policy):
+    if x.is_cuda:
+        from repro_torch.kernels import ops as kops
+        return kops.mirage_matmul_fused(x, w, policy)
+    xq = _fold_x(x, policy)                    # (..., Kpad)
+    if policy.assume_quantized_weights:
+        # weight operand already on the BFP grid (weight-stationary quant)
+        wq = w.to(torch.float32)
+        if xq.shape[-1] != w.shape[0]:         # padding from x grouping
+            wq = torch.nn.functional.pad(
+                wq, (0, 0, 0, xq.shape[-1] - w.shape[0]))
+    else:
+        qw, sw = bfp.bfp_quantize_contract(w, policy.b_m, policy.g,
+                                           policy.rounding)
+        wq = (qw * sw).reshape(-1, w.shape[-1])  # (Kpad, N)
+        if wq.shape[0] != xq.shape[-1]:
+            wq = wq[: xq.shape[-1]]
+    if policy.compute_dtype == "bfloat16":
+        # BFP(b_m <= 6) values are exact in bf16: the cast is value-identical
+        xq = xq.to(torch.bfloat16).to(torch.float32)
+        wq = wq.to(torch.bfloat16).to(torch.float32)
+    return torch.matmul(xq, wq)

@@ -1,0 +1,112 @@
+// PyTorch bindings of the hand-written kernels. The only source that
+// includes PyTorch's headers: the .cu files expose plain C++ launchers, so
+// nvcc never compiles torch's headers.
+//
+// Each binding checks what its kernel takes, launches on PyTorch's current
+// stream, and checks the launch (C10_CUDA_KERNEL_LAUNCH_CHECK) right after:
+// a launch the CUDA runtime refuses never runs, and a later synchronize would
+// not report it.
+#include <ATen/cuda/CUDAContext.h>
+#include <c10/cuda/CUDAException.h>
+#include <c10/cuda/CUDAGuard.h>
+#include <torch/extension.h>
+
+void launch_bfp_fake_quant(const float* x, float* out, int rows, int K, int g,
+                           int b_m, bool truncate, cudaStream_t stream);
+void launch_mirage_gemm(const float* x, const float* w, float* out, int M,
+                        int N, int K, bool w_nk, int g, int b_m,
+                        bool truncate, cudaStream_t stream);
+void launch_flash_attention(const float* q, const float* k, const float* v,
+                            float* o, int B, int Lq, int S, int H, int Kv,
+                            int D, bool causal, int window, float sm_scale,
+                            cudaStream_t stream);
+
+namespace {
+
+void check_operand(const torch::Tensor& t, const char* name) {
+  TORCH_CHECK(t.is_cuda(), name, " must be a CUDA tensor");
+  TORCH_CHECK(t.scalar_type() == torch::kFloat32, name, " must be float32");
+  TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
+}
+
+void check_bfp(int64_t g, int64_t b_m) {
+  TORCH_CHECK(g >= 1 && 64 % g == 0, "group size g must divide 64, got ", g);
+  TORCH_CHECK(b_m >= 1 && b_m <= 23, "b_m must be in [1, 23], got ", b_m);
+}
+
+void bfp_fake_quant(const torch::Tensor& x, torch::Tensor& out, int64_t g,
+                    int64_t b_m, bool truncate) {
+  check_operand(x, "x");
+  check_operand(out, "out");
+  TORCH_CHECK(x.dim() == 2 && out.sizes() == x.sizes(),
+              "x and out must be (rows, K) of one shape");
+  check_bfp(g, b_m);
+  const c10::cuda::CUDAGuard guard(x.device());
+  launch_bfp_fake_quant(x.data_ptr<float>(), out.data_ptr<float>(),
+                        static_cast<int>(x.size(0)),
+                        static_cast<int>(x.size(1)), static_cast<int>(g),
+                        static_cast<int>(b_m), truncate,
+                        at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void mirage_gemm(const torch::Tensor& x, const torch::Tensor& w,
+                 torch::Tensor& out, bool w_nk, int64_t g, int64_t b_m,
+                 bool truncate) {
+  check_operand(x, "x");
+  check_operand(w, "w");
+  check_operand(out, "out");
+  TORCH_CHECK(x.dim() == 2 && w.dim() == 2 && out.dim() == 2,
+              "x, w and out must be matrices");
+  const int64_t M = x.size(0), K = x.size(1);
+  const int64_t N = w_nk ? w.size(0) : w.size(1);
+  TORCH_CHECK((w_nk ? w.size(1) : w.size(0)) == K,
+              "w does not match x along K");
+  TORCH_CHECK(out.size(0) == M && out.size(1) == N, "out must be (M, N)");
+  check_bfp(g, b_m);
+  const c10::cuda::CUDAGuard guard(x.device());
+  launch_mirage_gemm(x.data_ptr<float>(), w.data_ptr<float>(),
+                     out.data_ptr<float>(), static_cast<int>(M),
+                     static_cast<int>(N), static_cast<int>(K), w_nk,
+                     static_cast<int>(g), static_cast<int>(b_m), truncate,
+                     at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void flash_attention(const torch::Tensor& q, const torch::Tensor& k,
+                     const torch::Tensor& v, torch::Tensor& out, bool causal,
+                     int64_t window, double sm_scale) {
+  check_operand(q, "q");
+  check_operand(k, "k");
+  check_operand(v, "v");
+  check_operand(out, "out");
+  TORCH_CHECK(q.dim() == 4 && k.dim() == 4 && k.sizes() == v.sizes() &&
+                  out.sizes() == q.sizes(),
+              "q/out must be (B, Lq, H, D) and k/v (B, S, Kv, D)");
+  const int64_t B = q.size(0), Lq = q.size(1), H = q.size(2), D = q.size(3);
+  const int64_t S = k.size(1), Kv = k.size(2);
+  TORCH_CHECK(k.size(0) == B && k.size(3) == D, "k/v do not match q");
+  TORCH_CHECK(Kv >= 1 && H % Kv == 0, "n_heads must be a multiple of n_kv");
+  TORCH_CHECK(D == 64, "the flash kernel is built for head_dim 64, got ", D);
+  const c10::cuda::CUDAGuard guard(q.device());
+  launch_flash_attention(q.data_ptr<float>(), k.data_ptr<float>(),
+                         v.data_ptr<float>(), out.data_ptr<float>(),
+                         static_cast<int>(B), static_cast<int>(Lq),
+                         static_cast<int>(S), static_cast<int>(H),
+                         static_cast<int>(Kv), static_cast<int>(D), causal,
+                         static_cast<int>(window),
+                         static_cast<float>(sm_scale),
+                         at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+}  // namespace
+
+PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("bfp_fake_quant", &bfp_fake_quant,
+        "BFP(b_m, g) fake quantization of a (rows, K) f32 matrix along K");
+  m.def("mirage_gemm", &mirage_gemm,
+        "out = bfp(x) @ bfp(w) with BFP(b_m, g) quantization along K");
+  m.def("flash_attention", &flash_attention,
+        "GQA flash-attention forward, (B, L, heads, 64) f32");
+}

@@ -1,0 +1,246 @@
+"""Decoder-only LM, dense family (port of ``repro.models.lm``).
+
+Pre-norm GQA attention + SwiGLU MLP per layer, with QKV bias and tied
+embeddings as qwen2 has them. The JAX package's ``lax.scan`` over stacked
+layers becomes a loop over an ``nn.ModuleList``. The MoE, SSM, hybrid,
+enc-dec and vlm families, the parallel (command-r) block and the paged cache
+are not ported yet and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.precision import MiragePolicy
+from repro_torch.device import resolve_device
+from repro_torch.models import attention, common
+
+_FAMILIES = "the MoE, SSM, hybrid, enc-dec and vlm families wait in " \
+            "ROADMAP.md queue 1, slice 6"
+
+
+@dataclasses.dataclass(frozen=True)
+class LMCallOptions:
+    """Runtime knobs that don't change parameters.
+
+    ``q_chunk``/``kv_chunk`` size the plain attention's chunks (the CPU
+    path); the card's flash kernel picks its own tiles."""
+    kv_repeat: int = 1          # repeat kv heads (exact duplication)
+    q_chunk: int = 1024
+    kv_chunk: int = 1024
+
+
+class Layer(nn.Module):
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
+                 device: torch.device):
+        super().__init__()
+        kw = dict(generator=generator, device=device)
+        self.ln1 = common.Norm(cfg.d_model, cfg.norm_type, device=device)
+        self.attn = attention.Attention(
+            cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+            cfg.qkv_bias, cfg.qk_norm, **kw)
+        self.ln2 = common.Norm(cfg.d_model, cfg.norm_type, device=device)
+        self.mlp = common.MLP(cfg.d_model, cfg.d_ff, False, **kw)
+
+
+class LM(nn.Module):
+    """The dense LM. Weights are drawn from ``generator`` (default: seed 0
+    on ``device``) with the JAX package's initializers; to compute the same
+    function as a JAX model, load its parameters with
+    :func:`repro_torch.interop.load_jax_params`."""
+
+    def __init__(self, cfg: ModelConfig, policy: MiragePolicy,
+                 options: LMCallOptions = LMCallOptions(), *,
+                 device: Optional[Union[str, torch.device]] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        kinds = set(cfg.layer_kinds())
+        if kinds != {"attn_mlp"} or cfg.is_encdec or cfg.frontend:
+            raise NotImplementedError(f"{cfg.arch_id}: {_FAMILIES}")
+        if cfg.arch_id.startswith("command-r"):
+            raise NotImplementedError(
+                f"{cfg.arch_id}: the parallel attention/MLP block waits in "
+                f"ROADMAP.md queue 1, slice 6")
+        self.cfg = cfg
+        self.policy = policy
+        self.opt = options
+        device = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        kw = dict(generator=generator, device=device)
+        self.embed = common.Embed(cfg.vocab_size, cfg.d_model, **kw)
+        self.layers = nn.ModuleList(Layer(cfg, **kw)
+                                    for _ in range(cfg.n_layers))
+        self.final_norm = common.Norm(cfg.d_model, cfg.norm_type,
+                                      device=device)
+        self.lm_head = None if cfg.tie_embeddings else common.Dense(
+            cfg.d_model, cfg.vocab_size, False, scale=0.02, **kw)
+
+    @property
+    def device(self) -> torch.device:
+        """Where the parameters live (follows ``.to(...)``)."""
+        return self.embed.emb.device
+
+    # ------------------------------------------------------------------
+    # blocks
+    # ------------------------------------------------------------------
+
+    def _head(self, h: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        h = common.norm(self.final_norm, h, cfg.norm_eps, cfg.norm_type)
+        if self.lm_head is None:
+            return common.unembed(self.embed, h, self.policy)
+        return common.dense(self.lm_head, h, self.policy)
+
+    def _attn_mlp_block(self, layer: Layer, h: torch.Tensor,
+                        positions: torch.Tensor):
+        """One layer over a full sequence; returns (h, (k, v))."""
+        cfg, opt = self.cfg, self.opt
+        n1 = common.norm(layer.ln1, h, cfg.norm_eps, cfg.norm_type)
+        a, kv = attention.attn_apply(
+            layer.attn, n1, self.policy, n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
+            positions=positions, rope_theta=cfg.rope_theta, causal=True,
+            window=cfg.sliding_window, qk_norm=cfg.qk_norm,
+            kv_repeat=opt.kv_repeat, q_chunk=opt.q_chunk,
+            kv_chunk=opt.kv_chunk)
+        return self._mlp_tail(layer, h + a), kv
+
+    def _mlp_tail(self, layer: Layer, h: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        n2 = common.norm(layer.ln2, h, cfg.norm_eps, cfg.norm_type)
+        return h + common.mlp(layer.mlp, n2, self.policy)
+
+    # ------------------------------------------------------------------
+    # forward (logits over the full sequence)
+    # ------------------------------------------------------------------
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens: (B, L) -> logits (B, L, V)."""
+        h = common.embed(self.embed, tokens)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        for layer in self.layers:
+            h, _ = self._attn_mlp_block(layer, h, positions)
+        return self._head(h)
+
+    # ------------------------------------------------------------------
+    # serving: prefill + single-token decode with caches
+    # ------------------------------------------------------------------
+
+    def cache_len(self, cap: int) -> int:
+        return min(cap, self.cfg.sliding_window or cap)
+
+    def init_cache(self, batch: int, cap: int, per_slot_idx: bool = False,
+                   layout: str = "dense") -> Dict[str, torch.Tensor]:
+        """Zeroed dense cache: ``idx`` (a scalar, or ``(batch,)`` per slot
+        for the continuous-batching engine) and ``k``/``v`` of shape
+        ``(n_layers, batch, cache_len, kv_eff, head_dim)``."""
+        if layout != "dense":
+            raise NotImplementedError(attention._PAGED)
+        cfg = self.cfg
+        shape = (cfg.n_layers, batch, self.cache_len(cap),
+                 cfg.n_kv_heads * self.opt.kv_repeat, cfg.resolved_head_dim)
+        idx_shape = (batch,) if per_slot_idx else ()
+        return {
+            "idx": torch.zeros(idx_shape, dtype=torch.int32,
+                               device=self.device),
+            "k": torch.zeros(shape, dtype=torch.float32, device=self.device),
+            "v": torch.zeros(shape, dtype=torch.float32, device=self.device),
+        }
+
+    def prefill(self, tokens: torch.Tensor, cap: int,
+                lens: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Run the prompt, build the cache, return last-position logits.
+
+        ``lens``: optional ``(B,)`` true prompt lengths for right-padded
+        batched prefill. The logits are then taken at each row's last REAL
+        token and the cache's per-slot ``idx`` is ``lens``; decode
+        overwrites the padded positions one token at a time while the
+        validity mask hides them (exact for attention: the causal mask keeps
+        real positions from reading padded ones)."""
+        B, L = tokens.shape
+        cache_len = self.cache_len(cap)
+        if lens is not None and L > cache_len:
+            raise ValueError(
+                f"padded prefill length {L} exceeds cache capacity "
+                f"{cache_len}; raise cap or shrink the bucket")
+        h = common.embed(self.embed, tokens)
+        positions = torch.arange(L, device=tokens.device)
+        cache = self.init_cache(B, cap)
+        # keep the last cache_len positions in ring layout (pos % cache_len)
+        keep = min(L, cache_len)
+        roll = max(L - cache_len, 0) % cache_len
+        for li, layer in enumerate(self.layers):
+            h, (kk, vv) = self._attn_mlp_block(layer, h, positions)
+            for leaf, val in (("k", kk), ("v", vv)):
+                val = torch.roll(val[:, L - keep:], roll, dims=1)
+                cache[leaf][li, :, :keep] = val
+        if lens is None:
+            cache["idx"] = torch.tensor(L, dtype=torch.int32,
+                                        device=tokens.device)
+            h_last = h[:, -1:, :]
+        else:
+            lens = lens.to(device=tokens.device, dtype=torch.int32)
+            cache["idx"] = lens
+            last = torch.clamp_min(lens.long() - 1, 0)
+            h_last = h[torch.arange(B, device=tokens.device), last][:, None]
+        return self._head(h_last), cache
+
+    def decode_step(self, cache: Dict[str, torch.Tensor],
+                    tokens: torch.Tensor
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """tokens: (B, 1). Returns (logits (B, 1, V), cache with idx + 1).
+
+        The k/v leaves of ``cache`` are updated in place (see
+        :func:`repro_torch.models.attention.attn_decode_step`)."""
+        cfg = self.cfg
+        h = common.embed(self.embed, tokens)
+        idx = cache["idx"]
+        for li, layer in enumerate(self.layers):
+            n1 = common.norm(layer.ln1, h, cfg.norm_eps, cfg.norm_type)
+            a, _, _ = attention.attn_decode_step(
+                layer.attn, n1, cache["k"][li], cache["v"][li], idx,
+                self.policy, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+                window=cfg.sliding_window, qk_norm=cfg.qk_norm,
+                kv_repeat=self.opt.kv_repeat)
+            h = self._mlp_tail(layer, h + a)
+        return self._head(h), dict(cache, idx=idx + 1)
+
+    def verify_step(self, *args, **kwargs):
+        raise NotImplementedError(
+            "verify_step (speculative decoding) waits in ROADMAP.md queue 1, "
+            "slice 5")
+
+    def prefill_chunk(self, *args, **kwargs):
+        raise NotImplementedError(
+            "prefill_chunk (chunked prefill) waits in ROADMAP.md queue 1, "
+            "slice 5")
+
+
+def cache_insert(live: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],
+                 slots: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Scatter a batched prefill cache into the live per-slot cache.
+
+    ``new`` is a dense prefill cache of ``B_new`` rows; ``slots`` the
+    ``(B_new,)`` destination slot per row. Rows whose slot is out of bounds
+    (the ``>= n_slots`` sentinel that pads admission groups to a power of
+    two) are dropped: they are masked out before the scatter, which is what
+    the JAX package's ``mode="drop"`` does on device. Pass ``slots`` on the
+    host to keep the mask off the device. The live leaves are written in
+    place and returned."""
+    rows = torch.nonzero(slots < live["idx"].shape[0])[:, 0]
+    dst = slots[rows].to(live["idx"].device)
+    src = rows.to(new["idx"].device)
+    for name, leaf in live.items():
+        if name == "idx":
+            leaf[dst] = new[name][src].to(leaf.dtype)
+        else:
+            leaf[:, dst] = new[name][:, src]
+    return live

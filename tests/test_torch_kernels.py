@@ -1,0 +1,275 @@
+"""PyTorch port: the kernels' plain versions vs the JAX Pallas kernels
+(interpret mode), the wrappers' routing, the GEMM backends, and the port's
+isolation from JAX.
+
+Kernel-vs-plain checks on the card need CUDA; they carry the ``cuda`` marker
+and skip here (``python3 chip_smoke.py`` runs the same checks at the
+serving shapes).
+"""
+
+import subprocess
+import sys
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+from repro.core import gemm as jgemm
+from repro.core.precision import get_policy as jpolicy
+from repro.kernels.bfp_quantize import bfp_fake_quant_pallas
+from repro.kernels.flash_attention import flash_attention as jflash
+from repro.kernels.mirage_gemm import mirage_gemm_pallas
+from repro.models.attention import chunked_attention as jchunked
+from repro_torch import resolve_device
+from repro_torch.core import backends, gemm
+from repro_torch.core.precision import get_policy
+from repro_torch.kernels import ops, ref
+
+
+def _rand(shape, seed, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=shape) * scale).astype(np.float32)
+
+
+def _gemm_tol(x, w, b_m=4, g=16):
+    """|got - ref| <= 1e-5 (|xq| @ |wq|) + 1e-30: every folded product is
+    exact in f32, so only the order of the f32 sum may differ."""
+    xq = ref.bfp_fake_quant_ref(torch.tensor(x), b_m, g)
+    wq = ref.bfp_fake_quant_ref(torch.tensor(w).T, b_m, g).T
+    return (1e-5 * (xq.abs().double() @ wq.abs().double()) + 1e-30).numpy()
+
+
+# --------------------------------------------------------------------------
+# plain versions vs the Pallas kernels (interpret mode)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(5, 37, 9), (3, 128, 17), (2, 16, 4),
+                                   (7, 64, 13)])
+def test_gemm_plain_matches_pallas(shape):
+    m, k, n = shape
+    x, w = _rand((m, k), 3), _rand((k, n), 4)
+    want = np.asarray(mirage_gemm_pallas(jnp.asarray(x), jnp.asarray(w),
+                                         block_m=8, block_n=8, block_k=32,
+                                         interpret=True))
+    got = ref.mirage_gemm_ref(torch.from_numpy(x), torch.from_numpy(w))
+    assert np.all(np.abs(got.numpy() - want) <= _gemm_tol(x, w))
+
+
+@pytest.mark.parametrize("rounding", ["nearest", "truncate"])
+@pytest.mark.parametrize("shape", [(64, 200), (7, 33)])
+def test_bfp_plain_matches_pallas_bitwise(shape, rounding):
+    rng = np.random.default_rng(9)
+    x = (rng.choice([-1.0, 1.0], shape) *
+         10.0 ** rng.uniform(-8, 8, shape)).astype(np.float32)
+    want = np.asarray(bfp_fake_quant_pallas(jnp.asarray(x),
+                                            rounding=rounding,
+                                            interpret=True))
+    got = ref.bfp_fake_quant_ref(torch.from_numpy(x), rounding=rounding)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+
+
+@pytest.mark.parametrize("shape,window", [
+    ((1, 32, 4, 16, 4), None),    # MHA
+    ((2, 24, 8, 16, 2), None),    # GQA 4:1
+    ((1, 17, 6, 8, 3), None),     # ragged length, GQA 2:1
+    ((1, 20, 4, 8, 2), 8),        # sliding window
+])
+def test_flash_plain_matches_pallas(shape, window):
+    B, L, H, D, Kv = shape
+    q = _rand((B, L, H, D), 1, 0.5)
+    k = _rand((B, L, Kv, D), 2, 0.5)
+    v = _rand((B, L, Kv, D), 3, 0.5)
+    want = np.asarray(jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             causal=True, window=window, block_q=8,
+                             block_k=8, interpret=True))
+    got = ref.flash_attention_ref(torch.from_numpy(q), torch.from_numpy(k),
+                                  torch.from_numpy(v), True, window)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_chunked_attention_matches_jax(causal):
+    B, L, H, D, Kv = 2, 40, 4, 16, 2
+    q, k, v = _rand((B, L, H, D), 4), _rand((B, L, Kv, D), 5), \
+        _rand((B, L, Kv, D), 6)
+    pos = np.arange(L)
+    want = np.asarray(jchunked(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               jnp.asarray(pos), jnp.asarray(pos),
+                               causal=causal, q_chunk=16, kv_chunk=16))
+    got = ref.chunked_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(pos), torch.from_numpy(pos), causal=causal,
+        q_chunk=16, kv_chunk=16)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+# --------------------------------------------------------------------------
+# wrappers: CPU tensors take the plain versions and launch nothing
+# --------------------------------------------------------------------------
+
+def test_wrappers_on_cpu_take_plain_versions_and_launch_nothing():
+    ops.reset_launch_counts()
+    policy = get_policy("mirage")
+    x, w = torch.from_numpy(_rand((6, 48), 7)), torch.from_numpy(
+        _rand((48, 10), 8))
+    assert torch.equal(ops.bfp_fake_quant(x, policy),
+                       ref.bfp_fake_quant_ref(x))
+    assert torch.equal(ops.mirage_matmul_fused(x, w, policy),
+                       ref.mirage_gemm_ref(x, w))
+    q = torch.from_numpy(_rand((1, 9, 4, 64), 9))
+    kv = torch.from_numpy(_rand((1, 9, 2, 64), 10))
+    assert torch.equal(ops.flash_attention(q, kv, kv),
+                       ref.flash_attention_ref(q, kv, kv))
+    assert ops.LAUNCHES == {"bfp_quantize": 0, "mirage_gemm": 0,
+                            "flash_attention": 0}
+
+
+def test_wrappers_refuse_other_devices():
+    """No fallback: an operand that is neither all-CPU nor all-CUDA raises."""
+    policy = get_policy("mirage")
+    meta = torch.empty((4, 16), device="meta")
+    with pytest.raises(ValueError, match="CPU or all on one CUDA"):
+        ops.bfp_fake_quant(meta, policy)
+    with pytest.raises(ValueError, match="CPU or all on one CUDA"):
+        ops.mirage_matmul_fused(torch.zeros(4, 16), meta.T, policy)
+
+
+def test_resolve_device_never_falls_back_to_cpu():
+    assert resolve_device("cpu").type == "cpu"
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            resolve_device()
+
+
+def test_port_imports_no_jax():
+    """The port imports torch and never jax or the JAX package."""
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.interop, repro_torch.kernels.ops\n"
+        "import repro_torch.kernels.build, repro_torch.runtime.server\n"
+        "import repro_torch.launch.serve, repro_torch.models\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
+        "             m.startswith(('jax.', 'jaxlib')) or m == 'repro' or\n"
+        "             m.startswith('repro.'))\n"
+        "assert not bad, bad\n")
+    import os
+    env = dict(os.environ)
+    src = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
+    env["PYTHONPATH"] = src
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+# --------------------------------------------------------------------------
+# GEMM backends
+# --------------------------------------------------------------------------
+
+def test_mirage_fast_backend_matches_jax():
+    x, w = _rand((5, 37), 11), _rand((37, 9), 12)
+    want = np.asarray(jgemm.mirage_matmul_nograd(jnp.asarray(x),
+                                                 jnp.asarray(w),
+                                                 jpolicy("mirage")))
+    got = gemm.mirage_matmul_nograd(torch.from_numpy(x), torch.from_numpy(w),
+                                    get_policy("mirage")).numpy()
+    assert np.all(np.abs(got - want) <= _gemm_tol(x, w))
+
+
+def test_mirage_fast_folded_operands_bitwise():
+    from repro.core.backends import mirage_fast as jmf
+    from repro_torch.core.backends import mirage_fast as tmf
+    x = _rand((4, 50), 13)
+    np.testing.assert_array_equal(
+        tmf._fold_x(torch.from_numpy(x), get_policy("mirage")).numpy()
+        .view(np.int32),
+        np.asarray(jmf._fold_x(jnp.asarray(x), jpolicy("mirage")))
+        .view(np.int32))
+
+
+def test_weight_stationary_branch_matches_jax():
+    from repro.core import bfp as jbfp
+    x, w = _rand((3, 40), 14), _rand((40, 6), 15)
+    wq = np.asarray(jbfp.bfp_fake_quant(jnp.asarray(w).T, 4, 16).T)
+    want = np.asarray(jgemm.mirage_matmul_nograd(
+        jnp.asarray(x), jnp.asarray(wq),
+        jpolicy("mirage", assume_quantized_weights=True)))
+    got = gemm.mirage_matmul_nograd(
+        torch.from_numpy(x), torch.from_numpy(wq.copy()),
+        get_policy("mirage", assume_quantized_weights=True)).numpy()
+    assert np.all(np.abs(got - want) <= _gemm_tol(x, wq))
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "int8"])
+def test_baselines_match_jax(mode):
+    x, w = _rand((6, 96), 16, 0.5), _rand((96, 10), 17, 0.5)
+    want = np.asarray(jgemm.mirage_matmul_nograd(jnp.asarray(x),
+                                                 jnp.asarray(w),
+                                                 jpolicy(mode)))
+    got = gemm.mirage_matmul_nograd(torch.from_numpy(x), torch.from_numpy(w),
+                                    get_policy(mode)).numpy()
+    tol = {"fp32": 1e-5, "bf16": 1e-5, "int8": 1e-4}[mode]
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+    if mode == "fp32":
+        assert not torch.backends.cuda.matmul.allow_tf32
+        assert not torch.backends.cudnn.allow_tf32
+
+
+@pytest.mark.parametrize("mode", ["mirage_faithful", "mirage_rns",
+                                  "mirage_rns_noisy", "mirage_rrns"])
+def test_unported_modes_validate_but_do_not_resolve(mode):
+    policy = get_policy(mode)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        backends.resolve(policy)
+    assert backends.resolve(get_policy("mirage")).supports_weight_stationary
+
+
+# --------------------------------------------------------------------------
+# on the card: each kernel against its plain version
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the H100)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_bfp_kernel_bitexact(cuda):
+    x = torch.from_numpy((np.random.default_rng(1).normal(size=(33, 200)) *
+                          1e3).astype(np.float32)).to(cuda)
+    for rounding in ("nearest", "truncate"):
+        policy = get_policy("mirage", rounding=rounding)
+        got = ops.bfp_fake_quant(x, policy)
+        want = ref.bfp_fake_quant_ref(x, rounding=rounding)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 896, 896), (37, 200, 70)])
+def test_cuda_gemm_kernel_vs_plain(cuda, shape):
+    m, k, n = shape
+    x, w = _rand((m, k), 1), _rand((k, n), 2)
+    got = ops.mirage_matmul_fused(torch.from_numpy(x).to(cuda),
+                                  torch.from_numpy(w).to(cuda),
+                                  get_policy("mirage")).cpu().numpy()
+    want = ref.mirage_gemm_ref(torch.from_numpy(x), torch.from_numpy(w))
+    assert np.all(np.abs(got - want.numpy()) <= _gemm_tol(x, w))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_kernel_vs_plain(cuda):
+    q = torch.from_numpy(_rand((2, 70, 14, 64), 1, 0.5)).to(cuda)
+    k = torch.from_numpy(_rand((2, 70, 2, 64), 2, 0.5)).to(cuda)
+    v = torch.from_numpy(_rand((2, 70, 2, 64), 3, 0.5)).to(cuda)
+    for window in (None, 16):
+        torch.testing.assert_close(
+            ops.flash_attention(q, k, v, True, window),
+            ref.flash_attention_ref(q, k, v, True, window),
+            rtol=2e-5, atol=2e-5)
