@@ -4,9 +4,12 @@
 
 Builds the hand-written kernels from ``src/repro_torch/kernels/csrc``, holds
 each against its plain PyTorch version on the card, serves full-width
-qwen2-0.5b (random weights from a seed) through the port's ``LMServer``,
-checks that the serving path launched exactly the expected kernels, and times
-every kernel at the shapes the serving path gives it. Each phase prints one
+qwen2-0.5b (random weights from a seed) through the port's ``LMServer`` on
+each ported path — ``mirage_fast`` (the BFP GEMM kernel), ``mirage_rrns`` at
+52 dB detector SNR (the residue GEMM with its fused readout channel and the
+RRNS decode), its clean-channel twin and ``mirage_rns`` (the residue GEMM)
+— checks that each path launched exactly the expected kernels, and times
+every kernel at the shapes the serving paths give it. Each phase prints one
 JSON line; any failed check exits non-zero. The last line is the device
 record. Without CUDA, or without the repository's ``src`` beside it, the
 script exits non-zero and prints no result.
@@ -23,6 +26,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -43,6 +47,16 @@ GEMM_PER_STEP = {(896, 896): 48, (896, 128): 48, (896, 4864): 48,
 # (B, L, H, Kv, D, window): the prefill attention shapes
 FLASH_CASES = ((4, 128, 14, 2, 64, None), (4, 512, 14, 2, 64, None),
                (4, 77, 14, 2, 64, None), (4, 128, 14, 2, 64, 32))
+
+# the RNS paths: base moduli (k = 5), base + the two redundant RRNS moduli,
+# and a k = 8 set for the residue kernel's range; M = 4 is a decode tick,
+# M = 512 the largest prefill batch (4 prompts in the 128 bucket)
+RNS_BASE, RRNS_ALL, RNS_K8 = (31, 32, 33), (31, 32, 33, 37, 41), \
+    (255, 256, 257)
+RNS_M = (4, 512)
+SNR_DB, NOISE_SEED = 52.0, 7
+INT_OPS_PER_S = F32_FLOPS_PER_S   # int32 on the CUDA cores: the f32 rate
+RNS_TOKENS, RNS_REQUESTS = 8, 4   # the shorter mirage_rns drain
 
 
 class CheckFailed(RuntimeError):
@@ -88,8 +102,14 @@ def time_ms(fn, n: int = 20, warmup: int = 3, flush_l2: bool = True) -> float:
 
 
 def bound(bytes_moved: float, flops: float):
+    return bound_rate(bytes_moved, flops, F32_FLOPS_PER_S)
+
+
+def bound_rate(bytes_moved: float, ops_: float, ops_per_s: float):
+    """The least time for the work (ms) and what sets it: the bytes at the
+    HBM rate, or the operations at ``ops_per_s``."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = ops_ / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -214,15 +234,199 @@ def phase_flash(ops, ref):
 
 
 # --------------------------------------------------------------------------
+# phases 5b-5e: the residue kernels against their plain versions, and the
+# RNS GEMM against the BFP GEMM
+# --------------------------------------------------------------------------
+
+def random_residues(moduli, shape, gen):
+    """int32 residues in [0, m) per modulus, stacked on a leading axis."""
+    return torch.stack([torch.randint(0, m, shape, generator=gen, device=DEV,
+                                      dtype=torch.int32) for m in moduli])
+
+
+def rns_cases():
+    """(moduli, M, K, N) of every slice GEMM on the RNS paths (the head
+    only at decode: prefill runs the head on the last positions alone)."""
+    for moduli in (RNS_BASE, RRNS_ALL):
+        for M in RNS_M:
+            for K, N in GEMM_KN:
+                if M > SLOTS and N == 151936:
+                    continue
+                yield moduli, M, K, N
+    yield RNS_K8, SLOTS, 896, 896
+
+
+def residue_operands(moduli, M, K, N, seed):
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    G = K // 16
+    return (random_residues(moduli, (G, M, 16), gen),
+            random_residues(moduli, (G, 16, N), gen))
+
+
+def phase_rns_matmul(ops, ref):
+    for i, (moduli, M, K, N) in enumerate(rns_cases()):
+        t0 = time.perf_counter()
+        xr, wr = residue_operands(moduli, M, K, N, seed=200 + i)
+        got = ops.rns_group_matmul(xr, wr, moduli)
+        want = ref.rns_matmul_ref(xr, wr, moduli)
+        torch.cuda.synchronize()
+        bad = int((got != want).sum())
+        emit({"phase": "rns_matmul_vs_plain", "moduli": list(moduli),
+              "M": M, "K": K, "N": N, "mismatches": bad, "ok": bad == 0,
+              "seconds": time.perf_counter() - t0})
+        check(bad == 0, f"rns_matmul differs from its plain version in "
+                        f"{bad} residues at moduli={moduli} M={M} K={K} "
+                        f"N={N}")
+    return 0
+
+
+def detector_noise(moduli, shape, snr_db, gen):
+    from repro_torch.analog.channel import detector_sigma_levels
+    sig = torch.tensor([detector_sigma_levels(m, snr_db) for m in moduli],
+                       device=DEV).reshape(-1, 1, 1, 1)
+    return torch.randn((len(moduli),) + tuple(shape), generator=gen,
+                       device=DEV) * sig
+
+
+def phase_rns_channel(ops, ref):
+    """The fused readout at 20 dB (sigma 2-4 levels: every rounding and
+    wrap case occurs) and at the slice's 52 dB."""
+    (_, _), (_, _), ffn, down, head = GEMM_KN
+    cases = [(SLOTS,) + ffn, (SLOTS,) + down, (SLOTS,) + head,
+             (RNS_M[-1],) + ffn]
+    for i, (M, K, N) in enumerate(cases):
+        xr, wr = residue_operands(RRNS_ALL, M, K, N, seed=300 + i)
+        G = K // 16
+        gen = torch.Generator(device=DEV).manual_seed(400 + i)
+        for snr in (20.0, SNR_DB):
+            noise = detector_noise(RRNS_ALL, (G, M, N), snr, gen)
+            for adc_bits in (None, 4, 5):
+                t0 = time.perf_counter()
+                got = ops.rns_group_matmul_channel(xr, wr, RRNS_ALL, noise,
+                                                   adc_bits)
+                want = ref.rns_matmul_channel_ref(xr, wr, RRNS_ALL, noise,
+                                                  adc_bits)
+                torch.cuda.synchronize()
+                bad = int((got != want).sum())
+                emit({"phase": "rns_matmul_channel_vs_plain", "M": M,
+                      "K": K, "N": N, "snr_db": snr, "adc_bits": adc_bits,
+                      "mismatches": bad, "ok": bad == 0,
+                      "seconds": time.perf_counter() - t0})
+                check(bad == 0, f"rns_matmul_channel differs from its plain "
+                                f"version in {bad} residues at M={M} K={K} "
+                                f"N={N} snr={snr} adc_bits={adc_bits}")
+    return 0
+
+
+def decode_inputs(E, seed):
+    """Residues of legal values with 0, 1 or 2 residue errors at known
+    places (by element index mod 3), then E // 2 random tuples."""
+    psi = (math.prod(RNS_BASE) - 1) // 2
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    xs = torch.randint(-psi, psi + 1, (E,), generator=gen, device=DEV,
+                       dtype=torch.int32)
+    xs[:6] = torch.tensor([psi, -psi, 0, psi - 1, 1 - psi, 1], device=DEV)
+    n_err = torch.arange(E, device=DEV) % 3
+    n = len(RRNS_ALL)
+    i1 = torch.randint(0, n, (E,), generator=gen, device=DEV)
+    i2 = (i1 + torch.randint(1, n, (E,), generator=gen, device=DEV)) % n
+    rows = []
+    for i, m in enumerate(RRNS_ALL):
+        hit = ((n_err >= 1) & (i1 == i)) | ((n_err == 2) & (i2 == i))
+        delta = torch.randint(1, m, (E,), generator=gen, device=DEV,
+                              dtype=torch.int32)
+        rows.append(torch.remainder(xs + torch.where(hit, delta, 0), m))
+    res = torch.stack(rows).to(torch.int32)
+    rand = random_residues(RRNS_ALL, (E // 2,), gen)
+    return torch.cat([res, rand], dim=1).contiguous(), xs, n_err
+
+
+def phase_rrns_decode(ops, ref):
+    from repro_torch.analog import rrns
+    from repro_torch.core.noise import rrns_decode_np
+
+    psi = (math.prod(RNS_BASE) - 1) // 2
+    tables = rrns.get_tables(RRNS_ALL, len(RNS_BASE), psi)
+    t0 = time.perf_counter()
+    res, xs, n_err = decode_inputs(4_000_000, seed=500)
+    E = xs.shape[0]
+    dec, votes = ops.rrns_decode(res, tables)
+    want_dec, want_votes = ref.rrns_decode_ref(res, tables)
+    torch.cuda.synchronize()
+    bad_dec = int((dec != want_dec).sum())
+    bad_votes = int((votes.view(torch.int32) !=
+                     want_votes.view(torch.int32)).sum())
+    legal_dec = dec[:E]
+    clean_ok = bool(((legal_dec == xs) & (votes[:E] == 10.0))[n_err == 0]
+                    .all())
+    single_ok = bool(((legal_dec == xs) & (votes[:E] == 4.0))[n_err == 1]
+                     .all())
+    sample = torch.randperm(res.shape[1], device=DEV)[:10_000]
+    o_dec, _ = rrns_decode_np(res[:, sample].cpu().numpy(), RRNS_ALL,
+                              len(RNS_BASE), psi)
+    bad_oracle = int((dec[sample].cpu().numpy() != o_dec).sum())
+    ok = bad_dec == bad_votes == bad_oracle == 0 and clean_ok and single_ok
+    emit({"phase": "rrns_decode_vs_plain", "elements": int(res.shape[1]),
+          "decoded_mismatches": bad_dec, "votes_mismatches": bad_votes,
+          "oracle_sample": 10_000, "oracle_mismatches": bad_oracle,
+          "clean_decoded_exactly": clean_ok,
+          "single_errors_corrected": single_ok, "ok": ok,
+          "seconds": time.perf_counter() - t0})
+    check(ok, "rrns_decode differs from its plain version or the numpy "
+              "oracle, or failed to decode a clean or single-error value")
+    return 0
+
+
+def phase_rns_equals_fast(ops, ref):
+    """mirage_rns (residue kernel + CRT), clean mirage_rrns (residue kernel
+    + decode kernel) and mirage_fast (BFP GEMM kernel) compute the same
+    exact integer group dots, so they differ only in the order of the f32
+    sums: held to the gemm_vs_plain bound."""
+    from repro_torch.core import gemm
+    from repro_torch.core.precision import get_policy
+
+    fast = get_policy("mirage")
+    worst = 0.0
+    for M in RNS_M:
+        for K, N in GEMM_KN:
+            if M > SLOTS and N == 151936:
+                continue
+            t0 = time.perf_counter()
+            x, w = gemm_operands(M, K, N, seed=M * 5 + K + N)
+            out = {mode: gemm.mirage_matmul_nograd(x, w, get_policy(mode))
+                   for mode in ("mirage_rns", "mirage_rrns")}
+            out["mirage_fast"] = gemm.mirage_matmul_nograd(x, w, fast)
+            xq, wq = folded(ref, x, w, fast)
+            tol = 1e-5 * (xq.abs() @ wq.abs()) + 1e-30
+            errs = {}
+            for a, b in (("mirage_rns", "mirage_fast"),
+                         ("mirage_rrns", "mirage_fast"),
+                         ("mirage_rrns", "mirage_rns")):
+                d = (out[a] - out[b]).abs()
+                errs[f"{a}-{b}"] = (float(d.max()), int((d > tol).sum()))
+            torch.cuda.synchronize()
+            bad = sum(n for _, n in errs.values())
+            emit({"phase": "rns_equals_fast", "M": M, "K": K, "N": N,
+                  "max_abs_err": {k: v[0] for k, v in errs.items()},
+                  "over_tol": {k: v[1] for k, v in errs.items()},
+                  "ok": bad == 0, "seconds": time.perf_counter() - t0})
+            check(bad == 0, f"mirage_rns / mirage_rrns / mirage_fast differ "
+                            f"beyond 1e-5 (|xq|@|wq|) at M={M} K={K} N={N}")
+            worst = max(worst, max(v[0] for v in errs.values()))
+    return worst
+
+
+# --------------------------------------------------------------------------
 # phase 6: the slice — full-width qwen2-0.5b served on the card
 # --------------------------------------------------------------------------
 
-def make_requests(Request, vocab: int):
+def make_requests(Request, vocab: int, max_tokens: Optional[int] = None):
+    max_tokens = MAX_TOKENS if max_tokens is None else max_tokens
     rng = np.random.default_rng(0)
     lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, N_REQUESTS)
     return [Request(rid=i, prompt=rng.integers(0, vocab, int(n)
                                                ).astype(np.int32),
-                    max_tokens=MAX_TOKENS) for i, n in enumerate(lens)]
+                    max_tokens=max_tokens) for i, n in enumerate(lens)]
 
 
 def phase_slice(ops):
@@ -298,12 +502,13 @@ def phase_slice(ops):
           f"flash_attention launched {launches['flash_attention']} times, "
           f"expected n_layers x prefill batches = {want_flash}")
 
-    profile_ticks(model, cap, reqs, LMServer)
+    profile_ticks(model, cap, reqs, LMServer, "mirage_fast")
     compare_with_cpu(model, reqs[0].prompt, cap)
-    return launches, batches, steps
+    return launches, batches, steps, model, cap
 
 
-def profile_ticks(model, cap, reqs, LMServer, n_ticks: int = 3):
+def profile_ticks(model, cap, reqs, LMServer, policy_name: str,
+                  n_ticks: int = 3):
     """Device time by kernel over a few steady decode ticks (torch.profiler)
     and the device's idle share of their wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -328,7 +533,8 @@ def profile_ticks(model, cap, reqs, LMServer, n_ticks: int = 3):
             by_kernel[avg.key] = by_kernel.get(avg.key, 0.0) + dev_us
     busy_ms = sum(by_kernel.values()) / 1e3
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
-    emit({"phase": "decode_tick_profile", "ticks": n_ticks,
+    emit({"phase": "decode_tick_profile", "policy": policy_name,
+          "ticks": n_ticks,
           "wall_ms_per_tick": wall_ms / n_ticks,
           "device_busy_ms_per_tick": busy_ms / n_ticks,
           "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
@@ -397,6 +603,214 @@ def compare_with_cpu(model, prompt_np, cap):
 
 
 # --------------------------------------------------------------------------
+# phases 6b-6d: the RNS serving paths at full width
+# --------------------------------------------------------------------------
+
+class DecodedElements:
+    """Counts the elements every RRNS decode of a run covers (the expected
+    detector flips scale with them) by wrapping ``ops.rrns_decode``; the
+    wrapped function and its launch count are unchanged."""
+
+    def __init__(self, ops):
+        self.ops, self.elements = ops, 0
+
+    def __enter__(self):
+        self.inner = self.ops.rrns_decode
+
+        def counted(residues, tables):
+            self.elements += residues[0].numel()
+            return self.inner(residues, tables)
+
+        self.ops.rrns_decode = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.rrns_decode = self.inner
+
+
+def serve_run(ops, model, cap, reqs, LMServer):
+    """Program a fresh engine, reset the counts, drain ``reqs``; return the
+    engine, the finished requests, the seconds and the launches."""
+    t0 = time.perf_counter()
+    server = LMServer(model, cap=cap, batch_slots=SLOTS)
+    torch.cuda.synchronize()
+    program_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t_run = time.perf_counter()
+    for r in reqs:
+        server.submit(r)
+    finished = server.run_until_drained()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t_run
+    return server, finished, dt, dict(ops.LAUNCHES), program_s
+
+
+def serve_summary(server, finished, dt, launches, program_s):
+    lat = server.scheduler.latency_summary()
+    n_tok = sum(len(r.tokens_out) for r in finished)
+    m = server.metrics
+    return {"requests": len(finished), "tokens": n_tok,
+            "prefill_batches": m["prefill_batches"],
+            "decode_steps": m["decode_steps"], "launches": launches,
+            "seconds": dt, "tok_per_s": n_tok / dt,
+            "ttft_mean_ms": lat["ttft_mean_s"] * 1e3,
+            "ttft_p50_ms": lat["ttft_p50_s"] * 1e3,
+            "ttft_p99_ms": lat["ttft_p99_s"] * 1e3,
+            "tpot_mean_ms": lat["tpot_mean_s"] * 1e3,
+            "tpot_p50_ms": lat["tpot_p50_s"] * 1e3,
+            "tpot_p99_ms": lat["tpot_p99_s"] * 1e3,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "program_weights_s": program_s}
+
+
+def expect_launches(launches, want, path):
+    for name, n in launches.items():
+        check(n == want.get(name, 0),
+              f"{path}: {name} launched {n} times, expected "
+              f"{want.get(name, 0)}")
+
+
+def phase_slice_rrns(ops, model, cap):
+    """mirage_rrns at 52 dB, stationary weights: the fused-readout kernel
+    and the decode kernel on every GEMM, every error corrected, and the
+    same greedy streams as the clean channel."""
+    from repro_torch.analog.channel import detector_sigma_levels
+    from repro_torch.core.precision import get_policy
+    from repro_torch.runtime.server import LMServer, Request
+
+    cfg = model.cfg
+    noisy = get_policy("mirage_rrns", snr_db=SNR_DB, noise_seed=NOISE_SEED)
+    model.policy = noisy
+    warm = LMServer(model, cap=cap, batch_slots=SLOTS)   # not counted
+    for r in make_requests(Request, cfg.vocab_size)[:2]:
+        warm.submit(r)
+    warm.run_until_drained()
+    del warm
+    reqs = make_requests(Request, cfg.vocab_size)
+    with DecodedElements(ops) as decoded:
+        server, finished, dt, launches, program_s = serve_run(
+            ops, model, cap, reqs, LMServer)
+    summary = serve_summary(server, finished, dt, launches, program_s)
+    health = server.health_snapshot()
+    stationary_gb = sum(m.stationary.residues.numel() * 4
+                        for m in model.modules()
+                        if getattr(m, "stationary", None) is not None) / 1e9
+    batches, steps = summary["prefill_batches"], summary["decode_steps"]
+    per_step = 7 * cfg.n_layers + 1
+    want = {"rns_matmul_channel": per_step * (batches + steps),
+            "rrns_decode": per_step * (batches + steps),
+            "flash_attention": cfg.n_layers * batches}
+    # P(flip) = P(|n| >= 1/2) for n ~ N(0, sigma_m^2): round(n) is then a
+    # nonzero multiple of m only with negligible probability
+    p_flip = [math.erfc(0.5 / (detector_sigma_levels(m, SNR_DB) *
+                               math.sqrt(2))) for m in RRNS_ALL]
+    expected = [decoded.elements * p for p in p_flip]
+    flips41 = health["detector_flips"][-1]
+    flips_ok = abs(flips41 - expected[-1]) <= 6 * math.sqrt(expected[-1])
+
+    clean_policy = get_policy("mirage_rrns", noise_seed=NOISE_SEED)
+    model.policy = clean_policy
+    clean_reqs = make_requests(Request, cfg.vocab_size)
+    c_server, c_finished, c_dt, c_launches, c_prog = serve_run(
+        ops, model, cap, clean_reqs, LMServer)
+    c_summary = serve_summary(c_server, c_finished, c_dt, c_launches, c_prog)
+    c_steps = c_summary["prefill_batches"] + c_summary["decode_steps"]
+    c_want = {"rns_matmul": per_step * c_steps,
+              "rrns_decode": per_step * c_steps,
+              "flash_attention": cfg.n_layers * c_summary["prefill_batches"]}
+    streams = {r.rid: r.tokens_out for r in finished}
+    c_streams = {r.rid: r.tokens_out for r in c_finished}
+    emit({"phase": "slice_rrns", "arch": cfg.arch_id,
+          "policy": f"mirage_rrns b_m=4 g=16 k=5 moduli={list(RRNS_ALL)} "
+                    f"snr_db={SNR_DB} noise_seed={NOISE_SEED}",
+          "slots": SLOTS, "stationary_weights": server.stationary_weights,
+          "stationary_residues_gb": stationary_gb, **summary, "expected_launches": want, "health": health,
+          "decoded_elements": decoded.elements,
+          "p_flip_per_modulus": p_flip,
+          "expected_detector_flips": expected,
+          "flips_41_within_6_sigma": flips_ok,
+          "clean_channel": {**c_summary, "expected_launches": c_want,
+                            "health": c_server.health_snapshot()},
+          "streams_equal_clean": streams == c_streams})
+    check(len(finished) == N_REQUESTS and all(
+        len(r.tokens_out) == MAX_TOKENS for r in finished),
+        "mirage_rrns: not every request completed with max_tokens tokens")
+    expect_launches(launches, want, "mirage_rrns at 52 dB")
+    expect_launches(c_launches, c_want, "mirage_rrns, clean channel")
+    check(health["rrns_uncorrected"] == 0,
+          f"{health['rrns_uncorrected']} decodes beyond the correction "
+          f"radius at {SNR_DB} dB")
+    check(health["rrns_corrected"] > 0, "no RRNS correction at 52 dB")
+    check(flips_ok, f"detector flips of modulus 41: {flips41}, expected "
+                    f"{expected[-1]:.1f} +- 6 sigma")
+    check(streams == c_streams, "the 52 dB greedy streams differ from the "
+                                "clean channel's")
+    model.policy = noisy
+    profile_ticks(model, cap, reqs, LMServer, "mirage_rrns 52 dB")
+    return launches, c_launches
+
+
+def phase_slice_rns(ops, model, cap):
+    """A shorter mirage_rns drain: the residue kernel on every GEMM."""
+    from repro_torch.core.precision import get_policy
+    from repro_torch.runtime.server import LMServer, Request
+
+    cfg = model.cfg
+    model.policy = get_policy("mirage_rns")
+    reqs = make_requests(Request, cfg.vocab_size,
+                         max_tokens=RNS_TOKENS)[:RNS_REQUESTS]
+    server, finished, dt, launches, program_s = serve_run(
+        ops, model, cap, reqs, LMServer)
+    summary = serve_summary(server, finished, dt, launches, program_s)
+    steps = summary["prefill_batches"] + summary["decode_steps"]
+    want = {"rns_matmul": (7 * cfg.n_layers + 1) * steps,
+            "flash_attention": cfg.n_layers * summary["prefill_batches"]}
+    emit({"phase": "slice_rns", "arch": cfg.arch_id,
+          "policy": "mirage_rns b_m=4 g=16 k=5", "slots": SLOTS, **summary,
+          "expected_launches": want})
+    check(len(finished) == RNS_REQUESTS and all(
+        len(r.tokens_out) == RNS_TOKENS for r in finished),
+        "mirage_rns: not every request completed with its tokens")
+    expect_launches(launches, want, "mirage_rns")
+    return launches
+
+
+def phase_slice_rrns_vs_cpu(model, cap, prompt_np, layers=(0, 11, 23)):
+    """Teacher-forced card-vs-CPU check of clean mirage_rrns at full width:
+    each listed layer and the head get the card's input on both sides."""
+    from repro_torch.core import stationary
+    from repro_torch.core.precision import get_policy
+    from repro_torch.models import common
+
+    model.policy = get_policy("mirage_rrns")
+    stationary.install(model, None)     # both sides encode per call
+    cpu_model = copy.deepcopy(model).to("cpu")
+    prompt = torch.from_numpy(prompt_np[None, :16].astype(np.int64))
+    L = prompt.shape[1]
+    t0 = time.perf_counter()
+    errs = {}
+    with torch.inference_mode():
+        pos_d, pos_h = torch.arange(L, device=DEV), torch.arange(L)
+        h = common.embed(model.embed, prompt.to(DEV))
+        for li, layer_d in enumerate(model.layers):
+            out_d, _ = model._attn_mlp_block(layer_d, h, pos_d)
+            if li in layers:
+                out_h, _ = cpu_model._attn_mlp_block(cpu_model.layers[li],
+                                                     h.cpu(), pos_h)
+                errs[f"layer_{li}"] = rel_l2(out_d.cpu(), out_h)
+            h = out_d
+        errs["head"] = rel_l2(model._head(h[:, -1:]).cpu(),
+                              cpu_model._head(h[:, -1:].cpu()))
+    ok = max(errs.values()) < 1e-2
+    emit({"phase": "slice_rrns_vs_cpu_plain", "policy": "mirage_rrns clean",
+          "prompt_len": L, "rel_l2": errs, "cpu_seconds":
+          time.perf_counter() - t0, "ok": ok})
+    check(ok, "card vs CPU under clean mirage_rrns: a layer or the head "
+              "differs by >= 1e-2 relative L2 (teacher-forced)")
+
+
+# --------------------------------------------------------------------------
 # phase 7: timing at the slice shapes
 # --------------------------------------------------------------------------
 
@@ -453,6 +867,74 @@ def phase_timing(ops, ref, policy, per_tick):
     return rows
 
 
+def decode_ops_per_element(n_total: int, n_subsets: int) -> int:
+    """f32 operations the decode does per element: per subset, the
+    reconstruction (n_total multiplies, n_total - 1 adds), the fold (9),
+    a 6-operation congruence check per modulus, and the vote (4)."""
+    return n_subsets * (2 * n_total - 1 + 9 + 6 * n_total + 4)
+
+
+def phase_timing_rns(ops, ref, per_tick):
+    """Kernels 4, 5 and 6 at the decode tick (M = 4) and the largest prefill
+    batch (M = 512) of every slice GEMM, over the RRNS moduli."""
+    from repro_torch.analog import rrns
+
+    psi = (math.prod(RNS_BASE) - 1) // 2
+    tables = rrns.get_tables(RRNS_ALL, len(RNS_BASE), psi)
+    rows = {"rns_matmul": [], "rns_matmul_channel": [], "rrns_decode": []}
+    n = len(RRNS_ALL)
+    for M in RNS_M:
+        for K, N in GEMM_KN:
+            if M > SLOTS and N == 151936:
+                continue
+            G = K // 16
+            S, E = n * G, G * M * N
+            xr, wr = residue_operands(RRNS_ALL, M, K, N, seed=1)
+            gen = torch.Generator(device=DEV).manual_seed(2)
+            noise = detector_noise(RRNS_ALL, (G, M, N), SNR_DB, gen)
+            xf = xr.reshape(S, M, 16).float()
+            wf = wr.reshape(S, 16, N).float()
+            shape = {"M": M, "K": K, "N": N, "n_mod": n, "G": G,
+                     "launches_per_step": per_tick[(K, N)]}
+            b4 = 4.0 * (S * M * 16 + S * 16 * N + S * M * N)
+            o4 = 2.0 * S * M * N * 16
+            t_b, by = bound_rate(b4, o4, INT_OPS_PER_S)
+            rows["rns_matmul"].append({
+                **shape,
+                "ms": time_ms(lambda: ops.rns_group_matmul(xr, wr,
+                                                           RRNS_ALL)),
+                "plain_ms": time_ms(lambda: ref.rns_matmul_ref(
+                    xr, wr, RRNS_ALL), n=5),
+                "library_ms": time_ms(lambda: torch.bmm(xf, wf)),
+                "bound_ms": t_b, "bound_by": by})
+            t_b, by = bound_rate(b4 + 4.0 * S * M * N, o4, INT_OPS_PER_S)
+            rows["rns_matmul_channel"].append({
+                **shape,
+                "ms": time_ms(lambda: ops.rns_group_matmul_channel(
+                    xr, wr, RRNS_ALL, noise)),
+                "plain_ms": time_ms(lambda: ref.rns_matmul_channel_ref(
+                    xr, wr, RRNS_ALL, noise), n=5),
+                "library_ms": time_ms(lambda: torch.bmm(xf, wf)),
+                "bound_ms": t_b, "bound_by": by})
+            res = ops.rns_group_matmul_channel(xr, wr, RRNS_ALL, noise)
+            del noise, xf, wf
+            t_b, by = bound_rate(
+                4.0 * n * E + 8.0 * E,
+                float(E) * decode_ops_per_element(n, tables.n_subsets),
+                F32_FLOPS_PER_S)
+            rows["rrns_decode"].append({
+                **shape, "E": E,
+                "ms": time_ms(lambda: ops.rrns_decode(res, tables)),
+                "plain_ms": time_ms(lambda: ref.rrns_decode_ref(res, tables),
+                                    n=5),
+                "library_ms": None, "bound_ms": t_b, "bound_by": by})
+            del res
+    for name, shapes in rows.items():
+        for row in shapes:
+            emit({"phase": "timing", "kernel": name, **row})
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a CUDA "
@@ -462,6 +944,7 @@ def main() -> int:
     sys.path.insert(0, str(src))
     from repro_torch.core.precision import get_policy
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.runtime.server import Request
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
@@ -481,21 +964,37 @@ def main() -> int:
     err_bfp = phase_bfp(ops, ref, policy)
     err_gemm = phase_gemm(ops, ref, policy)
     err_flash = phase_flash(ops, ref)
-    launches, batches, steps = phase_slice(ops)
+    err_rns = phase_rns_matmul(ops, ref)
+    err_channel = phase_rns_channel(ops, ref)
+    err_decode = phase_rrns_decode(ops, ref)
+    phase_rns_equals_fast(ops, ref)
+    launches, batches, steps, model, cap = phase_slice(ops)
+    rrns_launches, _ = phase_slice_rrns(ops, model, cap)
+    rns_launches = phase_slice_rns(ops, model, cap)
+    phase_slice_rrns_vs_cpu(model, cap, make_requests(
+        Request, model.cfg.vocab_size)[0].prompt)
+    del model
+    torch.cuda.empty_cache()
     rows = phase_timing(ops, ref, policy, GEMM_PER_STEP)
+    rows.update(phase_timing_rns(ops, ref, GEMM_PER_STEP))
 
-    def entry(kernel, source, replaces, err, main_row):
+    def entry(kernel, source, replaces, err, main_row, path=None):
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        path = launches if path is None else path
         return {"name": kernel, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{source}",
-                "replaces": replaces, "launches": launches[kernel],
+                "replaces": replaces, "launches": path[kernel],
                 "max_abs_err": err, **{k: main_row[k] for k in keys},
                 "ok": True, "shape": {k: v for k, v in main_row.items()
                                       if k not in keys}}
 
-    # the GEMM's headline shape: the tied head at decode, its largest launch
-    head = max((r for r in rows["mirage_gemm"] if r["M"] == SLOTS),
-               key=lambda r: r["N"])
+    def head_row(kernel):
+        """A GEMM kernel's headline shape: the tied head at decode, its
+        largest launch."""
+        return max((r for r in rows[kernel] if r["M"] == SLOTS),
+                   key=lambda r: r["N"])
+
+    head = head_row("mirage_gemm")
     emit({"kernels": [
         entry("mirage_gemm", "mirage_gemm.cu",
               "src/repro/kernels/mirage_gemm.py:50", err_gemm, head),
@@ -505,10 +1004,28 @@ def main() -> int:
         entry("bfp_quantize", "bfp_quantize.cu",
               "src/repro/kernels/bfp_quantize.py:55", err_bfp,
               rows["bfp_quantize"][0]),
+        entry("rns_matmul", "rns_matmul.cu",
+              "src/repro/kernels/rns_matmul.py:52", err_rns,
+              head_row("rns_matmul"), rns_launches),
+        entry("rns_matmul_channel", "rns_matmul.cu",
+              "src/repro/kernels/rns_matmul.py:131", err_channel,
+              head_row("rns_matmul_channel"), rrns_launches),
+        entry("rrns_decode", "rrns_decode.cu",
+              "src/repro/kernels/rrns_decode.py:140", err_decode,
+              head_row("rrns_decode"), rrns_launches),
     ], "main_path": {"prefill_batches": batches, "decode_steps": steps,
-                     "note": "bfp_quantize runs inside mirage_gemm as its "
-                             "prologue (bfp.cuh); its standalone launch "
-                             "exists for the bit-exact check"}})
+                     "launches_by_path": {
+                         "mirage_fast": launches,
+                         "mirage_rrns_52db": rrns_launches,
+                         "mirage_rns": rns_launches},
+                     "note": "each kernel's launches come from the path "
+                             "that runs it: mirage_gemm and flash_attention "
+                             "from mirage_fast, rns_matmul_channel and "
+                             "rrns_decode from mirage_rrns at 52 dB, "
+                             "rns_matmul from mirage_rns; bfp_quantize runs "
+                             "inside mirage_gemm as its prologue (bfp.cuh); "
+                             "its standalone launch exists for the "
+                             "bit-exact check"}})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -1,10 +1,12 @@
 """PyTorch / CUDA port of the Mirage reproduction, for NVIDIA Hopper.
 
 The module layout mirrors the JAX package ``repro`` so each counterpart is
-easy to find: ``core`` (precision policies, BFP, GEMM backends),
+easy to find: ``core`` (precision policies, BFP, RNS, GEMM backends,
+stationary weights), ``analog`` (the photonic channel and RRNS),
 ``kernels`` (hand-written CUDA kernels, their wrappers and plain PyTorch
 versions), ``models`` (the dense LM family), ``runtime`` (the serving
-engine) and ``launch`` (command-line entry points).
+engine), ``obs`` (metrics and analog-health counters) and ``launch``
+(command-line entry points).
 
 This package imports ``torch`` and never ``jax`` or ``repro``. Entry points
 run on the CUDA device unless the caller passes ``device="cpu"``

@@ -1,0 +1,269 @@
+"""Composable analog channel stages of the photonic signal chain (port of
+``repro.analog.channel``, paper §IV-B).
+
+Every stage maps a residue tensor ``(n_moduli, ...)`` int32 to one of the
+same shape, driven by one :class:`AnalogChannelConfig`:
+
+  program side (stationary operand, once per tile)
+    DAC quantization  ->  phase-shifter programming drift
+  readout side (per MVM output)
+    inter-MMU crosstalk  ->  shot/thermal detector noise  ->  ADC
+
+Detector noise with amplitude SNR ``s`` dB has sigma ``m / 10^(s/20)``
+phase levels for modulus ``m`` (the §IV-B "SNR > m" requirement,
+``repro_torch.analog.device``).
+
+Randomness: every stochastic stage takes its numbers from a :class:`Draws`
+object, one named draw per stage. :class:`GeneratorDraws` serves them in
+call order from a ``torch.Generator`` (the serving engine's device
+generators); a test can instead replay the exact arrays the JAX package
+drew for the same stage names, which is how the two packages are held
+bit for bit. The JAX package's runtime fault controls (chaos injection)
+are not ported: :func:`fault_scope` raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import zlib
+from typing import Optional, Protocol, Sequence, Tuple
+
+import torch
+
+from repro_torch.obs import health as obs_health
+
+
+class Draws(Protocol):
+    """The random numbers of the stochastic stages. ``stage`` names the
+    draw: ``"detector"`` (readout noise), ``"drift"`` (programming drift),
+    ``"burst_hit"``, ``"burst_pos"`` and ``"burst_err/<i>"`` (bursts)."""
+
+    def normal(self, stage: str, shape: Tuple[int, ...]) -> torch.Tensor:
+        """Standard normal f32 of ``shape``."""
+
+    def uniform(self, stage: str, shape: Tuple[int, ...]) -> torch.Tensor:
+        """Uniform [0, 1) f32 of ``shape``."""
+
+    def randint(self, stage: str, shape: Tuple[int, ...], low: int,
+                high: int) -> torch.Tensor:
+        """Integers in [low, high) of ``shape``."""
+
+
+class GeneratorDraws:
+    """:class:`Draws` from one ``torch.Generator``, on its device, in call
+    order (the stage names only label the draws)."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+
+    def normal(self, stage, shape):
+        g = self.generator
+        return torch.randn(tuple(shape), generator=g, device=g.device)
+
+    def uniform(self, stage, shape):
+        g = self.generator
+        return torch.rand(tuple(shape), generator=g, device=g.device)
+
+    def randint(self, stage, shape, low, high):
+        g = self.generator
+        return torch.randint(low, high, tuple(shape), generator=g,
+                             device=g.device, dtype=torch.int32)
+
+
+def seeded_generator(device, *parts) -> torch.Generator:
+    """A generator on ``device`` seeded from ``parts`` (ints and strings)
+    through crc32, a 32-bit seed: the CPU generator keeps only the low 32
+    bits of a seed, so wider mixes would collide there."""
+    seed = zlib.crc32("/".join(str(p) for p in parts).encode())
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def fault_scope(controls):
+    """Chaos injection into the channel stages is not ported yet."""
+    raise NotImplementedError(
+        "channel fault controls (chaos injection) wait in ROADMAP.md "
+        "queue 1, slice 7")
+
+
+def detector_sigma_levels(m: int, snr_db: float) -> float:
+    """Detector noise sigma in phase-level units for modulus m at SNR (dB)."""
+    return m / (10.0 ** (snr_db / 20.0))
+
+
+@dataclasses.dataclass(frozen=True)
+class AnalogChannelConfig:
+    """Full analog channel description, one field per physical impairment
+    (the JAX package's fields and meanings).
+
+    dac_bits / adc_bits: converter precision; ``None`` = exact
+      ``ceil(log2 m)``-bit converters, fewer bits re-grid residues onto
+      ``2^bits`` levels.
+    snr_db: detector amplitude SNR; sigma ``m / 10^(snr_db/20)`` levels.
+    noise_sigma: flat extra sigma (levels), added in quadrature.
+    phase_drift_sigma: programming drift on the stationary operand (levels).
+    crosstalk: each group channel leaks ``crosstalk`` of each neighbour.
+    burst_rate / burst_width: correlated bursts over adjacent channels.
+    """
+
+    dac_bits: Optional[int] = None
+    adc_bits: Optional[int] = None
+    snr_db: Optional[float] = None
+    noise_sigma: float = 0.0
+    phase_drift_sigma: float = 0.0
+    crosstalk: float = 0.0
+    burst_rate: float = 0.0
+    burst_width: int = 1
+
+    @classmethod
+    def from_policy(cls, policy) -> "AnalogChannelConfig":
+        return cls(dac_bits=policy.dac_bits, adc_bits=policy.adc_bits,
+                   snr_db=policy.snr_db, noise_sigma=policy.noise_sigma,
+                   phase_drift_sigma=policy.phase_drift_sigma,
+                   crosstalk=policy.crosstalk, burst_rate=policy.burst_rate,
+                   burst_width=policy.burst_width)
+
+    @property
+    def stochastic(self) -> bool:
+        """True when any stage draws random numbers."""
+        return (self.snr_db is not None or self.noise_sigma > 0
+                or self.phase_drift_sigma > 0 or self.burst_rate > 0)
+
+    def detector_sigmas(self, moduli: Sequence[int]) -> tuple:
+        """Per-modulus readout sigma: SNR-derived ⊕ flat, in level units."""
+        out = []
+        for m in moduli:
+            s2 = self.noise_sigma ** 2
+            if self.snr_db is not None:
+                s2 += detector_sigma_levels(m, self.snr_db) ** 2
+            out.append(math.sqrt(s2))
+        return tuple(out)
+
+
+def _col(values: Sequence[float], ndim: int, dev) -> torch.Tensor:
+    return torch.tensor(values, dtype=torch.float32, device=dev).reshape(
+        (-1,) + (1,) * (ndim - 1))
+
+
+def _wrap(v: torch.Tensor, moduli: Sequence[int]) -> torch.Tensor:
+    """Integer-valued f32 ``v`` (n_mod, ...) wrapped onto each ring, int32."""
+    mods = torch.tensor(moduli, dtype=torch.int32, device=v.device).reshape(
+        (-1,) + (1,) * (v.dim() - 1))
+    return torch.remainder(v.to(torch.int32), mods)
+
+
+def adc_step(m: int, bits: Optional[int]) -> float:
+    """Grid step of a ``bits``-bit converter over [0, m-1]; 0.0 marks the
+    identity converter (``bits`` None or ``2^bits >= m``)."""
+    if bits is None or 2 ** bits >= m:
+        return 0.0
+    return (m - 1) / (2 ** bits - 1)
+
+
+def converter_quantize(residues: torch.Tensor, moduli: Sequence[int],
+                       bits: Optional[int]) -> torch.Tensor:
+    """Re-grid residues onto the 2^bits uniform levels of a DAC/ADC
+    (identity where ``2^bits >= m`` or ``bits`` is None)."""
+    if bits is None:
+        return residues
+    outs = []
+    for i, m in enumerate(moduli):
+        step = adc_step(m, bits)
+        if step == 0.0:
+            outs.append(residues[i])
+            continue
+        # a tensor divisor keeps IEEE division on the card, where PyTorch
+        # turns division by a host scalar into a reciprocal multiply
+        s = torch.tensor(step, dtype=torch.float32, device=residues.device)
+        q = torch.round(torch.round(residues[i].to(torch.float32) / s) * s)
+        outs.append(torch.clamp(q, 0, m - 1).to(torch.int32))
+    return torch.stack(outs, dim=0)
+
+
+def phase_noise(residues: torch.Tensor, moduli: Sequence[int], sigmas,
+                draws: Draws, stage: str = "detector") -> torch.Tensor:
+    """Per-modulus additive Gaussian phase noise, re-quantized to the
+    nearest level and wrapped mod m (the detector reads phases on a ring).
+    An all-zero ``sigmas`` draws nothing."""
+    if all(s <= 0 for s in sigmas):
+        return residues
+    noise = draws.normal(stage, tuple(residues.shape)) * _col(
+        sigmas, residues.dim(), residues.device)
+    return _wrap(torch.round(residues.to(torch.float32) + noise), moduli)
+
+
+def crosstalk_mix(residues: torch.Tensor, moduli: Sequence[int],
+                  eps: float, group_axis: int = 1) -> torch.Tensor:
+    """Inter-MMU crosstalk: each group channel leaks ``eps`` of each
+    neighbouring group (wrapping around the edge); re-quantized and wrapped
+    mod m. With one group the mix is the identity."""
+    if eps == 0.0 or residues.shape[group_axis] == 1:
+        return residues
+    r = residues.to(torch.float32)
+    if residues.shape[group_axis] == 2:
+        # two channels have ONE neighbour each (roll +1 == roll -1)
+        mixed = (1.0 - eps) * r + eps * torch.roll(r, 1, dims=group_axis)
+    else:
+        mixed = ((1.0 - 2.0 * eps) * r
+                 + eps * torch.roll(r, 1, dims=group_axis)
+                 + eps * torch.roll(r, -1, dims=group_axis))
+    return _wrap(torch.round(mixed), moduli)
+
+
+def burst_errors(residues: torch.Tensor, moduli: Sequence[int], rate: float,
+                 width: int, draws: Draws) -> torch.Tensor:
+    """Correlated bursts: with probability ``rate`` per output element,
+    ``width`` ADJACENT residue channels (wrapping at the edge) take uniform
+    errors in ``[1, m-1]`` at once."""
+    if rate <= 0:
+        return residues
+    n = len(moduli)
+    shape = tuple(residues.shape[1:])
+    hit = draws.uniform("burst_hit", shape) < rate
+    if obs_health.active():
+        obs_health.record("burst_hits", torch.sum(hit))
+    start = draws.randint("burst_pos", shape, 0, n)
+    outs = []
+    for i, m in enumerate(moduli):
+        in_burst = torch.remainder(i - start, n) < width
+        err = draws.randint(f"burst_err/{i}", shape, 1, m)
+        outs.append(torch.where(hit & in_burst,
+                                torch.remainder(residues[i] + err, m),
+                                residues[i]).to(torch.int32))
+    return torch.stack(outs, dim=0)
+
+
+def _flips(after: torch.Tensor, before: torch.Tensor) -> torch.Tensor:
+    """Per-channel count of residues a stage moved."""
+    return torch.sum(after != before, dim=tuple(range(1, after.dim())))
+
+
+def apply_program_channel(residues: torch.Tensor, moduli: Sequence[int],
+                          cfg: AnalogChannelConfig,
+                          draws: Optional[Draws]) -> torch.Tensor:
+    """Program-side chain on the stationary operand: DAC -> shifter drift."""
+    out = converter_quantize(residues, moduli, cfg.dac_bits)
+    if cfg.phase_drift_sigma > 0:
+        drifted = phase_noise(out, moduli,
+                              (cfg.phase_drift_sigma,) * len(moduli), draws,
+                              stage="drift")
+        if obs_health.active():
+            obs_health.record("drift_flips", _flips(drifted, out))
+        out = drifted
+    return out
+
+
+def apply_readout_channel(residues: torch.Tensor, moduli: Sequence[int],
+                          cfg: AnalogChannelConfig, draws: Optional[Draws],
+                          group_axis: int = 1) -> torch.Tensor:
+    """Readout-side chain: crosstalk -> detector noise -> ADC re-quantize."""
+    out = crosstalk_mix(residues, moduli, cfg.crosstalk, group_axis)
+    sigmas = cfg.detector_sigmas(moduli)
+    if any(s > 0 for s in sigmas):
+        noisy = phase_noise(out, moduli, sigmas, draws)
+        if obs_health.active():
+            # residues the detector noise moved >= 1 level (what the RRNS
+            # decode then has to correct)
+            obs_health.record("detector_flips", _flips(noisy, out))
+        out = noisy
+    return converter_quantize(out, moduli, cfg.adc_bits)

@@ -1,7 +1,9 @@
 """Pluggable GEMM backend registry (port of ``repro.core.backends``).
 
 Importing this package registers every ported backend (the fp32/bf16/int8
-baselines and ``mirage_fast``); external code adds new modes with
+baselines, ``mirage_fast``, the RNS backends ``mirage_rns`` /
+``mirage_rns_pallas`` and the analog-channel backends ``mirage_rns_noisy`` /
+``mirage_rrns`` / ``mirage_rrns_ref``); external code adds new modes with
 :func:`register` / :func:`register_fn`.
 """
 
@@ -18,6 +20,8 @@ from repro_torch.core.backends.base import (
 # Importing the implementation modules registers the built-in backends.
 from repro_torch.core.backends import baselines    # noqa: F401  (fp32 / bf16 / int8)
 from repro_torch.core.backends import mirage_fast  # noqa: F401
+from repro_torch.core.backends import mirage_rns   # noqa: F401
+from repro_torch.core.backends import mirage_rrns  # noqa: F401
 
 __all__ = [
     "GemmBackend",

@@ -4,9 +4,14 @@ Every execution mode of the GEMM is a :class:`GemmBackend` registered here by
 name. ``core.gemm`` dispatches on ``policy.mode`` through :func:`resolve`, so
 new modes plug in by registration alone.
 
-A backend's ``fn`` has signature ``fn(x, w, policy)``:
+A backend's ``fn`` has signature ``fn(x, w, policy)``, and
+``fn(x, w, policy, *, draws=None)`` when it ``supports_noise``:
 
-  x: (..., K) activations   w: (K, N) weights   policy: MiragePolicy
+  x: (..., K) activations   w: (K, N) weights (or a
+  :class:`repro_torch.core.stationary.StationaryResidues` where
+  ``supports_stationary_residues``)   policy: MiragePolicy
+  draws: the random numbers of the analog channel
+  (:class:`repro_torch.analog.channel.Draws`)
 
 Capability flags let consumers reason about a mode without comparing mode
 names. Modes of ``GEMM_MODES`` that are not ported yet pass policy
@@ -49,8 +54,10 @@ class GemmBackend:
     supports_stationary_residues: bool = False
     reference: bool = False
 
-    def forward(self, x: torch.Tensor, w: torch.Tensor,
-                policy) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, w, policy,
+                draws=None) -> torch.Tensor:
+        if self.supports_noise:
+            return self.fn(x, w, policy, draws=draws)
         return self.fn(x, w, policy)
 
 
@@ -58,14 +65,11 @@ _REGISTRY: Dict[str, GemmBackend] = {}
 
 #: modes of the JAX package that are not ported yet, and where they wait
 NOT_PORTED: Dict[str, str] = {
-    "mirage_faithful": "ROADMAP.md queue 1, slice 3 (hardware-faithful RNS path)",
-    "mirage_rns": "ROADMAP.md queue 1, slice 3 (hardware-faithful RNS path)",
-    "mirage_rns_pallas": "ROADMAP.md queue 1, slice 3 (RNS path; queue 2 kernel 4)",
-    "mirage_faithful_ref": "ROADMAP.md queue 1, slice 3 (RNS path oracles)",
-    "mirage_rns_ref": "ROADMAP.md queue 1, slice 3 (RNS path oracles)",
-    "mirage_rns_noisy": "ROADMAP.md queue 1, slice 4 (analog channel + RRNS)",
-    "mirage_rrns": "ROADMAP.md queue 1, slice 4 (analog channel + RRNS)",
-    "mirage_rrns_ref": "ROADMAP.md queue 1, slice 4 (analog channel + RRNS)",
+    "mirage_faithful": "ROADMAP.md queue 1, slice 3 (the group-dot "
+                       "faithful path)",
+    "mirage_faithful_ref": "ROADMAP.md queue 1, slice 3 (reference.py "
+                           "oracles)",
+    "mirage_rns_ref": "ROADMAP.md queue 1, slice 3 (reference.py oracles)",
 }
 
 

@@ -123,6 +123,23 @@ def bfp_quantize_contract(w: torch.Tensor, b_m: int, g: int,
     return q, scale
 
 
+def bfp_decompose_contract(w: torch.Tensor, b_m: int, g: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact (mantissa, scale) of an ALREADY on-grid ``(K, N)`` weight (the
+    weight-stationary contract): the group max re-derives the exponent and
+    ``w / scale`` recovers the integer mantissas, with no round or clip.
+    Bit-identical to :func:`bfp_quantize_contract` for on-grid inputs."""
+    w = w.to(torch.float32)
+    K, N = w.shape
+    pad = (-K) % g
+    if pad:
+        w = torch.nn.functional.pad(w, (0, 0, 0, pad))
+    wg = w.reshape((K + pad) // g, g, N)
+    maxabs = torch.amax(torch.abs(wg), dim=-2, keepdim=True)     # (G, 1, N)
+    scale = _exp2_exact(_exponent_bits(maxabs) - (b_m - 1))
+    return wg * (1.0 / scale), scale
+
+
 def bfp_fake_quant(x: torch.Tensor, b_m: int, g: int,
                    rounding: str = "nearest",
                    uniform: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -68,11 +68,10 @@ class MiragePolicy:
     """Numerics policy applied to every dense GEMM of the model.
 
     The fields and their validation are those of the JAX package's policy,
-    minus ``use_pallas``/``interpret`` (see the module docstring). Fields
-    that only the analog and RNS backends read (noise, converters,
-    crosstalk, bursts, redundant moduli, group blocking) are kept so that a
-    policy means the same thing in both packages; those backends are not
-    ported yet and :func:`repro_torch.core.backends.resolve` says so.
+    minus ``use_pallas``/``interpret`` (see the module docstring). The
+    analog and RNS fields (noise, converters, crosstalk, bursts, redundant
+    moduli, group blocking) are read by the ``mirage_rns*`` and
+    ``mirage_rrns*`` backends, as in the JAX package.
 
     Attributes:
       mode: one of GEMM_MODES (or a backend registered in the port).

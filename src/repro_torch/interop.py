@@ -7,11 +7,16 @@ module imports no JAX), :func:`load_jax_params` copies every leaf into the
 parameter of the same name, unstacking the layers, so both packages compute
 the same function. The port's module attribute names and layouts are the
 JAX tree's, including the tied ``embed.emb``.
+
+:func:`load_jax_stationary` does the same for a tree the JAX package's
+``encode_stationary_params`` programmed: its ``StationaryResidues`` leaves
+(numpy children, stacked per layer) become the port's containers, so both
+packages run identical programmed weights, programming drift included.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -61,3 +66,53 @@ def _index(tree: Mapping[str, Any], i: int):
     """Layer ``i`` of a subtree stacked on axis 0."""
     return {k: (_index(v, i) if isinstance(v, Mapping) else np.asarray(v)[i])
             for k, v in tree.items()}
+
+
+def load_jax_stationary(model: nn.Module, tree: Mapping[str, Any]
+                        ) -> Dict[str, Any]:
+    """The port's stationary encodings of a JAX stationary-encoded tree.
+
+    ``tree`` is ``encode_stationary_params(params, policy)`` with numpy
+    leaves; each of its ``StationaryResidues`` (read by attribute: this
+    module imports no JAX) becomes a
+    :class:`repro_torch.core.stationary.StationaryResidues` on the model's
+    device, unstacked per layer. Returns ``{module name: residues}``, the
+    form :func:`repro_torch.core.stationary.install` takes."""
+    from repro_torch.core.stationary import StationaryResidues
+
+    dev = model.device
+    out: Dict[str, Any] = {}
+
+    def convert(sr, i=None):
+        res, scale = np.asarray(sr.residues), np.asarray(sr.scale)
+        if i is not None:
+            res, scale = res[i], scale[i]
+        return StationaryResidues(
+            residues=torch.from_numpy(np.ascontiguousarray(res)).to(
+                dev, torch.int32),
+            scale=torch.from_numpy(np.ascontiguousarray(scale)).to(
+                dev, torch.float32),
+            moduli=tuple(int(m) for m in sr.moduli), b_m=int(sr.b_m),
+            g=int(sr.g), orig_k=int(sr.orig_k))
+
+    def walk(subtree, prefix, layer):
+        for name, val in subtree.items():
+            if isinstance(val, Mapping):
+                walk(val, prefix + [name], layer)
+            elif hasattr(val, "residues") and hasattr(val, "scale"):
+                if name != "w":
+                    raise KeyError(f"stationary leaf {'/'.join(prefix)}/"
+                                   f"{name} is not a Dense weight")
+                key = ".".join(prefix)
+                if layer is not None:
+                    key = f"layers.{layer}.{key}"
+                out[key] = convert(val, layer)
+
+    walk({k: v for k, v in tree.items() if k != "layers"}, [], None)
+    for i in range(len(model.layers)):
+        walk(tree["layers"], [], i)
+    modules = dict(model.named_modules())
+    for key in out:
+        if key not in modules:
+            raise KeyError(f"the port has no module {key}")
+    return out

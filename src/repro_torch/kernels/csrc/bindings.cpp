@@ -11,6 +11,10 @@
 #include <c10/cuda/CUDAGuard.h>
 #include <torch/extension.h>
 
+#include <vector>
+
+#include "rns.cuh"
+
 void launch_bfp_fake_quant(const float* x, float* out, int rows, int K, int g,
                            int b_m, bool truncate, cudaStream_t stream);
 void launch_mirage_gemm(const float* x, const float* w, float* out, int M,
@@ -20,6 +24,16 @@ void launch_flash_attention(const float* q, const float* k, const float* v,
                             float* o, int B, int Lq, int S, int H, int Kv,
                             int D, bool causal, int window, float sm_scale,
                             cudaStream_t stream);
+void launch_rns_matmul(const int* x, const int* w, int* out, int n_mod,
+                       int G, int M, int N, int g, const RnsModuli& mods,
+                       cudaStream_t stream);
+void launch_rns_matmul_channel(const int* x, const int* w, const float* noise,
+                               int* out, int n_mod, int G, int M, int N,
+                               int g, const RnsModuli& mods,
+                               cudaStream_t stream);
+void launch_rrns_decode(const int* res, int* decoded, float* votes,
+                        long long E, const float* tables,
+                        cudaStream_t stream);
 
 namespace {
 
@@ -100,6 +114,96 @@ void flash_attention(const torch::Tensor& q, const torch::Tensor& k,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void check_int_operand(const torch::Tensor& t, const char* name) {
+  TORCH_CHECK(t.is_cuda(), name, " must be a CUDA tensor");
+  TORCH_CHECK(t.scalar_type() == torch::kInt32, name, " must be int32");
+  TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
+}
+
+// Checks the residue GEMM's operands and packs its moduli (and ADC steps).
+RnsModuli rns_args(const torch::Tensor& x, const torch::Tensor& w,
+                   const torch::Tensor& out, const std::vector<int64_t>& m,
+                   const std::vector<double>& steps) {
+  check_int_operand(x, "x_res");
+  check_int_operand(w, "w_res");
+  check_int_operand(out, "out");
+  TORCH_CHECK(x.dim() == 4 && w.dim() == 4 && out.dim() == 4,
+              "x_res, w_res and out must be (n_mod, G, ., .)");
+  const int64_t n_mod = x.size(0), G = x.size(1), M = x.size(2),
+                g = x.size(3), N = w.size(3);
+  TORCH_CHECK(w.size(0) == n_mod && w.size(1) == G && w.size(2) == g,
+              "w_res must be (n_mod, G, g, N) matching x_res");
+  TORCH_CHECK(out.size(0) == n_mod && out.size(1) == G && out.size(2) == M &&
+                  out.size(3) == N,
+              "out must be (n_mod, G, M, N)");
+  TORCH_CHECK(g >= 1 && g <= 64, "group size g must be in [1, 64], got ", g);
+  TORCH_CHECK(n_mod >= 1 && n_mod <= kRnsMaxModuli, "at most ",
+              kRnsMaxModuli, " moduli, got ", n_mod);
+  TORCH_CHECK(n_mod * G <= 65535, "n_mod * G must be <= 65535");
+  TORCH_CHECK(static_cast<int64_t>(m.size()) == n_mod &&
+                  static_cast<int64_t>(steps.size()) == n_mod,
+              "one modulus and one ADC step per residue channel");
+  RnsModuli mods{};
+  for (int64_t i = 0; i < n_mod; ++i) {
+    TORCH_CHECK(m[i] >= 2 && m[i] <= 1024, "moduli must be in [2, 1024]");
+    mods.m[i] = static_cast<int>(m[i]);
+    mods.step[i] = static_cast<float>(steps[i]);
+  }
+  return mods;
+}
+
+void rns_matmul(const torch::Tensor& x, const torch::Tensor& w,
+                torch::Tensor& out, const std::vector<int64_t>& moduli) {
+  const RnsModuli mods =
+      rns_args(x, w, out, moduli, std::vector<double>(moduli.size(), 0.0));
+  const c10::cuda::CUDAGuard guard(x.device());
+  launch_rns_matmul(x.data_ptr<int>(), w.data_ptr<int>(), out.data_ptr<int>(),
+                    static_cast<int>(x.size(0)), static_cast<int>(x.size(1)),
+                    static_cast<int>(x.size(2)), static_cast<int>(w.size(3)),
+                    static_cast<int>(x.size(3)), mods,
+                    at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void rns_matmul_channel(const torch::Tensor& x, const torch::Tensor& w,
+                        const torch::Tensor& noise, torch::Tensor& out,
+                        const std::vector<int64_t>& moduli,
+                        const std::vector<double>& steps) {
+  const RnsModuli mods = rns_args(x, w, out, moduli, steps);
+  check_operand(noise, "noise");
+  TORCH_CHECK(noise.sizes() == out.sizes(), "noise must be (n_mod, G, M, N)");
+  const c10::cuda::CUDAGuard guard(x.device());
+  launch_rns_matmul_channel(
+      x.data_ptr<int>(), w.data_ptr<int>(), noise.data_ptr<float>(),
+      out.data_ptr<int>(), static_cast<int>(x.size(0)),
+      static_cast<int>(x.size(1)), static_cast<int>(x.size(2)),
+      static_cast<int>(w.size(3)), static_cast<int>(x.size(3)), mods,
+      at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void rrns_decode(const torch::Tensor& res, const torch::Tensor& tables,
+                 torch::Tensor& decoded, torch::Tensor& votes) {
+  check_int_operand(res, "residues");
+  check_operand(tables, "tables");
+  check_int_operand(decoded, "decoded");
+  check_operand(votes, "votes");
+  TORCH_CHECK(res.dim() == 2, "residues must be (n_total, E)");
+  TORCH_CHECK(res.size(0) >= 1 && res.size(0) <= kRrnsMaxTotal, "at most ",
+              kRrnsMaxTotal, " moduli");
+  TORCH_CHECK(tables.numel() == kRrnsTableWords, "tables must hold ",
+              kRrnsTableWords, " floats");
+  const int64_t E = res.size(1);
+  TORCH_CHECK(decoded.numel() == E && votes.numel() == E,
+              "decoded and votes must hold E elements");
+  const c10::cuda::CUDAGuard guard(res.device());
+  launch_rrns_decode(res.data_ptr<int>(), decoded.data_ptr<int>(),
+                     votes.data_ptr<float>(), static_cast<long long>(E),
+                     tables.data_ptr<float>(),
+                     at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -109,4 +213,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "out = bfp(x) @ bfp(w) with BFP(b_m, g) quantization along K");
   m.def("flash_attention", &flash_attention,
         "GQA flash-attention forward, (B, L, heads, 64) f32");
+  m.def("rns_matmul", &rns_matmul,
+        "per-slot residue GEMM (x @ w) mod m over (n_mod, G) slots, int32");
+  m.def("rns_matmul_channel", &rns_matmul_channel,
+        "residue GEMM + readout channel (detector noise, ADC) epilogue");
+  m.def("rrns_decode", &rrns_decode,
+        "fused RRNS majority decode of (n_total, E) int32 residues");
 }

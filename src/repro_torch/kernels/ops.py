@@ -12,18 +12,27 @@ multiples is done inside the kernels, whose edge tiles load zeros.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.analog.channel import adc_step
 from repro_torch.core.precision import MiragePolicy
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import extension
 
 #: launches per kernel since the last :func:`reset_launch_counts`
 LAUNCHES: Dict[str, int] = {"bfp_quantize": 0, "mirage_gemm": 0,
-                            "flash_attention": 0}
+                            "flash_attention": 0, "rns_matmul": 0,
+                            "rns_matmul_channel": 0, "rrns_decode": 0}
+
+#: bounds of the tables the residue kernels take (csrc/rns.cuh)
+RNS_MAX_MODULI = 8
+RRNS_MAX_TOTAL = 8
+RRNS_MAX_SUBSETS = 64
 
 
 def reset_launch_counts() -> None:
@@ -142,3 +151,154 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                      1.0 / math.sqrt(D))
         LAUNCHES["flash_attention"] += 1
     return out
+
+
+# --------------------------------------------------------------------------
+# residue GEMM, its fused readout channel, and the RRNS decode
+# --------------------------------------------------------------------------
+
+def _check_residue_operands(x_res: torch.Tensor, w_res: torch.Tensor,
+                            moduli: Sequence[int]) -> None:
+    for t, name in ((x_res, "x_res"), (w_res, "w_res")):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32 for the CUDA kernel, "
+                            f"got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous for the CUDA kernel")
+    if x_res.dim() != 4 or w_res.dim() != 4 or \
+            x_res.shape[:2] != w_res.shape[:2] or \
+            x_res.shape[3] != w_res.shape[2]:
+        raise ValueError(f"x_res must be (n_mod, G, M, g) and w_res "
+                         f"(n_mod, G, g, N), got {tuple(x_res.shape)}, "
+                         f"{tuple(w_res.shape)}")
+    if len(moduli) != x_res.shape[0]:
+        raise ValueError(f"{len(moduli)} moduli for {x_res.shape[0]} "
+                         f"residue channels")
+    if not 1 <= x_res.shape[3] <= 64 or len(moduli) > RNS_MAX_MODULI:
+        raise ValueError(f"the residue kernel takes g in [1, 64] and at "
+                         f"most {RNS_MAX_MODULI} moduli, got g="
+                         f"{x_res.shape[3]}, {len(moduli)} moduli")
+
+
+def rns_group_matmul(x_res: torch.Tensor, w_res: torch.Tensor,
+                     moduli: Sequence[int]) -> torch.Tensor:
+    """Group-batched residue GEMM, ``(x . w) mod m`` per (modulus, group)
+    slot: x_res (n_mod, G, M, g), w_res (n_mod, G, g, N) int32 residues in
+    [0, m) -> (n_mod, G, M, N) int32. One launch covers every slot."""
+    if _on_cpu(x_res, w_res):
+        return ref.rns_matmul_ref(x_res, w_res, moduli)
+    _check_residue_operands(x_res, w_res, moduli)
+    nm, G, M, _ = x_res.shape
+    out = torch.empty((nm, G, M, w_res.shape[-1]), dtype=torch.int32,
+                      device=x_res.device)
+    if out.numel():
+        extension().rns_matmul(x_res, w_res, out, [int(m) for m in moduli])
+        LAUNCHES["rns_matmul"] += 1
+    return out
+
+
+def adc_steps(moduli: Sequence[int], adc_bits: Optional[int]
+              ) -> Tuple[float, ...]:
+    """Per-modulus ADC grid step as its f32 value (0.0: identity)."""
+    return tuple(float(np.float32(adc_step(m, adc_bits))) for m in moduli)
+
+
+def rns_group_matmul_channel(x_res: torch.Tensor, w_res: torch.Tensor,
+                             moduli: Sequence[int], noise: torch.Tensor,
+                             adc_bits: Optional[int] = None) -> torch.Tensor:
+    """:func:`rns_group_matmul` with the readout channel fused in: each
+    residue gets ``noise`` (n_mod, G, M, N) f32, pre-scaled to the
+    per-modulus detector sigmas, is rounded and wrapped mod m, then
+    re-gridded onto the ``adc_bits`` ADC levels."""
+    if _on_cpu(x_res, w_res, noise):
+        return ref.rns_matmul_channel_ref(x_res, w_res, moduli, noise,
+                                          adc_bits)
+    _check_residue_operands(x_res, w_res, moduli)
+    _check_cuda_operand(noise, "noise")
+    nm, G, M, _ = x_res.shape
+    shape = (nm, G, M, w_res.shape[-1])
+    if tuple(noise.shape) != shape:
+        raise ValueError(f"noise must be {shape}, got {tuple(noise.shape)}")
+    out = torch.empty(shape, dtype=torch.int32, device=x_res.device)
+    if out.numel():
+        extension().rns_matmul_channel(x_res, w_res, noise, out,
+                                       [int(m) for m in moduli],
+                                       list(adc_steps(moduli, adc_bits)))
+        LAUNCHES["rns_matmul_channel"] += 1
+    return out
+
+
+def rns_residue_matmul(*args, **kwargs):
+    """The ungrouped residue GEMM of ``repro.kernels.ops`` (tests and
+    benchmarks only) is not ported yet."""
+    raise NotImplementedError(
+        "rns_residue_matmul waits in ROADMAP.md queue 2 (the grouped "
+        "rns_group_matmul runs the serving path)")
+
+
+def _rrns_table_words(tables) -> np.ndarray:
+    """The decode tables packed in the field order of ``csrc/rns.cuh``'s
+    RrnsTables, every value as the f32 that rrns_decode.py:88-96 builds."""
+    S, n_total = tables.weights.shape
+    weight = np.zeros((RRNS_MAX_SUBSETS, RRNS_MAX_TOTAL), np.float32)
+    weight[:S, :n_total] = tables.weights
+    sub = np.zeros((4, RRNS_MAX_SUBSETS), np.float32)
+    sub[0, :S] = tables.subset_M
+    sub[1, :S] = (1.0 / tables.subset_M).astype(np.float32)
+    sub[2, :S] = tables.subset_psi
+    sub[3, :S] = tables.subset_psi + 1 - tables.subset_M
+    mods = np.asarray(tables.moduli, np.float32)
+    minv = np.zeros((2, RRNS_MAX_TOTAL), np.float32)
+    minv[0, :n_total] = mods
+    minv[1, :n_total] = 1.0 / mods
+    binom = np.zeros(RRNS_MAX_TOTAL + 1, np.float32)
+    binom[:len(tables.binom)] = tables.binom
+    tail = np.asarray([tables.psi, n_total, tables.n_required, S],
+                      np.float32)
+    return np.concatenate([weight.ravel(), sub.ravel(), minv.ravel(), binom,
+                           tail])
+
+
+@functools.lru_cache(maxsize=16)
+def _device_tables(moduli: Tuple[int, ...], n_required: int, psi: int,
+                   device: torch.device) -> torch.Tensor:
+    from repro_torch.analog import rrns
+    words = _rrns_table_words(rrns.get_tables(moduli, n_required, psi))
+    return torch.from_numpy(words).to(device)
+
+
+def rrns_decode(residues: torch.Tensor, tables
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused RRNS majority decode of (n_total, ...) int32 residues over
+    ``tables.moduli``: returns ``(decoded int32, votes f32)`` of shape
+    ``residues.shape[1:]`` (value 0 and votes -1 where no subset is legal).
+    On the card the tables must be ``f32_exact``."""
+    if _on_cpu(residues):
+        return ref.rrns_decode_ref(residues, tables)
+    if not tables.f32_exact:
+        raise ValueError(
+            "rrns_decode_pallas runs in f32 and needs every reconstruction "
+            "bound inside the 2^24 exact-integer window; this moduli set "
+            f"({tables.moduli}) exceeds it — use the jnp rrns_decode, whose "
+            "int32 fallback handles large moduli")
+    n_total = residues.shape[0]
+    if n_total != len(tables.moduli) or n_total > RRNS_MAX_TOTAL or \
+            tables.n_subsets > RRNS_MAX_SUBSETS:
+        raise ValueError(f"the decode kernel takes at most {RRNS_MAX_TOTAL} "
+                         f"moduli and {RRNS_MAX_SUBSETS} subsets; got "
+                         f"{n_total} residue rows, {tables.n_subsets} "
+                         f"subsets over {tables.moduli}")
+    if residues.dtype != torch.int32 or not residues.is_contiguous():
+        raise TypeError("residues must be contiguous int32 for the CUDA "
+                        "kernel")
+    shape = residues.shape[1:]
+    flat = residues.reshape(n_total, -1)
+    E = flat.shape[1]
+    decoded = torch.empty(E, dtype=torch.int32, device=residues.device)
+    votes = torch.empty(E, dtype=torch.float32, device=residues.device)
+    if E:
+        dev_tables = _device_tables(tuple(tables.moduli), tables.n_required,
+                                    tables.psi, residues.device)
+        extension().rrns_decode(flat, dev_tables, decoded, votes)
+        LAUNCHES["rrns_decode"] += 1
+    return decoded.reshape(shape), votes.reshape(shape)

@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the hand-written kernels.
 
-Port of ``repro.kernels.ref`` plus ``repro.models.attention.chunked_attention``.
+Port of ``repro.kernels.ref`` plus ``repro.models.attention.chunked_attention``
+and the plain versions of the residue kernels.
 A CPU tensor reaching a wrapper in :mod:`repro_torch.kernels.ops` runs these;
 on the card ``chip_smoke.py`` holds each kernel against them.
 """
@@ -8,10 +9,12 @@ on the card ``chip_smoke.py`` holds each kernel against them.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.analog import rrns
+from repro_torch.analog.channel import adc_step
 from repro_torch.core import bfp
 
 NEG_INF = -1e30
@@ -115,3 +118,40 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.to(torch.float32), k.to(torch.float32), v.to(torch.float32),
         torch.arange(Lq, device=q.device), torch.arange(Sk, device=q.device),
         causal=causal, window=window)
+
+
+def rns_matmul_ref(x_res: torch.Tensor, w_res: torch.Tensor,
+                   moduli: Sequence[int]) -> torch.Tensor:
+    """Plain version of ``csrc/rns_matmul.cu``: per modulus, a float64
+    batched matmul over the G groups (exact: sums stay far below 2^53) and
+    ``torch.remainder``. (n_mod, G, M, g) x (n_mod, G, g, N) -> int32."""
+    return torch.stack([
+        torch.remainder(torch.matmul(x_res[i].to(torch.float64),
+                                     w_res[i].to(torch.float64)), m)
+        for i, m in enumerate(moduli)], dim=0).to(torch.int32)
+
+
+def rns_matmul_channel_ref(x_res: torch.Tensor, w_res: torch.Tensor,
+                           moduli: Sequence[int], noise: torch.Tensor,
+                           adc_bits: Optional[int] = None) -> torch.Tensor:
+    """Plain version of the readout epilogue of ``csrc/rns_matmul.cu``:
+    ``mod(round(o + noise), m)``, then the ADC re-grid
+    ``clip(round(round(o / step) * step), 0, m - 1)`` where the converter
+    has fewer levels than m."""
+    o = rns_matmul_ref(x_res, w_res, moduli).to(torch.float32)
+    outs = []
+    for i, m in enumerate(moduli):
+        v = torch.remainder(torch.round(o[i] + noise[i]), float(m))
+        step = adc_step(m, adc_bits)
+        if step:
+            s = torch.tensor(step, dtype=torch.float32, device=v.device)
+            v = torch.clamp(torch.round(torch.round(v / s) * s), 0, m - 1)
+        outs.append(v)
+    return torch.stack(outs, dim=0).to(torch.int32)
+
+
+def rrns_decode_ref(residues: torch.Tensor, tables
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``csrc/rrns_decode.cu``: the fused decode in
+    PyTorch operations, ``(decoded int32, votes f32)``."""
+    return rrns.decode_votes(residues, tables)

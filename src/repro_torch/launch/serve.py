@@ -6,6 +6,11 @@ Serves the FULL-width config unless ``--reduced`` is given, with weights
 and prompts drawn from seed 0, through the dense-layout ``LMServer``
 (greedy unless ``--sample``), and prints tok/s, TTFT and TPOT. ``--device
 cpu`` runs the kernels' plain PyTorch versions instead (slow at full width).
+
+``--snr-db`` serves through the analog channel at that detector SNR (with
+``--policy mirage_rns_noisy`` or ``mirage_rrns``), its noise seeded by
+``--noise-seed``; a stochastic policy also prints the analog-health
+counters.
 """
 
 from __future__ import annotations
@@ -31,6 +36,11 @@ def main(argv=None):
     ap.add_argument("--max-tokens", type=int, default=12)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--policy", default="mirage")
+    ap.add_argument("--snr-db", type=float, default=None,
+                    help="serve through the analog channel at this SNR "
+                         "(use with --policy mirage_rns_noisy/mirage_rrns)")
+    ap.add_argument("--noise-seed", type=int, default=0,
+                    help="base seed for per-tick analog noise")
     ap.add_argument("--sample", action="store_true",
                     help="categorical sampling instead of greedy argmax")
     ap.add_argument("--device", default=None,
@@ -44,7 +54,11 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    model = build_model(cfg, get_policy(args.policy), device=device)
+    overrides = {}
+    if args.snr_db is not None:
+        overrides.update(snr_db=args.snr_db, noise_seed=args.noise_seed)
+    model = build_model(cfg, get_policy(args.policy, **overrides),
+                        device=device)
     cap = args.prompt_len + args.max_tokens + 4
     server = LMServer(model, cap=cap, batch_slots=args.slots,
                       greedy=not args.sample)
@@ -72,6 +86,9 @@ def main(argv=None):
           f"{lat['ttft_p50_s']*1e3:.1f}/{lat['ttft_p99_s']*1e3:.1f}ms; "
           f"TPOT mean/p50/p99: {lat['tpot_mean_s']*1e3:.2f}/"
           f"{lat['tpot_p50_s']*1e3:.2f}/{lat['tpot_p99_s']*1e3:.2f}ms")
+    health = server.health_snapshot()
+    if health:
+        print(f"  analog health: {health}")
     for r in finished[:3]:
         print(f"  req {r.rid}: {r.tokens_out[:8]}...")
     return 0

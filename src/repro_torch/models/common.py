@@ -28,7 +28,12 @@ def _normal(shape, std: float, generator: torch.Generator,
 
 
 class Dense(nn.Module):
-    """``x @ w (+ b)``; init N(0, 1/d_in) (or ``scale``), zero bias."""
+    """``x @ w (+ b)``; init N(0, 1/d_in) (or ``scale``), zero bias.
+
+    ``stationary`` holds the weight's programmed residues
+    (:class:`repro_torch.core.stationary.StationaryResidues`) while a
+    serving engine of an RNS backend has installed them; :func:`dense` then
+    runs them in place of ``w``."""
 
     def __init__(self, d_in: int, d_out: int, bias: bool = False,
                  scale: Optional[float] = None, *,
@@ -38,6 +43,7 @@ class Dense(nn.Module):
         self.w = _normal((d_in, d_out), std, generator, device)
         self.b = (nn.Parameter(torch.zeros(d_out, device=device))
                   if bias else None)
+        self.stationary = None
 
 
 class Embed(nn.Module):
@@ -74,8 +80,10 @@ class MLP(nn.Module):
 # --------------------------------------------------------------------------
 
 def dense(p: Dense, x: torch.Tensor, policy: MiragePolicy) -> torch.Tensor:
-    """The Mirage-quantized GEMM. x: (..., d_in) @ w: (d_in, d_out)."""
-    y = mirage_matmul_auto(x, p.w, policy)
+    """The Mirage-quantized GEMM. x: (..., d_in) @ w: (d_in, d_out), or
+    the installed stationary residues of ``w``."""
+    w = p.w if p.stationary is None else p.stationary
+    y = mirage_matmul_auto(x, w, policy)
     if p.b is not None:
         y = y + p.b
     return y
@@ -87,7 +95,9 @@ def embed(p: Embed, tokens: torch.Tensor) -> torch.Tensor:
 
 def unembed(p: Embed, x: torch.Tensor, policy: MiragePolicy) -> torch.Tensor:
     """Tied output head: x @ emb^T. The embedding table is never
-    pre-quantized, so the head GEMM always quantizes its weight side. The
+    pre-quantized nor encoded into stationary residues, so the head GEMM
+    always quantizes (and, under the RNS backends, encodes) its weight side
+    per call. The
     transposed view is passed as is: the card's kernel reads ``(N, K)``
     row-major weights in place."""
     if policy.assume_quantized_weights:

@@ -19,17 +19,31 @@ Every step runs under ``torch.inference_mode()``. Sampled decode draws from a
 ``torch.Generator`` seeded with ``sample_seed`` (deterministic per seed; the
 numbers differ from the JAX engine's threefry draws).
 
+Under the RNS-family backends the engine also:
+
+  * programs every ``Dense`` weight into **stationary residues** once, at
+    construction (:func:`repro_torch.core.stationary.encode_stationary_params`),
+    and installs them on the model; the tied head stays raw;
+  * draws the **analog noise** of each decode tick and each prefill batch
+    from one of two device generators seeded from ``policy.noise_seed`` (0
+    when unset), opened as the GEMMs' ambient
+    :func:`repro_torch.core.gemm.noise_scope`: fresh noise every step,
+    deterministic per seed (the numbers differ from the JAX engine's);
+  * folds the **analog-health** counters (:mod:`repro_torch.obs.health`)
+    into device accumulators every step, read back only by
+    :meth:`LMServer.health_snapshot`.
+
 The JAX engine's other options (paged KV, chunked prefill, prefix cache,
 speculative decoding, pipelined prefill, meshes, fault injection, deadlines,
-retries and admission caps, stationary residues) are not ported yet:
-passing one raises ``NotImplementedError`` naming the ROADMAP slice where it
-waits.
+retries and admission caps) are not ported yet: passing one raises
+``NotImplementedError`` naming the ROADMAP slice where it waits.
 """
 
 from __future__ import annotations
 
 import collections
 import collections.abc
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -37,7 +51,10 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analog.channel import seeded_generator
+from repro_torch.core import backends, gemm, stationary
 from repro_torch.models import lm as lm_helpers
+from repro_torch.obs import health as obs_health
 from repro_torch.obs.metrics import MetricsRegistry
 
 
@@ -260,8 +277,6 @@ _NOT_PORTED = {
     "max_retries": (1, "ROADMAP.md queue 1, slice 7 (fault retries)"),
     "max_queue_depth": (None, "ROADMAP.md queue 1, slice 7 (admission "
                               "caps; a Scheduler built with one works)"),
-    "stationary_weights": (None, "ROADMAP.md queue 1, slice 3 "
-                                 "(stationary residues of the RNS backends)"),
 }
 
 
@@ -277,10 +292,19 @@ class LMServer:
          "eos":      (S,) int32   per-slot EOS id (-1 = none),
          "max_tok":  (S,) int32   per-slot token budget}
 
+    plus ``"health"``, the analog-health accumulators, under a policy
+    that reports any (:func:`repro_torch.obs.health.spec`).
+
     ``tick()`` = admit (bucketed batched prefill + scatter insert) then one
     decode step for every slot at once. The model owns its parameters, so
     the engine takes the model alone (the JAX engine takes ``params``
     beside it).
+
+    ``stationary_weights``: run the GEMMs against stationary residues
+    programmed once here. ``None`` turns it on exactly when the policy's
+    backend ``supports_stationary_residues``; the encodings are installed
+    on the model's ``Dense`` modules (``False`` clears them), so one model
+    serves one engine's programming at a time.
     """
 
     def __init__(self, model, cap: int, batch_slots: int = 8,
@@ -289,6 +313,7 @@ class LMServer:
                  on_token: Optional[Callable[[Request, int], None]] = None,
                  scheduler: Optional[Scheduler] = None,
                  sample_seed: int = 0,
+                 stationary_weights: Optional[bool] = None,
                  **not_ported: Any):
         for name, value in not_ported.items():
             if name not in _NOT_PORTED:
@@ -314,6 +339,25 @@ class LMServer:
         self.slot_req: List[Optional[Request]] = [None] * batch_slots
         self._sample_gen = torch.Generator(device=self.device)
         self._sample_gen.manual_seed(sample_seed)
+
+        policy = model.policy
+        backend = backends.resolve(policy)
+        # one generator per noise stream: decode ticks and prefill batches
+        seed = policy.noise_seed if policy.noise_seed is not None else 0
+        self._noise_gens = {
+            stream: seeded_generator(self.device, "serve", seed, stream)
+            for stream in ("decode", "prefill")}
+        self._health_spec = obs_health.spec(policy)
+        if stationary_weights is None:
+            stationary_weights = backend.supports_stationary_residues
+        if stationary_weights and not backend.supports_stationary_residues:
+            raise ValueError(
+                f"stationary_weights=True needs a backend that supports "
+                f"stationary residues; {policy.mode!r} does not")
+        self.stationary_weights = bool(stationary_weights)
+        stationary.install(model, stationary.encode_stationary_params(
+            model, policy) if self.stationary_weights else None)
+
         self.state = self._init_state(batch_slots)
         reg = self.scheduler.registry
         reg.gauge_fn("serve_slots_active",
@@ -332,7 +376,7 @@ class LMServer:
         def full(value, dtype):
             return torch.full((n_slots,), value, dtype=dtype,
                               device=self.device)
-        return {
+        state = {
             "cache": self.model.init_cache(n_slots, self.cap,
                                            per_slot_idx=True),
             "last_tok": full(0, torch.int32),
@@ -341,6 +385,21 @@ class LMServer:
             "eos": full(-1, torch.int32),
             "max_tok": full(0, torch.int32),
         }
+        if self._health_spec:
+            state["health"] = obs_health.init(self._health_spec, self.device)
+        return state
+
+    @contextlib.contextmanager
+    def _step_scope(self, stream: str):
+        """Ambient noise of one step (its stream's generator) and, under a
+        policy with health counters, their collection and fold."""
+        with gemm.noise_scope(self._noise_gens[stream]):
+            if not self._health_spec:
+                yield
+                return
+            with obs_health.collect() as hc:
+                yield
+            obs_health.fold(self.state["health"], hc.values)
 
     def _select(self, logits: torch.Tensor) -> torch.Tensor:
         """Next token per row of (B, V) logits: greedy argmax (first max on
@@ -359,8 +418,9 @@ class LMServer:
         state = self.state
         cache0 = state["cache"]
         idx0 = cache0["idx"]
-        logits, cache = self.model.decode_step(cache0,
-                                               state["last_tok"][:, None])
+        with self._step_scope("decode"):
+            logits, cache = self.model.decode_step(
+                cache0, state["last_tok"][:, None])
         tok = self._select(logits[:, -1, :])
         active = state["active"]
         emitted = state["emitted"] + active.to(torch.int32)
@@ -384,9 +444,10 @@ class LMServer:
         Rows whose slot is the ``n_slots`` sentinel (batch padding) are
         computed and then dropped."""
         dev = self.device
-        logits, new_cache = self.model.prefill(
-            torch.from_numpy(tokens).to(dev), self.cap,
-            lens=torch.from_numpy(lens).to(dev))
+        with self._step_scope("prefill"):
+            logits, new_cache = self.model.prefill(
+                torch.from_numpy(tokens).to(dev), self.cap,
+                lens=torch.from_numpy(lens).to(dev))
         tok = self._select(logits[:, -1, :])
         eos_d = torch.from_numpy(eos).to(dev)
         max_d = torch.from_numpy(max_tok).to(dev)
@@ -490,6 +551,22 @@ class LMServer:
                 break
             finished.extend(self.tick())
         return finished
+
+    def health_snapshot(self) -> Dict[str, Any]:
+        """The analog-health counters as plain ints (per-channel ones as
+        lists), in ONE device->host transfer; never called on a tick.
+        Empty for policies without counters."""
+        h = self.state.get("health")
+        if not h:
+            return {}
+        names = list(h)
+        flat = torch.cat([h[k].reshape(-1) for k in names]).cpu().tolist()
+        out, i = {}, 0
+        for k in names:
+            n = h[k].numel()
+            out[k] = flat[i] if h[k].dim() == 0 else flat[i:i + n]
+            i += n
+        return out
 
     @property
     def metrics(self) -> Dict[str, Any]:

@@ -124,8 +124,25 @@ def test_wrappers_on_cpu_take_plain_versions_and_launch_nothing():
     kv = torch.from_numpy(_rand((1, 9, 2, 64), 10))
     assert torch.equal(ops.flash_attention(q, kv, kv),
                        ref.flash_attention_ref(q, kv, kv))
+    moduli = (31, 32, 33, 37, 41)
+    rng = np.random.default_rng(11)
+    xr = torch.from_numpy(np.stack([rng.integers(0, m, (2, 3, 16))
+                                    for m in moduli]).astype(np.int32))
+    wr = torch.from_numpy(np.stack([rng.integers(0, m, (2, 16, 5))
+                                    for m in moduli]).astype(np.int32))
+    res = ops.rns_group_matmul(xr, wr, moduli)
+    assert torch.equal(res, ref.rns_matmul_ref(xr, wr, moduli))
+    nz = torch.from_numpy(_rand((5, 2, 3, 5), 12))
+    assert torch.equal(ops.rns_group_matmul_channel(xr, wr, moduli, nz, 4),
+                       ref.rns_matmul_channel_ref(xr, wr, moduli, nz, 4))
+    from repro_torch.analog import rrns
+    tables = rrns.get_tables(moduli, 3, 16367)
+    for got, want in zip(ops.rrns_decode(res, tables),
+                         ref.rrns_decode_ref(res, tables)):
+        assert torch.equal(got, want)
     assert ops.LAUNCHES == {"bfp_quantize": 0, "mirage_gemm": 0,
-                            "flash_attention": 0}
+                            "flash_attention": 0, "rns_matmul": 0,
+                            "rns_matmul_channel": 0, "rrns_decode": 0}
 
 
 def test_wrappers_refuse_other_devices():
@@ -154,6 +171,11 @@ def test_port_imports_no_jax():
         "import repro_torch, repro_torch.interop, repro_torch.kernels.ops\n"
         "import repro_torch.kernels.build, repro_torch.runtime.server\n"
         "import repro_torch.launch.serve, repro_torch.models\n"
+        "import repro_torch.analog, repro_torch.analog.device\n"
+        "import repro_torch.core.rns, repro_torch.core.noise\n"
+        "import repro_torch.core.stationary, repro_torch.obs.health\n"
+        "import repro_torch.core.backends.mirage_rns\n"
+        "import repro_torch.core.backends.mirage_rrns\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith(('jax.', 'jaxlib')) or m == 'repro' or\n"
         "             m.startswith('repro.'))\n"
@@ -220,8 +242,8 @@ def test_baselines_match_jax(mode):
         assert not torch.backends.cudnn.allow_tf32
 
 
-@pytest.mark.parametrize("mode", ["mirage_faithful", "mirage_rns",
-                                  "mirage_rns_noisy", "mirage_rrns"])
+@pytest.mark.parametrize("mode", ["mirage_faithful", "mirage_faithful_ref",
+                                  "mirage_rns_ref"])
 def test_unported_modes_validate_but_do_not_resolve(mode):
     policy = get_policy(mode)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -170,7 +170,6 @@ def test_sampled_decode_deterministic_per_seed(model):
     ("spec_k", 2), ("mesh", object()), ("pipeline_depth", 1),
     ("fault_injector", object()), ("default_ttl_s", 1.0),
     ("default_queue_ttl_s", 1.0), ("max_queue_depth", 4),
-    ("stationary_weights", True),
 ])
 def test_unported_options_raise(model, option, value):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
