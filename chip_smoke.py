@@ -3,13 +3,18 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``src/repro_torch/kernels/csrc``, holds
-each against its plain PyTorch version on the card, serves full-width
+each against its plain PyTorch version on the card (the fused GEMM at every
+split of K its wrapper picks for a serving shape, in both weight layouts,
+and bitwise equal across two launches; the RRNS decode bit for bit, also
+where every element runs all subsets), serves full-width
 qwen2-0.5b (random weights from a seed) through the port's ``LMServer`` on
 each ported path — ``mirage_fast`` (the BFP GEMM kernel), ``mirage_rrns`` at
 52 dB detector SNR (the residue GEMM with its fused readout channel and the
 RRNS decode), its clean-channel twin and ``mirage_rns`` (the residue GEMM)
-— checks that each path launched exactly the expected kernels, and times
-every kernel at the shapes the serving paths give it. Each phase prints one
+— checks that each path launched exactly the expected kernels (and that
+the RRNS path's health counters are the reference run's integers), and
+times every kernel at the shapes the serving paths give it, with only the
+device's work inside the timing window. Each phase prints one
 JSON line; any failed check exits non-zero. The last line is the device
 record. Without CUDA, or without the repository's ``src`` beside it, the
 script exits non-zero and prints no result.
@@ -19,6 +24,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import json
 import math
 import pathlib
@@ -34,11 +40,16 @@ import torch
 DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
+SPIN_CYCLES = 4_000_000       # the unit of device spin ahead of a timed call
 
 SLOTS, N_REQUESTS, MAX_TOKENS = 4, 8, 32
 PROMPT_LENS = (17, 128)       # inclusive range of the numpy-seeded lengths
 GEMM_KN = ((896, 896), (896, 128), (896, 4864), (4864, 896), (896, 151936))
-GEMM_M = (4, 8, 256)
+GEMM_M = (4, 8, 256, 512)
+# the (M, K, N) GEMMs checked in the transposed layout as well: the tied
+# head's table is (N, K), the layer weights (K, N)
+GEMM_BOTH_LAYOUTS = ((4, 4864, 896), (512, 896, 4864), (4, 896, 151936))
 # launches of each GEMM shape per decode tick (= per prefill batch): q and o
 # are 896->896, k and v 896->128, gate and up 896->4864, down 4864->896, per
 # layer x 24, plus the tied head 896->151936 once
@@ -57,6 +68,19 @@ RNS_M = (4, 512)
 SNR_DB, NOISE_SEED = 52.0, 7
 INT_OPS_PER_S = F32_FLOPS_PER_S   # int32 on the CUDA cores: the f32 rate
 RNS_TOKENS, RNS_REQUESTS = 8, 4   # the shorter mirage_rns drain
+CAP = PROMPT_LENS[1] + MAX_TOKENS + 4   # the engine's cache length
+# the health counters of slice_rrns at 52 dB and noise seed 7 (chip run C of
+# the RRNS slice's bring-up): the noise is a function of the seed and the
+# decode is bit-exact, so a run must give these integers
+RRNS_HEALTH = {"detector_flips": [1, 14, 45, 1864, 30172],
+               "rrns_corrected": 32095, "rrns_uncorrected": 0}
+
+
+# symbols of the port's kernels in a profiler trace
+PORT_KERNEL_SYMBOLS = ("gemm_decode_kernel", "gemm_mma_kernel",
+                       "splitk_reduce_kernel", "flash_fwd_kernel",
+                       "rns_matmul_kernel", "rrns_decode_kernel",
+                       "bfp_fake_quant_kernel")
 
 
 class CheckFailed(RuntimeError):
@@ -80,24 +104,60 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+#: timed calls whose host enqueue outlasted the device spin ahead of them
+TIMER_OVERRUNS = []
+
+
+@functools.lru_cache(maxsize=1)
+def spin_ms() -> float:
+    """Device time of one spin of SPIN_CYCLES (CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    end.record()
+    end.synchronize()
+    return max(start.elapsed_time(end), 1e-3)
+
+
 def time_ms(fn, n: int = 20, warmup: int = 3, flush_l2: bool = True) -> float:
-    """Median device time of ``fn`` over ``n`` launches (CUDA events), with
-    the 50 MB L2 cache flushed before each launch, as the serving path finds
-    a layer's weights cold."""
+    """Median device time of one call of ``fn`` over ``n`` calls (CUDA
+    events), with the 50 MB L2 cache flushed before each call, as the
+    serving path finds a layer's weights cold. A device spin, enqueued after
+    the flush and before the start event and at least twice as long as the
+    host takes to enqueue ``fn``, keeps the device behind the host, so the
+    event window holds the call's device work and not the host's enqueue
+    (checks, allocation, binding). Calls whose enqueue still outlasts the
+    spin (a plain version that waits for the device) are listed in
+    TIMER_OVERRUNS."""
     scratch = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    cycles = SPIN_CYCLES * min(50, max(1, math.ceil(2 * enqueue_ms /
+                                                    spin_ms())))
     times = []
     for _ in range(n):
         if flush_l2:
             scratch.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        spin = torch.cuda.Event(enable_timing=True)
+        spin.record()
+        torch.cuda._sleep(cycles)
+        t0 = time.perf_counter()
         start.record()
         fn()
         end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
         end.synchronize()
         times.append(start.elapsed_time(end))
+        if host_ms > spin.elapsed_time(start):
+            TIMER_OVERRUNS.append((getattr(fn, "__name__", "?"), host_ms))
     return statistics.median(times)
 
 
@@ -164,13 +224,19 @@ def phase_bfp(ops, ref, policy):
 # phase 4: the fused GEMM against its plain version
 # --------------------------------------------------------------------------
 
-def gemm_operands(M: int, K: int, N: int, seed: int):
+def gemm_operands(M: int, K: int, N: int, seed: int,
+                  w_nk: Optional[bool] = None):
+    """x (M, K) and w (K, N): contiguous, or the transpose of a contiguous
+    (N, K) table where ``w_nk`` (by default for the tied head's shape)."""
     gen = torch.Generator(device=DEV).manual_seed(seed)
     x = torch.randn((M, K), generator=gen, device=DEV)
-    w = torch.randn((K, N), generator=gen, device=DEV) / math.sqrt(K)
-    if N == 151936:
+    if w_nk is None:
+        w_nk = N == 151936
+    if w_nk:
         # the tied head passes emb.T: a transposed (N, K) table, read in place
         w = (torch.randn((N, K), generator=gen, device=DEV) * 0.02).T
+    else:
+        w = torch.randn((K, N), generator=gen, device=DEV) / math.sqrt(K)
     return x, w
 
 
@@ -180,28 +246,125 @@ def folded(ref, x, w, policy):
     return xq, wq
 
 
+def path_gemm_ms(cap: int):
+    """Every M the serving paths give each GEMM shape: the decode tick's
+    SLOTS rows, prefill batches of a power-of-two count of prompts times a
+    length bucket, and the head's last positions (1, 2 or 4 prompts)."""
+    from repro_torch.runtime.server import default_buckets
+
+    batches = [1 << i for i in range(SLOTS.bit_length()) if 1 << i <= SLOTS]
+    prefill = sorted({b * L for b in batches for L in default_buckets(cap)})
+    layer_ms = sorted({SLOTS, *prefill})
+    return {(K, N): batches if N == 151936 else layer_ms
+            for K, N in GEMM_KN}
+
+
+def card_gemm_plan(ops, M: int, K: int, N: int, b_m: int):
+    """The wrapper's plan for this GEMM on this card."""
+    return ops.gemm_plan(M, N, K, b_m, ops.sm_count(torch.device(DEV)))
+
+
+def gemm_cases(ops, policy, cap: int):
+    """(M, K, N, w_nk) of the checked GEMMs: GEMM_M x GEMM_KN, the
+    GEMM_BOTH_LAYOUTS in the other layout too, and one M for each plan
+    (route, block size, split of K, rows held) that the wrapper picks for a
+    path shape and the cases before do not already cover."""
+    cases = [(M, K, N, N == 151936) for M in GEMM_M for K, N in GEMM_KN]
+    cases += [(M, K, N, N != 151936) for M, K, N in GEMM_BOTH_LAYOUTS]
+
+    def key(M, K, N, w_nk):
+        plan = card_gemm_plan(ops, M, K, N, policy.b_m)
+        rows = None if plan.mma else (4 if M <= 4 else 8 if M <= 8 else 16)
+        return plan[:4], rows, w_nk
+
+    seen = {key(*c) for c in cases}
+    for (K, N), ms in path_gemm_ms(cap).items():
+        for M in ms:
+            c = (M, K, N, N == 151936)
+            if key(*c) not in seen:
+                seen.add(key(*c))
+                cases.append(c)
+    return cases
+
+
 def phase_gemm(ops, ref, policy):
     worst = 0.0
-    for M in GEMM_M:
-        for K, N in GEMM_KN:
-            x, w = gemm_operands(M, K, N, seed=M * 7 + K + N)
-            got = ops.mirage_matmul_fused(x, w, policy)
-            want = ref.mirage_gemm_ref(x, w, policy.b_m, policy.g)
-            xq, wq = folded(ref, x, w, policy)
-            tol = 1e-5 * (xq.abs() @ wq.abs()) + 1e-30
-            err = (got - want).abs()
-            bad = int((err > tol).sum())
-            torch.cuda.synchronize()
-            emit({"phase": "gemm_vs_plain", "M": M, "K": K, "N": N,
-                  "w_layout": "NK" if not w.is_contiguous() else "KN",
-                  "max_abs_err": float(err.max()),
-                  "max_err_over_tol": float((err / tol).max()),
-                  "ok": bad == 0})
-            check(bad == 0, f"GEMM kernel outside |got-ref| <= 1e-5 "
-                            f"(|xq|@|wq|) + 1e-30 in {bad} elements at "
-                            f"M={M} K={K} N={N}")
-            worst = max(worst, float(err.max()))
+    for M, K, N, w_nk in gemm_cases(ops, policy, CAP):
+        x, w = gemm_operands(M, K, N, seed=M * 7 + K + N, w_nk=w_nk)
+        got = ops.mirage_matmul_fused(x, w, policy)
+        again = ops.mirage_matmul_fused(x, w, policy)
+        want = ref.mirage_gemm_ref(x, w, policy.b_m, policy.g)
+        xq, wq = folded(ref, x, w, policy)
+        tol = 1e-5 * (xq.abs() @ wq.abs()) + 1e-30
+        err = (got - want).abs()
+        bad = int((err > tol).sum())
+        same = bool(torch.equal(got.view(torch.int32),
+                                again.view(torch.int32)))
+        torch.cuda.synchronize()
+        plan = card_gemm_plan(ops, M, K, N, policy.b_m)
+        emit({"phase": "gemm_vs_plain", "M": M, "K": K, "N": N,
+              "w_layout": "NK" if w_nk else "KN",
+              "route": "mma_bf16" if plan.mma else "decode_f32",
+              "threads": plan.threads, "splits": plan.splits,
+              "k_split": plan.k_split, "blocks": plan.blocks,
+              "max_abs_err": float(err.max()),
+              "max_err_over_tol": float((err / tol).max()),
+              "bitwise_repeatable": same, "ok": bad == 0 and same})
+        check(bad == 0, f"GEMM kernel outside |got-ref| <= 1e-5 "
+                        f"(|xq|@|wq|) + 1e-30 in {bad} elements at "
+                        f"M={M} K={K} N={N} w_nk={w_nk}")
+        check(same, f"two launches of the GEMM differ at M={M} K={K} N={N} "
+                    f"w_nk={w_nk}")
+        worst = max(worst, float(err.max()))
+        del x, w, got, again, want, xq, wq, tol, err
     return worst
+
+
+def options_policy(b_m: int, g: int, rounding: str):
+    """``mirage`` at other BFP settings, with the smallest special-moduli k
+    whose RNS range holds the output (Eq. 10): the GEMM kernel ignores k."""
+    from repro_torch.core.precision import get_policy
+
+    for k in range(5, 16):
+        try:
+            return get_policy("mirage", b_m=b_m, g=g, rounding=rounding, k=k)
+        except ValueError:
+            continue
+    raise ValueError(f"no k holds b_m={b_m} g={g}")
+
+
+def phase_gemm_options(ops, ref):
+    """The GEMM kernel at every g that divides 64, truncation, b_m up to 8
+    (both routes) and b_m = 12 (the CUDA-core route at any M), on ragged
+    shapes: K not a multiple of 64 (and of 4: 4-byte copies) and N not a
+    multiple of 4, in both weight layouts."""
+    shapes = ((3, 198, 70, False), (3, 200, 72, True), (40, 200, 70, False),
+              (40, 198, 72, True))
+    for g in (1, 2, 4, 8, 16, 32, 64):
+        for b_m, rounding in ((4, "nearest"), (2, "truncate"),
+                              (8, "nearest"), (12, "nearest")):
+            policy = options_policy(b_m, g, rounding)
+            worst, bad, same = 0.0, 0, True
+            for i, (M, K, N, w_nk) in enumerate(shapes):
+                x, w = gemm_operands(M, K, N, seed=600 + i, w_nk=w_nk)
+                got = ops.mirage_matmul_fused(x, w, policy)
+                same &= bool(torch.equal(got, ops.mirage_matmul_fused(
+                    x, w, policy)))
+                want = ref.mirage_gemm_ref(x, w, b_m, g, rounding)
+                xq = ref.bfp_fake_quant_ref(x, b_m, g, rounding)
+                wq = ref.bfp_fake_quant_ref(w.T, b_m, g, rounding).T
+                tol = 1e-5 * (xq.abs() @ wq.abs()) + 1e-30
+                err = (got - want).abs()
+                bad += int((err > tol).sum())
+                worst = max(worst, float((err / tol).max()))
+            torch.cuda.synchronize()
+            emit({"phase": "gemm_options_vs_plain", "g": g, "b_m": b_m,
+                  "rounding": rounding, "shapes": [list(c) for c in shapes],
+                  "max_err_over_tol": worst, "bitwise_repeatable": same,
+                  "ok": bad == 0 and same})
+            check(bad == 0 and same,
+                  f"GEMM kernel outside its bound in {bad} elements, or not "
+                  f"repeatable, at g={g} b_m={b_m} rounding={rounding}")
 
 
 # --------------------------------------------------------------------------
@@ -261,6 +424,20 @@ def residue_operands(moduli, M, K, N, seed):
     G = K // 16
     return (random_residues(moduli, (G, M, 16), gen),
             random_residues(moduli, (G, 16, N), gen))
+
+
+def encoded_residue_operands(moduli, M, K, N, seed, b_m: int = 4):
+    """Residues of BFP mantissas in [-(2^b_m - 1), 2^b_m - 1], encoded as
+    the RNS paths encode them (``to_rns``): each residue GEMM output is then
+    one integer group dot (|dot| <= 16 x 15^2 < psi) in every modulus, as
+    on the serving path, and a clean decode stops at subset 0."""
+    from repro_torch.core.rns import to_rns
+
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    q, G = 2 ** b_m - 1, K // 16
+    xi = torch.randint(-q, q + 1, (G, M, 16), generator=gen, device=DEV)
+    wi = torch.randint(-q, q + 1, (G, 16, N), generator=gen, device=DEV)
+    return to_rns(xi, moduli), to_rns(wi, moduli)
 
 
 def phase_rns_matmul(ops, ref):
@@ -341,6 +518,34 @@ def decode_inputs(E, seed):
     return torch.cat([res, rand], dim=1).contiguous(), xs, n_err
 
 
+def subset0_fault_inputs(tables, E, seed):
+    """Legal values where about half the elements, at random places (so
+    warps mix clean and faulty elements), carry one or two residue errors
+    on the moduli of subset 0: those elements never reach the largest vote
+    (two errors leave at most three agreeing moduli, and 31 x 32 x 33 is
+    more than the legal range) and run every subset."""
+    psi = tables.psi
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    xs = torch.randint(-psi, psi + 1, (E,), generator=gen, device=DEV,
+                       dtype=torch.int32)
+    faulty = torch.rand((E,), generator=gen, device=DEV) < 0.5
+    two = torch.rand((E,), generator=gen, device=DEV) < 0.5
+    members = tables.subsets[0]
+    first = torch.randint(0, len(members), (E,), generator=gen, device=DEV)
+    second = (first + 1) % len(members)
+    rows = []
+    for i, m in enumerate(tables.moduli):
+        hit = torch.zeros((E,), dtype=torch.bool, device=DEV)
+        if i in members:
+            j = members.index(i)
+            hit = faulty & ((first == j) | (two & (second == j)))
+        delta = torch.randint(1, m, (E,), generator=gen, device=DEV,
+                              dtype=torch.int32)
+        rows.append(torch.remainder(xs + torch.where(hit, delta, 0), m))
+    n_err = faulty.to(torch.int32) * (1 + two.to(torch.int32))
+    return torch.stack(rows).to(torch.int32).contiguous(), xs, n_err
+
+
 def phase_rrns_decode(ops, ref):
     from repro_torch.analog import rrns
     from repro_torch.core.noise import rrns_decode_np
@@ -374,6 +579,29 @@ def phase_rrns_decode(ops, ref):
           "seconds": time.perf_counter() - t0})
     check(ok, "rrns_decode differs from its plain version or the numpy "
               "oracle, or failed to decode a clean or single-error value")
+    # errors on subset 0's moduli, scattered through every warp; an odd
+    # element count takes the kernel's scalar loads and its tail
+    for E in (4_000_000, 1_000_003):
+        t0 = time.perf_counter()
+        res, xs, n_err = subset0_fault_inputs(tables, E, seed=E % 97)
+        dec, votes = ops.rrns_decode(res, tables)
+        want_dec, want_votes = ref.rrns_decode_ref(res, tables)
+        torch.cuda.synchronize()
+        bad_dec = int((dec != want_dec).sum())
+        bad_votes = int((votes.view(torch.int32) !=
+                         want_votes.view(torch.int32)).sum())
+        full = votes == float(tables.n_subsets)
+        ok = bad_dec == bad_votes == 0 and \
+            bool(torch.equal(full, n_err == 0)) and \
+            bool((dec == xs)[n_err <= 1].all())
+        emit({"phase": "rrns_decode_vs_plain",
+              "case": "errors on subset 0's moduli, mixed warps",
+              "elements": E, "faulty_elements": int((n_err > 0).sum()),
+              "decoded_mismatches": bad_dec, "votes_mismatches": bad_votes,
+              "ok": ok, "seconds": time.perf_counter() - t0})
+        check(ok, f"rrns_decode differs from its plain version, or failed "
+                  f"to decode, on {E} elements with errors on subset 0's "
+                  f"moduli")
     return 0
 
 
@@ -442,7 +670,7 @@ def phase_slice(ops):
                         generator=gen)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    cap = PROMPT_LENS[1] + MAX_TOKENS + 4
+    cap = CAP
 
     # warm-up drain (cuBLAS handles, allocator); not counted
     warm = LMServer(model, cap=cap, batch_slots=SLOTS)
@@ -533,13 +761,16 @@ def profile_ticks(model, cap, reqs, LMServer, policy_name: str,
             by_kernel[avg.key] = by_kernel.get(avg.key, 0.0) + dev_us
     busy_ms = sum(by_kernel.values()) / 1e3
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+    ours = {k[:80]: v / 1e3 / n_ticks for k, v in by_kernel.items()
+            if any(name in k for name in PORT_KERNEL_SYMBOLS)}
     emit({"phase": "decode_tick_profile", "policy": policy_name,
           "ticks": n_ticks,
           "wall_ms_per_tick": wall_ms / n_ticks,
           "device_busy_ms_per_tick": busy_ms / n_ticks,
           "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
           "top_device_ms_per_tick": {k[:80]: v / 1e3 / n_ticks
-                                     for k, v in top}})
+                                     for k, v in top},
+          "port_kernels_ms_per_tick": ours})
 
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -721,6 +952,7 @@ def phase_slice_rrns(ops, model, cap):
               "flash_attention": cfg.n_layers * c_summary["prefill_batches"]}
     streams = {r.rid: r.tokens_out for r in finished}
     c_streams = {r.rid: r.tokens_out for r in c_finished}
+    health_same = all(health.get(k) == v for k, v in RRNS_HEALTH.items())
     emit({"phase": "slice_rrns", "arch": cfg.arch_id,
           "policy": f"mirage_rrns b_m=4 g=16 k=5 moduli={list(RRNS_ALL)} "
                     f"snr_db={SNR_DB} noise_seed={NOISE_SEED}",
@@ -732,6 +964,7 @@ def phase_slice_rrns(ops, model, cap):
           "flips_41_within_6_sigma": flips_ok,
           "clean_channel": {**c_summary, "expected_launches": c_want,
                             "health": c_server.health_snapshot()},
+          "health_equals_reference": health_same,
           "streams_equal_clean": streams == c_streams})
     check(len(finished) == N_REQUESTS and all(
         len(r.tokens_out) == MAX_TOKENS for r in finished),
@@ -746,6 +979,9 @@ def phase_slice_rrns(ops, model, cap):
                     f"{expected[-1]:.1f} +- 6 sigma")
     check(streams == c_streams, "the 52 dB greedy streams differ from the "
                                 "clean channel's")
+    check(health_same, f"slice_rrns health counters "
+                       f"{ {k: health.get(k) for k in RRNS_HEALTH} } differ "
+                       f"from the reference run's {RRNS_HEALTH}")
     model.policy = noisy
     profile_ticks(model, cap, reqs, LMServer, "mirage_rrns 52 dB")
     return launches, c_launches
@@ -820,9 +1056,16 @@ def phase_timing(ops, ref, policy, per_tick):
         for K, N in GEMM_KN:
             x, w = gemm_operands(M, K, N, seed=1)
             xq, wq = folded(ref, x, w, policy)
-            t_b, by = bound(4.0 * (M * K + K * N + M * N), 2.0 * M * N * K)
+            plan = card_gemm_plan(ops, M, K, N, policy.b_m)
+            # operations at the rate of the units the route runs them on
+            t_b, by = bound_rate(4.0 * (M * K + K * N + M * N),
+                                 2.0 * M * N * K,
+                                 BF16_FLOPS_PER_S if plan.mma
+                                 else F32_FLOPS_PER_S)
             rows["mirage_gemm"].append({
                 "M": M, "K": K, "N": N,
+                "route": "mma_bf16" if plan.mma else "decode_f32",
+                "splits": plan.splits,
                 # launches of this (K, N) per decode tick and per prefill
                 # batch; M is the slots at decode, batch x bucket at prefill
                 "launches_per_step": per_tick[(K, N)],
@@ -867,16 +1110,55 @@ def phase_timing(ops, ref, policy, per_tick):
     return rows
 
 
-def decode_ops_per_element(n_total: int, n_subsets: int) -> int:
-    """f32 operations the decode does per element: per subset, the
-    reconstruction (n_total multiplies, n_total - 1 adds), the fold (9),
-    a 6-operation congruence check per modulus, and the vote (4)."""
-    return n_subsets * (2 * n_total - 1 + 9 + 6 * n_total + 4)
+def decode_ops_per_subset(n_total: int) -> int:
+    """f32 operations the decode does per element and subset: the
+    reconstruction (n_total multiplies, n_total - 1 adds), the fold (9), a
+    6-operation congruence check per modulus, and the vote (4)."""
+    return 2 * n_total - 1 + 9 + 6 * n_total + 4
+
+
+def subsets_needed(res: torch.Tensor, tables) -> torch.Tensor:
+    """Per element, the subsets the decode evaluates before it stops: up to
+    the first whose X every residue agrees with and |X| <= psi (the
+    largest vote), all S where none does. Exact integer arithmetic, apart
+    from the kernel and its plain version."""
+    r = res.to(torch.int64)
+    needed = torch.full(r.shape[1:], tables.n_subsets, dtype=torch.int64,
+                        device=r.device)
+    for s in reversed(range(tables.n_subsets)):
+        M_s = int(tables.subset_M[s])
+        acc = torch.zeros_like(needed)
+        for j in tables.subsets[s]:
+            acc = torch.remainder(acc + r[j] * int(tables.weights[s, j]), M_s)
+        X = torch.where(acc > int(tables.subset_psi[s]), acc - M_s, acc)
+        full = X.abs() <= tables.psi
+        for i, m in enumerate(tables.moduli):
+            full &= torch.remainder(X - r[i], m) == 0
+        needed = torch.where(full, s + 1, needed)
+    return needed
+
+
+def decode_timing_row(ops, ref, res, tables, shape):
+    """The decode's times on ``res`` beside its bound, which counts the
+    work these inputs need: each element's subsets up to its first largest
+    vote."""
+    n, E = res.shape[0], res[0].numel()
+    n_sub = int(subsets_needed(res, tables).sum())
+    t_b, by = bound_rate(4.0 * n * E + 8.0 * E,
+                         float(n_sub) * decode_ops_per_subset(n),
+                         F32_FLOPS_PER_S)
+    return {**shape, "E": E, "subsets_per_element": n_sub / E,
+            "ms": time_ms(lambda: ops.rrns_decode(res, tables)),
+            "plain_ms": time_ms(lambda: ref.rrns_decode_ref(res, tables),
+                                n=5),
+            "library_ms": None, "bound_ms": t_b, "bound_by": by}
 
 
 def phase_timing_rns(ops, ref, per_tick):
     """Kernels 4, 5 and 6 at the decode tick (M = 4) and the largest prefill
-    batch (M = 512) of every slice GEMM, over the RRNS moduli."""
+    batch (M = 512) of every slice GEMM, over the RRNS moduli, on encoded
+    BFP mantissas with 52 dB detector noise: the residues the decode meets
+    on the serving path."""
     from repro_torch.analog import rrns
 
     psi = (math.prod(RNS_BASE) - 1) // 2
@@ -889,7 +1171,7 @@ def phase_timing_rns(ops, ref, per_tick):
                 continue
             G = K // 16
             S, E = n * G, G * M * N
-            xr, wr = residue_operands(RRNS_ALL, M, K, N, seed=1)
+            xr, wr = encoded_residue_operands(RRNS_ALL, M, K, N, seed=1)
             gen = torch.Generator(device=DEV).manual_seed(2)
             noise = detector_noise(RRNS_ALL, (G, M, N), SNR_DB, gen)
             xf = xr.reshape(S, M, 16).float()
@@ -918,16 +1200,16 @@ def phase_timing_rns(ops, ref, per_tick):
                 "bound_ms": t_b, "bound_by": by})
             res = ops.rns_group_matmul_channel(xr, wr, RRNS_ALL, noise)
             del noise, xf, wf
-            t_b, by = bound_rate(
-                4.0 * n * E + 8.0 * E,
-                float(E) * decode_ops_per_element(n, tables.n_subsets),
-                F32_FLOPS_PER_S)
-            rows["rrns_decode"].append({
-                **shape, "E": E,
-                "ms": time_ms(lambda: ops.rrns_decode(res, tables)),
-                "plain_ms": time_ms(lambda: ref.rrns_decode_ref(res, tables),
-                                    n=5),
-                "library_ms": None, "bound_ms": t_b, "bound_by": by})
+            rows["rrns_decode"].append(decode_timing_row(
+                ops, ref, res, tables, {**shape, "inputs": "path"}))
+            if N == 151936:
+                # the inputs of the earlier timing: independent random
+                # residues per modulus, where every element runs all subsets
+                res = random_residues(RRNS_ALL, (G, M, N), torch.Generator(
+                    device=DEV).manual_seed(3)).reshape(n, G, M, N)
+                rows["rrns_decode"].append(decode_timing_row(
+                    ops, ref, res, tables,
+                    {**shape, "inputs": "random residue tuples"}))
             del res
     for name, shapes in rows.items():
         for row in shapes:
@@ -963,6 +1245,7 @@ def main() -> int:
     policy = get_policy("mirage")
     err_bfp = phase_bfp(ops, ref, policy)
     err_gemm = phase_gemm(ops, ref, policy)
+    phase_gemm_options(ops, ref)
     err_flash = phase_flash(ops, ref)
     err_rns = phase_rns_matmul(ops, ref)
     err_channel = phase_rns_channel(ops, ref)
@@ -977,6 +1260,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows = phase_timing(ops, ref, policy, GEMM_PER_STEP)
     rows.update(phase_timing_rns(ops, ref, GEMM_PER_STEP))
+    emit({"phase": "timer", "spin_cycles": SPIN_CYCLES,
+          "calls_whose_enqueue_outlasted_the_spin": len(TIMER_OVERRUNS),
+          "examples": TIMER_OVERRUNS[:10]})
 
     def entry(kernel, source, replaces, err, main_row, path=None):
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -991,7 +1277,8 @@ def main() -> int:
     def head_row(kernel):
         """A GEMM kernel's headline shape: the tied head at decode, its
         largest launch."""
-        return max((r for r in rows[kernel] if r["M"] == SLOTS),
+        return max((r for r in rows[kernel] if r["M"] == SLOTS and
+                    r.get("inputs", "path") == "path"),
                    key=lambda r: r["N"])
 
     head = head_row("mirage_gemm")

@@ -2,8 +2,9 @@
 //
 // Replaces the TPU kernel's block quantizer: src/repro/kernels/bfp_quantize.py
 // `_quantize_block` (:34), `_floor_log2` (:28) and `_exp2_int` (:21). The
-// fused GEMM (mirage_gemm.cu) calls it as its prologue on tiles in shared
-// memory; bfp_quantize.cu calls it on rows in device memory.
+// fused GEMM (mirage_gemm.cu) quantizes groups held in registers with
+// bfp_grid + bfp_quantize_value; bfp_quantize.cu calls bfp_quantize_group
+// on rows in device memory.
 //
 // Semantics are those of src/repro/core/bfp.py (the oracle of the plain
 // version): the group exponent is floor(log2 max|x|) read from the f32
@@ -34,6 +35,35 @@ __device__ __forceinline__ int bfp_floor_log2(float m) {
   return ((__float_as_int(m) >> 23) & 0xFF) - 127;
 }
 
+// The grid of one group from its max |x|: the scale 2^(E - b_m + 1), its
+// reciprocal and the mantissa bound 2^b_m - 1.
+struct BfpGrid {
+  float scale, inv, qmax;
+};
+
+__device__ __forceinline__ BfpGrid bfp_grid(float maxabs, int b_m) {
+  const int e = maxabs > 0.0f ? bfp_floor_log2(fmaxf(maxabs, FLT_MIN)) : 0;
+  const int s = max(-126, min(127, e - (b_m - 1)));
+  BfpGrid grid;
+  grid.scale = __int_as_float((s + 127) << 23);
+  // 1 / 2^s, exact: 2^-s is normal for s < 127 and the subnormal 2^-127
+  // (bit 22 alone) for s = 127, the correctly rounded 1.0f / scale
+  grid.inv = s < 127 ? __int_as_float((127 - s) << 23)
+                     : __int_as_float(1 << 22);
+  grid.qmax = static_cast<float>((1 << b_m) - 1);
+  return grid;
+}
+
+// One element of a group onto the group's grid.
+__device__ __forceinline__ float bfp_quantize_value(float x,
+                                                    const BfpGrid& grid,
+                                                    bool truncate) {
+  const float v = x * grid.inv;
+  float q = truncate ? truncf(v) : rintf(v);
+  q = fminf(fmaxf(q, -grid.qmax), grid.qmax);
+  return q * grid.scale;
+}
+
 // Fake-quantize n floats src[0], src[stride], ... into dst (same stride;
 // dst may alias src). Elements past n are the zero padding of the group,
 // which never raises its max, so callers pass only the real ones.
@@ -43,14 +73,7 @@ __device__ __forceinline__ void bfp_quantize_group(const float* src,
                                                    bool truncate) {
   float maxabs = 0.0f;
   for (int i = 0; i < n; ++i) maxabs = fmaxf(maxabs, fabsf(src[i * stride]));
-  const int e = maxabs > 0.0f ? bfp_floor_log2(fmaxf(maxabs, FLT_MIN)) : 0;
-  const float scale = bfp_exp2i(e - (b_m - 1));
-  const float inv = 1.0f / scale;
-  const float qmax = static_cast<float>((1 << b_m) - 1);
-  for (int i = 0; i < n; ++i) {
-    const float v = src[i * stride] * inv;
-    float q = truncate ? truncf(v) : rintf(v);
-    q = fminf(fmaxf(q, -qmax), qmax);
-    dst[i * stride] = q * scale;
-  }
+  const BfpGrid grid = bfp_grid(maxabs, b_m);
+  for (int i = 0; i < n; ++i)
+    dst[i * stride] = bfp_quantize_value(src[i * stride], grid, truncate);
 }

@@ -11,15 +11,17 @@
 #include <c10/cuda/CUDAGuard.h>
 #include <torch/extension.h>
 
+#include <cstring>
 #include <vector>
 
 #include "rns.cuh"
 
 void launch_bfp_fake_quant(const float* x, float* out, int rows, int K, int g,
                            int b_m, bool truncate, cudaStream_t stream);
-void launch_mirage_gemm(const float* x, const float* w, float* out, int M,
-                        int N, int K, bool w_nk, int g, int b_m,
-                        bool truncate, cudaStream_t stream);
+void launch_mirage_gemm(const float* x, const float* w, float* out,
+                        float* ws, int M, int N, int K, bool w_nk, int g,
+                        int b_m, bool truncate, bool mma, int threads,
+                        int splits, int k_split, cudaStream_t stream);
 void launch_flash_attention(const float* q, const float* k, const float* v,
                             float* o, int B, int Lq, int S, int H, int Kv,
                             int D, bool causal, int window, float sm_scale,
@@ -32,7 +34,7 @@ void launch_rns_matmul_channel(const int* x, const int* w, const float* noise,
                                int g, const RnsModuli& mods,
                                cudaStream_t stream);
 void launch_rrns_decode(const int* res, int* decoded, float* votes,
-                        long long E, const float* tables,
+                        long long E, const RrnsTables& tables,
                         cudaStream_t stream);
 
 namespace {
@@ -64,12 +66,16 @@ void bfp_fake_quant(const torch::Tensor& x, torch::Tensor& out, int64_t g,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// `mma`, `threads`, `splits` and `k_split` are the wrapper's plan
+// (repro_torch/kernels/ops.py `gemm_plan`); ws holds the split-K partials.
 void mirage_gemm(const torch::Tensor& x, const torch::Tensor& w,
-                 torch::Tensor& out, bool w_nk, int64_t g, int64_t b_m,
-                 bool truncate) {
+                 torch::Tensor& out, torch::Tensor& ws, bool w_nk, int64_t g,
+                 int64_t b_m, bool truncate, bool mma, int64_t threads,
+                 int64_t splits, int64_t k_split) {
   check_operand(x, "x");
   check_operand(w, "w");
   check_operand(out, "out");
+  check_operand(ws, "ws");
   TORCH_CHECK(x.dim() == 2 && w.dim() == 2 && out.dim() == 2,
               "x, w and out must be matrices");
   const int64_t M = x.size(0), K = x.size(1);
@@ -78,11 +84,27 @@ void mirage_gemm(const torch::Tensor& x, const torch::Tensor& w,
               "w does not match x along K");
   TORCH_CHECK(out.size(0) == M && out.size(1) == N, "out must be (M, N)");
   check_bfp(g, b_m);
+  TORCH_CHECK(!mma || b_m <= 8, "the tensor-core route needs b_m <= 8");
+  TORCH_CHECK(mma ? threads == 256
+                  : threads == 32 || threads == 64 || threads == 128,
+              "the tensor-core route takes 256 threads, the decode route "
+              "32, 64 or 128; got ", threads);
+  TORCH_CHECK(k_split >= 64 && k_split % 64 == 0 && splits >= 1 &&
+                  splits * k_split >= K &&
+                  (splits == 1 || (splits - 1) * k_split < K),
+              "k_split must be a multiple of 64 and the splits must cover K");
+  TORCH_CHECK(mma || (M <= 4 ? 4 : M <= 8 ? 8 : 16) * k_split <= 16384,
+              "the decode route holds at most 16384 quantized x values");
+  TORCH_CHECK(splits == 1 || ws.numel() >= splits * M * N,
+              "ws must hold splits x M x N floats");
   const c10::cuda::CUDAGuard guard(x.device());
   launch_mirage_gemm(x.data_ptr<float>(), w.data_ptr<float>(),
-                     out.data_ptr<float>(), static_cast<int>(M),
-                     static_cast<int>(N), static_cast<int>(K), w_nk,
-                     static_cast<int>(g), static_cast<int>(b_m), truncate,
+                     out.data_ptr<float>(), ws.data_ptr<float>(),
+                     static_cast<int>(M), static_cast<int>(N),
+                     static_cast<int>(K), w_nk, static_cast<int>(g),
+                     static_cast<int>(b_m), truncate, mma,
+                     static_cast<int>(threads), static_cast<int>(splits),
+                     static_cast<int>(k_split),
                      at::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
@@ -182,25 +204,34 @@ void rns_matmul_channel(const torch::Tensor& x, const torch::Tensor& w,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// tables: kRrnsTableWords float32 on the host (ops.py packs them once per
+// moduli set); they reach the kernel by value, as its parameter.
 void rrns_decode(const torch::Tensor& res, const torch::Tensor& tables,
                  torch::Tensor& decoded, torch::Tensor& votes) {
   check_int_operand(res, "residues");
-  check_operand(tables, "tables");
   check_int_operand(decoded, "decoded");
   check_operand(votes, "votes");
+  TORCH_CHECK(tables.device().is_cpu() &&
+                  tables.scalar_type() == torch::kFloat32 &&
+                  tables.is_contiguous() &&
+                  tables.numel() == kRrnsTableWords,
+              "tables must be ", kRrnsTableWords,
+              " contiguous float32 words on the host");
   TORCH_CHECK(res.dim() == 2, "residues must be (n_total, E)");
   TORCH_CHECK(res.size(0) >= 1 && res.size(0) <= kRrnsMaxTotal, "at most ",
               kRrnsMaxTotal, " moduli");
-  TORCH_CHECK(tables.numel() == kRrnsTableWords, "tables must hold ",
-              kRrnsTableWords, " floats");
   const int64_t E = res.size(1);
   TORCH_CHECK(decoded.numel() == E && votes.numel() == E,
               "decoded and votes must hold E elements");
+  RrnsTables host;
+  std::memcpy(&host, tables.data_ptr<float>(), sizeof(RrnsTables));
+  TORCH_CHECK(static_cast<int64_t>(host.n_total) == res.size(0),
+              "the tables are for ", host.n_total, " moduli, the residues "
+              "have ", res.size(0), " rows");
   const c10::cuda::CUDAGuard guard(res.device());
   launch_rrns_decode(res.data_ptr<int>(), decoded.data_ptr<int>(),
                      votes.data_ptr<float>(), static_cast<long long>(E),
-                     tables.data_ptr<float>(),
-                     at::cuda::getCurrentCUDAStream());
+                     host, at::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 

@@ -17,7 +17,9 @@ constexpr int kRrnsMaxSubsets = 64;
 
 // The RRNS decode tables of src/repro/kernels/rrns_decode.py:88-96, all f32,
 // in this field order (repro_torch/kernels/ops.py `_rrns_table_words` packs
-// a float32 tensor of exactly kRrnsTableWords words in the same order):
+// a float32 tensor of exactly kRrnsTableWords words in the same order; the
+// decode kernel takes the struct by value, as a __grid_constant__
+// parameter):
 // per-subset CRT weights (0 for non-members), M_s, f32(1/M_s), psi_s and
 // psi_s + 1 - M_s; per-modulus m and f32(1/m); the vote lookup binom[e] =
 // C(n_required + e, n_required); the legal half-range psi; and the counts.

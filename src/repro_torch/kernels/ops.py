@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +28,14 @@ from repro_torch.kernels.build import extension
 LAUNCHES: Dict[str, int] = {"bfp_quantize": 0, "mirage_gemm": 0,
                             "flash_attention": 0, "rns_matmul": 0,
                             "rns_matmul_channel": 0, "rrns_decode": 0}
+
+#: the GEMM kernel's step along K, and the most quantized x values its
+#: decode route holds in shared memory (csrc/mirage_gemm.cu)
+GEMM_BK = 64
+GEMM_DECODE_X_VALUES = 16384
+GEMM_DECODE_BLOCKS_PER_SM = 4
+#: SMs of an H100 SXM (the plan takes the card's own count where it runs)
+H100_SMS = 132
 
 #: bounds of the tables the residue kernels take (csrc/rns.cuh)
 RNS_MAX_MODULI = 8
@@ -84,6 +92,63 @@ def bfp_fake_quant(x: torch.Tensor, policy: MiragePolicy) -> torch.Tensor:
     return out.reshape(x.shape)
 
 
+class GemmPlan(NamedTuple):
+    """How ``csrc/mirage_gemm.cu`` runs one GEMM: the route (``mma``: bf16
+    tensor cores, else the CUDA-core decode route), the decode route's
+    threads per block (a block covers ``threads // 4`` columns), and K cut
+    into ``splits`` ranges of ``k_split`` rows; ``blocks`` is the first
+    launch's grid size (a decode-route block walks several column tiles
+    where they outnumber GEMM_DECODE_BLOCKS_PER_SM blocks per SM)."""
+    mma: bool
+    threads: int
+    splits: int
+    k_split: int
+    blocks: int
+
+
+def gemm_plan(M: int, N: int, K: int, b_m: int,
+              sms: int = H100_SMS) -> GemmPlan:
+    """The split and block size the wrapper gives the GEMM kernel.
+
+    M > 16 with b_m <= 8 takes the tensor-core route (64 x 64 tiles); the
+    rest the decode route, whose blocks of 128, 64 or 32 threads cover 32,
+    16 or 8 columns over 64-row steps (the widest block that still leaves
+    two blocks per SM to split K over). K is then split until the grid
+    holds about two blocks per SM, into ranges of whole 64-row steps."""
+    units = max(1, -(-K // GEMM_BK))
+    target = 2 * sms
+    mma = M > 16 and b_m <= 8
+    if mma:
+        threads = 256
+        tiles = -(-N // 64) * -(-M // 64)
+        max_steps = units
+    else:
+        m_tiles = -(-M // 16)
+        threads = 32
+        for t in (128, 64):
+            if -(-N // (t // 4)) * m_tiles * units >= target:
+                threads = t
+                break
+        tiles = -(-N // (threads // 4)) * m_tiles
+        mt = 4 if M <= 4 else 8 if M <= 8 else 16
+        max_steps = GEMM_DECODE_X_VALUES // (mt * GEMM_BK)
+    splits = min(units, -(-target // tiles))
+    steps = min(-(-units // splits), max_steps)
+    splits = -(-units // steps)
+    blocks = tiles * splits
+    if not mma:
+        n_blocks = min(-(-N // (threads // 4)), max(
+            1, GEMM_DECODE_BLOCKS_PER_SM * sms // (splits * m_tiles)))
+        blocks = n_blocks * splits * m_tiles
+    return GemmPlan(mma, threads, splits, steps * GEMM_BK, blocks)
+
+
+@functools.lru_cache(maxsize=8)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (the plan's ``sms``)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def mirage_matmul_fused(x: torch.Tensor, w: torch.Tensor,
                         policy: MiragePolicy) -> torch.Tensor:
     """Fused BFP-quantize + GEMM: ``x (..., K) @ w (K, N)`` (paper dataflow
@@ -92,7 +157,10 @@ def mirage_matmul_fused(x: torch.Tensor, w: torch.Tensor,
     On the card ``w`` may be a contiguous ``(K, N)`` matrix or the transpose
     of a contiguous ``(N, K)`` one (the tied head passes ``emb.T``); the
     kernel reads either in place. ``compute_dtype`` does not change the
-    kernel: BFP(b_m <= 6) products are exact in f32 as in bf16.
+    kernel: BFP(b_m <= 8) values are exact in bf16 and every product of two
+    is exact in f32. Where :func:`gemm_plan` splits K, the partials go to a
+    workspace allocated here and a second launch of the same call adds them
+    in split order (one count in :data:`LAUNCHES`).
     """
     if _on_cpu(x, w):
         return ref.mirage_gemm_ref(x, w, policy.b_m, policy.g,
@@ -113,10 +181,15 @@ def mirage_matmul_fused(x: torch.Tensor, w: torch.Tensor,
     truncate = _truncate(policy.rounding)
     K, N = w.shape
     xf = x.reshape(-1, K)
-    out = torch.empty((xf.shape[0], N), dtype=torch.float32, device=x.device)
+    M = xf.shape[0]
+    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if out.numel():
-        extension().mirage_gemm(xf, wk, out, w_nk, policy.g, policy.b_m,
-                                 truncate)
+        plan = gemm_plan(M, N, K, policy.b_m, sm_count(x.device))
+        ws = out if plan.splits == 1 else torch.empty(
+            (plan.splits, M, N), dtype=torch.float32, device=x.device)
+        extension().mirage_gemm(xf, wk, out, ws, w_nk, policy.g, policy.b_m,
+                                 truncate, plan.mma, plan.threads,
+                                 plan.splits, plan.k_split)
         LAUNCHES["mirage_gemm"] += 1
     return out.reshape(x.shape[:-1] + (N,))
 
@@ -260,11 +333,18 @@ def _rrns_table_words(tables) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=16)
-def _device_tables(moduli: Tuple[int, ...], n_required: int, psi: int,
-                   device: torch.device) -> torch.Tensor:
+def _host_tables(moduli: Tuple[int, ...], n_required: int,
+                 psi: int) -> torch.Tensor:
+    """The packed tables of one moduli set, on the host: the kernel takes
+    them by value as its parameter. Checked once per set: the decode stops
+    at the first subset with the largest vote, which is right only while
+    the votes ``binom`` rise strictly with the consistency count."""
     from repro_torch.analog import rrns
-    words = _rrns_table_words(rrns.get_tables(moduli, n_required, psi))
-    return torch.from_numpy(words).to(device)
+    tables = rrns.get_tables(moduli, n_required, psi)
+    if any(a >= b for a, b in zip(tables.binom, tables.binom[1:])):
+        raise ValueError(f"the decode kernel's early stop needs strictly "
+                         f"increasing votes, got binom={tables.binom}")
+    return torch.from_numpy(_rrns_table_words(tables))
 
 
 def rrns_decode(residues: torch.Tensor, tables
@@ -297,8 +377,8 @@ def rrns_decode(residues: torch.Tensor, tables
     decoded = torch.empty(E, dtype=torch.int32, device=residues.device)
     votes = torch.empty(E, dtype=torch.float32, device=residues.device)
     if E:
-        dev_tables = _device_tables(tuple(tables.moduli), tables.n_required,
-                                    tables.psi, residues.device)
-        extension().rrns_decode(flat, dev_tables, decoded, votes)
+        words = _host_tables(tuple(tables.moduli), tables.n_required,
+                             tables.psi)
+        extension().rrns_decode(flat, words, decoded, votes)
         LAUNCHES["rrns_decode"] += 1
     return decoded.reshape(shape), votes.reshape(shape)

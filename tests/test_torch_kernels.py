@@ -108,6 +108,91 @@ def test_chunked_attention_matches_jax(causal):
 
 
 # --------------------------------------------------------------------------
+# the fused GEMM's design: BFP values exact in bf16, the split of K
+# --------------------------------------------------------------------------
+
+def _clamp_rows(g, seed):
+    """Groups whose scale clamps at 2^-126 (subnormal and tiny maxima),
+    groups at the top of the exponent field (maxima near 3.4e38, where
+    b_m = 1 reaches the 2^127 clamp), zero groups, and groups spread over
+    1e-30..1e30 with both signs."""
+    rng = np.random.default_rng(seed)
+    K = 8 * g
+    sign = rng.choice([-1.0, 1.0], size=(6, K))
+    rows = np.stack([
+        rng.uniform(1e38, 3.4e38, K),                       # top exponents
+        rng.uniform(1e-45, 1.17e-38, K),                    # subnormal max
+        rng.uniform(1e-38, 1e-37, K),                       # tiny normals
+        10.0 ** rng.uniform(-30, 30, K),
+        10.0 ** rng.uniform(-3, 3, K),
+        np.zeros(K)]) * sign
+    return torch.from_numpy(rows.astype(np.float32))
+
+
+@pytest.mark.parametrize("g", [8, 16, 32])
+@pytest.mark.parametrize("b_m", range(1, 9))
+def test_bfp_values_exact_in_bf16(b_m, g):
+    """The tensor-core route's premise: a BFP(b_m <= 8) value is an integer
+    of at most 8 bits times a power of two in [2^-126, 2^127], so bf16
+    holds it exactly, at both clamps of the scale."""
+    x = _clamp_rows(g, seed=b_m * 100 + g)
+    q = ref.bfp_fake_quant_ref(x, b_m, g)
+    assert torch.isfinite(q).all()
+    back = q.to(torch.bfloat16).to(torch.float32)
+    assert torch.equal(back.view(torch.int32), q.view(torch.int32))
+    # the subnormal-max groups sit on the 2^-126 grid (the lower clamp)
+    steps = q[1].double() / 2.0 ** -126
+    assert torch.equal(steps, steps.round()) and (steps != 0).any()
+    if b_m == 1:
+        assert (q[0].abs() == 2.0 ** 127).any()            # the upper clamp
+
+
+def test_bfp_reciprocal_scale_from_bits():
+    """bfp.cuh builds 1 / 2^s from the exponent field (2^-127 as the
+    subnormal bit 22) instead of dividing; it equals 1.0f / scale for every
+    s the clamp allows."""
+    for s in range(-126, 128):
+        scale = np.array([(s + 127) << 23], np.int32).view(np.float32)
+        bits = (127 - s) << 23 if s < 127 else 1 << 22
+        inv = np.array([bits], np.int32).view(np.float32)
+        assert (np.float32(1.0) / scale).view(np.int32)[0] == \
+            inv.view(np.int32)[0]
+
+
+@pytest.mark.parametrize("K,N", [(896, 896), (896, 128), (896, 4864),
+                                 (4864, 896), (896, 151936)])
+def test_gemm_plan_fills_the_card_at_decode(K, N):
+    """At the decode tick the wrapper splits K until every serving GEMM
+    launches at least one block per SM of an H100, in whole 64-row steps
+    that cover K once, within the shared memory of the quantized x."""
+    for M in (1, 2, 4, 8, 16):
+        p = ops.gemm_plan(M, N, K, b_m=4)
+        assert not p.mma and p.threads in (32, 64, 128)
+        n_tiles = -(-N // (p.threads // 4))
+        assert p.blocks == min(n_tiles, ops.GEMM_DECODE_BLOCKS_PER_SM *
+                               ops.H100_SMS // p.splits) * p.splits
+        assert p.blocks >= ops.H100_SMS
+        assert p.k_split % ops.GEMM_BK == 0
+        assert (p.splits - 1) * p.k_split < K <= p.splits * p.k_split
+        rows = 4 if M <= 4 else 8 if M <= 8 else 16
+        assert rows * p.k_split <= ops.GEMM_DECODE_X_VALUES
+
+
+def test_gemm_plan_routes():
+    """Tensor cores for prefill (M > 16) while b_m <= 8; beyond that the
+    CUDA-core route at any M, in 16-row tiles; K splits cover K once."""
+    for M, b_m, mma in ((17, 4, True), (512, 8, True), (512, 9, False),
+                        (16, 4, False), (4, 23, False)):
+        p = ops.gemm_plan(M, 4864, 896, b_m)
+        assert p.mma == mma
+        assert (p.splits - 1) * p.k_split < 896 <= p.splits * p.k_split
+    p = ops.gemm_plan(512, 896, 4864, b_m=12)
+    assert p.blocks % (32 * p.splits) == 0
+    assert 16 * p.k_split <= ops.GEMM_DECODE_X_VALUES
+    assert ops.gemm_plan(4, 151936, 896, 4).splits == 1
+
+
+# --------------------------------------------------------------------------
 # wrappers: CPU tensors take the plain versions and launch nothing
 # --------------------------------------------------------------------------
 
@@ -274,7 +359,8 @@ def test_cuda_bfp_kernel_bitexact(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(4, 896, 896), (37, 200, 70)])
+@pytest.mark.parametrize("shape", [(4, 896, 896), (37, 200, 70),
+                                   (4, 4864, 896), (512, 896, 4864)])
 def test_cuda_gemm_kernel_vs_plain(cuda, shape):
     m, k, n = shape
     x, w = _rand((m, k), 1), _rand((k, n), 2)
@@ -283,6 +369,29 @@ def test_cuda_gemm_kernel_vs_plain(cuda, shape):
                                   get_policy("mirage")).cpu().numpy()
     want = ref.mirage_gemm_ref(torch.from_numpy(x), torch.from_numpy(w))
     assert np.all(np.abs(got - want.numpy()) <= _gemm_tol(x, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,b_m,rounding", [(1, 4, "nearest"),
+                                            (8, 2, "truncate"),
+                                            (32, 8, "nearest"),
+                                            (64, 4, "truncate")])
+@pytest.mark.parametrize("shape", [(3, 198, 70), (40, 200, 72)])
+def test_cuda_gemm_kernel_group_sizes(cuda, shape, g, b_m, rounding):
+    """Groups inside a thread, across lanes and across registers, at both
+    routes, on ragged K and N (4-byte copies)."""
+    m, k, n = shape
+    x, w = _rand((m, k), 3), _rand((k, n), 4)
+    policy = get_policy("mirage", b_m=b_m, g=g, rounding=rounding, k=8)
+    got = ops.mirage_matmul_fused(torch.from_numpy(x).to(cuda),
+                                  torch.from_numpy(w).to(cuda),
+                                  policy).cpu().numpy()
+    want = ref.mirage_gemm_ref(torch.from_numpy(x), torch.from_numpy(w), b_m,
+                               g, rounding)
+    xq = ref.bfp_fake_quant_ref(torch.tensor(x), b_m, g, rounding)
+    wq = ref.bfp_fake_quant_ref(torch.tensor(w).T, b_m, g, rounding).T
+    tol = (1e-5 * (xq.abs().double() @ wq.abs().double()) + 1e-30).numpy()
+    assert np.all(np.abs(got - want.numpy()) <= tol)
 
 
 @pytest.mark.cuda

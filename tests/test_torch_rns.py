@@ -270,6 +270,102 @@ def test_rrns_decode_votes_and_tables_match_jax():
     assert set(np.unique(votes.numpy())) <= {-1.0, 1.0, 4.0, 10.0}
 
 
+@pytest.mark.parametrize("k", [5, 6])
+def test_rrns_votes_rise_strictly(k):
+    """The decode kernel stops at the first subset with the largest vote;
+    that keeps the first strict maximum only while binom rises strictly.
+    k = 5 is the paper point (31, 32, 33, 37, 41) that chip_smoke.py and the
+    tests above build; k = 6 the set of the int32 fallback."""
+    allm, psi = _rrns_setup(k)
+    t = rrns.build_tables(allm, 3, psi)
+    assert all(a < b for a, b in zip(t.binom, t.binom[1:]))
+    words = ops._host_tables(allm, 3, psi)
+    assert words.device.type == "cpu" and words.numel() == 797
+    n_total, n_required = len(allm), 3
+    assert float(words[512 + 256 + 16 + n_total - n_required]) == \
+        t.binom[-1] == t.n_subsets
+
+
+def _kernel_decode(res, tables):
+    """numpy f32 emulation of csrc/rrns_decode.cu on the table words the
+    kernel receives (rns.cuh field order): per element the subsets in order
+    until the first one with the largest vote, each f32 operation rounded
+    once as the kernel's __*_rn intrinsics. Returns (decoded, votes,
+    subsets evaluated per element)."""
+    w = ops._rrns_table_words(tables)
+    weight = w[:512].reshape(64, 8)
+    sub_M, sub_inv, sub_psi, sub_lo = w[512:768].reshape(4, 64)
+    mod, inv_mod = w[768:784].reshape(2, 8)
+    binom, (psi, n_total, n_required, n_subsets) = w[784:793], w[793:797]
+    n_total, n_required = int(n_total), int(n_required)
+    r = res.astype(np.float32)
+    E = r.shape[1]
+    v_max = binom[n_total - n_required]
+    best_v = np.full(E, -2.0, np.float32)
+    best_x = np.zeros(E, np.float32)
+    evaluated = np.zeros(E, np.int64)
+    for s in range(int(n_subsets)):
+        live = best_v < v_max
+        if not live.any():
+            break
+        evaluated += live
+        acc = r[0] * weight[s, 0]
+        for i in range(1, n_total):
+            acc = acc + r[i] * weight[s, i]
+        q = np.floor(acc * sub_inv[s] + np.float32(0.5))
+        X = acc - q * sub_M[s]
+        X = np.where(X > sub_psi[s], X - sub_M[s], X)
+        X = np.where(X < sub_lo[s], X + sub_M[s], X)
+        cons = np.zeros(E, np.int64)
+        for i in range(n_total):
+            d = X - r[i]
+            cons += (d - np.rint(d * inv_mod[i]) * mod[i]) == 0
+        v = binom[np.maximum(cons - n_required, 0)]
+        v = np.where(np.abs(X) <= psi, v, np.float32(-1.0))
+        better = live & (v > best_v)
+        best_v = np.where(better, v, best_v)
+        best_x = np.where(better, X, best_x)
+    dec = np.where(best_v >= 0, best_x, 0).astype(np.int32)
+    return dec, best_v, evaluated
+
+
+def _subset0_faults(allm, psi, seed, size=300):
+    """Legal values with one or two errors on subset 0's moduli at random
+    elements, so no faulty element stops before the last subset."""
+    rng = np.random.default_rng(seed)
+    xs = rng.integers(-psi, psi + 1, size=size)
+    res = np.stack([np.mod(xs, m) for m in allm]).astype(np.int64)
+    n_err = rng.integers(0, 3, size=size)
+    for j in range(size):
+        for i in rng.choice(3, size=n_err[j], replace=False):
+            res[i, j] = (res[i, j] + rng.integers(1, allm[i])) % allm[i]
+    return res.astype(np.int32), n_err
+
+
+@pytest.mark.parametrize("case", ["corrupt-3", "corrupt-4", "corrupt-5",
+                                  "subset0-6", "subset0-7"])
+def test_rrns_decode_early_stop_emulation_matches_plain(case):
+    """The kernel's loop with its early stop equals decode_votes (its plain
+    version) bit for bit in values and votes, with 0, 1 and 2 injected
+    errors; error-free elements evaluate subset 0 alone, and elements with
+    an error run every subset."""
+    allm, psi = _rrns_setup(5)
+    tables = rrns.get_tables(allm, 3, psi)
+    kind, seed = case.split("-")
+    if kind == "corrupt":
+        res = _corrupt(allm, psi, seed=int(seed))
+        n_err = np.concatenate([np.arange(120) % 3, np.full(60, -1)])
+    else:
+        res, n_err = _subset0_faults(allm, psi, seed=int(seed))
+    dec, votes, evaluated = _kernel_decode(res, tables)
+    want_dec, want_votes = ref.rrns_decode_ref(_t(res), tables)
+    np.testing.assert_array_equal(dec, want_dec.numpy())
+    np.testing.assert_array_equal(votes.view(np.int32),
+                                  want_votes.numpy().view(np.int32))
+    assert (evaluated[n_err == 0] == 1).all()
+    assert (evaluated[n_err > 0] == tables.n_subsets).all()
+
+
 # --------------------------------------------------------------------------
 # analog channel stages, with replayed draws, and their health counters
 # --------------------------------------------------------------------------
@@ -578,10 +674,19 @@ def test_cuda_rns_matmul_channel_kernel_vs_plain(cuda, adc_bits):
 
 
 @pytest.mark.cuda
-def test_cuda_rrns_decode_kernel_vs_plain(cuda):
+@pytest.mark.parametrize("case", ["corrupt-3000", "corrupt-3001",
+                                  "subset0-4001"])
+def test_cuda_rrns_decode_kernel_vs_plain(cuda, case):
+    """0/1/2 errors (an odd count takes the scalar loads), and errors on
+    subset 0's moduli mixed with clean elements in every warp."""
     allm, psi = _rrns_setup(5)
     tables = rrns.get_tables(allm, 3, psi)
-    res = _t(_corrupt(allm, psi, seed=9, size=3000)).to(cuda)
+    kind, size = case.split("-")
+    if kind == "corrupt":
+        res = _corrupt(allm, psi, seed=9, size=int(size))
+    else:
+        res, _ = _subset0_faults(allm, psi, seed=9, size=int(size))
+    res = _t(res).to(cuda)
     dec, votes = ops.rrns_decode(res, tables)
     want_dec, want_votes = ref.rrns_decode_ref(res, tables)
     assert torch.equal(dec, want_dec)
