@@ -3,9 +3,11 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``src/repro_torch/kernels/csrc``, holds
-each against its plain PyTorch version on the card (the fused GEMM at every
+each against its plain PyTorch version on the card (the BFP quantizer bit
+for bit on both of its routes; the fused GEMM at every
 split of K its wrapper picks for a serving shape, in both weight layouts,
-and bitwise equal across two launches; the RRNS decode bit for bit, also
+and bitwise equal across two launches; flash attention at the path's
+prefill shapes and its edge cases; the RRNS decode bit for bit, also
 where every element runs all subsets), serves full-width
 qwen2-0.5b (random weights from a seed) through the port's ``LMServer`` on
 each ported path — ``mirage_fast`` (the BFP GEMM kernel), ``mirage_rrns`` at
@@ -14,7 +16,8 @@ RRNS decode), its clean-channel twin and ``mirage_rns`` (the residue GEMM)
 — checks that each path launched exactly the expected kernels (and that
 the RRNS path's health counters are the reference run's integers), and
 times every kernel at the shapes the serving paths give it, with only the
-device's work inside the timing window. Each phase prints one
+device's work inside the timing window (flash beside the fastest
+scaled_dot_product_attention backend that takes the call). Each phase prints one
 JSON line; any failed check exits non-zero. The last line is the device
 record. Without CUDA, or without the repository's ``src`` beside it, the
 script exits non-zero and prints no result.
@@ -55,9 +58,22 @@ GEMM_BOTH_LAYOUTS = ((4, 4864, 896), (512, 896, 4864), (4, 896, 151936))
 # layer x 24, plus the tied head 896->151936 once
 GEMM_PER_STEP = {(896, 896): 48, (896, 128): 48, (896, 4864): 48,
                  (4864, 896): 24, (896, 151936): 1}
-# (B, L, H, Kv, D, window): the prefill attention shapes
+TF32_FLOPS_PER_S = 494.7e12   # H100 SXM TF32 tensor cores, dense
+# (B, L, H, Kv, D, window): the checked attention shapes: the path's prefill
+# shapes (batches of 1, 2 and 4 prompts in the 32, 64 and 128 buckets),
+# L = 1, a partial 16-row warp tile (L = 17), no GQA (Kv = H), windows at
+# and inside a 32-key tile, and longer rows
 FLASH_CASES = ((4, 128, 14, 2, 64, None), (4, 512, 14, 2, 64, None),
-               (4, 77, 14, 2, 64, None), (4, 128, 14, 2, 64, 32))
+               (4, 77, 14, 2, 64, None), (4, 128, 14, 2, 64, 32),
+               (1, 32, 14, 2, 64, None), (2, 64, 14, 2, 64, None),
+               (4, 64, 14, 2, 64, None), (2, 1, 14, 2, 64, None),
+               (2, 17, 14, 2, 64, None), (2, 77, 14, 14, 64, None),
+               (4, 128, 14, 2, 64, 40), (1, 300, 8, 2, 64, 45))
+# the timed attention shapes (the first is the headline row)
+FLASH_TIMED = ((4, 128, 14, 2, 64, None), (1, 32, 14, 2, 64, None),
+               (2, 64, 14, 2, 64, None), (4, 64, 14, 2, 64, None),
+               (4, 77, 14, 2, 64, None), (4, 512, 14, 2, 64, None),
+               (4, 128, 14, 2, 64, 32))
 
 # the RNS paths: base moduli (k = 5), base + the two redundant RRNS moduli,
 # and a k = 8 set for the residue kernel's range; M = 4 is a decode tick,
@@ -69,18 +85,24 @@ SNR_DB, NOISE_SEED = 52.0, 7
 INT_OPS_PER_S = F32_FLOPS_PER_S   # int32 on the CUDA cores: the f32 rate
 RNS_TOKENS, RNS_REQUESTS = 8, 4   # the shorter mirage_rns drain
 CAP = PROMPT_LENS[1] + MAX_TOKENS + 4   # the engine's cache length
-# the health counters of slice_rrns at 52 dB and noise seed 7 (chip run C of
-# the RRNS slice's bring-up): the noise is a function of the seed and the
-# decode is bit-exact, so a run must give these integers
+# the health counters of slice_rrns at 52 dB and noise seed 7: a run must
+# give these integers. The detector flips are counted from the noise draw,
+# a function of the seed. rrns_corrected counts the elements whose residues
+# moved, bit-exact given the residues; but at two elements of modulus 41 the
+# f32 sum res + n is exactly a half-integer and rounds half to even, so
+# whether they move follows the residue's parity, and with it the f32
+# rounding of every kernel upstream (`--audit-rrns-health` lists them):
+# 32095 with the CUDA-core flash kernel that preceded the tensor-core one,
+# 32094 with it
 RRNS_HEALTH = {"detector_flips": [1, 14, 45, 1864, 30172],
-               "rrns_corrected": 32095, "rrns_uncorrected": 0}
+               "rrns_corrected": 32094, "rrns_uncorrected": 0}
 
 
 # symbols of the port's kernels in a profiler trace
 PORT_KERNEL_SYMBOLS = ("gemm_decode_kernel", "gemm_mma_kernel",
                        "splitk_reduce_kernel", "flash_fwd_kernel",
                        "rns_matmul_kernel", "rrns_decode_kernel",
-                       "bfp_fake_quant_kernel")
+                       "bfp_fake_quant_kernel", "bfp_fake_quant_vec_kernel")
 
 
 class CheckFailed(RuntimeError):
@@ -200,10 +222,45 @@ def bfp_inputs(rows: int, k: int, seed: int) -> torch.Tensor:
     return torch.from_numpy(x).to(DEV)
 
 
-def phase_bfp(ops, ref, policy):
+def bfp_cases():
+    """(rows, K, g, rounding, misaligned, route) of the checked quantizer
+    runs: the headline matrix, the vector route at every power-of-two g up
+    to 128, with a partial last group and with idle lanes (g = 12), and the
+    scalar route at g = 256, at K % 4 != 0 and on a view 4 bytes off a
+    16-byte boundary; truncation on both routes."""
+    cases = [(4096, 4864, 16, "nearest", False, "vector"),
+             (8, 896, 16, "nearest", False, "vector")]
+    cases += [(64, 4864, g, "nearest", False, "vector")
+              for g in (4, 8, 32, 64, 128)]
+    cases += [(64, 900, 16, "nearest", False, "vector"),
+              (64, 900, 12, "nearest", False, "vector"),
+              (64, 4864, 16, "truncate", False, "vector"),
+              (64, 4864, 256, "nearest", False, "scalar"),
+              (64, 898, 16, "nearest", False, "scalar"),
+              (64, 4864, 16, "nearest", True, "scalar"),
+              (64, 898, 16, "truncate", False, "scalar")]
+    return cases
+
+
+def bfp_operand(rows: int, k: int, seed: int, misaligned: bool):
+    """bfp_inputs, or the same values in a view one float past a 16-byte
+    boundary (contiguous, so the wrapper takes it, but not float4-aligned)."""
+    x = bfp_inputs(rows, k, seed)
+    if not misaligned:
+        return x
+    buf = torch.empty(rows * k + 1, device=DEV)
+    view = buf[1:].view(rows, k)
+    view.copy_(x)
+    return view
+
+
+def phase_bfp(ops, ref):
     worst = 0
-    for shape, seed in (((4096, 4864), 1), ((8, 896), 2)):
-        x = bfp_inputs(*shape, seed)
+    for i, (rows, k, g, rounding, misaligned, route) in enumerate(
+            bfp_cases()):
+        policy = options_policy(4, g, rounding)
+        x = bfp_operand(rows, k, i + 1, misaligned)
+        planned = ops.bfp_quant_plan(k, g, x.data_ptr() % 16 == 0)
         got = ops.bfp_fake_quant(x, policy)
         want = ref.bfp_fake_quant_ref(x, policy.b_m, policy.g,
                                       policy.rounding)
@@ -211,11 +268,16 @@ def phase_bfp(ops, ref, policy):
         mismatches = int((got.view(torch.int32) !=
                           want.view(torch.int32)).sum())
         n_sub = int(((x != 0) & (x.abs() < 1.1754944e-38)).sum())
-        emit({"phase": "bfp_bitexact", "shape": list(shape),
-              "mismatching_bits_elements": mismatches,
-              "subnormal_inputs": n_sub, "ok": mismatches == 0})
+        ok = mismatches == 0 and planned == route
+        emit({"phase": "bfp_bitexact", "shape": [rows, k], "g": g,
+              "rounding": rounding, "misaligned_view": misaligned,
+              "route": planned, "mismatching_bits_elements": mismatches,
+              "subnormal_inputs": n_sub, "ok": ok})
+        check(planned == route, f"bfp_quant_plan picked the {planned} route "
+                                f"for ({rows}, {k}) g={g}, expected {route}")
         check(mismatches == 0, f"BFP kernel differs from the plain version "
-                               f"in {mismatches} elements at {shape}")
+                               f"in {mismatches} elements at ({rows}, {k}) "
+                               f"g={g} {rounding} ({route} route)")
         worst = max(worst, float((got - want).abs().max()))
     return worst
 
@@ -987,6 +1049,97 @@ def phase_slice_rrns(ops, model, cap):
     return launches, c_launches
 
 
+class ReadoutAudit:
+    """Wraps the RRNS path's on-card readout (``mirage_rrns
+    ._readout_on_card``) to hold each noisy readout's residues against the
+    clean residue GEMM's and against the flip counter's rule, round(n) % m
+    != 0. Where the f32 sum res + n is exactly a half-integer the kernel
+    rounds half to even, so whether the residue moves depends on its
+    parity: such ties are listed."""
+
+    def __init__(self, ops):
+        from repro_torch.core.backends import mirage_rrns
+        self.ops, self.module = ops, mirage_rrns
+        self.sums, self.elements_moved, self.ties = {}, 0, []
+
+    def __enter__(self):
+        self.inner = inner = self.module._readout_on_card
+
+        def audited(xr, wr, moduli, cfg, draws):
+            drawn, normal = {}, draws.normal
+
+            def keep(stage, shape):
+                drawn[stage] = normal(stage, shape)
+                return drawn[stage]
+            draws.normal = keep
+            try:
+                out = inner(xr, wr, moduli, cfg, draws)
+            finally:
+                draws.normal = normal
+            if "detector" in drawn:
+                self.add(xr, wr, moduli, cfg, drawn["detector"], out)
+            return out
+
+        self.module._readout_on_card = audited
+        return self
+
+    def add(self, xr, wr, moduli, cfg, unit_noise, out):
+        clean = self.ops.rns_group_matmul(xr, wr, moduli)
+        self.ops.LAUNCHES["rns_matmul"] -= 1       # not the path's launch
+        shape = (-1, 1, 1, 1)
+        noise = unit_noise * torch.tensor(cfg.detector_sigmas(moduli),
+                                          device=DEV).reshape(shape)
+        mods = torch.tensor(moduli, dtype=torch.float32,
+                            device=DEV).reshape(shape)
+        counted = torch.remainder(torch.round(noise), mods) != 0
+        moved = out != clean
+        for key, mask in (("counted", counted), ("moved", moved)):
+            n = mask.sum(dim=(1, 2, 3)).tolist()
+            self.sums[key] = [a + b for a, b in zip(
+                self.sums.get(key, [0] * len(n)), n)]
+        self.elements_moved += int((moved.sum(0) > 0).sum())
+        for i in (counted != moved).nonzero()[:8].tolist():
+            i = tuple(i)
+            self.ties.append({"modulus": moduli[i[0]],
+                              "residue": int(clean[i]),
+                              "noise": float(noise[i]),
+                              "residue_plus_noise": float(clean[i] + noise[i]),
+                              "out": int(out[i])})
+
+    def __exit__(self, *exc):
+        self.module._readout_on_card = self.inner
+
+
+def audit_rrns_health(ops):
+    """``--audit-rrns-health``: the slice_rrns drain alone (same model,
+    requests, warm-up and noise seed), each noisy readout audited; prints
+    the health counters beside the audit. RRNS_HEALTH's rrns_corrected
+    counts the elements whose residues moved, so it follows the residues'
+    parity at the ties, hence every upstream kernel's f32 rounding."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import get_policy
+    from repro_torch.models import build_model
+    from repro_torch.runtime.server import LMServer, Request
+
+    cfg = get_config("qwen2-0.5b")
+    model = build_model(cfg, get_policy("mirage"), device=DEV,
+                        generator=torch.Generator(device=DEV).manual_seed(0))
+    model.policy = get_policy("mirage_rrns", snr_db=SNR_DB,
+                              noise_seed=NOISE_SEED)
+    warm = LMServer(model, cap=CAP, batch_slots=SLOTS)
+    for r in make_requests(Request, cfg.vocab_size)[:2]:
+        warm.submit(r)
+    warm.run_until_drained()
+    del warm
+    with ReadoutAudit(ops) as audit:
+        server = serve_run(ops, model, CAP, make_requests(
+            Request, cfg.vocab_size), LMServer)[0]
+    emit({"phase": "rrns_health_audit", "health": server.health_snapshot(),
+          "reference": RRNS_HEALTH, "residues": audit.sums,
+          "elements_moved": audit.elements_moved, "ties": audit.ties})
+    return 0
+
+
 def phase_slice_rns(ops, model, cap):
     """A shorter mirage_rns drain: the residue kernel on every GEMM."""
     from repro_torch.core.precision import get_policy
@@ -1074,32 +1227,42 @@ def phase_timing(ops, ref, policy, per_tick):
                     x, w, policy.b_m, policy.g)),
                 "library_ms": time_ms(lambda: torch.matmul(xq, wq)),
                 "bound_ms": t_b, "bound_by": by})
-    for i, (B, L, H, Kv, D, window) in enumerate(FLASH_CASES):
+    for i, (B, L, H, Kv, D, window) in enumerate(FLASH_TIMED):
         q, k, v = flash_operands(B, L, H, Kv, D, seed=7 + i)
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         pos = torch.arange(L, device=DEV)
         allowed = pos[:, None] >= pos[None, :]
         if window is not None:
             allowed &= pos[:, None] - pos[None, :] < window
         pairs = int(allowed.sum())          # (q, k) pairs this data needs
-        t_b, by = bound(4.0 * (2 * B * L * H * D + 2 * B * L * Kv * D),
-                        4.0 * B * H * pairs * D)
-        sdpa = torch.nn.functional.scaled_dot_product_attention
+        moved = 4.0 * (2 * B * L * H * D + 2 * B * L * Kv * D)
+        flops = 4.0 * B * H * pairs * D     # Q K^T and P V
+        # the route's unit rate: 3 TF32 products per product (3xTF32)
+        t_b, by = bound_rate(moved, 3 * flops, TF32_FLOPS_PER_S)
+        t_f32, by_f32 = bound(moved, flops)
+        lib = sdpa_yardstick(ref, q, k, v, window, allowed)
         rows["flash_attention"].append({
             "B": B, "L": L, "H": H, "Kv": Kv, "D": D, "window": window,
             "launches_per_prefill_batch": 24, "launches_per_decode_tick": 0,
             "ms": time_ms(lambda: ops.flash_attention(q, k, v, True, window)),
             "plain_ms": time_ms(lambda: ref.flash_attention_ref(
                 q, k, v, True, window)),
-            "library_ms": time_ms(lambda: sdpa(
-                qt, kt, vt, attn_mask=allowed, enable_gqa=True)),
-            "bound_ms": t_b, "bound_by": by})
-    for rows_k, k_dim in ((4096, 4864), (8, 896)):
-        x = bfp_inputs(rows_k, k_dim, seed=3)
+            "library_ms": lib["ms"], "library": lib["name"],
+            "sdpa_ms_by_backend": lib["by_backend"],
+            "sdpa_repeated_kv_ms_by_backend": lib["repeated_kv_by_backend"],
+            "sdpa_max_abs_err": lib["max_abs_err"],
+            "bound_ms": t_b, "bound_by": by,
+            "bound_unit": "TF32 tensor cores, 3 products (3xTF32)",
+            "bound_f32_ms": t_f32, "bound_f32_by": by_f32})
+    for rows_k, k_dim, misaligned in ((4096, 4864, False), (8, 896, False),
+                                      (4096, 4864, True)):
+        x = bfp_operand(rows_k, k_dim, 3, misaligned)
         t_b, by = bound(8.0 * rows_k * k_dim, 0.0)
         rows["bfp_quantize"].append({
             # on the serving path the quantizer runs inside mirage_gemm
             "rows": rows_k, "K": k_dim, "launches_per_step": 0,
+            "route": ops.bfp_quant_plan(k_dim, policy.g,
+                                        x.data_ptr() % 16 == 0),
+            "misaligned_view": misaligned,
             "ms": time_ms(lambda: ops.bfp_fake_quant(x, policy)),
             "plain_ms": time_ms(lambda: ref.bfp_fake_quant_ref(
                 x, policy.b_m, policy.g)),
@@ -1108,6 +1271,59 @@ def phase_timing(ops, ref, policy, per_tick):
         for row in shapes:
             emit({"phase": "timing", "kernel": name, **row})
     return rows
+
+
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION",
+                 "CUDNN_ATTENTION", "MATH")
+
+
+def sdpa_backends(fn):
+    """Each scaled_dot_product_attention backend's time for ``fn`` (None
+    where the backend refuses the call), and its output."""
+    import warnings
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    times, outs = {}, {}
+    for name in SDPA_BACKENDS:
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+
+        def call(backend=backend):
+            with sdpa_kernel(backend):
+                return fn()
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                outs[name] = call()
+                torch.cuda.synchronize()
+                times[name] = time_ms(call)
+        except RuntimeError:
+            times[name] = None
+    return times, outs
+
+
+def sdpa_yardstick(ref, q, k, v, window, allowed):
+    """PyTorch's scaled_dot_product_attention on the same f32 inputs, as
+    (B, heads, L, D) copies with enable_gqa: is_causal where there is no
+    window (no mask tensor), the boolean mask otherwise. The fastest backend
+    that accepts the call is the yardstick. Beside it, not the yardstick:
+    each backend on K/V repeated to every query head beforehand (another
+    call, reading rep x the K/V bytes)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    kw = {"is_causal": True} if window is None else {"attn_mask": allowed}
+    by_backend, outs = sdpa_backends(
+        lambda: sdpa(qt, kt, vt, enable_gqa=True, **kw))
+    ms, name = min((t, n) for n, t in by_backend.items() if t is not None)
+    want = ref.flash_attention_ref(q, k, v, True, window)
+    rep = q.shape[2] // k.shape[2]
+    kr, vr = (t.repeat_interleave(rep, dim=1) for t in (kt, vt))
+    repeated, _ = sdpa_backends(lambda: sdpa(qt, kr, vr, **kw))
+    return {"ms": ms, "name": f"sdpa {name.lower()}", "by_backend":
+            by_backend, "repeated_kv_by_backend": repeated,
+            "max_abs_err": float((outs[name].transpose(1, 2) - want)
+                                 .abs().max())}
 
 
 def decode_ops_per_subset(n_total: int) -> int:
@@ -1242,8 +1458,10 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "build_dir": str(build.BUILD_DIR)})
 
+    if sys.argv[1:] == ["--audit-rrns-health"]:
+        return audit_rrns_health(ops)
     policy = get_policy("mirage")
-    err_bfp = phase_bfp(ops, ref, policy)
+    err_bfp = phase_bfp(ops, ref)
     err_gemm = phase_gemm(ops, ref, policy)
     phase_gemm_options(ops, ref)
     err_flash = phase_flash(ops, ref)

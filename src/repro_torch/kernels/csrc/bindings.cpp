@@ -11,13 +11,15 @@
 #include <c10/cuda/CUDAGuard.h>
 #include <torch/extension.h>
 
+#include <cstdint>
 #include <cstring>
 #include <vector>
 
 #include "rns.cuh"
 
 void launch_bfp_fake_quant(const float* x, float* out, int rows, int K, int g,
-                           int b_m, bool truncate, cudaStream_t stream);
+                           int b_m, bool truncate, bool vector, int blocks,
+                           cudaStream_t stream);
 void launch_mirage_gemm(const float* x, const float* w, float* out,
                         float* ws, int M, int N, int K, bool w_nk, int g,
                         int b_m, bool truncate, bool mma, int threads,
@@ -50,18 +52,32 @@ void check_bfp(int64_t g, int64_t b_m) {
   TORCH_CHECK(b_m >= 1 && b_m <= 23, "b_m must be in [1, 23], got ", b_m);
 }
 
+bool aligned16(const torch::Tensor& t) {
+  return reinterpret_cast<uintptr_t>(t.data_ptr()) % 16 == 0;
+}
+
+// `vector` and `blocks` are the wrapper's plan (repro_torch/kernels/ops.py
+// `bfp_quant_plan`, the grid from the card's SM count)
 void bfp_fake_quant(const torch::Tensor& x, torch::Tensor& out, int64_t g,
-                    int64_t b_m, bool truncate) {
+                    int64_t b_m, bool truncate, bool vector, int64_t blocks) {
   check_operand(x, "x");
   check_operand(out, "out");
   TORCH_CHECK(x.dim() == 2 && out.sizes() == x.sizes(),
               "x and out must be (rows, K) of one shape");
-  check_bfp(g, b_m);
+  TORCH_CHECK(g >= 1, "group size g must be >= 1, got ", g);
+  TORCH_CHECK(b_m >= 1 && b_m <= 23, "b_m must be in [1, 23], got ", b_m);
+  TORCH_CHECK(!vector || (g % 4 == 0 && g <= 128 && x.size(1) % 4 == 0 &&
+                          aligned16(x) && aligned16(out)),
+              "the vector route needs g % 4 == 0, g <= 128, K % 4 == 0 and "
+              "16-byte aligned operands");
+  TORCH_CHECK(!vector || (blocks >= 1 && blocks <= 65535),
+              "the vector route takes 1..65535 blocks, got ", blocks);
   const c10::cuda::CUDAGuard guard(x.device());
   launch_bfp_fake_quant(x.data_ptr<float>(), out.data_ptr<float>(),
                         static_cast<int>(x.size(0)),
                         static_cast<int>(x.size(1)), static_cast<int>(g),
-                        static_cast<int>(b_m), truncate,
+                        static_cast<int>(b_m), truncate, vector,
+                        static_cast<int>(blocks),
                         at::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
@@ -124,6 +140,8 @@ void flash_attention(const torch::Tensor& q, const torch::Tensor& k,
   TORCH_CHECK(k.size(0) == B && k.size(3) == D, "k/v do not match q");
   TORCH_CHECK(Kv >= 1 && H % Kv == 0, "n_heads must be a multiple of n_kv");
   TORCH_CHECK(D == 64, "the flash kernel is built for head_dim 64, got ", D);
+  TORCH_CHECK(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out),
+              "the flash kernel reads and writes 16-byte aligned tensors");
   const c10::cuda::CUDAGuard guard(q.device());
   launch_flash_attention(q.data_ptr<float>(), k.data_ptr<float>(),
                          v.data_ptr<float>(), out.data_ptr<float>(),

@@ -77,6 +77,21 @@ def _truncate(rounding: str) -> bool:
                      f"{rounding!r} (stochastic rounding is training-only)")
 
 
+#: the largest group the BFP quantizer's vector route takes (g/4 lanes,
+#: padded to a power of two, share one warp), and its blocks per SM
+BFP_VECTOR_MAX_G = 128
+BFP_VECTOR_BLOCKS_PER_SM = 8
+
+
+def bfp_quant_plan(K: int, g: int, aligned: bool = True) -> str:
+    """The route of ``csrc/bfp_quantize.cu`` for rows of K floats in groups
+    of g: ``"vector"`` (float4 per lane, group max by warp shuffles) where
+    g % 4 == 0, g <= 128, K % 4 == 0 and the operands are 16-byte aligned,
+    else ``"scalar"`` (one thread per group)."""
+    vector = g % 4 == 0 and g <= BFP_VECTOR_MAX_G and K % 4 == 0 and aligned
+    return "vector" if vector else "scalar"
+
+
 def bfp_fake_quant(x: torch.Tensor, policy: MiragePolicy) -> torch.Tensor:
     """BFP(b_m, g) fake quantization along the last axis (any rank)."""
     if _on_cpu(x):
@@ -87,7 +102,12 @@ def bfp_fake_quant(x: torch.Tensor, policy: MiragePolicy) -> torch.Tensor:
     xf = x.reshape(-1, x.shape[-1])
     out = torch.empty_like(xf)
     if xf.numel():
-        extension().bfp_fake_quant(xf, out, policy.g, policy.b_m, truncate)
+        route = bfp_quant_plan(xf.shape[1], policy.g,
+                               xf.data_ptr() % 16 == 0 and
+                               out.data_ptr() % 16 == 0)
+        blocks = BFP_VECTOR_BLOCKS_PER_SM * sm_count(x.device)
+        extension().bfp_fake_quant(xf, out, policy.g, policy.b_m, truncate,
+                                   route == "vector", blocks)
         LAUNCHES["bfp_quantize"] += 1
     return out.reshape(x.shape)
 

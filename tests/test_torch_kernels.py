@@ -193,6 +193,132 @@ def test_gemm_plan_routes():
 
 
 # --------------------------------------------------------------------------
+# the flash kernel's design: 3xTF32 products under the same online softmax
+# --------------------------------------------------------------------------
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32 on the f32 bit pattern: keep 10 stored mantissa
+    bits, rounding to nearest with ties away from zero (add half of the
+    dropped 13 bits to the magnitude, then clear them)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x: torch.Tensor):
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x - hi)
+
+
+def _mm_tf32(a: torch.Tensor, b: torch.Tensor, terms: int) -> torch.Tensor:
+    """a @ b as csrc/flash_attention.cu computes it: each product of two
+    TF32 values is exact in f32 and the sums are f32; terms=3 adds
+    lo*hi + hi*lo before hi*hi (3xTF32), terms=1 is plain TF32."""
+    a_hi, a_lo = _split(a)
+    b_hi, b_lo = _split(b)
+    if terms == 1:
+        return a_hi @ b_hi
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def _flash_tf32(q, k, v, causal, window, terms=3, block_k=32):
+    """The kernel's arithmetic in PyTorch: 32-key tiles, S and P V through
+    _mm_tf32, the online softmax in f32 (m, l, rescale) and the reference's
+    masks, NEG_INF and denominator clamp. Every tile is processed: the
+    kernel's skipped tiles are exact no-ops."""
+    B, L, H, D = q.shape
+    S, Kv = k.shape[1], k.shape[2]
+    rep = H // Kv
+    qh = q.permute(0, 2, 1, 3)                                # (B, H, L, D)
+    kh = k.permute(0, 2, 1, 3).repeat_interleave(rep, dim=1)  # (B, H, S, D)
+    vh = v.permute(0, 2, 1, 3).repeat_interleave(rep, dim=1)
+    qp = torch.arange(L)[:, None]
+    m = torch.full((B, H, L, 1), ref.NEG_INF)
+    l = torch.zeros((B, H, L, 1))
+    acc = torch.zeros((B, H, L, D))
+    for j0 in range(0, S, block_k):
+        kp = torch.arange(j0, min(j0 + block_k, S))[None, :]
+        s = _mm_tf32(qh, kh[:, :, j0:j0 + block_k].transpose(-1, -2),
+                     terms) * (1.0 / np.sqrt(D))
+        ok = torch.ones_like(qp >= kp)
+        if causal:
+            ok &= qp >= kp
+        if window is not None:
+            ok &= qp - kp < window
+        s = torch.where(ok, s, torch.full_like(s, ref.NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + _mm_tf32(p, vh[:, :, j0:j0 + block_k], terms)
+        m = m_new
+    return (acc / torch.clamp_min(l, 1e-30)).permute(0, 2, 1, 3)
+
+
+def test_tf32_rna_rounds_ties_away_from_zero():
+    """10 stored mantissa bits; a dropped half (bit 12 alone) rounds the
+    magnitude up for both signs; the split is exact to 2^-22 relative."""
+    one = 1.0 + 2.0 ** -10
+    tie = np.array([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                    one + 2.0 ** -11, 1.0 + 2.0 ** -11 - 2.0 ** -23],
+                   np.float32)
+    got = _tf32_rna(torch.from_numpy(tie)).numpy()
+    np.testing.assert_array_equal(got, np.array(
+        [one, -one, 1.0 + 2.0 ** -9, 1.0], np.float32))
+    x = torch.from_numpy(_rand((4096,), 5))
+    hi, lo = _split(x)
+    assert torch.equal(_tf32_rna(hi), hi) and torch.equal(_tf32_rna(lo), lo)
+    assert ((hi + lo - x).abs() <= 2.0 ** -21 * x.abs()).all()
+
+
+@pytest.mark.parametrize("shape,window", [
+    ((1, 32, 4, 16, 4), None),    # MHA
+    ((2, 24, 8, 16, 2), None),    # GQA 4:1
+    ((1, 17, 6, 8, 3), None),     # ragged length, GQA 2:1
+    ((1, 20, 4, 8, 2), 8),        # sliding window
+    ((1, 128, 14, 64, 2), None),  # qwen2's prefill attention at L = 128
+    ((1, 77, 14, 64, 2), 40),     # a window that cuts inside a 32-key tile
+    ((2, 1, 14, 64, 14), None),   # L = 1, no GQA
+])
+def test_flash_3xtf32_design_within_gate(shape, window):
+    """The kernel's 3xTF32 products, run through its online softmax, stay
+    within the chip gate (rtol = atol = 2e-5) of the plain version."""
+    B, L, H, D, Kv = shape
+    q = torch.from_numpy(_rand((B, L, H, D), 21, 0.5))
+    k = torch.from_numpy(_rand((B, L, Kv, D), 22, 0.5))
+    v = torch.from_numpy(_rand((B, L, Kv, D), 23, 0.5))
+    want = ref.flash_attention_ref(q, k, v, True, window)
+    got = _flash_tf32(q, k, v, True, window)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_plain_tf32_misses_the_gate():
+    """Why the kernel splits: one TF32 product per term (10 mantissa bits)
+    lands outside rtol = atol = 2e-5 at qwen2's prefill shape."""
+    q = torch.from_numpy(_rand((1, 128, 14, 64), 21, 0.5))
+    k = torch.from_numpy(_rand((1, 128, 2, 64), 22, 0.5))
+    v = torch.from_numpy(_rand((1, 128, 2, 64), 23, 0.5))
+    want = ref.flash_attention_ref(q, k, v, True, None)
+    got = _flash_tf32(q, k, v, True, None, terms=1)
+    assert not torch.allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+# --------------------------------------------------------------------------
+# the BFP quantizer's routes
+# --------------------------------------------------------------------------
+
+def test_bfp_quant_plan_vector_exactly_where_its_conditions_hold():
+    """float4 lanes need K % 4 == 0 and 16-byte alignment; a group's lanes
+    (g/4, padded to a power of two) must fit one warp: g % 4 == 0, g <= 128."""
+    for K in (4, 6, 64, 896, 898, 900, 4864):
+        for g in range(1, 300):
+            for aligned in (True, False):
+                want = (g % 4 == 0 and g <= 128 and K % 4 == 0 and aligned)
+                assert (ops.bfp_quant_plan(K, g, aligned) == "vector") == want
+    assert ops.bfp_quant_plan(4864, 16) == "vector"
+    assert ops.bfp_quant_plan(4864, 256) == "scalar"
+
+
+# --------------------------------------------------------------------------
 # wrappers: CPU tensors take the plain versions and launch nothing
 # --------------------------------------------------------------------------
 
@@ -349,13 +475,28 @@ def cuda():
 
 @pytest.mark.cuda
 def test_cuda_bfp_kernel_bitexact(cuda):
-    x = torch.from_numpy((np.random.default_rng(1).normal(size=(33, 200)) *
-                          1e3).astype(np.float32)).to(cuda)
-    for rounding in ("nearest", "truncate"):
-        policy = get_policy("mirage", rounding=rounding)
-        got = ops.bfp_fake_quant(x, policy)
-        want = ref.bfp_fake_quant_ref(x, rounding=rounding)
-        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    """Both routes, bit for bit: the vector route at every power-of-two g
+    up to 128 (dense rows, a partial last group, idle lanes at g = 12), the
+    scalar route at g = 256, K % 4 != 0 and a misaligned view."""
+    rng = np.random.default_rng(1)
+    flat = torch.from_numpy((rng.normal(size=33 * 900 + 1) *
+                             1e3).astype(np.float32)).to(cuda)
+    cases = [(flat[:33 * 200].view(33, 200), 16, "vector")]
+    cases += [(flat[:33 * 896].view(33, 896), g, "vector")
+              for g in (4, 8, 32, 64, 128)]
+    cases += [(flat[:33 * 900].view(33, 900), 16, "vector"),
+              (flat[:33 * 900].view(33, 900), 12, "vector"),
+              (flat[:33 * 896].view(33, 896), 256, "scalar"),
+              (flat[:33 * 898].view(33, 898), 16, "scalar"),
+              (flat[1:1 + 33 * 896].view(33, 896), 16, "scalar")]
+    for x, g, route in cases:
+        aligned = x.data_ptr() % 16 == 0
+        assert ops.bfp_quant_plan(x.shape[1], g, aligned) == route
+        for rounding in ("nearest", "truncate"):
+            policy = get_policy("mirage", rounding=rounding, g=g, k=8)
+            got = ops.bfp_fake_quant(x, policy)
+            want = ref.bfp_fake_quant_ref(x, 4, g, rounding)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -396,10 +537,17 @@ def test_cuda_gemm_kernel_group_sizes(cuda, shape, g, b_m, rounding):
 
 @pytest.mark.cuda
 def test_cuda_flash_kernel_vs_plain(cuda):
-    q = torch.from_numpy(_rand((2, 70, 14, 64), 1, 0.5)).to(cuda)
-    k = torch.from_numpy(_rand((2, 70, 2, 64), 2, 0.5)).to(cuda)
-    v = torch.from_numpy(_rand((2, 70, 2, 64), 3, 0.5)).to(cuda)
-    for window in (None, 16):
+    """The path's prefill shapes, L = 1, a partial 16-row warp tile
+    (L = 17), no GQA, and windows that cut inside a 32-key tile."""
+    cases = [((2, 70, 14, 2), None), ((2, 70, 14, 2), 16),
+             ((1, 32, 14, 2), None), ((2, 64, 14, 2), None),
+             ((4, 64, 14, 2), None), ((2, 1, 14, 2), None),
+             ((2, 17, 14, 2), None), ((2, 77, 14, 14), None),
+             ((2, 128, 14, 2), 40), ((1, 100, 8, 2), 7)]
+    for i, ((B, L, H, Kv), window) in enumerate(cases):
+        q = torch.from_numpy(_rand((B, L, H, 64), 3 * i + 1, 0.5)).to(cuda)
+        k = torch.from_numpy(_rand((B, L, Kv, 64), 3 * i + 2, 0.5)).to(cuda)
+        v = torch.from_numpy(_rand((B, L, Kv, 64), 3 * i + 3, 0.5)).to(cuda)
         torch.testing.assert_close(
             ops.flash_attention(q, k, v, True, window),
             ref.flash_attention_ref(q, k, v, True, window),
