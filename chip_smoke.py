@@ -21,6 +21,18 @@ scaled_dot_product_attention backend that takes the call). Each phase prints one
 JSON line; any failed check exits non-zero. The last line is the device
 record. Without CUDA, or without the repository's ``src`` beside it, the
 script exits non-zero and prints no result.
+
+Slice 2 (training): the GEMM kernel at every dX and dW shape of a training
+step (the head's too, a ragged token count, and the weight-stationary
+forward and dX on the trainer's own pre-quantized layout), then full-width
+qwen2-0.5b trained as ``python -m repro_torch.launch.train`` trains it
+(batch 4 x 64 tokens, AdamW, ``mirage``) for 10 steps, with every forward,
+dX and dW GEMM counted through the kernel and 2 steps profiled; fp32
+training held to the CPU end to end and step 1's gradients leaf by leaf
+(with a TF32 control the limits must catch), mirage training
+teacher-forced GEMM by GEMM; weight-stationary training with BFP gradient
+compression (the BFP quantizer kernel on its path; its GEMMs
+teacher-forced too); and the backward GEMMs timed.
 """
 
 from __future__ import annotations
@@ -86,17 +98,18 @@ INT_OPS_PER_S = F32_FLOPS_PER_S   # int32 on the CUDA cores: the f32 rate
 RNS_TOKENS, RNS_REQUESTS = 8, 4   # the shorter mirage_rns drain
 CAP = PROMPT_LENS[1] + MAX_TOKENS + 4   # the engine's cache length
 # the health counters of slice_rrns at 52 dB and noise seed 7: a run must
-# give these integers. The detector flips are counted from the noise draw,
-# a function of the seed. rrns_corrected counts the elements whose residues
-# moved, bit-exact given the residues; but at two elements of modulus 41 the
-# f32 sum res + n is exactly a half-integer and rounds half to even, so
-# whether they move follows the residue's parity, and with it the f32
-# rounding of every kernel upstream (`--audit-rrns-health` lists them):
-# 32095 with the CUDA-core flash kernel that preceded the tensor-core one,
-# 32094 with it
-RRNS_HEALTH = {"detector_flips": [1, 14, 45, 1864, 30172],
+# give these integers. The detector flips are the residues the noise moved,
+# counted by the fused readout kernel itself (wrapped against clean, as the
+# JAX package's default route counts them); counted from the draw,
+# round(n) % m != 0, modulus 41 read 30172, two more than moved, at the two
+# f32 ties below. rrns_corrected counts the elements whose residues moved,
+# bit-exact given the residues; but at two elements of modulus 41 the f32
+# sum res + n is exactly a half-integer and rounds half to even, so whether
+# they move follows the residue's parity, and with it the f32 rounding of
+# every kernel upstream (`--audit-rrns-health` lists them): 32095 with the
+# CUDA-core flash kernel that preceded the tensor-core one, 32094 with it
+RRNS_HEALTH = {"detector_flips": [1, 14, 45, 1864, 30170],
                "rrns_corrected": 32094, "rrns_uncorrected": 0}
-
 
 # symbols of the port's kernels in a profiler trace
 PORT_KERNEL_SYMBOLS = ("gemm_decode_kernel", "gemm_mma_kernel",
@@ -321,9 +334,11 @@ def path_gemm_ms(cap: int):
             for K, N in GEMM_KN}
 
 
-def card_gemm_plan(ops, M: int, K: int, N: int, b_m: int):
+def card_gemm_plan(ops, M: int, K: int, N: int, b_m: int,
+                   quant_w: bool = True):
     """The wrapper's plan for this GEMM on this card."""
-    return ops.gemm_plan(M, N, K, b_m, ops.sm_count(torch.device(DEV)))
+    return ops.gemm_plan(M, N, K, b_m, ops.sm_count(torch.device(DEV)),
+                         quant_w)
 
 
 def gemm_cases(ops, policy, cap: int):
@@ -541,18 +556,25 @@ def phase_rns_channel(ops, ref):
             noise = detector_noise(RRNS_ALL, (G, M, N), snr, gen)
             for adc_bits in (None, 4, 5):
                 t0 = time.perf_counter()
-                got = ops.rns_group_matmul_channel(xr, wr, RRNS_ALL, noise,
-                                                   adc_bits)
-                want = ref.rns_matmul_channel_ref(xr, wr, RRNS_ALL, noise,
-                                                  adc_bits)
+                got, flips = ops.rns_group_matmul_channel(
+                    xr, wr, RRNS_ALL, noise, adc_bits, count_flips=True)
+                want, want_flips = ref.rns_matmul_channel_ref(
+                    xr, wr, RRNS_ALL, noise, adc_bits, count_flips=True)
                 torch.cuda.synchronize()
                 bad = int((got != want).sum())
+                flips_ok = flips.tolist() == want_flips.tolist()
                 emit({"phase": "rns_matmul_channel_vs_plain", "M": M,
                       "K": K, "N": N, "snr_db": snr, "adc_bits": adc_bits,
-                      "mismatches": bad, "ok": bad == 0,
+                      "mismatches": bad, "flips": flips.tolist(),
+                      "flips_equal_plain": flips_ok,
+                      "ok": bad == 0 and flips_ok,
                       "seconds": time.perf_counter() - t0})
                 check(bad == 0, f"rns_matmul_channel differs from its plain "
                                 f"version in {bad} residues at M={M} K={K} "
+                                f"N={N} snr={snr} adc_bits={adc_bits}")
+                check(flips_ok, f"the readout kernel counted {flips.tolist()}"
+                                f" moved residues, its plain version "
+                                f"{want_flips.tolist()}, at M={M} K={K} "
                                 f"N={N} snr={snr} adc_bits={adc_bits}")
     return 0
 
@@ -723,12 +745,14 @@ def phase_slice(ops):
     from repro_torch.configs import get_config
     from repro_torch.core.precision import get_policy
     from repro_torch.models import build_model
+    from repro_torch.models.lm import LMCallOptions
     from repro_torch.runtime.server import LMServer, Request
 
     cfg = get_config("qwen2-0.5b")
     gen = torch.Generator(device=DEV).manual_seed(0)
     t0 = time.perf_counter()
-    model = build_model(cfg, get_policy("mirage"), device=DEV,
+    model = build_model(cfg, get_policy("mirage"),
+                        LMCallOptions(use_flash_kernel=True), device=DEV,
                         generator=gen)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
@@ -797,42 +821,55 @@ def phase_slice(ops):
     return launches, batches, steps, model, cap
 
 
-def profile_ticks(model, cap, reqs, LMServer, policy_name: str,
-                  n_ticks: int = 3):
-    """Device time by kernel over a few steady decode ticks (torch.profiler)
-    and the device's idle share of their wall time."""
+def device_profile(run, n: int):
+    """Device time by kernel over ``n`` calls of ``run`` (torch.profiler),
+    per call, and the device's idle share of their wall time. Only the
+    device's own events count: a host op's self device time is the time of
+    the kernels it launched, which appear as events of their own, so
+    summing both would count every kernel twice."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    server = LMServer(model, cap=cap, batch_slots=SLOTS)
-    for r in reqs[:SLOTS]:
-        r = dataclasses.replace(r, tokens_out=[])
-        server.submit(r)
-    server.tick()                      # admission + first decode
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(n_ticks):
-            server.tick()
+        for _ in range(n):
+            run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_kernel = {}
     for avg in prof.key_averages():
         dev_us = getattr(avg, "self_device_time_total", 0.0)
-        if dev_us > 0:
+        if avg.device_type == DeviceType.CUDA and dev_us > 0:
             by_kernel[avg.key] = by_kernel.get(avg.key, 0.0) + dev_us
     busy_ms = sum(by_kernel.values()) / 1e3
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
-    ours = {k[:80]: v / 1e3 / n_ticks for k, v in by_kernel.items()
+    ours = {k[:80]: v / 1e3 / n for k, v in by_kernel.items()
             if any(name in k for name in PORT_KERNEL_SYMBOLS)}
+    return {"wall_ms": wall_ms / n, "device_busy_ms": busy_ms / n,
+            "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
+            "top_device_ms": {k[:80]: v / 1e3 / n for k, v in top},
+            "port_kernels_ms": ours}
+
+
+def profile_ticks(model, cap, reqs, LMServer, policy_name: str,
+                  n_ticks: int = 3):
+    """Device time by kernel over a few steady decode ticks (torch.profiler)
+    and the device's idle share of their wall time."""
+    server = LMServer(model, cap=cap, batch_slots=SLOTS)
+    for r in reqs[:SLOTS]:
+        r = dataclasses.replace(r, tokens_out=[])
+        server.submit(r)
+    server.tick()                      # admission + first decode
+    prof = device_profile(server.tick, n_ticks)
     emit({"phase": "decode_tick_profile", "policy": policy_name,
           "ticks": n_ticks,
-          "wall_ms_per_tick": wall_ms / n_ticks,
-          "device_busy_ms_per_tick": busy_ms / n_ticks,
-          "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
-          "top_device_ms_per_tick": {k[:80]: v / 1e3 / n_ticks
-                                     for k, v in top},
-          "port_kernels_ms_per_tick": ours})
+          "wall_ms_per_tick": prof["wall_ms"],
+          "device_busy_ms_per_tick": prof["device_busy_ms"],
+          "device_idle_share": prof["device_idle_share"],
+          "top_device_ms_per_tick": prof["top_device_ms"],
+          "port_kernels_ms_per_tick": prof["port_kernels_ms"]})
 
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1052,9 +1089,10 @@ def phase_slice_rrns(ops, model, cap):
 class ReadoutAudit:
     """Wraps the RRNS path's on-card readout (``mirage_rrns
     ._readout_on_card``) to hold each noisy readout's residues against the
-    clean residue GEMM's and against the flip counter's rule, round(n) % m
-    != 0. Where the f32 sum res + n is exactly a half-integer the kernel
-    rounds half to even, so whether the residue moves depends on its
+    clean residue GEMM's and against the draw rule, round(n) % m != 0
+    (what the flip counter counted before the kernel counted its own moved
+    residues). Where the f32 sum res + n is exactly a half-integer the
+    kernel rounds half to even, so whether the residue moves depends on its
     parity: such ties are listed."""
 
     def __init__(self, ops):
@@ -1091,14 +1129,14 @@ class ReadoutAudit:
                                           device=DEV).reshape(shape)
         mods = torch.tensor(moduli, dtype=torch.float32,
                             device=DEV).reshape(shape)
-        counted = torch.remainder(torch.round(noise), mods) != 0
+        drawn = torch.remainder(torch.round(noise), mods) != 0
         moved = out != clean
-        for key, mask in (("counted", counted), ("moved", moved)):
+        for key, mask in (("drawn", drawn), ("moved", moved)):
             n = mask.sum(dim=(1, 2, 3)).tolist()
             self.sums[key] = [a + b for a, b in zip(
                 self.sums.get(key, [0] * len(n)), n)]
         self.elements_moved += int((moved.sum(0) > 0).sum())
-        for i in (counted != moved).nonzero()[:8].tolist():
+        for i in (drawn != moved).nonzero()[:8].tolist():
             i = tuple(i)
             self.ties.append({"modulus": moduli[i[0]],
                               "residue": int(clean[i]),
@@ -1119,10 +1157,12 @@ def audit_rrns_health(ops):
     from repro_torch.configs import get_config
     from repro_torch.core.precision import get_policy
     from repro_torch.models import build_model
+    from repro_torch.models.lm import LMCallOptions
     from repro_torch.runtime.server import LMServer, Request
 
     cfg = get_config("qwen2-0.5b")
-    model = build_model(cfg, get_policy("mirage"), device=DEV,
+    model = build_model(cfg, get_policy("mirage"),
+                        LMCallOptions(use_flash_kernel=True), device=DEV,
                         generator=torch.Generator(device=DEV).manual_seed(0))
     model.policy = get_policy("mirage_rrns", snr_db=SNR_DB,
                               noise_seed=NOISE_SEED)
@@ -1200,6 +1240,589 @@ def phase_slice_rrns_vs_cpu(model, cap, prompt_np, layers=(0, 11, 23)):
 
 
 # --------------------------------------------------------------------------
+# phases 8-12: slice 2, training full-width qwen2-0.5b on the card
+# --------------------------------------------------------------------------
+
+#: the JAX launcher's defaults (src/repro/launch/train.py:39-60): batch 4 x
+#: sequence 64, AdamW at lr 1e-3, grad clip 1.0, get_policy("mirage")
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, WSQ_STEPS = 4, 64, 10, 3
+TRAIN_TOKENS = (TRAIN_BATCH * TRAIN_SEQ, 3 * 50)   # 256, and a ragged 150
+#: the GEMMs of one layer, in the order the model calls them
+LAYER_GEMMS = ("q", "k", "v", "o", "gate", "up", "down")
+#: True only in a CPU rehearsal: the training phases take the reduced config
+REDUCED = False
+
+
+def train_setup(policy, **tc_kw):
+    """The launcher's model (weights from seed 0), train config and data."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import SyntheticLM, SyntheticLMConfig
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import LMCallOptions
+
+    cfg = get_config("qwen2-0.5b")
+    cfg = cfg.reduced() if REDUCED else cfg
+    model = build_model(cfg, policy, LMCallOptions(q_chunk=64, kv_chunk=64),
+                        device=DEV, generator=torch.Generator(
+                            device=DEV).manual_seed(0))
+    tc = TrainConfig(policy=policy, optimizer="adamw", lr=1e-3, **tc_kw)
+    data = SyntheticLM(SyntheticLMConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        batch_size=TRAIN_BATCH, seed=0))
+    return cfg, model, tc, data
+
+
+def gemm_weights(model) -> int:
+    """Weights the GEMMs read per token: every Dense weight and the tied
+    head's table."""
+    return sum(m.w.numel() for m in model.modules() if hasattr(m, "w")) + \
+        model.embed.emb.numel()
+
+
+def bwd_cases(T: int):
+    """(gemm, K, N, quantize_w) of every backward GEMM shape of a training
+    step at T tokens: dX = dO @ W^T and dW = X^T @ dO; and, for
+    weight-stationary training (never the tied head, whose table is not
+    pre-quantized), its forward and dX GEMMs, which take the weight as it
+    is."""
+    for K, N in GEMM_KN:
+        yield "dX", K, N, True
+        if N != 151936:
+            yield "fwd_as_is", K, N, False
+            yield "dX_as_is", K, N, False
+        yield "dW", K, N, True
+
+
+def bwd_operands(gemm_name: str, T: int, K: int, N: int, seed: int):
+    """The kernel's operands (a, b) for one training GEMM: the layer weight
+    is a contiguous (K, N) matrix, the tied head's an (N, K) table read as
+    emb.T; dW hands X^T over as a transposed view. The weight-stationary
+    weight is made by the trainer's own ``_prequantize_params``: one
+    contiguous (N, K) matrix quantized along K, which the forward reads as
+    its transposed (K, N) view and dX reads as it is, a contiguous
+    (K' = N, N' = K) operand."""
+    from repro_torch.core.precision import get_policy
+    from repro_torch.runtime.trainer import _prequantize_params
+
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    x = torch.randn((T, K), generator=gen, device=DEV)
+    dout = torch.randn((T, N), generator=gen, device=DEV) * 1e-2
+    if N == 151936:
+        w = (torch.randn((N, K), generator=gen, device=DEV) * 0.02).T
+    else:
+        w = torch.randn((K, N), generator=gen, device=DEV) / math.sqrt(K)
+    if gemm_name == "dW":
+        return x.T, dout
+    if gemm_name.endswith("_as_is"):
+        wq = _prequantize_params({"mlp.w": w}, get_policy("mirage"),
+                                 torch.float32)["mlp.w"].detach()
+        check(wq.T.is_contiguous(), "the weight-stationary copy is not a "
+                                    "transposed view of an (N, K) matrix")
+        return (x, wq) if gemm_name == "fwd_as_is" else (dout, wq.T)
+    return dout, w.T
+
+
+def weight_read(b: torch.Tensor) -> str:
+    """How the kernel reads its (K, N) weight operand."""
+    return "(K, N) row-major" if b.is_contiguous() else \
+        "(N, K) row-major, in place"
+
+
+def gemm_bound(ref, a, b, quantize_w: bool = True):
+    """The GEMM check's bound, 1e-5 (|aq| @ |bq|) + 1e-30: every folded
+    product is exact in f32, only the order of the f32 sum differs."""
+    aq = ref.bfp_fake_quant_ref(a, 4, 16)
+    bq = ref.bfp_fake_quant_ref(b.T, 4, 16).T if quantize_w else b
+    return 1e-5 * (aq.abs() @ bq.abs()) + 1e-30
+
+
+def phase_gemm_bwd(ops, ref, policy):
+    """Kernel #1 at every dX and dW shape one training step launches (and
+    the weight-stationary forward and dX in the layout the trainer gives
+    them), at B x L = 256 and a ragged 150 tokens: the existing GEMM check,
+    and a second launch bitwise equal."""
+    worst = 0.0
+    for T in TRAIN_TOKENS:
+        for i, (name, K, N, qw) in enumerate(bwd_cases(T)):
+            a, b = bwd_operands(name, T, K, N, seed=700 + i + T)
+            got = ops.mirage_matmul_fused(a, b, policy, quantize_w=qw)
+            again = ops.mirage_matmul_fused(a, b, policy, quantize_w=qw)
+            want = ref.mirage_gemm_ref(a, b, policy.b_m, policy.g,
+                                       quantize_w=qw)
+            tol = gemm_bound(ref, a, b, qw)
+            err = (got - want).abs()
+            bad = int((err > tol).sum())
+            same = bool(torch.equal(got.view(torch.int32),
+                                    again.view(torch.int32)))
+            torch.cuda.synchronize()
+            M, Kc, Nout = a.shape[0], a.shape[1], b.shape[1]
+            plan = card_gemm_plan(ops, M, Kc, Nout, policy.b_m, qw)
+            emit({"phase": "gemm_bwd_vs_plain", "gemm": name, "tokens": T,
+                  "layer_K": K, "layer_N": N, "M": M, "contraction": Kc,
+                  "N": Nout, "weight_as_is": not qw,
+                  "weight_read": weight_read(b),
+                  "route": "mma_bf16" if plan.mma else "decode_f32",
+                  "splits": plan.splits, "max_abs_err": float(err.max()),
+                  "max_err_over_tol": float((err / tol).max()),
+                  "bitwise_repeatable": same, "ok": bad == 0 and same})
+            check(bad == 0, f"{name} GEMM outside its bound in {bad} "
+                            f"elements at T={T} K={K} N={N}")
+            check(same, f"two launches of the {name} GEMM differ at T={T} "
+                        f"K={K} N={N}")
+            worst = max(worst, float(err.max()))
+            del a, b, got, again, want, tol, err
+    return worst
+
+
+def run_train(model, tc, data, n_steps: int, state=None):
+    """``n_steps`` of the trainer's loop (``train_loop`` over
+    ``make_train_step``, as ``launch/train.py`` runs them); per step the
+    wall time to a device synchronize and the metrics."""
+    from repro_torch.runtime.trainer import (init_train_state,
+                                             make_train_step, train_loop)
+
+    state = init_train_state(model, tc) if state is None else state
+    inner = make_train_step(model, tc)
+    times, logs = [], []
+
+    def step(state, batch):
+        t0 = time.perf_counter()
+        state, metrics = inner(state, batch)
+        if model.device.type == "cuda":
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        logs.append({k: float(v) for k, v in metrics.items()})
+        return state, metrics
+    state, _ = train_loop(model, tc, state, data, n_steps, log_every=0,
+                          step_fn=step)
+    return state, step, times, logs
+
+
+def phase_slice_train(ops):
+    """The slice: 10 steps of the launcher's training at full width, every
+    forward, dX and dW GEMM through kernel #1; then 2 steps profiled."""
+    from repro_torch.core.precision import get_policy
+
+    cfg, model, tc, data = train_setup(get_policy("mirage"))
+    data = iter(data)
+    per_step = 7 * cfg.n_layers + 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated() / 1e9
+    ops.reset_launch_counts()
+    state, step, times, logs = run_train(model, tc, data, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_s = statistics.median(times[1:])
+    weights = gemm_weights(model)
+    flops = 6.0 * weights * tokens
+    losses = [m["loss"] for m in logs]
+    finite = all(math.isfinite(v) for v in losses)
+    want = {"mirage_gemm": 3 * per_step * TRAIN_STEPS}
+    emit({"phase": "slice_train", "arch": cfg.arch_id,
+          "policy": "mirage (mirage_fast b_m=4 g=16 k=5)",
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+          "optimizer": "adamw lr=1e-3 clip=1.0",
+          "params": sum(p.numel() for p in model.parameters()),
+          "gemm_weights": weights, "gemm_per_step": 3 * per_step,
+          "launches": launches, "expected_launches": want,
+          "step_ms": [t * 1e3 for t in times],
+          "step_ms_median_2_to_10": step_s * 1e3,
+          "tok_per_s": tokens / step_s, "peak_mem_gb": peak,
+          "allocated_before_gb": before,
+          "model_flops_per_step": flops,
+          "model_flops_share_of_989_tflops": flops / step_s / BF16_FLOPS_PER_S,
+          "losses": losses, "grad_norms": [m["grad_norm"] for m in logs]})
+    check(finite, f"a training loss is not finite: {losses}")
+    expect_launches(launches, want, "slice_train")
+    prof = device_profile(lambda: step(state, next(data)), 2)
+    emit({"phase": "train_step_profile", "steps": 2, **{
+        k.replace("_ms", "_ms_per_step"): v for k, v in prof.items()}})
+    emit({"phase": "train_step_breakdown", "steps": 3,
+          **step_breakdown(model, tc, state, data, 3)})
+    return launches
+
+
+def step_breakdown(model, tc, state, data, n: int):
+    """Median wall ms of the parts of a training step, each ended by a
+    device synchronize (so each part's host dispatch and device work are
+    inside it): forward and loss, backward (the dX and dW GEMMs), and
+    clipping plus the AdamW update; and the host-side enqueue of the
+    forward alone."""
+    from repro_torch.optim.optimizers import (clip_by_global_norm,
+                                              make_optimizer)
+    from repro_torch.runtime.trainer import _to_device
+
+    _, update = make_optimizer(tc)
+    parts = {"forward_ms": [], "forward_enqueue_ms": [], "backward_ms": [],
+             "clip_and_adamw_ms": []}
+    leaves = list(state["params"].values())
+    for _ in range(n):
+        batch = _to_device(next(data), model.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = model.loss(batch)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        grads, _ = clip_by_global_norm(dict(zip(state["params"], grads)),
+                                       tc.grad_clip)
+        update(grads, state["opt"], state["params"],
+               torch.full((), tc.lr, device=model.device))
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for key, dt in (("forward_ms", t2 - t0),
+                        ("forward_enqueue_ms", t1 - t0),
+                        ("backward_ms", t3 - t2),
+                        ("clip_and_adamw_ms", t4 - t3)):
+            parts[key].append(dt * 1e3)
+        del loss, grads
+    return {k: statistics.median(v) for k, v in parts.items()}
+
+
+def step1_grads(model, batch):
+    """Step 1's loss and gradients (by parameter name, on the CPU) of
+    ``model`` on a numpy ``batch``."""
+    params = dict(model.named_parameters())
+    loss, _ = model.loss({k: torch.from_numpy(v).to(model.device)
+                          for k, v in batch.items()})
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return float(loss.detach()), {k: g.cpu() for k, g in zip(params, grads)}
+
+
+def leaf_errors(got, want):
+    """Per leaf: max |got - want| over the leaf's max |want|."""
+    return {k: float((got[k] - w).abs().max() / (w.abs().max() + 1e-30))
+            for k, w in want.items()}
+
+
+def leaf_kinds(errs):
+    """The worst error of each kind of leaf (the name less its layer)."""
+    kinds = {}
+    for k, e in errs.items():
+        kind = ".".join(p for p in k.split(".") if not p.isdigit())
+        kinds[kind] = max(kinds.get(kind, 0.0), e)
+    return dict(sorted(kinds.items(), key=lambda kv: -kv[1]))
+
+
+def norm64(tree) -> float:
+    """The global norm of a tree of gradients, summed in f64."""
+    return math.sqrt(sum(float(t.double().square().sum())
+                         for t in tree.values()))
+
+
+def grads_vs(got_loss, got, want_loss, want):
+    """Loss, global grad norm and per-leaf errors of one set of step-1
+    gradients against another."""
+    errs = leaf_errors(got, want)
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:8]
+    return {"loss_rel": abs(got_loss - want_loss) / abs(want_loss),
+            "grad_norm_rel": abs(norm64(got) - norm64(want)) / norm64(want),
+            "leaf_rel_max": worst[0][1], "worst_leaves": dict(worst),
+            "by_kind": leaf_kinds(errs)}
+
+
+def phase_train_fp32_vs_cpu():
+    """2 fp32 steps at full width on the card and on the CPU from the same
+    weights and batches (TF32 off): loss and grad norm within 1e-4. Step
+    1's gradients are also held leaf by leaf (each within 1e-4 of its
+    leaf's largest element), and once more with TF32 on as a control: a
+    lower precision these limits must catch. The CPU's global norm is
+    compared with the f64 sum, beside an f32 ``torch._foreach_norm``."""
+    from repro_torch.core.backends import baselines
+    from repro_torch.core.precision import get_policy
+    from repro_torch.optim.optimizers import global_norm
+
+    cfg, model, tc, data = train_setup(get_policy("fp32"))
+    cpu_model = copy.deepcopy(model).to("cpu")
+    batches = [data.batch_at(i) for i in range(2)]
+    cpu_loss, cpu_grads = step1_grads(cpu_model, batches[0])
+    leaves = grads_vs(*step1_grads(model, batches[0]), cpu_loss, cpu_grads)
+    pin = baselines._pin_full_f32   # the fp32 backend pins TF32 off
+    baselines._pin_full_f32 = lambda: None
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = grads_vs(*step1_grads(model, batches[0]), cpu_loss,
+                        cpu_grads)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        baselines._pin_full_f32 = pin
+    exact = norm64(cpu_grads)
+    serial = torch.linalg.vector_norm(torch.stack(
+        torch._foreach_norm(list(cpu_grads.values()))))
+    cpu_norm = {"global_norm_rel_to_f64":
+                abs(float(global_norm(cpu_grads)) - exact) / exact,
+                "f32_foreach_norm_rel_to_f64": abs(float(serial) - exact) /
+                exact}
+    del cpu_grads
+    t0 = time.perf_counter()
+    _, _, _, card = run_train(model, tc, iter(batches), 2)
+    card_s = time.perf_counter() - t0
+    del model
+    t0 = time.perf_counter()
+    _, _, _, plain = run_train(cpu_model, tc, iter(batches), 2)
+    cpu_s = time.perf_counter() - t0
+    rel = {k: [abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(card, plain)]
+           for k in ("loss", "grad_norm")}
+    ok = max(max(v) for v in rel.values()) < 1e-4
+    leaves_ok = leaves["leaf_rel_max"] < 1e-4
+    tf32["caught_by_the_1e-4_limits"] = max(
+        tf32["loss_rel"], tf32["grad_norm_rel"], tf32["leaf_rel_max"]) >= 1e-4
+    emit({"phase": "train_fp32_vs_cpu", "steps": 2,
+          "card": card, "cpu": plain, "rel_err": rel,
+          "step1_grads_tf32_off": leaves, "step1_grads_tf32_on": tf32,
+          "cpu_step1_grad_norm": cpu_norm, "card_seconds": card_s,
+          "cpu_seconds": cpu_s, "ok": ok and leaves_ok})
+    check(ok, f"fp32 training on the card differs from the CPU by >= 1e-4 "
+              f"relative: {rel}")
+    check(leaves_ok, f"an fp32 step-1 gradient leaf on the card differs from "
+                     f"the CPU's by >= 1e-4 of its largest element: "
+                     f"{leaves['worst_leaves']}")
+
+
+class GemmCapture:
+    """Records (x, w, dO) and the policy of the model GEMMs at the listed
+    call indices by wrapping ``repro_torch.core.gemm.mirage_matmul`` (the
+    differentiable op ``mirage_matmul_auto`` takes under grad); w keeps
+    its layout."""
+
+    def __init__(self, keep):
+        from repro_torch.core import gemm
+        self.gemm, self.keep, self.calls, self.got = gemm, set(keep), 0, {}
+
+    def __enter__(self):
+        self.inner = inner = self.gemm.mirage_matmul
+
+        def recorded(x, w, policy):
+            i = self.calls
+            self.calls += 1
+            out = inner(x, w, policy)
+            if i in self.keep:
+                rec = self.got[i] = {"x": x.detach().clone(),
+                                     "w": w.detach(), "policy": policy}
+                out.register_hook(
+                    lambda g, rec=rec: rec.__setitem__("dO",
+                                                       g.detach().clone()))
+            return out
+
+        self.gemm.mirage_matmul = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.gemm.mirage_matmul = self.inner
+
+
+def to_card(t: torch.Tensor) -> torch.Tensor:
+    """``t`` on the card with its strides (a transposed view stays one)."""
+    return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                               device=DEV).copy_(t)
+
+
+def function_grads(x, w, dout, policy):
+    """dX and dW of ``MirageMatmul`` at (x, w) for the upstream ``dout``."""
+    from repro_torch.core import gemm
+
+    x = x.clone().requires_grad_(True)
+    w = w.detach().requires_grad_(True)
+    gemm.mirage_matmul(x, w, policy).backward(dout)
+    return x.grad, w.grad
+
+
+def cpu_capture(cpu_model, batch, layers, wsq_policy=None):
+    """The CPU's step-1 forward and backward with the GEMMs of ``layers``
+    and the head recorded; under ``wsq_policy`` on the weight-stationary
+    copies, as the trainer runs it. Returns (loss, capture, head index)."""
+    from repro_torch.runtime.trainer import _Loss, _prequantize_params
+
+    n_layers = len(cpu_model.layers)
+    head = len(LAYER_GEMMS) * n_layers
+    keep = [len(LAYER_GEMMS) * li + j for li in layers
+            for j in range(len(LAYER_GEMMS))] + [head]
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    run = dict(cpu_model.named_parameters())
+    with GemmCapture(keep) as cap:
+        if wsq_policy is None:
+            loss, _ = cpu_model.loss(batch)
+        else:
+            run = _prequantize_params(run, wsq_policy, torch.float32)
+            loss, _ = torch.func.functional_call(
+                _Loss(cpu_model), {f"model.{k}": v for k, v in run.items()},
+                (batch,))
+        torch.autograd.grad(loss, list(run.values()))
+    return float(loss.detach()), cap, head
+
+
+def teacher_forced(ref, cap, head):
+    """The card's ``MirageMatmul`` on the CPU's (x, w, dO) of every
+    captured GEMM, w in the layout the CPU's model gave it: dX and dW
+    against the CPU's, within the GEMM check's bound. Returns (rows, the
+    GEMMs outside it)."""
+    rows, bad, n = {}, [], len(LAYER_GEMMS)
+    for i, rec in sorted(cap.got.items()):
+        name = "head" if i == head else f"layer_{i // n}.{LAYER_GEMMS[i % n]}"
+        policy = rec["policy"]
+        want = function_grads(rec["x"], rec["w"], rec["dO"], policy)
+        x, w, d = to_card(rec["x"]), to_card(rec["w"]), to_card(rec["dO"])
+        got = function_grads(x, w, d, policy)
+        d2 = d.reshape(-1, d.shape[-1])
+        x2 = x.reshape(-1, x.shape[-1])
+        as_is = policy.assume_quantized_weights
+        bounds = (gemm_bound(ref, d2, w.T, not as_is).reshape(x.shape),
+                  gemm_bound(ref, x2.T, d2))
+        errs = []
+        for g, wv, tol in zip(got, want, bounds):
+            e = (g - to_card(wv)).abs()
+            errs.append((float(e.max()), float((e / tol).max())))
+            if bool((e > tol).any()):
+                bad.append(name)
+        rows[name] = {"weight_as_is": as_is,
+                      "dX_weight_read": weight_read(w.T),
+                      "dX_max_abs_err": errs[0][0],
+                      "dX_err_over_tol": errs[0][1],
+                      "dW_max_abs_err": errs[1][0],
+                      "dW_err_over_tol": errs[1][1]}
+    return rows, bad
+
+
+def phase_train_grads_vs_cpu(ops, ref, layers=(0, 11, 23)):
+    """Mirage at full width is chaotic end to end, so teacher-forced: the
+    CPU's (x, w, dO) of every GEMM of layers 0, 11 and 23 and of the head,
+    from its step-1 backward, go to the card's Function; its dX and dW must
+    lie within the GEMM check's bound of the CPU's. Step 1's loss on both
+    within 1e-3 relative."""
+    from repro_torch.core.precision import get_policy
+
+    policy = get_policy("mirage")
+    cfg, model, tc, data = train_setup(policy)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    batch = data.batch_at(0)
+    t0 = time.perf_counter()
+    cpu_loss, cap, head = cpu_capture(cpu_model, batch, layers)
+    cpu_s = time.perf_counter() - t0
+    with torch.no_grad():
+        card_loss, _ = model.loss({k: torch.from_numpy(v).to(DEV)
+                                   for k, v in batch.items()})
+    card_loss = float(card_loss)
+    del model
+    rows, bad = teacher_forced(ref, cap, head)
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    ok = not bad and loss_rel < 1e-3
+    emit({"phase": "train_grads_vs_cpu", "policy": "mirage", "gemms": rows,
+          "step1_loss_card": card_loss, "step1_loss_cpu": cpu_loss,
+          "step1_loss_rel_err": loss_rel, "cpu_seconds": cpu_s, "ok": ok})
+    check(not bad, f"card dX/dW outside the GEMM bound of the CPU's at {bad}")
+    check(loss_rel < 1e-3, f"step-1 loss card {card_loss} vs CPU "
+                           f"{cpu_loss}: {loss_rel:.2e} relative")
+
+
+def phase_slice_train_wsq(ops, ref, layers=(0, 11, 23)):
+    """3 steps with weight-stationary quantization and BFP gradient
+    compression: kernel #2 quantizes the 168 GEMM weights and every
+    non-scalar gradient leaf each step. Step 1's loss against the CPU's,
+    and its GEMMs teacher-forced as in ``train_grads_vs_cpu``: the CPU's
+    (x, w, dO) of layers 0, 11 and 23 and the head, w the trainer's
+    transposed view of a contiguous (N, K) copy, so dX runs the kernel on
+    that contiguous copy as it is."""
+    from repro_torch.core.precision import get_policy
+    from repro_torch.runtime.trainer import _quantized_names
+
+    policy = get_policy("mirage", assume_quantized_weights=True)
+    cfg, model, tc, data = train_setup(policy, weight_stationary_quant=True,
+                                       grad_compression="bfp")
+    cpu_model = copy.deepcopy(model).to("cpu")
+    batches = [data.batch_at(i) for i in range(WSQ_STEPS)]
+    params = dict(model.named_parameters())
+    n_quant = len(_quantized_names(params))
+    n_leaves = sum(1 for p in params.values() if p.dim() > 0)
+    per_step = 7 * cfg.n_layers + 1
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    _, _, times, logs = run_train(model, tc, iter(batches), WSQ_STEPS)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    del model
+    want = {"mirage_gemm": 3 * per_step * WSQ_STEPS,
+            "bfp_quantize": (n_quant + n_leaves) * WSQ_STEPS}
+    t0 = time.perf_counter()
+    cpu_loss, cap, head = cpu_capture(cpu_model, batches[0], layers, policy)
+    cpu_s = time.perf_counter() - t0
+    rows, bad = teacher_forced(ref, cap, head)
+    # dX = dO @ W^T must read the contiguous (N, K) copy as a row-major
+    # (K' = N, N' = K) operand, the kernel's quantize-skipping (K, N) route
+    wrong_layout = [n for n, r in rows.items() if n != "head" and
+                    r["dX_weight_read"] != "(K, N) row-major"]
+    losses = [m["loss"] for m in logs]
+    rel = abs(losses[0] - cpu_loss) / abs(cpu_loss)
+    emit({"phase": "slice_train_wsq", "steps": WSQ_STEPS,
+          "quantized_weights": n_quant, "gradient_leaves": n_leaves,
+          "launches": launches, "expected_launches": want,
+          "step_ms": [t * 1e3 for t in times], "losses": losses,
+          "cpu_step1_loss": cpu_loss, "step1_loss_rel_err": rel,
+          "gemms": rows, "cpu_seconds": cpu_s,
+          "ok": rel < 1e-3 and not bad and not wrong_layout})
+    check(all(math.isfinite(v) for v in losses),
+          f"a weight-stationary training loss is not finite: {losses}")
+    expect_launches(launches, want, "slice_train_wsq")
+    check(rel < 1e-3, f"wsq step-1 loss card {losses[0]} vs CPU "
+                      f"{cpu_loss}: {rel:.2e} relative")
+    check(not wrong_layout, f"a weight-stationary dX did not read the "
+                            f"contiguous (N, K) copy: {wrong_layout}")
+    check(not bad, f"wsq card dX/dW outside the GEMM bound of the CPU's at "
+                   f"{bad}")
+    return launches
+
+
+def phase_timing_train(ops, ref, policy):
+    """The backward GEMMs (and the weight-stationary forward) at B x L =
+    256: kernel, plain, library (``torch.matmul`` on pre-folded operands)
+    and bound; and the one transposing copy of X that the dW GEMM's wrapper
+    makes."""
+    rows = []
+    T = TRAIN_TOKENS[0]
+    for i, (name, K, N, qw) in enumerate(bwd_cases(T)):
+        a, b = bwd_operands(name, T, K, N, seed=900 + i)
+        aq = ref.bfp_fake_quant_ref(a, policy.b_m, policy.g)
+        bq = ref.bfp_fake_quant_ref(b.T, policy.b_m, policy.g).T \
+            if qw else b
+        M, Kc, Nout = a.shape[0], a.shape[1], b.shape[1]
+        plan = card_gemm_plan(ops, M, Kc, Nout, policy.b_m, qw)
+        t_b, by = bound_rate(4.0 * (M * Kc + Kc * Nout + M * Nout),
+                             2.0 * M * Nout * Kc,
+                             BF16_FLOPS_PER_S if plan.mma
+                             else F32_FLOPS_PER_S)
+        rows.append({
+            "gemm": name, "M": M, "K": Kc, "N": Nout, "layer_K": K,
+            "layer_N": N, "weight_read": weight_read(b),
+            "route": "mma_bf16" if plan.mma else "decode_f32",
+            "splits": plan.splits,
+            "launches_per_train_step": GEMM_PER_STEP[(K, N)],
+            "ms": time_ms(lambda: ops.mirage_matmul_fused(
+                a, b, policy, quantize_w=qw)),
+            "plain_ms": time_ms(lambda: ref.mirage_gemm_ref(
+                a, b, policy.b_m, policy.g, quantize_w=qw)),
+            "library_ms": time_ms(lambda: torch.matmul(aq, bq)),
+            "bound_ms": t_b, "bound_by": by})
+        if name == "dW":
+            t_b, by = bound(8.0 * a.numel(), 0.0)
+            rows.append({"gemm": "dW X^T copy", "M": M, "K": Kc,
+                         "launches_per_train_step": GEMM_PER_STEP[(K, N)],
+                         "ms": time_ms(lambda: a.contiguous()),
+                         "plain_ms": None, "library_ms": None,
+                         "bound_ms": t_b, "bound_by": by})
+        del a, b, aq, bq
+    for row in rows:
+        emit({"phase": "timing", "kernel": "mirage_gemm", "path": "train",
+              **row})
+    return rows
+
+
+# --------------------------------------------------------------------------
 # phase 7: timing at the slice shapes
 # --------------------------------------------------------------------------
 
@@ -1267,6 +1890,26 @@ def phase_timing(ops, ref, policy, per_tick):
             "plain_ms": time_ms(lambda: ref.bfp_fake_quant_ref(
                 x, policy.b_m, policy.g)),
             "library_ms": None, "bound_ms": t_b, "bound_by": by})
+    # weight-stationary training with BFP gradient compression: the
+    # quantizer's standalone launches per step, by (rows, K): each GEMM
+    # weight as its transposed copy, each gradient leaf along its last axis
+    # (the tied embedding's gradient is the largest launch)
+    wsq_shapes = {(151936, 896): 1, (4864, 896): 72, (896, 4864): 72,
+                  (896, 896): 96, (128, 896): 48, (896, 128): 48}
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    for (rows_k, k_dim), n in wsq_shapes.items():
+        x = torch.randn((rows_k, k_dim), generator=gen, device=DEV) * 1e-3
+        t_b, by = bound(8.0 * rows_k * k_dim, 0.0)
+        rows["bfp_quantize"].append({
+            "rows": rows_k, "K": k_dim, "path": "train_wsq_bfp",
+            "launches_per_step": n,
+            "route": ops.bfp_quant_plan(k_dim, policy.g),
+            "misaligned_view": False,
+            "ms": time_ms(lambda: ops.bfp_fake_quant(x, policy)),
+            "plain_ms": time_ms(lambda: ref.bfp_fake_quant_ref(
+                x, policy.b_m, policy.g)),
+            "library_ms": None, "bound_ms": t_b, "bound_by": by})
+        del x
     for name, shapes in rows.items():
         for row in shapes:
             emit({"phase": "timing", "kernel": name, **row})
@@ -1464,6 +2107,7 @@ def main() -> int:
     err_bfp = phase_bfp(ops, ref)
     err_gemm = phase_gemm(ops, ref, policy)
     phase_gemm_options(ops, ref)
+    err_gemm = max(err_gemm, phase_gemm_bwd(ops, ref, policy))
     err_flash = phase_flash(ops, ref)
     err_rns = phase_rns_matmul(ops, ref)
     err_channel = phase_rns_channel(ops, ref)
@@ -1476,8 +2120,14 @@ def main() -> int:
         Request, model.cfg.vocab_size)[0].prompt)
     del model
     torch.cuda.empty_cache()
+    train_launches = phase_slice_train(ops)
+    phase_train_fp32_vs_cpu()
+    phase_train_grads_vs_cpu(ops, ref)
+    wsq_launches = phase_slice_train_wsq(ops, ref)
+    torch.cuda.empty_cache()
     rows = phase_timing(ops, ref, policy, GEMM_PER_STEP)
     rows.update(phase_timing_rns(ops, ref, GEMM_PER_STEP))
+    phase_timing_train(ops, ref, policy)
     emit({"phase": "timer", "spin_cycles": SPIN_CYCLES,
           "calls_whose_enqueue_outlasted_the_spin": len(TIMER_OVERRUNS),
           "examples": TIMER_OVERRUNS[:10]})
@@ -1508,7 +2158,8 @@ def main() -> int:
               rows["flash_attention"][0]),
         entry("bfp_quantize", "bfp_quantize.cu",
               "src/repro/kernels/bfp_quantize.py:55", err_bfp,
-              rows["bfp_quantize"][0]),
+              max(rows["bfp_quantize"], key=lambda r: r["rows"]),
+              wsq_launches),
         entry("rns_matmul", "rns_matmul.cu",
               "src/repro/kernels/rns_matmul.py:52", err_rns,
               head_row("rns_matmul"), rns_launches),
@@ -1519,18 +2170,24 @@ def main() -> int:
               "src/repro/kernels/rrns_decode.py:140", err_decode,
               head_row("rrns_decode"), rrns_launches),
     ], "main_path": {"prefill_batches": batches, "decode_steps": steps,
+                     "train_steps": TRAIN_STEPS, "wsq_steps": WSQ_STEPS,
                      "launches_by_path": {
                          "mirage_fast": launches,
                          "mirage_rrns_52db": rrns_launches,
-                         "mirage_rns": rns_launches},
+                         "mirage_rns": rns_launches,
+                         "train_mirage": train_launches,
+                         "train_wsq_bfp": wsq_launches},
                      "note": "each kernel's launches come from the path "
                              "that runs it: mirage_gemm and flash_attention "
-                             "from mirage_fast, rns_matmul_channel and "
+                             "from serving under mirage_fast (training "
+                             "launches mirage_gemm 3 x 169 times a step, "
+                             "train_mirage), rns_matmul_channel and "
                              "rrns_decode from mirage_rrns at 52 dB, "
-                             "rns_matmul from mirage_rns; bfp_quantize runs "
-                             "inside mirage_gemm as its prologue (bfp.cuh); "
-                             "its standalone launch exists for the "
-                             "bit-exact check"}})
+                             "rns_matmul from mirage_rns, bfp_quantize "
+                             "standalone from weight-stationary training "
+                             "with BFP gradient compression (train_wsq_bfp; "
+                             "elsewhere it runs inside mirage_gemm as its "
+                             "prologue, bfp.cuh)"}})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -4,9 +4,11 @@ The module layout mirrors the JAX package ``repro`` so each counterpart is
 easy to find: ``core`` (precision policies, BFP, RNS, GEMM backends,
 stationary weights), ``analog`` (the photonic channel and RRNS),
 ``kernels`` (hand-written CUDA kernels, their wrappers and plain PyTorch
-versions), ``models`` (the dense LM family), ``runtime`` (the serving
-engine), ``obs`` (metrics and analog-health counters) and ``launch``
-(command-line entry points).
+versions), ``models`` (the dense LM family), ``optim`` (optimizers,
+schedules, BFP gradient compression), ``data`` (the synthetic and file
+token sources), ``runtime`` (the serving engine and the trainer), ``obs``
+(metrics, spans and analog-health counters) and ``launch`` (command-line
+entry points for serving and training).
 
 This package imports ``torch`` and never ``jax`` or ``repro``. Entry points
 run on the CUDA device unless the caller passes ``device="cpu"``

@@ -1,4 +1,5 @@
-"""Model architecture config (port of ``repro.configs.base.ModelConfig``).
+"""Config dataclasses (port of ``repro.configs.base``): the model
+architecture and the training run.
 
 ``reduced()`` derives the CPU test variant of an architecture (same
 family/topology, tiny dims), exactly as the JAX package does, so both
@@ -9,6 +10,8 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
+
+from repro_torch.core.precision import MiragePolicy, PAPER_POLICY
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,3 +93,28 @@ class ModelConfig:
             frontend_dim=32 if self.frontend_dim else 0,
             frontend_len=8 if self.frontend_len else 0,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The JAX package's training config, less its ``remat`` and ``zero1``
+    fields, which its trainer does not read either (the model's
+    ``LMCallOptions.remat`` checkpoints the layers; ZeRO-1 belongs to the
+    distributed slice)."""
+    policy: MiragePolicy = PAPER_POLICY
+    optimizer: str = "adamw"          # sgdm | adam | adamw
+    lr: float = 3e-4
+    weight_decay: float = 0.0
+    beta1: float = 0.9
+    beta2: float = 0.999
+    momentum: float = 0.9
+    grad_clip: float = 1.0
+    microbatches: int = 1             # gradient accumulation steps
+    grad_compression: str = "none"    # none | bfp (error-feedback BFP)
+    # Weight-stationary quantization (paper dataflow: program the tile once,
+    # reuse): quantize GEMM weights ONCE per step outside the microbatch
+    # loop; GEMMs skip their weight-side quantization; gradients flow
+    # straight-through to the FP32 master (Eq. 4).
+    weight_stationary_quant: bool = False
+    quant_param_dtype: str = "float32"  # storage for pre-quantized weights
+    seed: int = 0

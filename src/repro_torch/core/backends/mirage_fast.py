@@ -2,10 +2,14 @@
 
 Port of ``repro.core.backends.mirage_fast``. Where the JAX backend takes the
 fused Pallas kernel under ``policy.use_pallas``, the port takes the fused
-CUDA kernel whenever the activations lie on the card. Like the Pallas
-kernel, the CUDA kernel quantizes the weight itself, which leaves an
-already-quantized weight bit-identical (re-quantizing an on-grid group
-recovers its exponent and mantissas exactly). The CPU path is the JAX
+CUDA kernel whenever the activations lie on the card. The kernel quantizes
+the weight along the contraction unless ``policy.assume_quantized_weights``
+says it already lies on its grid; then it takes the weight as it is, as
+the plain path does (the weight-stationary dX GEMM reads a weight gridded
+along the forward K transposed, and regrouping it along N would change
+it). A weight stored in bf16 (``quant_param_dtype="bfloat16"``) is cast to
+f32 here, before the kernel, which reads f32 only: BFP(b_m <= 8) values
+are exact in bf16, so the cast is lossless. The CPU path is the JAX
 package's plain path, ``assume_quantized_weights`` branch included.
 """
 
@@ -30,7 +34,9 @@ def _fold_x(x, policy):
 def _matmul_mirage_fast(x, w, policy):
     if x.is_cuda:
         from repro_torch.kernels import ops as kops
-        return kops.mirage_matmul_fused(x, w, policy)
+        return kops.mirage_matmul_fused(
+            x, w.to(torch.float32), policy,
+            quantize_w=not policy.assume_quantized_weights)
     xq = _fold_x(x, policy)                    # (..., Kpad)
     if policy.assume_quantized_weights:
         # weight operand already on the BFP grid (weight-stationary quant)

@@ -92,16 +92,17 @@ def _readout_on_card(xr, wr, moduli, cfg, draws):
     sig_col = torch.tensor(sig, dtype=torch.float32,
                            device=xr.device).reshape(-1, 1, 1, 1)
     noise = draws.normal("detector", (n_mod, G, M, N)) * sig_col
-    if obs_health.active():
-        # the noise is applied inside the kernel epilogue, so count flips
-        # from the draw: residues are integers, hence round(res + n) != res
-        # (mod m) exactly when round(n) % m != 0
-        mods = torch.tensor(moduli, dtype=torch.float32,
-                            device=xr.device).reshape(-1, 1, 1, 1)
-        obs_health.record("detector_flips", torch.sum(
-            torch.remainder(torch.round(noise), mods) != 0, dim=(1, 2, 3)))
-    return kops.rns_group_matmul_channel(xr, wr, moduli, noise,
-                                         adc_bits=cfg.adc_bits)
+    if not obs_health.active():
+        return kops.rns_group_matmul_channel(xr, wr, moduli, noise,
+                                             adc_bits=cfg.adc_bits)
+    # the noise is applied inside the kernel epilogue, which counts the
+    # residues it moved (wrapped against clean, as the JAX package's
+    # default route compares them); a count from the draw, round(n) % m !=
+    # 0, would differ where the f32 sum res + n is exactly a half-integer
+    res, flips = kops.rns_group_matmul_channel(
+        xr, wr, moduli, noise, adc_bits=cfg.adc_bits, count_flips=True)
+    obs_health.record("detector_flips", flips)
+    return res
 
 
 def _analog_forward(x, w, policy, draws, correct: bool,

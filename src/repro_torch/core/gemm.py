@@ -1,9 +1,13 @@
-"""Mirage GEMM dispatch, forward only (port of ``repro.core.gemm``).
+"""Mirage GEMM dispatch and its differentiable op (port of ``repro.core.gemm``).
 
 ``x @ w`` under a :class:`MiragePolicy`, dispatching on ``policy.mode``
-through the backend registry (:mod:`repro_torch.core.backends`). This slice
-serves, so only the forward entry points are ported; the differentiable op
-comes with the training slice.
+through the backend registry (:mod:`repro_torch.core.backends`).
+
+Training: :func:`mirage_matmul` is a ``torch.autograd.Function``
+(:class:`MirageMatmul`, the JAX package's ``custom_vjp``) whose backward
+runs BOTH backward GEMMs (paper Eqs. 2-3) through the same backend, each
+BFP-grouped along its own contraction: dX = dO @ W^T over N, dW = X^T @ dO
+over the tokens. The caller keeps FP32 master weights (Eq. 4).
 
 Ambient noise (serving): the engine opens :func:`noise_scope` with one of
 its device generators around each decode tick and prefill batch, and every
@@ -24,6 +28,8 @@ import torch
 from repro_torch.core import backends
 from repro_torch.core.precision import MiragePolicy
 from repro_torch.core.stationary import StationaryResidues
+from repro_torch.obs import health as obs_health
+from repro_torch.obs import trace as obs_trace
 
 _AMBIENT = threading.local()
 
@@ -60,7 +66,60 @@ def _forward_impl(x: torch.Tensor, w, policy: MiragePolicy,
             f"weight, or run an RNS-family mode")
     if draws is None and backend.supports_noise:
         draws = _ambient_draws()
-    return backend.forward(x, w, policy, draws=draws)
+    with obs_trace.get_tracer().span(f"gemm.{policy.mode}"):
+        return backend.forward(x, w, policy, draws=draws)
+
+
+class MirageMatmul(torch.autograd.Function):
+    """``x @ w`` with quantized forward AND backward GEMMs (``_mm_fwd`` /
+    ``_mm_bwd`` of the JAX package). The forward saves ``(x, w)``; the
+    backward keeps the JAX package's two policy swaps."""
+
+    @staticmethod
+    def forward(ctx, x, w, policy):
+        x = x.contiguous()
+        ctx.policy = policy
+        ctx.save_for_backward(x, w)
+        return _forward_impl(x, w, policy)
+
+    @staticmethod
+    def backward(ctx, gout):
+        x, w = ctx.saved_tensors
+        policy = ctx.policy
+        gout = gout.to(torch.float32).contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            # dX = dO @ W^T (contraction over N). Under weight-stationary
+            # quant the transposed read reuses the SAME stored grid values;
+            # backends whose skip is exact only for aligned groupings
+            # (group-dot/RNS) re-quantize the transposed read instead.
+            dx_policy = policy
+            if (policy.assume_quantized_weights and
+                    backends.resolve(policy).weight_stationary_aligned_only):
+                dx_policy = policy.replace(assume_quantized_weights=False)
+            dx = _forward_impl(gout, w.T, dx_policy).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            # dW = X^T @ dO (contraction over tokens): neither operand is a
+            # stationary weight, so both sides are always quantized
+            dw_policy = (policy.replace(assume_quantized_weights=False)
+                         if policy.assume_quantized_weights else policy)
+            xf = x.reshape(-1, x.shape[-1])            # (M, K)
+            gf = gout.reshape(-1, gout.shape[-1])      # (M, N)
+            dw = _forward_impl(xf.T, gf, dw_policy).to(w.dtype)
+        return dx, dw, None
+
+
+def mirage_matmul(x: torch.Tensor, w: torch.Tensor,
+                  policy: MiragePolicy) -> torch.Tensor:
+    """``x @ w`` under the Mirage numerics policy, differentiable in both
+    operands. x: (..., K), w: (K, N). A pre-encoded
+    :class:`StationaryResidues` weight has no gradient and raises."""
+    if isinstance(w, StationaryResidues):
+        raise TypeError(
+            "a StationaryResidues weight is programmed for serving and has "
+            "no gradient; train on the FP32 weight, or run under "
+            "torch.no_grad() / torch.inference_mode()")
+    return MirageMatmul.apply(x, w, policy)
 
 
 def mirage_matmul_nograd(x: torch.Tensor, w, policy: MiragePolicy,
@@ -75,7 +134,10 @@ def mirage_matmul_nograd(x: torch.Tensor, w, policy: MiragePolicy,
 
 def mirage_matmul_auto(x: torch.Tensor, w, policy: MiragePolicy
                        ) -> torch.Tensor:
-    """The model's GEMM call site. The JAX package picks its differentiable
-    op unless a forward-only health scope is open; the port has only the
-    forward so far, so every call goes straight to it."""
-    return _forward_impl(x, w, policy)
+    """The model's GEMM call site: :func:`mirage_matmul`, except under an
+    open analog-health scope (the serving engine's forward-only steps, as
+    in the JAX package) or with grad mode off, where the backward is dead
+    weight and the forward runs straight."""
+    if obs_health.active() or not torch.is_grad_enabled():
+        return _forward_impl(x, w, policy)
+    return mirage_matmul(x, w, policy)

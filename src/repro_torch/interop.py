@@ -8,6 +8,10 @@ parameter of the same name, unstacking the layers, so both packages compute
 the same function. The port's module attribute names and layouts are the
 JAX tree's, including the tied ``embed.emb``.
 
+:func:`load_jax_train_state` carries a whole JAX train state over (params,
+optimizer moments and count, step, and the BFP error-feedback buffer), so a
+run can continue in the port where the JAX package left it.
+
 :func:`load_jax_stationary` does the same for a tree the JAX package's
 ``encode_stationary_params`` programmed: its ``StationaryResidues`` leaves
 (numpy children, stacked per layer) become the port's containers, so both
@@ -116,3 +120,52 @@ def load_jax_stationary(model: nn.Module, tree: Mapping[str, Any]
         if key not in modules:
             raise KeyError(f"the port has no module {key}")
     return out
+
+
+def _by_name(model: nn.Module, tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The leaves of a JAX parameter-shaped tree (stacked ``layers``) keyed
+    by the port's parameter names."""
+    out = {}
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        node, layer = tree, None
+        if parts[0] == "layers":
+            node, layer, parts = tree["layers"], int(parts[1]), parts[2:]
+        for part in parts:
+            node = node[part]
+        val = np.asarray(node)
+        out[name] = val[layer] if layer is not None else val
+    return out
+
+
+def load_jax_train_state(model: nn.Module, jstate: Mapping[str, Any],
+                         train_cfg) -> Dict[str, Any]:
+    """A port train state (:func:`repro_torch.runtime.trainer
+    .init_train_state`) from a JAX one with numpy leaves
+    (``jax.tree_util.tree_map(np.asarray, state)``): ``params`` are loaded
+    into ``model`` (:func:`load_jax_params`), the optimizer's moment trees
+    and its count, the step and the error buffer copied over by name."""
+    from repro_torch.runtime.trainer import init_train_state
+
+    load_jax_params(model, jstate["params"])
+    state = init_train_state(model, train_cfg)
+    dev = model.device
+    with torch.no_grad():
+        for key, val in jstate["opt"].items():
+            if isinstance(val, Mapping):
+                for name, arr in _by_name(model, val).items():
+                    state["opt"][key][name].copy_(torch.from_numpy(
+                        np.ascontiguousarray(arr)))
+            else:
+                state["opt"][key] = torch.tensor(np.asarray(val),
+                                                 device=dev)
+        state["step"] = torch.tensor(np.asarray(jstate["step"]),
+                                     device=dev)
+        if "err" in jstate:
+            if "err" not in state:
+                raise ValueError("the JAX state carries an error-feedback "
+                                 "buffer; train_cfg has no grad compression")
+            for name, arr in _by_name(model, jstate["err"]).items():
+                state["err"][name].copy_(torch.from_numpy(
+                    np.ascontiguousarray(arr)))
+    return state

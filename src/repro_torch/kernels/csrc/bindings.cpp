@@ -22,8 +22,9 @@ void launch_bfp_fake_quant(const float* x, float* out, int rows, int K, int g,
                            cudaStream_t stream);
 void launch_mirage_gemm(const float* x, const float* w, float* out,
                         float* ws, int M, int N, int K, bool w_nk, int g,
-                        int b_m, bool truncate, bool mma, int threads,
-                        int splits, int k_split, cudaStream_t stream);
+                        int b_m, bool truncate, bool quant_w, bool mma,
+                        int threads, int splits, int k_split,
+                        cudaStream_t stream);
 void launch_flash_attention(const float* q, const float* k, const float* v,
                             float* o, int B, int Lq, int S, int H, int Kv,
                             int D, bool causal, int window, float sm_scale,
@@ -32,9 +33,9 @@ void launch_rns_matmul(const int* x, const int* w, int* out, int n_mod,
                        int G, int M, int N, int g, const RnsModuli& mods,
                        cudaStream_t stream);
 void launch_rns_matmul_channel(const int* x, const int* w, const float* noise,
-                               int* out, int n_mod, int G, int M, int N,
-                               int g, const RnsModuli& mods,
-                               cudaStream_t stream);
+                               int* out, unsigned long long* flips, int n_mod,
+                               int G, int M, int N, int g,
+                               const RnsModuli& mods, cudaStream_t stream);
 void launch_rrns_decode(const int* res, int* decoded, float* votes,
                         long long E, const RrnsTables& tables,
                         cudaStream_t stream);
@@ -84,10 +85,11 @@ void bfp_fake_quant(const torch::Tensor& x, torch::Tensor& out, int64_t g,
 
 // `mma`, `threads`, `splits` and `k_split` are the wrapper's plan
 // (repro_torch/kernels/ops.py `gemm_plan`); ws holds the split-K partials.
+// `quant_w` false takes the weight as it is (the decode route only).
 void mirage_gemm(const torch::Tensor& x, const torch::Tensor& w,
                  torch::Tensor& out, torch::Tensor& ws, bool w_nk, int64_t g,
-                 int64_t b_m, bool truncate, bool mma, int64_t threads,
-                 int64_t splits, int64_t k_split) {
+                 int64_t b_m, bool truncate, bool quant_w, bool mma,
+                 int64_t threads, int64_t splits, int64_t k_split) {
   check_operand(x, "x");
   check_operand(w, "w");
   check_operand(out, "out");
@@ -101,6 +103,9 @@ void mirage_gemm(const torch::Tensor& x, const torch::Tensor& w,
   TORCH_CHECK(out.size(0) == M && out.size(1) == N, "out must be (M, N)");
   check_bfp(g, b_m);
   TORCH_CHECK(!mma || b_m <= 8, "the tensor-core route needs b_m <= 8");
+  TORCH_CHECK(!mma || quant_w,
+              "the tensor-core route quantizes the weight; a weight taken "
+              "as it is goes to the decode route");
   TORCH_CHECK(mma ? threads == 256
                   : threads == 32 || threads == 64 || threads == 128,
               "the tensor-core route takes 256 threads, the decode route "
@@ -118,7 +123,7 @@ void mirage_gemm(const torch::Tensor& x, const torch::Tensor& w,
                      out.data_ptr<float>(), ws.data_ptr<float>(),
                      static_cast<int>(M), static_cast<int>(N),
                      static_cast<int>(K), w_nk, static_cast<int>(g),
-                     static_cast<int>(b_m), truncate, mma,
+                     static_cast<int>(b_m), truncate, quant_w, mma,
                      static_cast<int>(threads), static_cast<int>(splits),
                      static_cast<int>(k_split),
                      at::cuda::getCurrentCUDAStream());
@@ -205,17 +210,29 @@ void rns_matmul(const torch::Tensor& x, const torch::Tensor& w,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// flips: empty, or n_mod int64 counters (zeroed by the caller) to which the
+// kernel adds, per modulus, the residues the detector noise moved.
 void rns_matmul_channel(const torch::Tensor& x, const torch::Tensor& w,
                         const torch::Tensor& noise, torch::Tensor& out,
+                        torch::Tensor& flips,
                         const std::vector<int64_t>& moduli,
                         const std::vector<double>& steps) {
   const RnsModuli mods = rns_args(x, w, out, moduli, steps);
   check_operand(noise, "noise");
   TORCH_CHECK(noise.sizes() == out.sizes(), "noise must be (n_mod, G, M, N)");
+  const bool count = flips.numel() > 0;
+  TORCH_CHECK(!count || (flips.is_cuda() &&
+                         flips.scalar_type() == torch::kInt64 &&
+                         flips.is_contiguous() &&
+                         flips.numel() == x.size(0)),
+              "flips must be empty or n_mod contiguous int64 counters");
   const c10::cuda::CUDAGuard guard(x.device());
   launch_rns_matmul_channel(
       x.data_ptr<int>(), w.data_ptr<int>(), noise.data_ptr<float>(),
-      out.data_ptr<int>(), static_cast<int>(x.size(0)),
+      out.data_ptr<int>(),
+      count ? reinterpret_cast<unsigned long long*>(flips.data_ptr<int64_t>())
+            : nullptr,
+      static_cast<int>(x.size(0)),
       static_cast<int>(x.size(1)), static_cast<int>(x.size(2)),
       static_cast<int>(w.size(3)), static_cast<int>(x.size(3)), mods,
       at::cuda::getCurrentCUDAStream());
@@ -265,7 +282,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("rns_matmul", &rns_matmul,
         "per-slot residue GEMM (x @ w) mod m over (n_mod, G) slots, int32");
   m.def("rns_matmul_channel", &rns_matmul_channel,
-        "residue GEMM + readout channel (detector noise, ADC) epilogue");
+        "residue GEMM + readout channel (detector noise, ADC) epilogue, "
+        "optionally counting the residues the noise moved");
   m.def("rrns_decode", &rrns_decode,
         "fused RRNS majority decode of (n_total, E) int32 residues");
 }

@@ -45,6 +45,16 @@
 // accumulation of C is not relied on. For b_m > 8 a bf16 operand would
 // round, so such policies take the decode route's CUDA-core arithmetic at
 // any M (in tiles of 16 rows).
+//
+// Training (repro_torch/core/gemm.py `MirageMatmul`) adds the backward
+// shapes: dX = dO @ W^T reads the weight in the other layout (a (K, N)
+// weight as (N, K), the tied head's table as (K, N)), and dW = X^T @ dO
+// contracts over the tokens (the wrapper hands X^T over as one contiguous
+// copy; a ragged token count is a ragged K). `quant_w` false takes the
+// weight as it is (a weight already on its BFP grid along the forward K,
+// read transposed by the weight-stationary dX GEMM, must not be regrouped
+// along N): only the decode route takes it, whose f32 CUDA-core products
+// are exact for any weight, where bf16 would round one off the grid.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -252,7 +262,7 @@ __global__ void __launch_bounds__(128)
     gemm_decode_kernel(const float* __restrict__ x,
                        const float* __restrict__ w, float* __restrict__ dst,
                        int M, int N, int K, int g, int b_m, bool truncate,
-                       int k_split, bool x_vec, bool w_vec) {
+                       bool quant_w, int k_split, bool x_vec, bool w_vec) {
   extern __shared__ float4 smem4[];
   const int T = blockDim.x;
   const int tid = threadIdx.x;
@@ -315,7 +325,7 @@ __global__ void __launch_bounds__(128)
     for (int r = 0; r < 4; ++r) f[r] = slot[r * T];
     const int kk = job % steps * kBK;
     if (kWeightNK) {
-      quantize_kmajor(f, g, b_m, truncate);
+      if (quant_w) quantize_kmajor(f, g, b_m, truncate);
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
         const float* xr = xs + m * k_split + kk + 4 * kc;
@@ -328,7 +338,7 @@ __global__ void __launch_bounds__(128)
         }
       }
     } else {
-      quantize_kn(f, g, b_m, truncate);
+      if (quant_w) quantize_kn(f, g, b_m, truncate);
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
         const float4 xv = *reinterpret_cast<const float4*>(
@@ -568,9 +578,9 @@ void allow_smem(Kernel kernel, bool& done) {
 
 template <int MT, bool kWeightNK>
 void launch_decode(const float* x, const float* w, float* dst, int M, int N,
-                   int K, int g, int b_m, bool truncate, int threads,
-                   int splits, int k_split, bool x_vec, bool w_vec,
-                   cudaStream_t stream) {
+                   int K, int g, int b_m, bool truncate, bool quant_w,
+                   int threads, int splits, int k_split, bool x_vec,
+                   bool w_vec, cudaStream_t stream) {
   static bool smem_set = false;
   auto kernel = gemm_decode_kernel<MT, kWeightNK>;
   allow_smem(kernel, smem_set);
@@ -582,7 +592,8 @@ void launch_decode(const float* x, const float* w, float* dst, int M, int N,
   const size_t smem = static_cast<size_t>(kStages) * 4 * threads * 16 +
                       static_cast<size_t>(MT) * k_split * sizeof(float);
   kernel<<<grid, threads, smem, stream>>>(x, w, dst, M, N, K, g, b_m,
-                                          truncate, k_split, x_vec, w_vec);
+                                          truncate, quant_w, k_split, x_vec,
+                                          w_vec);
 }
 
 template <bool kWeightNK>
@@ -604,12 +615,14 @@ void launch_mma(const float* x, const float* w, float* dst, int M, int N,
 // out: (M, N) row-major; ws: (splits, M, N) when splits > 1. The wrapper
 // checks g | 64, picks the route (mma needs b_m <= 8 and M > 16), the
 // decode route's block size (32, 64 or 128 threads) and the split of K into
-// `splits` ranges of k_split rows (a multiple of 64). One call enqueues the
+// `splits` ranges of k_split rows (a multiple of 64); `quant_w` false (the
+// decode route only) skips the weight's quantization. One call enqueues the
 // GEMM and, when K is split, the ordered reduction.
 void launch_mirage_gemm(const float* x, const float* w, float* out,
                         float* ws, int M, int N, int K, bool w_nk, int g,
-                        int b_m, bool truncate, bool mma, int threads,
-                        int splits, int k_split, cudaStream_t stream) {
+                        int b_m, bool truncate, bool quant_w, bool mma,
+                        int threads, int splits, int k_split,
+                        cudaStream_t stream) {
   if (M == 0 || N == 0) return;
   float* dst = splits > 1 ? ws : out;
   const bool x_vec = K % 4 == 0 && aligned16(x);
@@ -624,11 +637,11 @@ void launch_mirage_gemm(const float* x, const float* w, float* out,
   } else {
 #define MIRAGE_DECODE(MT)                                                    \
   (w_nk ? launch_decode<MT, true>(x, w, dst, M, N, K, g, b_m, truncate,      \
-                                  threads, splits, k_split, x_vec, w_vec,    \
-                                  stream)                                    \
+                                  quant_w, threads, splits, k_split, x_vec,  \
+                                  w_vec, stream)                             \
         : launch_decode<MT, false>(x, w, dst, M, N, K, g, b_m, truncate,     \
-                                   threads, splits, k_split, x_vec, w_vec,   \
-                                   stream))
+                                   quant_w, threads, splits, k_split, x_vec, \
+                                   w_vec, stream))
     if (M <= 4)
       MIRAGE_DECODE(4);
     else if (M <= 8)

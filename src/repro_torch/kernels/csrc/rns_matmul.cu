@@ -24,7 +24,12 @@
 // and the weight column is read once per TM rows. The readout epilogue runs
 // in f32 in the reference's order: add, round half to even (rintf), wrap
 // mod m, then IEEE division by the ADC step, rintf, multiply, rintf, clip;
-// the __*_rn intrinsics keep nvcc from contracting it into FMAs.
+// the __*_rn intrinsics keep nvcc from contracting it into FMAs. Where the
+// caller passes counters, the epilogue also counts, per modulus, the
+// residues the noise moved (the wrapped residue against the clean one,
+// before the ADC, as src/repro/analog/channel.py:323-335 counts them): a
+// warp's sum goes to the modulus's int64 counter with one atomic add, so
+// the count is exact whatever the order.
 // Not yet: uint8 residues, drawing the noise in-kernel (Philox) instead of
 // reading a pre-sampled tensor, and fusing the decode and scale-accumulate
 // so the residue tensor never reaches device memory.
@@ -42,7 +47,8 @@ template <int TM, int kG, bool kChannel>
 __global__ void __launch_bounds__(kBN)
     rns_matmul_kernel(const int* __restrict__ x, const int* __restrict__ w,
                       const float* __restrict__ noise, int* __restrict__ out,
-                      int G, int M, int N, int g, RnsModuli mods) {
+                      unsigned long long* __restrict__ flips, int G, int M,
+                      int N, int g, RnsModuli mods) {
   __shared__ int xs[TM][kG];
   const int slot = blockIdx.z;
   const int mi = slot / G;
@@ -72,9 +78,10 @@ __global__ void __launch_bounds__(kBN)
   for (int k = 0; k < kG; ++k)
     wc[k] = (k < g && n < N) ? wb[static_cast<size_t>(k) * N + n] : 0;
   __syncthreads();
-  if (n >= N) return;
+  const bool live = n < N;
+  unsigned moved = 0;
 
-  for (int r = 0; r < rows; ++r) {
+  for (int r = 0; r < (live ? rows : 0); ++r) {
     int acc = 0;
 #pragma unroll
     for (int k = 0; k < kG; ++k) acc += xs[r][k] * wc[k];
@@ -88,6 +95,7 @@ __global__ void __launch_bounds__(kBN)
     const float v = rintf(__fadd_rn(static_cast<float>(o), noise[idx]));
     int iv = static_cast<int>(v) % m;
     if (iv < 0) iv += m;  // jnp.mod takes the sign of the divisor
+    moved += iv != o;
     float of = static_cast<float>(iv);
     if (step > 0.0f) {  // ADC re-grid (rns_matmul.py:120-123)
       const float q = rintf(__fmul_rn(rintf(__fdiv_rn(of, step)), step));
@@ -95,33 +103,39 @@ __global__ void __launch_bounds__(kBN)
     }
     out[idx] = static_cast<int>(of);
   }
+  if (kChannel && flips != nullptr) {
+    for (int off = 16; off > 0; off >>= 1)
+      moved += __shfl_down_sync(0xffffffffu, moved, off);
+    if (threadIdx.x % 32 == 0 && moved)
+      atomicAdd(flips + mi, static_cast<unsigned long long>(moved));
+  }
 }
 
 template <int TM, bool kChannel>
 void launch_tm(const int* x, const int* w, const float* noise, int* out,
-               int n_mod, int G, int M, int N, int g, const RnsModuli& mods,
-               cudaStream_t stream) {
+               unsigned long long* flips, int n_mod, int G, int M, int N,
+               int g, const RnsModuli& mods, cudaStream_t stream) {
   const dim3 grid((N + kBN - 1) / kBN, (M + TM - 1) / TM, n_mod * G);
   if (g <= 16)
     rns_matmul_kernel<TM, 16, kChannel><<<grid, kBN, 0, stream>>>(
-        x, w, noise, out, G, M, N, g, mods);
+        x, w, noise, out, flips, G, M, N, g, mods);
   else if (g <= 32)
     rns_matmul_kernel<TM, 32, kChannel><<<grid, kBN, 0, stream>>>(
-        x, w, noise, out, G, M, N, g, mods);
+        x, w, noise, out, flips, G, M, N, g, mods);
   else
     rns_matmul_kernel<TM, 64, kChannel><<<grid, kBN, 0, stream>>>(
-        x, w, noise, out, G, M, N, g, mods);
+        x, w, noise, out, flips, G, M, N, g, mods);
 }
 
 template <bool kChannel>
 void launch(const int* x, const int* w, const float* noise, int* out,
-            int n_mod, int G, int M, int N, int g, const RnsModuli& mods,
-            cudaStream_t stream) {
+            unsigned long long* flips, int n_mod, int G, int M, int N, int g,
+            const RnsModuli& mods, cudaStream_t stream) {
   if (M <= 16)
-    launch_tm<16, kChannel>(x, w, noise, out, n_mod, G, M, N, g, mods,
+    launch_tm<16, kChannel>(x, w, noise, out, flips, n_mod, G, M, N, g, mods,
                             stream);
   else
-    launch_tm<64, kChannel>(x, w, noise, out, n_mod, G, M, N, g, mods,
+    launch_tm<64, kChannel>(x, w, noise, out, flips, n_mod, G, M, N, g, mods,
                             stream);
 }
 
@@ -134,13 +148,15 @@ void launch_rns_matmul(const int* x, const int* w, int* out, int n_mod,
                        int G, int M, int N, int g, const RnsModuli& mods,
                        cudaStream_t stream) {
   if (M == 0 || N == 0 || n_mod * G == 0) return;
-  launch<false>(x, w, nullptr, out, n_mod, G, M, N, g, mods, stream);
+  launch<false>(x, w, nullptr, out, nullptr, n_mod, G, M, N, g, mods,
+                stream);
 }
 
+// flips: nullptr, or n_mod counters the epilogue adds the moved residues to.
 void launch_rns_matmul_channel(const int* x, const int* w, const float* noise,
-                               int* out, int n_mod, int G, int M, int N,
-                               int g, const RnsModuli& mods,
-                               cudaStream_t stream) {
+                               int* out, unsigned long long* flips, int n_mod,
+                               int G, int M, int N, int g,
+                               const RnsModuli& mods, cudaStream_t stream) {
   if (M == 0 || N == 0 || n_mod * G == 0) return;
-  launch<true>(x, w, noise, out, n_mod, G, M, N, g, mods, stream);
+  launch<true>(x, w, noise, out, flips, n_mod, G, M, N, g, mods, stream);
 }

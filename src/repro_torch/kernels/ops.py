@@ -8,6 +8,12 @@ Each wrapper checks device, dtype, shape and contiguity, reshapes leading
 dims away, allocates the output, and adds one to its entry of
 :data:`LAUNCHES` where it launches. The TPU wrappers' padding to block
 multiples is done inside the kernels, whose edge tiles load zeros.
+
+Every wrapper is forward-only: its output is a fresh tensor with no
+``grad_fn``. Called with grad mode on and an input that requires grad, it
+raises rather than cut the graph; training differentiates through
+:class:`repro_torch.core.gemm.MirageMatmul` (the GEMM) and the plain
+:func:`repro_torch.models.attention.chunked_attention` (attention).
 """
 
 from __future__ import annotations
@@ -60,6 +66,22 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     return False
 
 
+def _forward_only(kernel: str, route: str, *tensors) -> None:
+    """Refuse a call whose output autograd would silently detach."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel} is forward-only and its output has no grad_fn, so "
+            f"the gradient would be lost; differentiate through {route}, or "
+            f"call it under torch.no_grad()")
+
+
+_GEMM_ROUTE = "repro_torch.core.gemm.mirage_matmul (MirageMatmul)"
+_ATTN_ROUTE = ("repro_torch.models.attention.chunked_attention (the "
+               "default, LMCallOptions.use_flash_kernel=False)")
+_NO_ROUTE = "nothing: no autograd route exists for this kernel"
+
+
 def _check_cuda_operand(t: torch.Tensor, name: str) -> None:
     if t.dtype != torch.float32:
         raise TypeError(f"{name} must be float32 for the CUDA kernel, "
@@ -94,6 +116,8 @@ def bfp_quant_plan(K: int, g: int, aligned: bool = True) -> str:
 
 def bfp_fake_quant(x: torch.Tensor, policy: MiragePolicy) -> torch.Tensor:
     """BFP(b_m, g) fake quantization along the last axis (any rank)."""
+    _forward_only("bfp_fake_quant", _NO_ROUTE + " (the quantizer's "
+                  "gradient is zero almost everywhere)", x)
     if _on_cpu(x):
         return ref.bfp_fake_quant_ref(x, policy.b_m, policy.g,
                                       policy.rounding)
@@ -127,17 +151,19 @@ class GemmPlan(NamedTuple):
 
 
 def gemm_plan(M: int, N: int, K: int, b_m: int,
-              sms: int = H100_SMS) -> GemmPlan:
+              sms: int = H100_SMS, quant_w: bool = True) -> GemmPlan:
     """The split and block size the wrapper gives the GEMM kernel.
 
-    M > 16 with b_m <= 8 takes the tensor-core route (64 x 64 tiles); the
+    M > 16 with b_m <= 8 takes the tensor-core route (64 x 64 tiles), unless
+    the weight is taken as it is (``quant_w`` false: a bf16 operand would
+    round a weight off its grid); the
     rest the decode route, whose blocks of 128, 64 or 32 threads cover 32,
     16 or 8 columns over 64-row steps (the widest block that still leaves
     two blocks per SM to split K over). K is then split until the grid
     holds about two blocks per SM, into ranges of whole 64-row steps."""
     units = max(1, -(-K // GEMM_BK))
     target = 2 * sms
-    mma = M > 16 and b_m <= 8
+    mma = M > 16 and b_m <= 8 and quant_w
     if mma:
         threads = 256
         tiles = -(-N // 64) * -(-M // 64)
@@ -170,21 +196,31 @@ def sm_count(device: torch.device) -> int:
 
 
 def mirage_matmul_fused(x: torch.Tensor, w: torch.Tensor,
-                        policy: MiragePolicy) -> torch.Tensor:
+                        policy: MiragePolicy,
+                        quantize_w: bool = True) -> torch.Tensor:
     """Fused BFP-quantize + GEMM: ``x (..., K) @ w (K, N)`` (paper dataflow
     steps 2-9 in one kernel).
 
     On the card ``w`` may be a contiguous ``(K, N)`` matrix or the transpose
-    of a contiguous ``(N, K)`` one (the tied head passes ``emb.T``); the
-    kernel reads either in place. ``compute_dtype`` does not change the
+    of a contiguous ``(N, K)`` one (the tied head passes ``emb.T``, the dX
+    GEMM ``w.T``); the kernel reads either in place. A 2-D ``x`` that is the
+    transpose of a contiguous matrix (the dW GEMM's ``X^T``, which contracts
+    over the tokens) is copied once into a contiguous one here.
+    ``quantize_w=False`` takes the weight as it is (already on its BFP
+    grid: the weight-stationary backward reads it transposed).
+    ``compute_dtype`` does not change the
     kernel: BFP(b_m <= 8) values are exact in bf16 and every product of two
     is exact in f32. Where :func:`gemm_plan` splits K, the partials go to a
     workspace allocated here and a second launch of the same call adds them
     in split order (one count in :data:`LAUNCHES`).
     """
+    _forward_only("mirage_matmul_fused", _GEMM_ROUTE, x, w)
     if _on_cpu(x, w):
         return ref.mirage_gemm_ref(x, w, policy.b_m, policy.g,
-                                   policy.rounding, policy.compute_dtype)
+                                   policy.rounding, policy.compute_dtype,
+                                   quantize_w)
+    if x.dim() == 2 and not x.is_contiguous() and x.t().is_contiguous():
+        x = x.contiguous()      # X^T of the dW GEMM: one transposing copy
     _check_cuda_operand(x, "x")
     if w.dim() != 2 or w.shape[0] != x.shape[-1]:
         raise ValueError(f"w {tuple(w.shape)} does not match x "
@@ -204,12 +240,13 @@ def mirage_matmul_fused(x: torch.Tensor, w: torch.Tensor,
     M = xf.shape[0]
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if out.numel():
-        plan = gemm_plan(M, N, K, policy.b_m, sm_count(x.device))
+        plan = gemm_plan(M, N, K, policy.b_m, sm_count(x.device),
+                         quantize_w)
         ws = out if plan.splits == 1 else torch.empty(
             (plan.splits, M, N), dtype=torch.float32, device=x.device)
         extension().mirage_gemm(xf, wk, out, ws, w_nk, policy.g, policy.b_m,
-                                 truncate, plan.mma, plan.threads,
-                                 plan.splits, plan.k_split)
+                                 truncate, quantize_w, plan.mma,
+                                 plan.threads, plan.splits, plan.k_split)
         LAUNCHES["mirage_gemm"] += 1
     return out.reshape(x.shape[:-1] + (N,))
 
@@ -221,6 +258,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q: (B, Lq, H, D) with rope applied; k/v: (B, S, Kv, D). Query head h
     reads kv head h // (H // Kv). Returns (B, Lq, H, D)."""
+    _forward_only("flash_attention", _ATTN_ROUTE, q, k, v)
     if _on_cpu(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal, window)
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
@@ -278,6 +316,8 @@ def rns_group_matmul(x_res: torch.Tensor, w_res: torch.Tensor,
     """Group-batched residue GEMM, ``(x . w) mod m`` per (modulus, group)
     slot: x_res (n_mod, G, M, g), w_res (n_mod, G, g, N) int32 residues in
     [0, m) -> (n_mod, G, M, N) int32. One launch covers every slot."""
+    _forward_only("rns_group_matmul", _NO_ROUTE + " (integer residues)",
+                  x_res, w_res)
     if _on_cpu(x_res, w_res):
         return ref.rns_matmul_ref(x_res, w_res, moduli)
     _check_residue_operands(x_res, w_res, moduli)
@@ -298,14 +338,21 @@ def adc_steps(moduli: Sequence[int], adc_bits: Optional[int]
 
 def rns_group_matmul_channel(x_res: torch.Tensor, w_res: torch.Tensor,
                              moduli: Sequence[int], noise: torch.Tensor,
-                             adc_bits: Optional[int] = None) -> torch.Tensor:
+                             adc_bits: Optional[int] = None,
+                             count_flips: bool = False):
     """:func:`rns_group_matmul` with the readout channel fused in: each
     residue gets ``noise`` (n_mod, G, M, N) f32, pre-scaled to the
     per-modulus detector sigmas, is rounded and wrapped mod m, then
-    re-gridded onto the ``adc_bits`` ADC levels."""
+    re-gridded onto the ``adc_bits`` ADC levels.
+
+    ``count_flips=True`` returns ``(residues, flips)``: ``flips`` (n_mod,)
+    int64 counts, per modulus, the residues the noise moved (wrapped
+    against clean, before the ADC), which the kernel counts itself."""
+    _forward_only("rns_group_matmul_channel",
+                  _NO_ROUTE + " (integer residues)", x_res, w_res, noise)
     if _on_cpu(x_res, w_res, noise):
         return ref.rns_matmul_channel_ref(x_res, w_res, moduli, noise,
-                                          adc_bits)
+                                          adc_bits, count_flips)
     _check_residue_operands(x_res, w_res, moduli)
     _check_cuda_operand(noise, "noise")
     nm, G, M, _ = x_res.shape
@@ -313,12 +360,14 @@ def rns_group_matmul_channel(x_res: torch.Tensor, w_res: torch.Tensor,
     if tuple(noise.shape) != shape:
         raise ValueError(f"noise must be {shape}, got {tuple(noise.shape)}")
     out = torch.empty(shape, dtype=torch.int32, device=x_res.device)
+    flips = torch.zeros((nm if count_flips else 0,), dtype=torch.int64,
+                        device=x_res.device)
     if out.numel():
-        extension().rns_matmul_channel(x_res, w_res, noise, out,
+        extension().rns_matmul_channel(x_res, w_res, noise, out, flips,
                                        [int(m) for m in moduli],
                                        list(adc_steps(moduli, adc_bits)))
         LAUNCHES["rns_matmul_channel"] += 1
-    return out
+    return (out, flips) if count_flips else out
 
 
 def rns_residue_matmul(*args, **kwargs):
@@ -373,6 +422,8 @@ def rrns_decode(residues: torch.Tensor, tables
     ``tables.moduli``: returns ``(decoded int32, votes f32)`` of shape
     ``residues.shape[1:]`` (value 0 and votes -1 where no subset is legal).
     On the card the tables must be ``f32_exact``."""
+    _forward_only("rrns_decode", _NO_ROUTE + " (integer residues)",
+                  residues)
     if _on_cpu(residues):
         return ref.rrns_decode_ref(residues, tables)
     if not tables.f32_exact:

@@ -4,8 +4,9 @@
 
 Serves the FULL-width config unless ``--reduced`` is given, with weights
 and prompts drawn from seed 0, through the dense-layout ``LMServer``
-(greedy unless ``--sample``), and prints tok/s, TTFT and TPOT. ``--device
-cpu`` runs the kernels' plain PyTorch versions instead (slow at full width).
+(greedy unless ``--sample``; prefill attention through the flash kernel),
+and prints tok/s, TTFT and TPOT. ``--device cpu`` runs the kernels' plain
+PyTorch versions instead (slow at full width).
 
 ``--snr-db`` serves through the analog channel at that detector SNR (with
 ``--policy mirage_rns_noisy`` or ``mirage_rrns``), its noise seeded by
@@ -25,6 +26,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.precision import get_policy
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
+from repro_torch.models.lm import LMCallOptions
 from repro_torch.runtime.server import LMServer, Request
 
 
@@ -58,7 +60,7 @@ def main(argv=None):
     if args.snr_db is not None:
         overrides.update(snr_db=args.snr_db, noise_seed=args.noise_seed)
     model = build_model(cfg, get_policy(args.policy, **overrides),
-                        device=device)
+                        LMCallOptions(use_flash_kernel=True), device=device)
     cap = args.prompt_len + args.max_tokens + 4
     server = LMServer(model, cap=cap, batch_slots=args.slots,
                       greedy=not args.sample)

@@ -1,0 +1,124 @@
+"""Training launcher of the port (the twin of ``repro.launch.train``).
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
+      --steps 10 --policy mirage
+
+Trains the FULL-width config on the card unless ``--reduced`` is given,
+with weights drawn from ``--seed`` and ``SyntheticLM`` batches of the JAX
+launcher's defaults (batch 4, sequence 64, AdamW at lr 1e-3, grad clip
+1.0, ``get_policy("mirage")``). Every forward, dX and dW GEMM runs through
+the policy's backend (on the card, the hand-written BFP GEMM kernel).
+``--device cpu`` runs the kernels' plain PyTorch versions instead.
+
+``--weight-stationary-quant`` is the port's own flag (``TrainConfig``'s
+field, which the JAX launcher does not expose): the GEMM weights are put on
+the BFP grid once per step (the BFP quantizer kernel on the card) and the
+policy skips their per-GEMM quantization. ``--ckpt-dir``, ``--resume`` and
+``--distributed`` wait for the distributed slice and raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.configs.base import TrainConfig
+from repro_torch.core.precision import get_policy
+from repro_torch.data.pipeline import SyntheticLM, SyntheticLMConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import build_model
+from repro_torch.models.lm import LMCallOptions
+from repro_torch.runtime.trainer import init_train_state, train_loop
+
+_SLICE_8 = "waits in ROADMAP.md queue 1, slice 8 (distributed, checkpoints)"
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2-0.5b")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--policy", default="mirage",
+                    help="fp32|bf16|int8|mirage|mirage_rns|"
+                         "mirage_rns_noisy|mirage_rrns")
+    ap.add_argument("--snr-db", type=float, default=None,
+                    help="detector SNR for the analog-channel policies")
+    ap.add_argument("--noise-seed", type=int, default=None,
+                    help="static per-GEMM-site error pattern seed for "
+                         "keyless noisy training")
+    ap.add_argument("--optimizer", default="adamw")
+    ap.add_argument("--reduced", action="store_true",
+                    help="reduced config (CPU-scale)")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--grad-compression", default="none",
+                    choices=["none", "bfp"])
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--distributed", action="store_true")
+    ap.add_argument("--weight-stationary-quant", action="store_true",
+                    help="quantize the GEMM weights once per step "
+                         "(TrainConfig.weight_stationary_quant)")
+    ap.add_argument("--device", default=None,
+                    help="cpu to run the plain versions (default: the card)")
+    ap.add_argument("--trace-export", default=None, metavar="FILE",
+                    help="enable the span tracer (train.step / "
+                         "train.data_next / train.host_sync) and write a "
+                         "Chrome-trace JSON here at exit")
+    args = ap.parse_args(argv)
+
+    if args.distributed:
+        raise NotImplementedError(f"--distributed {_SLICE_8}")
+    if args.ckpt_dir or args.resume:
+        raise NotImplementedError(f"--ckpt-dir / --resume {_SLICE_8}")
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    overrides = {}
+    if args.snr_db is not None:
+        overrides["snr_db"] = args.snr_db
+    if args.noise_seed is not None:
+        overrides["noise_seed"] = args.noise_seed
+    if args.weight_stationary_quant:
+        overrides["assume_quantized_weights"] = True
+    policy = get_policy(args.policy, **overrides)
+    tc = TrainConfig(policy=policy, optimizer=args.optimizer, lr=args.lr,
+                     microbatches=args.microbatches,
+                     grad_compression=args.grad_compression, seed=args.seed,
+                     weight_stationary_quant=args.weight_stationary_quant)
+    model = build_model(cfg, policy, LMCallOptions(q_chunk=64, kv_chunk=64),
+                        device=device, generator=torch.Generator(
+                            device=device).manual_seed(args.seed))
+    data = SyntheticLM(SyntheticLMConfig(
+        vocab_size=cfg.vocab_size, seq_len=args.seq, batch_size=args.batch,
+        seed=args.seed, shard_id=0, num_shards=1))
+    state = init_train_state(model, tc)
+
+    if args.trace_export:
+        from repro_torch.obs import trace as obs_trace
+        obs_trace.configure(enabled=True)
+
+    t0 = time.time()
+    state, metrics = train_loop(model, tc, state, iter(data), args.steps)
+    dt = time.time() - t0
+    print(f"trained {args.steps} steps in {dt:.1f}s "
+          f"({args.steps / dt:.2f} steps/s) on {device}; final loss "
+          f"{float(metrics['loss']):.4f}")
+    if args.trace_export:
+        from repro_torch.obs import trace as obs_trace
+        tracer = obs_trace.get_tracer()
+        tracer.export(args.trace_export)
+        print(f"chrome trace ({tracer.n_recorded} spans) -> "
+              f"{args.trace_export}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,11 +1,15 @@
-"""GQA attention: full-sequence prefill path + dense cached decode.
+"""GQA attention: full-sequence path + dense cached decode.
 
-Port of ``repro.models.attention`` for the dense serving slice. Prefill
-attention on a CUDA tensor is the hand-written flash kernel
-(:func:`repro_torch.kernels.ops.flash_attention`, the JAX package's
-``use_flash`` branch); on a CPU tensor it is the plain online-softmax
-:func:`chunked_attention`. Decode attention has no kernel in either package.
-The paged, verify and chunked-prefill decode variants are not ported yet.
+Port of ``repro.models.attention`` for the dense family. Full-sequence
+attention is the hand-written flash kernel
+(:func:`repro_torch.kernels.ops.flash_attention`; its plain version on a
+CPU tensor) where the caller asks for it (``use_flash``, the JAX package's
+``LMCallOptions.use_flash_kernel``: serving's prefill), and otherwise the
+plain online-softmax :func:`chunked_attention` in PyTorch operations, which
+is what both packages train through (the flash kernel has no backward in
+either; its wrapper raises where a gradient would be lost). Decode
+attention has no kernel in either package. The paged, verify and
+chunked-prefill decode variants are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,14 +22,83 @@ from torch import nn
 
 from repro_torch.core.precision import MiragePolicy
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import NEG_INF, _chunk_mask, chunked_attention
 from repro_torch.models import common
+
+NEG_INF = -1e30
 
 __all__ = ["Attention", "NEG_INF", "_chunk_mask", "_repeat_kv",
            "attn_apply", "attn_decode_step", "attn_chunk_step",
            "attn_verify_step", "chunked_attention"]
 
 _PAGED = "the paged KV layout waits in ROADMAP.md queue 1, slice 5"
+
+
+def _chunk_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+                window: Optional[int]) -> torch.Tensor:
+    """(Lq, Sk) boolean validity mask from absolute positions. Padded key
+    slots carry position 2^30 and are masked in the non-causal path too."""
+    m = (k_pos[None, :] < 2**29).expand(q_pos.shape[0], k_pos.shape[0])
+    if causal:
+        m = m & (q_pos[:, None] >= k_pos[None, :])
+    if window is not None:
+        m = m & (q_pos[:, None] - k_pos[None, :] < window)
+    return m
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      q_positions: torch.Tensor, k_positions: torch.Tensor,
+                      causal: bool = True, window: Optional[int] = None,
+                      q_chunk: int = 1024, kv_chunk: int = 1024
+                      ) -> torch.Tensor:
+    """Online-softmax GQA attention; returns (B, Lq, H, D).
+
+    q: (B, Lq, H, D) with rope applied, k/v: (B, Sk, Kv, D); query head h
+    reads kv head h // (H // Kv). The JAX package's ``lax.map``/``lax.scan``
+    over chunks become Python loops; the arithmetic is the same."""
+    B, Lq, H, D = q.shape
+    Sk, Kv = k.shape[1], k.shape[2]
+    if H % Kv:
+        raise ValueError(f"n_heads {H} is not a multiple of n_kv_heads {Kv}")
+    rep = H // Kv
+    sm_scale = 1.0 / math.sqrt(D)
+    qc = min(q_chunk, Lq)
+    kc = min(kv_chunk, Sk)
+    pad_q = (-Lq) % qc
+    pad_k = (-Sk) % kc
+    F = torch.nn.functional
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+        q_positions = F.pad(q_positions, (0, pad_q), value=-1)
+    if pad_k:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
+        k_positions = F.pad(k_positions, (0, pad_k), value=2**30)
+    q5 = q.reshape(B, -1, Kv, rep, D)
+    outs = []
+    for i0 in range(0, q5.shape[1], qc):
+        qi, qp = q5[:, i0:i0 + qc], q_positions[i0:i0 + qc]
+        acc = torch.zeros((B, qc, Kv, rep, D), dtype=torch.float32,
+                          device=q.device)
+        m_run = torch.full((B, qc, Kv, rep), NEG_INF, dtype=torch.float32,
+                           device=q.device)
+        l_run = torch.zeros((B, qc, Kv, rep), dtype=torch.float32,
+                            device=q.device)
+        for j0 in range(0, k.shape[1], kc):
+            ki, vi = k[:, j0:j0 + kc], v[:, j0:j0 + kc]
+            s = torch.einsum("bqkrd,bskd->bqkrs", qi, ki) * sm_scale
+            mask = _chunk_mask(qp, k_positions[j0:j0 + kc], causal, window)
+            s = torch.where(mask[None, :, None, None, :], s,
+                            torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m_run, torch.amax(s, dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m_run - m_new)
+            l_run = l_run * alpha + torch.sum(p, dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum("bqkrs,bskd->bqkrd",
+                                                        p, vi)
+            m_run = m_new
+        outs.append(acc / torch.clamp_min(l_run[..., None], 1e-30))
+    out = torch.cat(outs, dim=1).reshape(B, -1, H, D)
+    return out[:, :Lq]
 
 
 class Attention(nn.Module):
@@ -58,9 +131,10 @@ def attn_apply(p: Attention, x: torch.Tensor, policy: MiragePolicy, *,
                positions: torch.Tensor, rope_theta: float,
                causal: bool = True, window: Optional[int] = None,
                qk_norm: bool = False, kv_repeat: int = 1,
-               q_chunk: int = 1024, kv_chunk: int = 1024
+               q_chunk: int = 1024, kv_chunk: int = 1024,
+               use_flash: bool = False
                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Full-sequence self-attention block (prefill path).
+    """Full-sequence self-attention block (train and prefill path).
 
     ``positions`` are the sequence's positions 0..L-1 (what the flash
     kernel assumes, as the JAX ``use_flash`` condition does). Returns
@@ -76,7 +150,7 @@ def attn_apply(p: Attention, x: torch.Tensor, policy: MiragePolicy, *,
     k = common.apply_rope(k, positions, rope_theta)
     k = _repeat_kv(k, kv_repeat)
     v = _repeat_kv(v, kv_repeat)
-    if q.is_cuda:
+    if use_flash:
         out = ops.flash_attention(q, k, v, causal=causal, window=window)
     else:
         out = chunked_attention(q, k, v, positions, positions, causal=causal,

@@ -14,6 +14,7 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.precision import MiragePolicy
@@ -26,13 +27,57 @@ _FAMILIES = "the MoE, SSM, hybrid, enc-dec and vlm families wait in " \
 
 @dataclasses.dataclass(frozen=True)
 class LMCallOptions:
-    """Runtime knobs that don't change parameters.
+    """Runtime knobs that don't change parameters (the JAX package's fields
+    that the ported paths read).
 
-    ``q_chunk``/``kv_chunk`` size the plain attention's chunks (the CPU
-    path); the card's flash kernel picks its own tiles."""
+    ``q_chunk``/``kv_chunk`` size the plain attention's chunks; the flash
+    kernel picks its own tiles. ``use_flash_kernel`` runs full-sequence
+    attention through the flash kernel (forward only: serving's prefill
+    sets it; training keeps the default, the plain attention, as in the
+    JAX package). ``remat`` recomputes each layer in the backward pass
+    (``torch.utils.checkpoint`` per layer, the JAX package's
+    ``jax.checkpoint`` around the scanned layer); ``ce_chunk`` computes the
+    loss over chunks of that many tokens without materializing the full
+    logits (:func:`chunked_ce`)."""
     kv_repeat: int = 1          # repeat kv heads (exact duplication)
     q_chunk: int = 1024
     kv_chunk: int = 1024
+    remat: bool = False
+    ce_chunk: int = 0           # chunked CE loss (0 = unchunked)
+    use_flash_kernel: bool = False   # flash attention kernel (forward only)
+
+
+def _token_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-token log-likelihood of ``labels`` (clamped at 0) under f32
+    ``logits`` (..., V)."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    return torch.gather(logp, -1, torch.clamp_min(labels, 0).long()[..., None]
+                        )[..., 0]
+
+
+def chunked_ce(h: torch.Tensor, labels: torch.Tensor, head_fn,
+               chunk: int) -> torch.Tensor:
+    """Cross-entropy without materializing (T, V) logits: a loop over token
+    chunks, each recomputing its logits in the backward pass
+    (``torch.utils.checkpoint``). h: (T, d), labels: (T,); label -1 (the
+    padding of the last chunk) contributes nothing. Returns the mean CE."""
+    T = h.shape[0]
+    chunk = min(chunk, T) if chunk else T
+    pad = (-T) % chunk
+    if pad:
+        h = torch.nn.functional.pad(h, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+
+    def body(hh, ll):
+        ll_tok = _token_ce(head_fn(hh), ll)
+        return -torch.sum(torch.where(ll >= 0, ll_tok,
+                                      torch.zeros_like(ll_tok)))
+
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, h.shape[0], chunk):
+        total = total + checkpoint(body, h[i:i + chunk], labels[i:i + chunk],
+                                   use_reentrant=False)
+    return total / T
 
 
 class Layer(nn.Module):
@@ -108,7 +153,7 @@ class LM(nn.Module):
             positions=positions, rope_theta=cfg.rope_theta, causal=True,
             window=cfg.sliding_window, qk_norm=cfg.qk_norm,
             kv_repeat=opt.kv_repeat, q_chunk=opt.q_chunk,
-            kv_chunk=opt.kv_chunk)
+            kv_chunk=opt.kv_chunk, use_flash=opt.use_flash_kernel)
         return self._mlp_tail(layer, h + a), kv
 
     def _mlp_tail(self, layer: Layer, h: torch.Tensor) -> torch.Tensor:
@@ -117,16 +162,49 @@ class LM(nn.Module):
         return h + common.mlp(layer.mlp, n2, self.policy)
 
     # ------------------------------------------------------------------
-    # forward (logits over the full sequence)
+    # forward (train / logits over the full sequence)
     # ------------------------------------------------------------------
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens: (B, L) -> logits (B, L, V)."""
+    def forward_hidden(self, tokens: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+        """Run the layer stack; returns (hidden, aux, n_prefix). The dense
+        family has no router loss (aux is 0) and no frontend prefix."""
         h = common.embed(self.embed, tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
+
+        def block(layer, hh):
+            return self._attn_mlp_block(layer, hh, positions)[0]
+
         for layer in self.layers:
-            h, _ = self._attn_mlp_block(layer, h, positions)
-        return self._head(h)
+            if self.opt.remat and torch.is_grad_enabled():
+                h = checkpoint(block, layer, h, use_reentrant=False)
+            else:
+                h = block(layer, h)
+        return h, torch.zeros((), dtype=torch.float32, device=h.device), 0
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens: (B, L) -> logits (B, L, V) (the JAX ``forward``'s first
+        output; its aux and prefix are those of :meth:`forward_hidden`)."""
+        return self._head(self.forward_hidden(tokens)[0])
+
+    def loss(self, batch: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Mean next-token cross-entropy of ``batch`` (``tokens`` and
+        ``labels``, (B, L)) plus the router loss; returns (loss, metrics
+        ``ce``, ``aux``, ``ppl``) as the JAX ``loss`` does."""
+        tokens, labels = batch["tokens"], batch["labels"]
+        h, aux, n_prefix = self.forward_hidden(tokens)
+        h = h[:, n_prefix:, :]
+        B, L, d = h.shape
+        if self.opt.ce_chunk:
+            ce = chunked_ce(h.reshape(B * L, d), labels.reshape(B * L),
+                            self._head, self.opt.ce_chunk)
+        else:
+            ce = -torch.mean(_token_ce(self._head(h), labels))
+        total = ce + self.cfg.router_aux_loss * aux / max(self.cfg.n_layers,
+                                                          1)
+        return total, {"ce": ce, "aux": aux,
+                       "ppl": torch.exp(torch.clamp_max(ce, 20.0))}
 
     # ------------------------------------------------------------------
     # serving: prefill + single-token decode with caches

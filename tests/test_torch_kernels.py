@@ -27,6 +27,7 @@ from repro_torch import resolve_device
 from repro_torch.core import backends, gemm
 from repro_torch.core.precision import get_policy
 from repro_torch.kernels import ops, ref
+from repro_torch.models import attention
 
 
 def _rand(shape, seed, scale=1.0):
@@ -100,7 +101,7 @@ def test_chunked_attention_matches_jax(causal):
     want = np.asarray(jchunked(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                jnp.asarray(pos), jnp.asarray(pos),
                                causal=causal, q_chunk=16, kv_chunk=16))
-    got = ref.chunked_attention(
+    got = attention.chunked_attention(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
         torch.from_numpy(pos), torch.from_numpy(pos), causal=causal,
         q_chunk=16, kv_chunk=16)
@@ -232,7 +233,7 @@ def _flash_tf32(q, k, v, causal, window, terms=3, block_k=32):
     kh = k.permute(0, 2, 1, 3).repeat_interleave(rep, dim=1)  # (B, H, S, D)
     vh = v.permute(0, 2, 1, 3).repeat_interleave(rep, dim=1)
     qp = torch.arange(L)[:, None]
-    m = torch.full((B, H, L, 1), ref.NEG_INF)
+    m = torch.full((B, H, L, 1), attention.NEG_INF)
     l = torch.zeros((B, H, L, 1))
     acc = torch.zeros((B, H, L, D))
     for j0 in range(0, S, block_k):
@@ -244,7 +245,7 @@ def _flash_tf32(q, k, v, causal, window, terms=3, block_k=32):
             ok &= qp >= kp
         if window is not None:
             ok &= qp - kp < window
-        s = torch.where(ok, s, torch.full_like(s, ref.NEG_INF))
+        s = torch.where(ok, s, torch.full_like(s, attention.NEG_INF))
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         p = torch.exp(s - m_new)
         alpha = torch.exp(m - m_new)
@@ -387,6 +388,9 @@ def test_port_imports_no_jax():
         "import repro_torch.core.stationary, repro_torch.obs.health\n"
         "import repro_torch.core.backends.mirage_rns\n"
         "import repro_torch.core.backends.mirage_rrns\n"
+        "import repro_torch.optim, repro_torch.data.pipeline\n"
+        "import repro_torch.obs.trace, repro_torch.runtime.trainer\n"
+        "import repro_torch.launch.train, repro_torch.configs.base\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith(('jax.', 'jaxlib')) or m == 'repro' or\n"
         "             m.startswith('repro.'))\n"
