@@ -33,6 +33,19 @@ training held to the CPU end to end and step 1's gradients leaf by leaf
 teacher-forced GEMM by GEMM; weight-stationary training with BFP gradient
 compression (the BFP quantizer kernel on its path; its GEMMs
 teacher-forced too); and the backward GEMMs timed.
+
+Closing slice 2: the flash kernel at head dims 16, 24 (padded to the 32
+instance), 80 and 128 (and each instance's registers and spills from
+``nvcc -Xptxas -v``, built beside the extension), ``python -m
+repro_torch.launch.serve --reduced`` through the flash kernel at head_dim
+16 (under fp32, greedy streams equal to the CPU's), full-width mirage
+training through ``launch.train`` stopped by SIGTERM at step 2 and
+resumed with ``--resume``, bit for bit equal to 4 straight steps (then the
+checkpoint's bytes and its save and restore times), 3 full-width
+``mirage_rns`` steps with kernel 4 launched over group blocks (peak memory
+under 24 GB, step 1's GEMMs teacher-forced against mirage_fast), and the
+four example twins (``python -m repro_torch.examples.*``) on the card.
+Checkpoints go to ``build/chip_smoke_ckpt`` and are removed after.
 """
 
 from __future__ import annotations
@@ -81,11 +94,21 @@ FLASH_CASES = ((4, 128, 14, 2, 64, None), (4, 512, 14, 2, 64, None),
                (4, 64, 14, 2, 64, None), (2, 1, 14, 2, 64, None),
                (2, 17, 14, 2, 64, None), (2, 77, 14, 14, 64, None),
                (4, 128, 14, 2, 64, 40), (1, 300, 8, 2, 64, 45))
-# the timed attention shapes (the first is the headline row)
+# the other head dims: instances 16, 80 and 128 and a padded 24 (to 32),
+# each with GQA at L = 1, 17, 128 (a window inside a tile) and 512, and
+# without GQA (the reduced config's 4 heads over 2 kv heads at D = 16)
+FLASH_DIMS = (16, 24, 80, 128)
+FLASH_CASES += tuple(case for D in FLASH_DIMS for case in (
+    (2, 1, 14, 2, D, None), (2, 17, 14, 2, D, None),
+    (4, 128, 14, 2, D, 40), (2, 512, 14, 2, D, None),
+    (2, 77, 4, 4, D, None), (4, 32, 4, 2, D, None)))
+# the timed attention shapes (the first is the headline row; the last three
+# the other instances at the headline shape)
 FLASH_TIMED = ((4, 128, 14, 2, 64, None), (1, 32, 14, 2, 64, None),
                (2, 64, 14, 2, 64, None), (4, 64, 14, 2, 64, None),
                (4, 77, 14, 2, 64, None), (4, 512, 14, 2, 64, None),
-               (4, 128, 14, 2, 64, 32))
+               (4, 128, 14, 2, 64, 32), (4, 128, 14, 2, 16, None),
+               (4, 128, 14, 2, 80, None), (4, 128, 14, 2, 128, None))
 
 # the RNS paths: base moduli (k = 5), base + the two redundant RRNS moduli,
 # and a k = 8 set for the residue kernel's range; M = 4 is a decode tick,
@@ -465,12 +488,55 @@ def phase_flash(ops, ref):
         err = (got - want).abs()
         ok = bool(torch.allclose(got, want, rtol=2e-5, atol=2e-5))
         emit({"phase": "flash_vs_plain", "B": B, "L": L, "H": H, "Kv": Kv,
-              "D": D, "window": window, "max_abs_err": float(err.max()),
-              "ok": ok})
+              "D": D, "instance": ops.flash_head_dim(D), "window": window,
+              "max_abs_err": float(err.max()), "ok": ok})
         check(ok, f"flash kernel outside rtol=atol=2e-5 at B={B} L={L} "
-                  f"window={window}")
+                  f"H={H} Kv={Kv} D={D} window={window}")
         worst = max(worst, float(err.max()))
     return worst
+
+
+def start_flash_ptxas():
+    """nvcc on csrc/flash_attention.cu alone with ``-Xptxas -v`` (the
+    extension's flags), started beside the extension's build: each head-dim
+    instance's registers, stack frame and spills."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    from repro_torch.kernels import build
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = pathlib.Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "nvcc"
+    cmd = [str(nvcc), *build.CUDA_FLAGS, "-cubin", "-Xptxas=-v", "-o",
+           str(build.BUILD_DIR / "flash_attention.cubin"),
+           str(build.CSRC / "flash_attention.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def phase_flash_ptxas(proc):
+    import re
+    out, _ = proc.communicate(timeout=600)
+    per_d, d = {}, None
+    for line in out.splitlines():
+        m = re.search(r"flash_fwd_kernelILi(\d+)E", line)
+        if m and "Compiling entry function" in line:
+            d = int(m.group(1))
+            per_d[d] = {}
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and d is not None:
+            per_d[d].update(stack_bytes=int(m.group(1)),
+                            spill_store_bytes=int(m.group(2)),
+                            spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and d is not None:
+            per_d[d]["registers"] = int(m.group(1))
+    ok = proc.returncode == 0 and sorted(per_d) == [16, 32, 64, 80, 96, 128]
+    emit({"phase": "flash_ptxas", "returncode": proc.returncode,
+          "instances": {str(k): v for k, v in sorted(per_d.items())},
+          "ok": ok})
+    check(ok, f"nvcc -Xptxas -v on flash_attention.cu failed or missed an "
+              f"instance: {out[-2000:]}")
+    return per_d
 
 
 # --------------------------------------------------------------------------
@@ -1778,6 +1844,353 @@ def phase_slice_train_wsq(ops, ref, layers=(0, 11, 23)):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phases 13-16: closing slice 2 — serve --reduced through flash at D = 16,
+# checkpoint and resume at full width, mirage_rns training at full width,
+# and the example twins
+# --------------------------------------------------------------------------
+
+#: scratch for the checkpoints of train_resume and the twins, removed after
+CKPT_ROOT = pathlib.Path(__file__).resolve().parent / "build" / \
+    "chip_smoke_ckpt"
+RESUME_STEPS, RNS_TRAIN_STEPS = 4, 3
+RNS_TRAIN_PEAK_GB = 24.0
+
+
+def entry_argv(argv, reduced: bool = False):
+    """An entry point's arguments; a CPU rehearsal adds ``--device cpu``
+    (and, for the launchers, ``--reduced``)."""
+    extra = ["--reduced"] if reduced and REDUCED else []
+    return argv + extra + (["--device", "cpu"] if DEV == "cpu" else [])
+
+
+def quiet(fn, *args):
+    """``fn(*args)`` with its standard output captured; returns (result,
+    the output's last lines)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue().splitlines()[-6:]
+
+
+def free_card():
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def phase_serve_reduced(ops):
+    """``python -m repro_torch.launch.serve --reduced`` on the card: the
+    reduced config's head_dim 16 through the flash kernel's D = 16
+    instance. Under fp32 the greedy streams equal the CPU's on the same
+    weights (the card's model copied to the CPU)."""
+    from repro_torch.launch import serve as serve_launch
+
+    ops.reset_launch_counts()
+    rc, lines = quiet(serve_launch.main, entry_argv(["--reduced"]))
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    args = serve_launch.parse_args(entry_argv(["--reduced", "--policy",
+                                               "fp32"]))
+    model = serve_launch.build(args)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    _, card, _ = serve_launch.serve(model, args)
+    _, cpu, _ = serve_launch.serve(cpu_model, args)
+    streams = {r.rid: r.tokens_out for r in card}
+    cpu_streams = {r.rid: r.tokens_out for r in cpu}
+    n_layers = model.cfg.n_layers
+    same = streams == cpu_streams and len(streams) == args.requests
+    emit({"phase": "serve_reduced", "head_dim": model.cfg.resolved_head_dim,
+          "returncode": rc, "output": lines, "launches": launches,
+          "fp32_streams_equal_cpu": same,
+          "fp32_tokens": sum(len(t) for t in streams.values()),
+          "ok": rc == 0 and launches["flash_attention"] > 0 and same})
+    check(rc == 0, "launch.serve --reduced did not return 0")
+    check(launches["flash_attention"] > 0 and
+          launches["flash_attention"] % n_layers == 0,
+          f"launch.serve --reduced launched flash {launches} times")
+    check(same, f"fp32 greedy streams on the card differ from the CPU's: "
+                f"{streams} vs {cpu_streams}")
+    del model, cpu_model
+    free_card()
+    return launches
+
+
+def read_checkpoint(d: pathlib.Path):
+    """A checkpoint directory's manifest and leaves, as the JAX package
+    writes them (``format: 1``)."""
+    manifest = json.loads((d / "manifest.json").read_text())
+    return manifest, {p: np.load(d / f)
+                      for p, f in manifest["leaves"].items()}
+
+
+def phase_train_resume():
+    """Full width under mirage through ``launch.train.main``: 4 steps
+    straight, against 2 steps, SIGTERM (the guard checkpoints and stops),
+    ``--resume`` and 2 more. The step-4 checkpoints (params, both moments
+    and their count, the step, and the data state in the metadata) must be
+    equal bit for bit. Then the full-width state's checkpoint bytes and its
+    synchronous save, asynchronous save and restore times."""
+    import shutil
+    import signal
+    from repro_torch.launch import train as train_launch
+    from repro_torch.runtime.elastic import StragglerMitigator
+
+    class SigtermAtStop(StragglerMitigator):
+        """Sends the process SIGTERM after step RESUME_STEPS / 2: the
+        launcher's PreemptionGuard takes it as it would the scheduler's."""
+
+        def record(self, step, dt):
+            if step == RESUME_STEPS // 2:
+                signal.raise_signal(signal.SIGTERM)
+            return super().record(step, dt)
+
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    CKPT_ROOT.mkdir(parents=True)
+    disk_free_gb = shutil.disk_usage(CKPT_ROOT).free / 1e9
+    straight, stopped = CKPT_ROOT / "straight", CKPT_ROOT / "stopped"
+    common = entry_argv(["--ckpt-every", str(RESUME_STEPS)], reduced=True)
+    t0 = time.perf_counter()
+    quiet(train_launch.main, ["--steps", str(RESUME_STEPS), "--ckpt-dir",
+                              str(straight)] + common)
+    free_card()
+    want_manifest, want = read_checkpoint(
+        straight / f"step_{RESUME_STEPS:010d}")
+    shutil.rmtree(straight)
+    real = train_launch.StragglerMitigator
+    train_launch.StragglerMitigator = SigtermAtStop
+    try:
+        _, stop_lines = quiet(train_launch.main, [
+            "--steps", str(RESUME_STEPS), "--ckpt-dir", str(stopped)]
+            + common)
+    finally:
+        train_launch.StragglerMitigator = real
+    free_card()
+    stopped_at = sorted(p.name for p in stopped.iterdir())
+    _, resume_lines = quiet(train_launch.main, [
+        "--steps", str(RESUME_STEPS - RESUME_STEPS // 2), "--resume",
+        "--ckpt-dir", str(stopped)] + common)
+    free_card()
+    got_manifest, got = read_checkpoint(stopped / f"step_{RESUME_STEPS:010d}")
+    runs_s = time.perf_counter() - t0
+    differ = [p for p in want if p not in got or
+              not np.array_equal(want[p], got[p]) or
+              want[p].dtype != got[p].dtype]
+    same_meta = want_manifest["metadata"] == got_manifest["metadata"]
+    n_bytes = sum(a.nbytes for a in want.values())
+    emit({"phase": "train_resume", "policy": "mirage", "steps":
+          RESUME_STEPS, "stopped_after": RESUME_STEPS // 2,
+          "checkpoints_after_stop": stopped_at, "stop_output": stop_lines,
+          "resume_output": resume_lines, "leaves": len(want),
+          "leaves_differing": differ[:10], "metadata": got_manifest[
+              "metadata"], "metadata_equal": same_meta,
+          "checkpoint_bytes": n_bytes, "disk_free_gb_before": disk_free_gb,
+          "deterministic_algorithms": torch.are_deterministic_algorithms_enabled(),
+          "seconds": runs_s, "ok": not differ and same_meta})
+    check(stopped_at == [f"step_{RESUME_STEPS // 2:010d}"],
+          f"the stopped run left {stopped_at}")
+    check(not differ, f"resumed state differs from the straight run at "
+                      f"{differ[:10]}")
+    check(same_meta, f"data state differs: {want_manifest['metadata']} vs "
+                     f"{got_manifest['metadata']}")
+    del want, got
+    shutil.rmtree(stopped)
+    checkpoint_times()
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+
+
+def checkpoint_times():
+    """Save (synchronous, and asynchronous: the call, then to the commit)
+    and restore of the full-width mirage train state after one step."""
+    import shutil
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core.precision import get_policy
+    from repro_torch.interop import restore_train_state, to_jax_train_state
+
+    cfg, model, tc, data = train_setup(get_policy("mirage"))
+    state, _, _, _ = run_train(model, tc, iter(data), 1)
+    ck = Checkpointer(str(CKPT_ROOT / "timing"), keep_last=1)
+    t0 = time.perf_counter()
+    ck.save(to_jax_train_state(model, state), 1)
+    sync_s = time.perf_counter() - t0
+    d = CKPT_ROOT / "timing" / f"step_{1:010d}"
+    n_bytes = sum(f.stat().st_size for f in d.iterdir())
+    shutil.rmtree(d)    # one full-width checkpoint on the disk at a time
+    t0 = time.perf_counter()
+    ck.save_async(to_jax_train_state(model, state), 2)
+    call_s = time.perf_counter() - t0
+    ck.wait()
+    async_s = time.perf_counter() - t0
+    before = {k: v.detach().clone() for k, v in
+              (("emb", model.embed.emb), ("m", state["opt"]["m"][
+                  "embed.emb"]))}
+    with torch.no_grad():
+        model.embed.emb.zero_()
+        state["opt"]["m"]["embed.emb"].zero_()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, meta = restore_train_state(ck, model, state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    ok = torch.equal(model.embed.emb, before["emb"]) and torch.equal(
+        state["opt"]["m"]["embed.emb"], before["m"]) and \
+        int(state["step"]) == 1
+    emit({"phase": "checkpoint_times", "policy": "mirage",
+          "params": sum(p.numel() for p in model.parameters()),
+          "files_bytes": n_bytes, "save_sync_s": sync_s,
+          "save_async_call_s": call_s, "save_async_to_commit_s": async_s,
+          "restore_s": restore_s, "sync_gb_per_s": n_bytes / sync_s / 1e9,
+          "ok": ok})
+    check(ok, "the full-width restore did not bring the state back")
+    del model, state
+    free_card()
+
+
+def rns_blocks_per_step(cfg, T: int) -> int:
+    """Kernel-4 launches of one mirage_rns training step at T tokens, from
+    the card's group-block plan: per model GEMM (K -> N) the forward (M = T
+    over K), dX (M = T over N) and dW (M = K over T)."""
+    from repro_torch.core.backends.mirage_rns import card_group_block
+
+    def launches(M, K, N):
+        G = -(-K // 16)
+        return -(-G // card_group_block(3, G, M, N))
+
+    d, f, V, L = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layers
+    kv = cfg.n_kv_heads * cfg.resolved_head_dim
+    return sum(n * (launches(T, K, N) + launches(T, N, K) +
+                    launches(K, T, N))
+               for K, N, n in ((d, d, 2 * L), (d, kv, 2 * L),
+                               (d, f, 2 * L), (f, d, L), (d, V, 1)))
+
+
+def phase_slice_train_rns(ops, ref, layers=(0, 23)):
+    """3 full-width mirage_rns steps: every forward, dX and dW GEMM through
+    kernel 4, launched over group blocks wherever one launch's residues
+    would pass the budget (the tied head). Losses finite, peak memory
+    below 24 GB, launches as the plan says; step 1's GEMMs of layers 0 and
+    23 and the head, teacher-forced (the card's own x, w and dO of step 1),
+    within the GEMM bound of mirage_fast: the forward, dX and dW."""
+    from repro_torch.core import gemm
+    from repro_torch.core.precision import get_policy
+
+    policy, fast = get_policy("mirage_rns"), get_policy("mirage")
+    cfg, model, tc, data = train_setup(policy)
+    layers = tuple(li for li in layers if li < cfg.n_layers)
+    data = iter(data)
+    T = TRAIN_BATCH * TRAIN_SEQ
+    head = len(LAYER_GEMMS) * cfg.n_layers
+    keep = [len(LAYER_GEMMS) * li + j for li in layers
+            for j in range(len(LAYER_GEMMS))] + [head]
+    per_step = rns_blocks_per_step(cfg, T)
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated() / 1e9
+    ops.reset_launch_counts()
+    with GemmCapture(keep) as cap:
+        state, _, times, logs = run_train(model, tc, data, 1)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rows, bad = {}, []
+    n = len(LAYER_GEMMS)
+    for i, rec in sorted(cap.got.items()):
+        name = "head" if i == head else f"layer_{i // n}.{LAYER_GEMMS[i % n]}"
+        x = rec["x"].reshape(-1, rec["x"].shape[-1])
+        w, d = rec["w"], rec["dO"].reshape(-1, rec["dO"].shape[-1])
+        errs = {}
+        for part, (a, b) in (("fwd", (x, w)), ("dX", (d, w.T)),
+                             ("dW", (x.T, d))):
+            got = gemm.mirage_matmul_nograd(a, b, policy)
+            want_f = gemm.mirage_matmul_nograd(a, b, fast)
+            e = (got - want_f).abs()
+            tol = gemm_bound(ref, a.contiguous(), b)
+            errs[part] = {"max_abs_err": float(e.max()),
+                          "err_over_tol": float((e / tol).max())}
+            if bool((e > tol).any()):
+                bad.append(f"{name}.{part}")
+            del got, want_f, e, tol
+        rows[name] = errs
+    del cap
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    state, step, more, logs2 = run_train(model, tc, data,
+                                         RNS_TRAIN_STEPS - 1, state=state)
+    torch.cuda.synchronize()
+    launches = {k: v + launches[k] for k, v in ops.LAUNCHES.items()}
+    peak = max(peak, torch.cuda.max_memory_allocated() / 1e9)
+    prof = device_profile(lambda: step(state, next(data)), 1)
+    times, logs = times + more, logs + logs2
+    losses = [m["loss"] for m in logs]
+    want = {"rns_matmul": per_step * RNS_TRAIN_STEPS}
+    tokens = T
+    step_s = statistics.median(times[1:]) if len(times) > 1 else times[0]
+    emit({"phase": "slice_train_rns", "arch": cfg.arch_id,
+          "policy": "mirage_rns b_m=4 g=16 k=5", "steps": RNS_TRAIN_STEPS,
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "launches": launches,
+          "expected_launches": want, "rns_matmul_per_step": per_step,
+          "step_ms": [t * 1e3 for t in times],
+          "step_ms_median_2_to_3": step_s * 1e3,
+          "tok_per_s": tokens / step_s, "peak_mem_gb": peak,
+          "allocated_before_gb": before, "losses": losses,
+          "grad_norms": [m["grad_norm"] for m in logs],
+          "step1_gemms_vs_mirage_fast": rows, "step_profile": prof,
+          "ok": not bad and peak < RNS_TRAIN_PEAK_GB and
+          all(math.isfinite(v) for v in losses)})
+    check(all(math.isfinite(v) for v in losses),
+          f"a mirage_rns training loss is not finite: {losses}")
+    expect_launches(launches, want, "slice_train_rns")
+    check(peak < RNS_TRAIN_PEAK_GB, f"mirage_rns training peaked at "
+                                    f"{peak:.2f} GB")
+    check(not bad, f"mirage_rns step-1 GEMMs outside mirage_fast's bound at "
+                   f"{bad}")
+    del model, state
+    free_card()
+    return launches, per_step
+
+
+def phase_twins(ops):
+    """Each example twin, as ``python -m repro_torch.examples.<name>`` runs
+    it, on the card: it must return 0. The training twin stops early (3
+    steps) and checkpoints into a scratch directory."""
+    import shutil
+    from repro_torch.examples import (mirage_vs_fp32, quickstart, serve_lm,
+                                      train_lm)
+
+    runs = {"quickstart": (quickstart.main, []),
+            "mirage_vs_fp32": (mirage_vs_fp32.main, ["--snr-db", "45",
+                                                     "--rrns"]),
+            "train_lm": (train_lm.main, ["--small", "--steps", "3",
+                                         "--ckpt-dir",
+                                         str(CKPT_ROOT / "train_lm")]),
+            "serve_lm": (serve_lm.main, [])}
+    out = {}
+    for name, (fn, argv) in runs.items():
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc, lines = quiet(fn, entry_argv(argv))
+        torch.cuda.synchronize()
+        out[name] = {"argv": argv, "returncode": rc,
+                     "seconds": time.perf_counter() - t0,
+                     "launches": dict(ops.LAUNCHES), "output": lines}
+        free_card()
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    ok = all(r["returncode"] == 0 for r in out.values())
+    emit({"phase": "twins", "runs": out, "ok": ok})
+    check(ok, f"an example twin did not return 0: "
+              f"{ {k: v['returncode'] for k, v in out.items()} }")
+    check(out["serve_lm"]["launches"]["flash_attention"] > 0 and
+          out["quickstart"]["launches"]["mirage_gemm"] > 0 and
+          out["mirage_vs_fp32"]["launches"]["rns_matmul_channel"] > 0 and
+          out["mirage_vs_fp32"]["launches"]["rrns_decode"] > 0,
+          "a twin did not reach the kernels of its path")
+    return out
+
+
 def phase_timing_train(ops, ref, policy):
     """The backward GEMMs (and the weight-stationary forward) at B x L =
     256: kernel, plain, library (``torch.matmul`` on pre-folded operands)
@@ -2076,6 +2489,44 @@ def phase_timing_rns(ops, ref, per_tick):
     return rows
 
 
+#: kernel 4's launches in a full-width mirage_rns training step at 256
+#: tokens, by (GEMM, groups per launch, M, N) and launches a step: the
+#: layer forwards, and the tied head's blocks (card_group_block)
+RNS_TRAIN_SHAPES = (("fwd q/o", 56, 256, 896, 48),
+                    ("fwd gate/up", 56, 256, 4864, 48),
+                    ("fwd down", 304, 256, 896, 24),
+                    ("head fwd block", 4, 256, 151936, 14),
+                    ("head dX block", 780, 256, 896, 13),
+                    ("head dW block", 1, 896, 151936, 16))
+
+
+def phase_timing_train_rns(ops, ref):
+    """Kernel 4 at the launches of a full-width mirage_rns training step,
+    over the base moduli: kernel, plain version, ``torch.bmm`` of the same
+    residues as f32 (no mod) and the bound."""
+    rows = []
+    n = len(RNS_BASE)
+    for name, G, M, N, per_step in RNS_TRAIN_SHAPES:
+        xr, wr = residue_operands(RNS_BASE, M, 16 * G, N, seed=11)
+        S = n * G
+        xf, wf = xr.reshape(S, M, 16).float(), wr.reshape(S, 16, N).float()
+        t_b, by = bound_rate(4.0 * (S * M * 16 + S * 16 * N + S * M * N),
+                             2.0 * S * M * N * 16, INT_OPS_PER_S)
+        rows.append({
+            "gemm": name, "n_mod": n, "G": G, "M": M, "N": N,
+            "launches_per_train_step": per_step,
+            "ms": time_ms(lambda: ops.rns_group_matmul(xr, wr, RNS_BASE)),
+            "plain_ms": time_ms(lambda: ref.rns_matmul_ref(xr, wr, RNS_BASE),
+                                n=5),
+            "library_ms": time_ms(lambda: torch.bmm(xf, wf)),
+            "bound_ms": t_b, "bound_by": by})
+        del xr, wr, xf, wf
+    for row in rows:
+        emit({"phase": "timing", "kernel": "rns_matmul", "path": "train",
+              **row})
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a CUDA "
@@ -2097,9 +2548,11 @@ def main() -> int:
           "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
+    ptxas = start_flash_ptxas()
     build.extension()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "build_dir": str(build.BUILD_DIR)})
+    flash_regs = phase_flash_ptxas(ptxas)
 
     if sys.argv[1:] == ["--audit-rrns-health"]:
         return audit_rrns_health(ops)
@@ -2125,9 +2578,14 @@ def main() -> int:
     phase_train_grads_vs_cpu(ops, ref)
     wsq_launches = phase_slice_train_wsq(ops, ref)
     torch.cuda.empty_cache()
+    reduced_launches = phase_serve_reduced(ops)
+    phase_train_resume()
+    rns_train_launches, rns_per_step = phase_slice_train_rns(ops, ref)
+    twins = phase_twins(ops)
     rows = phase_timing(ops, ref, policy, GEMM_PER_STEP)
     rows.update(phase_timing_rns(ops, ref, GEMM_PER_STEP))
     phase_timing_train(ops, ref, policy)
+    phase_timing_train_rns(ops, ref)
     emit({"phase": "timer", "spin_cycles": SPIN_CYCLES,
           "calls_whose_enqueue_outlasted_the_spin": len(TIMER_OVERRUNS),
           "examples": TIMER_OVERRUNS[:10]})
@@ -2150,19 +2608,30 @@ def main() -> int:
                    key=lambda r: r["N"])
 
     head = head_row("mirage_gemm")
+    flash = entry("flash_attention", "flash_attention.cu",
+                  "src/repro/kernels/flash_attention.py:81", err_flash,
+                  rows["flash_attention"][0])
+    flash["head_dims"] = [
+        {k: r[k] for k in ("B", "L", "H", "Kv", "D", "ms", "plain_ms",
+                           "bound_ms", "bound_by", "library_ms", "library")}
+        | {"ptxas": flash_regs.get(r["D"])}
+        for r in rows["flash_attention"] if r["window"] is None and
+        r["L"] == 128 and r["B"] == 4]
+    flash["launches_serve_reduced"] = reduced_launches["flash_attention"]
+    rns = entry("rns_matmul", "rns_matmul.cu",
+                "src/repro/kernels/rns_matmul.py:52", err_rns,
+                head_row("rns_matmul"), rns_launches)
+    rns["training_launches"] = rns_train_launches["rns_matmul"]
+    rns["training_launches_per_step"] = rns_per_step
     emit({"kernels": [
         entry("mirage_gemm", "mirage_gemm.cu",
               "src/repro/kernels/mirage_gemm.py:50", err_gemm, head),
-        entry("flash_attention", "flash_attention.cu",
-              "src/repro/kernels/flash_attention.py:81", err_flash,
-              rows["flash_attention"][0]),
+        flash,
         entry("bfp_quantize", "bfp_quantize.cu",
               "src/repro/kernels/bfp_quantize.py:55", err_bfp,
               max(rows["bfp_quantize"], key=lambda r: r["rows"]),
               wsq_launches),
-        entry("rns_matmul", "rns_matmul.cu",
-              "src/repro/kernels/rns_matmul.py:52", err_rns,
-              head_row("rns_matmul"), rns_launches),
+        rns,
         entry("rns_matmul_channel", "rns_matmul.cu",
               "src/repro/kernels/rns_matmul.py:131", err_channel,
               head_row("rns_matmul_channel"), rrns_launches),
@@ -2176,7 +2645,11 @@ def main() -> int:
                          "mirage_rrns_52db": rrns_launches,
                          "mirage_rns": rns_launches,
                          "train_mirage": train_launches,
-                         "train_wsq_bfp": wsq_launches},
+                         "train_wsq_bfp": wsq_launches,
+                         "serve_reduced": reduced_launches,
+                         "train_mirage_rns": rns_train_launches,
+                         "twins": {k: v["launches"]
+                                   for k, v in twins.items()}},
                      "note": "each kernel's launches come from the path "
                              "that runs it: mirage_gemm and flash_attention "
                              "from serving under mirage_fast (training "
@@ -2187,7 +2660,9 @@ def main() -> int:
                              "standalone from weight-stationary training "
                              "with BFP gradient compression (train_wsq_bfp; "
                              "elsewhere it runs inside mirage_gemm as its "
-                             "prologue, bfp.cuh)"}})
+                             "prologue, bfp.cuh); flash at head_dim 16 from "
+                             "serve --reduced and rns_matmul in full-width "
+                             "mirage_rns training are listed beside"}})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -5,9 +5,7 @@ paper §IV-B, §VII).
   channel.py  AnalogChannelConfig + DAC / drift / detector / ADC /
               crosstalk / burst stages on residue tensors
   rrns.py     RRNS encode + fused single-pass majority decode
-
-The accuracy-vs-SNR sweep helpers (``repro.analog.sweep``) wait in
-ROADMAP.md queue 1.
+  sweep.py    accuracy-vs-SNR campaigns (GEMM error and training loss)
 """
 
 from repro_torch.analog.channel import (

@@ -14,9 +14,7 @@ A backend's ``fn`` has signature ``fn(x, w, policy)``, and
   (:class:`repro_torch.analog.channel.Draws`)
 
 Capability flags let consumers reason about a mode without comparing mode
-names. Modes of ``GEMM_MODES`` that are not ported yet pass policy
-validation, but :func:`resolve` raises ``NotImplementedError`` naming the
-ROADMAP slice where they wait.
+names. Every mode of ``GEMM_MODES`` has a backend.
 """
 
 from __future__ import annotations
@@ -63,16 +61,6 @@ class GemmBackend:
 
 _REGISTRY: Dict[str, GemmBackend] = {}
 
-#: modes of the JAX package that are not ported yet, and where they wait
-NOT_PORTED: Dict[str, str] = {
-    "mirage_faithful": "ROADMAP.md queue 1, slice 3 (the group-dot "
-                       "faithful path)",
-    "mirage_faithful_ref": "ROADMAP.md queue 1, slice 3 (reference.py "
-                           "oracles)",
-    "mirage_rns_ref": "ROADMAP.md queue 1, slice 3 (reference.py oracles)",
-}
-
-
 def register(backend: GemmBackend) -> GemmBackend:
     """Register (or replace) a backend under ``backend.name``."""
     _REGISTRY[backend.name] = backend
@@ -93,10 +81,6 @@ def get_backend(name: str) -> GemmBackend:
     try:
         return _REGISTRY[name]
     except KeyError:
-        if name in NOT_PORTED:
-            raise NotImplementedError(
-                f"GEMM mode {name!r} is not ported to repro_torch yet; it "
-                f"waits in {NOT_PORTED[name]}") from None
         raise KeyError(
             f"no GEMM backend registered under {name!r}; "
             f"available: {sorted(_REGISTRY)}"

@@ -13,9 +13,11 @@ Layouts (group-major):
   sw : (G, 1, N)   weight group scales (powers of two)
 
 The plain residue path here is what a CPU tensor takes; on the card the
-backends launch the residue kernel on the whole ``(n_mod, G, M, N)``
-tensor instead. ``grouped_dot`` (the ``mirage_faithful`` contraction) waits
-with that backend.
+RNS backends launch the residue kernel instead. :func:`grouped_dot`, the
+``mirage_faithful`` contraction, is a batched ``torch.matmul`` on both (the
+JAX package leaves it to XLA, outside any Pallas kernel): with the
+power-of-two scales folded into the mantissas first, every group dot is
+exact, and only the cross-group sum rounds.
 """
 
 from __future__ import annotations
@@ -69,6 +71,50 @@ def prepare_operands(x: torch.Tensor, w: torch.Tensor, policy):
     return qx, sx, qw, sw, batch
 
 
+#: group counts up to this are summed left to right, one group at a time:
+#: XLA's order for a sum over the group axis on the CPU, so the group-dot
+#: and RNS paths equal the JAX package's bit for bit there (``torch.sum``
+#: orders its own sum from 5 groups on). Beyond it the port takes
+#: ``torch.sum`` (every full-width GEMM of qwen2-0.5b has 56 or more
+#: groups).
+SEQUENTIAL_SUM_GROUPS = 32
+
+
+def sum_groups(t: torch.Tensor) -> torch.Tensor:
+    """The sum of ``t`` over its leading (group) axis."""
+    if t.shape[0] > SEQUENTIAL_SUM_GROUPS:
+        return torch.sum(t, dim=0)
+    acc = t[0]
+    for i in range(1, t.shape[0]):
+        acc = acc + t[i]
+    return acc
+
+
+def grouped_dot(xv: torch.Tensor, wv: torch.Tensor,
+                group_block: int = 0) -> torch.Tensor:
+    """Scale-accumulated sum of per-group dots: (G, M, g) x (G, g, N) ->
+    (M, N).
+
+    group_block: 0 = adaptive (one batched product inside
+    :data:`VECTORIZE_BUDGET_BYTES`, blocks of :data:`DEFAULT_GROUP_BLOCK`
+    groups beyond it); -1 = one batched product; n > 0 = blocks of n
+    groups, each summed, then added to the running sum in block order (the
+    JAX package's scan; its zero-padded last block adds exact zeros)."""
+    G, M, _ = xv.shape
+    N = wv.shape[-1]
+    if group_block == 0:
+        gb = -1 if G * M * N * 4 <= VECTORIZE_BUDGET_BYTES \
+            else DEFAULT_GROUP_BLOCK
+    else:
+        gb = group_block
+    if gb < 0 or gb >= G:
+        return sum_groups(torch.bmm(xv, wv))
+    acc = torch.zeros((M, N), dtype=torch.float32, device=xv.device)
+    for g0 in range(0, G, gb):
+        acc = acc + sum_groups(torch.bmm(xv[g0:g0 + gb], wv[g0:g0 + gb]))
+    return acc
+
+
 def exact_mod(a: torch.Tensor, m: int) -> torch.Tensor:
     """``a mod m`` for integer-valued f32 ``a`` in [0, 2^24), exact:
     ``a - floor(a * (1/m)) * m`` with the quotient's possible off-by-one
@@ -114,4 +160,4 @@ def scale_accumulate(p: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor,
     """sum_G of p * sx * sw: (G, M, N) -> batch + (N,). The multiplies are
     exact (power-of-two scales); only the cross-group sum rounds."""
     N = p.shape[-1]
-    return torch.sum(p * sx * sw, dim=0).reshape(batch + (N,))
+    return sum_groups(p * sx * sw).reshape(batch + (N,))

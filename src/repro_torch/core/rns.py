@@ -143,3 +143,15 @@ def rns_matmul(x_res: torch.Tensor, w_res: torch.Tensor,
     """Per-modulus residue matmuls: (n, M, K) x (n, K, N) -> (n, M, N)."""
     return torch.stack([mod_matmul(x_res[i], w_res[i], m)
                         for i, m in enumerate(moduli)], dim=0)
+
+
+def rns_dot_reconstruct(x: torch.Tensor, w: torch.Tensor,
+                        k: int) -> torch.Tensor:
+    """End-to-end integer matmul via RNS: quantized ints in, exact ints out.
+
+    x: (..., K) integer-valued, w: (K, N) integer-valued. The result is exact
+    as long as |x @ w| <= psi (Eq. 10, the caller's responsibility)."""
+    moduli = (2**k - 1, 2**k, 2**k + 1)
+    out_res = rns_matmul(to_rns_special(x, k), to_rns_special(w, k),
+                         moduli).to(torch.int32)
+    return from_rns_special(out_res, k, signed=True)

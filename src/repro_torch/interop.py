@@ -10,7 +10,10 @@ JAX tree's, including the tied ``embed.emb``.
 
 :func:`load_jax_train_state` carries a whole JAX train state over (params,
 optimizer moments and count, step, and the BFP error-feedback buffer), so a
-run can continue in the port where the JAX package left it.
+run can continue in the port where the JAX package left it;
+:func:`to_jax_train_state` is its inverse. The checkpointer writes a port
+train state in that JAX layout, and :func:`restore_train_state` reads one
+back into a port state in place, so each package resumes the other's runs.
 
 :func:`load_jax_stationary` does the same for a tree the JAX package's
 ``encode_stationary_params`` programmed: its ``StationaryResidues`` leaves
@@ -149,6 +152,14 @@ def load_jax_train_state(model: nn.Module, jstate: Mapping[str, Any],
 
     load_jax_params(model, jstate["params"])
     state = init_train_state(model, train_cfg)
+    _copy_train_state(model, state, jstate)
+    return state
+
+
+def _copy_train_state(model: nn.Module, state: Dict[str, Any],
+                      jstate: Mapping[str, Any]) -> None:
+    """Copy a JAX train state's optimizer state, step and error buffer into
+    the port's ``state`` in place (the params are the model's own)."""
     dev = model.device
     with torch.no_grad():
         for key, val in jstate["opt"].items():
@@ -168,4 +179,70 @@ def load_jax_train_state(model: nn.Module, jstate: Mapping[str, Any],
             for name, arr in _by_name(model, jstate["err"]).items():
                 state["err"][name].copy_(torch.from_numpy(
                     np.ascontiguousarray(arr)))
-    return state
+
+
+def _jax_layout(model: nn.Module, tree: Mapping[str, torch.Tensor],
+                leaf, stack) -> Dict[str, Any]:
+    """A name-keyed tree (the port's params, or a moment tree of the same
+    names) laid out as the JAX parameter tree: nested by the names' parts,
+    with each layer leaf stacked on axis 0 over the layers."""
+    out: Dict[str, Any] = {}
+    per_layer: Dict[tuple, list] = {}
+    n_layers = len(model.layers)
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        val = leaf(tree[name])
+        if parts[0] == "layers":
+            per_layer.setdefault(tuple(parts[2:]), [None] * n_layers)[
+                int(parts[1])] = val
+        else:
+            _put(out, parts, val)
+    for parts, vals in per_layer.items():
+        _put(out.setdefault("layers", {}), list(parts), stack(vals))
+    return out
+
+
+def _put(tree: Dict[str, Any], parts, val) -> None:
+    for part in parts[:-1]:
+        tree = tree.setdefault(part, {})
+    tree[parts[-1]] = val
+
+
+def _train_state_layout(model: nn.Module, state: Mapping[str, Any],
+                        leaf, stack) -> Dict[str, Any]:
+    out = {"params": _jax_layout(model, state["params"], leaf, stack),
+           "opt": {k: (_jax_layout(model, v, leaf, stack)
+                       if isinstance(v, Mapping) else leaf(v))
+                   for k, v in state["opt"].items()},
+           "step": leaf(state["step"])}
+    if "err" in state:
+        out["err"] = _jax_layout(model, state["err"], leaf, stack)
+    return out
+
+
+def to_jax_train_state(model: nn.Module, state: Mapping[str, Any]
+                       ) -> Dict[str, Any]:
+    """The JAX package's train-state tree, with numpy leaves, of a port
+    train state: the inverse of :func:`load_jax_train_state`. Every leaf is
+    copied to the host here (the card's tensors included), the layer
+    leaves stacked on axis 0, with the JAX state's dtypes (f32 params,
+    moments and error buffer; int32 step and count)."""
+    from repro_torch.checkpoint.checkpointer import to_host
+
+    # to_host copies each tensor: the trainer updates them in place
+    return _train_state_layout(model, state, to_host, np.stack)
+
+
+def restore_train_state(checkpointer, model: nn.Module,
+                        state: Dict[str, Any], step=None):
+    """Read the checkpoint ``step`` (default: the latest) of ``checkpointer``,
+    written in the JAX layout by either package, into the port train state
+    ``state`` in place: the params into ``model``'s parameters, the moments,
+    count, step and error buffer into ``state``. Returns ``(state,
+    metadata)``."""
+    template = _train_state_layout(model, state, lambda t: None,
+                                   lambda vals: None)
+    jstate, meta = checkpointer.restore(template, step)
+    load_jax_params(model, jstate["params"])
+    _copy_train_state(model, state, jstate)
+    return state, meta

@@ -25,10 +25,11 @@ void launch_mirage_gemm(const float* x, const float* w, float* out,
                         int b_m, bool truncate, bool quant_w, bool mma,
                         int threads, int splits, int k_split,
                         cudaStream_t stream);
-void launch_flash_attention(const float* q, const float* k, const float* v,
-                            float* o, int B, int Lq, int S, int H, int Kv,
-                            int D, bool causal, int window, float sm_scale,
-                            cudaStream_t stream);
+cudaError_t launch_flash_attention(const float* q, const float* k,
+                                   const float* v, float* o, int B, int Lq,
+                                   int S, int H, int Kv, int D, bool causal,
+                                   int window, float sm_scale,
+                                   cudaStream_t stream);
 void launch_rns_matmul(const int* x, const int* w, int* out, int n_mod,
                        int G, int M, int N, int g, const RnsModuli& mods,
                        cudaStream_t stream);
@@ -144,19 +145,18 @@ void flash_attention(const torch::Tensor& q, const torch::Tensor& k,
   const int64_t S = k.size(1), Kv = k.size(2);
   TORCH_CHECK(k.size(0) == B && k.size(3) == D, "k/v do not match q");
   TORCH_CHECK(Kv >= 1 && H % Kv == 0, "n_heads must be a multiple of n_kv");
-  TORCH_CHECK(D == 64, "the flash kernel is built for head_dim 64, got ", D);
+  TORCH_CHECK(D == 16 || D == 32 || D == 64 || D == 80 || D == 96 || D == 128,
+              "the flash kernel is instantiated at head_dim 16, 32, 64, 80, "
+              "96 and 128 (the wrapper pads the others), got ", D);
   TORCH_CHECK(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out),
               "the flash kernel reads and writes 16-byte aligned tensors");
   const c10::cuda::CUDAGuard guard(q.device());
-  launch_flash_attention(q.data_ptr<float>(), k.data_ptr<float>(),
-                         v.data_ptr<float>(), out.data_ptr<float>(),
-                         static_cast<int>(B), static_cast<int>(Lq),
-                         static_cast<int>(S), static_cast<int>(H),
-                         static_cast<int>(Kv), static_cast<int>(D), causal,
-                         static_cast<int>(window),
-                         static_cast<float>(sm_scale),
-                         at::cuda::getCurrentCUDAStream());
-  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  C10_CUDA_CHECK(launch_flash_attention(
+      q.data_ptr<float>(), k.data_ptr<float>(), v.data_ptr<float>(),
+      out.data_ptr<float>(), static_cast<int>(B), static_cast<int>(Lq),
+      static_cast<int>(S), static_cast<int>(H), static_cast<int>(Kv),
+      static_cast<int>(D), causal, static_cast<int>(window),
+      static_cast<float>(sm_scale), at::cuda::getCurrentCUDAStream()));
 }
 
 void check_int_operand(const torch::Tensor& t, const char* name) {

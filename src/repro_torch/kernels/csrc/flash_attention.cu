@@ -34,12 +34,29 @@
 //     accumulator already holds them (c0, c1 = columns 2t, 2t + 1): P goes
 //     from the accumulator to the A operand in registers, with no shuffle
 //     and no trip through shared memory;
-//   * n-tile j of O maps fragment column n to d = 4n + j (j < 4) or
-//     32 + 4n + j - 4 (j >= 4): a lane reads a V row as two float4 and
-//     writes each of its output rows as four float4.
+//   * O's columns go in chunks of 32 (and one of 16 where D % 32 == 16):
+//     n-tile 4c + j of chunk c maps fragment column n to d = 32c + 4n + j
+//     (j < 4), so a lane reads each chunk of a V row as one float4 and
+//     writes each chunk of its output rows as two float4; in the 16-wide
+//     chunk, n-tile j (< 2) maps n to d = 2n + j, read as a float2 and
+//     written as one float4.
 // Shared rows are padded so every fragment load is free of bank conflicts:
-// K rows are 80 floats (quarter-warp float4 reads of rows g and g + 1 land
-// 16 banks apart), V rows 68 (rows 2t, t = 0..3, start 8 banks apart).
+// K rows are D floats where D % 32 == 16, else D + 16 (quarter-warp
+// float4 reads of rows g and g + 1 land 16 banks apart), V rows D + 4
+// (rows 2t, t = 0..3, start 8 banks apart).
+//
+// Head dims: the kernel is a template on D, instantiated at 16, 32, 64,
+// 80, 96 and 128 (every D a multiple of 16, so S's k-steps pair up and
+// O's n-tiles fill 32- and 16-wide chunks). The wrapper pads any other
+// D <= 128 with zero columns up to the next instance: zero columns of q
+// and k add nothing to Q K^T, and those of v give output columns that it
+// slices off; the scale stays 1/sqrt(true D). Up to D = 64 each warp
+// keeps its Q fragments split hi/lo in registers; above, it keeps Q as
+// f32 and splits it per tile, since both splits and the D/2 accumulators
+// of O would not fit in 255 registers. At D = 96 and 128 the two K/V tile
+// buffers take 53 and 69 KB, above the 48 KB of static shared memory, so
+// all instances take dynamic shared memory and the large ones raise
+// their limit first.
 //
 // Parallelism: one warp owns 16 query rows of one head; a block of 4 warps
 // holds units of one (batch, kv head), ordered position slab first and
@@ -56,7 +73,7 @@
 // valid key is wiped by the first valid tile (alpha = exp(-1e30 - m) = 0),
 // exactly as in the reference. Scores are scaled by sm_scale before the
 // mask; NEG_INF = -1e30 and the denominator clamp 1e-30 are the
-// reference's (:31, :73-74). Only head_dim 64 is built (the slice's case).
+// reference's (:31, :73-74).
 //
 // Not wgmma: its 64-row warpgroup tile is coarse for the 32-128-position
 // prefill this kernel serves, and a TF32 wgmma needs its B operand
@@ -69,12 +86,24 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kD = 64;
 constexpr int kWarps = 4;      // warps per block
 constexpr int kRows = 16;      // query rows per warp
 constexpr int kBKV = 32;       // keys per shared-memory tile
-constexpr int kKStride = 80;   // floats per staged K row
-constexpr int kVStride = 68;   // floats per staged V row
+constexpr int kStaticSmem = 48 * 1024;  // above it, opt in per kernel
+
+// the layout of one head-dim instance
+template <int D>
+struct Dims {
+  static_assert(D % 16 == 0 && D >= 16 && D <= 128,
+                "head dims are multiples of 16 up to 128");
+  static constexpr int kQSteps = D / 8;        // k-steps of S over D
+  static constexpr int kC32 = D / 32;          // 32-wide chunks of O
+  static constexpr bool kTail16 = D % 32 == 16;
+  static constexpr int kNTiles = D / 8;        // n-tiles of O
+  static constexpr int kKStride = D % 32 == 16 ? D : D + 16;
+  static constexpr int kVStride = D + 4;
+  static constexpr bool kSplitQ = D <= 64;     // Q kept split hi/lo
+};
 
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
   uint32_t r;
@@ -151,17 +180,50 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+template <int D>
 struct Tiles {
-  float k[2][kBKV][kKStride];
-  float v[2][kBKV][kVStride];
+  float k[2][kBKV][Dims<D>::kKStride];
+  float v[2][kBKV][Dims<D>::kVStride];
 };
 
+// One output row from the accumulator: acc[j][E0], acc[j][E0 + 1] (E0 = 0
+// for the fragment's row g, 2 for row g + 8) hold fragment columns 2t and
+// 2t + 1: in chunk c, d = 32c + 8t + j and 32c + 8t + 4 + j; in the
+// 16-wide chunk, d = 4t + j and 4t + 2 + j.
+template <int D, int E0>
+__device__ __forceinline__ void store_row(
+    float* __restrict__ o, const float (&acc)[Dims<D>::kNTiles][4], float l,
+    int b, int Lq, int row, size_t q_row, int h, int t) {
+  using P = Dims<D>;
+  const float dn = fmaxf(l, 1e-30f);
+  float* orow = o + (static_cast<size_t>(b) * Lq + row) * q_row +
+                static_cast<size_t>(h) * D;
+#pragma unroll
+  for (int c = 0; c < P::kC32; ++c) {
+    *reinterpret_cast<float4*>(orow + 32 * c + 8 * t) = make_float4(
+        acc[4 * c][E0] / dn, acc[4 * c + 1][E0] / dn, acc[4 * c + 2][E0] / dn,
+        acc[4 * c + 3][E0] / dn);
+    *reinterpret_cast<float4*>(orow + 32 * c + 8 * t + 4) = make_float4(
+        acc[4 * c][E0 + 1] / dn, acc[4 * c + 1][E0 + 1] / dn,
+        acc[4 * c + 2][E0 + 1] / dn, acc[4 * c + 3][E0 + 1] / dn);
+  }
+  if constexpr (P::kTail16) {
+    constexpr int c0 = 32 * P::kC32, j0 = 4 * P::kC32;
+    *reinterpret_cast<float4*>(orow + c0 + 4 * t) = make_float4(
+        acc[j0][E0] / dn, acc[j0 + 1][E0] / dn, acc[j0][E0 + 1] / dn,
+        acc[j0 + 1][E0 + 1] / dn);
+  }
+}
+
+template <int D>
 __global__ void __launch_bounds__(kWarps * 32)
     flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
                      int Lq, int S, int H, int Kv, bool causal, int window,
                      float sm_scale) {
-  __shared__ __align__(16) Tiles sm;
+  using P = Dims<D>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Tiles<D>& sm = *reinterpret_cast<Tiles<D>*>(smem);
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -190,16 +252,16 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + kBKV - 1) / kBKV
                                         : 0;
 
-  const size_t kv_row = static_cast<size_t>(Kv) * kD;  // one position
-  const float* kbase = k + (static_cast<size_t>(b) * S * Kv + kh) * kD;
-  const float* vbase = v + (static_cast<size_t>(b) * S * Kv + kh) * kD;
+  const size_t kv_row = static_cast<size_t>(Kv) * D;  // one position
+  const float* kbase = k + (static_cast<size_t>(b) * S * Kv + kh) * D;
+  const float* vbase = v + (static_cast<size_t>(b) * S * Kv + kh) * D;
 
-  // 32 rows x 16 chunks of 16 bytes, for K and for V: 8 copies a thread
+  // 32 rows x D/4 chunks of 16 bytes, for K and for V
   auto stage = [&](int tile, int buf) {
     const int kv0 = kv_begin + tile * kBKV;
 #pragma unroll
-    for (int e = tid; e < kBKV * (kD / 4); e += kWarps * 32) {
-      const int r = e / (kD / 4), c = e % (kD / 4) * 4;
+    for (int e = tid; e < kBKV * (D / 4); e += kWarps * 32) {
+      const int r = e / (D / 4), c = e % (D / 4) * 4;
       const int s = kv0 + r;
       const bool in = s < S;
       const size_t off = in ? static_cast<size_t>(s) * kv_row + c : 0;
@@ -211,34 +273,49 @@ __global__ void __launch_bounds__(kWarps * 32)
   if (n_tiles > 0) stage(0, 0);
   cp_async_commit();
 
-  // this warp's 16 query rows as A fragments, split hi/lo: rows q0 + g and
-  // q0 + g + 8, k-step 2c + e holding d = 16c + 4t + 2e (+1)
+  // this warp's 16 query rows as A fragments: rows q0 + g and q0 + g + 8,
+  // k-step 2c + e holding d = 16c + 4t + 2e (+1); split hi/lo now (D <=
+  // 64) or per tile (qf)
   const int ra = q0 + g, rb = q0 + g + 8;
-  const size_t q_row = static_cast<size_t>(H) * kD;
+  const size_t q_row = static_cast<size_t>(H) * D;
   const float* qa = q + (static_cast<size_t>(b) * Lq + ra) * q_row +
-                    static_cast<size_t>(h) * kD;
+                    static_cast<size_t>(h) * D;
   const float* qb = qa + 8 * q_row;
-  uint32_t qh[8][4], ql[8][4];
+  constexpr int kQH = P::kSplitQ ? P::kQSteps : 1;
+  constexpr int kQF = P::kSplitQ ? 1 : P::kQSteps;
+  uint32_t qh[kQH][4], ql[kQH][4];
+  float qf[kQF][4];
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
+  for (int c = 0; c < D / 16; ++c) {
     const float4 za = make_float4(0.f, 0.f, 0.f, 0.f);
     const float4 xa = active && ra < Lq
         ? *reinterpret_cast<const float4*>(qa + 16 * c + 4 * t) : za;
     const float4 xb = active && rb < Lq
         ? *reinterpret_cast<const float4*>(qb + 16 * c + 4 * t) : za;
-    split(xa.x, qh[2 * c][0], ql[2 * c][0]);
-    split(xb.x, qh[2 * c][1], ql[2 * c][1]);
-    split(xa.y, qh[2 * c][2], ql[2 * c][2]);
-    split(xb.y, qh[2 * c][3], ql[2 * c][3]);
-    split(xa.z, qh[2 * c + 1][0], ql[2 * c + 1][0]);
-    split(xb.z, qh[2 * c + 1][1], ql[2 * c + 1][1]);
-    split(xa.w, qh[2 * c + 1][2], ql[2 * c + 1][2]);
-    split(xb.w, qh[2 * c + 1][3], ql[2 * c + 1][3]);
+    if constexpr (P::kSplitQ) {
+      split(xa.x, qh[2 * c][0], ql[2 * c][0]);
+      split(xb.x, qh[2 * c][1], ql[2 * c][1]);
+      split(xa.y, qh[2 * c][2], ql[2 * c][2]);
+      split(xb.y, qh[2 * c][3], ql[2 * c][3]);
+      split(xa.z, qh[2 * c + 1][0], ql[2 * c + 1][0]);
+      split(xb.z, qh[2 * c + 1][1], ql[2 * c + 1][1]);
+      split(xa.w, qh[2 * c + 1][2], ql[2 * c + 1][2]);
+      split(xb.w, qh[2 * c + 1][3], ql[2 * c + 1][3]);
+    } else {
+      qf[2 * c][0] = xa.x;
+      qf[2 * c][1] = xb.x;
+      qf[2 * c][2] = xa.y;
+      qf[2 * c][3] = xb.y;
+      qf[2 * c + 1][0] = xa.z;
+      qf[2 * c + 1][1] = xb.z;
+      qf[2 * c + 1][2] = xa.w;
+      qf[2 * c + 1][3] = xb.w;
+    }
   }
 
-  float acc[8][4];
+  float acc[P::kNTiles][4];
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < P::kNTiles; ++j)
     acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
   float m_a = kNegInf, m_b = kNegInf, l_a = 0.0f, l_b = 0.0f;
 
@@ -263,14 +340,29 @@ __global__ void __launch_bounds__(kWarps * 32)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[i][e] = sl[i][e] = 0.0f;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < D / 16; ++c) {
+        uint32_t h0[4], l0[4], h1[4], l1[4];
+        if constexpr (P::kSplitQ) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            h0[e] = qh[2 * c][e];
+            l0[e] = ql[2 * c][e];
+            h1[e] = qh[2 * c + 1][e];
+            l1[e] = ql[2 * c + 1][e];
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            split(qf[2 * c][e], h0[e], l0[e]);
+            split(qf[2 * c + 1][e], h1[e], l1[e]);
+          }
+        }
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const float4 kf = *reinterpret_cast<const float4*>(
               &sm.k[buf][8 * i + g][16 * c + 4 * t]);
-          mma_3xtf32_split(sl[i], s[i], qh[2 * c], ql[2 * c], kf.x, kf.y);
-          mma_3xtf32_split(sl[i], s[i], qh[2 * c + 1], ql[2 * c + 1], kf.z,
-                           kf.w);
+          mma_3xtf32_split(sl[i], s[i], h0, l0, kf.x, kf.y);
+          mma_3xtf32_split(sl[i], s[i], h1, l1, kf.z, kf.w);
         }
       }
       // scale, mask, online softmax (rows ra: s[i][0..1], rb: s[i][2..3]);
@@ -316,7 +408,7 @@ __global__ void __launch_bounds__(kWarps * 32)
       m_a = mn_a;
       m_b = mn_b;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < P::kNTiles; ++j) {
         acc[j][0] *= al_a;
         acc[j][1] *= al_a;
         acc[j][2] *= al_b;
@@ -332,75 +424,82 @@ __global__ void __launch_bounds__(kWarps * 32)
         split(s[i][1], ph[2], pl[2]);
         split(s[i][3], ph[3], pl[3]);
         const float* v0 = &sm.v[buf][8 * i + 2 * t][0];
-        const float* v1 = v0 + kVStride;
-        const float4 v0a = *reinterpret_cast<const float4*>(v0 + 4 * g);
-        const float4 v0b = *reinterpret_cast<const float4*>(v0 + 32 + 4 * g);
-        const float4 v1a = *reinterpret_cast<const float4*>(v1 + 4 * g);
-        const float4 v1b = *reinterpret_cast<const float4*>(v1 + 32 + 4 * g);
-        // n-tile j, column n <-> d = 4n + j (j < 4), 32 + 4n + j - 4
-        mma_3xtf32(acc[0], ph, pl, v0a.x, v1a.x);
-        mma_3xtf32(acc[1], ph, pl, v0a.y, v1a.y);
-        mma_3xtf32(acc[2], ph, pl, v0a.z, v1a.z);
-        mma_3xtf32(acc[3], ph, pl, v0a.w, v1a.w);
-        mma_3xtf32(acc[4], ph, pl, v0b.x, v1b.x);
-        mma_3xtf32(acc[5], ph, pl, v0b.y, v1b.y);
-        mma_3xtf32(acc[6], ph, pl, v0b.z, v1b.z);
-        mma_3xtf32(acc[7], ph, pl, v0b.w, v1b.w);
+        const float* v1 = v0 + P::kVStride;
+        // chunk c, n-tile 4c + j, column n <-> d = 32c + 4n + j
+#pragma unroll
+        for (int c = 0; c < P::kC32; ++c) {
+          const float4 va = *reinterpret_cast<const float4*>(v0 + 32 * c +
+                                                             4 * g);
+          const float4 vb = *reinterpret_cast<const float4*>(v1 + 32 * c +
+                                                             4 * g);
+          mma_3xtf32(acc[4 * c], ph, pl, va.x, vb.x);
+          mma_3xtf32(acc[4 * c + 1], ph, pl, va.y, vb.y);
+          mma_3xtf32(acc[4 * c + 2], ph, pl, va.z, vb.z);
+          mma_3xtf32(acc[4 * c + 3], ph, pl, va.w, vb.w);
+        }
+        if constexpr (P::kTail16) {
+          // the 16-wide chunk: n-tile j, column n <-> d = 32 kC32 + 2n + j
+          constexpr int c0 = 32 * P::kC32, j0 = 4 * P::kC32;
+          const float2 va = *reinterpret_cast<const float2*>(v0 + c0 + 2 * g);
+          const float2 vb = *reinterpret_cast<const float2*>(v1 + c0 + 2 * g);
+          mma_3xtf32(acc[j0], ph, pl, va.x, vb.x);
+          mma_3xtf32(acc[j0 + 1], ph, pl, va.y, vb.y);
+        }
       }
     }
     __syncthreads();  // the next stage() overwrites this buffer
   }
 
   if (!active) return;
-  // acc[j][0..1] of row ra hold d = 4(2t) + j and 4(2t + 1) + j (j < 4;
-  // 32 + ... for j >= 4): the row's d = 8t..8t+7 and 32+8t..32+8t+7
-  const float da = fmaxf(l_a, 1e-30f), db = fmaxf(l_b, 1e-30f);
-  if (ra < Lq) {
-    float* orow = o + (static_cast<size_t>(b) * Lq + ra) * q_row +
-                  static_cast<size_t>(h) * kD;
-    *reinterpret_cast<float4*>(orow + 8 * t) =
-        make_float4(acc[0][0] / da, acc[1][0] / da, acc[2][0] / da,
-                    acc[3][0] / da);
-    *reinterpret_cast<float4*>(orow + 8 * t + 4) =
-        make_float4(acc[0][1] / da, acc[1][1] / da, acc[2][1] / da,
-                    acc[3][1] / da);
-    *reinterpret_cast<float4*>(orow + 32 + 8 * t) =
-        make_float4(acc[4][0] / da, acc[5][0] / da, acc[6][0] / da,
-                    acc[7][0] / da);
-    *reinterpret_cast<float4*>(orow + 36 + 8 * t) =
-        make_float4(acc[4][1] / da, acc[5][1] / da, acc[6][1] / da,
-                    acc[7][1] / da);
+  if (ra < Lq) store_row<D, 0>(o, acc, l_a, b, Lq, ra, q_row, h, t);
+  if (rb < Lq) store_row<D, 2>(o, acc, l_b, b, Lq, rb, q_row, h, t);
+}
+
+template <int D>
+cudaError_t launch_instance(const float* q, const float* k, const float* v,
+                            float* o, int B, int Lq, int S, int H, int Kv,
+                            bool causal, int window, float sm_scale,
+                            cudaStream_t stream) {
+  constexpr int smem = static_cast<int>(sizeof(Tiles<D>));
+  if constexpr (smem > kStaticSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return err;
   }
-  if (rb < Lq) {
-    float* orow = o + (static_cast<size_t>(b) * Lq + rb) * q_row +
-                  static_cast<size_t>(h) * kD;
-    *reinterpret_cast<float4*>(orow + 8 * t) =
-        make_float4(acc[0][2] / db, acc[1][2] / db, acc[2][2] / db,
-                    acc[3][2] / db);
-    *reinterpret_cast<float4*>(orow + 8 * t + 4) =
-        make_float4(acc[0][3] / db, acc[1][3] / db, acc[2][3] / db,
-                    acc[3][3] / db);
-    *reinterpret_cast<float4*>(orow + 32 + 8 * t) =
-        make_float4(acc[4][2] / db, acc[5][2] / db, acc[6][2] / db,
-                    acc[7][2] / db);
-    *reinterpret_cast<float4*>(orow + 36 + 8 * t) =
-        make_float4(acc[4][3] / db, acc[5][3] / db, acc[6][3] / db,
-                    acc[7][3] / db);
-  }
+  const int units = (Lq + kRows - 1) / kRows * (H / Kv);
+  const unsigned blocks = (units + kWarps - 1) / kWarps * B * Kv;
+  flash_fwd_kernel<D><<<blocks, kWarps * 32, smem, stream>>>(
+      q, k, v, o, Lq, S, H, Kv, causal, window, sm_scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // q, o: (B, Lq, H, D); k, v: (B, S, Kv, D); all row-major f32 with 16-byte
-// aligned bases. window <= 0 means no sliding window. The caller checks
-// D == 64 and H % Kv == 0.
-void launch_flash_attention(const float* q, const float* k, const float* v,
-                            float* o, int B, int Lq, int S, int H, int Kv,
-                            int D, bool causal, int window, float sm_scale,
-                            cudaStream_t stream) {
-  if (B == 0 || Lq == 0 || H == 0 || D != kD) return;
-  const int units = (Lq + kRows - 1) / kRows * (H / Kv);
-  const unsigned blocks = (units + kWarps - 1) / kWarps * B * Kv;
-  flash_fwd_kernel<<<blocks, kWarps * 32, 0, stream>>>(
-      q, k, v, o, Lq, S, H, Kv, causal, window, sm_scale);
+// aligned bases. window <= 0 means no sliding window. D must be one of the
+// instances (16, 32, 64, 80, 96, 128): the caller pads other head dims and
+// checks H % Kv == 0. Returns the launch's error (cudaErrorInvalidValue
+// for a D with no instance).
+cudaError_t launch_flash_attention(const float* q, const float* k,
+                                   const float* v, float* o, int B, int Lq,
+                                   int S, int H, int Kv, int D, bool causal,
+                                   int window, float sm_scale,
+                                   cudaStream_t stream) {
+  if (B == 0 || Lq == 0 || H == 0) return cudaSuccess;
+  switch (D) {
+#define FLASH_INSTANCE(d)                                                   \
+  case d:                                                                   \
+    return launch_instance<d>(q, k, v, o, B, Lq, S, H, Kv, causal, window, \
+                              sm_scale, stream);
+    FLASH_INSTANCE(16)
+    FLASH_INSTANCE(32)
+    FLASH_INSTANCE(64)
+    FLASH_INSTANCE(80)
+    FLASH_INSTANCE(96)
+    FLASH_INSTANCE(128)
+#undef FLASH_INSTANCE
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

@@ -251,13 +251,46 @@ def mirage_matmul_fused(x: torch.Tensor, w: torch.Tensor,
     return out.reshape(x.shape[:-1] + (N,))
 
 
+#: the head dims ``csrc/flash_attention.cu`` is instantiated at
+FLASH_HEAD_DIMS = (16, 32, 64, 80, 96, 128)
+
+
+def flash_head_dim(D: int) -> int:
+    """The flash kernel's instance for head dim D: the smallest instance
+    that holds it (the others are zero-padded up to it)."""
+    for inst in FLASH_HEAD_DIMS:
+        if D <= inst:
+            return inst
+    raise ValueError(f"the flash kernel takes head_dim <= "
+                     f"{FLASH_HEAD_DIMS[-1]}, got {D}; larger head dims wait "
+                     f"in ROADMAP.md queue 2 (kernel 3)")
+
+
+def flash_padded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 attend) -> torch.Tensor:
+    """``attend(q, k, v, sm_scale)`` at the flash instance's head dim:
+    q, k and v get zero columns up to :func:`flash_head_dim` (they add
+    nothing to Q K^T), the scale stays 1/sqrt(D) of the true D, and the
+    padded columns of the output (those of v) are sliced off."""
+    D = q.shape[-1]
+    Dk = flash_head_dim(D)
+    sm_scale = 1.0 / math.sqrt(D)
+    if Dk == D:
+        return attend(q, k, v, sm_scale)
+    pad = (0, Dk - D)
+    F = torch.nn.functional
+    out = attend(F.pad(q, pad), F.pad(k, pad), F.pad(v, pad), sm_scale)
+    return out[..., :D].contiguous()
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
     """GQA flash attention over a full sequence at positions 0..L-1.
 
     q: (B, Lq, H, D) with rope applied; k/v: (B, S, Kv, D). Query head h
-    reads kv head h // (H // Kv). Returns (B, Lq, H, D)."""
+    reads kv head h // (H // Kv). Returns (B, Lq, H, D). On the card any
+    D <= 128 runs (:func:`flash_padded`); larger ones raise."""
     _forward_only("flash_attention", _ATTN_ROUTE, q, k, v)
     if _on_cpu(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal, window)
@@ -268,20 +301,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"q must be (B, Lq, H, D) and k/v (B, S, Kv, D), "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
-    H, D, Kv = q.shape[2], q.shape[3], k.shape[2]
+    H, Kv = q.shape[2], k.shape[2]
     if H % Kv:
         raise ValueError(f"n_heads {H} is not a multiple of n_kv_heads {Kv}")
-    if D != 64:
-        raise ValueError(f"the flash kernel is built for head_dim 64, got {D}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
-    out = torch.empty_like(q)
-    if out.numel():
-        extension().flash_attention(q, k, v, out, causal,
-                                     -1 if window is None else window,
-                                     1.0 / math.sqrt(D))
-        LAUNCHES["flash_attention"] += 1
-    return out
+
+    def launch(qp, kp, vp, sm_scale):
+        out = torch.empty_like(qp)
+        if out.numel():
+            extension().flash_attention(qp, kp, vp, out, causal,
+                                         -1 if window is None else window,
+                                         sm_scale)
+            LAUNCHES["flash_attention"] += 1
+        return out
+
+    return flash_padded(q, k, v, launch)
 
 
 # --------------------------------------------------------------------------

@@ -44,16 +44,18 @@ def mirage_gemm_ref(x: torch.Tensor, w: torch.Tensor, b_m: int = 4,
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True,
-                        window: Optional[int] = None) -> torch.Tensor:
+                        window: Optional[int] = None,
+                        sm_scale: Optional[float] = None) -> torch.Tensor:
     """Plain version of ``csrc/flash_attention.cu``: full-sequence
-    self-attention at contiguous positions from 0, as the kernel assumes."""
+    self-attention at contiguous positions from 0, as the kernel assumes.
+    ``sm_scale`` defaults to 1/sqrt(D)."""
     from repro_torch.models.attention import chunked_attention
 
     Lq, Sk = q.shape[1], k.shape[1]
     return chunked_attention(
         q.to(torch.float32), k.to(torch.float32), v.to(torch.float32),
         torch.arange(Lq, device=q.device), torch.arange(Sk, device=q.device),
-        causal=causal, window=window)
+        causal=causal, window=window, sm_scale=sm_scale)
 
 
 def rns_matmul_ref(x_res: torch.Tensor, w_res: torch.Tensor,

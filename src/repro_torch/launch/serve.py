@@ -30,7 +30,7 @@ from repro_torch.models.lm import LMCallOptions
 from repro_torch.runtime.server import LMServer, Request
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-0.5b")
     ap.add_argument("--requests", type=int, default=8)
@@ -50,8 +50,13 @@ def main(argv=None):
                          "the plain versions of the kernels)")
     ap.add_argument("--reduced", action="store_true",
                     help="serve the tiny test variant of the config")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
+
+def build(args: argparse.Namespace):
+    """The model the launcher serves: the config (reduced under
+    ``--reduced``) with weights from seed 0, prefill attention through the
+    flash kernel."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -59,8 +64,14 @@ def main(argv=None):
     overrides = {}
     if args.snr_db is not None:
         overrides.update(snr_db=args.snr_db, noise_seed=args.noise_seed)
-    model = build_model(cfg, get_policy(args.policy, **overrides),
-                        LMCallOptions(use_flash_kernel=True), device=device)
+    return build_model(cfg, get_policy(args.policy, **overrides),
+                       LMCallOptions(use_flash_kernel=True), device=device)
+
+
+def serve(model, args: argparse.Namespace):
+    """Serve the launcher's requests (prompts from seed 0) on ``model``'s
+    device; returns (server, finished requests, seconds)."""
+    cfg = model.cfg
     cap = args.prompt_len + args.max_tokens + 4
     server = LMServer(model, cap=cap, batch_slots=args.slots,
                       greedy=not args.sample)
@@ -73,9 +84,16 @@ def main(argv=None):
                                 args.prompt_len).astype(np.int32),
             max_tokens=args.max_tokens))
     finished = server.run_until_drained()
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    dt = time.perf_counter() - t0
+    if model.device.type == "cuda":
+        torch.cuda.synchronize(model.device)
+    return server, finished, time.perf_counter() - t0
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    model = build(args)
+    cfg, device = model.cfg, model.device
+    server, finished, dt = serve(model, args)
     tot_toks = sum(len(r.tokens_out) for r in finished)
     lat = server.scheduler.latency_summary()
     where = torch.cuda.get_device_name(device) if device.type == "cuda" \

@@ -13,8 +13,15 @@ the policy's backend (on the card, the hand-written BFP GEMM kernel).
 ``--weight-stationary-quant`` is the port's own flag (``TrainConfig``'s
 field, which the JAX launcher does not expose): the GEMM weights are put on
 the BFP grid once per step (the BFP quantizer kernel on the card) and the
-policy skips their per-GEMM quantization. ``--ckpt-dir``, ``--resume`` and
-``--distributed`` wait for the distributed slice and raise.
+policy skips their per-GEMM quantization.
+
+``--ckpt-dir DIR`` trains through the fault-tolerant loop: a checkpoint
+every ``--ckpt-every`` steps (written on a writer thread) and one on
+SIGTERM/SIGINT, after which the run stops; ``--resume`` continues from the
+latest checkpoint in DIR, on the batch the stopped run would have taken
+next. Checkpoints are in the JAX package's layout, so either launcher
+resumes the other's. ``--distributed`` waits for the distributed slice and
+raises.
 """
 
 from __future__ import annotations
@@ -31,9 +38,13 @@ from repro_torch.data.pipeline import SyntheticLM, SyntheticLMConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
 from repro_torch.models.lm import LMCallOptions
+from repro_torch.checkpoint import Checkpointer
+from repro_torch.interop import restore_train_state
+from repro_torch.runtime.elastic import (PreemptionGuard, StragglerMitigator,
+                                         fault_tolerant_train_loop)
 from repro_torch.runtime.trainer import init_train_state, train_loop
 
-_SLICE_8 = "waits in ROADMAP.md queue 1, slice 8 (distributed, checkpoints)"
+_SLICE_8 = "waits in ROADMAP.md queue 1, slice 8 (distributed)"
 
 
 def main(argv=None):
@@ -55,6 +66,7 @@ def main(argv=None):
     ap.add_argument("--reduced", action="store_true",
                     help="reduced config (CPU-scale)")
     ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--grad-compression", default="none",
                     choices=["none", "bfp"])
@@ -74,8 +86,6 @@ def main(argv=None):
 
     if args.distributed:
         raise NotImplementedError(f"--distributed {_SLICE_8}")
-    if args.ckpt_dir or args.resume:
-        raise NotImplementedError(f"--ckpt-dir / --resume {_SLICE_8}")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -100,13 +110,29 @@ def main(argv=None):
         vocab_size=cfg.vocab_size, seq_len=args.seq, batch_size=args.batch,
         seed=args.seed, shard_id=0, num_shards=1))
     state = init_train_state(model, tc)
+    ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
+    if ckpt and args.resume and ckpt.latest_step() is not None:
+        state, meta = restore_train_state(ckpt, model, state)
+        if meta and "data" in meta:
+            data.restore(meta["data"])
+        print(f"resumed from step {int(state['step'])}")
 
     if args.trace_export:
         from repro_torch.obs import trace as obs_trace
         obs_trace.configure(enabled=True)
 
     t0 = time.time()
-    state, metrics = train_loop(model, tc, state, iter(data), args.steps)
+    if ckpt:
+        guard = PreemptionGuard()
+        try:
+            state, metrics = fault_tolerant_train_loop(
+                model, tc, state, iter(data), args.steps, ckpt,
+                ckpt_every=args.ckpt_every, guard=guard,
+                straggler=StragglerMitigator())
+        finally:
+            guard.uninstall()
+    else:
+        state, metrics = train_loop(model, tc, state, iter(data), args.steps)
     dt = time.time() - t0
     print(f"trained {args.steps} steps in {dt:.1f}s "
           f"({args.steps / dt:.2f} steps/s) on {device}; final loss "

@@ -48,19 +48,22 @@ def _chunk_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       q_positions: torch.Tensor, k_positions: torch.Tensor,
                       causal: bool = True, window: Optional[int] = None,
-                      q_chunk: int = 1024, kv_chunk: int = 1024
-                      ) -> torch.Tensor:
+                      q_chunk: int = 1024, kv_chunk: int = 1024,
+                      sm_scale: Optional[float] = None) -> torch.Tensor:
     """Online-softmax GQA attention; returns (B, Lq, H, D).
 
     q: (B, Lq, H, D) with rope applied, k/v: (B, Sk, Kv, D); query head h
     reads kv head h // (H // Kv). The JAX package's ``lax.map``/``lax.scan``
-    over chunks become Python loops; the arithmetic is the same."""
+    over chunks become Python loops; the arithmetic is the same.
+    ``sm_scale`` defaults to 1/sqrt(D) (a caller that padded D with zero
+    columns passes the true head dim's)."""
     B, Lq, H, D = q.shape
     Sk, Kv = k.shape[1], k.shape[2]
     if H % Kv:
         raise ValueError(f"n_heads {H} is not a multiple of n_kv_heads {Kv}")
     rep = H // Kv
-    sm_scale = 1.0 / math.sqrt(D)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
     qc = min(q_chunk, Lq)
     kc = min(kv_chunk, Sk)
     pad_q = (-Lq) % qc

@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import TrainConfig
+from repro_torch.interop import to_jax_train_state
 from repro_torch.kernels import ops
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
@@ -32,9 +33,6 @@ from repro_torch.optim.optimizers import clip_by_global_norm, make_optimizer
 from repro_torch.optim.schedules import constant
 
 Tree = Dict[str, torch.Tensor]
-
-_SLICE_8 = ("checkpointing waits in ROADMAP.md queue 1, slice 8 "
-            "(checkpoint/checkpointer.py)")
 
 
 def init_train_state(model: nn.Module, train_cfg: TrainConfig
@@ -151,11 +149,15 @@ def make_train_step(model: nn.Module, train_cfg: TrainConfig,
             # FP32 master below (paper Eq. 4 semantics)
             run = _prequantize_params(params, train_cfg.policy, qdtype)
         if nmb > 1:
+            # the JAX step adds every microbatch's gradients into f32
+            # zeros, so bf16 gradients of the quantized copies are cast
+            # before the sum, not after it
             grads, loss = None, None
             for i in range(nmb):
                 mb = {k: v.reshape((nmb, v.shape[0] // nmb) + v.shape[1:])[i]
                       for k, v in batch.items()}
                 l_i, metrics, g_i = value_and_grad(run, mb)
+                g_i = {k: g.to(torch.float32) for k, g in g_i.items()}
                 if grads is None:
                     grads, loss = g_i, l_i
                 else:
@@ -165,9 +167,9 @@ def make_train_step(model: nn.Module, train_cfg: TrainConfig,
             loss = loss / nmb
         else:
             loss, metrics, grads = value_and_grad(run, batch)
+            # gradients of bf16 weight copies come back in bf16, as in JAX
+            grads = {k: g.to(torch.float32) for k, g in grads.items()}
         del run
-        # gradients of bf16 weight copies come back in bf16, as in JAX
-        grads = {k: g.to(torch.float32) for k, g in grads.items()}
 
         if train_cfg.grad_compression == "bfp":
             grads, state["err"] = grad_compress.compress_with_error_feedback(
@@ -222,10 +224,11 @@ def train_loop(model: nn.Module, train_cfg: TrainConfig, state, data_iter,
     the tracer is disabled) and step latency/count land in ``registry``
     (default: the process registry) as ``train_step_seconds`` /
     ``train_steps_total``. The step time runs to a device synchronize.
-    ``step_fn`` defaults to :func:`make_train_step`'s. Checkpointing (the
-    JAX loop's ``checkpointer``) waits for slice 8 and raises."""
-    if checkpointer is not None:
-        raise NotImplementedError(_SLICE_8)
+    ``step_fn`` defaults to :func:`make_train_step`'s. With a
+    ``checkpointer`` (:class:`repro_torch.checkpoint.Checkpointer`) the
+    state is saved synchronously, in the JAX package's layout
+    (:func:`repro_torch.interop.to_jax_train_state`), after every step
+    that is a multiple of ``ckpt_every``."""
     reg = registry if registry is not None else obs_metrics.get_registry()
     h_step = reg.histogram("train_step_seconds",
                            "walltime per optimizer step (dispatch + sync)")
@@ -254,4 +257,6 @@ def train_loop(model: nn.Module, train_cfg: TrainConfig, state, data_iter,
                    f"ppl={float(metrics.get('ppl', 0)):.2f} "
                    f"gnorm={float(metrics['grad_norm']):.3f}"
                    + (" [SLOW STEP]" if slow else ""))
+        if checkpointer is not None and ckpt_every and step % ckpt_every == 0:
+            checkpointer.save(to_jax_train_state(model, state), step)
     return state, metrics

@@ -391,6 +391,12 @@ def test_port_imports_no_jax():
         "import repro_torch.optim, repro_torch.data.pipeline\n"
         "import repro_torch.obs.trace, repro_torch.runtime.trainer\n"
         "import repro_torch.launch.train, repro_torch.configs.base\n"
+        "import repro_torch.checkpoint, repro_torch.runtime.elastic\n"
+        "import repro_torch.analog.sweep, repro_torch.examples.quickstart\n"
+        "import repro_torch.examples.mirage_vs_fp32\n"
+        "import repro_torch.examples.train_lm, repro_torch.examples.serve_lm\n"
+        "import repro_torch.core.backends.mirage_faithful\n"
+        "import repro_torch.core.backends.reference\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith(('jax.', 'jaxlib')) or m == 'repro' or\n"
         "             m.startswith('repro.'))\n"
@@ -460,9 +466,17 @@ def test_baselines_match_jax(mode):
 @pytest.mark.parametrize("mode", ["mirage_faithful", "mirage_faithful_ref",
                                   "mirage_rns_ref"])
 def test_unported_modes_validate_but_do_not_resolve(mode):
+    """The last three modes of the JAX package are ported: each validates
+    and resolves to a backend with the JAX backend's capability flags."""
+    from repro.core import backends as jbackends
     policy = get_policy(mode)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        backends.resolve(policy)
+    got, want = backends.resolve(policy), jbackends.resolve(jpolicy(mode))
+    for flag in ("quantized", "supports_weight_stationary",
+                 "weight_stationary_aligned_only", "supports_noise",
+                 "supports_stationary_residues", "reference"):
+        assert getattr(got, flag) == getattr(want, flag), flag
+    assert set(backends.available_backends()) == \
+        set(jbackends.available_backends())
     assert backends.resolve(get_policy("mirage")).supports_weight_stationary
 
 
