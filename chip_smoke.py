@@ -46,6 +46,20 @@ checkpoint's bytes and its save and restore times), 3 full-width
 under 24 GB, step 1's GEMMs teacher-forced against mirage_fast), and the
 four example twins (``python -m repro_torch.examples.*``) on the card.
 Checkpoints go to ``build/chip_smoke_ckpt`` and are removed after.
+
+Slice 5 (the paged serving engine): the GEMM kernel also at the verify
+step's M = 16 (4 slots x 4 positions) and a prefill chunk's M = 32; the
+slice's requests served through the paged engine (block size 4, so the
+gathered span equals the dense ring's: the streams must be the dense
+engine's, token for token, with the same launches; then block size 16 on
+a pool of half the default, which queues admissions for blocks), the
+52 dB mirage_rrns drain through the paged engine (the dense drain's
+streams and health integers), and 8 requests sharing a 64-token prefix
+through five engines (dense; paged with chunked prefill, with the prefix
+cache, with speculative decoding, with all three): under fp32 each
+engine's streams equal the dense engine's (or differ first where the
+dense logits' top-2 gap is under 1e-4), under mirage the GEMM launches
+equal 169 x the engine's own count of model steps.
 """
 
 from __future__ import annotations
@@ -75,6 +89,9 @@ SLOTS, N_REQUESTS, MAX_TOKENS = 4, 8, 32
 PROMPT_LENS = (17, 128)       # inclusive range of the numpy-seeded lengths
 GEMM_KN = ((896, 896), (896, 128), (896, 4864), (4864, 896), (896, 151936))
 GEMM_M = (4, 8, 256, 512)
+# the paged engine's new M: a verify tick (4 slots x (k + 1) = 16 rows) and
+# a prefill chunk of 32 tokens
+PAGED_GEMM_M = (16, 32)
 # the (M, K, N) GEMMs checked in the transposed layout as well: the tied
 # head's table is (N, K), the layer weights (K, N)
 GEMM_BOTH_LAYOUTS = ((4, 4864, 896), (512, 896, 4864), (4, 896, 151936))
@@ -369,7 +386,8 @@ def gemm_cases(ops, policy, cap: int):
     GEMM_BOTH_LAYOUTS in the other layout too, and one M for each plan
     (route, block size, split of K, rows held) that the wrapper picks for a
     path shape and the cases before do not already cover."""
-    cases = [(M, K, N, N == 151936) for M in GEMM_M for K, N in GEMM_KN]
+    cases = [(M, K, N, N == 151936) for M in GEMM_M + PAGED_GEMM_M
+             for K, N in GEMM_KN]
     cases += [(M, K, N, N != 151936) for M, K, N in GEMM_BOTH_LAYOUTS]
 
     def key(M, K, N, w_nk):
@@ -884,7 +902,8 @@ def phase_slice(ops):
 
     profile_ticks(model, cap, reqs, LMServer, "mirage_fast")
     compare_with_cpu(model, reqs[0].prompt, cap)
-    return launches, batches, steps, model, cap
+    streams = {r.rid: r.tokens_out for r in finished}
+    return launches, batches, steps, model, cap, streams
 
 
 def device_profile(run, n: int):
@@ -904,11 +923,12 @@ def device_profile(run, n: int):
             run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_kernel = {}
+    by_kernel, launches = {}, 0
     for avg in prof.key_averages():
         dev_us = getattr(avg, "self_device_time_total", 0.0)
         if avg.device_type == DeviceType.CUDA and dev_us > 0:
             by_kernel[avg.key] = by_kernel.get(avg.key, 0.0) + dev_us
+            launches += avg.count
     busy_ms = sum(by_kernel.values()) / 1e3
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
     ours = {k[:80]: v / 1e3 / n for k, v in by_kernel.items()
@@ -916,14 +936,14 @@ def device_profile(run, n: int):
     return {"wall_ms": wall_ms / n, "device_busy_ms": busy_ms / n,
             "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
             "top_device_ms": {k[:80]: v / 1e3 / n for k, v in top},
-            "port_kernels_ms": ours}
+            "port_kernels_ms": ours, "device_kernels": launches / n}
 
 
 def profile_ticks(model, cap, reqs, LMServer, policy_name: str,
-                  n_ticks: int = 3):
+                  n_ticks: int = 3, **engine_kw):
     """Device time by kernel over a few steady decode ticks (torch.profiler)
     and the device's idle share of their wall time."""
-    server = LMServer(model, cap=cap, batch_slots=SLOTS)
+    server = LMServer(model, cap=cap, batch_slots=SLOTS, **engine_kw)
     for r in reqs[:SLOTS]:
         r = dataclasses.replace(r, tokens_out=[])
         server.submit(r)
@@ -934,6 +954,7 @@ def profile_ticks(model, cap, reqs, LMServer, policy_name: str,
           "wall_ms_per_tick": prof["wall_ms"],
           "device_busy_ms_per_tick": prof["device_busy_ms"],
           "device_idle_share": prof["device_idle_share"],
+          "device_kernels_per_tick": prof["device_kernels"],
           "top_device_ms_per_tick": prof["top_device_ms"],
           "port_kernels_ms_per_tick": prof["port_kernels_ms"]})
 
@@ -1024,11 +1045,12 @@ class DecodedElements:
         self.ops.rrns_decode = self.inner
 
 
-def serve_run(ops, model, cap, reqs, LMServer):
-    """Program a fresh engine, reset the counts, drain ``reqs``; return the
-    engine, the finished requests, the seconds and the launches."""
+def serve_run(ops, model, cap, reqs, LMServer, **engine_kw):
+    """Program a fresh engine (with ``engine_kw``), reset the counts, drain
+    ``reqs``; return the engine, the finished requests, the seconds and the
+    launches."""
     t0 = time.perf_counter()
-    server = LMServer(model, cap=cap, batch_slots=SLOTS)
+    server = LMServer(model, cap=cap, batch_slots=SLOTS, **engine_kw)
     torch.cuda.synchronize()
     program_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
@@ -1149,7 +1171,7 @@ def phase_slice_rrns(ops, model, cap):
                        f"from the reference run's {RRNS_HEALTH}")
     model.policy = noisy
     profile_ticks(model, cap, reqs, LMServer, "mirage_rrns 52 dB")
-    return launches, c_launches
+    return launches, c_launches, streams
 
 
 class ReadoutAudit:
@@ -1269,6 +1291,274 @@ def phase_slice_rns(ops, model, cap):
         "mirage_rns: not every request completed with its tokens")
     expect_launches(launches, want, "mirage_rns")
     return launches
+
+
+# --------------------------------------------------------------------------
+# phases 6e-6g: slice 5, the paged serving engine at full width
+# --------------------------------------------------------------------------
+
+PAGED_BS = 4                  # CAP = 164 = 41 x 4: the gathered span is the
+#                               dense ring's, so the streams must be equal
+SMALL_POOL = dict(block_size=16, n_blocks=22)   # half of 4 slots x 11 blocks
+SHARED_PREFIX, TAIL_LENS = 64, (17, 64)
+SPEC_K, PREFILL_CHUNK = 3, 32
+TOP2_GAP = 1e-4               # fp32: a differing token needs a near-tie
+OPTION_ENGINES = (
+    ("dense", {}),
+    ("paged_chunk", dict(cache_layout="paged", block_size=PAGED_BS,
+                         prefill_chunk=PREFILL_CHUNK)),
+    ("paged_prefix", dict(cache_layout="paged", block_size=PAGED_BS,
+                          prefix_cache=True)),
+    ("paged_spec", dict(cache_layout="paged", block_size=PAGED_BS,
+                        spec_k=SPEC_K)),
+    ("paged_all", dict(cache_layout="paged", block_size=PAGED_BS,
+                       prefill_chunk=PREFILL_CHUNK, prefix_cache=True,
+                       spec_k=SPEC_K)),
+)
+
+
+def model_steps(metrics) -> int:
+    """Passes of the whole model an engine ran, from its own counters:
+    bucketed prefill batches, prefill chunks, decode ticks and verify
+    ticks each run every GEMM once."""
+    return (metrics["prefill_batches"] + metrics["prefill_chunks"] +
+            metrics["decode_steps"] + metrics["spec_ticks"])
+
+
+def pool_summary(server):
+    """The paged pool after a drain: its geometry, peak use and bytes; the
+    allocator's invariants must hold and every block must be back."""
+    a = server.alloc
+    a.check_invariants()
+    cache = server.state["cache"]
+    return {"block_size": a.block_size, "n_blocks": a.n_blocks,
+            "peak_in_use": a.peak_in_use, "in_use_after_drain": a.used_count,
+            "pool_gb": sum(cache[k].numel() * cache[k].element_size()
+                           for k in ("kp", "vp")) / 1e9}
+
+
+def dense_cache_gb(model, cap) -> float:
+    spec = model.cache_spec(SLOTS, cap, per_slot_idx=True)
+    return sum(math.prod(shape) * 4 for k, (shape, _) in spec.items()
+               if k in ("k", "v")) / 1e9
+
+
+def token_share(streams, ref) -> float:
+    """Share of ``ref``'s tokens that ``streams`` has at the same place."""
+    total = sum(len(t) for t in ref.values())
+    same = sum(a == b for rid, toks in ref.items()
+               for a, b in zip(streams.get(rid, []), toks))
+    return same / total if total else 0.0
+
+
+def tick_ms(model, cap, reqs, n_ticks: int, **engine_kw) -> float:
+    """Host wall time of one steady decode tick of ``SLOTS`` requests (the
+    mean of ``n_ticks``, after the admission tick), to a synchronize."""
+    from repro_torch.runtime.server import LMServer
+
+    server = LMServer(model, cap=cap, batch_slots=SLOTS, **engine_kw)
+    for r in reqs[:SLOTS]:
+        server.submit(dataclasses.replace(r, tokens_out=[]))
+    server.tick()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_ticks):
+        server.tick()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n_ticks
+
+
+def phase_slice_paged(ops, model, cap, dense_streams):
+    """The slice's requests through the paged engine: at block size 4 the
+    dense engine's streams and launches; at block size 16 on half the
+    default pool, admissions queue for blocks (not gated on equality: the
+    gathered span, 176, is not the ring's 164)."""
+    from repro_torch.runtime.server import LMServer, Request
+
+    cfg = model.cfg
+    per_step = 7 * cfg.n_layers + 1
+    dense_gb = dense_cache_gb(model, cap)
+    rows, first = {}, None
+    for name, kw in (("block_size_4", dict(block_size=PAGED_BS)),
+                     ("block_size_16_half_pool", SMALL_POOL)):
+        reqs = make_requests(Request, cfg.vocab_size)
+        server, finished, dt, launches, program_s = serve_run(
+            ops, model, cap, reqs, LMServer, cache_layout="paged", **kw)
+        streams = {r.rid: r.tokens_out for r in finished}
+        m = server.metrics
+        want = {"mirage_gemm": per_step * model_steps(m),
+                "flash_attention": cfg.n_layers * m["prefill_batches"]}
+        rows[name] = {**serve_summary(server, finished, dt, launches,
+                                      program_s),
+                      **pool_summary(server), "dense_cache_gb": dense_gb,
+                      "expected_launches": want,
+                      "tokens_equal_dense": token_share(streams,
+                                                        dense_streams),
+                      "streams_equal_dense": streams == dense_streams}
+        check(len(finished) == N_REQUESTS and all(
+            len(r.tokens_out) == MAX_TOKENS for r in finished),
+            f"slice_paged {name}: not every request completed")
+        check(server.alloc.used_count == 0,
+              f"slice_paged {name}: blocks still in use after the drain")
+        expect_launches(launches, want, f"slice_paged {name}")
+        if first is None:
+            first = launches
+            check(streams == dense_streams, "slice_paged: the block-size-4 "
+                  "streams differ from the dense engine's")
+    # the steady tick of both layouts in turns (dense, paged, paged, dense,
+    # ...), host clock to a synchronize: the host sets the tick's time, and
+    # it varies by a third within one call, so 8 runs of 10 ticks each
+    reqs = make_requests(Request, cfg.vocab_size)
+    ticks = {"dense": [], "paged": []}
+    for order in (("dense", "paged"), ("paged", "dense")) * 4:
+        for name in order:
+            kw = {} if name == "dense" else dict(cache_layout="paged",
+                                                 block_size=PAGED_BS)
+            ticks[name].append(tick_ms(model, cap, reqs, 10, **kw))
+    med = {k: statistics.median(v) for k, v in ticks.items()}
+    emit({"phase": "slice_paged", "policy": "mirage (mirage_fast b_m=4 "
+          "g=16 k=5)", "slots": SLOTS, "cap": cap, **rows,
+          "tick_ms": ticks, "tick_ms_median": med,
+          "paged_over_dense_tick": med["paged"] / med["dense"]})
+    profile_ticks(model, cap, reqs, LMServer, "mirage_fast paged",
+                  cache_layout="paged", block_size=PAGED_BS)
+    return first
+
+
+def phase_slice_rrns_paged(ops, model, cap, rrns_streams):
+    """mirage_rrns at 52 dB through the paged engine (block size 4): the
+    same GEMMs at the same shapes draw the same noise from the same two
+    streams, so the dense drain's streams and health integers."""
+    from repro_torch.core.precision import get_policy
+    from repro_torch.runtime.server import LMServer, Request
+
+    cfg = model.cfg
+    model.policy = get_policy("mirage_rrns", snr_db=SNR_DB,
+                              noise_seed=NOISE_SEED)
+    reqs = make_requests(Request, cfg.vocab_size)
+    server, finished, dt, launches, program_s = serve_run(
+        ops, model, cap, reqs, LMServer, cache_layout="paged",
+        block_size=PAGED_BS)
+    summary = serve_summary(server, finished, dt, launches, program_s)
+    health = server.health_snapshot()
+    per_step = 7 * cfg.n_layers + 1
+    steps = model_steps(server.metrics)
+    want = {"rns_matmul_channel": per_step * steps,
+            "rrns_decode": per_step * steps,
+            "flash_attention": cfg.n_layers * summary["prefill_batches"]}
+    streams = {r.rid: r.tokens_out for r in finished}
+    health_same = all(health.get(k) == v for k, v in RRNS_HEALTH.items())
+    emit({"phase": "slice_rrns_paged", "policy": f"mirage_rrns "
+          f"snr_db={SNR_DB} noise_seed={NOISE_SEED}", "slots": SLOTS,
+          "stationary_weights": server.stationary_weights, **summary,
+          **pool_summary(server), "expected_launches": want,
+          "health": health, "health_equals_reference": health_same,
+          "streams_equal_dense": streams == rrns_streams})
+    expect_launches(launches, want, "slice_rrns_paged")
+    check(streams == rrns_streams, "slice_rrns_paged: the streams differ "
+                                   "from the dense 52 dB drain's")
+    check(health_same, f"slice_rrns_paged health counters "
+                       f"{ {k: health.get(k) for k in RRNS_HEALTH} } differ "
+                       f"from the reference run's {RRNS_HEALTH}")
+    check(server.alloc.used_count == 0,
+          "slice_rrns_paged: blocks still in use after the drain")
+    return launches
+
+
+def shared_prefix_requests(Request, vocab: int):
+    """8 requests sharing a 64-token prefix, each with a tail of 17-64
+    tokens (numpy seed 1), MAX_TOKENS each."""
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(0, vocab, SHARED_PREFIX).astype(np.int32)
+    tails = rng.integers(TAIL_LENS[0], TAIL_LENS[1] + 1, N_REQUESTS)
+    return [Request(rid=i, prompt=np.concatenate(
+        [prefix, rng.integers(0, vocab, int(n)).astype(np.int32)]),
+        max_tokens=MAX_TOKENS) for i, n in enumerate(tails)]
+
+
+def dense_top2_gap(model, prompt, tokens) -> float:
+    """The gap between the two largest logits after ``prompt + tokens``,
+    from one forward pass of the model."""
+    ctx = np.concatenate([prompt, np.asarray(tokens, np.int32)])
+    with torch.inference_mode():
+        logits = model(torch.from_numpy(ctx[None].astype(np.int64)
+                                        ).to(DEV))[0, -1]
+    top = torch.topk(logits, 2).values
+    return float(top[0] - top[1])
+
+
+def phase_serve_paged_options(ops, model, cap):
+    """8 requests sharing a 64-token prefix through the dense engine and
+    four paged ones (chunked prefill, prefix cache, speculative decoding,
+    all three). fp32: the streams equal the dense engine's, or first
+    differ where the dense logits' top-2 gap is under TOP2_GAP. mirage:
+    speed, the share of tokens equal to dense, the prefix and speculative
+    counters, and GEMM launches = 169 x the engine's model steps."""
+    from repro_torch.core.precision import get_policy
+    from repro_torch.runtime.server import LMServer, Request
+
+    cfg = model.cfg
+    per_step = 7 * cfg.n_layers + 1
+    out, total = {}, {}
+    for policy in ("fp32", "mirage"):
+        model.policy = get_policy(policy)
+        runs = {}
+        for name, kw in OPTION_ENGINES:
+            reqs = shared_prefix_requests(Request, cfg.vocab_size)
+            server, finished, dt, launches, program_s = serve_run(
+                ops, model, cap, reqs, LMServer, **kw)
+            m = server.metrics
+            row = serve_summary(server, finished, dt, launches, program_s)
+            row.update({k: m[k] for k in (
+                "prefill_chunks", "prefix_hits", "prefix_full_hits",
+                "prefix_shared_blocks", "cow_forks", "spec_ticks",
+                "spec_accepted", "spec_slot_ticks")})
+            row["model_steps"] = model_steps(m)
+            if server.alloc is not None:
+                row.update(pool_summary(server))
+                check(server.alloc.used_count == 0,
+                      f"{policy} {name}: blocks still in use after the "
+                      f"drain")
+            check(len(finished) == N_REQUESTS and all(
+                len(r.tokens_out) == MAX_TOKENS for r in finished),
+                f"serve_paged_options {policy} {name}: not every request "
+                f"completed")
+            if policy == "mirage":
+                want = {"mirage_gemm": per_step * row["model_steps"],
+                        "flash_attention": cfg.n_layers * m["prefill_batches"]}
+                row["expected_launches"] = want
+                expect_launches(launches, want,
+                                f"serve_paged_options mirage {name}")
+                for k, v in launches.items():
+                    total[k] = total.get(k, 0) + v
+            runs[name] = ({r.rid: r.tokens_out for r in finished},
+                          {r.rid: r.prompt for r in finished}, row)
+        dense, prompts, _ = runs["dense"]
+        for name, (streams, _, row) in runs.items():
+            row["tokens_equal_dense"] = token_share(streams, dense)
+            row["streams_equal_dense"] = streams == dense
+            if policy != "fp32" or name == "dense":
+                continue
+            firsts = []
+            for rid, toks in dense.items():
+                j = next((i for i, (a, b) in enumerate(zip(streams[rid],
+                                                           toks))
+                          if a != b), None)
+                if j is not None:
+                    firsts.append({"rid": rid, "position": j,
+                                   "dense_top2_gap": dense_top2_gap(
+                                       model, prompts[rid], toks[:j])})
+            row["first_differences"] = firsts
+            check(all(f["dense_top2_gap"] < TOP2_GAP for f in firsts),
+                  f"serve_paged_options fp32 {name}: a stream differs from "
+                  f"the dense engine's where the top-2 gap is >= "
+                  f"{TOP2_GAP}: {firsts}")
+        out[policy] = {name: row for name, (_, _, row) in runs.items()}
+    emit({"phase": "serve_paged_options", "slots": SLOTS, "cap": cap,
+          "block_size": PAGED_BS, "prefill_chunk": PREFILL_CHUNK,
+          "spec_k": SPEC_K, "shared_prefix": SHARED_PREFIX,
+          "tail_lens": list(TAIL_LENS), **out})
+    return total
 
 
 def phase_slice_rrns_vs_cpu(model, cap, prompt_np, layers=(0, 11, 23)):
@@ -2566,9 +2856,13 @@ def main() -> int:
     err_channel = phase_rns_channel(ops, ref)
     err_decode = phase_rrns_decode(ops, ref)
     phase_rns_equals_fast(ops, ref)
-    launches, batches, steps, model, cap = phase_slice(ops)
-    rrns_launches, _ = phase_slice_rrns(ops, model, cap)
+    launches, batches, steps, model, cap, streams = phase_slice(ops)
+    paged_launches = phase_slice_paged(ops, model, cap, streams)
+    rrns_launches, _, rrns_streams = phase_slice_rrns(ops, model, cap)
+    rrns_paged_launches = phase_slice_rrns_paged(ops, model, cap,
+                                                 rrns_streams)
     rns_launches = phase_slice_rns(ops, model, cap)
+    options_launches = phase_serve_paged_options(ops, model, cap)
     phase_slice_rrns_vs_cpu(model, cap, make_requests(
         Request, model.cfg.vocab_size)[0].prompt)
     del model
@@ -2642,7 +2936,10 @@ def main() -> int:
                      "train_steps": TRAIN_STEPS, "wsq_steps": WSQ_STEPS,
                      "launches_by_path": {
                          "mirage_fast": launches,
+                         "mirage_fast_paged": paged_launches,
                          "mirage_rrns_52db": rrns_launches,
+                         "mirage_rrns_paged": rrns_paged_launches,
+                         "mirage_paged_options": options_launches,
                          "mirage_rns": rns_launches,
                          "train_mirage": train_launches,
                          "train_wsq_bfp": wsq_launches,
@@ -2662,7 +2959,12 @@ def main() -> int:
                              "elsewhere it runs inside mirage_gemm as its "
                              "prologue, bfp.cuh); flash at head_dim 16 from "
                              "serve --reduced and rns_matmul in full-width "
-                             "mirage_rns training are listed beside"}})
+                             "mirage_rns training are listed beside; the "
+                             "paged engine's paths (slice 5) beside them: "
+                             "mirage_fast_paged and mirage_rrns_paged "
+                             "repeat the dense drains through block "
+                             "tables, mirage_paged_options sums the five "
+                             "mirage engines of serve_paged_options"}})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

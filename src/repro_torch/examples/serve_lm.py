@@ -4,11 +4,11 @@ streaming token callbacks.
 
   PYTHONPATH=src python -m repro_torch.examples.serve_lm --arch qwen2-0.5b
 
-The port serves the dense cache layout: ``--cache-layout paged``,
-``--prefill-chunk``, ``--prefix-cache`` and ``--spec-k`` raise (they wait
-in ROADMAP.md queue 1, slice 5), and only the ported config
-(qwen2-0.5b, reduced here as in the JAX script) builds. Prefill attention
-runs through the flash kernel on the card.
+``--cache-layout paged`` serves from the block-table KV pool, on which
+``--prefill-chunk``, ``--prefix-cache`` (the demo prompts share 8 tokens)
+and ``--spec-k`` stack, as in the JAX script. Only the ported config
+(qwen2-0.5b, reduced here as in the JAX script) builds. Whole-prompt
+prefill attention runs through the flash kernel on the card.
 """
 
 from __future__ import annotations
@@ -26,8 +26,6 @@ from repro_torch.models import build_model
 from repro_torch.models.lm import LMCallOptions
 from repro_torch.runtime.server import LMServer, Request
 
-_SLICE_5 = "waits in ROADMAP.md queue 1, slice 5 (the paged serving engine)"
-
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -39,17 +37,19 @@ def main(argv=None):
     ap.add_argument("--policy", default="mirage")
     ap.add_argument("--cache-layout", choices=("dense", "paged"),
                     default="dense",
-                    help="paged = block-table KV pool (not ported yet)")
+                    help="paged = block-table KV pool for long-context memory")
     ap.add_argument("--prefill-chunk", type=int, default=None,
-                    help="piggybacked prefill chunk size (not ported yet)")
+                    help="piggybacked prefill chunk size (paged only)")
     ap.add_argument("--block-size", type=int, default=4,
-                    help="positions per KV block (paged only)")
+                    help="positions per KV block (paged only; small enough "
+                         "that the demo's 8-token shared prefix spans "
+                         "full blocks)")
     ap.add_argument("--prefix-cache", action="store_true",
-                    help="share matched prompt-prefix blocks (not ported "
-                         "yet)")
+                    help="share matched prompt-prefix blocks copy-on-write "
+                         "(paged only; the demo prompts share 8 tokens)")
     ap.add_argument("--spec-k", type=int, default=0,
-                    help="self-draft + verify tokens per tick (not ported "
-                         "yet)")
+                    help="self-draft + verify this many tokens per tick "
+                         "(paged only, token-identical to greedy)")
     ap.add_argument("--stream", action="store_true",
                     help="print tokens as they are emitted")
     ap.add_argument("--device", default=None,
@@ -57,10 +57,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if (args.prefix_cache or args.spec_k) and args.cache_layout != "paged":
         ap.error("--prefix-cache / --spec-k require --cache-layout paged")
-    for flag, used in (("--cache-layout paged", args.cache_layout == "paged"),
-                       ("--prefill-chunk", args.prefill_chunk is not None)):
-        if used:
-            raise NotImplementedError(f"{flag} {_SLICE_5}")
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch).reduced()
@@ -73,7 +69,12 @@ def main(argv=None):
     on_token = (lambda req, tok: print(f"  [req {req.rid}] -> {tok}")) \
         if args.stream else None
     server = LMServer(model, cap=args.prompt_len + args.max_tokens + 4,
-                      batch_slots=args.slots, on_token=on_token)
+                      batch_slots=args.slots, on_token=on_token,
+                      cache_layout=args.cache_layout,
+                      block_size=args.block_size,
+                      prefill_chunk=args.prefill_chunk,
+                      prefix_cache=args.prefix_cache,
+                      spec_k=args.spec_k)
 
     rng = np.random.default_rng(7)
     shared = rng.integers(0, cfg.vocab_size,
@@ -96,6 +97,13 @@ def main(argv=None):
           f"{toks/dt:.1f} tok/s, {server.metrics['ticks']} decode ticks, "
           f"TTFT {lat['ttft_mean_s']*1e3:.1f}ms, "
           f"TPOT {lat['tpot_mean_s']*1e3:.1f}ms")
+    if args.prefix_cache:
+        print(f"  prefix hits: {server.metrics['prefix_hits']} "
+              f"({server.metrics['prefix_shared_blocks']} blocks shared)")
+    if args.spec_k:
+        m = server.metrics
+        print(f"  spec accepted/tick: "
+              f"{m['spec_accepted'] / max(m['spec_slot_ticks'], 1):.2f}")
     return 0
 
 

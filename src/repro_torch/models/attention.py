@@ -1,4 +1,5 @@
-"""GQA attention: full-sequence path + dense cached decode.
+"""GQA attention: full-sequence path + cached decode over the dense rings
+or the paged pool, the speculative verify step and the chunked-prefill step.
 
 Port of ``repro.models.attention`` for the dense family. Full-sequence
 attention is the hand-written flash kernel
@@ -7,15 +8,24 @@ CPU tensor) where the caller asks for it (``use_flash``, the JAX package's
 ``LMCallOptions.use_flash_kernel``: serving's prefill), and otherwise the
 plain online-softmax :func:`chunked_attention` in PyTorch operations, which
 is what both packages train through (the flash kernel has no backward in
-either; its wrapper raises where a gradient would be lost). Decode
-attention has no kernel in either package. The paged, verify and
-chunked-prefill decode variants are not ported yet.
+either; its wrapper raises where a gradient would be lost). Decode,
+verify and chunk attention have no kernel in either package: they are
+gathers and einsums in plain PyTorch, as in ``jnp`` there.
+
+The paged steps write through a block table whose unmapped entries hold the
+sentinel ``n_blocks``. JAX drops such writes on the device (``mode=
+"drop"``); torch has no such mode, and an index of ``n_blocks`` is an
+error. A step's :func:`page_plan`, computed once for all layers, points
+each dropped row at a kept row's cell with that row's value, so
+:func:`write_pages` drops them in one ordinary scatter with no
+device-to-host transfer; gathers clamp the sentinel to ``n_blocks - 1``,
+whose finite contents the position mask hides (the pools start zeroed).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -28,9 +38,87 @@ NEG_INF = -1e30
 
 __all__ = ["Attention", "NEG_INF", "_chunk_mask", "_repeat_kv",
            "attn_apply", "attn_decode_step", "attn_chunk_step",
-           "attn_verify_step", "chunked_attention"]
+           "attn_verify_step", "chunked_attention", "gather_pages",
+           "PagePlan", "chunk_plan", "page_plan", "write_pages"]
 
-_PAGED = "the paged KV layout waits in ROADMAP.md queue 1, slice 5"
+
+class PagePlan(NamedTuple):
+    """Where one step's rows land in the page pools, and what it reads.
+
+    Computed once a step (:func:`page_plan`) and shared by every layer.
+    ``cell`` (``(R,)`` int64, in bounds) is ``block * block_size +
+    offset`` of each of the step's ``R`` rows in the pool seen as
+    ``(NB * bs, Kv, D)``; a dropped row (sentinel block, past the table's
+    capacity, or a pad) is pointed at the first kept row's cell and takes
+    that row's value (``src``), so the one scatter writes every cell it
+    touches with a single value and drops nothing it should keep; with no
+    row kept (``any_kept`` False) the cells are written back unchanged.
+    ``read`` is the table with the sentinel clamped to ``n_blocks - 1``."""
+    cell: torch.Tensor
+    src: torch.Tensor
+    any_kept: torch.Tensor
+    read: torch.Tensor
+
+
+def page_plan(table: torch.Tensor, pos: torch.Tensor, NB: int, bs: int,
+              extra_keep: Optional[torch.Tensor] = None) -> PagePlan:
+    """The :class:`PagePlan` of writing logical positions ``pos`` through
+    ``table`` (``(..., mb)``, its leading dims those of ``pos`` but the
+    last) into pools of ``NB`` blocks of ``bs``. A row is kept when its
+    position lies under the table's capacity ``mb * bs``, maps to a real
+    block, and ``extra_keep`` (pads) allows it."""
+    mb = table.shape[-1]
+    blk = torch.clamp(torch.div(pos, bs, rounding_mode="floor"),
+                      max=mb - 1).long()
+    if blk.dim() < table.dim():
+        dest = torch.gather(table, -1, blk.unsqueeze(-1)).squeeze(-1)
+    else:
+        dest = torch.gather(table, -1, blk)
+    keep = (pos < mb * bs) & (dest < NB)
+    if extra_keep is not None:
+        keep = keep & extra_keep
+    keep = keep.reshape(-1)
+    rows = torch.arange(keep.numel(), device=keep.device)
+    src = torch.where(keep, rows, torch.argmax(keep.to(torch.uint8)))
+    cell = torch.clamp_max(dest.reshape(-1), NB - 1).long() * bs + \
+        torch.remainder(pos.reshape(-1), bs)
+    return PagePlan(cell[src], src, keep.any(),
+                    torch.clamp_max(table, NB - 1).long())
+
+
+def chunk_plan(table_row: torch.Tensor, pos0: int, C: int, true_len: int,
+               NB: int, bs: int) -> PagePlan:
+    """The :class:`PagePlan` of a prefill chunk: ``C`` positions from
+    ``pos0`` through one slot's table row, the pads past ``true_len``
+    dropped."""
+    j = torch.arange(C, device=table_row.device)
+    return page_plan(table_row, pos0 + j, NB, bs, j < true_len)
+
+
+def write_pages(pages: torch.Tensor, plan: PagePlan,
+                values: torch.Tensor) -> None:
+    """Write a step's rows into a pool in place, dropping what the plan
+    drops (the JAX package's ``.at[...].set(..., mode="drop")``), with no
+    device-to-host transfer. ``pages`` is one layer's ``(NB, bs, Kv, D)``
+    pool with ``values`` ``(rows..., Kv, D)``, or the layer-stacked
+    ``(nl, NB, bs, Kv, D)`` pools with ``values`` ``(nl, rows..., Kv,
+    D)``."""
+    d = pages.dim() - 4                  # 1 when a layer dim leads
+    flat = pages.view(pages.shape[:d] + (-1,) + pages.shape[d + 2:])
+    v = values.flatten(d, -3).index_select(d, plan.src)
+    flat.index_copy_(d, plan.cell, torch.where(
+        plan.any_kept, v, flat.index_select(d, plan.cell)))
+
+
+def gather_pages(pages: torch.Tensor, plan: PagePlan) -> torch.Tensor:
+    """The pages the plan's table maps, in logical order: ``(NB, bs, Kv,
+    D)`` pool and a ``(..., mb)`` table -> ``(..., mb * bs, Kv, D)``.
+    Sentinel entries read block ``NB - 1``; the caller masks their
+    positions."""
+    read = plan.read
+    out = pages.index_select(0, read.reshape(-1))
+    return out.view(read.shape[:-1] + (read.shape[-1] * pages.shape[1],)
+                    + pages.shape[2:])
 
 
 def _chunk_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
@@ -169,22 +257,36 @@ def attn_decode_step(p: Attention, x: torch.Tensor, cache_k: torch.Tensor,
                      head_dim: int, rope_theta: float,
                      window: Optional[int] = None, qk_norm: bool = False,
                      kv_repeat: int = 1,
-                     block_tables: Optional[torch.Tensor] = None):
-    """One decode step over a dense per-slot ring. x: (B, 1, d).
+                     block_tables: Optional[torch.Tensor] = None,
+                     plan: Optional[PagePlan] = None):
+    """One decode step. x: (B, 1, d).
 
     ``idx`` is the current length: a scalar (the whole batch at one
     position) or a ``(B,)`` vector (every serving slot at its own position).
-    cache_k/v are ``(B, S_cap, Kv_eff, D)`` rings of keys already rope'd at
-    their absolute positions; position p lives at slot ``p % S_cap``.
+    Two cache layouts:
+
+      * **dense** (``block_tables=None``): cache_k/v are ``(B, S_cap,
+        Kv_eff, D)`` rings of keys already rope'd at their absolute
+        positions; position p lives at slot ``p % S_cap``.
+      * **paged** (``block_tables`` = ``(B, max_blocks)`` int32): cache_k/v
+        are the global pools ``(n_blocks, block_size, Kv_eff, D)``;
+        position p of row b lives at block ``block_tables[b, p // bs]``,
+        offset ``p % bs`` (linear addressing, the window applied through
+        the mask alone). A write through the sentinel ``n_blocks`` is
+        dropped (:func:`write_pages`); the gather clamps it and the
+        ``kpos <= idx`` mask hides it. Needs a vector ``idx``. ``plan``
+        is the step's :func:`page_plan` where the caller shares one over
+        the layers (computed here otherwise).
 
     Unlike the JAX function, the new key/value are written into cache_k/v
     IN PLACE (the serving cache is large and its old value is never read
     again); the updated tensors are also returned.
     """
-    if block_tables is not None:
-        raise NotImplementedError(_PAGED)
     B = x.shape[0]
+    paged = block_tables is not None
     per_slot = idx.dim() == 1
+    if paged and not per_slot:
+        raise ValueError("paged decode needs a per-slot idx vector")
     q = common.dense(p.q, x, policy).reshape(B, 1, n_heads, head_dim)
     knew = common.dense(p.k, x, policy).reshape(B, 1, n_kv_heads, head_dim)
     vnew = common.dense(p.v, x, policy).reshape(B, 1, n_kv_heads, head_dim)
@@ -197,48 +299,161 @@ def attn_decode_step(p: Attention, x: torch.Tensor, cache_k: torch.Tensor,
                       kv_repeat)
     vnew = _repeat_kv(vnew, kv_repeat)
 
-    S_cap = cache_k.shape[1]
-    slot = torch.remainder(idx, S_cap)   # jnp.mod semantics
-    if per_slot:
-        rows = torch.arange(B, device=x.device)
-        cache_k[rows, slot] = knew[:, 0]
-        cache_v[rows, slot] = vnew[:, 0]
+    if paged:
+        if plan is None:
+            plan = page_plan(block_tables, idx, cache_k.shape[0],
+                             cache_k.shape[1])
+        write_pages(cache_k, plan, knew[:, 0])
+        write_pages(cache_v, plan, vnew[:, 0])
+        keys = gather_pages(cache_k, plan)
+        vals = gather_pages(cache_v, plan)
+        kpos = torch.arange(keys.shape[1], device=x.device)
+        idx_b = idx[:, None]
+        valid = kpos[None, :] <= idx_b
+        if window:
+            valid = valid & (kpos[None, :] >= idx_b - (window - 1))
     else:
-        where = slot.reshape(1).long()
-        cache_k.index_copy_(1, where, knew)
-        cache_v.index_copy_(1, where, vnew)
-    # absolute position held by each slot (after this write); per-row when
-    # idx is a vector -> kpos/valid broadcast to (B, S_cap)
-    slots = torch.arange(S_cap, device=x.device)
-    idx_b = idx[:, None] if per_slot else idx
-    kpos = idx_b - torch.remainder(idx_b - slots, S_cap)
-    valid = kpos >= 0
-    if window:
-        valid = valid & (kpos >= idx_b - (window - 1))
+        S_cap = cache_k.shape[1]
+        slot = torch.remainder(idx, S_cap)   # jnp.mod semantics
+        if per_slot:
+            rows = torch.arange(B, device=x.device)
+            cache_k[rows, slot] = knew[:, 0]
+            cache_v[rows, slot] = vnew[:, 0]
+        else:
+            where = slot.reshape(1).long()
+            cache_k.index_copy_(1, where, knew)
+            cache_v.index_copy_(1, where, vnew)
+        # absolute position held by each slot (after this write); per-row
+        # when idx is a vector -> kpos/valid broadcast to (B, S_cap)
+        slots = torch.arange(S_cap, device=x.device)
+        idx_b = idx[:, None] if per_slot else idx
+        kpos = idx_b - torch.remainder(idx_b - slots, S_cap)
+        valid = kpos >= 0
+        if window:
+            valid = valid & (kpos >= idx_b - (window - 1))
+        keys, vals = cache_k, cache_v
 
-    Kv_eff = cache_k.shape[2]
+    Kv_eff = keys.shape[2]
     rep = n_heads // Kv_eff
     q5 = q.reshape(B, 1, Kv_eff, rep, head_dim)
-    s = torch.einsum("bqkrd,bskd->bqkrs", q5, cache_k) * \
+    s = torch.einsum("bqkrd,bskd->bqkrs", q5, keys) * \
         (1.0 / math.sqrt(head_dim))
     vmask = (valid[:, None, None, None, :] if valid.dim() == 2
              else valid[None, None, None, None, :])
     s = torch.where(vmask, s, torch.full_like(s, NEG_INF))
     w = torch.softmax(s, dim=-1)
-    out = torch.einsum("bqkrs,bskd->bqkrd", w, cache_v)
+    out = torch.einsum("bqkrs,bskd->bqkrd", w, vals)
     out = out.reshape(B, 1, n_heads * head_dim)
     return common.dense(p.o, out, policy), cache_k, cache_v
 
 
-def attn_verify_step(*args, **kwargs):
-    """Speculative-decoding verify step: paged layout only, not ported."""
-    raise NotImplementedError(
-        "attn_verify_step (speculative decoding over the paged layout) "
-        "waits in ROADMAP.md queue 1, slice 5")
+def attn_verify_step(p: Attention, x: torch.Tensor, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, idx: torch.Tensor,
+                     policy: MiragePolicy, *, n_heads: int, n_kv_heads: int,
+                     head_dim: int, rope_theta: float,
+                     window: Optional[int] = None, qk_norm: bool = False,
+                     kv_repeat: int = 1,
+                     block_tables: Optional[torch.Tensor] = None,
+                     plan: Optional[PagePlan] = None):
+    """Multi-token verify step of speculative decoding (paged cache only).
+
+    x: ``(B, T, d)``: per slot, the current token and ``T-1`` draft tokens
+    at absolute positions ``idx[b] + j``. All ``T`` keys/values are written
+    through the block tables FIRST (the engine maps the blocks beforehand;
+    sentinel entries drop), then row ``j`` attends over the gathered pages
+    masked at ``kpos <= idx + j``. Rejected draft tails need no rollback:
+    their KV sits at positions past the accepted ones, which the next
+    verify step writes again before any gather reads them. The pools are
+    written in place and returned; ``plan`` as in :func:`attn_decode_step`.
+    """
+    if block_tables is None:
+        raise ValueError("the verify step requires the paged layout")
+    B, T = x.shape[0], x.shape[1]
+    q = common.dense(p.q, x, policy).reshape(B, T, n_heads, head_dim)
+    knew = common.dense(p.k, x, policy).reshape(B, T, n_kv_heads, head_dim)
+    vnew = common.dense(p.v, x, policy).reshape(B, T, n_kv_heads, head_dim)
+    if qk_norm:
+        q = common.head_rmsnorm(p.q_norm, q)
+        knew = common.head_rmsnorm(p.k_norm, knew)
+    pos = idx[:, None] + torch.arange(T, device=x.device)[None, :]   # (B, T)
+    q = common.apply_rope(q, pos, rope_theta)
+    knew = _repeat_kv(common.apply_rope(knew, pos, rope_theta), kv_repeat)
+    vnew = _repeat_kv(vnew, kv_repeat)
+
+    # positions within a slot are distinct, and slots never share a
+    # writable block (the engine forks shared blocks before any write), so
+    # the kept writes never collide
+    if plan is None:
+        plan = page_plan(block_tables, pos, cache_k.shape[0],
+                         cache_k.shape[1])
+    write_pages(cache_k, plan, knew)
+    write_pages(cache_v, plan, vnew)
+    keys = gather_pages(cache_k, plan)
+    vals = gather_pages(cache_v, plan)
+    kpos = torch.arange(keys.shape[1], device=x.device)
+    valid = kpos[None, None, :] <= pos[:, :, None]       # (B, T, LP)
+    if window:
+        valid = valid & (kpos[None, None, :] > pos[:, :, None] - window)
+
+    Kv_eff = keys.shape[2]
+    rep = n_heads // Kv_eff
+    q5 = q.reshape(B, T, Kv_eff, rep, head_dim)
+    s = torch.einsum("btkrd,bskd->btkrs", q5, keys) * \
+        (1.0 / math.sqrt(head_dim))
+    s = torch.where(valid[:, :, None, None, :], s,
+                    torch.full_like(s, NEG_INF))
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("btkrs,bskd->btkrd", w, vals)
+    out = out.reshape(B, T, n_heads * head_dim)
+    return common.dense(p.o, out, policy), cache_k, cache_v
 
 
-def attn_chunk_step(*args, **kwargs):
-    """Chunked-prefill attention over the paged layout, not ported."""
-    raise NotImplementedError(
-        "attn_chunk_step (chunked prefill over the paged layout) waits in "
-        "ROADMAP.md queue 1, slice 5")
+def attn_chunk_step(p: Attention, x: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, table_row: torch.Tensor,
+                    pos0: int, true_len: int, policy: MiragePolicy, *,
+                    n_heads: int, n_kv_heads: int, head_dim: int,
+                    rope_theta: float, window: Optional[int] = None,
+                    qk_norm: bool = False, kv_repeat: int = 1,
+                    q_chunk: int = 1024, kv_chunk: int = 1024,
+                    plan: Optional[PagePlan] = None):
+    """Chunked-prefill attention for ONE serving slot over the paged pools.
+
+    x: ``(1, C, d)``, the slot's next ``C`` prompt tokens from absolute
+    position ``pos0``; ``true_len <= C`` of them are real (the engine
+    right-pads the last chunk: pads are dropped at the page write and
+    masked in attention). ``pos0`` and ``true_len`` are host integers.
+    k/v_pages are the ``(n_blocks, block_size, Kv_eff, D)`` pools (written
+    in place and returned) and ``table_row`` the slot's ``(max_blocks,)``
+    table. The chunk's keys are written FIRST, then q attends over the
+    gathered prefix + chunk through the same plain online-softmax
+    :func:`chunked_attention` as the JAX step (not the flash kernel), with
+    cross-chunk causality and windows from the position mask alone;
+    ``plan`` as in :func:`attn_decode_step`."""
+    B, C = x.shape[0], x.shape[1]
+    dev = x.device
+    positions = pos0 + torch.arange(C, device=dev)
+    q = common.dense(p.q, x, policy).reshape(B, C, n_heads, head_dim)
+    k = common.dense(p.k, x, policy).reshape(B, C, n_kv_heads, head_dim)
+    v = common.dense(p.v, x, policy).reshape(B, C, n_kv_heads, head_dim)
+    if qk_norm:
+        q = common.head_rmsnorm(p.q_norm, q)
+        k = common.head_rmsnorm(p.k_norm, k)
+    q = common.apply_rope(q, positions, rope_theta)
+    k = _repeat_kv(common.apply_rope(k, positions, rope_theta), kv_repeat)
+    v = _repeat_kv(v, kv_repeat)
+    # pads and positions past the table's capacity are dropped
+    if plan is None:
+        plan = chunk_plan(table_row, pos0, C, true_len, k_pages.shape[0],
+                          k_pages.shape[1])
+    write_pages(k_pages, plan, k[0])
+    write_pages(v_pages, plan, v[0])
+    kb = gather_pages(k_pages, plan)[None]
+    vb = gather_pages(v_pages, plan)[None]
+    kpos = torch.arange(kb.shape[1], device=dev)
+    kpos = torch.where(kpos < pos0 + true_len, kpos,
+                       torch.full_like(kpos, 2**30))
+    out = chunked_attention(q, kb, vb, positions, kpos, causal=True,
+                            window=window, q_chunk=q_chunk,
+                            kv_chunk=kv_chunk)
+    out = out.reshape(B, C, n_heads * head_dim)
+    return common.dense(p.o, out, policy), k_pages, v_pages

@@ -2,9 +2,12 @@
 
 Pre-norm GQA attention + SwiGLU MLP per layer, with QKV bias and tied
 embeddings as qwen2 has them. The JAX package's ``lax.scan`` over stacked
-layers becomes a loop over an ``nn.ModuleList``. The MoE, SSM, hybrid,
-enc-dec and vlm families, the parallel (command-r) block and the paged cache
-are not ported yet and raise ``NotImplementedError``.
+layers becomes a loop over an ``nn.ModuleList``. Serving caches come in the
+dense layout (per-slot rings) and the paged one (global page pools and
+per-slot block tables, :meth:`LM.cache_spec`), with the speculative
+:meth:`LM.verify_step` and :meth:`LM.prefill_chunk` over the latter. The
+MoE, SSM, hybrid, enc-dec and vlm families and the parallel (command-r)
+block are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.precision import MiragePolicy
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, common
+from repro_torch.runtime.paging import blocks_for
 
 _FAMILIES = "the MoE, SSM, hybrid, enc-dec and vlm families wait in " \
             "ROADMAP.md queue 1, slice 6"
@@ -213,23 +217,58 @@ class LM(nn.Module):
     def cache_len(self, cap: int) -> int:
         return min(cap, self.cfg.sliding_window or cap)
 
-    def init_cache(self, batch: int, cap: int, per_slot_idx: bool = False,
-                   layout: str = "dense") -> Dict[str, torch.Tensor]:
-        """Zeroed dense cache: ``idx`` (a scalar, or ``(batch,)`` per slot
-        for the continuous-batching engine) and ``k``/``v`` of shape
-        ``(n_layers, batch, cache_len, kv_eff, head_dim)``."""
-        if layout != "dense":
-            raise NotImplementedError(attention._PAGED)
+    def cache_spec(self, batch: int, cap: int, per_slot_idx: bool = False,
+                   layout: str = "dense", block_size: int = 16,
+                   n_blocks: Optional[int] = None
+                   ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+        """Cache leaf shapes and dtypes (the JAX ``cache_spec``).
+
+        ``per_slot_idx=True`` is the continuous-batching layout: ``idx`` is
+        a ``(batch,)`` vector instead of one scalar. ``layout="paged"``
+        (implies per-slot idx) replaces the per-slot rings ``k``/``v``
+        ``(n_layers, batch, cache_len, kv_eff, hd)`` with ONE pool shared
+        by every slot, ``kp``/``vp`` ``(n_layers, n_blocks, block_size,
+        kv_eff, hd)`` (default ``batch * ceil(cap / block_size)`` blocks:
+        no saving but never exhausted), and the ``(batch, ceil(cap /
+        block_size))`` int32 block table ``bt``. Paged addressing is
+        linear (no ring wrap): a sliding window is applied through the
+        mask, so paged capacity is ``cap`` positions."""
+        if layout not in ("dense", "paged"):
+            raise ValueError(f"unknown cache layout {layout!r}")
+        paged = layout == "paged"
         cfg = self.cfg
-        shape = (cfg.n_layers, batch, self.cache_len(cap),
-                 cfg.n_kv_heads * self.opt.kv_repeat, cfg.resolved_head_dim)
-        idx_shape = (batch,) if per_slot_idx else ()
-        return {
-            "idx": torch.zeros(idx_shape, dtype=torch.int32,
-                               device=self.device),
-            "k": torch.zeros(shape, dtype=torch.float32, device=self.device),
-            "v": torch.zeros(shape, dtype=torch.float32, device=self.device),
-        }
+        hd = cfg.resolved_head_dim
+        kv_eff = cfg.n_kv_heads * self.opt.kv_repeat
+        nl = cfg.n_layers
+        spec: Dict[str, Tuple[Tuple[int, ...], torch.dtype]] = {
+            "idx": (((batch,) if per_slot_idx or paged else ()),
+                    torch.int32)}
+        if paged:
+            mb = blocks_for(cap, block_size)
+            nb = n_blocks if n_blocks is not None else batch * mb
+            spec["kp"] = ((nl, nb, block_size, kv_eff, hd), torch.float32)
+            spec["vp"] = ((nl, nb, block_size, kv_eff, hd), torch.float32)
+            spec["bt"] = ((batch, mb), torch.int32)
+        else:
+            shape = (nl, batch, self.cache_len(cap), kv_eff, hd)
+            spec["k"] = (shape, torch.float32)
+            spec["v"] = (shape, torch.float32)
+        return spec
+
+    def init_cache(self, batch: int, cap: int, per_slot_idx: bool = False,
+                   layout: str = "dense", block_size: int = 16,
+                   n_blocks: Optional[int] = None
+                   ) -> Dict[str, torch.Tensor]:
+        """Zeroed cache of :meth:`cache_spec`'s shapes on the model's
+        device; unmapped block-table entries hold the sentinel
+        ``n_blocks``."""
+        spec = self.cache_spec(batch, cap, per_slot_idx, layout=layout,
+                               block_size=block_size, n_blocks=n_blocks)
+        cache = {k: torch.zeros(shape, dtype=dt, device=self.device)
+                 for k, (shape, dt) in spec.items()}
+        if "bt" in cache:
+            cache["bt"].fill_(spec["kp"][0][1])
+        return cache
 
     def prefill(self, tokens: torch.Tensor, cap: int,
                 lens: Optional[torch.Tensor] = None
@@ -275,50 +314,163 @@ class LM(nn.Module):
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """tokens: (B, 1). Returns (logits (B, 1, V), cache with idx + 1).
 
-        The k/v leaves of ``cache`` are updated in place (see
+        The layout follows the cache's keys: a ``bt`` leaf selects the
+        paged pools ``kp``/``vp``, else the dense rings ``k``/``v``. Either
+        is updated in place (see
         :func:`repro_torch.models.attention.attn_decode_step`)."""
         cfg = self.cfg
         h = common.embed(self.embed, tokens)
         idx = cache["idx"]
+        bt = cache.get("bt")
+        k_key, v_key = ("kp", "vp") if bt is not None else ("k", "v")
+        plan = None if bt is None else attention.page_plan(
+            bt, idx, *cache["kp"].shape[1:3])
         for li, layer in enumerate(self.layers):
             n1 = common.norm(layer.ln1, h, cfg.norm_eps, cfg.norm_type)
             a, _, _ = attention.attn_decode_step(
-                layer.attn, n1, cache["k"][li], cache["v"][li], idx,
+                layer.attn, n1, cache[k_key][li], cache[v_key][li], idx,
                 self.policy, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                 head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
                 window=cfg.sliding_window, qk_norm=cfg.qk_norm,
-                kv_repeat=self.opt.kv_repeat)
+                kv_repeat=self.opt.kv_repeat, block_tables=bt, plan=plan)
             h = self._mlp_tail(layer, h + a)
         return self._head(h), dict(cache, idx=idx + 1)
 
-    def verify_step(self, *args, **kwargs):
-        raise NotImplementedError(
-            "verify_step (speculative decoding) waits in ROADMAP.md queue 1, "
-            "slice 5")
+    def verify_step(self, cache: Dict[str, torch.Tensor],
+                    tokens: torch.Tensor
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], None]:
+        """Speculative-decoding verify over a PAGED cache: score ``T``
+        tokens per slot in one step.
 
-    def prefill_chunk(self, *args, **kwargs):
-        raise NotImplementedError(
-            "prefill_chunk (chunked prefill) waits in ROADMAP.md queue 1, "
-            "slice 5")
+        tokens: ``(S, T)``, per slot ``[current token ; T-1 drafts]`` at
+        positions ``idx[s] .. idx[s]+T-1``. Returns ``(logits (S, T, V),
+        cache, steps)``; ``idx`` is NOT advanced (the caller commits the
+        accepted count), and ``steps`` is None (the JAX package's recurrent
+        per-token states, which the dense family has none of)."""
+        cfg = self.cfg
+        h = common.embed(self.embed, tokens)
+        idx, bt = cache["idx"], cache["bt"]
+        pos = idx[:, None] + torch.arange(tokens.shape[1],
+                                          device=idx.device)[None, :]
+        plan = attention.page_plan(bt, pos, *cache["kp"].shape[1:3])
+        for li, layer in enumerate(self.layers):
+            n1 = common.norm(layer.ln1, h, cfg.norm_eps, cfg.norm_type)
+            a, _, _ = attention.attn_verify_step(
+                layer.attn, n1, cache["kp"][li], cache["vp"][li], idx,
+                self.policy, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+                window=cfg.sliding_window, qk_norm=cfg.qk_norm,
+                kv_repeat=self.opt.kv_repeat, block_tables=bt, plan=plan)
+            h = self._mlp_tail(layer, h + a)
+        return self._head(h), cache, None
+
+    def prefill_chunk(self, cache: Dict[str, torch.Tensor],
+                      tokens: torch.Tensor, slot: int, pos0: int,
+                      true_len: int
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """One prompt chunk of ONE slot of a PAGED cache.
+
+        tokens: ``(1, C)``, the slot's next chunk from absolute position
+        ``pos0``; ``true_len <= C`` tokens are real (the last chunk may be
+        right-padded). ``slot``, ``pos0`` and ``true_len`` are host
+        integers. The chunk's k/v go straight into the pools through the
+        slot's table (blocks must be mapped for positions ``< pos0 +
+        true_len``), in place. Returns (logits (1, 1, V) at the chunk's
+        last real token, cache) with ``idx[slot] = pos0 + true_len``."""
+        cfg, opt = self.cfg, self.opt
+        h = common.embed(self.embed, tokens)
+        bt_row = cache["bt"][slot]
+        plan = attention.chunk_plan(bt_row, pos0, tokens.shape[1], true_len,
+                                    *cache["kp"].shape[1:3])
+        for li, layer in enumerate(self.layers):
+            n1 = common.norm(layer.ln1, h, cfg.norm_eps, cfg.norm_type)
+            a, _, _ = attention.attn_chunk_step(
+                layer.attn, n1, cache["kp"][li], cache["vp"][li], bt_row,
+                pos0, true_len, self.policy, n_heads=cfg.n_heads,
+                n_kv_heads=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
+                rope_theta=cfg.rope_theta, window=cfg.sliding_window,
+                qk_norm=cfg.qk_norm, kv_repeat=opt.kv_repeat,
+                q_chunk=opt.q_chunk, kv_chunk=opt.kv_chunk, plan=plan)
+            h = self._mlp_tail(layer, h + a)
+        cache["idx"][slot] = pos0 + true_len
+        last = max(true_len - 1, 0)
+        return self._head(h[:, last:last + 1]), cache
+
+
+# --------------------------------------------------------------------------
+# Stacked-cache helpers of the continuous-batching engine. A stacked cache's
+# batch dim is the slot dim and its "idx" a per-slot vector; the paged
+# layout adds the global pools (NOT per slot) and the per-slot table "bt".
+# --------------------------------------------------------------------------
+
+PAGE_POOL_LEAVES = ("kp", "vp")
+# paged pool leaf -> the dense prefill leaf whose rows scatter into it
+_POOL_SRC = {"kp": "k", "vp": "v"}
+
+
+def cache_slot_axis(name: str) -> int:
+    """Axis of the slot dim of a PER-SLOT leaf: 0 for ``idx`` and ``bt``,
+    1 for the layer-stacked rings. Pool leaves have no slot axis."""
+    return 0 if name in ("idx", "bt") else 1
+
+
+def _scatter_pages(pages: torch.Tensor, dense: torch.Tensor,
+                   rows: torch.Tensor) -> torch.Tensor:
+    """Scatter dense prefill KV rows into a page pool, in place.
+
+    pages: ``(nl, n_blocks, bs, kv, hd)``; dense: ``(nl, B, L, kv, hd)``
+    at linear positions 0..L-1 (serving prefill never wraps); rows: the
+    ``(B, max_blocks)`` destination tables. Sentinel entries and
+    positions past the table's capacity are dropped."""
+    B, L = dense.shape[1], dense.shape[2]
+    pos = torch.arange(L, device=pages.device).expand(B, L)
+    plan = attention.page_plan(rows, pos, pages.shape[1], pages.shape[2])
+    attention.write_pages(pages, plan, dense)
+    return pages
 
 
 def cache_insert(live: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],
                  slots: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Scatter a batched prefill cache into the live per-slot cache.
 
-    ``new`` is a dense prefill cache of ``B_new`` rows; ``slots`` the
+    ``new`` is a DENSE prefill cache of ``B_new`` rows; ``slots`` the
     ``(B_new,)`` destination slot per row. Rows whose slot is out of bounds
     (the ``>= n_slots`` sentinel that pads admission groups to a power of
     two) are dropped: they are masked out before the scatter, which is what
     the JAX package's ``mode="drop"`` does on device. Pass ``slots`` on the
-    host to keep the mask off the device. The live leaves are written in
-    place and returned."""
+    host to keep the mask off the device. When ``live`` is PAGED, the
+    dense ``k``/``v`` rows go through the live block tables into the pools
+    (the rows' blocks must be mapped already; unmapped ones drop). The live
+    leaves are written in place and returned."""
     rows = torch.nonzero(slots < live["idx"].shape[0])[:, 0]
     dst = slots[rows].to(live["idx"].device)
     src = rows.to(new["idx"].device)
     for name, leaf in live.items():
-        if name == "idx":
+        if name == "bt":
+            continue
+        if name in PAGE_POOL_LEAVES:
+            _scatter_pages(leaf, new[_POOL_SRC[name]][:, src],
+                           live["bt"][dst])
+        elif name == "idx":
             leaf[dst] = new[name][src].to(leaf.dtype)
         else:
             leaf[:, dst] = new[name][:, src]
     return live
+
+
+def cache_extract(cache: Dict[str, torch.Tensor], slots
+                  ) -> Dict[str, torch.Tensor]:
+    """Gather the given slots out of a stacked cache. Pool leaves are global
+    (block ids do not move with slots) and pass through; the ``bt`` rows
+    carry each slot's mapping."""
+    slots = torch.as_tensor(slots, dtype=torch.long,
+                            device=cache["idx"].device)
+    out = {}
+    for name, leaf in cache.items():
+        if name in PAGE_POOL_LEAVES:
+            out[name] = leaf
+        elif cache_slot_axis(name) == 0:
+            out[name] = leaf[slots]
+        else:
+            out[name] = leaf[:, slots]
+    return out

@@ -169,8 +169,15 @@ def test_config_matches_jax():
         assert getattr(a.reduced(), f) == getattr(b.reduced(), f), f
 
 
-def test_paged_cache_not_ported():
-    tm = build_model(get_config("qwen2-0.5b").reduced(), get_policy("fp32"),
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tm.init_cache(2, 16, layout="paged")
+@pytest.mark.parametrize("kv_repeat", [1, 2])
+def test_paged_init_cache_shapes_equal_jax_cache_spec(kv_repeat):
+    """The paged pools, table and idx have JAX's ``cache_spec`` shapes
+    (kv heads repeated as the options say); unmapped entries hold the
+    sentinel, the pool size."""
+    jm, _, tm = _pair("fp32", kv_repeat=kv_repeat)
+    want = jm.cache_spec(2, 16, per_slot_idx=True, layout="paged",
+                         block_size=4, n_blocks=6)
+    cache = tm.init_cache(2, 16, layout="paged", block_size=4, n_blocks=6)
+    assert {k: tuple(v.shape) for k, v in cache.items()} == \
+        {k: tuple(s) for k, (s, _) in want.items()}
+    assert bool((cache["bt"] == 6).all()) and not cache["kp"].any()

@@ -5,8 +5,7 @@
 the batch the stopped run would have taken next: a run stopped after one
 step and resumed for one more writes the step-2 checkpoint of the straight
 run, file for file; over its first steps the loss falls. ``serve_lm``
-serves the dense layout and refuses the paged engine's options, which wait
-in slice 5."""
+serves the dense layout and the paged engine with each of its options."""
 
 import json
 
@@ -96,14 +95,29 @@ def test_serve_lm_dense(capsys):
 
 
 @pytest.mark.parametrize("flags", [["--cache-layout", "paged"],
-                                   ["--prefill-chunk", "4"],
+                                   ["--cache-layout", "paged",
+                                    "--prefill-chunk", "4"],
                                    ["--cache-layout", "paged",
                                     "--prefix-cache"],
                                    ["--cache-layout", "paged", "--spec-k",
                                     "2"]])
-def test_serve_lm_paged_options_wait_for_slice_5(flags):
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        serve_lm.main(["--device", "cpu"] + flags)
+def test_serve_lm_paged_options(capsys, flags):
+    """The paged engine serves the demo's 3 x 4 tokens with each option,
+    streaming each token once."""
+    assert serve_lm.main(["--device", "cpu", "--requests", "3",
+                          "--max-tokens", "4", "--stream"] + flags) == 0
+    out = capsys.readouterr().out
+    assert "qwen2-0.5b: 3 requests, 12 tokens" in out
+    assert out.count("[req ") == 12
+    if "--prefix-cache" in flags:
+        assert "prefix hits: 2 (4 blocks shared)" in out
+    if "--spec-k" in flags:
+        assert "spec accepted/tick:" in out
+
+
+def test_serve_lm_prefill_chunk_needs_paged():
+    with pytest.raises(ValueError, match="prefill_chunk requires"):
+        serve_lm.main(["--device", "cpu", "--prefill-chunk", "4"])
 
 
 def test_serve_lm_spec_k_needs_paged():
