@@ -60,6 +60,19 @@ cache, with speculative decoding, with all three): under fp32 each
 engine's streams equal the dense engine's (or differ first where the
 dense logits' top-2 gap is under 1e-4), under mirage the GEMM launches
 equal 169 x the engine's own count of model steps.
+
+The rest of slice 5: each path's requests through a warmed engine against
+a cold one (mirage_fast dense, paged at block size 4, paged with spec_k
+= 3, and mirage_rrns at 52 dB): the warmed engine replays its tick as one
+CUDA graph, and its streams, launch counts (and RRNS health integers)
+must equal the cold drain's, with the steady tick of both timed in turns
+and profiled; the slice's requests through pipeline_depth = 2 (the
+prefill's flash kernels on the worker's own stream, the streams equal to
+the synchronous drain's); a paged drain that grows from 2 to 4 slots and
+shrinks and regrows its block pool (the streams of a fixed 4-slot engine
+fed the same arrivals); and a mirage_rrns drain switched to mirage after
+8 ticks (the card's memory drops by the stationary residues), beside a
+mirage -> mirage switch that leaves slice's streams as they were.
 """
 
 from __future__ import annotations
@@ -923,12 +936,14 @@ def device_profile(run, n: int):
             run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_kernel, launches = {}, 0
+    by_kernel, launches, graph_launches = {}, 0, 0
     for avg in prof.key_averages():
         dev_us = getattr(avg, "self_device_time_total", 0.0)
         if avg.device_type == DeviceType.CUDA and dev_us > 0:
             by_kernel[avg.key] = by_kernel.get(avg.key, 0.0) + dev_us
             launches += avg.count
+        elif avg.key == "cudaGraphLaunch":
+            graph_launches += avg.count
     busy_ms = sum(by_kernel.values()) / 1e3
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
     ours = {k[:80]: v / 1e3 / n for k, v in by_kernel.items()
@@ -936,19 +951,17 @@ def device_profile(run, n: int):
     return {"wall_ms": wall_ms / n, "device_busy_ms": busy_ms / n,
             "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
             "top_device_ms": {k[:80]: v / 1e3 / n for k, v in top},
-            "port_kernels_ms": ours, "device_kernels": launches / n}
+            "port_kernels_ms": ours, "device_kernels": launches / n,
+            "graph_launches": graph_launches / n}
 
 
 def profile_ticks(model, cap, reqs, LMServer, policy_name: str,
                   n_ticks: int = 3, **engine_kw):
     """Device time by kernel over a few steady decode ticks (torch.profiler)
     and the device's idle share of their wall time."""
-    server = LMServer(model, cap=cap, batch_slots=SLOTS, **engine_kw)
-    for r in reqs[:SLOTS]:
-        r = dataclasses.replace(r, tokens_out=[])
-        server.submit(r)
-    server.tick()                      # admission + first decode
-    prof = device_profile(server.tick, n_ticks)
+    prof = engine_tick_profile(
+        LMServer(model, cap=cap, batch_slots=SLOTS, **engine_kw), reqs,
+        n_ticks)
     emit({"phase": "decode_tick_profile", "policy": policy_name,
           "ticks": n_ticks,
           "wall_ms_per_tick": prof["wall_ms"],
@@ -957,6 +970,24 @@ def profile_ticks(model, cap, reqs, LMServer, policy_name: str,
           "device_kernels_per_tick": prof["device_kernels"],
           "top_device_ms_per_tick": prof["top_device_ms"],
           "port_kernels_ms_per_tick": prof["port_kernels_ms"]})
+
+
+def steady_requests(server, reqs, n_ticks: int) -> None:
+    """Admit ``SLOTS`` of ``reqs``, cut to outlast ``n_ticks`` steady ticks
+    after the admission tick, and run that tick."""
+    for r in reqs[:SLOTS]:
+        server.submit(dataclasses.replace(r, tokens_out=[],
+                                          max_tokens=n_ticks + 3))
+    server.tick()
+
+
+def engine_tick_profile(server, reqs, n_ticks: int = 3):
+    """:func:`device_profile` of ``n_ticks`` steady ticks of ``server``;
+    the requests are drained after."""
+    steady_requests(server, reqs, n_ticks)
+    prof = device_profile(server.tick, n_ticks)
+    server.run_until_drained()
+    return prof
 
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1045,14 +1076,17 @@ class DecodedElements:
         self.ops.rrns_decode = self.inner
 
 
-def serve_run(ops, model, cap, reqs, LMServer, **engine_kw):
-    """Program a fresh engine (with ``engine_kw``), reset the counts, drain
-    ``reqs``; return the engine, the finished requests, the seconds and the
-    launches."""
+def serve_run(ops, model, cap, reqs, LMServer, prepare=None, **engine_kw):
+    """Program a fresh engine (with ``engine_kw``), call ``prepare`` on it
+    (a warmup, say), reset the counts, drain ``reqs``; return the engine,
+    the finished requests, the seconds and the launches."""
     t0 = time.perf_counter()
     server = LMServer(model, cap=cap, batch_slots=SLOTS, **engine_kw)
     torch.cuda.synchronize()
     program_s = time.perf_counter() - t0
+    if prepare is not None:
+        prepare(server)
+        torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t_run = time.perf_counter()
@@ -1352,20 +1386,26 @@ def token_share(streams, ref) -> float:
 
 
 def tick_ms(model, cap, reqs, n_ticks: int, **engine_kw) -> float:
-    """Host wall time of one steady decode tick of ``SLOTS`` requests (the
-    mean of ``n_ticks``, after the admission tick), to a synchronize."""
+    """:func:`engine_tick_ms` of a fresh engine built with ``engine_kw``."""
     from repro_torch.runtime.server import LMServer
 
-    server = LMServer(model, cap=cap, batch_slots=SLOTS, **engine_kw)
-    for r in reqs[:SLOTS]:
-        server.submit(dataclasses.replace(r, tokens_out=[]))
-    server.tick()
+    return engine_tick_ms(LMServer(model, cap=cap, batch_slots=SLOTS,
+                                   **engine_kw), reqs, n_ticks)
+
+
+def engine_tick_ms(server, reqs, n_ticks: int) -> float:
+    """Host wall time of one steady tick of ``server`` (the mean of
+    ``n_ticks``, after the admission tick), to a synchronize; the
+    requests are drained after, so one engine serves every run."""
+    steady_requests(server, reqs, n_ticks)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n_ticks):
         server.tick()
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / n_ticks
+    ms = (time.perf_counter() - t0) * 1e3 / n_ticks
+    server.run_until_drained()
+    return ms
 
 
 def phase_slice_paged(ops, model, cap, dense_streams):
@@ -1559,6 +1599,363 @@ def phase_serve_paged_options(ops, model, cap):
           "spec_k": SPEC_K, "shared_prefix": SHARED_PREFIX,
           "tail_lens": list(TAIL_LENS), **out})
     return total
+
+
+# --------------------------------------------------------------------------
+# phases 6h-6k: the rest of slice 5 (warmup and the tick's CUDA graph,
+# pipelined prefill, elastic resize, backend switch) at full width
+# --------------------------------------------------------------------------
+
+WARM_ENGINES = (
+    ("dense", "mirage", {}),
+    ("paged", "mirage", dict(cache_layout="paged", block_size=PAGED_BS)),
+    ("paged_spec", "mirage", dict(cache_layout="paged", block_size=PAGED_BS,
+                                  spec_k=SPEC_K)),
+    ("rrns_52db", "mirage_rrns", {}),
+)
+#: (runs a side, ticks a run) of the cold-against-warmed tick timing
+WARM_TICK_RUNS = {"dense": (8, 10), "rrns_52db": (3, 5)}
+PIPELINE_DEPTH = 2
+
+
+def serve_policy(name: str):
+    from repro_torch.core.precision import get_policy
+    if name == "mirage_rrns":
+        return get_policy(name, snr_db=SNR_DB, noise_seed=NOISE_SEED)
+    return get_policy(name)
+
+
+def warmed(info: dict):
+    """A ``serve_run`` hook: warm the engine up, recording its stats, the
+    memory the capture took and its compile counts."""
+    def prepare(server):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()    # as the capture does: reserved = pool
+        alloc0 = torch.cuda.memory_allocated()
+        res0 = torch.cuda.memory_reserved()
+        info.update(server.warmup())
+        torch.cuda.synchronize()
+        info["allocated_gb"] = (torch.cuda.memory_allocated() - alloc0) / 1e9
+        info["reserved_gb"] = (torch.cuda.memory_reserved() - res0) / 1e9
+        info["compile_counts_before"] = server.compile_counts()
+    return prepare
+
+
+def phase_serve_warmup(ops, model, cap):
+    """Warmed engines against cold ones, token for token: mirage_fast on
+    the dense engine, the paged engine at block size 4, paged with spec_k =
+    3, and mirage_rrns at 52 dB (its health counters RRNS_HEALTH). A
+    warmed engine replays its tick as one CUDA graph: its launch counts
+    must equal the cold drain's, its compile counts must hold across the
+    drain, and its profile must show one graph launch a tick. Then the
+    steady tick, cold against warmed in turns, and each one's device busy
+    time and idle share."""
+    from repro_torch.runtime.server import LMServer, Request
+
+    cfg = model.cfg
+    t_phase = time.perf_counter()
+    out, launches_warm = {}, {}
+    for name, policy, kw in WARM_ENGINES:
+        model.policy = serve_policy(policy)
+        rows, streams, healths = {}, {}, {}
+        for side in ("cold", "warmed"):
+            info = {}
+            reqs = make_requests(Request, cfg.vocab_size)
+            server, finished, dt, launches, program_s = serve_run(
+                ops, model, cap, reqs, LMServer,
+                prepare=warmed(info) if side == "warmed" else None, **kw)
+            rows[side] = {**serve_summary(server, finished, dt, launches,
+                                          program_s),
+                          "model_steps": model_steps(server.metrics)}
+            streams[side] = {r.rid: r.tokens_out for r in finished}
+            healths[side] = server.health_snapshot()
+            check(len(finished) == N_REQUESTS and all(
+                len(r.tokens_out) == MAX_TOKENS for r in finished),
+                f"serve_warmup {name} {side}: not every request completed")
+            if side == "warmed":
+                info["compile_counts_after"] = server.compile_counts()
+                rows[side]["warmup"] = info
+                launches_warm[name] = launches
+                check(info["graphs"] == 1 and len(server._graphs) == 1,
+                      f"serve_warmup {name}: no tick graph was captured")
+                check(info["compile_counts_after"] ==
+                      info["compile_counts_before"],
+                      f"serve_warmup {name}: compile counts moved during a "
+                      f"warmed drain: {info}")
+        check(streams["warmed"] == streams["cold"],
+              f"serve_warmup {name}: the warmed streams differ from the "
+              f"cold engine's")
+        check(rows["warmed"]["launches"] == rows["cold"]["launches"],
+              f"serve_warmup {name}: warmed launches "
+              f"{rows['warmed']['launches']} differ from cold "
+              f"{rows['cold']['launches']}")
+        row = {"policy": policy, "engine": kw, **rows,
+               "streams_equal": streams["warmed"] == streams["cold"]}
+        if policy == "mirage_rrns":
+            row["health"] = healths
+            for side, h in healths.items():
+                check(all(h.get(k) == v for k, v in RRNS_HEALTH.items()),
+                      f"serve_warmup {name} {side}: health "
+                      f"{ {k: h.get(k) for k in RRNS_HEALTH} } differs from "
+                      f"the reference run's {RRNS_HEALTH}")
+        reqs = make_requests(Request, cfg.vocab_size)
+        if name in WARM_TICK_RUNS:
+            runs, n_ticks = WARM_TICK_RUNS[name]
+            engines = {"cold": LMServer(model, cap=cap, batch_slots=SLOTS,
+                                        **kw),
+                       "warmed": LMServer(model, cap=cap, batch_slots=SLOTS,
+                                          **kw)}
+            engines["warmed"].warmup()
+            ticks = {"cold": [], "warmed": []}
+            for order in (("cold", "warmed"), ("warmed", "cold")) * \
+                    (runs // 2) + ((("cold", "warmed"),) if runs % 2
+                                   else ()):
+                for side in order:
+                    ticks[side].append(engine_tick_ms(engines[side], reqs,
+                                                      n_ticks))
+            med = {k: statistics.median(v) for k, v in ticks.items()}
+            row.update({"tick_ms": ticks, "tick_ms_median": med,
+                        "warmed_over_cold_tick": med["warmed"] /
+                        med["cold"], "ticks_per_run": n_ticks})
+            row["profile"] = {}
+            for side, server in engines.items():
+                prof = engine_tick_profile(server, reqs)
+                row["profile"][side] = {
+                    k: prof[k] for k in ("wall_ms", "device_busy_ms",
+                                         "device_idle_share",
+                                         "device_kernels", "graph_launches",
+                                         "top_device_ms")}
+            check(row["profile"]["warmed"]["graph_launches"] == 1,
+                  f"serve_warmup {name}: the warmed tick's profile shows "
+                  f"{row['profile']['warmed']['graph_launches']} graph "
+                  f"launches a tick, expected 1")
+            del engines, server
+        out[name] = row
+    emit({"phase": "serve_warmup", "slots": SLOTS, "cap": cap,
+          "block_size": PAGED_BS, "spec_k": SPEC_K, **out,
+          "phase_seconds": time.perf_counter() - t_phase})
+    return launches_warm
+
+
+def stream_ids(trace: dict):
+    """Stream ids of a chrome trace's kernels, by kernel name, and of its
+    device-to-host copies (the decode thread's payloads)."""
+    kernels, d2h = {}, set()
+    for ev in trace.get("traceEvents", []):
+        stream = (ev.get("args") or {}).get("stream")
+        if stream is None:
+            continue
+        if ev.get("cat") == "kernel":
+            kernels.setdefault(ev["name"][:60], set()).add(stream)
+        elif ev.get("cat") == "gpu_memcpy" and "DtoH" in ev.get("name", ""):
+            d2h.add(stream)
+    return kernels, d2h
+
+
+def phase_serve_pipelined(ops, model, cap, dense_streams):
+    """pipeline_depth = 2 against the synchronous engine under mirage_fast,
+    cold and warmed (the tick a graph replay): equal streams and launches;
+    TTFT, TPOT and tok/s of each; then a profiled pipelined drain shows
+    the prefill's flash kernels on a stream other than the decode stream
+    (the one the payloads reach the host from)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.runtime.server import LMServer, Request
+
+    cfg = model.cfg
+    t_phase = time.perf_counter()
+    model.policy = serve_policy("mirage")
+    per_step = 7 * cfg.n_layers + 1
+    rows = {}
+    for name, kw in (("sync", {}),
+                     ("pipelined", dict(pipeline_depth=PIPELINE_DEPTH)),
+                     ("sync_warmed", {}),
+                     ("pipelined_warmed",
+                      dict(pipeline_depth=PIPELINE_DEPTH))):
+        reqs = make_requests(Request, cfg.vocab_size)
+        server, finished, dt, launches, program_s = serve_run(
+            ops, model, cap, reqs, LMServer,
+            prepare=(lambda srv: srv.warmup()) if "warmed" in name
+            else None, **kw)
+        server.close()
+        streams = {r.rid: r.tokens_out for r in finished}
+        m = server.metrics
+        want = {"mirage_gemm": per_step * model_steps(m),
+                "flash_attention": cfg.n_layers * m["prefill_batches"]}
+        rows[name] = {**serve_summary(server, finished, dt, launches,
+                                      program_s),
+                      "expected_launches": want,
+                      "streams_equal_dense": streams == dense_streams}
+        check(len(finished) == N_REQUESTS and all(
+            len(r.tokens_out) == MAX_TOKENS for r in finished),
+            f"serve_pipelined {name}: not every request completed")
+        expect_launches(launches, want, f"serve_pipelined {name}")
+        check(streams == dense_streams, f"serve_pipelined {name}: the "
+                                        f"streams differ from slice's")
+        if name == "pipelined":
+            pipe_launches = launches
+    server = LMServer(model, cap=cap, batch_slots=SLOTS,
+                      pipeline_depth=PIPELINE_DEPTH)
+    trace_path = pathlib.Path(__file__).resolve().parent / "build" / \
+        "serve_pipelined_trace.json"
+    trace_path.parent.mkdir(parents=True, exist_ok=True)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for r in make_requests(Request, cfg.vocab_size,
+                                   max_tokens=8):
+                server.submit(r)
+            server.run_until_drained()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(trace_path))
+    finally:
+        server.close()
+    kernels, d2h = stream_ids(json.loads(trace_path.read_text()))
+    trace_path.unlink()
+    flash = set()
+    for k, v in kernels.items():
+        if "flash_fwd" in k:
+            flash |= v
+    emit({"phase": "serve_pipelined", "policy": "mirage (mirage_fast b_m=4 "
+          "g=16 k=5)", "slots": SLOTS, "pipeline_depth": PIPELINE_DEPTH,
+          **rows, "pipelined_over_sync_tok_s":
+          rows["pipelined"]["tok_per_s"] / rows["sync"]["tok_per_s"],
+          "warmed_pipelined_over_sync_tok_s":
+          rows["pipelined_warmed"]["tok_per_s"] /
+          rows["sync_warmed"]["tok_per_s"],
+          "flash_streams": sorted(flash), "decode_streams": sorted(d2h),
+          "kernel_streams": {k: sorted(v) for k, v in kernels.items()},
+          "phase_seconds": time.perf_counter() - t_phase})
+    check(bool(flash) and bool(d2h) and not flash & d2h,
+          f"serve_pipelined: the prefill's flash kernels ran on streams "
+          f"{sorted(flash)}, the decode payloads on {sorted(d2h)}: they "
+          f"must differ")
+    return pipe_launches
+
+
+def phase_serve_resize(ops, model, cap):
+    """A paged drain (block size 4) that grows from 2 to 4 slots after two
+    ticks, then shrinks its block pool to one block above the live ones and
+    grows it back, against a fixed 4-slot engine fed the same arrivals
+    (the first two requests, two ticks, then the rest: every prefill runs
+    at the same shapes in both, so the f32 orders and streams are equal)."""
+    from repro_torch.runtime.server import LMServer, Request
+
+    cfg = model.cfg
+    t_phase = time.perf_counter()
+    model.policy = serve_policy("mirage")
+    kw = dict(cache_layout="paged", block_size=PAGED_BS)
+    runs = {}
+    for name in ("fixed", "resized"):
+        reqs = make_requests(Request, cfg.vocab_size)
+        server = LMServer(model, cap=cap,
+                          batch_slots=2 if name == "resized" else SLOTS, **kw)
+        t0 = time.perf_counter()
+        for r in reqs[:2]:
+            server.submit(r)
+        server.tick()
+        server.tick()
+        moves = {}
+        if name == "resized":
+            server.resize_slots(SLOTS)
+            moves["live_blocks"] = server.alloc.used_count
+            moves["pool_before"] = server.alloc.n_blocks
+            server.resize_block_pool(server.alloc.used_count + 1)
+            server.alloc.check_invariants()
+            moves["pool_shrunk_to"] = server.alloc.n_blocks
+            # back to the fixed engine's pool, so admissions wait for
+            # blocks in neither
+            server.resize_block_pool(SLOTS *
+                                     server.alloc.max_blocks_per_slot)
+            server.alloc.check_invariants()
+        for r in reqs[2:]:
+            server.submit(r)
+        finished = server.run_until_drained()
+        torch.cuda.synchronize()
+        server.alloc.check_invariants()
+        runs[name] = ({r.rid: r.tokens_out for r in finished}, {
+            "requests": len(finished), "seconds": time.perf_counter() - t0,
+            "slots": server.n_slots, **moves, **pool_summary(server)})
+        check(len(finished) == N_REQUESTS and all(
+            len(r.tokens_out) == MAX_TOKENS for r in finished),
+            f"serve_resize {name}: not every request completed")
+    equal = runs["resized"][0] == runs["fixed"][0]
+    emit({"phase": "serve_resize", "policy": "mirage (mirage_fast b_m=4 "
+          "g=16 k=5)", "block_size": PAGED_BS,
+          **{k: v[1] for k, v in runs.items()},
+          "tokens_equal_fixed": token_share(runs["resized"][0],
+                                            runs["fixed"][0]),
+          "streams_equal_fixed": equal,
+          "phase_seconds": time.perf_counter() - t_phase})
+    check(equal, "serve_resize: the resized engine's streams differ from "
+                 "the fixed 4-slot engine's")
+
+
+SWITCH_AFTER_TICKS = 8
+
+
+def phase_serve_switch(ops, model, cap, dense_streams):
+    """mirage_rrns at 52 dB switches to mirage after 8 ticks: every request
+    drains with its budget, and the card's allocated memory drops by the
+    stationary residues. Then mirage switches to mirage after 8 ticks: the
+    streams of slice's drain, which never switched."""
+    from repro_torch.runtime.server import LMServer, Request
+
+    cfg = model.cfg
+    t_phase = time.perf_counter()
+    rows = {}
+    for name, before, after in (("rrns_to_mirage", "mirage_rrns", "mirage"),
+                                ("mirage_to_mirage", "mirage", "mirage")):
+        model.policy = serve_policy(before)
+        server = LMServer(model, cap=cap, batch_slots=SLOTS)
+        encoded = [m.stationary for m in model.modules()
+                   if getattr(m, "stationary", None) is not None]
+        residue_gb = sum(e.residues.numel() * e.residues.element_size()
+                         for e in encoded) / 1e9
+        scale_gb = sum(e.scale.numel() * e.scale.element_size()
+                       for e in encoded) / 1e9
+        del encoded
+        reqs = make_requests(Request, cfg.vocab_size)
+        t0 = time.perf_counter()
+        for r in reqs:
+            server.submit(r)
+        finished = []
+        for _ in range(SWITCH_AFTER_TICKS):
+            finished.extend(server.tick())
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated()
+        server.switch_backend(serve_policy(after))
+        torch.cuda.synchronize()
+        mem_after = torch.cuda.memory_allocated()
+        finished.extend(server.run_until_drained())
+        torch.cuda.synchronize()
+        streams = {r.rid: r.tokens_out for r in finished}
+        rows[name] = {"seconds": time.perf_counter() - t0,
+                      "requests": len(finished),
+                      "stationary_residues_gb": residue_gb,
+                      "stationary_scales_gb": scale_gb,
+                      "allocated_before_switch_gb": mem_before / 1e9,
+                      "allocated_after_switch_gb": mem_after / 1e9,
+                      "freed_gb": (mem_before - mem_after) / 1e9,
+                      "health_after": server.health_snapshot(),
+                      "streams_equal_slice": streams == dense_streams}
+        check(len(finished) == N_REQUESTS and all(
+            len(r.tokens_out) == MAX_TOKENS for r in finished),
+            f"serve_switch {name}: not every request drained with its "
+            f"budget")
+        if before == "mirage_rrns":
+            check(residue_gb > 7 and mem_before - mem_after >=
+                  residue_gb * 1e9,
+                  f"serve_switch: switching away from mirage_rrns freed "
+                  f"{(mem_before - mem_after) / 1e9:.3f} GB, less than the "
+                  f"{residue_gb:.3f} GB of stationary residues")
+        else:
+            check(streams == dense_streams, "serve_switch: a mirage -> "
+                  "mirage switch changed the streams")
+        del server
+    emit({"phase": "serve_switch", "switch_after_ticks": SWITCH_AFTER_TICKS,
+          "from_policy": f"mirage_rrns snr_db={SNR_DB} "
+                         f"noise_seed={NOISE_SEED}", **rows,
+          "phase_seconds": time.perf_counter() - t_phase})
 
 
 def phase_slice_rrns_vs_cpu(model, cap, prompt_np, layers=(0, 11, 23)):
@@ -2863,6 +3260,10 @@ def main() -> int:
                                                  rrns_streams)
     rns_launches = phase_slice_rns(ops, model, cap)
     options_launches = phase_serve_paged_options(ops, model, cap)
+    warm_launches = phase_serve_warmup(ops, model, cap)
+    pipe_launches = phase_serve_pipelined(ops, model, cap, streams)
+    phase_serve_resize(ops, model, cap)
+    phase_serve_switch(ops, model, cap, streams)
     phase_slice_rrns_vs_cpu(model, cap, make_requests(
         Request, model.cfg.vocab_size)[0].prompt)
     del model
@@ -2940,6 +3341,12 @@ def main() -> int:
                          "mirage_rrns_52db": rrns_launches,
                          "mirage_rrns_paged": rrns_paged_launches,
                          "mirage_paged_options": options_launches,
+                         "mirage_fast_warmed": warm_launches["dense"],
+                         "mirage_fast_paged_warmed": warm_launches["paged"],
+                         "mirage_spec_warmed": warm_launches["paged_spec"],
+                         "mirage_rrns_52db_warmed":
+                             warm_launches["rrns_52db"],
+                         "mirage_fast_pipelined": pipe_launches,
                          "mirage_rns": rns_launches,
                          "train_mirage": train_launches,
                          "train_wsq_bfp": wsq_launches,
@@ -2964,7 +3371,12 @@ def main() -> int:
                              "mirage_fast_paged and mirage_rrns_paged "
                              "repeat the dense drains through block "
                              "tables, mirage_paged_options sums the five "
-                             "mirage engines of serve_paged_options"}})
+                             "mirage engines of serve_paged_options; the "
+                             "*_warmed paths replay the tick as a CUDA "
+                             "graph (serve_warmup: each equals its cold "
+                             "drain's launches), mirage_fast_pipelined "
+                             "prefills on the worker's stream "
+                             "(serve_pipelined)"}})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -25,6 +25,7 @@ are not ported: :func:`fault_scope` raises.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import zlib
 from typing import Optional, Protocol, Sequence, Tuple
@@ -140,15 +141,25 @@ class AnalogChannelConfig:
         return tuple(out)
 
 
+@functools.lru_cache(maxsize=256)
+def device_constant(values: Tuple, dtype: torch.dtype,
+                    device: torch.device) -> torch.Tensor:
+    """The vector ``values`` on ``device``, made once and kept: a copy from
+    the host synchronizes, which the capture of a CUDA graph may not."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=dtype, device=device)
+
+
 def _col(values: Sequence[float], ndim: int, dev) -> torch.Tensor:
-    return torch.tensor(values, dtype=torch.float32, device=dev).reshape(
-        (-1,) + (1,) * (ndim - 1))
+    return device_constant(tuple(float(v) for v in values), torch.float32,
+                           torch.device(dev)).reshape(
+                               (-1,) + (1,) * (ndim - 1))
 
 
 def _wrap(v: torch.Tensor, moduli: Sequence[int]) -> torch.Tensor:
     """Integer-valued f32 ``v`` (n_mod, ...) wrapped onto each ring, int32."""
-    mods = torch.tensor(moduli, dtype=torch.int32, device=v.device).reshape(
-        (-1,) + (1,) * (v.dim() - 1))
+    mods = device_constant(tuple(int(m) for m in moduli), torch.int32,
+                           v.device).reshape((-1,) + (1,) * (v.dim() - 1))
     return torch.remainder(v.to(torch.int32), mods)
 
 
@@ -174,7 +185,8 @@ def converter_quantize(residues: torch.Tensor, moduli: Sequence[int],
             continue
         # a tensor divisor keeps IEEE division on the card, where PyTorch
         # turns division by a host scalar into a reciprocal multiply
-        s = torch.tensor(step, dtype=torch.float32, device=residues.device)
+        s = torch.full((), step, dtype=torch.float32,
+                       device=residues.device)
         q = torch.round(torch.round(residues[i].to(torch.float32) / s) * s)
         outs.append(torch.clamp(q, 0, m - 1).to(torch.int32))
     return torch.stack(outs, dim=0)

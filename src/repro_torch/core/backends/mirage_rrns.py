@@ -89,8 +89,8 @@ def _readout_on_card(xr, wr, moduli, cfg, draws):
         return channel.apply_readout_channel(res, moduli, cfg, draws)
     n_mod, G, M, _ = xr.shape
     N = wr.shape[-1]
-    sig_col = torch.tensor(sig, dtype=torch.float32,
-                           device=xr.device).reshape(-1, 1, 1, 1)
+    sig_col = channel.device_constant(tuple(sig), torch.float32,
+                                      xr.device).reshape(-1, 1, 1, 1)
     noise = draws.normal("detector", (n_mod, G, M, N)) * sig_col
     if not obs_health.active():
         return kops.rns_group_matmul_channel(xr, wr, moduli, noise,

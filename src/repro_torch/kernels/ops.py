@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import functools
 import math
+import threading
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -34,6 +35,9 @@ from repro_torch.kernels.build import extension
 LAUNCHES: Dict[str, int] = {"bfp_quantize": 0, "mirage_gemm": 0,
                             "flash_attention": 0, "rns_matmul": 0,
                             "rns_matmul_channel": 0, "rrns_decode": 0}
+# the serving engine's prefill worker thread launches beside the decode
+# thread; an unlocked ``+=`` could lose a count between them
+_LAUNCH_LOCK = threading.Lock()
 
 #: the GEMM kernel's step along K, and the most quantized x values its
 #: decode route holds in shared memory (csrc/mirage_gemm.cu)
@@ -50,8 +54,17 @@ RRNS_MAX_SUBSETS = 64
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCH_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def add_launch_counts(counts: Dict[str, int]) -> None:
+    """Add ``counts`` to :data:`LAUNCHES`: a replayed CUDA graph launches
+    the kernels its capture recorded without running their wrappers."""
+    with _LAUNCH_LOCK:
+        for name, n in counts.items():
+            LAUNCHES[name] += n
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -132,7 +145,7 @@ def bfp_fake_quant(x: torch.Tensor, policy: MiragePolicy) -> torch.Tensor:
         blocks = BFP_VECTOR_BLOCKS_PER_SM * sm_count(x.device)
         extension().bfp_fake_quant(xf, out, policy.g, policy.b_m, truncate,
                                    route == "vector", blocks)
-        LAUNCHES["bfp_quantize"] += 1
+        add_launch_counts({"bfp_quantize": 1})
     return out.reshape(x.shape)
 
 
@@ -247,7 +260,7 @@ def mirage_matmul_fused(x: torch.Tensor, w: torch.Tensor,
         extension().mirage_gemm(xf, wk, out, ws, w_nk, policy.g, policy.b_m,
                                  truncate, quantize_w, plan.mma,
                                  plan.threads, plan.splits, plan.k_split)
-        LAUNCHES["mirage_gemm"] += 1
+        add_launch_counts({"mirage_gemm": 1})
     return out.reshape(x.shape[:-1] + (N,))
 
 
@@ -313,7 +326,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             extension().flash_attention(qp, kp, vp, out, causal,
                                          -1 if window is None else window,
                                          sm_scale)
-            LAUNCHES["flash_attention"] += 1
+            add_launch_counts({"flash_attention": 1})
         return out
 
     return flash_padded(q, k, v, launch)
@@ -361,7 +374,7 @@ def rns_group_matmul(x_res: torch.Tensor, w_res: torch.Tensor,
                       device=x_res.device)
     if out.numel():
         extension().rns_matmul(x_res, w_res, out, [int(m) for m in moduli])
-        LAUNCHES["rns_matmul"] += 1
+        add_launch_counts({"rns_matmul": 1})
     return out
 
 
@@ -401,7 +414,7 @@ def rns_group_matmul_channel(x_res: torch.Tensor, w_res: torch.Tensor,
         extension().rns_matmul_channel(x_res, w_res, noise, out, flips,
                                        [int(m) for m in moduli],
                                        list(adc_steps(moduli, adc_bits)))
-        LAUNCHES["rns_matmul_channel"] += 1
+        add_launch_counts({"rns_matmul_channel": 1})
     return (out, flips) if count_flips else out
 
 
@@ -486,5 +499,5 @@ def rrns_decode(residues: torch.Tensor, tables
         words = _host_tables(tuple(tables.moduli), tables.n_required,
                              tables.psi)
         extension().rrns_decode(flat, words, decoded, votes)
-        LAUNCHES["rrns_decode"] += 1
+        add_launch_counts({"rrns_decode": 1})
     return decoded.reshape(shape), votes.reshape(shape)

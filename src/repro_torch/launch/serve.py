@@ -18,6 +18,12 @@ common first N tokens, so that it hits), and ``--spec-k K`` drafts K tokens
 a tick and verifies them in one step (greedy only; token for token what
 greedy decode emits).
 
+``--warmup`` runs every serving shape once before traffic and, on the
+card, captures the tick as a CUDA graph that every later tick replays;
+``--pipeline-depth N`` overlaps up to N bucketed prefills with decode on a
+worker thread (on a CUDA stream of its own); ``--max-retries`` bounds the
+retries of requests whose prefill job failed.
+
 ``--snr-db`` serves through the analog channel at that detector SNR (with
 ``--policy mirage_rns_noisy`` or ``mirage_rrns``), its noise seeded by
 ``--noise-seed``; a stochastic policy also prints the analog-health
@@ -75,6 +81,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                     default="locality",
                     help="block placement of the paged pool's allocator "
                          "(one shard here: both place alike)")
+    ap.add_argument("--warmup", action="store_true",
+                    help="run every (bucket, batch) prefill shape plus "
+                         "tick/verify before traffic, and capture the tick "
+                         "as a CUDA graph on the card")
+    ap.add_argument("--pipeline-depth", type=int, default=0,
+                    help="overlap up to this many bucketed prefills with "
+                         "decode on a worker thread (0 = synchronous)")
+    ap.add_argument("--max-retries", type=int, default=1,
+                    help="retry budget of requests whose prefill job "
+                         "failed")
     ap.add_argument("--snr-db", type=float, default=None,
                     help="serve through the analog channel at this SNR "
                          "(use with --policy mirage_rns_noisy/mirage_rrns)")
@@ -100,6 +116,8 @@ def parse_args(argv=None) -> argparse.Namespace:
         ap.error("--prefix-cache / --spec-k require --cache-layout paged")
     if args.spec_k and args.sample:
         ap.error("--spec-k verifies against greedy argmax; drop --sample")
+    if args.engine == "oracle" and (args.warmup or args.pipeline_depth):
+        ap.error("--warmup/--pipeline-depth need the batched engine")
     return args
 
 
@@ -135,7 +153,14 @@ def serve(model, args: argparse.Namespace):
                           prefill_chunk=args.prefill_chunk,
                           prefix_cache=args.prefix_cache,
                           spec_k=args.spec_k,
-                          block_placement=args.block_placement)
+                          block_placement=args.block_placement,
+                          pipeline_depth=args.pipeline_depth,
+                          max_retries=args.max_retries)
+        if args.warmup:
+            w = server.warmup()
+            print(f"warmup: {w['compiled']:.0f} shapes run, "
+                  f"{w['graphs']:.0f} graphs captured in "
+                  f"{w['seconds']:.1f}s")
     rng = np.random.default_rng(0)
     shared = rng.integers(0, cfg.vocab_size,
                           min(args.shared_prefix,
@@ -146,7 +171,11 @@ def serve(model, args: argparse.Namespace):
                             args.prompt_len - len(shared)).astype(np.int32)
         server.submit(Request(rid=rid, prompt=np.concatenate([shared, tail]),
                               max_tokens=args.max_tokens))
-    finished = server.run_until_drained()
+    try:
+        finished = server.run_until_drained()
+    finally:
+        if args.engine != "oracle":
+            server.close()
     if model.device.type == "cuda":
         torch.cuda.synchronize(model.device)
     return server, finished, time.perf_counter() - t0

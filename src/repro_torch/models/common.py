@@ -131,8 +131,10 @@ def rope_freqs(head_dim: int, theta: float,
                device: Optional[torch.device] = None) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps)
+    # a fill, not a copy from the host: the decode tick runs inside a
+    # captured CUDA graph, where a synchronizing copy may not
+    return 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                      device=device), exps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

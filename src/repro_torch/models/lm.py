@@ -443,6 +443,8 @@ def cache_insert(live: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],
     (the rows' blocks must be mapped already; unmapped ones drop). The live
     leaves are written in place and returned."""
     rows = torch.nonzero(slots < live["idx"].shape[0])[:, 0]
+    if rows.numel() == 0:
+        return live
     dst = slots[rows].to(live["idx"].device)
     src = rows.to(new["idx"].device)
     for name, leaf in live.items():

@@ -33,9 +33,13 @@ shared block forks a private copy first. **Speculative decoding**
 token for token what greedy decode emits. :class:`PerSlotLMServer` is the
 slot-at-a-time loop, kept as the parity oracle.
 
-Every step runs under ``torch.inference_mode()``. Sampled decode draws from a
-``torch.Generator`` seeded with ``sample_seed`` (deterministic per seed; the
-numbers differ from the JAX engine's threefry draws).
+Every step runs under ``torch.inference_mode()``. Sampled decode draws from
+``torch.Generator``s seeded from ``sample_seed``, one for decode ticks, one
+for prefill batches and one for prefill chunks, so the prefill worker and
+the decode loop never share one (deterministic per seed; a pipelined
+engine's decode draws follow which tick a token lands in, as the JAX
+engine's per-tick keys do; the numbers differ from the JAX engine's
+threefry draws).
 
 Under the RNS-family backends the engine also:
 
@@ -52,13 +56,25 @@ Under the RNS-family backends the engine also:
     into device accumulators every step, read back only by
     :meth:`LMServer.health_snapshot`.
 
+**Pipelined prefill** (``pipeline_depth=N``) runs the bucketed prefill's
+forward pass on a worker thread, on a CUDA stream of its own, while the
+decode loop keeps ticking; the decode thread scatters each finished
+prefill in submission order. A job that fails returns its requests to the
+queue head for up to ``max_retries`` retries, then retires them as
+``"failed"`` with the error. **Warmup** (:meth:`LMServer.warmup`) runs
+every serving shape once before traffic and, on the card, captures the
+tick as a CUDA graph that every later tick replays. The engine resizes its
+slots and its block pool mid-flight (:meth:`LMServer.resize_slots`,
+:meth:`LMServer.resize_block_pool`) and switches its numeric backend
+(:meth:`LMServer.switch_backend`).
+
 The metrics count what ran on the device: ``prefill_batches`` the bucketed
 batches, ``prefill_chunks`` every chunk step (also the one that prefills a
 prefix-cache admission's unmatched suffix), ``decode_steps`` the plain
 decode ticks and ``spec_ticks`` the verify ticks. The JAX engine's other
-options (pipelined prefill, meshes, fault injection, deadlines, retries and
-admission caps) are not ported yet: passing one raises
-``NotImplementedError`` naming the ROADMAP slice where it waits.
+options (meshes, fault injection, deadlines and admission caps) are not
+ported yet: passing one raises ``NotImplementedError`` naming the ROADMAP
+slice where it waits.
 """
 
 from __future__ import annotations
@@ -67,6 +83,8 @@ import collections
 import collections.abc
 import contextlib
 import dataclasses
+import queue
+import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -75,6 +93,7 @@ import torch
 
 from repro_torch.analog.channel import seeded_generator
 from repro_torch.core import backends, gemm, stationary
+from repro_torch.kernels import ops
 from repro_torch.models import lm as lm_helpers
 from repro_torch.obs import health as obs_health
 from repro_torch.obs.metrics import MetricsRegistry
@@ -123,8 +142,8 @@ class AdmissionRejected(RuntimeError):
 
 
 #: terminal request statuses of the ported engine (the JAX engine's
-#: deadlines and fault retries add "timed_out" and "failed")
-TERMINAL_STATUSES = ("completed", "rejected")
+#: deadlines add "timed_out")
+TERMINAL_STATUSES = ("completed", "rejected", "failed")
 
 
 @dataclasses.dataclass
@@ -138,8 +157,13 @@ class Request:
     t_admit: float = 0.0
     t_first_token: float = 0.0
     t_done: float = 0.0
-    status: str = "queued"        # queued -> active -> completed | rejected
-    error: Optional[str] = None   # why a request was rejected
+    # queued -> active -> completed | failed; rejected at submit. A request
+    # whose prefill job failed goes active -> queued again (bounded by
+    # retries), restarting its stream from scratch.
+    status: str = "queued"
+    max_retries: int = 0          # 0 = use the engine default
+    retries: int = 0
+    error: Optional[str] = None   # why a request was rejected or failed
 
     @property
     def terminal(self) -> bool:
@@ -206,6 +230,9 @@ class _SchedulerMetrics(collections.abc.MutableMapping):
         ("spec_slot_ticks", "per-slot speculative verify steps"),
         ("spec_accepted", "draft tokens accepted"),
         ("rejected", "requests refused at admission (queue cap)"),
+        ("failed", "requests terminally failed (retries exhausted)"),
+        ("retried", "requests returned to the queue after a failed "
+                    "prefill job"),
     )
 
     def __init__(self, registry: MetricsRegistry):
@@ -307,11 +334,14 @@ class Scheduler:
         if self.on_token is not None:
             self.on_token(req, tok)
 
-    def retire(self, req: Request) -> Request:
-        """Move a request that emitted its last token to ``finished``."""
+    def retire(self, req: Request, status: str = "completed") -> Request:
+        """Move ``req`` to ``finished`` with a terminal ``status``. The
+        latency histograms observe only phases the request reached."""
+        if status not in TERMINAL_STATUSES:
+            raise ValueError(f"non-terminal retirement status {status!r}")
         req.t_done = time.perf_counter()
-        req.status = "completed"
-        self.metrics["completed"] += 1
+        req.status = status
+        self.metrics[status] += 1
         self.metrics["tokens"] += len(req.tokens_out)
         if req.t_first_token > 0:
             self._h_ttft.observe(req.ttft)
@@ -345,15 +375,122 @@ class Scheduler:
 
 #: JAX-engine options that are not ported yet: (default, where they wait)
 _NOT_PORTED = {
-    "pipeline_depth": (0, "ROADMAP.md queue 1, slice 5 (pipelined prefill)"),
     "mesh": (None, "ROADMAP.md queue 1, slice 8 (meshed serving)"),
     "fault_injector": (None, "ROADMAP.md queue 1, slice 7 (faults)"),
     "default_ttl_s": (None, "ROADMAP.md queue 1, slice 7 (deadlines)"),
     "default_queue_ttl_s": (None, "ROADMAP.md queue 1, slice 7 (deadlines)"),
-    "max_retries": (1, "ROADMAP.md queue 1, slice 7 (fault retries)"),
     "max_queue_depth": (None, "ROADMAP.md queue 1, slice 7 (admission "
                               "caps; a Scheduler built with one works)"),
 }
+
+
+class _PrefillPipeline:
+    """Prefill/decode overlap for :class:`LMServer` (``pipeline_depth``).
+
+    A daemon worker thread runs the slot-independent half of bucketed
+    prefill (``LMServer._prefill_compute``: the forward pass and the token
+    selection, reading only the parameters and the prompt tokens) while
+    the decode loop keeps ticking; the decode thread applies the scatter
+    when a compute lands. On the card the worker enqueues on a CUDA stream
+    of its own: a job first waits for the decode stream's work enqueued
+    before it was submitted (weights re-encoded by ``switch_backend``, for
+    one), and records an event behind its compute, on which the decode
+    stream waits before the scatter. Backpressure is the ``depth`` bound
+    on jobs in flight. Single producer, single worker, FIFO queues: jobs
+    complete and scatter in submission order, so the prefill noise and
+    sampling generators draw in the synchronous engine's order."""
+
+    _STALL_S = 300.0
+
+    def __init__(self, server: "LMServer", depth: int):
+        self.server = server
+        self.depth = int(depth)
+        self.inflight = 0      # submitted, not yet collected (decode thread)
+        dev = server.device
+        self.stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+        self._in: queue.Queue = queue.Queue()
+        self._out: queue.Queue = queue.Queue()
+        self._thread = threading.Thread(
+            target=self._worker, name="lmserver-prefill", daemon=True)
+        self._thread.start()
+
+    @property
+    def full(self) -> bool:
+        return self.inflight >= self.depth
+
+    def submit(self, job: Dict[str, Any]) -> None:
+        if self.stream is not None:
+            job["ready"] = torch.cuda.current_stream(
+                self.server.device).record_event()
+        self.inflight += 1
+        self._in.put(job)
+
+    def _compute(self, job: Dict[str, Any]):
+        """(tok, new_cache, health values) of one job and, on the card, the
+        event recorded behind them on the worker's stream."""
+        srv = self.server
+        if self.stream is None:
+            return srv._prefill_compute(job["tokens"], job["lens"]), None
+        with torch.cuda.stream(self.stream):
+            self.stream.wait_event(job["ready"])
+            out = srv._prefill_compute(job["tokens"], job["lens"])
+            return out, self.stream.record_event()
+
+    def _worker(self) -> None:
+        while True:
+            job = self._in.get()
+            if job is None:
+                return
+            try:
+                self._out.put((job, self._compute(job), None))
+            except Exception as e:   # the decode thread retires the job
+                self._out.put((job, None, e))
+
+    def collect(self, block: bool) -> List[Tuple[Dict[str, Any], Any, Any]]:
+        """Finished jobs, oldest first: everything already done, plus, when
+        ``block`` (nothing else can make progress), wait for at least
+        one."""
+        items: List[Tuple[Dict[str, Any], Any, Any]] = []
+        while True:
+            try:
+                if block and not items:
+                    items.append(self._out.get(timeout=self._STALL_S))
+                else:
+                    items.append(self._out.get_nowait())
+            except queue.Empty:
+                if block and not items:
+                    raise RuntimeError(
+                        f"prefill pipeline made no progress for "
+                        f"{self._STALL_S:.0f}s (worker dead?)")
+                break
+        self.inflight -= len(items)
+        return items
+
+    def close(self) -> None:
+        self._in.put(None)
+        self._thread.join(timeout=10.0)
+
+
+class _StepGraph:
+    """A tick step captured as a CUDA graph: the graph, the payload tensor
+    it writes, and the kernel launches one replay makes (the wrappers count
+    their launches in Python, which a replay does not run)."""
+
+    def __init__(self, graph, payload: torch.Tensor,
+                 launches: Dict[str, int]):
+        self.graph = graph
+        self.payload = payload
+        self.launches = launches
+
+    def replay(self) -> torch.Tensor:
+        self.graph.replay()
+        ops.add_launch_counts(self.launches)
+        return self.payload
+
+
+#: the engine's generator streams: decode (and verify) ticks, prefill
+#: batches, prefill chunks
+_STREAMS = ("decode", "prefill", "chunk")
 
 
 class LMServer:
@@ -383,8 +520,15 @@ class LMServer:
     serves one engine's programming at a time.
 
     ``cache_layout``, ``block_size``, ``n_blocks``, ``prefill_chunk``,
-    ``prefix_cache``, ``spec_k`` and ``block_placement`` are the JAX
-    engine's options with its checks (see the module docstring).
+    ``prefix_cache``, ``spec_k``, ``block_placement``, ``pipeline_depth``
+    and ``max_retries`` are the JAX engine's options with its checks (see
+    the module docstring). An engine with ``pipeline_depth`` owns a worker
+    thread: :meth:`close` stops it.
+
+    Every step writes the state's tensors in place, so a tick captured as
+    a CUDA graph (:meth:`warmup`) reads and writes them at the addresses
+    it captured; only :meth:`resize_slots`, :meth:`resize_block_pool` and
+    :meth:`switch_backend` replace tensors, and they drop the graphs.
     """
 
     def __init__(self, model, cap: int, batch_slots: int = 8,
@@ -401,6 +545,8 @@ class LMServer:
                  prefix_cache: bool = False,
                  spec_k: int = 0,
                  block_placement: str = "locality",
+                 pipeline_depth: int = 0,
+                 max_retries: int = 1,
                  **not_ported: Any):
         for name, value in not_ported.items():
             if name not in _NOT_PORTED:
@@ -411,6 +557,15 @@ class LMServer:
                 raise NotImplementedError(
                     f"LMServer option {name}={value!r} is not ported to "
                     f"repro_torch yet; it waits in {where}")
+        if pipeline_depth < 0:
+            raise ValueError(f"pipeline_depth must be >= 0, got "
+                             f"{pipeline_depth}")
+        if pipeline_depth and (prefill_chunk is not None or prefix_cache):
+            raise ValueError(
+                "pipeline_depth overlaps whole-prompt bucketed prefill with "
+                "decode; chunked prefill already interleaves by construction "
+                "and prefix matching is ordered host state — combine with "
+                "neither")
         if cache_layout not in ("dense", "paged"):
             raise ValueError(f"unknown cache_layout {cache_layout!r}")
         if prefill_chunk is not None and cache_layout != "paged":
@@ -479,31 +634,41 @@ class LMServer:
                              f"capacity {self.cache_len}")
         self.scheduler = scheduler or Scheduler(on_token=on_token)
         self.slot_req: List[Optional[Request]] = [None] * batch_slots
-        self._sample_gen = torch.Generator(device=self.device)
-        self._sample_gen.manual_seed(sample_seed)
+        self.max_retries = int(max_retries)
+        self.last_prefill_error: Optional[BaseException] = None
+        # one sampling generator per stream: the prefill worker and the
+        # decode loop never draw from one generator at once
+        self._sample_gens = {
+            stream: seeded_generator(self.device, "sample", sample_seed,
+                                     stream) for stream in _STREAMS}
 
         policy = model.policy
         backend = backends.resolve(policy)
-        # one generator per noise stream: decode (and verify) ticks,
-        # prefill batches and prefill chunks
-        seed = policy.noise_seed if policy.noise_seed is not None else 0
-        self._noise_gens = {
-            stream: seeded_generator(self.device, "serve", seed, stream)
-            for stream in ("decode", "prefill", "chunk")}
+        self._reseed_noise(policy)
         self._health_spec = obs_health.spec(policy)
-        if stationary_weights is None:
-            stationary_weights = backend.supports_stationary_residues
         if stationary_weights and not backend.supports_stationary_residues:
             raise ValueError(
                 f"stationary_weights=True needs a backend that supports "
                 f"stationary residues; {policy.mode!r} does not")
-        self.stationary_weights = bool(stationary_weights)
+        # None follows the backend, also across switch_backend
+        self._stationary_auto = stationary_weights is None
+        self.stationary_weights = backend.supports_stationary_residues \
+            if stationary_weights is None else bool(stationary_weights)
         stationary.install(model, stationary.encode_stationary_params(
             model, policy) if self.stationary_weights else None)
 
         self.state = self._init_state(batch_slots)
+        self._drafts = self._init_drafts(batch_slots)
+        # shapes each step has run (compile_counts) and the captured ticks
+        self._shapes: Dict[str, set] = collections.defaultdict(set)
+        self._graphs: Dict[str, _StepGraph] = {}
+        self._capture_stream: Optional[torch.cuda.Stream] = None
         self._bound_registry: Optional[MetricsRegistry] = None
         self._bind_observability()
+        self.pipeline_depth = int(pipeline_depth)
+        self._pipe: Optional[_PrefillPipeline] = \
+            _PrefillPipeline(self, self.pipeline_depth) \
+            if self.pipeline_depth else None
 
     # ------------------------------------------------------------------
     # device-side steps
@@ -542,67 +707,109 @@ class LMServer:
                 torch.from_numpy(self.alloc.tables))
             self.alloc.dirty = False
 
+    def _init_drafts(self, n_slots: int) -> Optional[torch.Tensor]:
+        """The verify tick's draft tokens, (S, k) on the device: the host
+        copies each tick's drafts into this one tensor, which a captured
+        verify tick reads."""
+        if not self.spec_k:
+            return None
+        return torch.zeros((n_slots, self.spec_k), dtype=torch.int32,
+                           device=self.device)
+
+    def _reseed_noise(self, policy) -> None:
+        """One noise generator per stream, seeded from ``policy.noise_seed``
+        (0 when unset)."""
+        seed = policy.noise_seed if policy.noise_seed is not None else 0
+        self._noise_gens = {
+            stream: seeded_generator(self.device, "serve", seed, stream)
+            for stream in _STREAMS}
+
+    def _seen(self, step: str, shape) -> None:
+        """Record a shape ``step`` ran at (:meth:`compile_counts`)."""
+        self._shapes[step].add(shape)
+
     @contextlib.contextmanager
     def _step_scope(self, stream: str):
         """Ambient noise of one step (its stream's generator) and, under a
-        policy with health counters, their collection and fold."""
+        policy with health counters, their collection: yields the dict the
+        step's records land in, for :meth:`_fold`."""
         with gemm.noise_scope(self._noise_gens[stream]):
             if not self._health_spec:
-                yield
+                yield {}
                 return
             with obs_health.collect() as hc:
-                yield
-            obs_health.fold(self.state["health"], hc.values)
+                yield hc.values
 
-    def _select(self, logits: torch.Tensor) -> torch.Tensor:
+    def _fold(self, hvals: Dict[str, torch.Tensor]) -> None:
+        """Add a step's health records into the accumulators, in place."""
+        if self._health_spec:
+            obs_health.fold(self.state["health"], hvals)
+
+    def _select(self, logits: torch.Tensor, stream: str) -> torch.Tensor:
         """Next token per row of (B, V) logits: greedy argmax (first max on
-        ties, as jnp.argmax) or a categorical draw from the engine's
-        generator."""
+        ties, as jnp.argmax) or a categorical draw from the stream's
+        sampling generator (``torch.multinomial``'s one-sample draw,
+        argmin of Exp(1) / p, without its validity check, which reads the
+        device from the host)."""
         if self.greedy:
             return torch.argmax(logits, dim=-1).to(torch.int32)
         probs = torch.softmax(logits, dim=-1)
-        return torch.multinomial(probs, 1, generator=self._sample_gen
-                                 )[:, 0].to(torch.int32)
+        q = torch.empty_like(probs).exponential_(
+            1.0, generator=self._sample_gens[stream])
+        return torch.argmin(q / probs, dim=-1).to(torch.int32)
 
     @torch.inference_mode()
     def _decode_tick(self) -> torch.Tensor:
-        """One decode step for every slot; returns the (S, 2) payload
-        [token | -1, done] still on the device."""
+        """One decode step for every slot, written into the state in place;
+        returns the (S, 2) payload [token | -1, done] still on the
+        device."""
         state = self.state
-        cache0 = state["cache"]
-        idx0 = cache0["idx"]
-        with self._step_scope("decode"):
-            logits, cache = self.model.decode_step(
-                cache0, state["last_tok"][:, None])
-        tok = self._select(logits[:, -1, :])
+        idx0 = state["cache"]["idx"]
+        with self._step_scope("decode") as hvals:
+            logits, stepped = self.model.decode_step(
+                state["cache"], state["last_tok"][:, None])
+        self._fold(hvals)
+        tok = self._select(logits[:, -1, :], "decode")
         active = state["active"]
         emitted = state["emitted"] + active.to(torch.int32)
         hit_eos = (state["eos"] >= 0) & (tok == state["eos"])
         done = active & (hit_eos | (emitted >= state["max_tok"]))
+        payload = torch.stack([torch.where(active, tok, -1),
+                               done.to(torch.int32)], dim=-1)
         # inactive slots don't advance their position (their k/v writes land
         # on a frozen slot position or a dropped page and are overwritten on
         # reuse)
-        cache["idx"] = torch.where(active, cache["idx"], idx0)
-        state.update(cache=cache,
-                     last_tok=torch.where(active, tok, state["last_tok"]),
-                     active=active & ~done, emitted=emitted)
-        return torch.stack([torch.where(active, tok, -1),
-                            done.to(torch.int32)], dim=-1)
+        idx0.copy_(torch.where(active, stepped["idx"], idx0))
+        state["last_tok"].copy_(torch.where(active, tok, state["last_tok"]))
+        state["emitted"].copy_(emitted)
+        active.copy_(active & ~done)
+        return payload
 
     @torch.inference_mode()
-    def _prefill_insert(self, tokens: np.ndarray, lens: np.ndarray,
-                        slots: np.ndarray, eos: np.ndarray,
-                        max_tok: np.ndarray) -> torch.Tensor:
-        """Bucketed prefill of one admission group + scatter into the live
-        state; returns the (B, 2) payload [token, done] on the device.
-        Rows whose slot is the ``n_slots`` sentinel (batch padding) are
-        computed and then dropped."""
+    def _prefill_compute(self, tokens: np.ndarray, lens: np.ndarray):
+        """The slot-independent half of bucketed prefill: the forward pass
+        and the token selection, from the parameters and the prompt tokens
+        alone. Nothing it reads or writes belongs to the live state, which
+        is what lets the pipeline's worker run it beside the decode loop.
+        Returns (tok, dense prefill cache, health records)."""
         dev = self.device
-        with self._step_scope("prefill"):
+        with self._step_scope("prefill") as hvals:
             logits, new_cache = self.model.prefill(
                 torch.from_numpy(tokens).to(dev), self.cap,
                 lens=torch.from_numpy(lens).to(dev))
-        tok = self._select(logits[:, -1, :])
+        return self._select(logits[:, -1, :], "prefill"), new_cache, hvals
+
+    @torch.inference_mode()
+    def _prefill_scatter(self, tok: torch.Tensor,
+                         new_cache: Dict[str, torch.Tensor],
+                         hvals: Dict[str, torch.Tensor], slots: np.ndarray,
+                         eos: np.ndarray, max_tok: np.ndarray
+                         ) -> torch.Tensor:
+        """The state half: insert a computed prefill into the live state
+        and return the (B, 2) payload [token, done] on the device. Rows
+        whose slot is the ``n_slots`` sentinel (batch padding) are
+        dropped."""
+        dev = self.device
         eos_d = torch.from_numpy(eos).to(dev)
         max_d = torch.from_numpy(max_tok).to(dev)
         # instant retirement: the prefill token already hit EOS or the
@@ -617,7 +824,17 @@ class LMServer:
                           ("emitted", torch.ones_like(tok)),
                           ("eos", eos_d), ("max_tok", max_d)):
             state[name][dst] = val[src].to(state[name].dtype)
+        self._fold(hvals)
         return torch.stack([tok, done0.to(torch.int32)], dim=-1)
+
+    def _prefill_insert(self, tokens: np.ndarray, lens: np.ndarray,
+                        slots: np.ndarray, eos: np.ndarray,
+                        max_tok: np.ndarray) -> torch.Tensor:
+        """Synchronous bucketed prefill of one admission group: compute,
+        then scatter, on the calling thread."""
+        self._seen("prefill_insert", tokens.shape)
+        return self._prefill_scatter(*self._prefill_compute(tokens, lens),
+                                     slots, eos, max_tok)
 
     @torch.inference_mode()
     def _chunk_step(self, tokens: np.ndarray, slot: int, pos0: int,
@@ -628,14 +845,17 @@ class LMServer:
         the final one (``final`` = (eos, max_tokens)) selects the first
         token, arms the slot and returns the (1, 2) payload [token, done]
         on the device."""
-        with self._step_scope("chunk"):
+        self._seen("chunk_mid" if final is None else "chunk_last",
+                   tokens.shape)
+        with self._step_scope("chunk") as hvals:
             logits, _ = self.model.prefill_chunk(
                 self.state["cache"], torch.from_numpy(tokens).to(self.device),
                 slot, pos0, true_len)
+        self._fold(hvals)
         if final is None:
             return None
         eos, max_tok = final
-        tok = self._select(logits[:, -1, :])                  # (1,)
+        tok = self._select(logits[:, -1, :], "chunk")         # (1,)
         done0 = (tok == eos) if eos >= 0 else torch.zeros_like(
             tok, dtype=torch.bool)
         if max_tok <= 1:
@@ -655,6 +875,7 @@ class LMServer:
         is already in shared blocks, so the slot attaches with NO prefill —
         ``idx = L-1``, ``last_tok = prompt[-1]``, ``emitted = 0`` (the next
         decode tick produces the request's FIRST token)."""
+        self._seen("attach", ())
         state = self.state
         state["cache"]["idx"][slot] = idx
         state["last_tok"][slot] = last_tok
@@ -664,21 +885,22 @@ class LMServer:
         state["max_tok"][slot] = max_tok
 
     @torch.inference_mode()
-    def _verify_tick(self, drafts: np.ndarray) -> torch.Tensor:
-        """Speculative verify tick: score ``k`` drafts + 1 bonus position
-        per slot in one step and accept on the device. Exactly greedy: a
-        token is accepted iff every draft before it equals the verified
-        argmax. Returns the (S, k+2) payload [tokens | -1 ..., done]."""
+    def _verify_tick(self) -> torch.Tensor:
+        """Speculative verify tick: score the ``k`` drafts in
+        ``self._drafts`` + 1 bonus position per slot in one step and accept
+        on the device, writing the state in place. Exactly greedy: a token
+        is accepted iff every draft before it equals the verified argmax.
+        Returns the (S, k+2) payload [tokens | -1 ..., done]."""
         k = self.spec_k
         state = self.state
-        cache0 = state["cache"]
-        idx0 = cache0["idx"]
+        idx0 = state["cache"]["idx"]
         S = idx0.shape[0]
         dev = self.device
-        drafts_d = torch.from_numpy(drafts).to(dev)
+        drafts_d = self._drafts
         tokens = torch.cat([state["last_tok"][:, None], drafts_d], dim=1)
-        with self._step_scope("decode"):
-            logits, cache, _ = self.model.verify_step(cache0, tokens)
+        with self._step_scope("decode") as hvals:
+            logits, _, _ = self.model.verify_step(state["cache"], tokens)
+        self._fold(hvals)
         g = torch.argmax(logits, dim=-1).to(torch.int32)       # (S, k+1)
         active = state["active"]
         i32 = torch.int32
@@ -701,15 +923,26 @@ class LMServer:
         emitted = state["emitted"] + torch.where(active, a, 0).to(i32)
         kept_eos = torch.any((keep > 0) & is_eos, dim=1)
         done = active & (kept_eos | (emitted >= state["max_tok"]))
+        toks = torch.where(active[:, None] & (keep > 0), g, -1)
+        payload = torch.cat([toks.to(i32), done.to(i32)[:, None]], dim=1)
         # rejected-tail KV needs no rollback (the next tick writes
         # positions idx..idx+k before gathering); idx advances by the
         # accepted count. Inactive slots stay frozen.
-        cache["idx"] = torch.where(active, idx0 + a, idx0).to(i32)
-        state.update(cache=cache,
-                     last_tok=torch.where(active, last, state["last_tok"]),
-                     active=active & ~done, emitted=emitted)
-        toks = torch.where(active[:, None] & (keep > 0), g, -1)
-        return torch.cat([toks.to(i32), done.to(i32)[:, None]], dim=1)
+        idx0.copy_(torch.where(active, idx0 + a, idx0).to(i32))
+        state["last_tok"].copy_(torch.where(active, last, state["last_tok"]))
+        state["emitted"].copy_(emitted)
+        active.copy_(active & ~done)
+        return payload
+
+    def _tick_step(self, name: str, step: Callable[[], torch.Tensor]
+                   ) -> torch.Tensor:
+        """Run a tick step: its captured graph when there is one, else the
+        step itself."""
+        graph = self._graphs.get(name)
+        if graph is not None:
+            return graph.replay()
+        self._seen(name, self.n_slots)
+        return step()
 
     @staticmethod
     def _to_host(payload: torch.Tensor) -> np.ndarray:
@@ -885,6 +1118,8 @@ class LMServer:
             return self._admit_chunked()
         if self.prefix_cache:
             return self._admit_prefix()
+        if self._pipe is not None:
+            return self._admit_pipelined()
         retired: List[Request] = []
         while True:
             free = [i for i, r in enumerate(self.slot_req) if r is None]
@@ -933,6 +1168,142 @@ class LMServer:
                     else:
                         self.slot_req[slot] = r
                         self._slot_pos[slot] = len(r.prompt)
+
+    def _admit_pipelined(self) -> List[Request]:
+        """Pipelined whole-prompt admission: claim slots and blocks and hand
+        the bucketed prefill's compute to the worker; apply finished
+        scatters here. Slots claimed at submission sit in
+        ``self.prefilling`` (decode skips them, the gauge counts them, the
+        drain waits on them). Backpressure: stop claiming once
+        ``pipeline_depth`` jobs are in flight."""
+        retired: List[Request] = []
+        pipe = self._pipe
+        while not pipe.full:
+            free = [i for i, r in enumerate(self.slot_req) if r is None]
+            if not free or not self.scheduler.waiting:
+                break
+            reqs = self._take_admissible(len(free))
+            if not reqs:
+                break
+            groups: Dict[int, List[Request]] = {}
+            for r in reqs:
+                groups.setdefault(pick_bucket(len(r.prompt), self.buckets),
+                                  []).append(r)
+            # one take may submit a few groups past the depth bound; the
+            # outer loop re-checks before claiming any further requests
+            for Lb, group in sorted(groups.items()):
+                B = len(group)
+                Bp = 1 << (B - 1).bit_length()
+                tokens = np.zeros((Bp, Lb), np.int32)
+                lens = np.ones((Bp,), np.int32)
+                slots = np.full((Bp,), self.n_slots, np.int64)
+                eos = np.full((Bp,), -1, np.int32)
+                max_tok = np.ones((Bp,), np.int32)
+                my_slots = []
+                for j, r in enumerate(group):
+                    tokens[j, :len(r.prompt)] = r.prompt
+                    lens[j] = len(r.prompt)
+                    slots[j] = free.pop(0)
+                    my_slots.append(int(slots[j]))
+                    eos[j] = -1 if r.eos_id is None else r.eos_id
+                    max_tok[j] = r.max_tokens
+                    if self.alloc is not None:
+                        self.alloc.ensure(my_slots[j], len(r.prompt))
+                        self._slot_budget[my_slots[j]] = \
+                            self._block_budget(r)
+                    self._slot_poscap[my_slots[j]] = \
+                        len(r.prompt) + r.max_tokens
+                    # claim the slot now; decode skips it via prefilling
+                    self.slot_req[my_slots[j]] = r
+                self.scheduler.record_admit(group)
+                self._seen("prefill_compute", tokens.shape)
+                job = {"group": group, "my_slots": my_slots,
+                       "tokens": tokens, "lens": lens, "slots": slots,
+                       "eos": eos, "max_tok": max_tok}
+                for j, r in enumerate(group):
+                    self.prefilling.append(
+                        {"req": r, "slot": my_slots[j], "pos": 0,
+                         "job": job})
+                pipe.submit(job)
+        # apply finished computes; block for one when nothing else can
+        # make progress (no decodable slot) and work is in flight
+        mid = {e["slot"] for e in self.prefilling}
+        can_decode = any(r is not None and i not in mid
+                         for i, r in enumerate(self.slot_req))
+        block = not can_decode and pipe.inflight > 0
+        for job, out, err in pipe.collect(block=block):
+            self.prefilling = [e for e in self.prefilling
+                               if e["job"] is not job]
+            if err is not None:
+                retired.extend(self._fail_job(job, err))
+                continue
+            (tok, new_cache, hvals), ready = out
+            if ready is not None:
+                stream = torch.cuda.current_stream(self.device)
+                stream.wait_event(ready)
+                # the worker's stream made these; the decode stream reads
+                # them, so their memory is not reused before it has
+                for t in (tok, *new_cache.values(), *hvals.values()):
+                    t.record_stream(stream)
+            self._sync_tables()
+            self._seen("prefill_scatter", job["slots"].shape)
+            payload = self._to_host(self._prefill_scatter(
+                tok, new_cache, hvals, job["slots"], job["eos"],
+                job["max_tok"]))
+            t_host = time.perf_counter()
+            for j, r in enumerate(job["group"]):
+                s = job["my_slots"][j]
+                r.t_first_token = t_host
+                self.scheduler.emit(r, int(payload[j, 0]))
+                if payload[j, 1]:
+                    self.slot_req[s] = None
+                    self._release_slot(s)
+                    retired.append(self.scheduler.retire(r))
+                else:
+                    self._slot_pos[s] = len(r.prompt)
+        return retired
+
+    def _fail_job(self, job: Dict[str, Any],
+                  err: BaseException) -> List[Request]:
+        """A prefill job that raised on the worker: the live state is
+        untouched (the compute reads only parameters and prompt tokens, and
+        the scatter never ran). Release the claimed slots and blocks and
+        hand each request to :meth:`_retry_or_fail`; returns those that
+        retired."""
+        self.last_prefill_error = err
+        retired: List[Request] = []
+        for j in reversed(range(len(job["group"]))):
+            r, s = job["group"][j], job["my_slots"][j]
+            if self.slot_req[s] is r:
+                self.slot_req[s] = None
+                self._release_slot(s)
+                self._slot_pos[s] = 0
+                self._slot_budget[s] = 0
+                self._slot_poscap[s] = 0
+            t = self._retry_or_fail(r, f"prefill worker crash: {err!r}")
+            if t is not None:
+                retired.append(t)
+        return retired
+
+    def _retry_or_fail(self, req: Request,
+                       reason: str) -> Optional[Request]:
+        """Within the retry budget the request returns to the QUEUE HEAD
+        with its stream reset (it restarts from scratch: emitted tokens are
+        withdrawn, so a streaming consumer sees the retry as a new stream);
+        past it the request retires with status ``failed`` and ``error``
+        set. Returns the retired request, or None when requeued."""
+        limit = req.max_retries if req.max_retries > 0 else self.max_retries
+        if req.retries < limit:
+            req.retries += 1
+            req.tokens_out = []
+            req.t_first_token = 0.0
+            req.t_admit = 0.0
+            req.status = "queued"
+            self.scheduler.metrics["retried"] += 1
+            self.scheduler.waiting.appendleft(req)
+            return None
+        req.error = reason
+        return self.scheduler.retire(req, status="failed")
 
     def _share_prefix(self, slot: int, m: _PrefixMatch) -> None:
         if m.block_ids:
@@ -1132,7 +1503,8 @@ class LMServer:
                 self._cow_guard(i, self._slot_pos[i], self._slot_pos[i] + 1)
                 self.alloc.ensure(i, min(self._slot_pos[i] + 1, cap_pos))
             self._sync_tables()
-        payload = self._to_host(self._decode_tick())   # the ONE transfer
+        payload = self._to_host(self._tick_step(   # the ONE transfer
+            "decode_tick", self._decode_tick))
         self.scheduler.metrics["decode_steps"] += 1
         t_host = time.perf_counter()
         done: List[Request] = []
@@ -1180,7 +1552,9 @@ class LMServer:
             self.alloc.ensure(i, min(
                 p0 + 1 + k, max(self._slot_poscap[i], p0 + 1), cap_pos))
         self._sync_tables()
-        payload = self._to_host(self._verify_tick(drafts))   # the ONE transfer
+        self._drafts.copy_(torch.from_numpy(drafts))
+        payload = self._to_host(self._tick_step(   # the ONE transfer
+            "verify_tick", self._verify_tick))
         t_host = time.perf_counter()
         done: List[Request] = []
         self.scheduler.metrics["spec_ticks"] += 1
@@ -1214,6 +1588,293 @@ class LMServer:
                 break
             finished.extend(self.tick())
         return finished
+
+    # ------------------------------------------------------------------
+    # warmup, CUDA graphs
+    # ------------------------------------------------------------------
+
+    def compile_counts(self) -> Dict[str, int]:
+        """Shapes each step has run or been captured at (the JAX engine's
+        jit-cache sizes, under the same keys): snapshot after
+        :meth:`warmup`, drain traffic, snapshot again; equal dicts mean
+        the drain ran only warmed shapes."""
+        names = ["decode_tick", "prefill_insert", "prefill_compute",
+                 "prefill_scatter"]
+        if self.prefill_chunk is not None or self.prefix_cache:
+            names += ["chunk_mid", "chunk_last"]
+        if self.prefix_cache:
+            names.append("attach")
+        if self.spec_k:
+            names.append("verify_tick")
+        return {n: len(self._shapes[n]) for n in names}
+
+    def warmup(self) -> Dict[str, float]:
+        """Run every serving shape once before traffic, then, on the card,
+        capture the tick as a CUDA graph that every later tick replays.
+
+        Against the idle state: every (bucket, batch) prefill shape with
+        out-of-bounds slot ids (every row drops), the decode tick (and the
+        verify tick under ``spec_k``) on the all-inactive state (the active
+        mask freezes every slot; garbage KV lands where admission
+        overwrites it), the chunk shapes of ``prefill_chunk`` and the
+        prefix cache's padded suffixes, and the prefix cache's attach, on
+        slot 0. The control leaves, ``idx`` and the health accumulators
+        are saved before and restored after, which is why warmup requires
+        an IDLE engine. Its noise and sampling come from warmup generators
+        of its own: the real ones are left where they were, so a warmed
+        engine emits the exact token streams of a cold one, including
+        under per-tick analog noise.
+
+        On the card the tick that the engine runs (the verify tick under
+        ``spec_k``, else the decode tick) is then captured with the real
+        generators registered on the graph, so each replay draws the
+        numbers the eager tick would. A capture that fails raises.
+        :meth:`resize_slots`, :meth:`resize_block_pool` and
+        :meth:`switch_backend` drop the graph; the engine then ticks
+        eagerly, with the same streams, until the next ``warmup()``.
+
+        Records ``serve_warmup_seconds`` / ``serve_warmup_compiled`` gauges
+        and returns ``{"seconds", "compiled", "graphs"}``."""
+        if self.scheduler.waiting or self.prefilling or \
+                any(r is not None for r in self.slot_req):
+            raise RuntimeError(
+                "warmup requires an idle engine — run it before traffic")
+        t0 = time.perf_counter()
+        before = sum(self.compile_counts().values())
+        self._graphs.clear()
+        on_card = self.device.type == "cuda"
+        if on_card and self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+        saved = self._save_leaves()
+        real = (self._noise_gens, self._sample_gens)
+        self._noise_gens = {s: seeded_generator(self.device, "warmup",
+                                                "noise", s) for s in _STREAMS}
+        self._sample_gens = {s: seeded_generator(self.device, "warmup",
+                                                 "sample", s)
+                             for s in _STREAMS}
+        try:
+            self._warm_prefill_and_chunks()
+            # the tick steps on the stream that captures them, so whatever
+            # a library sets up per stream exists before the capture
+            with self._on_capture_stream():
+                self._warm_ticks()
+        finally:
+            self._noise_gens, self._sample_gens = real
+            self._restore_leaves(saved)
+        if on_card:
+            if self.spec_k:
+                self._capture("verify_tick", self._verify_tick)
+            else:
+                self._capture("decode_tick", self._decode_tick)
+        dt = time.perf_counter() - t0
+        compiled = sum(self.compile_counts().values()) - before
+        reg = self.scheduler.registry
+        reg.gauge("serve_warmup_seconds",
+                  help="warmup walltime (every serving shape run once, "
+                       "the tick captured on the card)").set(dt)
+        reg.gauge("serve_warmup_compiled",
+                  help="step shapes first run by warmup").set(compiled)
+        return {"seconds": dt, "compiled": float(compiled),
+                "graphs": float(len(self._graphs))}
+
+    @contextlib.contextmanager
+    def _on_capture_stream(self):
+        if self._capture_stream is None:
+            yield
+            return
+        cur = torch.cuda.current_stream(self.device)
+        self._capture_stream.wait_stream(cur)
+        with torch.cuda.stream(self._capture_stream):
+            yield
+        cur.wait_stream(self._capture_stream)
+
+    def _save_leaves(self) -> Dict[str, Any]:
+        """Copies of the leaves warmup's steps write outside the KV."""
+        st = self.state
+        out = {k: v.clone() for k, v in st.items()
+               if k not in ("cache", "health")}
+        out["idx"] = st["cache"]["idx"].clone()
+        if "health" in st:
+            out["health"] = {k: v.clone() for k, v in st["health"].items()}
+        return out
+
+    @torch.inference_mode()
+    def _restore_leaves(self, saved: Dict[str, Any]) -> None:
+        """Write :meth:`_save_leaves`' copies back, in place."""
+        st = self.state
+        for k, v in saved.items():
+            if k == "idx":
+                st["cache"]["idx"].copy_(v)
+            elif k == "health":
+                for h, hv in v.items():
+                    st["health"][h].copy_(hv)
+            else:
+                st[k].copy_(v)
+
+    def _warm_prefill_and_chunks(self) -> None:
+        # every (bucket, batch) prefill shape admission can produce:
+        # batches pad to powers of two up to the first pow2 >= n_slots
+        batches, b = [], 1
+        while b < self.n_slots:
+            batches.append(b)
+            b <<= 1
+        batches.append(b)
+        for Lb in self.buckets:
+            for B in batches:
+                args = (np.zeros((B, Lb), np.int32), np.ones((B,), np.int32))
+                rest = (np.full((B,), self.n_slots, np.int64),
+                        np.full((B,), -1, np.int32), np.ones((B,), np.int32))
+                if self._pipe is not None:
+                    self._seen("prefill_compute", args[0].shape)
+                    self._seen("prefill_scatter", rest[0].shape)
+                    self._prefill_scatter(*self._prefill_compute(*args),
+                                          *rest)
+                else:
+                    self._prefill_insert(*args, *rest)
+        sizes = set()
+        if self.prefill_chunk is not None:
+            sizes.add(self.prefill_chunk)
+        if self.prefix_cache:
+            # _admit_one pads the unmatched suffix to a power of two
+            c = 1
+            while c < self.buckets[-1]:
+                sizes.add(c)
+                c <<= 1
+            sizes.add(c)
+        for C in sorted(sizes):
+            toks = np.zeros((1, C), np.int32)
+            if C == self.prefill_chunk:
+                self._chunk_step(toks, 0, 0, C)
+            self._chunk_step(toks, 0, 0, C, final=(-1, 1))
+        if self.prefix_cache:
+            self._attach(0, 0, 0, -1, 1)
+
+    def _warm_ticks(self) -> None:
+        self._seen("decode_tick", self.n_slots)
+        self._decode_tick()
+        if self.spec_k:
+            self._seen("verify_tick", self.n_slots)
+            self._verify_tick()
+
+    def _capture(self, name: str, step: Callable[[], torch.Tensor]) -> None:
+        """Capture ``step`` as a CUDA graph on the capture stream, with the
+        decode stream's noise and sampling generators registered (a
+        replay then advances them as the eager step does). The capture
+        launches nothing, so the launch counts it adds are taken back and
+        kept as the graph's per-replay counts; the generators' states are
+        restored."""
+        gens = (self._noise_gens["decode"], self._sample_gens["decode"])
+        states = [g.get_state() for g in gens]
+        graph = torch.cuda.CUDAGraph()
+        for g in gens:
+            graph.register_generator_state(g)
+        before = dict(ops.LAUNCHES)
+        try:
+            with torch.cuda.graph(graph, stream=self._capture_stream):
+                payload = step()
+        finally:
+            launches = {k: v - before[k] for k, v in ops.LAUNCHES.items()
+                        if v != before[k]}
+            ops.add_launch_counts({k: -v for k, v in launches.items()})
+            for g, st in zip(gens, states):
+                g.set_state(st)
+        self._graphs[name] = _StepGraph(graph, payload, launches)
+
+    def close(self) -> None:
+        """Stop the prefill pipeline's worker thread (idempotent; the
+        engine itself needs no teardown)."""
+        if self._pipe is not None:
+            self._pipe.close()
+            self._pipe = None
+
+    # ------------------------------------------------------------------
+    # elastic resize, backend switch
+    # ------------------------------------------------------------------
+
+    def resize_slots(self, new_slots: int) -> None:
+        """Elastic slot-count change mid-flight (scale with offered load).
+        Active slots are compacted to the front of the new stacked cache;
+        under the paged layout the page POOL is untouched (block ids are
+        stable), only the table rows and allocator bookkeeping move. Drops
+        the captured graphs (see :meth:`warmup`)."""
+        from repro_torch.runtime.elastic import resize_serving_state
+        if self.prefilling:
+            raise RuntimeError(
+                "cannot resize slots while a prefill is in flight")
+        keep = [i for i, r in enumerate(self.slot_req) if r is not None]
+        if len(keep) > new_slots:
+            raise ValueError(
+                f"cannot shrink to {new_slots} slots with {len(keep)} active")
+        self._graphs.clear()
+        with torch.inference_mode():
+            self.state = resize_serving_state(self.model, self.state,
+                                              self.cap, new_slots, keep)
+        if self.alloc is not None:
+            freed = self.alloc.remap_slots(keep, new_slots)
+            if freed and self.prefix_index is not None:
+                self.prefix_index.evict_blocks(freed)
+            self._sync_tables()
+        pad = new_slots - len(keep)
+        self.slot_req = [self.slot_req[i] for i in keep] + [None] * pad
+        self._slot_pos = [self._slot_pos[i] for i in keep] + [0] * pad
+        self._slot_budget = [self._slot_budget[i] for i in keep] + [0] * pad
+        self._slot_poscap = [self._slot_poscap[i] for i in keep] + [0] * pad
+        self._fork_pending = [self._fork_pending[i] for i in keep] + \
+            [0] * pad
+        self.n_slots = new_slots
+        self._drafts = self._init_drafts(new_slots)
+
+    def resize_block_pool(self, new_n_blocks: int) -> None:
+        """Elastic block-pool resize (grow under admission pressure, shrink
+        after a long-context burst retires). Live blocks are compacted to
+        the front of the new pool, the pages move with them, and every
+        block table is rewritten: live requests keep decoding their exact
+        continuations. Raises ``ValueError`` when the live blocks do not
+        fit. Drops the captured graphs (see :meth:`warmup`)."""
+        if self.alloc is None:
+            raise RuntimeError(
+                "block pool resize requires cache_layout='paged'")
+        from repro_torch.runtime.elastic import resize_block_pool
+        with torch.inference_mode():
+            state, old_ids, new_ids = resize_block_pool(
+                self.state, self.alloc, new_n_blocks)
+        self._graphs.clear()
+        self.state = state
+        if self.prefix_index is not None:
+            self.prefix_index.remap(
+                {int(o): int(n) for o, n in zip(old_ids, new_ids)})
+
+    def switch_backend(self, new_policy) -> None:
+        """Reprogram the engine's numeric backend mid-flight (the
+        SNR-adaptive degradation path of the JAX package's resilience
+        controller): set ``new_policy`` on the model (which owns its
+        parameters and reads its policy at call time), re-encode the
+        stationary residues from the raw weights under it or clear them
+        (residue coding is policy-specific; an engine built with
+        ``stationary_weights=None`` follows the new backend's capability),
+        swap the health accumulators to the new policy's spec, reseed the
+        noise generators from its ``noise_seed``, and drop the captured
+        graphs (see :meth:`warmup`). In-flight KV is plain numeric state,
+        not policy-coded: live streams continue under the new backend from
+        their current positions."""
+        if self._pipe is not None and self._pipe.inflight:
+            raise RuntimeError(
+                "cannot switch backends with pipelined prefills in flight")
+        backend = backends.resolve(new_policy)
+        self._graphs.clear()
+        self.model.policy = new_policy
+        if self._stationary_auto:
+            self.stationary_weights = backend.supports_stationary_residues
+        stationary.install(self.model, None)   # free the old residues first
+        if self.stationary_weights and backend.supports_stationary_residues:
+            stationary.install(self.model, stationary.encode_stationary_params(
+                self.model, new_policy))
+        self._health_spec = obs_health.spec(new_policy)
+        self.state.pop("health", None)
+        if self._health_spec:
+            self.state["health"] = obs_health.init(self._health_spec,
+                                                   self.device)
+        self._reseed_noise(new_policy)
 
     # ------------------------------------------------------------------
     # observability

@@ -166,7 +166,7 @@ def test_sampled_decode_deterministic_per_seed(model):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("mesh", object()), ("pipeline_depth", 1),
+    ("mesh", object()),
     ("fault_injector", object()), ("default_ttl_s", 1.0),
     ("default_queue_ttl_s", 1.0), ("max_queue_depth", 4),
 ])

@@ -172,8 +172,9 @@ def test_flag_validation(model):
     with pytest.raises(ValueError, match="placement"):
         LMServer(model, cap=24, batch_slots=2, cache_layout="paged",
                  block_placement="nowhere")
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        LMServer(model, cap=24, batch_slots=2, pipeline_depth=1)
+    with pytest.raises(ValueError, match="pipeline_depth overlaps"):
+        LMServer(model, cap=24, batch_slots=2, cache_layout="paged",
+                 prefill_chunk=4, pipeline_depth=1)
 
 
 def test_chunked_ttft_stamped_after_final_chunk(model):
