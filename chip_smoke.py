@@ -73,6 +73,15 @@ shrinks and regrows its block pool (the streams of a fixed 4-slot engine
 fed the same arrivals); and a mirage_rrns drain switched to mirage after
 8 ticks (the card's memory drops by the stationary residues), beside a
 mirage -> mirage switch that leaves slice's streams as they were.
+
+Slice 6a (the MoE family): the GEMM kernel batched over a stack of E
+experts in one launch at every expert GEMM shape of the MoE paths (and
+ragged ones), bitwise equal to E unbatched launches with the same plan,
+then qwen3-moe-30b-a3b (12 of 48 layers) and mixtral-8x7b (4 of 32) at
+their published widths, served under mirage cold, warmed and (qwen3-moe)
+paged, the streams equal, every expert stack one launch, the steady tick
+timed and profiled, and the first and last layers teacher-forced against
+the CPU with the routing choices that differ and their margins.
 """
 
 from __future__ import annotations
@@ -1018,8 +1027,8 @@ def compare_with_cpu(model, prompt_np, cap):
         h = common.embed(model.embed, prompt.to(DEV))
         layer_err = []
         for layer_d, layer_h in zip(model.layers, cpu_model.layers):
-            out_d, _ = model._attn_mlp_block(layer_d, h, pos_d)
-            out_h, _ = cpu_model._attn_mlp_block(layer_h, h.cpu(), pos_h)
+            out_d, _, _ = model._attn_mlp_block(layer_d, h, pos_d)
+            out_h, _, _ = cpu_model._attn_mlp_block(layer_h, h.cpu(), pos_h)
             layer_err.append(rel_l2(out_d.cpu(), out_h))
             h = out_d
         head_err = rel_l2(model._head(h[:, -1:]).cpu(),
@@ -1976,10 +1985,10 @@ def phase_slice_rrns_vs_cpu(model, cap, prompt_np, layers=(0, 11, 23)):
         pos_d, pos_h = torch.arange(L, device=DEV), torch.arange(L)
         h = common.embed(model.embed, prompt.to(DEV))
         for li, layer_d in enumerate(model.layers):
-            out_d, _ = model._attn_mlp_block(layer_d, h, pos_d)
+            out_d, _, _ = model._attn_mlp_block(layer_d, h, pos_d)
             if li in layers:
-                out_h, _ = cpu_model._attn_mlp_block(cpu_model.layers[li],
-                                                     h.cpu(), pos_h)
+                out_h, _, _ = cpu_model._attn_mlp_block(
+                    cpu_model.layers[li], h.cpu(), pos_h)
                 errs[f"layer_{li}"] = rel_l2(out_d.cpu(), out_h)
             h = out_d
         errs["head"] = rel_l2(model._head(h[:, -1:]).cpu(),
@@ -3214,6 +3223,373 @@ def phase_timing_train_rns(ops, ref):
     return rows
 
 
+# --------------------------------------------------------------------------
+# slice 6a: the MoE family (qwen3-moe-30b-a3b, mixtral-8x7b), kernel 1
+# batched over the experts
+# --------------------------------------------------------------------------
+
+# (model, GEMM, E, M, K, N) of the expert GEMMs the MoE paths launch: a
+# decode tick of 4 slots gives M = C = 4; a prefill of 4 x 128 tokens
+# (qwen3-moe, top-8 of 128) and of 512 tokens (mixtral, top-2 of 8) gives
+# C = int(1.25 x T x K / E) = 40 and 160. The first row is the headline.
+MOE_GEMM_SHAPES = (
+    ("qwen3-moe", "decode gate/up", 128, 4, 2048, 768),
+    ("qwen3-moe", "decode down", 128, 4, 768, 2048),
+    ("qwen3-moe", "prefill gate/up", 128, 40, 2048, 768),
+    ("qwen3-moe", "prefill down", 128, 40, 768, 2048),
+    ("mixtral", "decode gate/up", 8, 4, 4096, 14336),
+    ("mixtral", "decode down", 8, 4, 14336, 4096),
+    ("mixtral", "prefill gate/up", 8, 160, 4096, 14336),
+    ("mixtral", "prefill down", 8, 160, 14336, 4096),
+)
+# (E, M, K, N) beside them: ragged E, M and N (a partial last tile and
+# group), each route with and without a split of K, and the decode route's
+# 8- and 16-row instances
+MOE_GEMM_EXTRA = ((3, 5, 200, 77), (5, 19, 130, 100), (2, 40, 4096, 128),
+                  (3, 4, 4096, 96), (7, 9, 1000, 300), (6, 13, 777, 45),
+                  (1, 4, 2048, 768))
+# (arch, layers kept, paged drain too) of the MoE serving phases: the
+# published widths, depth cut so that the f32 weights fit one card
+MOE_SLICES = (("qwen3-moe-30b-a3b", 12, True), ("mixtral-8x7b", 4, False))
+MOE_TICK_RUNS = (3, 5)       # runs a side, ticks a run (cold vs warmed)
+ROUTE_MARGIN = 1e-5          # the largest top-K probability gap a differing
+                             # card/CPU routing choice may have (f32 noise)
+MOE_LAYER_RTOL = 0.005       # teacher-forced layer, relative L2
+
+
+def moe_gemm_operands(E, M, K, N, seed, w_nk):
+    """x (E, M, K) and w (E, K, N): contiguous, or the transpose of a
+    contiguous (E, N, K) stack where ``w_nk``."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    x = torch.randn((E, M, K), generator=gen, device=DEV)
+    if w_nk:
+        w = (torch.randn((E, N, K), generator=gen, device=DEV) /
+             math.sqrt(K)).transpose(1, 2)
+    else:
+        w = torch.randn((E, K, N), generator=gen, device=DEV) / math.sqrt(K)
+    return x, w
+
+
+def per_expert_launches(ops, x, w, policy, plan):
+    """E unbatched launches of the kernel, one per expert, with the batched
+    call's plan (route, block size, split of K): the same arithmetic per
+    expert, so the same bits. Called on the extension itself, so they add
+    nothing to the launch counts."""
+    w_nk = not w.is_contiguous()
+    wk = w.transpose(1, 2) if w_nk else w
+    E, M, _ = x.shape
+    N = w.shape[2]
+    out = torch.empty((E, M, N), device=DEV)
+    for e in range(E):
+        ws = out[e] if plan.splits == 1 else torch.empty(
+            (plan.splits, M, N), device=DEV)
+        ops.extension().mirage_gemm(
+            x[e], wk[e], out[e], ws, w_nk, policy.g, policy.b_m, False, True,
+            plan.mma, plan.threads, plan.splits, plan.k_split)
+    return out
+
+
+def phase_gemm_batched(ops, ref, policy):
+    """Kernel 1 over a stack of E experts in one launch, at every expert
+    GEMM shape of the MoE paths, in both weight layouts, and at ragged
+    shapes covering each route with and without a split of K: bitwise equal
+    to E unbatched launches with the same plan and to a second batched
+    launch, within the f32-order bound of the plain version (the cuBLAS
+    product of the folded operands sums in another order). Then the table's
+    shapes timed beside the plain version and ``torch.bmm`` on the folded
+    operands."""
+    t_phase = time.perf_counter()
+    cases = [(E, M, K, N, nk, f"{model} {gemm}")
+             for model, gemm, E, M, K, N in MOE_GEMM_SHAPES
+             for nk in (False, True)]
+    cases += [(E, M, K, N, nk, "ragged") for E, M, K, N in MOE_GEMM_EXTRA
+              for nk in (False, True)]
+    worst, plans = 0.0, set()
+    sms = ops.sm_count(torch.device(DEV))
+    for i, (E, M, K, N, w_nk, what) in enumerate(cases):
+        x, w = moe_gemm_operands(E, M, K, N, seed=100 + i, w_nk=w_nk)
+        plan = ops.gemm_plan(M, N, K, policy.b_m, sms, True, E)
+        got = ops.mirage_matmul_fused(x, w, policy)
+        again = ops.mirage_matmul_fused(x, w, policy)
+        single = per_expert_launches(ops, x, w, policy, plan)
+        want = ref.mirage_gemm_ref(x, w, policy.b_m, policy.g)
+        tol = 1e-5 * (ref.bfp_fake_quant_ref(x, 4, 16).abs() @
+                      ref.bfp_fake_quant_ref(w.transpose(1, 2), 4,
+                                             16).transpose(1, 2).abs()) + 1e-30
+        err = (got - want).abs()
+        bad = int((err > tol).sum())
+        same = bool(torch.equal(got.view(torch.int32),
+                                again.view(torch.int32)))
+        per_expert = bool(torch.equal(got.view(torch.int32),
+                                      single.view(torch.int32)))
+        torch.cuda.synchronize()
+        plans.add((plan.mma, plan.splits > 1))
+        emit({"phase": "gemm_batched_vs_plain", "what": what, "E": E,
+              "M": M, "K": K, "N": N, "w_layout": "NK" if w_nk else "KN",
+              "route": "mma_bf16" if plan.mma else "decode_f32",
+              "threads": plan.threads, "splits": plan.splits,
+              "k_split": plan.k_split, "blocks": plan.blocks,
+              "max_abs_err": float(err.max()),
+              "max_err_over_tol": float((err / tol).max()),
+              "bitwise_vs_per_expert_launches": per_expert,
+              "bitwise_repeatable": same,
+              "ok": bad == 0 and same and per_expert})
+        check(bad == 0, f"batched GEMM outside the bound in {bad} elements "
+                        f"at E={E} M={M} K={K} N={N} w_nk={w_nk}")
+        check(same, f"two batched launches differ at E={E} M={M} K={K} "
+                    f"N={N} w_nk={w_nk}")
+        check(per_expert, f"the batched GEMM differs from E unbatched "
+                          f"launches at E={E} M={M} K={K} N={N} "
+                          f"w_nk={w_nk}")
+        worst = max(worst, float(err.max()))
+        del x, w, got, again, single, want, tol, err
+    check(plans == {(False, False), (False, True), (True, False),
+                    (True, True)},
+          f"the batched cases cover the plans {sorted(plans)}, not both "
+          f"routes with and without a split of K")
+    rows = []
+    for model, gemm, E, M, K, N in MOE_GEMM_SHAPES:
+        x, w = moe_gemm_operands(E, M, K, N, seed=1, w_nk=False)
+        xq = ref.bfp_fake_quant_ref(x, policy.b_m, policy.g)
+        wq = ref.bfp_fake_quant_ref(w.transpose(1, 2), policy.b_m,
+                                    policy.g).transpose(1, 2).contiguous()
+        plan = ops.gemm_plan(M, N, K, policy.b_m, sms, True, E)
+        t_b, by = bound_rate(4.0 * E * (M * K + K * N + M * N),
+                             2.0 * E * M * N * K,
+                             BF16_FLOPS_PER_S if plan.mma
+                             else F32_FLOPS_PER_S)
+        row = {"model": model, "gemm": gemm, "E": E, "M": M, "K": K,
+               "N": N, "route": "mma_bf16" if plan.mma else "decode_f32",
+               "splits": plan.splits,
+               "ms": time_ms(lambda: ops.mirage_matmul_fused(x, w, policy)),
+               "plain_ms": time_ms(lambda: ref.mirage_gemm_ref(
+                   x, w, policy.b_m, policy.g)),
+               "library_ms": time_ms(lambda: torch.bmm(xq, wq)),
+               "library": "torch.bmm on the folded operands",
+               "bound_ms": t_b, "bound_by": by}
+        rows.append(row)
+        emit({"phase": "timing", "kernel": "mirage_gemm_batched", **row})
+        del x, w, xq, wq
+    emit({"phase": "gemm_batched_summary", "cases": len(cases),
+          "plans": sorted(plans), "max_abs_err": worst,
+          "phase_seconds": time.perf_counter() - t_phase})
+    return worst, rows
+
+
+class RoutingTap:
+    """Records every ``moe.route`` call (its input and result) while open;
+    the function and its result are unchanged."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.calls = moe, []
+
+    def __enter__(self):
+        self.inner = self.moe.route
+
+        def tapped(router, xf, K, C):
+            r = self.inner(router, xf, K, C)
+            self.calls.append((xf, r))
+            return r
+
+        self.moe.route = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.inner
+
+
+def route_margins(probs, ids_a, ids_b):
+    """The (token, slot) choices where ``ids_a`` and ``ids_b`` differ, and
+    for each the gap between the two experts' probabilities in ``probs``."""
+    diff = (ids_a != ids_b).nonzero().tolist()
+    return [abs(float(probs[t, ids_a[t, j]]) - float(probs[t, ids_b[t, j]]))
+            for t, j in diff]
+
+
+def moe_layers_vs_cpu(model, prompt_np, layers):
+    """Teacher-forced MoE layers, the card against the CPU's plain path:
+    each listed layer gets the card's input on both sides, only its weights
+    copied to the host (into a one-layer model with a token vocabulary of
+    8). Beside each layer's relative L2: the (token, slot) routing choices
+    that differ, (a) on the same router input (the card's, so only the
+    router matmul's f32 order differs) with each one's top-K probability
+    gap, and (b) on each side's own input to the router."""
+    from repro_torch.models import build_model, common, moe
+
+    cfg = model.cfg
+    L = len(prompt_np)
+    prompt = torch.from_numpy(prompt_np[None].astype(np.int64)).to(DEV)
+    K = cfg.experts_per_token
+    C = moe.capacity(L, cfg.n_experts, K, cfg.capacity_factor)
+    t0 = time.perf_counter()
+    rows = {}
+    with torch.inference_mode():
+        pos_d, pos_h = torch.arange(L, device=DEV), torch.arange(L)
+        h = common.embed(model.embed, prompt)
+        for li, layer_d in enumerate(model.layers):
+            with RoutingTap() as tap_d:
+                out_d, _, _ = model._attn_mlp_block(layer_d, h, pos_d)
+            if li in layers:
+                shell = build_model(
+                    dataclasses.replace(cfg, n_layers=1, vocab_size=8),
+                    model.policy, model.opt, device=DEV)
+                shell.layers[0] = copy.deepcopy(layer_d)
+                shell = shell.to("cpu")
+                with RoutingTap() as tap_h:
+                    out_h, _, _ = shell._attn_mlp_block(
+                        shell.layers[0], h.cpu(), pos_h)
+                (xf_d, r_d), = tap_d.calls
+                (_, r_h), = tap_h.calls
+                same_in = moe.route(shell.layers[0].moe.router, xf_d.cpu(),
+                                    K, C)
+                ids_d = r_d.expert_ids.cpu()
+                margins = route_margins(same_in.probs, ids_d,
+                                        same_in.expert_ids)
+                top = torch.sort(same_in.probs, dim=-1, descending=True)[0]
+                rows[f"layer_{li}"] = {
+                    "rel_l2": rel_l2(out_d.cpu(), out_h),
+                    "routing_diff_same_input": len(margins),
+                    "routing_diff_margins": margins,
+                    "routing_diff_own_inputs": int(
+                        (ids_d != r_h.expert_ids).sum()),
+                    "min_topk_margin": float(
+                        (top[:, K - 1] - top[:, K]).min()),
+                    "dropped_pairs": int((~r_d.keep).sum()),
+                    "dropped_pairs_cpu": int((~r_h.keep).sum())}
+                del shell
+            h = out_d
+    ok = all(r["rel_l2"] < MOE_LAYER_RTOL and
+             all(m < ROUTE_MARGIN for m in r["routing_diff_margins"])
+             for r in rows.values())
+    emit({"phase": "moe_vs_cpu_plain", "arch": cfg.arch_id,
+          "prompt_len": L, "capacity": C, "layers": rows,
+          "rel_l2_limit": MOE_LAYER_RTOL,
+          "routing_margin_limit": ROUTE_MARGIN,
+          "cpu_seconds": time.perf_counter() - t0, "ok": ok})
+    check(ok, f"{cfg.arch_id}: a teacher-forced MoE layer differs from the "
+              f"CPU by >= {MOE_LAYER_RTOL} relative L2, or a routing choice "
+              f"differs where its top-K gap is >= {ROUTE_MARGIN}: {rows}")
+
+
+def phase_slice_moe(ops, arch: str, n_layers: int, paged: bool):
+    """An MoE config at its published widths, cut to ``n_layers``, served
+    under mirage through the port's engine: the slice's requests through
+    the cold dense engine, a warmed one (the tick a CUDA graph) and, where
+    ``paged``, the paged engine at block size 4, each with the cold dense
+    streams token for token; every expert GEMM stack is one launch of
+    kernel 1 (7 launches a layer and the head per model step). Then the
+    steady tick cold against warmed, each one profiled, and layers 0 and
+    n - 1 teacher-forced against the CPU. The model is freed after."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import get_policy
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import LMCallOptions
+    from repro_torch.runtime.server import LMServer, Request
+
+    t_phase = time.perf_counter()
+    cfg = get_config(arch).reduced() if REDUCED else get_config(arch)
+    n_layers = min(n_layers, cfg.n_layers)
+    cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    model = build_model(cfg, get_policy("mirage"),
+                        LMCallOptions(use_flash_kernel=True), device=DEV,
+                        generator=torch.Generator(device=DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_phase
+    n_params = sum(p.numel() for p in model.parameters())
+    per_step = 7 * n_layers + 1
+    reqs = make_requests(Request, cfg.vocab_size)
+    # a short warm-up drain (cuBLAS handles, the allocator); not counted
+    warm = LMServer(model, cap=CAP, batch_slots=SLOTS)
+    for r in make_requests(Request, cfg.vocab_size, max_tokens=2)[:2]:
+        warm.submit(r)
+    warm.run_until_drained()
+    del warm
+    engines = [("dense_cold", {}, None), ("dense_warmed", {}, "warm")]
+    if paged:
+        engines.append(("paged", dict(cache_layout="paged",
+                                      block_size=PAGED_BS), None))
+    rows, streams, launches_by = {}, {}, {}
+    for name, kw, prep in engines:
+        info = {}
+        reqs = make_requests(Request, cfg.vocab_size)
+        server, finished, dt, launches, program_s = serve_run(
+            ops, model, CAP, reqs, LMServer,
+            prepare=warmed(info) if prep else None, **kw)
+        m = server.metrics
+        want = {"mirage_gemm": per_step * model_steps(m),
+                "flash_attention": n_layers * m["prefill_batches"]}
+        streams[name] = {r.rid: r.tokens_out for r in finished}
+        rows[name] = {**serve_summary(server, finished, dt, launches,
+                                      program_s),
+                      "model_steps": model_steps(m),
+                      "expected_launches": want}
+        if prep:
+            rows[name]["warmup"] = info
+        launches_by[name] = launches
+        check(len(finished) == N_REQUESTS and all(
+            len(r.tokens_out) == MAX_TOKENS for r in finished),
+            f"slice_moe {arch} {name}: not every request completed with "
+            f"its budget")
+        check(all(0 <= t < cfg.vocab_size for r in finished
+                  for t in r.tokens_out),
+              f"slice_moe {arch} {name}: a token lies outside the vocabulary")
+        expect_launches(launches, want, f"slice_moe {arch} {name}")
+        check(streams[name] == streams["dense_cold"],
+              f"slice_moe {arch} {name}: the streams differ from the cold "
+              f"dense engine's")
+        # the metrics' gauges close a cycle back to the engine (and its
+        # model): drop both, so that the model is freed below
+        del server, m
+    # the steady tick, cold against warmed in turns, then each profiled
+    runs, n_ticks = MOE_TICK_RUNS
+    eng = {"cold": LMServer(model, cap=CAP, batch_slots=SLOTS),
+           "warmed": LMServer(model, cap=CAP, batch_slots=SLOTS)}
+    eng["warmed"].warmup()
+    ticks = {"cold": [], "warmed": []}
+    for order in (("cold", "warmed"), ("warmed", "cold")) * (runs // 2) + \
+            ((("cold", "warmed"),) if runs % 2 else ()):
+        for side in order:
+            ticks[side].append(engine_tick_ms(eng[side], reqs, n_ticks))
+    med = {k: statistics.median(v) for k, v in ticks.items()}
+    profile = {}
+    for side, server in eng.items():
+        prof = engine_tick_profile(server, reqs)
+        profile[side] = {k: prof[k] for k in (
+            "wall_ms", "device_busy_ms", "device_idle_share",
+            "device_kernels", "graph_launches", "top_device_ms",
+            "port_kernels_ms")}
+    check(profile["warmed"]["graph_launches"] == 1,
+          f"slice_moe {arch}: the warmed tick's profile shows "
+          f"{profile['warmed']['graph_launches']} graph launches, expected 1")
+    del eng, server
+    expert_gb = sum(getattr(layer.moe, k).numel() for layer in model.layers
+                    for k in ("gate", "up", "down")) * 4 / 1e9
+    emit({"phase": "slice_moe" if arch.startswith("qwen3")
+          else "slice_moe_mixtral", "arch": arch, "params": n_params,
+          "f32_gb": n_params * 4 / 1e9, "expert_weights_gb": expert_gb,
+          "n_layers": n_layers, "d_model": cfg.d_model,
+          "n_experts": cfg.n_experts, "top_k": cfg.experts_per_token,
+          "moe_d_ff": cfg.moe_d_ff, "vocab": cfg.vocab_size,
+          "policy": "mirage (mirage_fast b_m=4 g=16 k=5)", "slots": SLOTS,
+          "cap": CAP, "gemm_per_step": per_step, **rows,
+          "streams_equal_cold_dense": {k: v == streams["dense_cold"]
+                                       for k, v in streams.items()},
+          "tick_ms": ticks, "tick_ms_median": med,
+          "warmed_over_cold_tick": med["warmed"] / med["cold"],
+          "ticks_per_run": n_ticks, "tick_profile": profile,
+          # every weight but the embedding (a row lookup), read once a tick
+          "tick_bound_ms": (n_params - model.embed.emb.numel()) * 4.0 /
+          HBM_BYTES_PER_S * 1e3,
+          "build_model_s": build_s})
+    moe_layers_vs_cpu(model, reqs[0].prompt, (0, n_layers - 1))
+    del model
+    free_card()
+    emit({"phase": f"{arch}_seconds",
+          "phase_seconds": time.perf_counter() - t_phase})
+    return launches_by
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a CUDA "
@@ -3248,6 +3624,8 @@ def main() -> int:
     err_gemm = phase_gemm(ops, ref, policy)
     phase_gemm_options(ops, ref)
     err_gemm = max(err_gemm, phase_gemm_bwd(ops, ref, policy))
+    err_batched, batched_rows = phase_gemm_batched(ops, ref, policy)
+    err_gemm = max(err_gemm, err_batched)
     err_flash = phase_flash(ops, ref)
     err_rns = phase_rns_matmul(ops, ref)
     err_channel = phase_rns_channel(ops, ref)
@@ -3267,7 +3645,9 @@ def main() -> int:
     phase_slice_rrns_vs_cpu(model, cap, make_requests(
         Request, model.cfg.vocab_size)[0].prompt)
     del model
-    torch.cuda.empty_cache()
+    free_card()
+    moe_launches = {arch: phase_slice_moe(ops, arch, n, paged)
+                    for arch, n, paged in MOE_SLICES}
     train_launches = phase_slice_train(ops)
     phase_train_fp32_vs_cpu()
     phase_train_grads_vs_cpu(ops, ref)
@@ -3303,6 +3683,14 @@ def main() -> int:
                    key=lambda r: r["N"])
 
     head = head_row("mirage_gemm")
+    gemm = entry("mirage_gemm", "mirage_gemm.cu",
+                 "src/repro/kernels/mirage_gemm.py:50", err_gemm, head)
+    # the same kernel batched over experts (one launch per expert stack)
+    gemm["batched"] = {k: batched_rows[0][k] for k in (
+        "model", "gemm", "E", "M", "K", "N", "route", "ms", "plain_ms",
+        "bound_ms", "bound_by", "library_ms", "library")}
+    gemm["launches_moe"] = {arch: runs["dense_cold"]["mirage_gemm"]
+                            for arch, runs in moe_launches.items()}
     flash = entry("flash_attention", "flash_attention.cu",
                   "src/repro/kernels/flash_attention.py:81", err_flash,
                   rows["flash_attention"][0])
@@ -3319,8 +3707,7 @@ def main() -> int:
     rns["training_launches"] = rns_train_launches["rns_matmul"]
     rns["training_launches_per_step"] = rns_per_step
     emit({"kernels": [
-        entry("mirage_gemm", "mirage_gemm.cu",
-              "src/repro/kernels/mirage_gemm.py:50", err_gemm, head),
+        gemm,
         flash,
         entry("bfp_quantize", "bfp_quantize.cu",
               "src/repro/kernels/bfp_quantize.py:55", err_bfp,
@@ -3347,6 +3734,9 @@ def main() -> int:
                          "mirage_rrns_52db_warmed":
                              warm_launches["rrns_52db"],
                          "mirage_fast_pipelined": pipe_launches,
+                         **{f"{arch}_{name}": n
+                            for arch, runs in moe_launches.items()
+                            for name, n in runs.items()},
                          "mirage_rns": rns_launches,
                          "train_mirage": train_launches,
                          "train_wsq_bfp": wsq_launches,
@@ -3376,7 +3766,11 @@ def main() -> int:
                              "graph (serve_warmup: each equals its cold "
                              "drain's launches), mirage_fast_pipelined "
                              "prefills on the worker's stream "
-                             "(serve_pipelined)"}})
+                             "(serve_pipelined); the MoE paths (slice_moe, "
+                             "slice_moe_mixtral) launch mirage_gemm batched "
+                             "over the experts, 7 x layers + 1 a model "
+                             "step (launches_moe: their cold dense "
+                             "drains)"}})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

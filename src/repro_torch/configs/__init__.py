@@ -1,23 +1,24 @@
 """Architecture registry of the port.
 
-Only qwen2-0.5b (the dense serving slice) is ported. The JAX package's other
-architectures raise ``NotImplementedError`` naming the ROADMAP queue where
-their family waits.
+The dense qwen2/qwen3 configs and the MoE family (mixtral, qwen3-moe) are
+ported. The JAX package's other architectures raise
+``NotImplementedError`` naming the ROADMAP queue where their family waits.
 """
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.mixtral_8x7b import CONFIG as mixtral_8x7b
 from repro_torch.configs.qwen2_0_5b import CONFIG as qwen2_0_5b
+from repro_torch.configs.qwen2_1_5b import CONFIG as qwen2_1_5b
+from repro_torch.configs.qwen3_14b import CONFIG as qwen3_14b
+from repro_torch.configs.qwen3_moe_30b_a3b import CONFIG as qwen3_moe_30b_a3b
 
-ARCHS = {c.arch_id: c for c in (qwen2_0_5b,)}
+ARCHS = {c.arch_id: c for c in (qwen2_0_5b, qwen2_1_5b, qwen3_14b,
+                                mixtral_8x7b, qwen3_moe_30b_a3b)}
 
 #: architectures of the JAX package not ported yet, and where they wait
 _NOT_PORTED = {
-    "qwen2-1.5b": "ROADMAP.md queue 1, slice 6 (other configs of the dense family)",
-    "qwen3-14b": "ROADMAP.md queue 1, slice 6 (qk_norm dense family)",
     "command-r-plus-104b": "ROADMAP.md queue 1, slice 6 (parallel-block dense family)",
     "internvl2-2b": "ROADMAP.md queue 1, slice 6 (vlm frontend)",
-    "mixtral-8x7b": "ROADMAP.md queue 1, slice 6 (MoE family)",
-    "qwen3-moe-30b-a3b": "ROADMAP.md queue 1, slice 6 (MoE family)",
     "mamba2-2.7b": "ROADMAP.md queue 1, slice 6 (SSM family)",
     "zamba2-2.7b": "ROADMAP.md queue 1, slice 6 (hybrid family)",
     "seamless-m4t-large-v2": "ROADMAP.md queue 1, slice 6 (enc-dec family)",
@@ -34,4 +35,5 @@ def get_config(arch_id: str) -> ModelConfig:
     raise KeyError(f"unknown arch {arch_id!r}; have {sorted(ARCHS)}")
 
 
-__all__ = ["ARCHS", "ModelConfig", "get_config", "qwen2_0_5b"]
+__all__ = ["ARCHS", "ModelConfig", "get_config", "mixtral_8x7b",
+           "qwen2_0_5b", "qwen2_1_5b", "qwen3_14b", "qwen3_moe_30b_a3b"]

@@ -9,7 +9,8 @@ A backend's ``fn`` has signature ``fn(x, w, policy)``, and
 
   x: (..., K) activations   w: (K, N) weights (or a
   :class:`repro_torch.core.stationary.StationaryResidues` where
-  ``supports_stationary_residues``)   policy: MiragePolicy
+  ``supports_stationary_residues``; or a stack ``(E, K, N)`` with
+  ``x (E, M, K)`` where ``supports_batched_weights``)   policy: MiragePolicy
   draws: the random numbers of the analog channel
   (:class:`repro_torch.analog.channel.Draws`)
 
@@ -39,6 +40,9 @@ class GemmBackend:
         only for an operand quantized along the same contraction grouping.
       supports_noise: honours the analog-noise policy fields.
       supports_stationary_residues: accepts pre-encoded stationary residues.
+      supports_batched_weights: takes a stack of E weights ``(E, K, N)``
+        with ``x (E, M, K)``, each expert's product the one of its own
+        ``(K, N)`` weight (the JAX package's vmap over the MoE experts).
       reference: an oracle kept for parity testing, not a deployment path.
     """
 
@@ -50,6 +54,7 @@ class GemmBackend:
     weight_stationary_aligned_only: bool = False
     supports_noise: bool = False
     supports_stationary_residues: bool = False
+    supports_batched_weights: bool = False
     reference: bool = False
 
     def forward(self, x: torch.Tensor, w, policy,

@@ -19,14 +19,14 @@ def _pin_full_f32() -> None:
 
 
 @register_fn("fp32", description="plain f32 matmul (paper FP32 baseline)",
-             quantized=False)
+             quantized=False, supports_batched_weights=True)
 def _matmul_fp32(x, w, policy):
     _pin_full_f32()
     return torch.matmul(x.to(torch.float32), w.to(torch.float32))
 
 
 @register_fn("bf16", description="bfloat16 matmul, f32 accumulation",
-             quantized=False)
+             quantized=False, supports_batched_weights=True)
 def _matmul_bf16(x, w, policy):
     # bf16 operands, f32 accumulation: bf16 x bf16 products are exact in
     # f32, so rounding the operands and multiplying in full f32 is the same

@@ -11,6 +11,11 @@ it). A weight stored in bf16 (``quant_param_dtype="bfloat16"``) is cast to
 f32 here, before the kernel, which reads f32 only: BFP(b_m <= 8) values
 are exact in bf16, so the cast is lossless. The CPU path is the JAX
 package's plain path, ``assume_quantized_weights`` branch included.
+
+A stacked weight ``(E, K, N)`` with ``x (E, M, K)`` (the MoE layer's expert
+GEMMs, which the JAX package runs as a vmap of this backend) is one launch
+of the kernel over the stack on the card, and the plain path applied to
+each expert on the CPU.
 """
 
 from __future__ import annotations
@@ -30,13 +35,17 @@ def _fold_x(x, policy):
 
 @register_fn("mirage_fast",
              description="BFP quantize -> fold scales -> one matmul",
-             supports_weight_stationary=True)
+             supports_weight_stationary=True,
+             supports_batched_weights=True)
 def _matmul_mirage_fast(x, w, policy):
     if x.is_cuda:
         from repro_torch.kernels import ops as kops
         return kops.mirage_matmul_fused(
             x, w.to(torch.float32), policy,
             quantize_w=not policy.assume_quantized_weights)
+    if w.dim() == 3:
+        return torch.stack([_matmul_mirage_fast(xe, we, policy)
+                            for xe, we in zip(x, w)])
     xq = _fold_x(x, policy)                    # (..., Kpad)
     if policy.assume_quantized_weights:
         # weight operand already on the BFP grid (weight-stationary quant)

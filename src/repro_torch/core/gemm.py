@@ -33,6 +33,12 @@ from repro_torch.obs import trace as obs_trace
 
 _AMBIENT = threading.local()
 
+#: where the MoE family waits under the GEMM modes that take one (K, N)
+#: weight, and where its training waits
+MOE_MODES_ITEM = "ROADMAP.md queue 1, item 7a (MoE under the RNS family " \
+    "and the other GEMM modes that take a 2-D weight)"
+MOE_TRAINING_ITEM = "ROADMAP.md queue 1, item 7b (MoE training)"
+
 
 @contextlib.contextmanager
 def noise_scope(generator: torch.Generator):
@@ -64,6 +70,12 @@ def _forward_impl(x: torch.Tensor, w, policy: MiragePolicy,
             f"StationaryResidues weight (capability flag "
             f"supports_stationary_residues is unset) — pass the raw FP32 "
             f"weight, or run an RNS-family mode")
+    if isinstance(w, torch.Tensor) and w.dim() == 3 and \
+            not backend.supports_batched_weights:
+        raise NotImplementedError(
+            f"backend {backend.name!r} takes one (K, N) weight; a stack of "
+            f"expert weights {tuple(w.shape)} (the MoE layer) waits in "
+            f"{MOE_MODES_ITEM}")
     if draws is None and backend.supports_noise:
         draws = _ambient_draws()
     with obs_trace.get_tracer().span(f"gemm.{policy.mode}"):
@@ -85,6 +97,10 @@ class MirageMatmul(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gout):
         x, w = ctx.saved_tensors
+        if w.dim() == 3:
+            raise NotImplementedError(
+                f"the backward GEMMs of a stack of expert weights (the MoE "
+                f"layer) wait in {MOE_TRAINING_ITEM}")
         policy = ctx.policy
         gout = gout.to(torch.float32).contiguous()
         dx = dw = None
@@ -112,7 +128,8 @@ class MirageMatmul(torch.autograd.Function):
 def mirage_matmul(x: torch.Tensor, w: torch.Tensor,
                   policy: MiragePolicy) -> torch.Tensor:
     """``x @ w`` under the Mirage numerics policy, differentiable in both
-    operands. x: (..., K), w: (K, N). A pre-encoded
+    operands. x: (..., K), w: (K, N) (a stack ``(E, K, N)`` runs forward;
+    its backward raises). A pre-encoded
     :class:`StationaryResidues` weight has no gradient and raises."""
     if isinstance(w, StationaryResidues):
         raise TypeError(
@@ -124,8 +141,10 @@ def mirage_matmul(x: torch.Tensor, w: torch.Tensor,
 
 def mirage_matmul_nograd(x: torch.Tensor, w, policy: MiragePolicy,
                          draws=None) -> torch.Tensor:
-    """Forward-only GEMM (serving paths). ``w`` is a ``(K, N)`` tensor or a
-    :class:`StationaryResidues`. ``draws`` (a
+    """Forward-only GEMM (serving paths). ``w`` is a ``(K, N)`` tensor, a
+    stack ``(E, K, N)`` with ``x (E, M, K)`` (backends that
+    ``supports_batched_weights``), or a :class:`StationaryResidues`.
+    ``draws`` (a
     :class:`repro_torch.analog.channel.Draws`) feeds stochastic backends;
     without it they use the open :func:`noise_scope`, or
     ``policy.noise_seed``."""

@@ -140,6 +140,12 @@ def encode_stationary_params(model, policy
     (:func:`leaf_generator`), layer after layer, as the JAX package splits
     one key per path into per-layer keys."""
     from repro_torch.analog import channel
+    from repro_torch.core.gemm import MOE_MODES_ITEM
+    from repro_torch.models.moe import MoE
+    if any(isinstance(m, MoE) for m in model.modules()):
+        raise NotImplementedError(
+            f"stationary residues of the MoE layer's (E, K, N) expert "
+            f"stacks wait in {MOE_MODES_ITEM}")
     cfg = channel.AnalogChannelConfig.from_policy(policy)
     drift = _carries_channel(policy) and cfg.phase_drift_sigma > 0
     if drift and policy.noise_seed is None:

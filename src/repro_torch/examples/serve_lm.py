@@ -6,14 +6,16 @@ streaming token callbacks.
 
 ``--cache-layout paged`` serves from the block-table KV pool, on which
 ``--prefill-chunk``, ``--prefix-cache`` (the demo prompts share 8 tokens)
-and ``--spec-k`` stack, as in the JAX script. Only the ported config
-(qwen2-0.5b, reduced here as in the JAX script) builds. Whole-prompt
+and ``--spec-k`` stack, as in the JAX script. The ported configs (the
+dense qwen2/qwen3 ones and the MoE family) build, reduced as in the JAX
+script; ``--layers N`` keeps the first N of its layers. Whole-prompt
 prefill attention runs through the flash kernel on the card.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -54,12 +56,17 @@ def main(argv=None):
                     help="print tokens as they are emitted")
     ap.add_argument("--device", default=None,
                     help="cpu to run the plain versions (default: the card)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="keep only the first N layers of the config")
     args = ap.parse_args(argv)
     if (args.prefix_cache or args.spec_k) and args.cache_layout != "paged":
         ap.error("--prefix-cache / --spec-k require --cache-layout paged")
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch).reduced()
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=min(max(args.layers, 1),
+                                                    cfg.n_layers))
     policy = get_policy(args.policy)
     model = build_model(cfg, policy,
                         LMCallOptions(q_chunk=32, kv_chunk=32,

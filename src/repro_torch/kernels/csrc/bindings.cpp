@@ -21,7 +21,8 @@ void launch_bfp_fake_quant(const float* x, float* out, int rows, int K, int g,
                            int b_m, bool truncate, bool vector, int blocks,
                            cudaStream_t stream);
 void launch_mirage_gemm(const float* x, const float* w, float* out,
-                        float* ws, int M, int N, int K, bool w_nk, int g,
+                        float* ws, int E, int M, int N, int K, bool w_nk,
+                        int g,
                         int b_m, bool truncate, bool quant_w, bool mma,
                         int threads, int splits, int k_split,
                         cudaStream_t stream);
@@ -87,6 +88,8 @@ void bfp_fake_quant(const torch::Tensor& x, torch::Tensor& out, int64_t g,
 // `mma`, `threads`, `splits` and `k_split` are the wrapper's plan
 // (repro_torch/kernels/ops.py `gemm_plan`); ws holds the split-K partials.
 // `quant_w` false takes the weight as it is (the decode route only).
+// Matrices, or stacks of E of them (x (E, M, K), w (E, K, N) or (E, N, K),
+// out (E, M, N)) run in one launch over the leading axis.
 void mirage_gemm(const torch::Tensor& x, const torch::Tensor& w,
                  torch::Tensor& out, torch::Tensor& ws, bool w_nk, int64_t g,
                  int64_t b_m, bool truncate, bool quant_w, bool mma,
@@ -95,13 +98,21 @@ void mirage_gemm(const torch::Tensor& x, const torch::Tensor& w,
   check_operand(w, "w");
   check_operand(out, "out");
   check_operand(ws, "ws");
-  TORCH_CHECK(x.dim() == 2 && w.dim() == 2 && out.dim() == 2,
-              "x, w and out must be matrices");
-  const int64_t M = x.size(0), K = x.size(1);
-  const int64_t N = w_nk ? w.size(0) : w.size(1);
-  TORCH_CHECK((w_nk ? w.size(1) : w.size(0)) == K,
+  const int64_t rank = x.dim();
+  TORCH_CHECK((rank == 2 || rank == 3) && w.dim() == rank &&
+                  out.dim() == rank,
+              "x, w and out must be matrices, or stacks of E matrices");
+  const int64_t E = rank == 3 ? x.size(0) : 1;
+  TORCH_CHECK(rank == 2 || (w.size(0) == E && out.size(0) == E),
+              "x, w and out must stack the same E matrices");
+  const int64_t M = x.size(rank - 2), K = x.size(rank - 1);
+  const int64_t N = w_nk ? w.size(rank - 2) : w.size(rank - 1);
+  TORCH_CHECK((w_nk ? w.size(rank - 1) : w.size(rank - 2)) == K,
               "w does not match x along K");
-  TORCH_CHECK(out.size(0) == M && out.size(1) == N, "out must be (M, N)");
+  TORCH_CHECK(out.size(rank - 2) == M && out.size(rank - 1) == N,
+              "out must be (M, N) per matrix");
+  TORCH_CHECK((M + (mma ? 63 : 15)) / (mma ? 64 : 16) * E <= 65535,
+              "E x M tiles must fit one grid axis (65535)");
   check_bfp(g, b_m);
   TORCH_CHECK(!mma || b_m <= 8, "the tensor-core route needs b_m <= 8");
   TORCH_CHECK(!mma || quant_w,
@@ -117,12 +128,13 @@ void mirage_gemm(const torch::Tensor& x, const torch::Tensor& w,
               "k_split must be a multiple of 64 and the splits must cover K");
   TORCH_CHECK(mma || (M <= 4 ? 4 : M <= 8 ? 8 : 16) * k_split <= 16384,
               "the decode route holds at most 16384 quantized x values");
-  TORCH_CHECK(splits == 1 || ws.numel() >= splits * M * N,
-              "ws must hold splits x M x N floats");
+  TORCH_CHECK(splits == 1 || ws.numel() >= splits * E * M * N,
+              "ws must hold splits x E x M x N floats");
   const c10::cuda::CUDAGuard guard(x.device());
   launch_mirage_gemm(x.data_ptr<float>(), w.data_ptr<float>(),
                      out.data_ptr<float>(), ws.data_ptr<float>(),
-                     static_cast<int>(M), static_cast<int>(N),
+                     static_cast<int>(E), static_cast<int>(M),
+                     static_cast<int>(N),
                      static_cast<int>(K), w_nk, static_cast<int>(g),
                      static_cast<int>(b_m), truncate, quant_w, mma,
                      static_cast<int>(threads), static_cast<int>(splits),
@@ -276,7 +288,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("bfp_fake_quant", &bfp_fake_quant,
         "BFP(b_m, g) fake quantization of a (rows, K) f32 matrix along K");
   m.def("mirage_gemm", &mirage_gemm,
-        "out = bfp(x) @ bfp(w) with BFP(b_m, g) quantization along K");
+        "out = bfp(x) @ bfp(w) with BFP(b_m, g) quantization along K, "
+        "for one matrix or a stack of E in one launch");
   m.def("flash_attention", &flash_attention,
         "GQA flash-attention forward, (B, L, heads, 64) f32");
   m.def("rns_matmul", &rns_matmul,

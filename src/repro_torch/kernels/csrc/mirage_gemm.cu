@@ -55,6 +55,16 @@
 // read transposed by the weight-stationary dX GEMM, must not be regrouped
 // along N): only the decode route takes it, whose f32 CUDA-core products
 // are exact for any weight, where bf16 would round one off the grid.
+//
+// Batched over experts (the MoE layer's expert FFNs, which the JAX package
+// runs as a vmap of this GEMM: one Pallas call with a batch grid axis):
+// out[e] = bfp(x[e]) @ bfp(w[e]) for e < E in one launch, x (E, M, K), w
+// (E, K, N) or (E, N, K), out (E, M, N). The expert is folded into the grid
+// axis that walks M tiles (z on the decode route, y on the tensor-core
+// route, whose z holds the K splits), so every block computes one expert's
+// tile exactly as the unbatched kernel computes it: the same bits for the
+// same split of K. The split-K workspace is (splits, E, M, N) and its
+// reduction adds each element's partials in split order.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -67,6 +77,8 @@ namespace {
 constexpr int kBK = 64;          // K rows per pipeline step
 constexpr int kStages = 4;       // decode route: steps in flight per thread
 constexpr int kDecodeBlocksPerSm = 4;  // decode route: resident blocks
+constexpr int kSmShared = 228 * 1024;  // shared memory of an H100 SM
+constexpr int kBlockReservedShared = 1024;  // reserved per resident block
 constexpr int kMmaTile = 64;     // prefill route: 64 x 64 output tiles
 constexpr int kMmaThreads = 256;
 constexpr int kMmaStages = 2;
@@ -252,8 +264,8 @@ __device__ __forceinline__ void quantize_x_rows(
 
 // ---- decode route: CUDA cores, split K ------------------------------------
 
-// grid: (blocks along N, K splits, M tiles of 16 rows). A block takes the
-// N tiles of blockDim.x / 4 columns blockIdx.x, blockIdx.x + gridDim.x, ...
+// grid: (blocks along N, K splits, E x M tiles of 16 rows). A block takes
+// the N tiles of blockDim.x / 4 columns blockIdx.x, blockIdx.x + gridDim.x, ...
 // over its K range, quantizing x once and keeping the copies in flight
 // from one tile into the next. Dynamic shared memory: kStages x 4 x
 // blockDim.x float4 (the copy ring), then MT x k_split floats (x).
@@ -261,8 +273,9 @@ template <int MT, bool kWeightNK>
 __global__ void __launch_bounds__(128)
     gemm_decode_kernel(const float* __restrict__ x,
                        const float* __restrict__ w, float* __restrict__ dst,
-                       int M, int N, int K, int g, int b_m, bool truncate,
-                       bool quant_w, int k_split, bool x_vec, bool w_vec) {
+                       int E, int M, int N, int K, int g, int b_m,
+                       bool truncate, bool quant_w, int k_split, bool x_vec,
+                       bool w_vec) {
   extern __shared__ float4 smem4[];
   const int T = blockDim.x;
   const int tid = threadIdx.x;
@@ -270,7 +283,11 @@ __global__ void __launch_bounds__(128)
   const int n_tiles = (N + bn - 1) / bn;
   const int k_begin = blockIdx.y * k_split;
   const int k_end = min(K, k_begin + k_split);
-  const int m0 = blockIdx.z * 16;
+  const int m_tiles = (M + 15) / 16;
+  const int e = blockIdx.z / m_tiles;
+  const int m0 = blockIdx.z % m_tiles * 16;
+  x += static_cast<size_t>(e) * M * K;
+  w += static_cast<size_t>(e) * K * N;
   const int steps = max(1, (k_end - k_begin + kBK - 1) / kBK);
   const int jobs =
       (n_tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x *
@@ -313,7 +330,7 @@ __global__ void __launch_bounds__(128)
   for (int m = 0; m < MT; ++m)
 #pragma unroll
     for (int c = 0; c < kCols; ++c) acc[m][c] = 0.0f;
-  dst += static_cast<size_t>(blockIdx.y) * M * N;
+  dst += (static_cast<size_t>(blockIdx.y) * E + e) * M * N;
 
   for (int job = 0; job < jobs; ++job) {
     if (job + kStages - 1 < jobs) load(job + kStages - 1);
@@ -426,13 +443,13 @@ constexpr int kMmaRingBytes = kMmaStages * 2 * 4 * kMmaThreads * 16;
 constexpr int kMmaSmemBytes =
     kMmaRingBytes + 2 * kMmaTile * kPitch * 2;  // + bf16 As and Bs
 
-// grid: (N tiles of 64, M tiles of 64, K splits); 8 warps, each a 32 x 16
-// piece of the 64 x 64 output tile.
+// grid: (N tiles of 64, E x M tiles of 64, K splits); 8 warps, each a
+// 32 x 16 piece of the 64 x 64 output tile.
 template <bool kWeightNK>
 __global__ void __launch_bounds__(kMmaThreads)
     gemm_mma_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                    float* __restrict__ dst, int M, int N, int K, int g,
-                    int b_m, bool truncate, int k_split, bool x_vec,
+                    float* __restrict__ dst, int E, int M, int N, int K,
+                    int g, int b_m, bool truncate, int k_split, bool x_vec,
                     bool w_vec) {
   extern __shared__ float4 smem4[];
   float4* ring = smem4;  // [stage][x, w][4][threads]
@@ -440,7 +457,12 @@ __global__ void __launch_bounds__(kMmaThreads)
       reinterpret_cast<char*>(smem4) + kMmaRingBytes);  // [64 m][kPitch]
   __nv_bfloat16* Bs = As + kMmaTile * kPitch;             // [64 n][kPitch]
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int n0 = blockIdx.x * kMmaTile, m0 = blockIdx.y * kMmaTile;
+  const int m_tiles = (M + kMmaTile - 1) / kMmaTile;
+  const int e = blockIdx.y / m_tiles;
+  const int n0 = blockIdx.x * kMmaTile;
+  const int m0 = blockIdx.y % m_tiles * kMmaTile;
+  x += static_cast<size_t>(e) * M * K;
+  w += static_cast<size_t>(e) * K * N;
   const int k_begin = blockIdx.z * k_split;
   const int k_end = min(K, k_begin + k_split);
   const int steps = (k_end - k_begin + kBK - 1) / kBK;
@@ -527,7 +549,7 @@ __global__ void __launch_bounds__(kMmaThreads)
     }
   }
 
-  dst += static_cast<size_t>(blockIdx.z) * M * N;
+  dst += (static_cast<size_t>(blockIdx.z) * E + e) * M * N;
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -577,8 +599,8 @@ void allow_smem(Kernel kernel, bool& done) {
 }
 
 template <int MT, bool kWeightNK>
-void launch_decode(const float* x, const float* w, float* dst, int M, int N,
-                   int K, int g, int b_m, bool truncate, bool quant_w,
+void launch_decode(const float* x, const float* w, float* dst, int E, int M,
+                   int N, int K, int g, int b_m, bool truncate, bool quant_w,
                    int threads, int splits, int k_split, bool x_vec,
                    bool w_vec, cudaStream_t stream) {
   static bool smem_set = false;
@@ -586,60 +608,70 @@ void launch_decode(const float* x, const float* w, float* dst, int M, int N,
   allow_smem(kernel, smem_set);
   const int n_tiles = (N + threads / 4 - 1) / (threads / 4);
   const int m_tiles = (M + 15) / 16;
-  const dim3 grid(min(n_tiles, max(1, kDecodeBlocksPerSm * sm_count() /
-                                          (splits * m_tiles))),
-                  splits, m_tiles);
   const size_t smem = static_cast<size_t>(kStages) * 4 * threads * 16 +
                       static_cast<size_t>(MT) * k_split * sizeof(float);
-  kernel<<<grid, threads, smem, stream>>>(x, w, dst, M, N, K, g, b_m,
+  // a stack of experts: one wave of the blocks its shared memory lets
+  // reside (a second, partial wave would leave most SMs idle)
+  const int per_sm =
+      E == 1 ? kDecodeBlocksPerSm
+             : max(1, min(kDecodeBlocksPerSm,
+                          kSmShared / (static_cast<int>(smem) +
+                                       kBlockReservedShared)));
+  const dim3 grid(
+      min(n_tiles, max(1, per_sm * sm_count() / (splits * m_tiles * E))),
+      splits, m_tiles * E);
+  kernel<<<grid, threads, smem, stream>>>(x, w, dst, E, M, N, K, g, b_m,
                                           truncate, quant_w, k_split, x_vec,
                                           w_vec);
 }
 
 template <bool kWeightNK>
-void launch_mma(const float* x, const float* w, float* dst, int M, int N,
-                int K, int g, int b_m, bool truncate, int splits, int k_split,
-                bool x_vec, bool w_vec, cudaStream_t stream) {
+void launch_mma(const float* x, const float* w, float* dst, int E, int M,
+                int N, int K, int g, int b_m, bool truncate, int splits,
+                int k_split, bool x_vec, bool w_vec, cudaStream_t stream) {
   static bool smem_set = false;
   auto kernel = gemm_mma_kernel<kWeightNK>;
   allow_smem(kernel, smem_set);
-  const dim3 grid((N + kMmaTile - 1) / kMmaTile, (M + kMmaTile - 1) / kMmaTile,
-                  splits);
+  const dim3 grid((N + kMmaTile - 1) / kMmaTile,
+                  (M + kMmaTile - 1) / kMmaTile * E, splits);
   kernel<<<grid, kMmaThreads, kMmaSmemBytes, stream>>>(
-      x, w, dst, M, N, K, g, b_m, truncate, k_split, x_vec, w_vec);
+      x, w, dst, E, M, N, K, g, b_m, truncate, k_split, x_vec, w_vec);
 }
 
 }  // namespace
 
-// x: (M, K) row-major; w: (K, N) row-major, or (N, K) row-major when w_nk;
-// out: (M, N) row-major; ws: (splits, M, N) when splits > 1. The wrapper
+// x: (E, M, K) row-major; w: (E, K, N) row-major, or (E, N, K) row-major
+// when w_nk; out: (E, M, N) row-major; ws: (splits, E, M, N) when
+// splits > 1 (E = 1: one GEMM). The wrapper checks E x M tiles fit the
+// grid axis they are folded into. The wrapper
 // checks g | 64, picks the route (mma needs b_m <= 8 and M > 16), the
 // decode route's block size (32, 64 or 128 threads) and the split of K into
 // `splits` ranges of k_split rows (a multiple of 64); `quant_w` false (the
 // decode route only) skips the weight's quantization. One call enqueues the
 // GEMM and, when K is split, the ordered reduction.
 void launch_mirage_gemm(const float* x, const float* w, float* out,
-                        float* ws, int M, int N, int K, bool w_nk, int g,
+                        float* ws, int E, int M, int N, int K, bool w_nk,
+                        int g,
                         int b_m, bool truncate, bool quant_w, bool mma,
                         int threads, int splits, int k_split,
                         cudaStream_t stream) {
-  if (M == 0 || N == 0) return;
+  if (E == 0 || M == 0 || N == 0) return;
   float* dst = splits > 1 ? ws : out;
   const bool x_vec = K % 4 == 0 && aligned16(x);
   const bool w_vec = (w_nk ? K : N) % 4 == 0 && aligned16(w);
   if (mma) {
     if (w_nk)
-      launch_mma<true>(x, w, dst, M, N, K, g, b_m, truncate, splits, k_split,
-                       x_vec, w_vec, stream);
+      launch_mma<true>(x, w, dst, E, M, N, K, g, b_m, truncate, splits,
+                       k_split, x_vec, w_vec, stream);
     else
-      launch_mma<false>(x, w, dst, M, N, K, g, b_m, truncate, splits,
+      launch_mma<false>(x, w, dst, E, M, N, K, g, b_m, truncate, splits,
                         k_split, x_vec, w_vec, stream);
   } else {
 #define MIRAGE_DECODE(MT)                                                    \
-  (w_nk ? launch_decode<MT, true>(x, w, dst, M, N, K, g, b_m, truncate,      \
+  (w_nk ? launch_decode<MT, true>(x, w, dst, E, M, N, K, g, b_m, truncate,   \
                                   quant_w, threads, splits, k_split, x_vec,  \
                                   w_vec, stream)                             \
-        : launch_decode<MT, false>(x, w, dst, M, N, K, g, b_m, truncate,     \
+        : launch_decode<MT, false>(x, w, dst, E, M, N, K, g, b_m, truncate,  \
                                    quant_w, threads, splits, k_split, x_vec, \
                                    w_vec, stream))
     if (M <= 4)
@@ -651,7 +683,7 @@ void launch_mirage_gemm(const float* x, const float* w, float* out,
 #undef MIRAGE_DECODE
   }
   if (splits > 1) {
-    const long long mn = static_cast<long long>(M) * N;
+    const long long mn = static_cast<long long>(E) * M * N;
     long long blocks = (mn + 255) / 256;
     if (blocks > 4LL * sm_count()) blocks = 4LL * sm_count();
     splitk_reduce_kernel<<<static_cast<unsigned>(blocks), 256, 0, stream>>>(

@@ -44,6 +44,10 @@ _LAUNCH_LOCK = threading.Lock()
 GEMM_BK = 64
 GEMM_DECODE_X_VALUES = 16384
 GEMM_DECODE_BLOCKS_PER_SM = 4
+#: the decode route's copy ring (stages x 4 float4 a thread), and the
+#: shared memory of an H100 SM with the 1 KB each resident block reserves
+GEMM_DECODE_RING_BYTES_PER_THREAD = 4 * 4 * 16
+SM_SHARED_BYTES, BLOCK_RESERVED_SHARED_BYTES = 228 * 1024, 1024
 #: SMs of an H100 SXM (the plan takes the card's own count where it runs)
 H100_SMS = 132
 
@@ -164,8 +168,10 @@ class GemmPlan(NamedTuple):
 
 
 def gemm_plan(M: int, N: int, K: int, b_m: int,
-              sms: int = H100_SMS, quant_w: bool = True) -> GemmPlan:
-    """The split and block size the wrapper gives the GEMM kernel.
+              sms: int = H100_SMS, quant_w: bool = True,
+              E: int = 1) -> GemmPlan:
+    """The split and block size the wrapper gives the GEMM kernel (for a
+    stack of ``E`` GEMMs of that shape, one launch over the stack).
 
     M > 16 with b_m <= 8 takes the tensor-core route (64 x 64 tiles), unless
     the weight is taken as it is (``quant_w`` false: a bf16 operand would
@@ -173,16 +179,19 @@ def gemm_plan(M: int, N: int, K: int, b_m: int,
     rest the decode route, whose blocks of 128, 64 or 32 threads cover 32,
     16 or 8 columns over 64-row steps (the widest block that still leaves
     two blocks per SM to split K over). K is then split until the grid
-    holds about two blocks per SM, into ranges of whole 64-row steps."""
+    holds about two blocks per SM, into ranges of whole 64-row steps. The
+    E stacked GEMMs count as E times the tiles; their decode-route grid
+    holds one wave of the blocks that the shared memory (copy ring and
+    quantized x) lets reside on an SM, up to four."""
     units = max(1, -(-K // GEMM_BK))
     target = 2 * sms
     mma = M > 16 and b_m <= 8 and quant_w
     if mma:
         threads = 256
-        tiles = -(-N // 64) * -(-M // 64)
+        tiles = -(-N // 64) * -(-M // 64) * E
         max_steps = units
     else:
-        m_tiles = -(-M // 16)
+        m_tiles = -(-M // 16) * E
         threads = 32
         for t in (128, 64):
             if -(-N // (t // 4)) * m_tiles * units >= target:
@@ -197,9 +206,23 @@ def gemm_plan(M: int, N: int, K: int, b_m: int,
     blocks = tiles * splits
     if not mma:
         n_blocks = min(-(-N // (threads // 4)), max(
-            1, GEMM_DECODE_BLOCKS_PER_SM * sms // (splits * m_tiles)))
+            1, decode_blocks_per_sm(M, threads, steps * GEMM_BK, E) * sms //
+            (splits * m_tiles)))
         blocks = n_blocks * splits * m_tiles
     return GemmPlan(mma, threads, splits, steps * GEMM_BK, blocks)
+
+
+def decode_blocks_per_sm(M: int, threads: int, k_split: int,
+                         E: int = 1) -> int:
+    """Blocks per SM the decode route's grid is sized for: four, or, for a
+    stack (E > 1), as many as the shared memory holds, so that the stack's
+    blocks run in one wave (csrc/mirage_gemm.cu ``launch_decode``)."""
+    if E == 1:
+        return GEMM_DECODE_BLOCKS_PER_SM
+    mt = 4 if M <= 4 else 8 if M <= 8 else 16
+    smem = GEMM_DECODE_RING_BYTES_PER_THREAD * threads + mt * k_split * 4
+    return max(1, min(GEMM_DECODE_BLOCKS_PER_SM, SM_SHARED_BYTES // (
+        smem + BLOCK_RESERVED_SHARED_BYTES)))
 
 
 @functools.lru_cache(maxsize=8)
@@ -212,11 +235,14 @@ def mirage_matmul_fused(x: torch.Tensor, w: torch.Tensor,
                         policy: MiragePolicy,
                         quantize_w: bool = True) -> torch.Tensor:
     """Fused BFP-quantize + GEMM: ``x (..., K) @ w (K, N)`` (paper dataflow
-    steps 2-9 in one kernel).
+    steps 2-9 in one kernel), or a stack of E of them, ``x (E, M, K) @
+    w (E, K, N) -> (E, M, N)`` (the MoE layer's expert GEMMs, a vmap of the
+    GEMM in the JAX package), in one launch over the stack.
 
     On the card ``w`` may be a contiguous ``(K, N)`` matrix or the transpose
     of a contiguous ``(N, K)`` one (the tied head passes ``emb.T``, the dX
-    GEMM ``w.T``); the kernel reads either in place. A 2-D ``x`` that is the
+    GEMM ``w.T``), stacked alike; the kernel reads either in place. A
+    stacked ``x`` must be contiguous. A 2-D ``x`` that is the
     transpose of a contiguous matrix (the dW GEMM's ``X^T``, which contracts
     over the tokens) is copied once into a contiguous one here.
     ``quantize_w=False`` takes the weight as it is (already on its BFP
@@ -228,6 +254,13 @@ def mirage_matmul_fused(x: torch.Tensor, w: torch.Tensor,
     in split order (one count in :data:`LAUNCHES`).
     """
     _forward_only("mirage_matmul_fused", _GEMM_ROUTE, x, w)
+    batched = w.dim() == 3
+    if batched and (x.dim() != 3 or x.shape[0] != w.shape[0]):
+        raise ValueError(f"a stacked w {tuple(w.shape)} takes x (E, M, K) "
+                         f"of the same E, got {tuple(x.shape)}")
+    if w.dim() not in (2, 3) or w.shape[-2] != x.shape[-1]:
+        raise ValueError(f"w {tuple(w.shape)} does not match x "
+                         f"{tuple(x.shape)} along K")
     if _on_cpu(x, w):
         return ref.mirage_gemm_ref(x, w, policy.b_m, policy.g,
                                    policy.rounding, policy.compute_dtype,
@@ -235,33 +268,35 @@ def mirage_matmul_fused(x: torch.Tensor, w: torch.Tensor,
     if x.dim() == 2 and not x.is_contiguous() and x.t().is_contiguous():
         x = x.contiguous()      # X^T of the dW GEMM: one transposing copy
     _check_cuda_operand(x, "x")
-    if w.dim() != 2 or w.shape[0] != x.shape[-1]:
-        raise ValueError(f"w {tuple(w.shape)} does not match x "
-                         f"{tuple(x.shape)} along K")
     if w.dtype != torch.float32:
         raise TypeError(f"w must be float32 for the CUDA kernel, got {w.dtype}")
+    wt = w.transpose(-1, -2)
     if w.is_contiguous():
         w_nk, wk = False, w
-    elif w.t().is_contiguous():
-        w_nk, wk = True, w.t()
+    elif wt.is_contiguous():
+        w_nk, wk = True, wt
     else:
         raise ValueError("w must be a contiguous (K, N) matrix or the "
-                         "transpose of a contiguous (N, K) one")
+                         "transpose of a contiguous (N, K) one (or a "
+                         "stack of either)")
     truncate = _truncate(policy.rounding)
-    K, N = w.shape
-    xf = x.reshape(-1, K)
-    M = xf.shape[0]
-    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    K, N = w.shape[-2:]
+    E = w.shape[0] if batched else 1
+    xf = x if batched else x.reshape(-1, K)
+    M = xf.shape[-2]
+    out = torch.empty(xf.shape[:-1] + (N,), dtype=torch.float32,
+                      device=x.device)
     if out.numel():
         plan = gemm_plan(M, N, K, policy.b_m, sm_count(x.device),
-                         quantize_w)
+                         quantize_w, E)
         ws = out if plan.splits == 1 else torch.empty(
-            (plan.splits, M, N), dtype=torch.float32, device=x.device)
+            (plan.splits,) + out.shape, dtype=torch.float32,
+            device=x.device)
         extension().mirage_gemm(xf, wk, out, ws, w_nk, policy.g, policy.b_m,
                                  truncate, quantize_w, plan.mma,
                                  plan.threads, plan.splits, plan.k_split)
         add_launch_counts({"mirage_gemm": 1})
-    return out.reshape(x.shape[:-1] + (N,))
+    return out if batched else out.reshape(x.shape[:-1] + (N,))
 
 
 #: the head dims ``csrc/flash_attention.cu`` is instantiated at

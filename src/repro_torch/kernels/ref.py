@@ -30,11 +30,13 @@ def mirage_gemm_ref(x: torch.Tensor, w: torch.Tensor, b_m: int = 4,
                     quantize_w: bool = True) -> torch.Tensor:
     """Plain version of ``csrc/mirage_gemm.cu``: quantize both operands along
     K (the weight only where ``quantize_w``; else it is taken as it is),
-    fold scales, one f32-accumulated matmul."""
+    fold scales, one f32-accumulated matmul. A stacked ``w (E, K, N)``
+    with ``x (E, M, K)`` gives ``(E, M, N)``, one product per expert."""
     xq = bfp.bfp_fake_quant(x.to(torch.float32), b_m, g, rounding)
     wq = w.to(torch.float32)
     if quantize_w:
-        wq = bfp.bfp_fake_quant(wq.T, b_m, g, rounding).T
+        wq = bfp.bfp_fake_quant(wq.transpose(-1, -2), b_m, g,
+                                rounding).transpose(-1, -2)
     if compute_dtype == "bfloat16":
         # BFP(b_m <= 6) values are exact in bf16: the cast is value-identical
         xq = xq.to(torch.bfloat16).to(torch.float32)

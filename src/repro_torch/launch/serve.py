@@ -1,9 +1,12 @@
 """Serving launcher of the port: the continuous-batching engine on the card.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch qwen3-moe-30b-a3b --layers 12
 
-Serves the FULL-width config unless ``--reduced`` is given, with weights
-and prompts drawn from seed 0, through ``LMServer`` (greedy unless
+Serves the FULL-width config unless ``--reduced`` is given (``--layers N``
+keeps its first N layers: the MoE configs' f32 weights outgrow one card at
+full depth), with weights and prompts drawn from seed 0, through ``LMServer`` (greedy unless
 ``--sample``; whole-prompt prefill attention through the flash kernel),
 and prints tok/s, TTFT and TPOT. ``--device cpu`` runs the kernels' plain
 PyTorch versions instead (slow at full width).
@@ -33,6 +36,7 @@ counters.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -103,7 +107,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "the plain versions of the kernels)")
     ap.add_argument("--reduced", action="store_true",
                     help="serve the tiny test variant of the config")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="serve only the config's first N layers (its "
+                         "widths unchanged)")
     args = ap.parse_args(argv)
+    if args.layers is not None and args.layers < 1:
+        ap.error("--layers must be >= 1")
     if args.engine == "oracle" and args.sample:
         ap.error("--sample needs the batched engine (the per-slot oracle "
                  "is greedy-only)")
@@ -123,12 +132,15 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def build(args: argparse.Namespace):
     """The model the launcher serves: the config (reduced under
-    ``--reduced``) with weights from seed 0, prefill attention through the
-    flash kernel."""
+    ``--reduced``, cut to ``--layers``) with weights from seed 0, prefill
+    attention through the flash kernel."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=min(args.layers,
+                                                    cfg.n_layers))
     overrides = {}
     if args.snr_db is not None:
         overrides.update(snr_db=args.snr_db, noise_seed=args.noise_seed)

@@ -1,13 +1,16 @@
-"""Decoder-only LM, dense family (port of ``repro.models.lm``).
+"""Decoder-only LM, dense and MoE families (port of ``repro.models.lm``).
 
 Pre-norm GQA attention + SwiGLU MLP per layer, with QKV bias and tied
-embeddings as qwen2 has them. The JAX package's ``lax.scan`` over stacked
+embeddings as qwen2 has them, qk-norm as qwen3 has it and a sliding window
+as mixtral has it; the MoE family (mixtral, qwen3-moe) replaces the MLP by
+the routed experts of :mod:`repro_torch.models.moe`. The JAX package's
+``lax.scan`` over stacked
 layers becomes a loop over an ``nn.ModuleList``. Serving caches come in the
 dense layout (per-slot rings) and the paged one (global page pools and
 per-slot block tables, :meth:`LM.cache_spec`), with the speculative
 :meth:`LM.verify_step` and :meth:`LM.prefill_chunk` over the latter. The
-MoE, SSM, hybrid, enc-dec and vlm families and the parallel (command-r)
-block are not ported yet and raise ``NotImplementedError``.
+SSM, hybrid, enc-dec and vlm families and the parallel (command-r) block
+are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,10 +25,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.precision import MiragePolicy
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, common
+from repro_torch.models import attention, common, moe
 from repro_torch.runtime.paging import blocks_for
 
-_FAMILIES = "the MoE, SSM, hybrid, enc-dec and vlm families wait in " \
+_FAMILIES = "the SSM, hybrid, enc-dec and vlm families wait in " \
             "ROADMAP.md queue 1, slice 6"
 
 
@@ -84,21 +87,56 @@ def chunked_ce(h: torch.Tensor, labels: torch.Tensor, head_fn,
     return total / T
 
 
-class Layer(nn.Module):
+class _AttnLayer(nn.Module):
+    """The pre-norm attention half that every ported layer kind shares."""
+
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
                  device: torch.device):
         super().__init__()
-        kw = dict(generator=generator, device=device)
         self.ln1 = common.Norm(cfg.d_model, cfg.norm_type, device=device)
         self.attn = attention.Attention(
             cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
-            cfg.qkv_bias, cfg.qk_norm, **kw)
+            cfg.qkv_bias, cfg.qk_norm, generator=generator, device=device)
         self.ln2 = common.Norm(cfg.d_model, cfg.norm_type, device=device)
-        self.mlp = common.MLP(cfg.d_model, cfg.d_ff, False, **kw)
+
+
+class Layer(_AttnLayer):
+    """An ``attn_mlp`` layer: attention, then the SwiGLU MLP."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
+                 device: torch.device):
+        super().__init__(cfg, generator=generator, device=device)
+        self.mlp = common.MLP(cfg.d_model, cfg.d_ff, False,
+                              generator=generator, device=device)
+
+
+class MoELayer(_AttnLayer):
+    """An ``attn_moe`` layer: attention, then the routed experts."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
+                 device: torch.device):
+        super().__init__(cfg, generator=generator, device=device)
+        self.moe = moe.MoE(cfg.d_model, cfg.n_experts, cfg.moe_d_ff,
+                           generator=generator, device=device)
+
+
+def check_policy(cfg: ModelConfig, policy: MiragePolicy) -> None:
+    """Raise where ``policy``'s GEMM backend cannot run ``cfg``'s layers:
+    the MoE family's expert stacks need a backend that takes stacked
+    weights (``supports_batched_weights``)."""
+    from repro_torch.core import backends
+    from repro_torch.core.gemm import MOE_MODES_ITEM
+
+    if cfg.family == "moe" and \
+            not backends.resolve(policy).supports_batched_weights:
+        raise NotImplementedError(
+            f"{cfg.arch_id} under {policy.mode!r}: the GEMM backend takes "
+            f"one (K, N) weight, not the MoE layer's expert stacks; MoE "
+            f"under it waits in {MOE_MODES_ITEM}")
 
 
 class LM(nn.Module):
-    """The dense LM. Weights are drawn from ``generator`` (default: seed 0
+    """The dense or MoE LM. Weights are drawn from ``generator`` (default: seed 0
     on ``device``) with the JAX package's initializers; to compute the same
     function as a JAX model, load its parameters with
     :func:`repro_torch.interop.load_jax_params`."""
@@ -109,21 +147,25 @@ class LM(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         kinds = set(cfg.layer_kinds())
-        if kinds != {"attn_mlp"} or cfg.is_encdec or cfg.frontend:
+        if len(kinds) != 1 or not kinds <= {"attn_mlp", "attn_moe"} or \
+                cfg.is_encdec or cfg.frontend:
             raise NotImplementedError(f"{cfg.arch_id}: {_FAMILIES}")
         if cfg.arch_id.startswith("command-r"):
             raise NotImplementedError(
                 f"{cfg.arch_id}: the parallel attention/MLP block waits in "
                 f"ROADMAP.md queue 1, slice 6")
+        check_policy(cfg, policy)
         self.cfg = cfg
         self.policy = policy
         self.opt = options
+        self.kind = kinds.pop()
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         kw = dict(generator=generator, device=device)
         self.embed = common.Embed(cfg.vocab_size, cfg.d_model, **kw)
-        self.layers = nn.ModuleList(Layer(cfg, **kw)
+        layer_cls = MoELayer if self.kind == "attn_moe" else Layer
+        self.layers = nn.ModuleList(layer_cls(cfg, **kw)
                                     for _ in range(cfg.n_layers))
         self.final_norm = common.Norm(cfg.d_model, cfg.norm_type,
                                       device=device)
@@ -146,9 +188,10 @@ class LM(nn.Module):
             return common.unembed(self.embed, h, self.policy)
         return common.dense(self.lm_head, h, self.policy)
 
-    def _attn_mlp_block(self, layer: Layer, h: torch.Tensor,
-                        positions: torch.Tensor):
-        """One layer over a full sequence; returns (h, (k, v))."""
+    def _attn_mlp_block(self, layer: Union[Layer, MoELayer],
+                        h: torch.Tensor, positions: torch.Tensor):
+        """One layer over a full sequence; returns (h, (k, v), aux), aux
+        the MoE layer's router loss (0 for a dense layer)."""
         cfg, opt = self.cfg, self.opt
         n1 = common.norm(layer.ln1, h, cfg.norm_eps, cfg.norm_type)
         a, kv = attention.attn_apply(
@@ -158,12 +201,23 @@ class LM(nn.Module):
             window=cfg.sliding_window, qk_norm=cfg.qk_norm,
             kv_repeat=opt.kv_repeat, q_chunk=opt.q_chunk,
             kv_chunk=opt.kv_chunk, use_flash=opt.use_flash_kernel)
-        return self._mlp_tail(layer, h + a), kv
+        h, aux = self._ffn_tail(layer, h + a)
+        return h, kv, aux
 
-    def _mlp_tail(self, layer: Layer, h: torch.Tensor) -> torch.Tensor:
+    def _ffn_tail(self, layer: Union[Layer, MoELayer], h: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The residual FFN after attention (the JAX ``_post_attn_combine``):
+        the MLP, or the routed experts; returns (h, aux)."""
         cfg = self.cfg
         n2 = common.norm(layer.ln2, h, cfg.norm_eps, cfg.norm_type)
-        return h + common.mlp(layer.mlp, n2, self.policy)
+        if self.kind == "attn_moe":
+            m, aux = moe.moe_apply(
+                layer.moe, n2, self.policy, n_experts=cfg.n_experts,
+                experts_per_token=cfg.experts_per_token,
+                capacity_factor=cfg.capacity_factor)
+            return h + m, aux
+        return h + common.mlp(layer.mlp, n2, self.policy), \
+            torch.zeros((), dtype=torch.float32, device=h.device)
 
     # ------------------------------------------------------------------
     # forward (train / logits over the full sequence)
@@ -171,20 +225,24 @@ class LM(nn.Module):
 
     def forward_hidden(self, tokens: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor, int]:
-        """Run the layer stack; returns (hidden, aux, n_prefix). The dense
-        family has no router loss (aux is 0) and no frontend prefix."""
+        """Run the layer stack; returns (hidden, aux, n_prefix): aux is the
+        router loss summed over the layers (0 for the dense family); no
+        ported family has a frontend prefix."""
         h = common.embed(self.embed, tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
 
         def block(layer, hh):
-            return self._attn_mlp_block(layer, hh, positions)[0]
+            out, _, aux_l = self._attn_mlp_block(layer, hh, positions)
+            return out, aux_l
 
         for layer in self.layers:
             if self.opt.remat and torch.is_grad_enabled():
-                h = checkpoint(block, layer, h, use_reentrant=False)
+                h, aux_l = checkpoint(block, layer, h, use_reentrant=False)
             else:
-                h = block(layer, h)
-        return h, torch.zeros((), dtype=torch.float32, device=h.device), 0
+                h, aux_l = block(layer, h)
+            aux = aux + aux_l
+        return h, aux, 0
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens: (B, L) -> logits (B, L, V) (the JAX ``forward``'s first
@@ -294,7 +352,7 @@ class LM(nn.Module):
         keep = min(L, cache_len)
         roll = max(L - cache_len, 0) % cache_len
         for li, layer in enumerate(self.layers):
-            h, (kk, vv) = self._attn_mlp_block(layer, h, positions)
+            h, (kk, vv), _ = self._attn_mlp_block(layer, h, positions)
             for leaf, val in (("k", kk), ("v", vv)):
                 val = torch.roll(val[:, L - keep:], roll, dims=1)
                 cache[leaf][li, :, :keep] = val
@@ -333,7 +391,7 @@ class LM(nn.Module):
                 head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
                 window=cfg.sliding_window, qk_norm=cfg.qk_norm,
                 kv_repeat=self.opt.kv_repeat, block_tables=bt, plan=plan)
-            h = self._mlp_tail(layer, h + a)
+            h = self._ffn_tail(layer, h + a)[0]
         return self._head(h), dict(cache, idx=idx + 1)
 
     def verify_step(self, cache: Dict[str, torch.Tensor],
@@ -361,7 +419,7 @@ class LM(nn.Module):
                 head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
                 window=cfg.sliding_window, qk_norm=cfg.qk_norm,
                 kv_repeat=self.opt.kv_repeat, block_tables=bt, plan=plan)
-            h = self._mlp_tail(layer, h + a)
+            h = self._ffn_tail(layer, h + a)[0]
         return self._head(h), cache, None
 
     def prefill_chunk(self, cache: Dict[str, torch.Tensor],
@@ -391,7 +449,7 @@ class LM(nn.Module):
                 rope_theta=cfg.rope_theta, window=cfg.sliding_window,
                 qk_norm=cfg.qk_norm, kv_repeat=opt.kv_repeat,
                 q_chunk=opt.q_chunk, kv_chunk=opt.kv_chunk, plan=plan)
-            h = self._mlp_tail(layer, h + a)
+            h = self._ffn_tail(layer, h + a)[0]
         cache["idx"][slot] = pos0 + true_len
         last = max(true_len - 1, 0)
         return self._head(h[:, last:last + 1]), cache

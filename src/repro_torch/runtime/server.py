@@ -643,6 +643,7 @@ class LMServer:
                                      stream) for stream in _STREAMS}
 
         policy = model.policy
+        lm_helpers.check_policy(model.cfg, policy)
         backend = backends.resolve(policy)
         self._reseed_noise(policy)
         self._health_spec = obs_health.spec(policy)
@@ -1860,6 +1861,7 @@ class LMServer:
         if self._pipe is not None and self._pipe.inflight:
             raise RuntimeError(
                 "cannot switch backends with pipelined prefills in flight")
+        lm_helpers.check_policy(self.model.cfg, new_policy)  # before any change
         backend = backends.resolve(new_policy)
         self._graphs.clear()
         self.model.policy = new_policy

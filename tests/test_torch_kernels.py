@@ -397,6 +397,7 @@ def test_port_imports_no_jax():
         "import repro_torch.examples.train_lm, repro_torch.examples.serve_lm\n"
         "import repro_torch.core.backends.mirage_faithful\n"
         "import repro_torch.core.backends.reference\n"
+        "import repro_torch.models.moe, repro_torch.configs\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith(('jax.', 'jaxlib')) or m == 'repro' or\n"
         "             m.startswith('repro.'))\n"

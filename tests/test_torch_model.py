@@ -150,7 +150,7 @@ def test_load_jax_params_rejects_mismatched_trees():
         load_jax_params(tm, partial)
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "mamba2-2.7b",
+@pytest.mark.parametrize("arch", ["internvl2-2b", "mamba2-2.7b",
                                   "zamba2-2.7b", "seamless-m4t-large-v2"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -163,10 +163,17 @@ def test_unported_families_raise(arch):
 
 
 def test_config_matches_jax():
-    a, b = jconfig("qwen2-0.5b"), get_config("qwen2-0.5b")
-    for f in ModelConfig.__dataclass_fields__:
-        assert getattr(a, f) == getattr(b, f), f
-        assert getattr(a.reduced(), f) == getattr(b.reduced(), f), f
+    """Every ported config, field by field, and its ``reduced()``: the
+    dense qwen2/qwen3 ones and the MoE family."""
+    from repro_torch.configs import ARCHS
+    assert set(ARCHS) == {"qwen2-0.5b", "qwen2-1.5b", "qwen3-14b",
+                          "mixtral-8x7b", "qwen3-moe-30b-a3b"}
+    for arch in ARCHS:
+        a, b = jconfig(arch), get_config(arch)
+        for f in ModelConfig.__dataclass_fields__:
+            assert getattr(a, f) == getattr(b, f), (arch, f)
+            assert getattr(a.reduced(), f) == getattr(b.reduced(), f), \
+                (arch, f)
 
 
 @pytest.mark.parametrize("kv_repeat", [1, 2])
