@@ -89,6 +89,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import functools
+import hashlib
 import json
 import math
 import pathlib
@@ -175,6 +176,7 @@ RRNS_HEALTH = {"detector_flips": [1, 14, 45, 1864, 30170],
 
 # symbols of the port's kernels in a profiler trace
 PORT_KERNEL_SYMBOLS = ("gemm_decode_kernel", "gemm_mma_kernel",
+                       "gemm_stream_kernel", "stream_prep_kernel",
                        "splitk_reduce_kernel", "flash_fwd_kernel",
                        "rns_matmul_kernel", "rrns_decode_kernel",
                        "bfp_fake_quant_kernel", "bfp_fake_quant_vec_kernel")
@@ -1004,6 +1006,17 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
                  torch.linalg.vector_norm(b))
 
 
+def host_cpu_flags() -> str:
+    """The host CPU's vector extensions (the CPU's plain versions sum in the
+    order its math library picks for them)."""
+    try:
+        flags = pathlib.Path("/proc/cpuinfo").read_text().split("flags")[1]
+    except (OSError, IndexError):
+        return "unknown"
+    return " ".join(f for f in ("avx2", "avx512f", "avx512_bf16", "amx_tile")
+                    if f" {f}" in flags.splitlines()[0])
+
+
 def compare_with_cpu(model, prompt_np, cap):
     """Hold the card's path against the same weights on the CPU, where every
     kernel is its plain version.
@@ -1026,10 +1039,15 @@ def compare_with_cpu(model, prompt_np, cap):
         pos_d, pos_h = torch.arange(L, device=DEV), torch.arange(L)
         h = common.embed(model.embed, prompt.to(DEV))
         layer_err = []
+        # digests of each side's layer outputs: when a run's errors move, they
+        # tell whether the card's bits or the host's changed
+        digest_d, digest_h = hashlib.sha1(), hashlib.sha1()
         for layer_d, layer_h in zip(model.layers, cpu_model.layers):
             out_d, _, _ = model._attn_mlp_block(layer_d, h, pos_d)
             out_h, _, _ = cpu_model._attn_mlp_block(layer_h, h.cpu(), pos_h)
             layer_err.append(rel_l2(out_d.cpu(), out_h))
+            digest_d.update(out_d.cpu().numpy().tobytes())
+            digest_h.update(out_h.numpy().tobytes())
             h = out_d
         head_err = rel_l2(model._head(h[:, -1:]).cpu(),
                           cpu_model._head(h[:, -1:].cpu()))
@@ -1048,6 +1066,10 @@ def compare_with_cpu(model, prompt_np, cap):
     emit({"phase": "slice_vs_cpu_plain", "prompt_len": L,
           "mirage_layer_rel_l2_max": max(layer_err),
           "mirage_layers_differing": sum(e > 0 for e in layer_err),
+          "mirage_layer_rel_l2": layer_err,
+          "card_layers_sha1": digest_d.hexdigest(),
+          "cpu_layers_sha1": digest_h.hexdigest(),
+          "host_cpu_flags": host_cpu_flags(),
           "mirage_head_rel_l2": head_err,
           "mirage_end_to_end_rel_l2": ends["mirage"][0],
           "mirage_end_to_end_top1_match": ends["mirage"][1],
@@ -3248,6 +3270,14 @@ MOE_GEMM_SHAPES = (
 MOE_GEMM_EXTRA = ((3, 5, 200, 77), (5, 19, 130, 100), (2, 40, 4096, 128),
                   (3, 4, 4096, 96), (7, 9, 1000, 300), (6, 13, 777, 45),
                   (1, 4, 2048, 768))
+# (E, M, K, N) of the stream route's empty-expert cases: qwen3-moe's decode
+# down and gate/up (no split of K), mixtral's decode down (K split in two)
+# and a ragged stack (split in four)
+MOE_EMPTY_SHAPES = ((128, 4, 768, 2048), (128, 4, 2048, 768),
+                    (8, 4, 14336, 4096), (7, 9, 1000, 300))
+MOE_ARCH = {"qwen3-moe": "qwen3-moe-30b-a3b", "mixtral": "mixtral-8x7b"}
+ROUTE_NAMES = {"mma": "mma_bf16", "decode": "decode_f32",
+               "stream": "stream_f32"}
 # (arch, layers kept, paged drain too) of the MoE serving phases: the
 # published widths, depth cut so that the f32 weights fit one card
 MOE_SLICES = (("qwen3-moe-30b-a3b", 12, True), ("mixtral-8x7b", 4, False))
@@ -3271,33 +3301,89 @@ def moe_gemm_operands(E, M, K, N, seed, w_nk):
 
 
 def per_expert_launches(ops, x, w, policy, plan):
-    """E unbatched launches of the kernel, one per expert, with the batched
-    call's plan (route, block size, split of K): the same arithmetic per
-    expert, so the same bits. Called on the extension itself, so they add
-    nothing to the launch counts."""
+    """E single-expert launches of the kernel, one per expert, with the
+    batched call's plan (route, split of K, block size): the same
+    arithmetic per expert, so the same bits. Called through
+    ``ops.launch_gemm_plan``, so they add nothing to the launch counts."""
     w_nk = not w.is_contiguous()
     wk = w.transpose(1, 2) if w_nk else w
     E, M, _ = x.shape
-    N = w.shape[2]
-    out = torch.empty((E, M, N), device=DEV)
+    out = torch.empty((E, M, w.shape[2]), device=DEV)
     for e in range(E):
-        ws = out[e] if plan.splits == 1 else torch.empty(
-            (plan.splits, M, N), device=DEV)
-        ops.extension().mirage_gemm(
-            x[e], wk[e], out[e], ws, w_nk, policy.g, policy.b_m, False, True,
-            plan.mma, plan.threads, plan.splits, plan.k_split)
+        ops.launch_gemm_plan(x[e:e + 1], wk[e:e + 1], out[e:e + 1], plan,
+                             policy, w_nk)
     return out
+
+
+def stream_prep_outputs(ops, x, w, policy, plan):
+    """One stream-route launch on buffers of its own: the output, and the
+    quantized x and live flags its pre-pass wrote (the extension called
+    directly, so it adds nothing to the launch counts)."""
+    E, M, K = x.shape
+    out = torch.empty((E, M, w.shape[2]), device=DEV)
+    ws = out if plan.splits == 1 else torch.empty((plan.splits,) + out.shape,
+                                                  device=DEV)
+    mt = 4 if M <= 4 else 8 if M <= 8 else 16
+    xq = torch.empty((E, -(-K // ops.GEMM_BK) * ops.GEMM_BK, mt), device=DEV)
+    live = torch.empty((E * plan.splits + 1,), dtype=torch.int32, device=DEV)
+    ops.extension().mirage_gemm_stream(
+        x, w, out, ws, xq, live, policy.g, policy.b_m, False, plan.splits,
+        plan.k_split, plan.stages, plan.blocks)
+    return out, xq, live[:-1]
+
+
+def flushed_kernel_ms(fn, n: int = 10):
+    """Device time by kernel (torch.profiler) of one call of ``fn``, over
+    ``n`` calls with the L2 cache flushed before each (the flush's own
+    fill kernel left out)."""
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
+
+    def run():
+        scratch.zero_()
+        fn()
+    prof = device_profile(run, n)
+    flush = device_profile(scratch.zero_, n)["top_device_ms"]
+    return {k: v for k, v in prof["top_device_ms"].items() if k not in flush}
+
+
+def routed_operand(x, top_k: int, seed: int):
+    """``x`` (E, M, K) with every row zeroed that a decode tick of SLOTS
+    tokens leaves empty: the tokens routed top-``top_k`` over the E experts
+    by a random router (``moe.route``, capacity M), each kept (token, slot)
+    pair filling its row of its expert's buffer. Returns the routed x and
+    the number of experts with a nonzero row."""
+    import types
+
+    from repro_torch.models import moe
+
+    E, M, _ = x.shape
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    router = types.SimpleNamespace(w=torch.randn((64, E), generator=gen,
+                                                 device=DEV))
+    r = moe.route(router, torch.randn((SLOTS, 64), generator=gen,
+                                      device=DEV), top_k, M)
+    filled = torch.zeros(E * M + 1, dtype=torch.bool, device=DEV)
+    filled[r.slot_index] = True
+    mask = filled[:E * M].view(E, M)
+    return x * mask[..., None], int(mask.any(dim=1).sum())
 
 
 def phase_gemm_batched(ops, ref, policy):
     """Kernel 1 over a stack of E experts in one launch, at every expert
     GEMM shape of the MoE paths, in both weight layouts, and at ragged
     shapes covering each route with and without a split of K: bitwise equal
-    to E unbatched launches with the same plan and to a second batched
-    launch, within the f32-order bound of the plain version (the cuBLAS
-    product of the folded operands sums in another order). Then the table's
-    shapes timed beside the plain version and ``torch.bmm`` on the folded
-    operands."""
+    to E single-expert launches of the route and split its plan picked and
+    to a second batched launch, within the f32-order bound of the plain
+    version (the cuBLAS product of the folded operands sums in another
+    order). The stream route's empty experts: at 0, 75 and 100% of them
+    with a zero x, with and without a split of K, their rows exactly +0.0,
+    the live rows equal to a launch over the live experts alone, and the
+    pre-pass's quantized x and flags equal to its plain version. Then the
+    table's shapes timed beside the plain version and ``torch.bmm`` on the
+    folded operands, and, at decode, today's decode route on the same
+    operands and the stream route on a routed tick's stacks."""
+    from repro_torch.configs import get_config
+
     t_phase = time.perf_counter()
     cases = [(E, M, K, N, nk, f"{model} {gemm}")
              for model, gemm, E, M, K, N in MOE_GEMM_SHAPES
@@ -3306,30 +3392,34 @@ def phase_gemm_batched(ops, ref, policy):
               for nk in (False, True)]
     worst, plans = 0.0, set()
     sms = ops.sm_count(torch.device(DEV))
+
+    def tolerance(x, w):
+        return 1e-5 * (ref.bfp_fake_quant_ref(x, 4, 16).abs() @
+                       ref.bfp_fake_quant_ref(w.transpose(1, 2), 4,
+                                              16).transpose(1, 2).abs()) \
+            + 1e-30
+
+    def same_bits(a, b):
+        return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
     for i, (E, M, K, N, w_nk, what) in enumerate(cases):
         x, w = moe_gemm_operands(E, M, K, N, seed=100 + i, w_nk=w_nk)
-        plan = ops.gemm_plan(M, N, K, policy.b_m, sms, True, E)
+        plan = ops.gemm_plan(M, N, K, policy.b_m, sms, True, E, w_nk)
         got = ops.mirage_matmul_fused(x, w, policy)
         again = ops.mirage_matmul_fused(x, w, policy)
         single = per_expert_launches(ops, x, w, policy, plan)
         want = ref.mirage_gemm_ref(x, w, policy.b_m, policy.g)
-        tol = 1e-5 * (ref.bfp_fake_quant_ref(x, 4, 16).abs() @
-                      ref.bfp_fake_quant_ref(w.transpose(1, 2), 4,
-                                             16).transpose(1, 2).abs()) + 1e-30
+        tol = tolerance(x, w)
         err = (got - want).abs()
         bad = int((err > tol).sum())
-        same = bool(torch.equal(got.view(torch.int32),
-                                again.view(torch.int32)))
-        per_expert = bool(torch.equal(got.view(torch.int32),
-                                      single.view(torch.int32)))
+        same, per_expert = same_bits(got, again), same_bits(got, single)
         torch.cuda.synchronize()
-        plans.add((plan.mma, plan.splits > 1))
+        plans.add((plan.route, plan.splits > 1))
         emit({"phase": "gemm_batched_vs_plain", "what": what, "E": E,
               "M": M, "K": K, "N": N, "w_layout": "NK" if w_nk else "KN",
-              "route": "mma_bf16" if plan.mma else "decode_f32",
-              "threads": plan.threads, "splits": plan.splits,
-              "k_split": plan.k_split, "blocks": plan.blocks,
-              "max_abs_err": float(err.max()),
+              "route": ROUTE_NAMES[plan.route], "threads": plan.threads,
+              "splits": plan.splits, "k_split": plan.k_split,
+              "blocks": plan.blocks, "max_abs_err": float(err.max()),
               "max_err_over_tol": float((err / tol).max()),
               "bitwise_vs_per_expert_launches": per_expert,
               "bitwise_repeatable": same,
@@ -3338,15 +3428,56 @@ def phase_gemm_batched(ops, ref, policy):
                         f"at E={E} M={M} K={K} N={N} w_nk={w_nk}")
         check(same, f"two batched launches differ at E={E} M={M} K={K} "
                     f"N={N} w_nk={w_nk}")
-        check(per_expert, f"the batched GEMM differs from E unbatched "
+        check(per_expert, f"the batched GEMM differs from E single-expert "
                           f"launches at E={E} M={M} K={K} N={N} "
                           f"w_nk={w_nk}")
         worst = max(worst, float(err.max()))
         del x, w, got, again, single, want, tol, err
-    check(plans == {(False, False), (False, True), (True, False),
-                    (True, True)},
-          f"the batched cases cover the plans {sorted(plans)}, not both "
-          f"routes with and without a split of K")
+    want_plans = {(r, s) for r in ("mma", "decode", "stream")
+                  for s in (False, True)}
+    check(plans == want_plans,
+          f"the batched cases cover the plans {sorted(plans)}, not every "
+          f"route with and without a split of K")
+    n_empty = 0
+    for i, ((E, M, K, N), share) in enumerate(
+            (shape, share) for shape in MOE_EMPTY_SHAPES
+            for share in (0.0, 0.75, 1.0)):
+        x, w = moe_gemm_operands(E, M, K, N, seed=300 + i, w_nk=False)
+        dead = torch.randperm(E, generator=torch.Generator().manual_seed(
+            i))[:round(share * E)].to(DEV)
+        x[dead] = 0.0
+        live_e = torch.ones(E, dtype=torch.bool, device=DEV)
+        live_e[dead] = False
+        plan = ops.gemm_plan(M, N, K, policy.b_m, sms, True, E)
+        got = ops.mirage_matmul_fused(x, w, policy)
+        out, xq, live = stream_prep_outputs(ops, x, w, policy, plan)
+        want_xq, want_live = ref.stream_prep_ref(x, policy.b_m, policy.g,
+                                                 policy.rounding,
+                                                 plan.splits, plan.k_split)
+        alone = torch.empty((int(live_e.sum()), M, N), device=DEV)
+        if alone.numel():
+            ops.launch_gemm_plan(x[live_e].contiguous(),
+                                 w[live_e].contiguous(), alone, plan, policy)
+        err = (got - ref.mirage_gemm_ref(x, w, policy.b_m, policy.g)).abs()
+        bad = int((err > tolerance(x, w)).sum())
+        zeros = not got[~live_e].view(torch.int32).any()
+        row = {"phase": "gemm_batched_empty_experts", "E": E, "M": M,
+               "K": K, "N": N, "empty_share": share,
+               "empty_experts": int((~live_e).sum()),
+               "route": ROUTE_NAMES[plan.route], "splits": plan.splits,
+               "empty_rows_exact_zero": zeros,
+               "live_rows_equal_live_alone": same_bits(got[live_e], alone),
+               "bitwise_repeatable": same_bits(got, out),
+               "prep_xq_equals_plain": same_bits(xq, want_xq),
+               "prep_flags_equal_plain": bool(torch.equal(live, want_live)),
+               "max_abs_err": float(err.max()), "outside_bound": bad}
+        row["ok"] = plan.route == "stream" and bad == 0 and all(
+            v for k, v in row.items() if k.startswith(
+                ("empty_rows", "live_rows", "bitwise", "prep_")))
+        emit(row)
+        check(row["ok"], f"stream route with empty experts: {row}")
+        n_empty += 1
+        del x, w, got, out, xq, alone, err
     rows = []
     for model, gemm, E, M, K, N in MOE_GEMM_SHAPES:
         x, w = moe_gemm_operands(E, M, K, N, seed=1, w_nk=False)
@@ -3359,7 +3490,7 @@ def phase_gemm_batched(ops, ref, policy):
                              BF16_FLOPS_PER_S if plan.mma
                              else F32_FLOPS_PER_S)
         row = {"model": model, "gemm": gemm, "E": E, "M": M, "K": K,
-               "N": N, "route": "mma_bf16" if plan.mma else "decode_f32",
+               "N": N, "route": ROUTE_NAMES[plan.route],
                "splits": plan.splits,
                "ms": time_ms(lambda: ops.mirage_matmul_fused(x, w, policy)),
                "plain_ms": time_ms(lambda: ref.mirage_gemm_ref(
@@ -3367,11 +3498,36 @@ def phase_gemm_batched(ops, ref, policy):
                "library_ms": time_ms(lambda: torch.bmm(xq, wq)),
                "library": "torch.bmm on the folded operands",
                "bound_ms": t_b, "bound_by": by}
+        if plan.route == "stream":
+            # device time by kernel, the L2 flushed before each call: the
+            # stream kernel, its pre-pass and reduction against the
+            # library's kernel
+            row["device_ms_by_kernel"] = flushed_kernel_ms(
+                lambda: ops.mirage_matmul_fused(x, w, policy))
+            row["library_device_ms_by_kernel"] = flushed_kernel_ms(
+                lambda: torch.bmm(xq, wq))
+            # today's decode route on the same operands (the plan a stack
+            # whose base is not 16-byte aligned takes), and a routed tick
+            old = ops.gemm_plan(M, N, K, policy.b_m, sms, True, E,
+                                aligned=False)
+            out = torch.empty((E, M, N), device=DEV)
+            row["decode_route_ms"] = time_ms(lambda: ops.launch_gemm_plan(
+                x, w, out, old, policy))
+            top_k = get_config(MOE_ARCH[model]).experts_per_token
+            xr, n_live = routed_operand(x, top_k, seed=2)
+            row["routed_live_experts"] = n_live
+            row["routed_ms"] = time_ms(
+                lambda: ops.mirage_matmul_fused(xr, w, policy))
+            row["routed_bound_ms"] = bound_rate(
+                4.0 * (E * M * K + n_live * K * N + E * M * N),
+                2.0 * n_live * M * N * K, F32_FLOPS_PER_S)[0]
+            del out, xr
         rows.append(row)
         emit({"phase": "timing", "kernel": "mirage_gemm_batched", **row})
         del x, w, xq, wq
     emit({"phase": "gemm_batched_summary", "cases": len(cases),
-          "plans": sorted(plans), "max_abs_err": worst,
+          "empty_expert_cases": n_empty, "plans": sorted(plans),
+          "max_abs_err": worst,
           "phase_seconds": time.perf_counter() - t_phase})
     return worst, rows
 
@@ -3397,6 +3553,30 @@ class RoutingTap:
 
     def __exit__(self, *exc):
         self.moe.route = self.inner
+
+
+class StreamStackTap:
+    """Counts, while open, the expert stacks that take kernel 1's stream
+    route: each ``moe_apply`` call runs three stacks of C rows, on that
+    route where C <= 16 (``moe.capacity`` is called once a call)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.stacks = moe, 0
+
+    def __enter__(self):
+        self.inner = self.moe.capacity
+
+        def tapped(*args, **kw):
+            C = self.inner(*args, **kw)
+            self.stacks += 3 if C <= 16 else 0
+            return C
+
+        self.moe.capacity = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.capacity = self.inner
 
 
 def route_margins(probs, ids_a, ids_b):
@@ -3513,11 +3693,21 @@ def phase_slice_moe(ops, arch: str, n_layers: int, paged: bool):
     for name, kw, prep in engines:
         info = {}
         reqs = make_requests(Request, cfg.vocab_size)
-        server, finished, dt, launches, program_s = serve_run(
-            ops, model, CAP, reqs, LMServer,
-            prepare=warmed(info) if prep else None, **kw)
+        with StreamStackTap() as tap:
+            server, finished, dt, launches, program_s = serve_run(
+                ops, model, CAP, reqs, LMServer,
+                prepare=warmed(info) if prep else None, **kw)
         m = server.metrics
+        # the stream route's pre-pass runs once a stack of C <= 16 rows:
+        # counted on the cold drain (every step eager); the warmed and
+        # paged engines run the same model steps on the same shapes
+        if name == "dense_cold":
+            cold_steps, cold_stream = model_steps(m), tap.stacks
+        check(model_steps(m) == cold_steps,
+              f"slice_moe {arch} {name}: {model_steps(m)} model steps, "
+              f"the cold dense drain ran {cold_steps}")
         want = {"mirage_gemm": per_step * model_steps(m),
+                "gemm_stream_prep": cold_stream,
                 "flash_attention": n_layers * m["prefill_batches"]}
         streams[name] = {r.rid: r.tokens_out for r in finished}
         rows[name] = {**serve_summary(server, finished, dt, launches,
@@ -3559,6 +3749,13 @@ def phase_slice_moe(ops, arch: str, n_layers: int, paged: bool):
             "wall_ms", "device_busy_ms", "device_idle_share",
             "device_kernels", "graph_launches", "top_device_ms",
             "port_kernels_ms")}
+        # the expert stacks' kernels: the stream route and its pre-pass
+        stacks = sum(v for k, v in prof["port_kernels_ms"].items()
+                     if "gemm_stream_kernel" in k or
+                     "stream_prep_kernel" in k)
+        profile[side]["expert_stacks_ms"] = stacks
+        profile[side]["expert_stacks_share_of_busy"] = \
+            stacks / prof["device_busy_ms"]
     check(profile["warmed"]["graph_launches"] == 1,
           f"slice_moe {arch}: the warmed tick's profile shows "
           f"{profile['warmed']['graph_launches']} graph launches, expected 1")
@@ -3685,12 +3882,32 @@ def main() -> int:
     head = head_row("mirage_gemm")
     gemm = entry("mirage_gemm", "mirage_gemm.cu",
                  "src/repro/kernels/mirage_gemm.py:50", err_gemm, head)
-    # the same kernel batched over experts (one launch per expert stack)
+    # the same kernel batched over experts (one launch per expert stack);
+    # at decode its stream route (mirage_gemm_stack.cu), whose pre-pass
+    # counts under gemm_stream_prep
     gemm["batched"] = {k: batched_rows[0][k] for k in (
         "model", "gemm", "E", "M", "K", "N", "route", "ms", "plain_ms",
-        "bound_ms", "bound_by", "library_ms", "library")}
+        "bound_ms", "bound_by", "library_ms", "library", "decode_route_ms",
+        "routed_ms", "routed_bound_ms", "routed_live_experts")}
     gemm["launches_moe"] = {arch: runs["dense_cold"]["mirage_gemm"]
                             for arch, runs in moe_launches.items()}
+    stream_rows = [r for r in batched_rows if r["route"] == "stream_f32"]
+    gemm["stream"] = {
+        "name": "mirage_gemm (stream route)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mirage_gemm_stack.cu",
+        "replaces": "src/repro/kernels/mirage_gemm.py:50 under the vmap "
+                    "of src/repro/models/moe.py:50-66",
+        "launches": {arch: runs["dense_cold"]["gemm_stream_prep"]
+                     for arch, runs in moe_launches.items()},
+        "helper": "gemm_stream_prep (one a stream-route stack)",
+        "max_abs_err": err_batched,
+        **{k: stream_rows[0][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "rows": [{k: r[k] for k in (
+            "model", "gemm", "E", "M", "K", "N", "splits", "ms",
+            "decode_route_ms", "plain_ms", "library_ms", "bound_ms",
+            "routed_live_experts", "routed_ms", "routed_bound_ms")}
+            for r in stream_rows]}
     flash = entry("flash_attention", "flash_attention.cu",
                   "src/repro/kernels/flash_attention.py:81", err_flash,
                   rows["flash_attention"][0])
@@ -3770,7 +3987,9 @@ def main() -> int:
                              "slice_moe_mixtral) launch mirage_gemm batched "
                              "over the experts, 7 x layers + 1 a model "
                              "step (launches_moe: their cold dense "
-                             "drains)"}})
+                             "drains), each stack of C <= 16 rows on the "
+                             "stream route with one gemm_stream_prep "
+                             "launch beside it (stream.launches)"}})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

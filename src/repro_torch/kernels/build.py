@@ -15,6 +15,7 @@ import pathlib
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("bindings.cpp", "bfp_quantize.cu", "mirage_gemm.cu",
+           "mirage_gemm_stack.cu",
            "flash_attention.cu", "rns_matmul.cu", "rrns_decode.cu")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17")

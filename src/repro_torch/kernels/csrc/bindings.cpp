@@ -26,6 +26,12 @@ void launch_mirage_gemm(const float* x, const float* w, float* out,
                         int b_m, bool truncate, bool quant_w, bool mma,
                         int threads, int splits, int k_split,
                         cudaStream_t stream);
+int launch_mirage_gemm_stream(const float* x, const float* w, float* out,
+                              float* ws, float* xq, int* live, int E, int M,
+                              int N, int K, int g, int b_m, bool truncate,
+                              int splits, int k_split, int stages, int blocks,
+                              cudaStream_t stream);
+size_t stream_smem_bytes(int MT, int bk, int stages, int pairs);
 cudaError_t launch_flash_attention(const float* q, const float* k,
                                    const float* v, float* o, int B, int Lq,
                                    int S, int H, int Kv, int D, bool causal,
@@ -47,6 +53,12 @@ namespace {
 void check_operand(const torch::Tensor& t, const char* name) {
   TORCH_CHECK(t.is_cuda(), name, " must be a CUDA tensor");
   TORCH_CHECK(t.scalar_type() == torch::kFloat32, name, " must be float32");
+  TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
+}
+
+void check_int_operand(const torch::Tensor& t, const char* name) {
+  TORCH_CHECK(t.is_cuda(), name, " must be a CUDA tensor");
+  TORCH_CHECK(t.scalar_type() == torch::kInt32, name, " must be int32");
   TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
 }
 
@@ -143,6 +155,76 @@ void mirage_gemm(const torch::Tensor& x, const torch::Tensor& w,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// The stream route of a stack of E expert GEMMs at decode: x (E, M, K) with
+// M <= 16, w (E, K, N) contiguous with N % 4 == 0 and a 16-byte aligned
+// base, out (E, M, N). `splits`, `k_split`, `stages` and `blocks` are the
+// wrapper's plan (ops.py `gemm_plan`, route "stream"); ws holds the
+// split-K partials, xq (E, Kp, MT) the quantized x and live E x splits + 1
+// ints (the pre-pass's flags and the unit counter).
+void mirage_gemm_stream(const torch::Tensor& x, const torch::Tensor& w,
+                        torch::Tensor& out, torch::Tensor& ws,
+                        torch::Tensor& xq, torch::Tensor& live, int64_t g,
+                        int64_t b_m, bool truncate, int64_t splits,
+                        int64_t k_split, int64_t stages, int64_t blocks) {
+  check_operand(x, "x");
+  check_operand(w, "w");
+  check_operand(out, "out");
+  check_operand(ws, "ws");
+  check_operand(xq, "xq");
+  check_int_operand(live, "live");
+  TORCH_CHECK(x.dim() == 3 && w.dim() == 3 && out.dim() == 3,
+              "the stream route takes stacks x (E, M, K), w (E, K, N) and "
+              "out (E, M, N)");
+  const int64_t E = x.size(0), M = x.size(1), K = x.size(2), N = w.size(2);
+  TORCH_CHECK(w.size(0) == E && w.size(1) == K && out.size(0) == E &&
+                  out.size(1) == M && out.size(2) == N,
+              "x, w and out must stack E matrices of matching shapes");
+  TORCH_CHECK(E >= 1 && M >= 1 && M <= 16 && K >= 1 && N >= 1,
+              "the stream route takes 1 <= M <= 16 rows and a non-empty "
+              "stack");
+  TORCH_CHECK(N % 4 == 0 && aligned16(w) && aligned16(out) && aligned16(ws),
+              "the stream route needs N % 4 == 0 and 16-byte aligned w, out "
+              "and ws");
+  check_bfp(g, b_m);
+  TORCH_CHECK(k_split >= 64 && k_split % 64 == 0 && splits >= 1 &&
+                  splits * k_split >= K &&
+                  (splits == 1 || (splits - 1) * k_split < K),
+              "k_split must be a multiple of 64 and the splits must cover K");
+  TORCH_CHECK(splits <= 65535 && E <= 65535, "splits and E must be <= 65535");
+  TORCH_CHECK(splits == 1 || ws.numel() >= splits * E * M * N,
+              "ws must hold splits x E x M x N floats");
+  const int64_t MT = M <= 4 ? 4 : M <= 8 ? 8 : 16;
+  const int64_t Kp = (K + 63) / 64 * 64;
+  TORCH_CHECK(xq.numel() == E * Kp * MT && aligned16(xq),
+              "xq must hold E x Kp x MT floats (Kp = K rounded up to 64), "
+              "16-byte aligned");
+  TORCH_CHECK(live.numel() == E * splits + 1,
+              "live must hold E x splits + 1 ints");
+  const int64_t bk = g > 16 ? g : 16;
+  TORCH_CHECK(stages >= 2 && stages <= 16 && blocks >= 1 &&
+                  stream_smem_bytes(static_cast<int>(MT),
+                                    static_cast<int>(bk),
+                                    static_cast<int>(stages),
+                                    static_cast<int>(E * splits)) <=
+                      227 * 1024,
+              "the stream route's ring and pair list must fit 227 KB of "
+              "shared memory, with 2 to 16 stages and at least one block");
+  const c10::cuda::CUDAGuard guard(x.device());
+  const int err = launch_mirage_gemm_stream(
+      x.data_ptr<float>(), w.data_ptr<float>(), out.data_ptr<float>(),
+      ws.data_ptr<float>(), xq.data_ptr<float>(), live.data_ptr<int>(),
+      static_cast<int>(E), static_cast<int>(M), static_cast<int>(N),
+      static_cast<int>(K), static_cast<int>(g), static_cast<int>(b_m),
+      truncate, static_cast<int>(splits), static_cast<int>(k_split),
+      static_cast<int>(stages), static_cast<int>(blocks),
+      at::cuda::getCurrentCUDAStream());
+  TORCH_CHECK(err == 0, "encoding the weight's tensor map failed (",
+              err == -1 ? "cuTensorMapEncodeTiled not found"
+                        : "CUresult " + std::to_string(err),
+              ")");
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 void flash_attention(const torch::Tensor& q, const torch::Tensor& k,
                      const torch::Tensor& v, torch::Tensor& out, bool causal,
                      int64_t window, double sm_scale) {
@@ -169,12 +251,6 @@ void flash_attention(const torch::Tensor& q, const torch::Tensor& k,
       static_cast<int>(S), static_cast<int>(H), static_cast<int>(Kv),
       static_cast<int>(D), causal, static_cast<int>(window),
       static_cast<float>(sm_scale), at::cuda::getCurrentCUDAStream()));
-}
-
-void check_int_operand(const torch::Tensor& t, const char* name) {
-  TORCH_CHECK(t.is_cuda(), name, " must be a CUDA tensor");
-  TORCH_CHECK(t.scalar_type() == torch::kInt32, name, " must be int32");
-  TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
 }
 
 // Checks the residue GEMM's operands and packs its moduli (and ADC steps).
@@ -290,6 +366,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("mirage_gemm", &mirage_gemm,
         "out = bfp(x) @ bfp(w) with BFP(b_m, g) quantization along K, "
         "for one matrix or a stack of E in one launch");
+  m.def("mirage_gemm_stream", &mirage_gemm_stream,
+        "kernel 1's stream route over a stack of E expert GEMMs at decode "
+        "(pre-pass, stream kernel, split-K reduction)");
   m.def("flash_attention", &flash_attention,
         "GQA flash-attention forward, (B, L, heads, 64) f32");
   m.def("rns_matmul", &rns_matmul,

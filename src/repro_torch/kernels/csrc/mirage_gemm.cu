@@ -64,7 +64,9 @@
 // route, whose z holds the K splits), so every block computes one expert's
 // tile exactly as the unbatched kernel computes it: the same bits for the
 // same split of K. The split-K workspace is (splits, E, M, N) and its
-// reduction adds each element's partials in split order.
+// reduction adds each element's partials in split order. A contiguous
+// (E, K, N) stack at M <= 16 with N % 4 == 0 and an aligned base takes the
+// stream route of mirage_gemm_stack.cu instead (ops.py `gemm_plan`).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -640,6 +642,9 @@ void launch_mma(const float* x, const float* w, float* dst, int E, int M,
 
 }  // namespace
 
+void launch_splitk_reduce(const float* ws, float* out, long long mn,
+                          int splits, cudaStream_t stream);
+
 // x: (E, M, K) row-major; w: (E, K, N) row-major, or (E, N, K) row-major
 // when w_nk; out: (E, M, N) row-major; ws: (splits, E, M, N) when
 // splits > 1 (E = 1: one GEMM). The wrapper checks E x M tiles fit the
@@ -682,11 +687,17 @@ void launch_mirage_gemm(const float* x, const float* w, float* out,
       MIRAGE_DECODE(16);
 #undef MIRAGE_DECODE
   }
-  if (splits > 1) {
-    const long long mn = static_cast<long long>(E) * M * N;
-    long long blocks = (mn + 255) / 256;
-    if (blocks > 4LL * sm_count()) blocks = 4LL * sm_count();
-    splitk_reduce_kernel<<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
-        ws, out, mn, splits);
-  }
+  if (splits > 1)
+    launch_splitk_reduce(ws, out, static_cast<long long>(E) * M * N, splits,
+                         stream);
+}
+
+// out[i] = ws[0][i] + ws[1][i] + ... in split order, for i < mn (also the
+// stream route's reduction, mirage_gemm_stack.cu).
+void launch_splitk_reduce(const float* ws, float* out, long long mn,
+                          int splits, cudaStream_t stream) {
+  long long blocks = (mn + 255) / 256;
+  if (blocks > 4LL * sm_count()) blocks = 4LL * sm_count();
+  splitk_reduce_kernel<<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
+      ws, out, mn, splits);
 }

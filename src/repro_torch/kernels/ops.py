@@ -33,6 +33,7 @@ from repro_torch.kernels.build import extension
 
 #: launches per kernel since the last :func:`reset_launch_counts`
 LAUNCHES: Dict[str, int] = {"bfp_quantize": 0, "mirage_gemm": 0,
+                            "gemm_stream_prep": 0,
                             "flash_attention": 0, "rns_matmul": 0,
                             "rns_matmul_channel": 0, "rrns_decode": 0}
 # the serving engine's prefill worker thread launches beside the decode
@@ -50,6 +51,18 @@ GEMM_DECODE_RING_BYTES_PER_THREAD = 4 * 4 * 16
 SM_SHARED_BYTES, BLOCK_RESERVED_SHARED_BYTES = 228 * 1024, 1024
 #: SMs of an H100 SXM (the plan takes the card's own count where it runs)
 H100_SMS = 132
+#: the stream route (csrc/mirage_gemm_stack.cu): columns of a work unit,
+#: threads a block (four consumer warps and a producer), the ring's stages
+#: where every block takes at most one unit (static) or where blocks take
+#: their units from a counter (dynamic), the most K rows of a dynamic unit
+#: (512 KB of weights) and the fewest of any split one, the most (expert,
+#: split) pairs its blocks list, and the most blocks an SM
+STREAM_COLS, STREAM_THREADS = 128, 160
+STREAM_STAGES_STATIC, STREAM_STAGES_DYNAMIC = 4, 6
+STREAM_MAX_ROWS, STREAM_MIN_ROWS = 1024, 256
+STREAM_MAX_PAIRS, STREAM_MAX_BLOCKS_PER_SM = 4096, 8
+#: the most dynamic shared memory a block takes (csrc/bindings.cpp checks it)
+STREAM_MAX_SMEM_BYTES = 227 * 1024
 
 #: bounds of the tables the residue kernels take (csrc/rns.cuh)
 RNS_MAX_MODULI = 8
@@ -154,35 +167,113 @@ def bfp_fake_quant(x: torch.Tensor, policy: MiragePolicy) -> torch.Tensor:
 
 
 class GemmPlan(NamedTuple):
-    """How ``csrc/mirage_gemm.cu`` runs one GEMM: the route (``mma``: bf16
-    tensor cores, else the CUDA-core decode route), the decode route's
-    threads per block (a block covers ``threads // 4`` columns), and K cut
-    into ``splits`` ranges of ``k_split`` rows; ``blocks`` is the first
-    launch's grid size (a decode-route block walks several column tiles
-    where they outnumber GEMM_DECODE_BLOCKS_PER_SM blocks per SM)."""
-    mma: bool
+    """How kernel 1 runs one GEMM or stack: the ``route`` (``"mma"``: bf16
+    tensor cores; ``"decode"``: the CUDA-core split-K route, both in
+    ``csrc/mirage_gemm.cu``; ``"stream"``: a stack of experts at decode,
+    ``csrc/mirage_gemm_stack.cu``), threads per block (a decode block
+    covers ``threads // 4`` columns), K cut into ``splits`` ranges of
+    ``k_split`` rows, ``blocks`` in the first launch's grid (a decode block
+    walks several column tiles where they outnumber
+    GEMM_DECODE_BLOCKS_PER_SM blocks per SM; the stream route's persistent
+    blocks walk the live units), and the stream route's ring ``stages``
+    (0 on the other routes)."""
+    route: str
     threads: int
     splits: int
     k_split: int
     blocks: int
+    stages: int = 0
+
+    @property
+    def mma(self) -> bool:
+        return self.route == "mma"
+
+
+def stream_tile_rows(g: int) -> int:
+    """Weight rows a stage of the stream route holds: whole groups."""
+    return max(16, g)
+
+
+def stream_smem_bytes(mt: int, bk: int, stages: int, pairs: int) -> int:
+    """Dynamic shared memory of a stream-route block (the kernel's
+    ``stream_smem_bytes``): the weight and x rings, a 32-byte stage record
+    and barrier pair a stage, the pair list and its count, and 128 bytes to
+    align the ring."""
+    return 128 + stages * (bk * (STREAM_COLS + mt) * 4 + 32) + 4 * (pairs + 1)
+
+
+def _stream_plan(M: int, N: int, K: int, E: int, sms: int,
+                 g: int) -> Optional[GemmPlan]:
+    """The stream route's split of K, ring and grid, or None where its pair
+    list would not fit. Units are (expert, 128-column tile, split). The
+    fewest splits that give either of two grids that balanced well on the
+    H100 (PERF.md): every block one unit, the units of a dense stack
+    filling 60% or more of the grid of STREAM_STAGES_STATIC-stage blocks;
+    or blocks that take units from a counter, at least three a block, of
+    at most STREAM_MAX_ROWS rows (a unit's time is the tail it can leave).
+    Small stacks take the finest split, down to STREAM_MIN_ROWS rows. A
+    unit's arithmetic depends on its own K range only, never on the grid."""
+    units_k = max(1, -(-K // GEMM_BK))
+    tiles = -(-N // STREAM_COLS)
+    mt = 4 if M <= 4 else 8 if M <= 8 else 16
+    bk = stream_tile_rows(g)
+
+    def ring(stages: int, pairs: int) -> Tuple[int, int]:
+        """The stages (at most ``stages``, at least 2) whose shared memory
+        fits a block, and the grid of the blocks an SM then holds."""
+        while stages > 2 and stream_smem_bytes(
+                mt, bk, stages, pairs) > STREAM_MAX_SMEM_BYTES:
+            stages -= 1
+        smem = stream_smem_bytes(mt, bk, stages, pairs)
+        return stages, sms * min(STREAM_MAX_BLOCKS_PER_SM, SM_SHARED_BYTES // (
+            smem + BLOCK_RESERVED_SHARED_BYTES))
+
+    last = max(1, units_k // (STREAM_MIN_ROWS // GEMM_BK))
+    for want in range(1, last + 1):
+        steps = -(-units_k // want)
+        splits = -(-units_k // steps)
+        pairs = E * splits
+        if pairs > STREAM_MAX_PAIRS or stream_smem_bytes(
+                mt, bk, 2, pairs) > STREAM_MAX_SMEM_BYTES:
+            return None
+        units = E * tiles * splits
+        st_static, static = ring(STREAM_STAGES_STATIC, pairs)
+        if 0.6 * static <= units <= static:
+            return GemmPlan("stream", STREAM_THREADS, splits, steps * GEMM_BK,
+                            units, st_static)
+        st_dynamic, dynamic = ring(STREAM_STAGES_DYNAMIC, pairs)
+        if units >= 3 * dynamic and steps * GEMM_BK <= STREAM_MAX_ROWS:
+            return GemmPlan("stream", STREAM_THREADS, splits, steps * GEMM_BK,
+                            dynamic, st_dynamic)
+    return GemmPlan("stream", STREAM_THREADS, splits, steps * GEMM_BK,
+                    min(units, static), st_static)
 
 
 def gemm_plan(M: int, N: int, K: int, b_m: int,
               sms: int = H100_SMS, quant_w: bool = True,
-              E: int = 1) -> GemmPlan:
-    """The split and block size the wrapper gives the GEMM kernel (for a
+              E: int = 1, w_nk: bool = False, aligned: bool = True,
+              g: int = 16) -> GemmPlan:
+    """The route, split and block size the wrapper gives kernel 1 (for a
     stack of ``E`` GEMMs of that shape, one launch over the stack).
 
-    M > 16 with b_m <= 8 takes the tensor-core route (64 x 64 tiles), unless
-    the weight is taken as it is (``quant_w`` false: a bf16 operand would
-    round a weight off its grid); the
-    rest the decode route, whose blocks of 128, 64 or 32 threads cover 32,
-    16 or 8 columns over 64-row steps (the widest block that still leaves
-    two blocks per SM to split K over). K is then split until the grid
-    holds about two blocks per SM, into ranges of whole 64-row steps. The
-    E stacked GEMMs count as E times the tiles; their decode-route grid
-    holds one wave of the blocks that the shared memory (copy ring and
-    quantized x) lets reside on an SM, up to four."""
+    A stack (E > 1) at M <= 16 with the weight quantized, stored (E, K, N)
+    (not ``w_nk``) with N % 4 == 0 and a 16-byte aligned base (``aligned``)
+    takes the stream route (:func:`_stream_plan`). Otherwise M > 16 with
+    b_m <= 8 takes the tensor-core route (64 x 64 tiles), unless the weight
+    is taken as it is (``quant_w`` false: a bf16 operand would round a
+    weight off its grid); the rest the decode route, whose blocks of 128,
+    64 or 32 threads cover 32, 16 or 8 columns over 64-row steps (the
+    widest block that still leaves two blocks per SM to split K over). K
+    is then split until the grid holds about two blocks per SM, into
+    ranges of whole 64-row steps. The E stacked GEMMs count as E times the
+    tiles; their decode-route grid holds one wave of the blocks that the
+    shared memory (copy ring and quantized x) lets reside on an SM, up to
+    four."""
+    if E > 1 and M <= 16 and quant_w and not w_nk and N % 4 == 0 and \
+            aligned:
+        plan = _stream_plan(M, N, K, E, sms, g)
+        if plan is not None:
+            return plan
     units = max(1, -(-K // GEMM_BK))
     target = 2 * sms
     mma = M > 16 and b_m <= 8 and quant_w
@@ -209,7 +300,8 @@ def gemm_plan(M: int, N: int, K: int, b_m: int,
             1, decode_blocks_per_sm(M, threads, steps * GEMM_BK, E) * sms //
             (splits * m_tiles)))
         blocks = n_blocks * splits * m_tiles
-    return GemmPlan(mma, threads, splits, steps * GEMM_BK, blocks)
+    return GemmPlan("mma" if mma else "decode", threads, splits,
+                    steps * GEMM_BK, blocks)
 
 
 def decode_blocks_per_sm(M: int, threads: int, k_split: int,
@@ -251,7 +343,9 @@ def mirage_matmul_fused(x: torch.Tensor, w: torch.Tensor,
     kernel: BFP(b_m <= 8) values are exact in bf16 and every product of two
     is exact in f32. Where :func:`gemm_plan` splits K, the partials go to a
     workspace allocated here and a second launch of the same call adds them
-    in split order (one count in :data:`LAUNCHES`).
+    in split order (one count in :data:`LAUNCHES`). A stack at decode takes
+    the stream route, whose pre-pass (x quantized once, empty experts
+    flagged) counts under ``gemm_stream_prep``.
     """
     _forward_only("mirage_matmul_fused", _GEMM_ROUTE, x, w)
     batched = w.dim() == 3
@@ -279,7 +373,6 @@ def mirage_matmul_fused(x: torch.Tensor, w: torch.Tensor,
         raise ValueError("w must be a contiguous (K, N) matrix or the "
                          "transpose of a contiguous (N, K) one (or a "
                          "stack of either)")
-    truncate = _truncate(policy.rounding)
     K, N = w.shape[-2:]
     E = w.shape[0] if batched else 1
     xf = x if batched else x.reshape(-1, K)
@@ -288,15 +381,39 @@ def mirage_matmul_fused(x: torch.Tensor, w: torch.Tensor,
                       device=x.device)
     if out.numel():
         plan = gemm_plan(M, N, K, policy.b_m, sm_count(x.device),
-                         quantize_w, E)
-        ws = out if plan.splits == 1 else torch.empty(
-            (plan.splits,) + out.shape, dtype=torch.float32,
-            device=x.device)
-        extension().mirage_gemm(xf, wk, out, ws, w_nk, policy.g, policy.b_m,
-                                 truncate, quantize_w, plan.mma,
-                                 plan.threads, plan.splits, plan.k_split)
-        add_launch_counts({"mirage_gemm": 1})
+                         quantize_w, E, w_nk, wk.data_ptr() % 16 == 0,
+                         policy.g)
+        launch_gemm_plan(xf, wk, out, plan, policy, w_nk, quantize_w)
+        add_launch_counts({"mirage_gemm": 1} if plan.route != "stream" else
+                          {"mirage_gemm": 1, "gemm_stream_prep": 1})
     return out if batched else out.reshape(x.shape[:-1] + (N,))
+
+
+def launch_gemm_plan(x: torch.Tensor, wk: torch.Tensor, out: torch.Tensor,
+                     plan: GemmPlan, policy: MiragePolicy, w_nk: bool = False,
+                     quantize_w: bool = True) -> None:
+    """Enqueue kernel 1 on CUDA operands as ``plan`` says, writing ``out``
+    (the wrapper's launch, without its count): ``wk`` is the weight's
+    contiguous storage, (K, N), or (N, K) where ``w_nk``, stacked alike for
+    a 3-D ``x``. Allocates the split-K workspace and, on the stream route,
+    the quantized x and the live flags its pre-pass writes."""
+    ws = out if plan.splits == 1 else torch.empty(
+        (plan.splits,) + out.shape, dtype=torch.float32, device=out.device)
+    truncate = _truncate(policy.rounding)
+    if plan.route != "stream":
+        extension().mirage_gemm(x, wk, out, ws, w_nk, policy.g, policy.b_m,
+                                truncate, quantize_w, plan.mma, plan.threads,
+                                plan.splits, plan.k_split)
+        return
+    E, M, K = x.shape
+    mt = 4 if M <= 4 else 8 if M <= 8 else 16
+    xq = torch.empty((E, -(-K // GEMM_BK) * GEMM_BK, mt),
+                     dtype=torch.float32, device=x.device)
+    live = torch.empty((E * plan.splits + 1,), dtype=torch.int32,
+                       device=x.device)
+    extension().mirage_gemm_stream(x, wk, out, ws, xq, live, policy.g,
+                                   policy.b_m, truncate, plan.splits,
+                                   plan.k_split, plan.stages, plan.blocks)
 
 
 #: the head dims ``csrc/flash_attention.cu`` is instantiated at

@@ -44,6 +44,28 @@ def mirage_gemm_ref(x: torch.Tensor, w: torch.Tensor, b_m: int = 4,
     return torch.matmul(xq, wq)
 
 
+def stream_prep_ref(x: torch.Tensor, b_m: int, g: int, rounding: str,
+                    splits: int, k_split: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the stream route's pre-pass
+    (``csrc/mirage_gemm_stack.cu`` ``stream_prep_kernel``): x (E, M, K)
+    quantized along K into the k-major ``xq`` (E, Kp, MT), Kp = K rounded
+    up to 64 and MT = 4, 8 or 16 >= M, zero past M and K; and ``live``
+    (E * splits,) int32, 1 where a quantized value of split s (rows
+    [s k_split, (s + 1) k_split)) of expert e is nonzero, at e * splits + s.
+    """
+    E, M, K = x.shape
+    mt = 4 if M <= 4 else 8 if M <= 8 else 16
+    kp = -(-K // 64) * 64
+    q = bfp.bfp_fake_quant(x.to(torch.float32), b_m, g, rounding)
+    xq = torch.zeros((E, kp, mt), dtype=torch.float32, device=x.device)
+    xq[:, :K, :M] = q.transpose(1, 2)
+    nonzero = (xq != 0).any(dim=2)                              # (E, Kp)
+    live = torch.stack([nonzero[:, s * k_split:(s + 1) * k_split].any(dim=1)
+                        for s in range(splits)], dim=1)
+    return xq, live.reshape(-1).to(torch.int32)
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True,
                         window: Optional[int] = None,

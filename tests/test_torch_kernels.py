@@ -353,7 +353,7 @@ def test_wrappers_on_cpu_take_plain_versions_and_launch_nothing():
                          ref.rrns_decode_ref(res, tables)):
         assert torch.equal(got, want)
     assert ops.LAUNCHES == {"bfp_quantize": 0, "mirage_gemm": 0,
-                            "flash_attention": 0, "rns_matmul": 0,
+                            "gemm_stream_prep": 0, "flash_attention": 0, "rns_matmul": 0,
                             "rns_matmul_channel": 0, "rrns_decode": 0}
 
 

@@ -8,7 +8,9 @@ pairs) and the dispatched and expert-output buffers bit for bit, the output
 and the aux loss within 1e-5, at the reduced configs' dropless capacity
 factor 8.0 and at the published 1.25, where pairs overflow and drop. The
 batched GEMM (``mirage_matmul_auto`` with an ``(E, K, N)`` weight) equals
-JAX's ``vmap`` of its GEMM bit for bit. Then both reduced MoE LMs: the full
+JAX's ``vmap`` of its GEMM bit for bit, also where experts' x rows are
+zero (their rows exactly +0.0, the bits the stream route writes when it
+skips them). Then both reduced MoE LMs: the full
 forward, the aux loss and ``LM.loss``. Card-only checks carry the ``cuda``
 marker.
 """
@@ -199,6 +201,33 @@ def test_batched_gemm_equals_jax_vmap_bitwise(policy, scope):
                                   want.view(np.int32))
 
 
+@pytest.mark.parametrize("dead", ["some", "all"])
+@pytest.mark.parametrize("rounding", ["nearest", "truncate"])
+def test_plain_stack_with_empty_experts_equals_jax_vmap(dead, rounding):
+    """Experts whose x rows are all zero (the buffers of experts no token
+    routed to, and their ``down`` inputs, silu(0) x 0): the plain version of
+    the stack equals JAX's vmap of its GEMM bit for bit, and their rows are
+    exactly +0.0 on both sides, the bits the stream route writes for an
+    expert it skips."""
+    x, w = _rand((8, 6, 70), 1), _rand((8, 70, 20), 2, 0.1)
+    zero = [1, 2, 5, 6, 7] if dead == "some" else list(range(8))
+    x[zero] = 0.0
+    if dead == "some":
+        x[3, :, :40] = 0.0       # a live expert with a zero K range
+    jpol = jpolicy("mirage").replace(rounding=rounding)
+    pol = get_policy("mirage").replace(rounding=rounding)
+    want = np.asarray(jax.vmap(lambda a, b: jgemm.mirage_matmul_auto(
+        a, b, jpol))(jnp.asarray(x), jnp.asarray(w)))
+    with torch.no_grad():
+        got = gemm.mirage_matmul_auto(torch.from_numpy(x),
+                                      torch.from_numpy(w), pol).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert not got[zero].view(np.int32).any()
+    assert not want[zero].view(np.int32).any()
+    if dead == "some":
+        assert got[[0, 3, 4]].any()
+
+
 def test_batched_gemm_backward_raises():
     """The batched GEMM has no backward yet: MoE training waits in the
     ROADMAP."""
@@ -237,19 +266,33 @@ def test_fused_wrapper_stacks_on_the_cpu():
 
 
 def test_gemm_plan_counts_the_stack_in_its_tiles():
-    """E experts fill the card: at qwen3-moe's decode shapes the stack needs
-    no split of K, where one expert alone splits it; E = 1 is the unbatched
-    plan."""
+    """E experts fill the card: at qwen3-moe's decode shapes the stack takes
+    the stream route with no split of K, its persistent grid sized by the
+    units of the whole stack (128 experts x 128-column tiles: one a block
+    at gate/up, from a counter at down), where one expert alone splits K
+    on the decode route; E = 1 is the unbatched plan.
+    An (E, N, K) stack keeps the decode route, whose grid holds one wave of
+    the blocks its shared memory lets reside."""
     for K, N in ((2048, 768), (768, 2048)):
         one = ops.gemm_plan(4, N, K, 4)
         assert ops.gemm_plan(4, N, K, 4, E=1) == one
-        assert one.splits > 1
+        assert one.splits > 1 and one.route == "decode"
         stack = ops.gemm_plan(4, N, K, 4, E=128)
-        assert stack.splits == 1 and not stack.mma and stack.threads == 128
+        assert stack.route == "stream" and stack.splits == 1
+        assert stack.threads == ops.STREAM_THREADS
+        per_sm = min(ops.STREAM_MAX_BLOCKS_PER_SM, ops.SM_SHARED_BYTES // (
+            ops.stream_smem_bytes(4, 16, stack.stages, 128) +
+            ops.BLOCK_RESERVED_SHARED_BYTES))
+        assert stack.blocks == min(128 * N // ops.STREAM_COLS,
+                                   per_sm * ops.H100_SMS)
+        assert stack.stages == (ops.STREAM_STAGES_STATIC if K == 2048
+                                else ops.STREAM_STAGES_DYNAMIC)
+        nk = ops.gemm_plan(4, N, K, 4, E=128, w_nk=True)
+        assert nk.route == "decode" and nk.splits == 1 and nk.threads == 128
         # one wave: 64 KB of shared memory a block at K = 2048 (3 an SM)
-        per_sm = ops.decode_blocks_per_sm(4, 128, stack.k_split, 128)
+        per_sm = ops.decode_blocks_per_sm(4, 128, nk.k_split, 128)
         assert per_sm == (3 if K == 2048 else 4)
-        assert stack.blocks == per_sm * 128 <= per_sm * ops.H100_SMS
+        assert nk.blocks == per_sm * 128 <= per_sm * ops.H100_SMS
     assert ops.gemm_plan(40, 768, 2048, 4, E=128).mma
 
 
@@ -332,27 +375,33 @@ def cuda():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("empty", [0.0, 0.75])
 @pytest.mark.parametrize("shape", [(128, 4, 2048, 768), (8, 160, 512, 300),
-                                   (3, 5, 200, 77)])
-def test_cuda_batched_gemm_equals_per_expert_launches(cuda, shape):
-    """One launch over the stack equals E unbatched launches with its plan,
-    bit for bit, in both weight layouts."""
+                                   (3, 5, 200, 77), (8, 4, 14336, 4096)])
+def test_cuda_batched_gemm_equals_per_expert_launches(cuda, shape, empty):
+    """One launch over the stack equals E single-expert launches of the
+    route and split its plan picked, bit for bit, in both weight layouts;
+    experts whose x rows are all zero (``empty`` of them) give rows of
+    exactly +0.0."""
     En, M, Kd, N = shape
     policy = get_policy("mirage")
     x = torch.from_numpy(_rand((En, M, Kd), 1)).to(cuda)
+    dead = torch.arange(En, device=cuda) < round(empty * En)
+    x[dead] = 0.0
     for w in (torch.from_numpy(_rand((En, Kd, N), 2, 0.05)).to(cuda),
               torch.from_numpy(_rand((En, N, Kd), 3, 0.05)).to(cuda)
               .transpose(1, 2)):
         got = ops.mirage_matmul_fused(x, w, policy)
-        plan = ops.gemm_plan(M, N, Kd, 4, ops.sm_count(cuda), True, En)
         w_nk = not w.is_contiguous()
         wk = w.transpose(1, 2) if w_nk else w
+        plan = ops.gemm_plan(M, N, Kd, 4, ops.sm_count(cuda), True, En,
+                             w_nk, wk.data_ptr() % 16 == 0)
+        assert plan.route == ("stream" if M <= 16 and N % 4 == 0 and
+                              not w_nk else "mma" if M > 16 else "decode")
         for e in range(En):
-            one = torch.empty((M, N), device=cuda)
-            ws = one if plan.splits == 1 else torch.empty(
-                (plan.splits, M, N), device=cuda)
-            ops.extension().mirage_gemm(
-                x[e], wk[e], one, ws, w_nk, 16, 4, False, True, plan.mma,
-                plan.threads, plan.splits, plan.k_split)
+            one = torch.empty((1, M, N), device=cuda)
+            ops.launch_gemm_plan(x[e:e + 1], wk[e:e + 1], one, plan, policy,
+                                 w_nk)
             assert torch.equal(got[e].view(torch.int32),
-                               one.view(torch.int32))
+                               one[0].view(torch.int32))
+        assert not got[dead].view(torch.int32).any()
