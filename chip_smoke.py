@@ -82,6 +82,23 @@ their published widths, served under mirage cold, warmed and (qwen3-moe)
 paged, the streams equal, every expert stack one launch, the steady tick
 timed and profiled, and the first and last layers teacher-forced against
 the CPU with the routing choices that differ and their margins.
+
+Slice 6b (MoE training): the GEMM kernel at every expert stack of a
+training step of both MoE configs (dX on the stack's (E, N, K) view, dW
+on X^T with the ragged contraction C, the weight-stationary forward and
+dX on the trainer's layout), bitwise equal to E single-expert launches
+and a repeat; qwen3-moe-30b-a3b (4 of 48 layers, 10 steps) and
+mixtral-8x7b (2 of 32, 3 steps) trained as ``launch.train --arch ...
+--layers N`` trains them, every expert stack's forward, dX and dW one
+launch, two steps from one state bitwise equal; qwen3-moe's expert
+stacks at 2 layers teacher-forced against the CPU (with the routing on
+the CPU's router input) and 1 layer under fp32 held to the CPU; both
+configs at 1 layer under weight-stationary quantization with BFP
+gradient compression, every kernel-1 and kernel-2 launch counted.
+
+Run as a script, it pins the CPU side's vector dispatch (ATen at AVX2,
+MKL's conditional reproducibility at AVX2) before importing torch, so the
+CPU references do not depend on the host's own dispatch level.
 """
 
 from __future__ import annotations
@@ -92,12 +109,23 @@ import functools
 import hashlib
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
 import sys
 import time
 from typing import Optional
+
+if __name__ == "__main__":
+    # The CPU side's plain versions are the references of the card-vs-CPU
+    # gates. Pin ATen's vector dispatch and MKL's code path (before torch is
+    # imported), so that their bits do not depend on the host's CPU: the
+    # plain qwen2-0.5b layers take other bits under the host's own AVX-512
+    # dispatch than under AVX2, and moved by up to 0.0079 relative L2 under
+    # ATEN_CPU_CAPABILITY=default.
+    os.environ.setdefault("ATEN_CPU_CAPABILITY", "avx2")
+    os.environ.setdefault("MKL_CBWR", "AVX2,STRICT")
 
 import numpy as np
 import torch
@@ -186,7 +214,14 @@ class CheckFailed(RuntimeError):
     pass
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also gets ``t_s``, the seconds since
+    the script started (the last line, the device record, stays as it is)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -1070,6 +1105,11 @@ def compare_with_cpu(model, prompt_np, cap):
           "card_layers_sha1": digest_d.hexdigest(),
           "cpu_layers_sha1": digest_h.hexdigest(),
           "host_cpu_flags": host_cpu_flags(),
+          "host_threads": torch.get_num_threads(),
+          "aten_cpu_capability": torch.backends.cpu.get_cpu_capability(),
+          "mkl": torch.backends.mkl.is_available(),
+          "pinned_env": {k: os.environ.get(k) for k in (
+              "ATEN_CPU_CAPABILITY", "MKL_CBWR")},
           "mirage_head_rel_l2": head_err,
           "mirage_end_to_end_rel_l2": ends["mirage"][0],
           "mirage_end_to_end_top1_match": ends["mirage"][1],
@@ -2037,16 +2077,20 @@ LAYER_GEMMS = ("q", "k", "v", "o", "gate", "up", "down")
 REDUCED = False
 
 
-def train_setup(policy, **tc_kw):
-    """The launcher's model (weights from seed 0), train config and data."""
+def train_setup(policy, arch: str = "qwen2-0.5b",
+                n_layers: Optional[int] = None, **tc_kw):
+    """The launcher's model (weights from seed 0; ``n_layers`` cuts the
+    depth as ``--layers`` does), train config and data."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data.pipeline import SyntheticLM, SyntheticLMConfig
     from repro_torch.models import build_model
     from repro_torch.models.lm import LMCallOptions
 
-    cfg = get_config("qwen2-0.5b")
+    cfg = get_config(arch)
     cfg = cfg.reduced() if REDUCED else cfg
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=min(n_layers, cfg.n_layers))
     model = build_model(cfg, policy, LMCallOptions(q_chunk=64, kv_chunk=64),
                         device=DEV, generator=torch.Generator(
                             device=DEV).manual_seed(0))
@@ -2115,9 +2159,11 @@ def weight_read(b: torch.Tensor) -> str:
 
 def gemm_bound(ref, a, b, quantize_w: bool = True):
     """The GEMM check's bound, 1e-5 (|aq| @ |bq|) + 1e-30: every folded
-    product is exact in f32, only the order of the f32 sum differs."""
+    product is exact in f32, only the order of the f32 sum differs (per
+    expert for a stack)."""
     aq = ref.bfp_fake_quant_ref(a, 4, 16)
-    bq = ref.bfp_fake_quant_ref(b.T, 4, 16).T if quantize_w else b
+    bq = ref.bfp_fake_quant_ref(b.transpose(-1, -2), 4, 16).transpose(
+        -1, -2) if quantize_w else b
     return 1e-5 * (aq.abs() @ bq.abs()) + 1e-30
 
 
@@ -2312,18 +2358,22 @@ def grads_vs(got_loss, got, want_loss, want):
             "by_kind": leaf_kinds(errs)}
 
 
-def phase_train_fp32_vs_cpu():
-    """2 fp32 steps at full width on the card and on the CPU from the same
-    weights and batches (TF32 off): loss and grad norm within 1e-4. Step
-    1's gradients are also held leaf by leaf (each within 1e-4 of its
-    leaf's largest element), and once more with TF32 on as a control: a
-    lower precision these limits must catch. The CPU's global norm is
-    compared with the f64 sum, beside an f32 ``torch._foreach_norm``."""
+def phase_train_fp32_vs_cpu(arch: str = "qwen2-0.5b",
+                            n_layers: Optional[int] = None,
+                            phase: str = "train_fp32_vs_cpu"):
+    """2 fp32 steps at full width (``n_layers`` cuts the depth) on the
+    card and on the CPU from the same weights and batches (TF32 off): loss
+    and grad norm within 1e-4. Step 1's gradients are also held leaf by
+    leaf (each within 1e-4 of its leaf's largest element), and once more
+    with TF32 on as a control: a lower precision these limits must catch.
+    The CPU's global norm is compared with the f64 sum, beside an f32
+    ``torch._foreach_norm``."""
     from repro_torch.core.backends import baselines
     from repro_torch.core.precision import get_policy
     from repro_torch.optim.optimizers import global_norm
 
-    cfg, model, tc, data = train_setup(get_policy("fp32"))
+    t_phase = time.perf_counter()
+    cfg, model, tc, data = train_setup(get_policy("fp32"), arch, n_layers)
     cpu_model = copy.deepcopy(model).to("cpu")
     batches = [data.batch_at(i) for i in range(2)]
     cpu_loss, cpu_grads = step1_grads(cpu_model, batches[0])
@@ -2358,11 +2408,12 @@ def phase_train_fp32_vs_cpu():
     leaves_ok = leaves["leaf_rel_max"] < 1e-4
     tf32["caught_by_the_1e-4_limits"] = max(
         tf32["loss_rel"], tf32["grad_norm_rel"], tf32["leaf_rel_max"]) >= 1e-4
-    emit({"phase": "train_fp32_vs_cpu", "steps": 2,
-          "card": card, "cpu": plain, "rel_err": rel,
+    emit({"phase": phase, "arch": cfg.arch_id, "n_layers": cfg.n_layers,
+          "steps": 2, "card": card, "cpu": plain, "rel_err": rel,
           "step1_grads_tf32_off": leaves, "step1_grads_tf32_on": tf32,
           "cpu_step1_grad_norm": cpu_norm, "card_seconds": card_s,
-          "cpu_seconds": cpu_s, "ok": ok and leaves_ok})
+          "cpu_seconds": cpu_s, "ok": ok and leaves_ok,
+          "phase_seconds": time.perf_counter() - t_phase})
     check(ok, f"fp32 training on the card differs from the CPU by >= 1e-4 "
               f"relative: {rel}")
     check(leaves_ok, f"an fp32 step-1 gradient leaf on the card differs from "
@@ -2418,16 +2469,19 @@ def function_grads(x, w, dout, policy):
     return x.grad, w.grad
 
 
-def cpu_capture(cpu_model, batch, layers, wsq_policy=None):
-    """The CPU's step-1 forward and backward with the GEMMs of ``layers``
-    and the head recorded; under ``wsq_policy`` on the weight-stationary
-    copies, as the trainer runs it. Returns (loss, capture, head index)."""
+def cpu_capture(cpu_model, batch, layers, wsq_policy=None,
+                gemms=LAYER_GEMMS, with_head: bool = True):
+    """The CPU's step-1 forward and backward with the ``gemms`` of
+    ``layers`` and the head recorded; under ``wsq_policy`` on the
+    weight-stationary copies, as the trainer runs it. Returns (loss,
+    capture, head index)."""
     from repro_torch.runtime.trainer import _Loss, _prequantize_params
 
     n_layers = len(cpu_model.layers)
     head = len(LAYER_GEMMS) * n_layers
     keep = [len(LAYER_GEMMS) * li + j for li in layers
-            for j in range(len(LAYER_GEMMS))] + [head]
+            for j, name in enumerate(LAYER_GEMMS) if name in gemms] + \
+        ([head] if with_head else [])
     batch = {k: torch.from_numpy(v) for k, v in batch.items()}
     run = dict(cpu_model.named_parameters())
     with GemmCapture(keep) as cap:
@@ -2454,11 +2508,14 @@ def teacher_forced(ref, cap, head):
         want = function_grads(rec["x"], rec["w"], rec["dO"], policy)
         x, w, d = to_card(rec["x"]), to_card(rec["w"]), to_card(rec["dO"])
         got = function_grads(x, w, d, policy)
-        d2 = d.reshape(-1, d.shape[-1])
-        x2 = x.reshape(-1, x.shape[-1])
+        # a stack of experts (E, C, .) is held per expert as it is
+        stack = w.dim() == 3
+        d2 = d if stack else d.reshape(-1, d.shape[-1])
+        x2 = x if stack else x.reshape(-1, x.shape[-1])
         as_is = policy.assume_quantized_weights
-        bounds = (gemm_bound(ref, d2, w.T, not as_is).reshape(x.shape),
-                  gemm_bound(ref, x2.T, d2))
+        bounds = (gemm_bound(ref, d2, w.transpose(-1, -2),
+                             not as_is).reshape(x.shape),
+                  gemm_bound(ref, x2.transpose(-1, -2), d2))
         errs = []
         for g, wv, tol in zip(got, want, bounds):
             e = (g - to_card(wv)).abs()
@@ -2466,7 +2523,7 @@ def teacher_forced(ref, cap, head):
             if bool((e > tol).any()):
                 bad.append(name)
         rows[name] = {"weight_as_is": as_is,
-                      "dX_weight_read": weight_read(w.T),
+                      "dX_weight_read": weight_read(w.transpose(-1, -2)),
                       "dX_max_abs_err": errs[0][0],
                       "dX_err_over_tol": errs[0][1],
                       "dW_max_abs_err": errs[1][0],
@@ -2505,19 +2562,26 @@ def phase_train_grads_vs_cpu(ops, ref, layers=(0, 11, 23)):
                            f"{cpu_loss}: {loss_rel:.2e} relative")
 
 
-def phase_slice_train_wsq(ops, ref, layers=(0, 11, 23)):
+def phase_slice_train_wsq(ops, ref, layers=(0, 11, 23),
+                          arch: str = "qwen2-0.5b",
+                          n_layers: Optional[int] = None,
+                          phase: str = "slice_train_wsq"):
     """3 steps with weight-stationary quantization and BFP gradient
-    compression: kernel #2 quantizes the 168 GEMM weights and every
-    non-scalar gradient leaf each step. Step 1's loss against the CPU's,
-    and its GEMMs teacher-forced as in ``train_grads_vs_cpu``: the CPU's
-    (x, w, dO) of layers 0, 11 and 23 and the head, w the trainer's
-    transposed view of a contiguous (N, K) copy, so dX runs the kernel on
-    that contiguous copy as it is."""
+    compression: kernel #2 quantizes every GEMM weight (an expert stack is
+    one launch over its (E * N, K) rows) and every non-scalar gradient leaf
+    each step. Step 1's loss against the CPU's, and its GEMMs
+    teacher-forced as in ``train_grads_vs_cpu``: the CPU's (x, w, dO) of
+    ``layers`` and the head, w the trainer's transposed view of a
+    contiguous (N, K) copy (of an (E, N, K) stack for the experts), so dX
+    runs the kernel on that contiguous copy as it is. ``n_layers`` cuts
+    the depth of ``arch`` as ``--layers`` does."""
     from repro_torch.core.precision import get_policy
     from repro_torch.runtime.trainer import _quantized_names
 
+    t_phase = time.perf_counter()
     policy = get_policy("mirage", assume_quantized_weights=True)
-    cfg, model, tc, data = train_setup(policy, weight_stationary_quant=True,
+    cfg, model, tc, data = train_setup(policy, arch, n_layers,
+                                       weight_stationary_quant=True,
                                        grad_compression="bfp")
     cpu_model = copy.deepcopy(model).to("cpu")
     batches = [data.batch_at(i) for i in range(WSQ_STEPS)]
@@ -2526,39 +2590,50 @@ def phase_slice_train_wsq(ops, ref, layers=(0, 11, 23)):
     n_leaves = sum(1 for p in params.values() if p.dim() > 0)
     per_step = 7 * cfg.n_layers + 1
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     _, _, times, logs = run_train(model, tc, iter(batches), WSQ_STEPS)
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
     del model
+    free_card()
     want = {"mirage_gemm": 3 * per_step * WSQ_STEPS,
             "bfp_quantize": (n_quant + n_leaves) * WSQ_STEPS}
     t0 = time.perf_counter()
     cpu_loss, cap, head = cpu_capture(cpu_model, batches[0], layers, policy)
     cpu_s = time.perf_counter() - t0
+    del cpu_model
     rows, bad = teacher_forced(ref, cap, head)
     # dX = dO @ W^T must read the contiguous (N, K) copy as a row-major
     # (K' = N, N' = K) operand, the kernel's quantize-skipping (K, N) route
     wrong_layout = [n for n, r in rows.items() if n != "head" and
                     r["dX_weight_read"] != "(K, N) row-major"]
+    stacks = sum(1 for r in cap.got.values() if r["w"].dim() == 3)
     losses = [m["loss"] for m in logs]
     rel = abs(losses[0] - cpu_loss) / abs(cpu_loss)
-    emit({"phase": "slice_train_wsq", "steps": WSQ_STEPS,
-          "quantized_weights": n_quant, "gradient_leaves": n_leaves,
-          "launches": launches, "expected_launches": want,
-          "step_ms": [t * 1e3 for t in times], "losses": losses,
-          "cpu_step1_loss": cpu_loss, "step1_loss_rel_err": rel,
-          "gemms": rows, "cpu_seconds": cpu_s,
-          "ok": rel < 1e-3 and not bad and not wrong_layout})
+    emit({"phase": phase, "arch": cfg.arch_id, "n_layers": cfg.n_layers,
+          "steps": WSQ_STEPS, "quantized_weights": n_quant,
+          "gradient_leaves": n_leaves, "launches": launches,
+          "expected_launches": want,
+          "step_ms": [t * 1e3 for t in times], "peak_mem_gb": peak,
+          "losses": losses, "cpu_step1_loss": cpu_loss,
+          "step1_loss_rel_err": rel, "gemms": rows,
+          "expert_stacks_teacher_forced": stacks, "cpu_seconds": cpu_s,
+          "ok": rel < 1e-3 and not bad and not wrong_layout,
+          "phase_seconds": time.perf_counter() - t_phase})
     check(all(math.isfinite(v) for v in losses),
-          f"a weight-stationary training loss is not finite: {losses}")
-    expect_launches(launches, want, "slice_train_wsq")
-    check(rel < 1e-3, f"wsq step-1 loss card {losses[0]} vs CPU "
+          f"{phase}: a weight-stationary training loss is not finite: "
+          f"{losses}")
+    expect_launches(launches, want, phase)
+    check(rel < 1e-3, f"{phase}: step-1 loss card {losses[0]} vs CPU "
                       f"{cpu_loss}: {rel:.2e} relative")
-    check(not wrong_layout, f"a weight-stationary dX did not read the "
-                            f"contiguous (N, K) copy: {wrong_layout}")
-    check(not bad, f"wsq card dX/dW outside the GEMM bound of the CPU's at "
-                   f"{bad}")
+    check(not wrong_layout, f"{phase}: a weight-stationary dX did not read "
+                            f"the contiguous (N, K) copy: {wrong_layout}")
+    check(not bad, f"{phase}: card dX/dW outside the GEMM bound of the "
+                   f"CPU's at {bad}")
+    check(stacks == 3 * len(layers) * (cfg.n_experts > 0),
+          f"{phase}: {stacks} expert stacks teacher-forced")
     return launches
 
 
@@ -3276,6 +3351,7 @@ MOE_GEMM_EXTRA = ((3, 5, 200, 77), (5, 19, 130, 100), (2, 40, 4096, 128),
 MOE_EMPTY_SHAPES = ((128, 4, 768, 2048), (128, 4, 2048, 768),
                     (8, 4, 14336, 4096), (7, 9, 1000, 300))
 MOE_ARCH = {"qwen3-moe": "qwen3-moe-30b-a3b", "mixtral": "mixtral-8x7b"}
+MOE_ARCH_OF = {arch: model for model, arch in MOE_ARCH.items()}
 ROUTE_NAMES = {"mma": "mma_bf16", "decode": "decode_f32",
                "stream": "stream_f32"}
 # (arch, layers kept, paged drain too) of the MoE serving phases: the
@@ -3300,18 +3376,21 @@ def moe_gemm_operands(E, M, K, N, seed, w_nk):
     return x, w
 
 
-def per_expert_launches(ops, x, w, policy, plan):
+def per_expert_launches(ops, x, w, policy, plan, quantize_w: bool = True):
     """E single-expert launches of the kernel, one per expert, with the
     batched call's plan (route, split of K, block size): the same
     arithmetic per expert, so the same bits. Called through
-    ``ops.launch_gemm_plan``, so they add nothing to the launch counts."""
+    ``ops.launch_gemm_plan``, so they add nothing to the launch counts. A
+    transposed x (the dW GEMM's X^T) is copied once, as the wrapper
+    copies it."""
     w_nk = not w.is_contiguous()
     wk = w.transpose(1, 2) if w_nk else w
+    x = x.contiguous()
     E, M, _ = x.shape
     out = torch.empty((E, M, w.shape[2]), device=DEV)
     for e in range(E):
         ops.launch_gemm_plan(x[e:e + 1], wk[e:e + 1], out[e:e + 1], plan,
-                             policy, w_nk)
+                             policy, w_nk, quantize_w)
     return out
 
 
@@ -3787,6 +3866,344 @@ def phase_slice_moe(ops, arch: str, n_layers: int, paged: bool):
     return launches_by
 
 
+# --------------------------------------------------------------------------
+# phases 22-26: slice 6b, training the MoE family on the card
+# --------------------------------------------------------------------------
+
+#: (arch, layers kept, steps) of the MoE training slices: the published
+#: widths, depth cut so that the f32 train state (masters, gradients and
+#: both Adam moments, 16 bytes a parameter) fits one card
+MOE_TRAIN_SLICES = (("qwen3-moe-30b-a3b", 4, TRAIN_STEPS),
+                    ("mixtral-8x7b", 2, 3))
+#: the kinds of expert-stack GEMM a MoE training step launches: dX and dW,
+#: and under weight-stationary training the forward and dX, which take
+#: the weight as it is
+MOE_BWD_KINDS = ("dX", "dW", "fwd_as_is", "dX_as_is")
+MOE_GRAD_LAYERS, MOE_FP32_LAYERS = 2, 1
+#: the MoE configs trained with weight-stationary quantization and BFP
+#: gradient compression, cut to one layer (teacher-forced): the kernels see
+#: the same stacks at any depth, the CPU's reference step takes most of the
+#: phase's time, and the error-feedback buffer and the bf16 grid copies add
+#: about 8 bytes a parameter to the 16 of the plain slices
+MOE_WSQ_ARCHS = ("qwen3-moe-30b-a3b", "mixtral-8x7b")
+
+
+def moe_train_capacity(cfg) -> int:
+    """Rows of an expert buffer at a training step's 256 tokens."""
+    from repro_torch.models import moe
+    return moe.capacity(TRAIN_BATCH * TRAIN_SEQ, cfg.n_experts,
+                        cfg.experts_per_token, cfg.capacity_factor)
+
+
+def moe_train_stacks():
+    """(model, gemm, E, C, K, N, stacks a layer) of the expert stacks of
+    both MoE training slices: gate and up (K = d_model, N = moe_d_ff), and
+    down (K = moe_d_ff, N = d_model), at C = the capacity of 256 tokens."""
+    from repro_torch.configs import get_config
+    for model, arch in MOE_ARCH.items():
+        cfg = get_config(arch)
+        cfg = cfg.reduced() if REDUCED else cfg
+        C = moe_train_capacity(cfg)
+        yield model, "gate/up", cfg.n_experts, C, cfg.d_model, \
+            cfg.moe_d_ff, 2
+        yield model, "down", cfg.n_experts, C, cfg.moe_d_ff, cfg.d_model, 1
+
+
+def moe_bwd_operands(kind: str, E: int, C: int, K: int, N: int, seed: int):
+    """Kernel 1's operands (a, b, quantize_w) for one GEMM of a training
+    step's expert stack (E, K, N), as ``MirageMatmul`` hands them over: dX
+    = dO (E, C, N) @ W^T, the (E, N, K) view of the contiguous stack; dW =
+    X^T (E, K, C), the transposed view of the contiguous buffers, @ dO; the
+    weight-stationary forward and dX on ``_prequantize_params``' own
+    layout (a transposed view of a contiguous (E, N, K) copy on its grid),
+    read as it is."""
+    from repro_torch.core.precision import get_policy
+    from repro_torch.runtime.trainer import _prequantize_params
+
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    x = torch.randn((E, C, K), generator=gen, device=DEV)
+    dout = torch.randn((E, C, N), generator=gen, device=DEV) * 1e-2
+    w = torch.randn((E, K, N), generator=gen, device=DEV) / math.sqrt(K)
+    if kind == "dX":
+        return dout, w.transpose(1, 2), True
+    if kind == "dW":
+        return x.transpose(1, 2), dout, True
+    wq = _prequantize_params({"moe.gate": w}, get_policy("mirage"),
+                             torch.float32)["moe.gate"].detach()
+    check(wq.transpose(1, 2).is_contiguous(), "the weight-stationary stack "
+          "is not a transposed view of an (E, N, K) stack")
+    return (x, wq, False) if kind == "fwd_as_is" else \
+        (dout, wq.transpose(1, 2), False)
+
+
+def phase_gemm_bwd_batched(ops, ref, policy):
+    """Kernel 1 at every expert-stack GEMM of both MoE training slices,
+    each one launch over the stack: dX on the (E, N, K) view, dW on X^T
+    with the ragged K = C, and the weight-stationary forward and dX on the
+    trainer's layout. Bitwise equal to E single-expert launches of the
+    plan's route and split and to a repeat, within the f32-order bound of
+    the plain version. Then dX and dW timed beside the plain version and
+    ``torch.bmm`` on the pre-folded operands."""
+    t_phase = time.perf_counter()
+    sms = ops.sm_count(torch.device(DEV))
+    layers = {MOE_ARCH_OF[arch]: n for arch, n, _ in MOE_TRAIN_SLICES}
+    worst, rows, i = 0.0, [], 0
+    for model, gemm, E, C, K, N, per_layer in moe_train_stacks():
+        for kind in MOE_BWD_KINDS:
+            a, b, qw = moe_bwd_operands(kind, E, C, K, N, seed=900 + i)
+            i += 1
+            w_nk = not b.is_contiguous()
+            wk = b.transpose(1, 2) if w_nk else b
+            M, Kc, Nout = a.shape[1], a.shape[2], b.shape[2]
+            plan = ops.gemm_plan(M, Nout, Kc, policy.b_m, sms, qw, E, w_nk,
+                                 wk.data_ptr() % 16 == 0, policy.g)
+            got = ops.mirage_matmul_fused(a, b, policy, quantize_w=qw)
+            again = ops.mirage_matmul_fused(a, b, policy, quantize_w=qw)
+            single = per_expert_launches(ops, a, b, policy, plan, qw)
+            want = ref.mirage_gemm_ref(a, b, policy.b_m, policy.g,
+                                       quantize_w=qw)
+            tol = gemm_bound(ref, a, b, qw)
+            err = (got - want).abs()
+            bad = int((err > tol).sum())
+            same = bool(torch.equal(got.view(torch.int32),
+                                    again.view(torch.int32)))
+            per_expert = bool(torch.equal(got.view(torch.int32),
+                                          single.view(torch.int32)))
+            torch.cuda.synchronize()
+            emit({"phase": "gemm_bwd_batched_vs_plain", "model": model,
+                  "gemm": gemm, "kind": kind, "E": E, "M": M,
+                  "contraction": Kc, "N": Nout, "weight_as_is": not qw,
+                  "weight_read": weight_read(b[0]),
+                  "x_read": "contiguous" if a.is_contiguous() else
+                  "transposed view, copied once",
+                  "route": ROUTE_NAMES[plan.route], "splits": plan.splits,
+                  "max_abs_err": float(err.max()),
+                  "max_err_over_tol": float((err / tol).max()),
+                  "bitwise_vs_per_expert_launches": per_expert,
+                  "bitwise_repeatable": same,
+                  "ok": bad == 0 and same and per_expert})
+            where = f"{model} {gemm} {kind} E={E} M={M} K={Kc} N={Nout}"
+            check(bad == 0, f"batched {where}: {bad} elements outside the "
+                            f"bound")
+            check(same, f"two batched launches differ at {where}")
+            check(per_expert, f"the batched GEMM differs from E "
+                              f"single-expert launches at {where}")
+            worst = max(worst, float(err.max()))
+            del got, again, single, want, tol, err
+            if kind in ("dX", "dW"):
+                # the library on the pre-folded operands, as for the
+                # forward rows
+                aq = ref.bfp_fake_quant_ref(a, policy.b_m, policy.g)
+                bq = ref.bfp_fake_quant_ref(b.transpose(1, 2), policy.b_m,
+                                            policy.g).transpose(1, 2)
+                aq, bq = aq.contiguous(), bq.contiguous()
+                t_b, by = bound_rate(
+                    4.0 * E * (M * Kc + Kc * Nout + M * Nout),
+                    2.0 * E * M * Nout * Kc,
+                    BF16_FLOPS_PER_S if plan.mma else F32_FLOPS_PER_S)
+                row = {"model": model, "gemm": gemm, "kind": kind, "E": E,
+                       "M": M, "K": Kc, "N": Nout,
+                       "route": ROUTE_NAMES[plan.route],
+                       "splits": plan.splits,
+                       "launches_per_step": per_layer * layers[model],
+                       "ms": time_ms(lambda: ops.mirage_matmul_fused(
+                           a, b, policy)),
+                       "plain_ms": time_ms(lambda: ref.mirage_gemm_ref(
+                           a, b, policy.b_m, policy.g)),
+                       "library_ms": time_ms(lambda: torch.bmm(aq, bq)),
+                       "library": "torch.bmm on the folded operands",
+                       "bound_ms": t_b, "bound_by": by}
+                rows.append(row)
+                emit({"phase": "timing", "kernel": "mirage_gemm_bwd_batched",
+                      **row})
+                del aq, bq
+            del a, b
+    emit({"phase": "gemm_bwd_batched_summary", "cases": i,
+          "max_abs_err": worst,
+          "phase_seconds": time.perf_counter() - t_phase})
+    return worst, rows
+
+
+def active_gemm_weights(model) -> int:
+    """Weights one token's GEMMs read: the attention projections and the
+    head whole, K / E of each expert stack (its K experts); the routers'
+    f32 matmuls are left out."""
+    cfg = model.cfg
+    total = 0
+    for name, p in model.named_parameters():
+        if name.endswith(("moe.gate", "moe.up", "moe.down")):
+            total += p.numel() * cfg.experts_per_token // cfg.n_experts
+        elif name.endswith(".w") and ".router." not in name:
+            total += p.numel()
+    return total + (model.embed.emb.numel() if cfg.tie_embeddings else 0)
+
+
+def grad_digest(grads) -> str:
+    """A digest of a set of gradients: sha1 over each leaf's int64 sum of
+    its f32 bit patterns (summed on the device; a change in any one
+    element's bits changes its leaf's sum)."""
+    sums = torch.stack([g.view(torch.int32).sum(dtype=torch.int64)
+                        for g in grads]).cpu()
+    return hashlib.sha1(sums.numpy().tobytes()).hexdigest()
+
+
+def repeat_step(model, batch):
+    """Step 1's loss and gradient digest of ``model`` on ``batch``, twice
+    from the same parameters: (losses, digests)."""
+    params = list(model.parameters())
+    losses, digests = [], []
+    for _ in range(2):
+        loss, _ = model.loss({k: torch.from_numpy(v).to(DEV)
+                              for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, params)
+        losses.append(loss.detach())
+        digests.append(grad_digest(grads))
+        del loss, grads
+    return losses, digests
+
+
+def phase_slice_train_moe(ops, arch: str, n_layers: int, n_steps: int):
+    """An MoE config at its published widths, cut to ``n_layers``, trained
+    as ``python -m repro_torch.launch.train --arch ARCH --layers N`` trains
+    it (batch 4 x 64, AdamW lr 1e-3, clip 1.0, ``mirage``): every forward,
+    dX and dW GEMM one launch of kernel 1 (3 x (7 x layers + 1) a step,
+    each expert stack one launch), finite losses and grad norms, the step
+    time, tokens/s, peak memory and the model-FLOP share over the active
+    weights; then 2 steps profiled, the step's parts, and two steps from
+    one state, whose losses and gradient digests must be the same bits
+    (the dispatch's scatter and the combine's gather accumulate no float
+    on a kept row). The model is freed after."""
+    from repro_torch.core.precision import get_policy
+
+    t_phase = time.perf_counter()
+    cfg, model, tc, data = train_setup(get_policy("mirage"), arch, n_layers)
+    data = iter(data)
+    per_step = 3 * (7 * cfg.n_layers + 1)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_phase
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated() / 1e9
+    ops.reset_launch_counts()
+    state, step, times, logs = run_train(model, tc, data, n_steps)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    times, logs = list(times), list(logs)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_s = statistics.median(times[1:])
+    weights = active_gemm_weights(model)
+    flops = 6.0 * weights * tokens
+    losses = [m["loss"] for m in logs]
+    norms = [m["grad_norm"] for m in logs]
+    finite = all(math.isfinite(v) for v in losses + norms)
+    want = {"mirage_gemm": per_step * n_steps}
+    name = "slice_train_moe" if arch.startswith("qwen3") else \
+        "slice_train_moe_mixtral"
+    n_params = sum(p.numel() for p in model.parameters())
+    emit({"phase": name, "arch": arch, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "n_experts": cfg.n_experts,
+          "top_k": cfg.experts_per_token, "moe_d_ff": cfg.moe_d_ff,
+          "capacity": moe_train_capacity(cfg),
+          "policy": "mirage (mirage_fast b_m=4 g=16 k=5)",
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": n_steps,
+          "optimizer": "adamw lr=1e-3 clip=1.0", "params": n_params,
+          "train_state_gb": 16.0 * n_params / 1e9,
+          "active_gemm_weights": weights, "gemm_per_step": per_step,
+          "launches": launches, "expected_launches": want,
+          "step_ms": [t * 1e3 for t in times],
+          "step_ms_median_2_on": step_s * 1e3,
+          "tok_per_s": tokens / step_s, "peak_mem_gb": peak,
+          "allocated_before_gb": before, "build_model_s": build_s,
+          "model_flops_per_step": flops,
+          "model_flops_share_of_989_tflops": flops / step_s / BF16_FLOPS_PER_S,
+          "losses": losses, "grad_norms": norms})
+    check(finite, f"{name}: a loss or grad norm is not finite: {losses} "
+                  f"{norms}")
+    expect_launches(launches, want, name)
+    prof = device_profile(lambda: step(state, next(data)), 2)
+    emit({"phase": f"{name}_profile", "steps": 2, **{
+        k.replace("_ms", "_ms_per_step"): v for k, v in prof.items()}})
+    emit({"phase": f"{name}_breakdown", "steps": 2,
+          **step_breakdown(model, tc, state, data, 2)})
+    del state
+    free_card()
+    batch = {k: np.asarray(v) for k, v in next(data).items()}
+    losses2, digests = repeat_step(model, batch)
+    same = bool(torch.equal(losses2[0].view(torch.int32),
+                            losses2[1].view(torch.int32))) and \
+        digests[0] == digests[1]
+    emit({"phase": f"{name}_repeat", "losses": [float(v) for v in losses2],
+          "grad_digests": digests, "bitwise_equal": same, "ok": same,
+          "phase_seconds": time.perf_counter() - t_phase})
+    check(same, f"{name}: two steps from one state differ: "
+                f"{[float(v) for v in losses2]} {digests}")
+    del model
+    free_card()
+    return launches
+
+
+def phase_train_moe_grads_vs_cpu(ops, ref, arch: str = "qwen3-moe-30b-a3b",
+                                 n_layers: int = MOE_GRAD_LAYERS):
+    """Mirage at full width is chaotic end to end, so teacher-forced: the
+    CPU's (x, w, dO) of every expert stack of ``n_layers`` layers, from
+    its step-1 backward, go through the card's batched ``MirageMatmul``;
+    its dX and dW must lie within the f32-order bound of the CPU's. The
+    routers: the CPU's router input of each layer routed on the card, no
+    choice differing unless its top-K gap is under ROUTE_MARGIN. Step 1's
+    loss on both sides beside them."""
+    from repro_torch.core.precision import get_policy
+    from repro_torch.models import moe
+
+    t_phase = time.perf_counter()
+    policy = get_policy("mirage")
+    cfg, model, tc, data = train_setup(policy, arch, n_layers)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    batch = data.batch_at(0)
+    t0 = time.perf_counter()
+    with RoutingTap() as tap:
+        cpu_loss, cap, head = cpu_capture(
+            cpu_model, batch, range(n_layers), gemms=("gate", "up", "down"),
+            with_head=False)
+    cpu_s = time.perf_counter() - t0
+    K, C = cfg.experts_per_token, moe_train_capacity(cfg)
+    routing = {}
+    with torch.no_grad():
+        card_loss, _ = model.loss({k: torch.from_numpy(v).to(DEV)
+                                   for k, v in batch.items()})
+        for li, (xf, r_h) in enumerate(tap.calls):
+            r_d = moe.route(model.layers[li].moe.router,
+                            to_card(xf.detach()), K, C)
+            margins = route_margins(r_h.probs.detach(), r_h.expert_ids,
+                                    r_d.expert_ids.cpu())
+            top = torch.sort(r_h.probs.detach(), dim=-1, descending=True)[0]
+            routing[f"layer_{li}"] = {
+                "routing_diff_same_input": len(margins),
+                "routing_diff_margins": margins,
+                "min_topk_margin": float((top[:, K - 1] - top[:, K]).min()),
+                "dropped_pairs": int((~r_d.keep).sum()),
+                "dropped_pairs_cpu": int((~r_h.keep).sum())}
+    card_loss = float(card_loss)
+    del model
+    free_card()
+    rows, bad = teacher_forced(ref, cap, head)
+    route_ok = all(m < ROUTE_MARGIN for r in routing.values()
+                   for m in r["routing_diff_margins"])
+    emit({"phase": "train_moe_grads_vs_cpu", "arch": arch,
+          "n_layers": n_layers, "policy": "mirage", "capacity": C,
+          "stacks": rows, "routing": routing,
+          "routing_margin_limit": ROUTE_MARGIN,
+          "step1_loss_card": card_loss, "step1_loss_cpu": cpu_loss,
+          "step1_loss_rel_err": abs(card_loss - cpu_loss) / abs(cpu_loss),
+          "cpu_seconds": cpu_s, "ok": not bad and route_ok,
+          "phase_seconds": time.perf_counter() - t_phase})
+    check(len(rows) == 3 * n_layers, f"train_moe_grads_vs_cpu captured "
+                                     f"{len(rows)} expert stacks")
+    check(not bad, f"card expert-stack dX/dW outside the GEMM bound of the "
+                   f"CPU's at {bad}")
+    check(route_ok, f"a routing choice differs on the same router input "
+                    f"with a top-K gap >= {ROUTE_MARGIN}: {routing}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a CUDA "
@@ -3821,6 +4238,8 @@ def main() -> int:
     err_gemm = phase_gemm(ops, ref, policy)
     phase_gemm_options(ops, ref)
     err_gemm = max(err_gemm, phase_gemm_bwd(ops, ref, policy))
+    err_bwd_stacks, bwd_stack_rows = phase_gemm_bwd_batched(ops, ref, policy)
+    err_gemm = max(err_gemm, err_bwd_stacks)
     err_batched, batched_rows = phase_gemm_batched(ops, ref, policy)
     err_gemm = max(err_gemm, err_batched)
     err_flash = phase_flash(ops, ref)
@@ -3849,7 +4268,16 @@ def main() -> int:
     phase_train_fp32_vs_cpu()
     phase_train_grads_vs_cpu(ops, ref)
     wsq_launches = phase_slice_train_wsq(ops, ref)
-    torch.cuda.empty_cache()
+    free_card()
+    moe_train_launches = {arch: phase_slice_train_moe(ops, arch, n, steps)
+                          for arch, n, steps in MOE_TRAIN_SLICES}
+    moe_wsq_launches = {arch: phase_slice_train_wsq(
+        ops, ref, (0,), arch, 1, f"slice_train_wsq_moe_{MOE_ARCH_OF[arch]}")
+        for arch in MOE_WSQ_ARCHS}
+    phase_train_moe_grads_vs_cpu(ops, ref)
+    phase_train_fp32_vs_cpu("qwen3-moe-30b-a3b", MOE_FP32_LAYERS,
+                            "train_moe_fp32_vs_cpu")
+    free_card()
     reduced_launches = phase_serve_reduced(ops)
     phase_train_resume()
     rns_train_launches, rns_per_step = phase_slice_train_rns(ops, ref)
@@ -3908,6 +4336,20 @@ def main() -> int:
             "decode_route_ms", "plain_ms", "library_ms", "bound_ms",
             "routed_live_experts", "routed_ms", "routed_bound_ms")}
             for r in stream_rows]}
+    # the expert stacks' backward GEMMs (MoE training): dX and dW, one
+    # launch a stack, on the tensor-core route
+    bwd_head = bwd_stack_rows[0]
+    gemm["backward_stacks"] = {
+        "name": "mirage_gemm (expert stacks' dX and dW)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mirage_gemm.cu",
+        "replaces": "src/repro/kernels/mirage_gemm.py:50 under the vmap "
+                    "of src/repro/core/gemm.py:169-189 (_mm_bwd)",
+        "launches": {arch: n["mirage_gemm"]
+                     for arch, n in moe_train_launches.items()},
+        "max_abs_err": err_bwd_stacks,
+        **{k: bwd_head[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "rows": bwd_stack_rows}
     flash = entry("flash_attention", "flash_attention.cu",
                   "src/repro/kernels/flash_attention.py:81", err_flash,
                   rows["flash_attention"][0])
@@ -3957,6 +4399,10 @@ def main() -> int:
                          "mirage_rns": rns_launches,
                          "train_mirage": train_launches,
                          "train_wsq_bfp": wsq_launches,
+                         **{f"train_moe_{arch}": n
+                            for arch, n in moe_train_launches.items()},
+                         **{f"train_wsq_bfp_moe_{arch}": n
+                            for arch, n in moe_wsq_launches.items()},
                          "serve_reduced": reduced_launches,
                          "train_mirage_rns": rns_train_launches,
                          "twins": {k: v["launches"]
@@ -3989,7 +4435,14 @@ def main() -> int:
                              "step (launches_moe: their cold dense "
                              "drains), each stack of C <= 16 rows on the "
                              "stream route with one gemm_stream_prep "
-                             "launch beside it (stream.launches)"}})
+                             "launch beside it (stream.launches); the MoE "
+                             "training paths (train_moe_*: slice_train_moe "
+                             "and slice_train_moe_mixtral) launch it 3 x "
+                             "(7 x layers + 1) a step, each expert stack's "
+                             "forward, dX and dW one launch "
+                             "(backward_stacks); train_wsq_bfp_moe_* adds "
+                             "bfp_quantize, one launch a weight (an expert "
+                             "stack one) and a gradient leaf each step"}})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -34,10 +34,9 @@ from repro_torch.obs import trace as obs_trace
 _AMBIENT = threading.local()
 
 #: where the MoE family waits under the GEMM modes that take one (K, N)
-#: weight, and where its training waits
+#: weight
 MOE_MODES_ITEM = "ROADMAP.md queue 1, item 7a (MoE under the RNS family " \
     "and the other GEMM modes that take a 2-D weight)"
-MOE_TRAINING_ITEM = "ROADMAP.md queue 1, item 7b (MoE training)"
 
 
 @contextlib.contextmanager
@@ -85,7 +84,12 @@ def _forward_impl(x: torch.Tensor, w, policy: MiragePolicy,
 class MirageMatmul(torch.autograd.Function):
     """``x @ w`` with quantized forward AND backward GEMMs (``_mm_fwd`` /
     ``_mm_bwd`` of the JAX package). The forward saves ``(x, w)``; the
-    backward keeps the JAX package's two policy swaps."""
+    backward keeps the JAX package's two policy swaps.
+
+    A stack of expert weights, ``x (E, C, K) @ w (E, K, N)``, is the JAX
+    package's ``vmap`` of ``_mm_bwd`` over the experts: each backward GEMM
+    is one call over the whole stack, dX ``(E, C, N) @ (E, N, K)`` grouped
+    along N and dW ``(E, K, C) @ (E, C, N)`` grouped along C."""
 
     @staticmethod
     def forward(ctx, x, w, policy):
@@ -97,10 +101,6 @@ class MirageMatmul(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gout):
         x, w = ctx.saved_tensors
-        if w.dim() == 3:
-            raise NotImplementedError(
-                f"the backward GEMMs of a stack of expert weights (the MoE "
-                f"layer) wait in {MOE_TRAINING_ITEM}")
         policy = ctx.policy
         gout = gout.to(torch.float32).contiguous()
         dx = dw = None
@@ -113,23 +113,27 @@ class MirageMatmul(torch.autograd.Function):
             if (policy.assume_quantized_weights and
                     backends.resolve(policy).weight_stationary_aligned_only):
                 dx_policy = policy.replace(assume_quantized_weights=False)
-            dx = _forward_impl(gout, w.T, dx_policy).to(x.dtype)
+            dx = _forward_impl(gout, w.transpose(-1, -2),
+                               dx_policy).to(x.dtype)
         if ctx.needs_input_grad[1]:
             # dW = X^T @ dO (contraction over tokens): neither operand is a
             # stationary weight, so both sides are always quantized
             dw_policy = (policy.replace(assume_quantized_weights=False)
                          if policy.assume_quantized_weights else policy)
-            xf = x.reshape(-1, x.shape[-1])            # (M, K)
-            gf = gout.reshape(-1, gout.shape[-1])      # (M, N)
-            dw = _forward_impl(xf.T, gf, dw_policy).to(w.dtype)
+            if w.dim() == 3:                           # per expert
+                xt, gf = x.transpose(-1, -2), gout     # (E, K, C), (E, C, N)
+            else:
+                xt = x.reshape(-1, x.shape[-1]).T      # (K, M)
+                gf = gout.reshape(-1, gout.shape[-1])  # (M, N)
+            dw = _forward_impl(xt, gf, dw_policy).to(w.dtype)
         return dx, dw, None
 
 
 def mirage_matmul(x: torch.Tensor, w: torch.Tensor,
                   policy: MiragePolicy) -> torch.Tensor:
     """``x @ w`` under the Mirage numerics policy, differentiable in both
-    operands. x: (..., K), w: (K, N) (a stack ``(E, K, N)`` runs forward;
-    its backward raises). A pre-encoded
+    operands. x: (..., K), w: (K, N), or x (E, C, K) with a stack of expert
+    weights w (E, K, N). A pre-encoded
     :class:`StationaryResidues` weight has no gradient and raises."""
     if isinstance(w, StationaryResidues):
         raise TypeError(

@@ -333,10 +333,10 @@ def mirage_matmul_fused(x: torch.Tensor, w: torch.Tensor,
 
     On the card ``w`` may be a contiguous ``(K, N)`` matrix or the transpose
     of a contiguous ``(N, K)`` one (the tied head passes ``emb.T``, the dX
-    GEMM ``w.T``), stacked alike; the kernel reads either in place. A
-    stacked ``x`` must be contiguous. A 2-D ``x`` that is the
-    transpose of a contiguous matrix (the dW GEMM's ``X^T``, which contracts
-    over the tokens) is copied once into a contiguous one here.
+    GEMM ``w.T``), stacked alike; the kernel reads either in place. ``x``
+    is contiguous, or the transpose of a contiguous matrix or stack (the
+    dW GEMM's ``X^T``, which contracts over the tokens, per expert for a
+    stack), which is copied once into a contiguous one here.
     ``quantize_w=False`` takes the weight as it is (already on its BFP
     grid: the weight-stationary backward reads it transposed).
     ``compute_dtype`` does not change the
@@ -359,7 +359,7 @@ def mirage_matmul_fused(x: torch.Tensor, w: torch.Tensor,
         return ref.mirage_gemm_ref(x, w, policy.b_m, policy.g,
                                    policy.rounding, policy.compute_dtype,
                                    quantize_w)
-    if x.dim() == 2 and not x.is_contiguous() and x.t().is_contiguous():
+    if not x.is_contiguous() and x.transpose(-1, -2).is_contiguous():
         x = x.contiguous()      # X^T of the dW GEMM: one transposing copy
     _check_cuda_operand(x, "x")
     if w.dtype != torch.float32:

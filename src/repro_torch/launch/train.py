@@ -15,6 +15,13 @@ field, which the JAX launcher does not expose): the GEMM weights are put on
 the BFP grid once per step (the BFP quantizer kernel on the card) and the
 policy skips their per-GEMM quantization.
 
+``--arch`` takes the dense and the MoE configs (``qwen3-moe-30b-a3b``,
+``mixtral-8x7b``: the expert stacks' forward, dX and dW GEMMs are each one
+batched launch of the GEMM kernel). ``--layers N`` keeps the config's first
+N layers at its published widths: the f32 train state (masters, gradients
+and both Adam moments, 16 bytes a parameter) of a full-depth MoE config
+outgrows one card.
+
 ``--ckpt-dir DIR`` trains through the fault-tolerant loop: a checkpoint
 every ``--ckpt-every`` steps (written on a writer thread) and one on
 SIGTERM/SIGINT, after which the run stops; ``--resume`` continues from the
@@ -27,6 +34,7 @@ raises.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -65,6 +73,11 @@ def main(argv=None):
     ap.add_argument("--optimizer", default="adamw")
     ap.add_argument("--reduced", action="store_true",
                     help="reduced config (CPU-scale)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="train only the config's first N layers, its "
+                         "widths unchanged (a depth cut: the f32 train "
+                         "state of a full-depth MoE config outgrows one "
+                         "card)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--resume", action="store_true")
@@ -83,6 +96,8 @@ def main(argv=None):
                          "train.data_next / train.host_sync) and write a "
                          "Chrome-trace JSON here at exit")
     args = ap.parse_args(argv)
+    if args.layers is not None and args.layers < 1:
+        ap.error("--layers must be >= 1")
 
     if args.distributed:
         raise NotImplementedError(f"--distributed {_SLICE_8}")
@@ -91,6 +106,9 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=min(args.layers,
+                                                    cfg.n_layers))
     overrides = {}
     if args.snr_db is not None:
         overrides["snr_db"] = args.snr_db

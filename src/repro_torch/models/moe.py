@@ -17,6 +17,19 @@ a CUDA graph. Dropped (token, slot) pairs all write the one trash row past
 the buffers; the kept rows have distinct targets, so their contents do not
 depend on the order in which duplicate writes land.
 
+Training differentiates through the same calls, as the JAX package's
+``jax.grad`` does: each expert stack's dX and dW are one batched GEMM call
+each (:class:`repro_torch.core.gemm.MirageMatmul` over the stack); the
+router's f32 matmul keeps TF32 off in the backward too (the pin is
+global); the stable sort's gradient scatters the gates' gradient back to
+the chosen probabilities, as ``jax.lax.top_k``'s does; the dispatch's
+``index_copy_`` hands each (token, slot) pair the gradient of its buffer
+row (dropped pairs read the trash row, which gets none); and the
+combine's gather accumulates, in its backward, only into the zero row
+of the dropped pairs, since the kept pairs' rows are distinct, so the
+backward adds no float atomically on a kept row and repeats bit for bit.
+The aux loss reaches the router through ``probs`` only.
+
 ``moe_apply_ep`` (expert parallelism over a mesh) waits in the distributed
 slice (ROADMAP.md queue 1, item 14).
 """
@@ -81,7 +94,10 @@ def route(router: common.Dense, xf: torch.Tensor, K: int, C: int
     ``jax.lax.top_k`` orders them: the top K come from a stable descending
     sort."""
     _pin_full_f32()
-    logits = torch.matmul(xf.to(torch.float32), router.w)      # (T, E) f32
+    # a weight-stationary step hands the router its bf16 grid copy, which
+    # the JAX package's f32 matmul promotes to f32
+    logits = torch.matmul(xf.to(torch.float32),
+                          router.w.to(torch.float32))          # (T, E) f32
     E = logits.shape[-1]
     probs = torch.softmax(logits, dim=-1)
     vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)

@@ -23,6 +23,29 @@ from repro_torch.configs.base import TrainConfig
 
 Tree = Dict[str, torch.Tensor]
 
+#: the most f32 bytes of leaves one group of an update's ``torch._foreach_*``
+#: calls covers. Each call allocates temporaries the size of its group, so
+#: one group of every leaf would add twice the model's f32 size on top of
+#: the masters, gradients and moments (a 3 B-parameter MoE depth cut then
+#: outgrows one 80 GB card). Every element's arithmetic is the same in any
+#: grouping.
+UPDATE_GROUP_BYTES = 1 << 30
+
+
+def _groups(params: Tree):
+    """The names of ``params`` in order, cut into runs of at most
+    UPDATE_GROUP_BYTES of f32 leaves (a larger leaf is a run of its own)."""
+    group, size = [], 0
+    for k in params:
+        n = 4 * params[k].numel()
+        if group and size + n > UPDATE_GROUP_BYTES:
+            yield group
+            group, size = [], 0
+        group.append(k)
+        size += n
+    if group:
+        yield group
+
 
 def global_norm(tree: Tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, as an f32 0-d tensor. The
@@ -68,15 +91,16 @@ def sgdm_update(grads: Tree, state: Dict, params: Tree, lr,
                 momentum: float = 0.9, weight_decay: float = 0.0):
     """Paper's CNN recipe: SGD + momentum, FP32 updates (Eq. 4):
     mom = momentum * mom + g; p = p - lr * (mom + weight_decay * p)."""
-    keys = list(params)
-    mom = [state["mom"][k] for k in keys]
-    torch._foreach_mul_(mom, momentum)
-    torch._foreach_add_(mom, [grads[k].to(torch.float32) for k in keys])
-    p = [params[k] for k in keys]
-    step = list(mom)
-    if weight_decay:
-        step = torch._foreach_add(mom, torch._foreach_mul(p, weight_decay))
-    torch._foreach_sub_(p, torch._foreach_mul(step, lr))
+    for keys in _groups(params):
+        mom = [state["mom"][k] for k in keys]
+        torch._foreach_mul_(mom, momentum)
+        torch._foreach_add_(mom, [grads[k].to(torch.float32) for k in keys])
+        p = [params[k] for k in keys]
+        step = list(mom)
+        if weight_decay:
+            step = torch._foreach_add(mom,
+                                      torch._foreach_mul(p, weight_decay))
+        torch._foreach_sub_(p, torch._foreach_mul(step, lr))
     state["count"] += 1
     return params, state
 
@@ -94,31 +118,32 @@ def adam_update(grads: Tree, state: Dict, params: Tree, lr,
     m = b1 m + (1 - b1) g; v = b2 v + (1 - b2) g^2;
     p = p - lr (m / (1 - b1^c)) / (sqrt(v / (1 - b2^c)) + eps)
     - lr wd p, with c the step count after this update."""
-    keys = list(params)
-    g = [grads[k].to(torch.float32) for k in keys]
-    m = [state["m"][k] for k in keys]
-    v = [state["v"][k] for k in keys]
-    p = [params[k] for k in keys]
     state["count"] += 1
     c = state["count"].to(torch.float32)
     mhat_scale = 1.0 / (1.0 - torch.pow(torch.tensor(b1, device=c.device), c))
     vhat_scale = 1.0 / (1.0 - torch.pow(torch.tensor(b2, device=c.device), c))
-    torch._foreach_mul_(m, b1)
-    torch._foreach_add_(m, torch._foreach_mul(g, 1 - b1))
-    torch._foreach_mul_(v, b2)
-    torch._foreach_add_(v, torch._foreach_mul(torch._foreach_mul(g, g),
-                                              1 - b2))
-    # step = lr * (m * mhat) / (sqrt(v * vhat) + eps)
-    den = torch._foreach_mul(v, vhat_scale)
-    torch._foreach_sqrt_(den)
-    torch._foreach_add_(den, eps)
-    step = torch._foreach_mul(m, mhat_scale)
-    torch._foreach_mul_(step, lr)
-    torch._foreach_div_(step, den)
-    del den
-    if weight_decay:
-        torch._foreach_add_(step, torch._foreach_mul(p, lr * weight_decay))
-    torch._foreach_sub_(p, step)
+    for keys in _groups(params):
+        g = [grads[k].to(torch.float32) for k in keys]
+        m = [state["m"][k] for k in keys]
+        v = [state["v"][k] for k in keys]
+        p = [params[k] for k in keys]
+        torch._foreach_mul_(m, b1)
+        torch._foreach_add_(m, torch._foreach_mul(g, 1 - b1))
+        torch._foreach_mul_(v, b2)
+        torch._foreach_add_(v, torch._foreach_mul(torch._foreach_mul(g, g),
+                                                  1 - b2))
+        # step = lr * (m * mhat) / (sqrt(v * vhat) + eps)
+        den = torch._foreach_mul(v, vhat_scale)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, eps)
+        step = torch._foreach_mul(m, mhat_scale)
+        torch._foreach_mul_(step, lr)
+        torch._foreach_div_(step, den)
+        del den
+        if weight_decay:
+            torch._foreach_add_(step,
+                                torch._foreach_mul(p, lr * weight_decay))
+        torch._foreach_sub_(p, step)
     return params, state
 
 

@@ -1,5 +1,6 @@
-"""PyTorch port: kernel 1's stream route for stacks of experts at decode
-(``csrc/mirage_gemm_stack.cu``), what the CPU can hold of it.
+"""PyTorch port: kernel 1 over stacks of experts: the stream route at decode
+(``csrc/mirage_gemm_stack.cu``), what the CPU can hold of it, and the
+training step's expert stacks (forward, dX and dW, one launch a stack).
 
 ``ops.gemm_plan`` sends the MoE decode stacks to the route and keeps every
 other call on the routes it took before; the route's shared memory fits the
@@ -10,6 +11,14 @@ plain version of a stack with empty experts against JAX's ``vmap``
 ``tests/test_torch_moe.py``, beside the batched GEMM's other JAX checks,
 whose compiles it shares; the kernel itself runs on the card (the
 ``cuda``-marked test there, and ``chip_smoke.py``).
+
+The training step's stacks (MoE training): the plan routes dX, dW and the
+forward to the tensor-core route and the weight-stationary forward and dX
+(the weight taken as it is) to the decode route; the wrapper copies a
+transposed (E, K, C) x (the dW GEMM's X^T) once. On the card (``cuda``
+marker; this file imports no JAX, so it runs there) each stack at both
+MoE configs' training shapes equals E single-expert launches of its plan
+bit for bit and a repeat, within the f32-order bound of the plain version.
 """
 
 import numpy as np
@@ -18,7 +27,10 @@ import torch
 
 torch.set_num_threads(2)
 
+from repro_torch.core import gemm
+from repro_torch.core.precision import get_policy
 from repro_torch.kernels import ops, ref
+from repro_torch.runtime import trainer
 
 # (E, M, K, N): the MoE decode stacks (qwen3-moe gate/up and down, mixtral
 # gate/up and down), then ragged E, M and K with N % 4 == 0
@@ -124,3 +136,122 @@ def test_stream_prep_ref_lays_x_out_k_major(splits, k_split):
     want = [[1], [0], [1], [1]] if splits == 1 else \
         [[1, 1, 1], [0, 0, 0], [0, 1, 1], [1, 1, 1]]
     assert live.tolist() == sum(want, [])
+
+
+# --------------------------------------------------------------------------
+# the training step's expert stacks
+# --------------------------------------------------------------------------
+
+# (E, C, K, N) of the expert stacks of a training step at 4 x 64 tokens and
+# capacity factor 1.25: qwen3-moe's gate/up and down (C = 20), mixtral's
+# (C = 80)
+TRAIN_STACKS = [(128, 20, 2048, 768), (128, 20, 768, 2048),
+                (8, 80, 4096, 14336), (8, 80, 14336, 4096)]
+KINDS = ["dX", "dW", "fwd_as_is", "dX_as_is"]
+
+
+def _stack_operands(kind, E, C, K, N, device="cpu"):
+    """(a, b, quantize_w) as ``MirageMatmul`` hands a stack (E, K, N) to
+    the kernel: dX reads the (E, N, K) view of the contiguous stack, dW a
+    transposed (E, K, C) view of the buffers, and the weight-stationary
+    forward and dX the trainer's transposed view of a contiguous (E, N, K)
+    copy on its grid."""
+    x = torch.from_numpy(_rand((E, C, K), 1)).to(device)
+    dout = torch.from_numpy(_rand((E, C, N), 2, 1e-2)).to(device)
+    w = torch.from_numpy(_rand((E, K, N), 3, 1 / np.sqrt(K))).to(device)
+    if kind == "dX":
+        return dout, w.transpose(1, 2), True
+    if kind == "dW":
+        return x.transpose(1, 2), dout, True
+    wq = trainer._prequantize_params({"moe.gate": w}, get_policy("mirage"),
+                                     torch.float32)["moe.gate"].detach()
+    assert wq.transpose(1, 2).is_contiguous()
+    return (x, wq, False) if kind == "fwd_as_is" else \
+        (dout, wq.transpose(1, 2), False)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("E,C,K,N", TRAIN_STACKS)
+def test_gemm_plan_at_the_training_stacks(E, C, K, N, kind):
+    """At C = 20 and 80 (> 16) dX, dW and the forward take the tensor-core
+    route, the weight-stationary forward and dX the decode route; dW's
+    contraction is C, ragged (not a multiple of 64 or of g = 16 at 20)."""
+    a, b, qw = {"dX": ((E, C, N), (E, N, K), True),
+                "dW": ((E, K, C), (E, C, N), True),
+                "fwd_as_is": ((E, C, K), (E, K, N), False),
+                "dX_as_is": ((E, C, N), (E, N, K), False)}[kind]
+    p = ops.gemm_plan(a[1], b[2], a[2], 4, E=E, quant_w=qw,
+                      w_nk=kind in ("dX", "fwd_as_is"))
+    assert p.route == ("mma" if qw else "decode")
+    assert (p.splits - 1) * p.k_split < a[2] <= p.splits * p.k_split
+    grid_m = -(-a[1] // (64 if p.mma else 16)) * E
+    assert grid_m <= 65535
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_fused_wrapper_takes_the_training_stacks_on_the_cpu(kind):
+    """On the CPU the wrapper runs the plain version on the same operands
+    (a transposed x included), per expert equal to the unbatched call."""
+    E, C, K, N = 3, 5, 48, 24
+    a, b, qw = _stack_operands(kind, E, C, K, N)
+    pol = get_policy("mirage")
+    got = ops.mirage_matmul_fused(a, b, pol, quantize_w=qw)
+    assert got.shape == (E, a.shape[1], b.shape[2])
+    for e in range(E):
+        one = ops.mirage_matmul_fused(a[e], b[e], pol, quantize_w=qw)
+        assert torch.equal(got[e], one)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the H100)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("E,C,K,N", TRAIN_STACKS)
+def test_cuda_training_stacks_equal_per_expert_launches(cuda, E, C, K, N,
+                                                        kind):
+    """One launch over the stack equals E single-expert launches of its
+    plan bit for bit and a second launch, and lies within 1e-5 (|aq| @
+    |bq|) of the plain version (only the f32 order of the sum differs)."""
+    pol = get_policy("mirage")
+    a, b, qw = _stack_operands(kind, E, C, K, N, cuda)
+    got = ops.mirage_matmul_fused(a, b, pol, quantize_w=qw)
+    again = ops.mirage_matmul_fused(a, b, pol, quantize_w=qw)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    w_nk = not b.is_contiguous()
+    wk = b.transpose(1, 2) if w_nk else b
+    M, Kc, Nout = a.shape[1], a.shape[2], b.shape[2]
+    plan = ops.gemm_plan(M, Nout, Kc, 4, ops.sm_count(cuda), qw, E, w_nk,
+                         wk.data_ptr() % 16 == 0)
+    xc = a.contiguous()
+    for e in range(E):
+        one = torch.empty((1, M, Nout), device=cuda)
+        ops.launch_gemm_plan(xc[e:e + 1], wk[e:e + 1], one, plan, pol,
+                             w_nk, qw)
+        assert torch.equal(got[e].view(torch.int32),
+                           one[0].view(torch.int32))
+    want = ref.mirage_gemm_ref(a, b, quantize_w=qw)
+    aq = ref.bfp_fake_quant_ref(a)
+    bq = ref.bfp_fake_quant_ref(b.transpose(1, 2)).transpose(1, 2) if qw \
+        else b
+    tol = 1e-5 * (aq.abs() @ bq.abs()) + 1e-30
+    assert bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+def test_cuda_stack_function_is_three_launches(cuda):
+    """``MirageMatmul`` on a qwen3-moe gate stack: the forward, dX and dW
+    are one kernel-1 launch each."""
+    pol = get_policy("mirage")
+    x = torch.from_numpy(_rand((128, 20, 2048), 4)).to(cuda).requires_grad_()
+    w = torch.from_numpy(_rand((128, 2048, 768), 5, 0.02)).to(cuda) \
+        .requires_grad_()
+    ops.reset_launch_counts()
+    gemm.mirage_matmul(x, w, pol).sum().backward()
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["mirage_gemm"] == 3
+    assert x.grad.shape == x.shape and w.grad.shape == w.shape

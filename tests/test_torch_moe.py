@@ -228,16 +228,6 @@ def test_plain_stack_with_empty_experts_equals_jax_vmap(dead, rounding):
         assert got[[0, 3, 4]].any()
 
 
-def test_batched_gemm_backward_raises():
-    """The batched GEMM has no backward yet: MoE training waits in the
-    ROADMAP."""
-    x = torch.from_numpy(_rand((E, 4, 32), 1))
-    w = torch.from_numpy(_rand((E, 32, 8), 2)).requires_grad_()
-    y = gemm.mirage_matmul_auto(x, w, get_policy("mirage"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*7b"):
-        y.sum().backward()
-
-
 @pytest.mark.parametrize("mode", ["mirage_rns", "mirage_rrns",
                                   "mirage_faithful", "mirage_faithful_ref",
                                   "int8"])

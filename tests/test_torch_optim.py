@@ -86,6 +86,26 @@ def test_optimizer_steps_match_jax(optimizer, wd):
             assert int(ts[key]) == int(val)
 
 
+@pytest.mark.parametrize("optimizer", ["adamw", "sgdm"])
+def test_update_groups_keep_every_bit(monkeypatch, optimizer):
+    """The update runs over groups of leaves of at most UPDATE_GROUP_BYTES
+    (its temporaries stay small at a 3 B-parameter model); one leaf a
+    group gives the same bits as one group of every leaf."""
+    cfg = TrainConfig(optimizer=optimizer, weight_decay=0.1)
+    out = []
+    for group_bytes in (1 << 30, 1):
+        monkeypatch.setattr(topt, "UPDATE_GROUP_BYTES", group_bytes)
+        t_init, t_upd = topt.make_optimizer(cfg)
+        tp = _t(_tree(0))
+        ts = t_init(tp)
+        for i in range(3):
+            t_upd(_t(_tree(10 + i, 0.3)), ts, tp, torch.tensor(1e-2))
+        out.append(tp)
+    assert len(list(topt._groups(out[1]))) == len(SHAPES)
+    for k in SHAPES:
+        assert torch.equal(out[0][k], out[1][k]), k
+
+
 def test_global_norm_and_clip_match_jax():
     g = _tree(1, 2.0)
     want_n = float(jopt.global_norm(_j(g)))
