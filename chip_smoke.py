@@ -41,7 +41,7 @@ repro_torch.launch.serve --reduced`` through the flash kernel at head_dim
 16 (under fp32, greedy streams equal to the CPU's), full-width mirage
 training through ``launch.train`` stopped by SIGTERM at step 2 and
 resumed with ``--resume``, bit for bit equal to 4 straight steps (then the
-checkpoint's bytes and its save and restore times), 3 full-width
+checkpoint's bytes and its save and restore times), 2 full-width
 ``mirage_rns`` steps with kernel 4 launched over group blocks (peak memory
 under 24 GB, step 1's GEMMs teacher-forced against mirage_fast), and the
 four example twins (``python -m repro_torch.examples.*``) on the card.
@@ -80,7 +80,7 @@ ragged ones), bitwise equal to E unbatched launches with the same plan,
 then qwen3-moe-30b-a3b (12 of 48 layers) and mixtral-8x7b (4 of 32) at
 their published widths, served under mirage cold, warmed and (qwen3-moe)
 paged, the streams equal, every expert stack one launch, the steady tick
-timed and profiled, and the first and last layers teacher-forced against
+timed and profiled, and the first layer teacher-forced against
 the CPU with the routing choices that differ and their margins.
 
 Slice 6b (MoE training): the GEMM kernel at every expert stack of a
@@ -91,10 +91,23 @@ and a repeat; qwen3-moe-30b-a3b (4 of 48 layers, 10 steps) and
 mixtral-8x7b (2 of 32, 3 steps) trained as ``launch.train --arch ...
 --layers N`` trains them, every expert stack's forward, dX and dW one
 launch, two steps from one state bitwise equal; qwen3-moe's expert
-stacks at 2 layers teacher-forced against the CPU (with the routing on
+stacks at 1 layer teacher-forced against the CPU (with the routing on
 the CPU's router input) and 1 layer under fp32 held to the CPU; both
 configs at 1 layer under weight-stationary quantization with BFP
 gradient compression, every kernel-1 and kernel-2 launch counted.
+
+Slice 6c (the MoE family under the paper's datapath): kernels 4, 5 and 6
+at the expert stacks' blocks of both MoE configs (decode and prefill;
+qwen3-moe's gate/up at decode one launch of 81,920 (modulus, expert,
+group) slots; a block of whole experts sliced in place; the readout
+noise one expert-shaped draw read at a group period), bit for bit against
+their plain versions and timed; both configs at slice_moe's depths served
+under mirage_rrns at 52 dB with the default engine (weights encoded per
+call), its clean twin (equal streams, no decode beyond the radius), the
+steady tick cold against warmed, and a short mirage_rns drain; both with
+stationary weights (every expert stack programmed once) at 2 and 1
+layers; and 2 mirage_rns training steps of qwen3-moe at 1 layer. Every
+launch is held to the residue blocks the backends ran.
 
 Run as a script, it pins the CPU side's vector dispatch (ATen at AVX2,
 MKL's conditional reproducibility at AVX2) before importing torch, so the
@@ -206,7 +219,8 @@ RRNS_HEALTH = {"detector_flips": [1, 14, 45, 1864, 30170],
 PORT_KERNEL_SYMBOLS = ("gemm_decode_kernel", "gemm_mma_kernel",
                        "gemm_stream_kernel", "stream_prep_kernel",
                        "splitk_reduce_kernel", "flash_fwd_kernel",
-                       "rns_matmul_kernel", "rrns_decode_kernel",
+                       "rns_matmul_kernel", "rns_matmul_slots_kernel",
+                       "rrns_decode_kernel",
                        "bfp_fake_quant_kernel", "bfp_fake_quant_vec_kernel")
 
 
@@ -1002,7 +1016,7 @@ def device_profile(run, n: int):
 
 
 def profile_ticks(model, cap, reqs, LMServer, policy_name: str,
-                  n_ticks: int = 3, **engine_kw):
+                  n_ticks: int = 2, **engine_kw):
     """Device time by kernel over a few steady decode ticks (torch.profiler)
     and the device's idle share of their wall time."""
     prof = engine_tick_profile(
@@ -1274,8 +1288,7 @@ def phase_slice_rrns(ops, model, cap):
     check(health_same, f"slice_rrns health counters "
                        f"{ {k: health.get(k) for k in RRNS_HEALTH} } differ "
                        f"from the reference run's {RRNS_HEALTH}")
-    model.policy = noisy
-    profile_ticks(model, cap, reqs, LMServer, "mirage_rrns 52 dB")
+    # the 52 dB tick's profile, cold and warmed: serve_warmup
     return launches, c_launches, streams
 
 
@@ -1296,30 +1309,18 @@ class ReadoutAudit:
     def __enter__(self):
         self.inner = inner = self.module._readout_on_card
 
-        def audited(xr, wr, moduli, cfg, draws):
-            drawn, normal = {}, draws.normal
-
-            def keep(stage, shape):
-                drawn[stage] = normal(stage, shape)
-                return drawn[stage]
-            draws.normal = keep
-            try:
-                out = inner(xr, wr, moduli, cfg, draws)
-            finally:
-                draws.normal = normal
-            if "detector" in drawn:
-                self.add(xr, wr, moduli, cfg, drawn["detector"], out)
+        def audited(xr, wr, moduli, cfg, noise):
+            out = inner(xr, wr, moduli, cfg, noise)
+            self.add(xr, wr, moduli, noise, out)
             return out
 
         self.module._readout_on_card = audited
         return self
 
-    def add(self, xr, wr, moduli, cfg, unit_noise, out):
+    def add(self, xr, wr, moduli, noise, out):
         clean = self.ops.rns_group_matmul(xr, wr, moduli)
         self.ops.LAUNCHES["rns_matmul"] -= 1       # not the path's launch
         shape = (-1, 1, 1, 1)
-        noise = unit_noise * torch.tensor(cfg.detector_sigmas(moduli),
-                                          device=DEV).reshape(shape)
         mods = torch.tensor(moduli, dtype=torch.float32,
                             device=DEV).reshape(shape)
         drawn = torch.remainder(torch.round(noise), mods) != 0
@@ -1685,7 +1686,7 @@ WARM_ENGINES = (
     ("rrns_52db", "mirage_rrns", {}),
 )
 #: (runs a side, ticks a run) of the cold-against-warmed tick timing
-WARM_TICK_RUNS = {"dense": (8, 10), "rrns_52db": (3, 5)}
+WARM_TICK_RUNS = {"dense": (4, 10), "rrns_52db": (1, 4)}
 PIPELINE_DEPTH = 2
 
 
@@ -1790,7 +1791,7 @@ def phase_serve_warmup(ops, model, cap):
                         med["cold"], "ticks_per_run": n_ticks})
             row["profile"] = {}
             for side, server in engines.items():
-                prof = engine_tick_profile(server, reqs)
+                prof = engine_tick_profile(server, reqs, 2)
                 row["profile"][side] = {
                     k: prof[k] for k in ("wall_ms", "device_busy_ms",
                                          "device_idle_share",
@@ -2029,7 +2030,7 @@ def phase_serve_switch(ops, model, cap, dense_streams):
           "phase_seconds": time.perf_counter() - t_phase})
 
 
-def phase_slice_rrns_vs_cpu(model, cap, prompt_np, layers=(0, 11, 23)):
+def phase_slice_rrns_vs_cpu(model, cap, prompt_np, layers=(0, 23)):
     """Teacher-forced card-vs-CPU check of clean mirage_rrns at full width:
     each listed layer and the head get the card's input on both sides."""
     from repro_torch.core import stationary
@@ -2360,10 +2361,11 @@ def grads_vs(got_loss, got, want_loss, want):
 
 def phase_train_fp32_vs_cpu(arch: str = "qwen2-0.5b",
                             n_layers: Optional[int] = None,
-                            phase: str = "train_fp32_vs_cpu"):
-    """2 fp32 steps at full width (``n_layers`` cuts the depth) on the
-    card and on the CPU from the same weights and batches (TF32 off): loss
-    and grad norm within 1e-4. Step 1's gradients are also held leaf by
+                            phase: str = "train_fp32_vs_cpu",
+                            n_steps: int = 2):
+    """``n_steps`` fp32 steps at full width (``n_layers`` cuts the depth)
+    on the card and on the CPU from the same weights and batches (TF32
+    off): loss and grad norm within 1e-4. Step 1's gradients are also held leaf by
     leaf (each within 1e-4 of its leaf's largest element), and once more
     with TF32 on as a control: a lower precision these limits must catch.
     The CPU's global norm is compared with the f64 sum, beside an f32
@@ -2375,7 +2377,7 @@ def phase_train_fp32_vs_cpu(arch: str = "qwen2-0.5b",
     t_phase = time.perf_counter()
     cfg, model, tc, data = train_setup(get_policy("fp32"), arch, n_layers)
     cpu_model = copy.deepcopy(model).to("cpu")
-    batches = [data.batch_at(i) for i in range(2)]
+    batches = [data.batch_at(i) for i in range(n_steps)]
     cpu_loss, cpu_grads = step1_grads(cpu_model, batches[0])
     leaves = grads_vs(*step1_grads(model, batches[0]), cpu_loss, cpu_grads)
     pin = baselines._pin_full_f32   # the fp32 backend pins TF32 off
@@ -2395,21 +2397,28 @@ def phase_train_fp32_vs_cpu(arch: str = "qwen2-0.5b",
                 "f32_foreach_norm_rel_to_f64": abs(float(serial) - exact) /
                 exact}
     del cpu_grads
-    t0 = time.perf_counter()
-    _, _, _, card = run_train(model, tc, iter(batches), 2)
-    card_s = time.perf_counter() - t0
-    del model
-    t0 = time.perf_counter()
-    _, _, _, plain = run_train(cpu_model, tc, iter(batches), 2)
-    cpu_s = time.perf_counter() - t0
-    rel = {k: [abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(card, plain)]
-           for k in ("loss", "grad_norm")}
+    card = plain = []
+    card_s = cpu_s = 0.0
+    rel = {"loss": [leaves["loss_rel"]],
+           "grad_norm": [leaves["grad_norm_rel"]]}
+    if n_steps > 1:
+        # the trainer's own steps (step 1's loss and grad norm repeat the
+        # step-1 comparison above, so one step needs no run)
+        t0 = time.perf_counter()
+        _, _, _, card = run_train(model, tc, iter(batches), n_steps)
+        card_s = time.perf_counter() - t0
+        del model
+        t0 = time.perf_counter()
+        _, _, _, plain = run_train(cpu_model, tc, iter(batches), n_steps)
+        cpu_s = time.perf_counter() - t0
+        rel = {k: [abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(card, plain)]
+               for k in ("loss", "grad_norm")}
     ok = max(max(v) for v in rel.values()) < 1e-4
     leaves_ok = leaves["leaf_rel_max"] < 1e-4
     tf32["caught_by_the_1e-4_limits"] = max(
         tf32["loss_rel"], tf32["grad_norm_rel"], tf32["leaf_rel_max"]) >= 1e-4
     emit({"phase": phase, "arch": cfg.arch_id, "n_layers": cfg.n_layers,
-          "steps": 2, "card": card, "cpu": plain, "rel_err": rel,
+          "steps": n_steps, "card": card, "cpu": plain, "rel_err": rel,
           "step1_grads_tf32_off": leaves, "step1_grads_tf32_on": tf32,
           "cpu_step1_grad_norm": cpu_norm, "card_seconds": card_s,
           "cpu_seconds": cpu_s, "ok": ok and leaves_ok,
@@ -2646,7 +2655,7 @@ def phase_slice_train_wsq(ops, ref, layers=(0, 11, 23),
 #: scratch for the checkpoints of train_resume and the twins, removed after
 CKPT_ROOT = pathlib.Path(__file__).resolve().parent / "build" / \
     "chip_smoke_ckpt"
-RESUME_STEPS, RNS_TRAIN_STEPS = 4, 3
+RESUME_STEPS, RNS_TRAIN_STEPS = 4, 2
 RNS_TRAIN_PEAK_GB = 24.0
 
 
@@ -2861,11 +2870,12 @@ def rns_blocks_per_step(cfg, T: int) -> int:
 
 
 def phase_slice_train_rns(ops, ref, layers=(0, 23)):
-    """3 full-width mirage_rns steps: every forward, dX and dW GEMM through
+    """2 full-width mirage_rns steps: every forward, dX and dW GEMM through
     kernel 4, launched over group blocks wherever one launch's residues
     would pass the budget (the tied head). Losses finite, peak memory
-    below 24 GB, launches as the plan says; step 1's GEMMs of layers 0 and
-    23 and the head, teacher-forced (the card's own x, w and dO of step 1),
+    below 24 GB, launches as the plan says; step 1's GEMMs of the listed
+    layers (``main`` lists layer 0) and the head, teacher-forced (the
+    card's own x, w and dO of step 1),
     within the GEMM bound of mirage_fast: the forward, dX and dW."""
     from repro_torch.core import gemm
     from repro_torch.core.precision import get_policy
@@ -2927,7 +2937,7 @@ def phase_slice_train_rns(ops, ref, layers=(0, 23)):
           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "launches": launches,
           "expected_launches": want, "rns_matmul_per_step": per_step,
           "step_ms": [t * 1e3 for t in times],
-          "step_ms_median_2_to_3": step_s * 1e3,
+          "step_ms_median_from_2": step_s * 1e3,
           "tok_per_s": tokens / step_s, "peak_mem_gb": peak,
           "allocated_before_gb": before, "losses": losses,
           "grad_norms": [m["grad_norm"] for m in logs],
@@ -3738,8 +3748,8 @@ def phase_slice_moe(ops, arch: str, n_layers: int, paged: bool):
     ``paged``, the paged engine at block size 4, each with the cold dense
     streams token for token; every expert GEMM stack is one launch of
     kernel 1 (7 launches a layer and the head per model step). Then the
-    steady tick cold against warmed, each one profiled, and layers 0 and
-    n - 1 teacher-forced against the CPU. The model is freed after."""
+    steady tick cold against warmed, each one profiled, and layer 0
+    teacher-forced against the CPU. The model is freed after."""
     from repro_torch.configs import get_config
     from repro_torch.core.precision import get_policy
     from repro_torch.models import build_model
@@ -3858,7 +3868,9 @@ def phase_slice_moe(ops, arch: str, n_layers: int, paged: bool):
           "tick_bound_ms": (n_params - model.embed.emb.numel()) * 4.0 /
           HBM_BYTES_PER_S * 1e3,
           "build_model_s": build_s})
-    moe_layers_vs_cpu(model, reqs[0].prompt, (0, n_layers - 1))
+    # layer 0 only: the CPU's plain layer is most of the phase (mixtral's
+    # two took 24-68 s)
+    moe_layers_vs_cpu(model, reqs[0].prompt, (0,))
     del model
     free_card()
     emit({"phase": f"{arch}_seconds",
@@ -3879,7 +3891,7 @@ MOE_TRAIN_SLICES = (("qwen3-moe-30b-a3b", 4, TRAIN_STEPS),
 #: and under weight-stationary training the forward and dX, which take
 #: the weight as it is
 MOE_BWD_KINDS = ("dX", "dW", "fwd_as_is", "dX_as_is")
-MOE_GRAD_LAYERS, MOE_FP32_LAYERS = 2, 1
+MOE_GRAD_LAYERS, MOE_FP32_LAYERS = 1, 1
 #: the MoE configs trained with weight-stationary quantization and BFP
 #: gradient compression, cut to one layer (teacher-forced): the kernels see
 #: the same stacks at any depth, the CPU's reference step takes most of the
@@ -4204,6 +4216,423 @@ def phase_train_moe_grads_vs_cpu(ops, ref, arch: str = "qwen3-moe-30b-a3b",
                     f"with a top-K gap >= {ROUTE_MARGIN}: {routing}")
 
 
+# --------------------------------------------------------------------------
+# slice 6c: the MoE family under the RNS/RRNS datapath, kernels 4-6 over
+# expert stacks
+# --------------------------------------------------------------------------
+
+#: (model, GEMM, E, C, K, N) of the expert stacks the RNS paths hand the
+#: residue kernels: a decode tick's C = 4 and the prefill's C = 40 / 160
+#: (4 prompts of the 128 bucket), as MOE_GEMM_SHAPES
+MOE_RNS_STACKS = (
+    ("qwen3-moe", "decode gate/up", 128, 4, 2048, 768),
+    ("qwen3-moe", "decode down", 128, 4, 768, 2048),
+    ("qwen3-moe", "prefill gate/up", 128, 40, 2048, 768),
+    ("mixtral", "decode gate/up", 8, 4, 4096, 14336),
+    ("mixtral", "decode down", 8, 4, 14336, 4096),
+    ("mixtral", "prefill gate/up", 8, 160, 4096, 14336),
+)
+#: (arch, layers) of the MoE serving slices under mirage_rrns and
+#: mirage_rns (slice_moe's depth cuts), and of the stationary-weight ones:
+#: stationary residues take ~20 bytes a weight, so qwen3-moe's 12 layers
+#: (~145 GB) do not fit one card
+MOE_RNS_SLICES = (("qwen3-moe-30b-a3b", 12), ("mixtral-8x7b", 4))
+MOE_STATIONARY_SLICES = (("qwen3-moe-30b-a3b", 2), ("mixtral-8x7b", 1))
+MOE_RNS_TRAIN = ("qwen3-moe-30b-a3b", 1, 2)     # arch, layers, steps
+MOE_RNS_TICKS = 2             # steady ticks a side, cold then warmed
+MOE_RNS_TOKENS = 4            # the mirage_rns drain's tokens a request
+
+
+def stack_block_operands(moduli, E, G, M, N, seed):
+    """Encoded residues (``encoded_residue_operands``) of a whole stack of
+    E experts, (n_mod, E x G, M, 16) and (n_mod, E x G, 16, N), and the
+    first block the card's plan (``card_blocks``) hands the residue kernel
+    at these shapes: its slices, in place, its slot count and its noise
+    period (the block's groups)."""
+    from repro_torch.core.backends.mirage_rns import card_blocks
+
+    n = len(moduli)
+    eb, gb = card_blocks(n, E, G, M, N)
+    # one expert past the block, so that a block of whole experts is a
+    # slice with its own stride between moduli, as on the path
+    E = min(E, eb + 1)
+    xr, wr = encoded_residue_operands(moduli, M, 16 * E * G, N, seed)
+    xs = xr.view(n, E, G, M, 16)[:, :eb, :gb].reshape(n, -1, M, 16)
+    ws = wr.view(n, E, G, 16, N)[:, :eb, :gb].reshape(n, -1, 16, N)
+    return xs, ws, eb, gb
+
+
+def phase_rns_stacks(ops, ref):
+    """Kernels 4, 5 and 6 at the expert stacks of the MoE paths, on the
+    block the card's plan hands them (qwen3-moe's gate/up at decode is one
+    launch of 81,920 slots under RRNS, past grid.z's 65,535; a block of
+    whole experts is sliced in place; mixtral's prefill gate/up runs one
+    expert's groups a block): kernel 4 over the base moduli, kernel 5 over
+    the RRNS moduli with one expert-shaped noise draw read at a group
+    period, at 20 dB (every rounding and wrap case) and at the slice's 52
+    dB, and kernel 6 on kernel 5's output: each bit for bit against its
+    plain version, then timed beside it, ``torch.bmm`` of the residues as
+    f32 and the bound."""
+    from repro_torch.analog import rrns
+
+    psi = (math.prod(RNS_BASE) - 1) // 2
+    tables = rrns.get_tables(RRNS_ALL, len(RNS_BASE), psi)
+    rows = {"rns_matmul": [], "rns_matmul_channel": [], "rrns_decode": []}
+    for i, (model, name, E, M, K, N) in enumerate(MOE_RNS_STACKS):
+        t0 = time.perf_counter()
+        G = K // 16
+        shape = {"model": model, "gemm": name, "experts": E, "C": M,
+                 "K": K, "N": N}
+        # kernel 4: mirage_rns
+        xr, wr, eb, gb = stack_block_operands(RNS_BASE, E, G, M, N, 600 + i)
+        S = S4 = xr.shape[1]
+        got = ops.rns_group_matmul(xr, wr, RNS_BASE)
+        bad4 = int((got != ref.rns_matmul_ref(xr, wr, RNS_BASE)).sum())
+        in_place = not xr.is_contiguous() and not wr.is_contiguous()
+        check(bad4 == 0, f"rns_matmul over a stack block differs from its "
+                         f"plain version in {bad4} residues at {shape}")
+        n3 = len(RNS_BASE)
+        row4 = {**shape, "n_mod": n3, "experts_per_block": eb,
+                "groups_per_block": gb, "slots": n3 * S,
+                "sliced_in_place": in_place}
+        xf = xr.reshape(n3 * S, M, 16).float()
+        wf = wr.reshape(n3 * S, 16, N).float()
+        b4 = 4.0 * (n3 * S * (M * 16 + 16 * N + M * N))
+        t_b, by = bound_rate(b4, 2.0 * n3 * S * M * N * 16, INT_OPS_PER_S)
+        row4.update({
+            "ms": time_ms(lambda: ops.rns_group_matmul(xr, wr, RNS_BASE),
+                          n=10),
+            "plain_ms": time_ms(lambda: ref.rns_matmul_ref(xr, wr,
+                                                           RNS_BASE), n=3),
+            "library_ms": time_ms(lambda: torch.bmm(xf, wf), n=10),
+            "bound_ms": t_b, "bound_by": by})
+        rows["rns_matmul"].append(row4)
+        del xr, wr, xf, wf, got
+        # kernels 5 and 6: mirage_rrns
+        xr, wr, eb, gb = stack_block_operands(RRNS_ALL, E, G, M, N, 700 + i)
+        n5, S = len(RRNS_ALL), xr.shape[1]
+        gen = torch.Generator(device=DEV).manual_seed(800 + i)
+        checks = {}
+        for snr in (20.0, SNR_DB):
+            noise = detector_noise(RRNS_ALL, (gb, M, N), snr, gen)
+            res, flips = ops.rns_group_matmul_channel(
+                xr, wr, RRNS_ALL, noise, count_flips=True)
+            want, want_flips = ref.rns_matmul_channel_ref(
+                xr, wr, RRNS_ALL, noise, count_flips=True)
+            bad5 = int((res != want).sum())
+            del want
+            dec, votes = ops.rrns_decode(res, tables)
+            want_dec, want_votes = ref.rrns_decode_ref(res, tables)
+            bad6 = int((dec != want_dec).sum()) + int(
+                (votes.view(torch.int32) != want_votes.view(torch.int32))
+                .sum())
+            checks[f"{snr:g}dB"] = {
+                "channel_mismatches": bad5, "flips": flips.tolist(),
+                "flips_equal_plain": flips.tolist() == want_flips.tolist(),
+                "decode_mismatches": bad6,
+                "uncorrected": int((votes < float(tables.vote_threshold))
+                                   .sum())}
+            check(bad5 == 0 and flips.tolist() == want_flips.tolist(),
+                  f"rns_matmul_channel over a stack block differs from its "
+                  f"plain version ({bad5} residues, flips {flips.tolist()} "
+                  f"against {want_flips.tolist()}) at {shape}, {snr} dB")
+            check(bad6 == 0, f"rrns_decode over a stack block differs from "
+                             f"its plain version at {shape}, {snr} dB")
+            del dec, votes, want_dec, want_votes
+            if snr != SNR_DB:
+                del res, noise
+        emit({"phase": "rns_stacks_vs_plain", **shape,
+              "experts_per_block": eb, "groups_per_block": gb,
+              "slots_rrns": n5 * S, "slots_rns": n3 * S4,
+              "noise_period": gb, "rns_matmul_mismatches": bad4,
+              "sliced_in_place": in_place, "rrns": checks, "ok": True,
+              "seconds": time.perf_counter() - t0})
+        xf = xr.reshape(n5 * S, M, 16).float()
+        wf = wr.reshape(n5 * S, 16, N).float()
+        base = {**shape, "n_mod": n5, "experts_per_block": eb,
+                "groups_per_block": gb, "slots": n5 * S, "noise_period": gb}
+        b5 = 4.0 * (n5 * S * (M * 16 + 16 * N + M * N) + n5 * gb * M * N)
+        t_b, by = bound_rate(b5, 2.0 * n5 * S * M * N * 16, INT_OPS_PER_S)
+        rows["rns_matmul_channel"].append({
+            **base,
+            "ms": time_ms(lambda: ops.rns_group_matmul_channel(
+                xr, wr, RRNS_ALL, noise), n=10),
+            "plain_ms": time_ms(lambda: ref.rns_matmul_channel_ref(
+                xr, wr, RRNS_ALL, noise), n=3),
+            "library_ms": time_ms(lambda: torch.bmm(xf, wf), n=10),
+            "bound_ms": t_b, "bound_by": by})
+        del xf, wf, xr, wr, noise
+        rows["rrns_decode"].append(decode_timing_row(
+            ops, ref, res, tables, {**base, "inputs": "path, 52 dB"}))
+        del res
+        free_card()
+    for name, shapes in rows.items():
+        for row in shapes:
+            emit({"phase": "timing", "kernel": name, "path": "moe_stacks",
+                  **row})
+    return rows
+
+
+class BlockTap:
+    """Counts, while open, the residue blocks the RNS backends run by
+    wrapping ``mirage_rns.run_blocks``: each block is one launch of kernel
+    4 or 5 and, under RRNS, one of kernel 6. Also the blocks of expert
+    stacks and the most slots one launch took."""
+
+    def __init__(self):
+        from repro_torch.core.backends import mirage_rns
+        self.module = mirage_rns
+        self.blocks = self.stack_blocks = self.max_slots = 0
+
+    def __enter__(self):
+        self.inner = inner = self.module.run_blocks
+
+        def tapped(xr, wr, sx, sw, eb, gb, block_fn):
+            n_mod, E, G = xr.shape[:3]
+            n = -(-E // eb) * -(-G // gb)
+            self.blocks += n
+            if E > 1:
+                self.stack_blocks += n
+            self.max_slots = max(self.max_slots,
+                                 n_mod * min(E, eb) * min(G, gb))
+            return inner(xr, wr, sx, sw, eb, gb, block_fn)
+
+        self.module.run_blocks = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.module.run_blocks = self.inner
+
+
+def moe_rns_model(arch: str, n_layers: int, policy):
+    """An MoE config at its published widths cut to ``n_layers``, weights
+    from seed 0, under ``policy``, attention through the flash kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import LMCallOptions
+
+    cfg = get_config(arch).reduced() if REDUCED else get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=min(n_layers, cfg.n_layers))
+    return build_model(cfg, policy, LMCallOptions(use_flash_kernel=True),
+                       device=DEV,
+                       generator=torch.Generator(device=DEV).manual_seed(0))
+
+
+def moe_rns_drain(ops, model, reqs, **engine_kw):
+    """Drain ``reqs`` through a fresh engine, counting the residue blocks:
+    (summary, streams, health, launches, blocks, stationary_weights)."""
+    from repro_torch.runtime.server import LMServer
+
+    with BlockTap() as tap:
+        server, finished, dt, launches, program_s = serve_run(
+            ops, model, CAP, reqs, LMServer, **engine_kw)
+    summary = serve_summary(server, finished, dt, launches, program_s)
+    summary["model_steps"] = model_steps(server.metrics)
+    summary["residue_blocks"] = tap.blocks
+    summary["stack_blocks"] = tap.stack_blocks
+    summary["most_slots_a_launch"] = tap.max_slots
+    out = (summary, {r.rid: r.tokens_out for r in finished},
+           server.health_snapshot(), launches, tap.blocks,
+           server.stationary_weights, finished)
+    del server
+    return out
+
+
+def check_drain(what, finished, n_req, n_tok, vocab):
+    check(len(finished) == n_req and all(
+        len(r.tokens_out) == n_tok for r in finished),
+        f"{what}: not every request completed with its tokens")
+    check(all(0 <= t < vocab for r in finished for t in r.tokens_out),
+          f"{what}: a token lies outside the vocabulary")
+
+
+def phase_slice_moe_rns(ops, arch: str, n_layers: int):
+    """An MoE config at its published widths, cut to ``n_layers``, served
+    under the paper's datapath with the default engine, which encodes the
+    weights per call (the JAX engine's rule for the MoE family): the
+    slice's requests under mirage_rrns at 52 dB (kernel 5 and kernel 6 on
+    every block of every GEMM, the expert stacks over (n_mod, E x G)
+    slots), its clean-channel twin (kernel 4 and kernel 6; the streams must
+    be equal and no decode may be beyond the correction radius), the
+    steady tick cold against warmed (one CUDA graph), and a short
+    mirage_rns drain (kernel 4). Launches are held to the residue blocks
+    the backends ran. The model is freed after."""
+    from repro_torch.core.precision import get_policy
+    from repro_torch.runtime.server import LMServer, Request
+
+    t_phase = time.perf_counter()
+    noisy = get_policy("mirage_rrns", snr_db=SNR_DB, noise_seed=NOISE_SEED)
+    model = moe_rns_model(arch, n_layers, noisy)
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    vocab = cfg.vocab_size
+    rows = {}
+    with DecodedElements(ops) as decoded:
+        summary, streams, health, launches, blocks, programmed, fin = \
+            moe_rns_drain(ops, model, make_requests(Request, vocab))
+    check_drain(f"slice_moe_rrns {arch}", fin, N_REQUESTS, MAX_TOKENS, vocab)
+    want = {"rns_matmul_channel": blocks, "rrns_decode": blocks,
+            "flash_attention": n_layers * summary["prefill_batches"]}
+    expect_launches(launches, want, f"slice_moe_rrns {arch} at 52 dB")
+    check(not programmed, f"slice_moe_rrns {arch}: the default engine "
+                          f"programmed stationary weights on a MoE model")
+    check(health["rrns_uncorrected"] == 0,
+          f"slice_moe_rrns {arch}: {health['rrns_uncorrected']} decodes "
+          f"beyond the correction radius at {SNR_DB} dB")
+    rows["rrns_52db"] = {**summary, "expected_launches": want,
+                         "health": health,
+                         "decoded_elements": decoded.elements}
+    model.policy = get_policy("mirage_rrns", noise_seed=NOISE_SEED)
+    c_summary, c_streams, c_health, c_launches, c_blocks, _, c_fin = \
+        moe_rns_drain(ops, model, make_requests(Request, vocab))
+    check_drain(f"slice_moe_rrns {arch} clean", c_fin, N_REQUESTS,
+                MAX_TOKENS, vocab)
+    c_want = {"rns_matmul": c_blocks, "rrns_decode": c_blocks,
+              "flash_attention": n_layers * c_summary["prefill_batches"]}
+    expect_launches(c_launches, c_want, f"slice_moe_rrns {arch}, clean")
+    check(c_streams == streams, f"slice_moe_rrns {arch}: the 52 dB greedy "
+                                f"streams differ from the clean channel's")
+    rows["rrns_clean"] = {**c_summary, "expected_launches": c_want,
+                          "health": c_health}
+    # the steady tick at 52 dB, cold against warmed (one graph replay)
+    model.policy = noisy
+    reqs = make_requests(Request, vocab)
+    # one prompt bucket: the warmup then runs 3 prefill shapes, not 19
+    one_bucket = dict(buckets=(PROMPT_LENS[1],))
+    eng = {"cold": LMServer(model, cap=CAP, batch_slots=SLOTS, **one_bucket),
+           "warmed": LMServer(model, cap=CAP, batch_slots=SLOTS,
+                              **one_bucket)}
+    warm_info = eng["warmed"].warmup()
+    ticks = {side: engine_tick_ms(eng[side], reqs, MOE_RNS_TICKS)
+             for side in ("cold", "warmed")}
+    # the warmed tick's device time (a cold tick runs the same kernels)
+    prof = engine_tick_profile(eng["warmed"], reqs, 1)
+    profile = {k: prof[k] for k in (
+        "wall_ms", "device_busy_ms", "device_idle_share", "device_kernels",
+        "graph_launches", "top_device_ms", "port_kernels_ms")}
+    check(profile["graph_launches"] == 1,
+          f"slice_moe_rrns {arch}: the warmed tick's profile shows "
+          f"{profile['graph_launches']} graph launches, expected 1")
+    del eng
+    free_card()
+    # a short mirage_rns drain
+    model.policy = get_policy("mirage_rns")
+    r_summary, _, _, r_launches, r_blocks, _, r_fin = moe_rns_drain(
+        ops, model, make_requests(Request, vocab,
+                                  max_tokens=MOE_RNS_TOKENS)[:RNS_REQUESTS])
+    check_drain(f"slice_moe_rns {arch}", r_fin, RNS_REQUESTS,
+                MOE_RNS_TOKENS, vocab)
+    r_want = {"rns_matmul": r_blocks,
+              "flash_attention": n_layers * r_summary["prefill_batches"]}
+    expect_launches(r_launches, r_want, f"slice_moe_rns {arch}")
+    emit({"phase": "slice_moe_rrns", "arch": arch, "n_layers": n_layers,
+          "params": n_params, "d_model": cfg.d_model,
+          "n_experts": cfg.n_experts, "top_k": cfg.experts_per_token,
+          "moe_d_ff": cfg.moe_d_ff, "vocab": vocab,
+          "policy": f"mirage_rrns b_m=4 g=16 k=5 moduli={list(RRNS_ALL)} "
+                    f"snr_db={SNR_DB} noise_seed={NOISE_SEED}, weights "
+                    f"encoded per call", "slots": SLOTS, **rows,
+          "streams_equal_clean": c_streams == streams,
+          "tick_ms": ticks, "ticks_per_run": MOE_RNS_TICKS,
+          "warmed_over_cold_tick": ticks["warmed"] / ticks["cold"],
+          "warmup": warm_info, "warmed_tick_profile": profile,
+          "t_phase_s": time.perf_counter() - t_phase})
+    emit({"phase": "slice_moe_rns", "arch": arch, "n_layers": n_layers,
+          "policy": "mirage_rns b_m=4 g=16 k=5", "slots": SLOTS,
+          **r_summary, "expected_launches": r_want})
+    del model
+    free_card()
+    return {"rrns_52db": launches, "rrns_clean": c_launches,
+            "rns": r_launches}
+
+
+def phase_slice_moe_rrns_stationary(ops, arch: str, n_layers: int):
+    """``stationary_weights=True`` on an MoE config (every Dense weight
+    and expert stack programmed once, the router raw) at 52 dB: the
+    slice's requests give the streams of the per-call engine on a clean
+    channel, with every decode corrected; the residues' bytes beside."""
+    from repro_torch.core import stationary
+    from repro_torch.core.precision import get_policy
+    from repro_torch.runtime.server import Request
+
+    t_phase = time.perf_counter()
+    noisy = get_policy("mirage_rrns", snr_db=SNR_DB, noise_seed=NOISE_SEED)
+    model = moe_rns_model(arch, n_layers, noisy)
+    vocab = model.cfg.vocab_size
+    summary, streams, health, launches, blocks, programmed, fin = \
+        moe_rns_drain(ops, model, make_requests(Request, vocab),
+                      stationary_weights=True)
+    check(programmed, f"slice_moe_rrns_stationary {arch}: not programmed")
+    check_drain(f"slice_moe_rrns_stationary {arch}", fin, N_REQUESTS,
+                MAX_TOKENS, vocab)
+    want = {"rns_matmul_channel": blocks, "rrns_decode": blocks,
+            "flash_attention": n_layers * summary["prefill_batches"]}
+    expect_launches(launches, want, f"slice_moe_rrns_stationary {arch}")
+    residue_gb = sum(
+        sr.residues.numel() * 4 for _, m in stationary._moe_modules(model)
+        for sr in (m.stationary or {}).values()) / 1e9
+    model.policy = get_policy("mirage_rrns", noise_seed=NOISE_SEED)
+    c_summary, c_streams, _, _, _, _, _ = moe_rns_drain(
+        ops, model, make_requests(Request, vocab))
+    check(health["rrns_uncorrected"] == 0,
+          f"slice_moe_rrns_stationary {arch}: "
+          f"{health['rrns_uncorrected']} decodes beyond the radius")
+    check(streams == c_streams,
+          f"slice_moe_rrns_stationary {arch}: the programmed engine's 52 dB "
+          f"streams differ from the per-call clean engine's")
+    emit({"phase": "slice_moe_rrns_stationary", "arch": arch,
+          "n_layers": n_layers, "stationary_weights": True,
+          "expert_stack_residues_gb": residue_gb, **summary,
+          "expected_launches": want, "health": health,
+          "clean_per_call": c_summary,
+          "streams_equal_clean_per_call": streams == c_streams,
+          "t_phase_s": time.perf_counter() - t_phase})
+    del model
+    free_card()
+    return launches
+
+
+def phase_slice_train_moe_rns(ops):
+    """``MOE_RNS_TRAIN``: mirage_rns training steps of an MoE config at
+    its published widths (``launch.train --arch ... --layers 1 --policy
+    mirage_rns``): every forward, dX and dW GEMM through kernel 4, the
+    expert stacks' over (3, E x G) slots; losses finite, launches equal
+    to the residue blocks, peak memory."""
+    from repro_torch.core.precision import get_policy
+
+    arch, n_layers, n_steps = MOE_RNS_TRAIN
+    t_phase = time.perf_counter()
+    cfg, model, tc, data = train_setup(get_policy("mirage_rns"), arch,
+                                       n_layers)
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with BlockTap() as tap:
+        _, _, times, logs = run_train(model, tc, iter(data), n_steps)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [m["loss"] for m in logs]
+    want = {"rns_matmul": tap.blocks}
+    emit({"phase": "slice_train_moe_rns", "arch": arch,
+          "n_layers": cfg.n_layers, "policy": "mirage_rns b_m=4 g=16 k=5",
+          "steps": n_steps, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "launches": launches, "expected_launches": want,
+          "stack_blocks": tap.stack_blocks,
+          "most_slots_a_launch": tap.max_slots,
+          "step_ms": [t * 1e3 for t in times],
+          "tok_per_s": TRAIN_BATCH * TRAIN_SEQ / times[-1],
+          "peak_mem_gb": peak, "losses": losses,
+          "grad_norms": [m["grad_norm"] for m in logs],
+          "t_phase_s": time.perf_counter() - t_phase})
+    check(all(math.isfinite(v) for v in losses),
+          f"MoE mirage_rns training: a loss is not finite: {losses}")
+    expect_launches(launches, want, "slice_train_moe_rns")
+    del model
+    free_card()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a CUDA "
@@ -4275,12 +4704,22 @@ def main() -> int:
         ops, ref, (0,), arch, 1, f"slice_train_wsq_moe_{MOE_ARCH_OF[arch]}")
         for arch in MOE_WSQ_ARCHS}
     phase_train_moe_grads_vs_cpu(ops, ref)
+    # one step: the CPU's step over 1.25 B f32 parameters is the phase's
+    # cost (the dense phase keeps 2)
     phase_train_fp32_vs_cpu("qwen3-moe-30b-a3b", MOE_FP32_LAYERS,
-                            "train_moe_fp32_vs_cpu")
+                            "train_moe_fp32_vs_cpu", n_steps=1)
     free_card()
+    moe_rns_rows = phase_rns_stacks(ops, ref)
+    moe_rns_launches = {MOE_ARCH_OF[arch]: phase_slice_moe_rns(ops, arch, n)
+                        for arch, n in MOE_RNS_SLICES}
+    moe_stationary_launches = {
+        MOE_ARCH_OF[arch]: phase_slice_moe_rrns_stationary(ops, arch, n)
+        for arch, n in MOE_STATIONARY_SLICES}
+    moe_rns_train_launches = phase_slice_train_moe_rns(ops)
     reduced_launches = phase_serve_reduced(ops)
     phase_train_resume()
-    rns_train_launches, rns_per_step = phase_slice_train_rns(ops, ref)
+    rns_train_launches, rns_per_step = phase_slice_train_rns(ops, ref,
+                                                             layers=(0,))
     twins = phase_twins(ops)
     rows = phase_timing(ops, ref, policy, GEMM_PER_STEP)
     rows.update(phase_timing_rns(ops, ref, GEMM_PER_STEP))
@@ -4365,6 +4804,29 @@ def main() -> int:
                 head_row("rns_matmul"), rns_launches)
     rns["training_launches"] = rns_train_launches["rns_matmul"]
     rns["training_launches_per_step"] = rns_per_step
+    channel = entry("rns_matmul_channel", "rns_matmul.cu",
+                    "src/repro/kernels/rns_matmul.py:131", err_channel,
+                    head_row("rns_matmul_channel"), rrns_launches)
+    decode = entry("rrns_decode", "rrns_decode.cu",
+                   "src/repro/kernels/rrns_decode.py:140", err_decode,
+                   head_row("rrns_decode"), rrns_launches)
+    # the MoE paths under the paper's datapath (slice 6c): each kernel's
+    # launches there, and its rows at the expert stacks' blocks
+    for kernel, k_entry, paths in (
+            ("rns_matmul", rns, ("rrns_clean", "rns")),
+            ("rns_matmul_channel", channel, ("rrns_52db",)),
+            ("rrns_decode", decode, ("rrns_52db", "rrns_clean"))):
+        k_entry["launches_moe"] = {
+            f"{arch}_{path}": runs[path][kernel]
+            for arch, runs in moe_rns_launches.items() for path in paths}
+        if kernel != "rns_matmul":
+            k_entry["launches_moe"].update({
+                f"{arch}_rrns_52db_stationary": n[kernel]
+                for arch, n in moe_stationary_launches.items()})
+        else:
+            k_entry["launches_moe"]["train_qwen3-moe_rns"] = \
+                moe_rns_train_launches["rns_matmul"]
+        k_entry["moe_stacks"] = moe_rns_rows[kernel]
     emit({"kernels": [
         gemm,
         flash,
@@ -4373,12 +4835,8 @@ def main() -> int:
               max(rows["bfp_quantize"], key=lambda r: r["rows"]),
               wsq_launches),
         rns,
-        entry("rns_matmul_channel", "rns_matmul.cu",
-              "src/repro/kernels/rns_matmul.py:131", err_channel,
-              head_row("rns_matmul_channel"), rrns_launches),
-        entry("rrns_decode", "rrns_decode.cu",
-              "src/repro/kernels/rrns_decode.py:140", err_decode,
-              head_row("rrns_decode"), rrns_launches),
+        channel,
+        decode,
     ], "main_path": {"prefill_batches": batches, "decode_steps": steps,
                      "train_steps": TRAIN_STEPS, "wsq_steps": WSQ_STEPS,
                      "launches_by_path": {
@@ -4403,6 +4861,12 @@ def main() -> int:
                             for arch, n in moe_train_launches.items()},
                          **{f"train_wsq_bfp_moe_{arch}": n
                             for arch, n in moe_wsq_launches.items()},
+                         **{f"{arch}_{path}": n
+                            for arch, runs in moe_rns_launches.items()
+                            for path, n in runs.items()},
+                         **{f"{arch}_rrns_52db_stationary": n
+                            for arch, n in moe_stationary_launches.items()},
+                         "train_moe_qwen3-moe_rns": moe_rns_train_launches,
                          "serve_reduced": reduced_launches,
                          "train_mirage_rns": rns_train_launches,
                          "twins": {k: v["launches"]
@@ -4442,7 +4906,16 @@ def main() -> int:
                              "forward, dX and dW one launch "
                              "(backward_stacks); train_wsq_bfp_moe_* adds "
                              "bfp_quantize, one launch a weight (an expert "
-                             "stack one) and a gradient leaf each step"}})
+                             "stack one) and a gradient leaf each step; "
+                             "the MoE paths under the paper's datapath "
+                             "(slice_moe_rrns, slice_moe_rns, "
+                             "slice_moe_rrns_stationary, "
+                             "slice_train_moe_rns: launches_moe) launch "
+                             "rns_matmul_channel (52 dB) or rns_matmul "
+                             "(clean, mirage_rns) and rrns_decode once a "
+                             "residue block, each expert stack over (n_mod, "
+                             "E x G) slots in blocks of whole experts "
+                             "(moe_stacks)"}})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -13,6 +13,11 @@ Detector noise with amplitude SNR ``s`` dB has sigma ``m / 10^(s/20)``
 phase levels for modulus ``m`` (the §IV-B "SNR > m" requirement,
 ``repro_torch.analog.device``).
 
+An expert stack (the MoE layer's residues, ``(n_moduli, E, ...)``) takes
+``stack=True``: as under the JAX package's vmap over experts, whose key is
+not batched, every stage draws ONCE at one expert's shape and all E
+experts reuse the draw, and the crosstalk mixes each expert's own groups.
+
 Randomness: every stochastic stage takes its numbers from a :class:`Draws`
 object, one named draw per stage. :class:`GeneratorDraws` serves them in
 call order from a ``torch.Generator`` (the serving engine's device
@@ -28,7 +33,7 @@ import dataclasses
 import functools
 import math
 import zlib
-from typing import Optional, Protocol, Sequence, Tuple
+from typing import NamedTuple, Optional, Protocol, Sequence, Tuple
 
 import torch
 
@@ -70,6 +75,32 @@ class GeneratorDraws:
         g = self.generator
         return torch.randint(low, high, tuple(shape), generator=g,
                              device=g.device, dtype=torch.int32)
+
+
+class SharedDraws:
+    """:class:`Draws` that hand every request of one stage and shape the
+    same numbers, drawn once from ``draws``: the seed oracles run an expert
+    stack one expert at a time and, through this, reuse one draw for all
+    of them, as the JAX package's vmap over experts does."""
+
+    def __init__(self, draws: Draws):
+        self.draws = draws
+        self._memo = {}
+
+    def _get(self, kind, stage, shape, *args):
+        key = (kind, stage, tuple(shape)) + args
+        if key not in self._memo:
+            self._memo[key] = getattr(self.draws, kind)(stage, shape, *args)
+        return self._memo[key]
+
+    def normal(self, stage, shape):
+        return self._get("normal", stage, shape)
+
+    def uniform(self, stage, shape):
+        return self._get("uniform", stage, shape)
+
+    def randint(self, stage, shape, low, high):
+        return self._get("randint", stage, shape, low, high)
 
 
 def seeded_generator(device, *parts) -> torch.Generator:
@@ -192,16 +223,35 @@ def converter_quantize(residues: torch.Tensor, moduli: Sequence[int],
     return torch.stack(outs, dim=0)
 
 
+def draw_noise(residues_shape, sigmas, draws: Draws, device,
+               stage: str = "detector", stack: bool = False) -> torch.Tensor:
+    """Gaussian phase noise for residues of ``residues_shape``, scaled per
+    modulus to ``sigmas`` levels: one draw at one expert's shape, with a
+    broadcast expert axis where ``stack``."""
+    shape = tuple(residues_shape)
+    if stack:
+        shape = shape[:1] + shape[2:]
+    noise = draws.normal(stage, shape) * _col(sigmas, len(shape), device)
+    return noise.unsqueeze(1) if stack else noise
+
+
+def add_noise(residues: torch.Tensor, moduli: Sequence[int],
+              noise: torch.Tensor) -> torch.Tensor:
+    """``residues`` plus drawn phase noise, re-quantized to the nearest
+    level and wrapped mod m."""
+    return _wrap(torch.round(residues.to(torch.float32) + noise), moduli)
+
+
 def phase_noise(residues: torch.Tensor, moduli: Sequence[int], sigmas,
-                draws: Draws, stage: str = "detector") -> torch.Tensor:
+                draws: Draws, stage: str = "detector",
+                stack: bool = False) -> torch.Tensor:
     """Per-modulus additive Gaussian phase noise, re-quantized to the
     nearest level and wrapped mod m (the detector reads phases on a ring).
     An all-zero ``sigmas`` draws nothing."""
     if all(s <= 0 for s in sigmas):
         return residues
-    noise = draws.normal(stage, tuple(residues.shape)) * _col(
-        sigmas, residues.dim(), residues.device)
-    return _wrap(torch.round(residues.to(torch.float32) + noise), moduli)
+    return add_noise(residues, moduli, draw_noise(
+        residues.shape, sigmas, draws, residues.device, stage, stack))
 
 
 def crosstalk_mix(residues: torch.Tensor, moduli: Sequence[int],
@@ -222,6 +272,49 @@ def crosstalk_mix(residues: torch.Tensor, moduli: Sequence[int],
     return _wrap(torch.round(mixed), moduli)
 
 
+class Bursts(NamedTuple):
+    """The draws of the burst stage over one expert's output elements:
+    ``hit`` (bool), the first channel ``start`` and one error per channel
+    in ``errs``."""
+    hit: torch.Tensor
+    start: torch.Tensor
+    errs: Tuple[torch.Tensor, ...]
+
+    def block(self, index) -> "Bursts":
+        return Bursts(self.hit[index], self.start[index],
+                      tuple(e[index] for e in self.errs))
+
+
+def draw_bursts(shape: Tuple[int, ...], moduli: Sequence[int], rate: float,
+                draws: Draws) -> Bursts:
+    """The burst stage's draws over output elements of ``shape``."""
+    n = len(moduli)
+    return Bursts(draws.uniform("burst_hit", shape) < rate,
+                  draws.randint("burst_pos", shape, 0, n),
+                  tuple(draws.randint(f"burst_err/{i}", shape, 1, m)
+                        for i, m in enumerate(moduli)))
+
+
+def apply_bursts(residues: torch.Tensor, moduli: Sequence[int], width: int,
+                 b: Bursts, stack: bool = False) -> torch.Tensor:
+    """Apply drawn bursts to ``residues (n_mod, ...)``; where ``stack``,
+    the draws cover one expert (``residues (n_mod, E, ...)``) and every
+    expert takes them. Records ``burst_hits`` summed over the experts."""
+    n = len(moduli)
+    if stack:
+        b = Bursts(b.hit[None], b.start[None], tuple(e[None] for e in b.errs))
+    if obs_health.active():
+        obs_health.record("burst_hits", torch.sum(b.hit) *
+                          (residues.shape[1] if stack else 1))
+    outs = []
+    for i, m in enumerate(moduli):
+        in_burst = torch.remainder(i - b.start, n) < width
+        outs.append(torch.where(b.hit & in_burst,
+                                torch.remainder(residues[i] + b.errs[i], m),
+                                residues[i]).to(torch.int32))
+    return torch.stack(outs, dim=0)
+
+
 def burst_errors(residues: torch.Tensor, moduli: Sequence[int], rate: float,
                  width: int, draws: Draws) -> torch.Tensor:
     """Correlated bursts: with probability ``rate`` per output element,
@@ -229,20 +322,8 @@ def burst_errors(residues: torch.Tensor, moduli: Sequence[int], rate: float,
     errors in ``[1, m-1]`` at once."""
     if rate <= 0:
         return residues
-    n = len(moduli)
-    shape = tuple(residues.shape[1:])
-    hit = draws.uniform("burst_hit", shape) < rate
-    if obs_health.active():
-        obs_health.record("burst_hits", torch.sum(hit))
-    start = draws.randint("burst_pos", shape, 0, n)
-    outs = []
-    for i, m in enumerate(moduli):
-        in_burst = torch.remainder(i - start, n) < width
-        err = draws.randint(f"burst_err/{i}", shape, 1, m)
-        outs.append(torch.where(hit & in_burst,
-                                torch.remainder(residues[i] + err, m),
-                                residues[i]).to(torch.int32))
-    return torch.stack(outs, dim=0)
+    return apply_bursts(residues, moduli, width, draw_bursts(
+        tuple(residues.shape[1:]), moduli, rate, draws))
 
 
 def _flips(after: torch.Tensor, before: torch.Tensor) -> torch.Tensor:
@@ -252,13 +333,15 @@ def _flips(after: torch.Tensor, before: torch.Tensor) -> torch.Tensor:
 
 def apply_program_channel(residues: torch.Tensor, moduli: Sequence[int],
                           cfg: AnalogChannelConfig,
-                          draws: Optional[Draws]) -> torch.Tensor:
-    """Program-side chain on the stationary operand: DAC -> shifter drift."""
+                          draws: Optional[Draws],
+                          stack: bool = False) -> torch.Tensor:
+    """Program-side chain on the stationary operand: DAC -> shifter drift
+    (one drift draw for every expert of a stack)."""
     out = converter_quantize(residues, moduli, cfg.dac_bits)
     if cfg.phase_drift_sigma > 0:
         drifted = phase_noise(out, moduli,
                               (cfg.phase_drift_sigma,) * len(moduli), draws,
-                              stage="drift")
+                              stage="drift", stack=stack)
         if obs_health.active():
             obs_health.record("drift_flips", _flips(drifted, out))
         out = drifted
@@ -267,12 +350,24 @@ def apply_program_channel(residues: torch.Tensor, moduli: Sequence[int],
 
 def apply_readout_channel(residues: torch.Tensor, moduli: Sequence[int],
                           cfg: AnalogChannelConfig, draws: Optional[Draws],
-                          group_axis: int = 1) -> torch.Tensor:
-    """Readout-side chain: crosstalk -> detector noise -> ADC re-quantize."""
+                          group_axis: int = 1, stack: bool = False,
+                          noise: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Readout-side chain: crosstalk -> detector noise -> ADC re-quantize.
+
+    ``stack``: ``residues (n_mod, E, G, M, N)``, the crosstalk along each
+    expert's groups and one noise draw for all experts. ``noise``: the
+    detector noise already drawn and scaled (:func:`draw_noise`), in place
+    of a draw from ``draws``."""
+    if stack:
+        group_axis = 2
     out = crosstalk_mix(residues, moduli, cfg.crosstalk, group_axis)
     sigmas = cfg.detector_sigmas(moduli)
     if any(s > 0 for s in sigmas):
-        noisy = phase_noise(out, moduli, sigmas, draws)
+        if noise is None:
+            noise = draw_noise(out.shape, sigmas, draws, out.device,
+                               stack=stack)
+        noisy = add_noise(out, moduli, noise)
         if obs_health.active():
             # residues the detector noise moved >= 1 level (what the RRNS
             # decode then has to correct)

@@ -36,11 +36,19 @@ def _matmul_bf16(x, w, policy):
                         w.to(torch.bfloat16).to(torch.float32))
 
 
-@register_fn("int8", description="per-tensor symmetric int8 systolic baseline")
+@register_fn("int8", description="per-tensor symmetric int8 systolic baseline",
+             supports_batched_weights=True)
 def _matmul_int8(x, w, policy):
     _pin_full_f32()
-    sx = torch.clamp_min(torch.amax(torch.abs(x)), 1e-30) / 127.0
-    sw = torch.clamp_min(torch.amax(torch.abs(w)), 1e-30) / 127.0
+    # one scale per tensor; over an expert stack one per expert, as the
+    # JAX package's vmap of its per-tensor scale gives
+    dims = (-2, -1) if w.dim() == 3 else tuple(range(x.dim()))
+    sx = torch.clamp_min(torch.amax(torch.abs(x), dim=dims, keepdim=True),
+                         1e-30) / 127.0
+    sw = torch.clamp_min(torch.amax(torch.abs(w), dim=(-2, -1),
+                                    keepdim=True), 1e-30) / 127.0
+    if w.dim() == 2:
+        sx, sw = sx.reshape(()), sw.reshape(())
     qx = torch.clamp(torch.round(x / sx), -127, 127)
     qw = torch.clamp(torch.round(w / sw), -127, 127)
     return torch.matmul(qx, qw) * (sx * sw)

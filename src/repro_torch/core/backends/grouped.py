@@ -39,30 +39,42 @@ DEFAULT_GROUP_BLOCK = 8
 F32_EXACT_WINDOW = 1 << 24
 
 
-def prepare_activations(x: torch.Tensor, policy
+def is_stack(w) -> bool:
+    """True for a stack of expert weights: an ``(E, K, N)`` tensor, or
+    stationary residues programmed from one (``(n_mod, E, G, g, N)``)."""
+    if isinstance(w, torch.Tensor):
+        return w.dim() == 3
+    return w.residues.dim() == 5
+
+
+def prepare_activations(x: torch.Tensor, policy, stack: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor,
                                    Tuple[int, ...]]:
     """BFP-quantize the activation operand into group-major layout.
 
-    Returns ``(qx (G, M, g), sx (G, M, 1), batch)``."""
+    Returns ``(qx (G, M, g), sx (G, M, 1), batch)``. With ``stack``, ``x``
+    is an expert stack ``(E, C, K)``: ``qx (E, G, C, g)``, ``sx (E, G, C,
+    1)``, each expert grouped as the JAX package's vmap groups it."""
     batch = tuple(x.shape[:-1])
     t = bfp.bfp_quantize(x, policy.b_m, policy.g, policy.rounding)
     G, g = t.mantissa.shape[-2], t.mantissa.shape[-1]
+    lead = batch[:1] if stack else ()
     M = 1
-    for d in batch:
+    for d in batch[len(lead):]:
         M *= d
-    qx = t.mantissa.reshape(M, G, g).transpose(0, 1)
-    sx = t.scale.reshape(M, G, 1).transpose(0, 1)
+    qx = t.mantissa.reshape(lead + (M, G, g)).transpose(-3, -2)
+    sx = t.scale.reshape(lead + (M, G, 1)).transpose(-3, -2)
     return qx, sx, batch
 
 
 def prepare_operands(x: torch.Tensor, w: torch.Tensor, policy):
     """BFP-quantize both operands into group-major layout.
 
-    Returns ``(qx, sx, qw, sw, batch)``. Under
+    Returns ``(qx, sx, qw, sw, batch)``; an expert stack ``w (E, K, N)``
+    with ``x (E, C, K)`` gives each a leading E axis. Under
     ``policy.assume_quantized_weights`` the weight side takes the exact
     decomposition (bit-identical for on-grid weights)."""
-    qx, sx, batch = prepare_activations(x, policy)
+    qx, sx, batch = prepare_activations(x, policy, stack=w.dim() == 3)
     if policy.assume_quantized_weights:
         qw, sw = bfp.bfp_decompose_contract(w, policy.b_m, policy.g)
     else:
@@ -81,37 +93,57 @@ SEQUENTIAL_SUM_GROUPS = 32
 
 
 def sum_groups(t: torch.Tensor) -> torch.Tensor:
-    """The sum of ``t`` over its leading (group) axis."""
-    if t.shape[0] > SEQUENTIAL_SUM_GROUPS:
-        return torch.sum(t, dim=0)
-    acc = t[0]
-    for i in range(1, t.shape[0]):
-        acc = acc + t[i]
+    """The sum of ``t (..., G, M, N)`` over its group axis."""
+    G = t.shape[-3]
+    if G > SEQUENTIAL_SUM_GROUPS:
+        return torch.sum(t, dim=-3)
+    acc = t[..., 0, :, :]
+    for i in range(1, G):
+        acc = acc + t[..., i, :, :]
     return acc
+
+
+def vectorized(n_groups: int, M: int, N: int, n_mod: int = 1) -> bool:
+    """The CPU regime of one expert's (or one 2-D GEMM's) group dots: one
+    batched product while its ``(n_mod, G, M, N)`` f32 intermediate fits
+    :data:`VECTORIZE_BUDGET_BYTES`. An expert stack decides per expert, as
+    the JAX package's vmap sees one expert's shapes."""
+    return n_mod * n_groups * M * N * 4 <= VECTORIZE_BUDGET_BYTES
+
+
+def _group_dots(xv: torch.Tensor, wv: torch.Tensor) -> torch.Tensor:
+    """(..., G, M, g) x (..., G, g, N) -> (..., G, M, N), one batched
+    product over every (expert, group) slot."""
+    lead, (M, g), N = xv.shape[:-2], xv.shape[-2:], wv.shape[-1]
+    return torch.bmm(xv.reshape(-1, M, g),
+                     wv.reshape(-1, g, N)).reshape(lead + (M, N))
 
 
 def grouped_dot(xv: torch.Tensor, wv: torch.Tensor,
                 group_block: int = 0) -> torch.Tensor:
     """Scale-accumulated sum of per-group dots: (G, M, g) x (G, g, N) ->
-    (M, N).
+    (M, N), or over an expert stack (E, G, M, g) x (E, G, g, N) -> (E, M,
+    N), each expert summing its own groups.
 
     group_block: 0 = adaptive (one batched product inside
     :data:`VECTORIZE_BUDGET_BYTES`, blocks of :data:`DEFAULT_GROUP_BLOCK`
-    groups beyond it); -1 = one batched product; n > 0 = blocks of n
-    groups, each summed, then added to the running sum in block order (the
-    JAX package's scan; its zero-padded last block adds exact zeros)."""
-    G, M, _ = xv.shape
+    groups beyond it, decided on one expert's sizes); -1 = one batched
+    product; n > 0 = blocks of n groups, each summed, then added to the
+    running sum in block order (the JAX package's scan; its zero-padded
+    last block adds exact zeros)."""
+    G, M, _ = xv.shape[-3:]
     N = wv.shape[-1]
     if group_block == 0:
-        gb = -1 if G * M * N * 4 <= VECTORIZE_BUDGET_BYTES \
-            else DEFAULT_GROUP_BLOCK
+        gb = -1 if vectorized(G, M, N) else DEFAULT_GROUP_BLOCK
     else:
         gb = group_block
     if gb < 0 or gb >= G:
-        return sum_groups(torch.bmm(xv, wv))
-    acc = torch.zeros((M, N), dtype=torch.float32, device=xv.device)
+        return sum_groups(_group_dots(xv, wv))
+    acc = torch.zeros(xv.shape[:-3] + (M, N), dtype=torch.float32,
+                      device=xv.device)
     for g0 in range(0, G, gb):
-        acc = acc + sum_groups(torch.bmm(xv[g0:g0 + gb], wv[g0:g0 + gb]))
+        acc = acc + sum_groups(_group_dots(xv[..., g0:g0 + gb, :, :],
+                                           wv[..., g0:g0 + gb, :, :]))
     return acc
 
 
@@ -157,7 +189,8 @@ def residue_dots(xr: torch.Tensor, wr: torch.Tensor,
 
 def scale_accumulate(p: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor,
                      batch: Tuple[int, ...]) -> torch.Tensor:
-    """sum_G of p * sx * sw: (G, M, N) -> batch + (N,). The multiplies are
-    exact (power-of-two scales); only the cross-group sum rounds."""
+    """sum_G of p * sx * sw: (G, M, N) -> batch + (N,), or (E, G, M, N) ->
+    (E, C, N) over an expert stack. The multiplies are exact (power-of-two
+    scales); only the cross-group sum rounds."""
     N = p.shape[-1]
     return sum_groups(p * sx * sw).reshape(batch + (N,))

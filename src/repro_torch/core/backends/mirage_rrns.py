@@ -18,6 +18,22 @@ the CPU: plain residue dots, the plain readout chain, the plain decode.
 Both draw the detector noise as the same ``"detector"`` draw, so the same
 draws give the same residues.
 
+An expert stack (``x (E, C, K)``, ``w (E, K, N)``: the MoE layer, where
+the JAX package vmaps these backends over the experts) folds E into the
+residue kernels' slot axis, (n_mod, E x G) slots. As under that vmap,
+whose key is not batched, every stochastic stage draws ONCE per call at
+one expert's shape (``_dims_tag`` of one expert's operands, the detector
+noise ``(n_mod, G, M, N)``, the programming drift of a per-call weight,
+the bursts) and every expert reuses the draw; the fused-readout kernel
+reads slot e x G + j's noise at group j. On the card a stack's residues
+run in the blocks of :func:`repro_torch.core.backends.mirage_rns
+.card_blocks` (whole experts, or one expert's groups where its residues
+alone pass the budget: mixtral's prefill gate/up holds 94 GB in one
+piece), each block through the readout, decode and scale-accumulate,
+each reading its slice of the one draw; a 2-D GEMM is one launch. The
+health counters are sums over the experts, as the JAX package's lift of
+the vmapped records gives.
+
 Randomness comes from ``draws`` (:class:`repro_torch.analog.channel.Draws`):
 explicit, the engine's :func:`repro_torch.core.gemm.noise_scope`, or, at
 keyless call sites, a generator seeded from ``policy.noise_seed`` and the
@@ -31,7 +47,7 @@ import torch
 
 from repro_torch.analog import channel, rrns
 from repro_torch.core import rns, stationary
-from repro_torch.core.backends import grouped
+from repro_torch.core.backends import grouped, mirage_rns
 from repro_torch.core.backends.base import register_fn
 from repro_torch.obs import health as obs_health
 
@@ -62,36 +78,31 @@ def _channel_draws(policy, draws, shapes, dev):
 def _prepare(x, w, policy, moduli, cfg, draws, allow_stationary):
     """Residue-encode both operands; a stationary weight skips the whole
     weight-side pipeline (programmed at admission)."""
+    stack = grouped.is_stack(w)
     if isinstance(w, stationary.StationaryResidues):
         if not allow_stationary:
             raise ValueError(
                 "the reference backend keeps the pre-fusion per-call "
                 "pipeline and does not accept stationary residues")
         w.check_matches(policy, moduli, x.shape[-1])
-        qx, sx, batch = grouped.prepare_activations(x, policy)
+        qx, sx, batch = grouped.prepare_activations(x, policy, stack)
         wr, sw = w.residues, w.scale
     else:
         qx, sx, qw, sw, batch = grouped.prepare_operands(x, w, policy)
-        wr = rns.to_rns(qw, moduli)                # (n_mod, G, g, N) int32
-        wr = channel.apply_program_channel(wr, moduli, cfg, draws)
-    xr = rns.to_rns(qx, moduli)                    # (n_mod, G, M, g) int32
+        wr = rns.to_rns(qw, moduli)            # (n_mod, [E,] G, g, N) int32
+        wr = channel.apply_program_channel(wr, moduli, cfg, draws,
+                                           stack=stack)
+    xr = rns.to_rns(qx, moduli)                # (n_mod, [E,] G, M, g) int32
     xr = channel.converter_quantize(xr, moduli, cfg.dac_bits)
     return xr, wr, sx, sw, batch
 
 
-def _readout_on_card(xr, wr, moduli, cfg, draws):
+def _readout_on_card(xr, wr, moduli, cfg, noise):
+    """One block's residue GEMM through the fused-readout kernel: ``xr
+    (n_mod, S, M, g)``, ``wr (n_mod, S, g, N)`` and the block's detector
+    noise ``(n_mod, P, M, N)``, scaled, which slot s reads at s mod P (P
+    the block's groups, one draw for all of its experts)."""
     from repro_torch.kernels import ops as kops
-    sig = cfg.detector_sigmas(moduli)
-    if cfg.crosstalk or not any(s > 0 for s in sig):
-        # crosstalk mixes NEIGHBOUR group outputs, out of one output
-        # element's reach, and a noiseless readout has nothing to fuse
-        res = kops.rns_group_matmul(xr, wr, moduli)
-        return channel.apply_readout_channel(res, moduli, cfg, draws)
-    n_mod, G, M, _ = xr.shape
-    N = wr.shape[-1]
-    sig_col = channel.device_constant(tuple(sig), torch.float32,
-                                      xr.device).reshape(-1, 1, 1, 1)
-    noise = draws.normal("detector", (n_mod, G, M, N)) * sig_col
     if not obs_health.active():
         return kops.rns_group_matmul_channel(xr, wr, moduli, noise,
                                              adc_bits=cfg.adc_bits)
@@ -109,34 +120,75 @@ def _analog_forward(x, w, policy, draws, correct: bool,
                     reference: bool = False):
     cfg = channel.AnalogChannelConfig.from_policy(policy)
     moduli = rrns.rrns_moduli(policy) if correct else tuple(policy.moduli)
+    stack = grouped.is_stack(w)
     if cfg.stochastic:
         k_shape = (w.orig_k, w.n_out) \
             if isinstance(w, stationary.StationaryResidues) \
-            else tuple(w.shape)
-        draws = _channel_draws(policy, draws, (tuple(x.shape), k_shape),
-                               x.device)
+            else tuple(w.shape[-2:])
+        x_shape = tuple(x.shape[1:]) if stack else tuple(x.shape)
+        draws = _channel_draws(policy, draws, (x_shape, k_shape), x.device)
+    if reference and stack:
+        # the oracle runs one expert at a time, every expert on one draw
+        shared = channel.SharedDraws(draws) if draws is not None else None
+        return torch.stack([_analog_forward(x[e], w[e], policy, shared,
+                                            correct, reference=True)
+                            for e in range(x.shape[0])])
     xr, wr, sx, sw, batch = _prepare(x, w, policy, moduli, cfg, draws,
                                      allow_stationary=not reference)
+    xr, wr, sx, sw = mirage_rns.as_stack(xr, wr, sx, sw, stack)
+    nm, E, G, M, _ = xr.shape
+    N = wr.shape[-1]
+    sig = cfg.detector_sigmas(moduli)
+    noisy = any(s > 0 for s in sig)
+    # every draw once, at one expert's shape, in the stages' order
+    unit = draws.normal("detector", (nm, G, M, N)) if noisy else None
+    bursts = channel.draw_bursts((G, M, N), moduli, cfg.burst_rate, draws) \
+        if cfg.burst_rate > 0 else None
     on_card = x.is_cuda and not reference
-    if on_card:
-        res = _readout_on_card(xr, wr, moduli, cfg, draws)
-    else:
-        res = grouped.residue_dots(xr, wr, moduli)
-        res = channel.apply_readout_channel(res, moduli, cfg, draws)
-    if cfg.burst_rate > 0:
-        res = channel.burst_errors(res, moduli, cfg.burst_rate,
-                                   cfg.burst_width, draws)
+    # crosstalk mixes NEIGHBOUR group outputs, out of one output element's
+    # reach, and a noiseless readout has nothing to fuse
+    fused = on_card and noisy and not cfg.crosstalk
+    eb, gb = E, G
+    if on_card and stack:
+        # a 2-D GEMM stays one launch, as it always ran (its largest, the
+        # gate/up of a 512-token prefill, holds 2.8 GB of residues)
+        eb, gb = mirage_rns.card_blocks(nm, E, G, M, N)
+        if cfg.crosstalk and gb < G:
+            eb, gb = 1, G              # the crosstalk needs every group
     if correct:
         tables = rrns.get_tables(moduli, n_required=len(policy.moduli),
                                  psi=policy.psi)
+    sig_col = channel.device_constant(tuple(sig), torch.float32,
+                                      xr.device).reshape(-1, 1, 1, 1)
+
+    def block(xb, wb, es, gs):
+        shape = (nm, es.stop - es.start, gs.stop - gs.start, M, N)
+        noise = unit[:, gs] * sig_col if noisy else None
+        if fused:
+            res = _readout_on_card(xb, wb, moduli, cfg, noise).reshape(shape)
+        else:
+            if on_card:
+                from repro_torch.kernels import ops as kops
+                res = kops.rns_group_matmul(xb, wb, moduli)
+            else:
+                res = grouped.residue_dots(xb, wb, moduli)
+            res = channel.apply_readout_channel(
+                res.reshape(shape), moduli, cfg, None, stack=True,
+                noise=None if noise is None else noise[:, None])
+        del noise
+        if bursts is not None:
+            res = channel.apply_bursts(res, moduli, cfg.burst_width,
+                                       bursts.block(gs), stack=True)
+        if not correct:
+            return rns.from_rns_special(res, policy.k).to(torch.float32)
         if reference:
             decoded, _ = rrns.rrns_decode_reference(res, tables)
         else:
             decoded, _ = rrns.rrns_decode(res, tables)
-        p = decoded.to(torch.float32)
-    else:
-        p = rns.from_rns_special(res, policy.k).to(torch.float32)
-    return grouped.scale_accumulate(p, sx, sw, batch)
+        return decoded.to(torch.float32)
+
+    return mirage_rns.run_blocks(xr, wr, sx, sw, eb, gb,
+                                 block).reshape(batch + (N,))
 
 
 @register_fn("mirage_rns_noisy",
@@ -146,7 +198,8 @@ def _analog_forward(x, w, policy, draws, correct: bool,
              supports_noise=True,
              supports_stationary_residues=True,
              supports_weight_stationary=True,
-             weight_stationary_aligned_only=True)
+             weight_stationary_aligned_only=True,
+             supports_batched_weights=True)
 def _matmul_mirage_rns_noisy(x, w, policy, *, draws=None):
     return _analog_forward(x, w, policy, draws, correct=False)
 
@@ -157,7 +210,8 @@ def _matmul_mirage_rns_noisy(x, w, policy, *, draws=None):
              supports_noise=True,
              supports_stationary_residues=True,
              supports_weight_stationary=True,
-             weight_stationary_aligned_only=True)
+             weight_stationary_aligned_only=True,
+             supports_batched_weights=True)
 def _matmul_mirage_rrns(x, w, policy, *, draws=None):
     return _analog_forward(x, w, policy, draws, correct=True)
 
@@ -166,6 +220,7 @@ def _matmul_mirage_rrns(x, w, policy, *, draws=None):
              description="pre-fusion RRNS pipeline (per-call weight encode, "
                          "subset-loop decode) — parity oracle",
              supports_noise=True,
+             supports_batched_weights=True,
              reference=True)
 def _matmul_mirage_rrns_ref(x, w, policy, *, draws=None):
     return _analog_forward(x, w, policy, draws, correct=True, reference=True)

@@ -27,7 +27,11 @@ def _per_group_operands(x, w, policy):
 
 
 def _group_loop(x, w, policy, group_dot):
-    """sum over groups j, in order, of group_dot(qx_j, qw_j) * sx_j * sw_j."""
+    """sum over groups j, in order, of group_dot(qx_j, qw_j) * sx_j * sw_j;
+    an expert stack one expert at a time."""
+    if w.dim() == 3:
+        return torch.stack([_group_loop(x[e], w[e], policy, group_dot)
+                            for e in range(w.shape[0])])
     qx, sx, qw, sw = _per_group_operands(x, w, policy)
     acc = torch.zeros(x.shape[:-1] + (qw.shape[-1],), dtype=torch.float32,
                       device=x.device)
@@ -39,7 +43,7 @@ def _group_loop(x, w, policy, group_dot):
 
 @register_fn("mirage_faithful_ref",
              description="seed group-loop faithful path (parity oracle)",
-             reference=True)
+             supports_batched_weights=True, reference=True)
 def _matmul_mirage_faithful_ref(x, w, policy):
     # one group's integer dot is exact: |.| <= g * qmax^2 <= psi
     return _group_loop(x, w, policy, torch.matmul)
@@ -47,7 +51,7 @@ def _matmul_mirage_faithful_ref(x, w, policy):
 
 @register_fn("mirage_rns_ref",
              description="seed group-loop RNS path (parity oracle)",
-             reference=True)
+             supports_batched_weights=True, reference=True)
 def _matmul_mirage_rns_ref(x, w, policy):
     k = policy.k
     moduli = policy.moduli

@@ -100,6 +100,25 @@ def bfp_dequantize(t: BFPTensor) -> torch.Tensor:
     return flat[..., : t.orig_k]
 
 
+def _contract_groups(w: torch.Tensor, g: int) -> torch.Tensor:
+    """``w (..., K, N)`` in f32, K padded to a multiple of g and split into
+    ``(..., G, g, N)``."""
+    w = w.to(torch.float32)
+    K, N = w.shape[-2:]
+    pad = (-K) % g
+    if pad:
+        w = torch.nn.functional.pad(w, (0, 0, 0, pad))
+    return w.reshape(w.shape[:-2] + ((K + pad) // g, g, N))
+
+
+def _group_maxabs(wg: torch.Tensor) -> torch.Tensor:
+    """max |w| over each group of ``wg (..., G, g, N)`` -> ``(..., G, 1,
+    N)``, exact, in one pass (no |w| temporary: the weight side of an
+    expert stack is encoded per call)."""
+    return torch.linalg.vector_norm(wg, ord=float("inf"), dim=-2,
+                                    keepdim=True)
+
+
 def bfp_quantize_contract(w: torch.Tensor, b_m: int, g: int,
                           rounding: str = "nearest",
                           uniform: Optional[torch.Tensor] = None
@@ -108,16 +127,11 @@ def bfp_quantize_contract(w: torch.Tensor, b_m: int, g: int,
 
     Transpose-free equivalent of ``bfp_quantize(w.T, ...)`` with mantissa and
     scale transposed back: returns ``(mantissa (G, g, N), scale (G, 1, N))``,
-    bit-identical values.
+    bit-identical values. A stack ``(E, K, N)`` gives ``(E, G, g, N)`` and
+    ``(E, G, 1, N)``, each expert's own grouping.
     """
-    w = w.to(torch.float32)
-    K, N = w.shape
-    pad = (-K) % g
-    if pad:
-        w = torch.nn.functional.pad(w, (0, 0, 0, pad))
-    wg = w.reshape((K + pad) // g, g, N)
-    maxabs = torch.amax(torch.abs(wg), dim=-2, keepdim=True)     # (G, 1, N)
-    scale = _exp2_exact(_exponent_bits(maxabs) - (b_m - 1))
+    wg = _contract_groups(w, g)
+    scale = _exp2_exact(_exponent_bits(_group_maxabs(wg)) - (b_m - 1))
     qmax = float(2**b_m - 1)
     q = torch.clamp(_round(wg / scale, rounding, uniform), -qmax, qmax)
     return q, scale
@@ -129,14 +143,8 @@ def bfp_decompose_contract(w: torch.Tensor, b_m: int, g: int
     weight-stationary contract): the group max re-derives the exponent and
     ``w / scale`` recovers the integer mantissas, with no round or clip.
     Bit-identical to :func:`bfp_quantize_contract` for on-grid inputs."""
-    w = w.to(torch.float32)
-    K, N = w.shape
-    pad = (-K) % g
-    if pad:
-        w = torch.nn.functional.pad(w, (0, 0, 0, pad))
-    wg = w.reshape((K + pad) // g, g, N)
-    maxabs = torch.amax(torch.abs(wg), dim=-2, keepdim=True)     # (G, 1, N)
-    scale = _exp2_exact(_exponent_bits(maxabs) - (b_m - 1))
+    wg = _contract_groups(w, g)
+    scale = _exp2_exact(_exponent_bits(_group_maxabs(wg)) - (b_m - 1))
     return wg * (1.0 / scale), scale
 
 

@@ -26,18 +26,13 @@ import threading
 import torch
 
 from repro_torch.core import backends
+from repro_torch.core.backends import grouped
 from repro_torch.core.precision import MiragePolicy
 from repro_torch.core.stationary import StationaryResidues
 from repro_torch.obs import health as obs_health
 from repro_torch.obs import trace as obs_trace
 
 _AMBIENT = threading.local()
-
-#: where the MoE family waits under the GEMM modes that take one (K, N)
-#: weight
-MOE_MODES_ITEM = "ROADMAP.md queue 1, item 7a (MoE under the RNS family " \
-    "and the other GEMM modes that take a 2-D weight)"
-
 
 @contextlib.contextmanager
 def noise_scope(generator: torch.Generator):
@@ -69,12 +64,11 @@ def _forward_impl(x: torch.Tensor, w, policy: MiragePolicy,
             f"StationaryResidues weight (capability flag "
             f"supports_stationary_residues is unset) — pass the raw FP32 "
             f"weight, or run an RNS-family mode")
-    if isinstance(w, torch.Tensor) and w.dim() == 3 and \
-            not backend.supports_batched_weights:
-        raise NotImplementedError(
-            f"backend {backend.name!r} takes one (K, N) weight; a stack of "
-            f"expert weights {tuple(w.shape)} (the MoE layer) waits in "
-            f"{MOE_MODES_ITEM}")
+    if grouped.is_stack(w) and not backend.supports_batched_weights:
+        raise TypeError(
+            f"backend {backend.name!r} takes one (K, N) weight, not a stack "
+            f"of expert weights (capability flag supports_batched_weights "
+            f"is unset)")
     if draws is None and backend.supports_noise:
         draws = _ambient_draws()
     with obs_trace.get_tracer().span(f"gemm.{policy.mode}"):
@@ -89,7 +83,9 @@ class MirageMatmul(torch.autograd.Function):
     A stack of expert weights, ``x (E, C, K) @ w (E, K, N)``, is the JAX
     package's ``vmap`` of ``_mm_bwd`` over the experts: each backward GEMM
     is one call over the whole stack, dX ``(E, C, N) @ (E, N, K)`` grouped
-    along N and dW ``(E, K, C) @ (E, C, N)`` grouped along C."""
+    along N and dW ``(E, K, C) @ (E, C, N)`` grouped along C, under every
+    GEMM mode (the RNS family too, with its weight-stationary swap for
+    every expert)."""
 
     @staticmethod
     def forward(ctx, x, w, policy):

@@ -33,7 +33,11 @@ def to_rns(x: torch.Tensor, moduli: Sequence[int]) -> torch.Tensor:
     """
     xi = torch.round(x).to(torch.int32) if x.is_floating_point() \
         else x.to(torch.int32)
-    return torch.stack([torch.remainder(xi, m) for m in moduli], dim=0)
+    out = torch.empty((len(moduli),) + tuple(xi.shape), dtype=torch.int32,
+                      device=xi.device)
+    for i, m in enumerate(moduli):
+        torch.remainder(xi, m, out=out[i])
+    return out
 
 
 def to_rns_special(x: torch.Tensor, k: int) -> torch.Tensor:

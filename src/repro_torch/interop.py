@@ -18,7 +18,8 @@ back into a port state in place, so each package resumes the other's runs.
 :func:`load_jax_stationary` does the same for a tree the JAX package's
 ``encode_stationary_params`` programmed: its ``StationaryResidues`` leaves
 (numpy children, stacked per layer) become the port's containers, so both
-packages run identical programmed weights, programming drift included.
+packages run identical programmed weights, programming drift included
+(the MoE layer's expert stacks too, as ``layers.<i>.moe.<stack>``).
 """
 
 from __future__ import annotations
@@ -85,15 +86,17 @@ def load_jax_stationary(model: nn.Module, tree: Mapping[str, Any]
     :class:`repro_torch.core.stationary.StationaryResidues` on the model's
     device, unstacked per layer. Returns ``{module name: residues}``, the
     form :func:`repro_torch.core.stationary.install` takes."""
-    from repro_torch.core.stationary import StationaryResidues
+    from repro_torch.core.stationary import MOE_STACKS, StationaryResidues
 
     dev = model.device
     out: Dict[str, Any] = {}
 
-    def convert(sr, i=None):
+    def convert(sr, i=None, stack=False):
         res, scale = np.asarray(sr.residues), np.asarray(sr.scale)
         if i is not None:
             res, scale = res[i], scale[i]
+        if stack:      # the JAX vmap's (E, n_mod, ...) as (n_mod, E, ...)
+            res = np.moveaxis(res, 0, 1)
         return StationaryResidues(
             residues=torch.from_numpy(np.ascontiguousarray(res)).to(
                 dev, torch.int32),
@@ -107,20 +110,24 @@ def load_jax_stationary(model: nn.Module, tree: Mapping[str, Any]
             if isinstance(val, Mapping):
                 walk(val, prefix + [name], layer)
             elif hasattr(val, "residues") and hasattr(val, "scale"):
-                if name != "w":
+                stack = name in MOE_STACKS and prefix[-1:] == ["moe"]
+                if name != "w" and not stack:
                     raise KeyError(f"stationary leaf {'/'.join(prefix)}/"
-                                   f"{name} is not a Dense weight")
-                key = ".".join(prefix)
+                                   f"{name} is not a Dense weight or an "
+                                   f"expert stack")
+                key = ".".join(prefix + ([name] if stack else []))
                 if layer is not None:
                     key = f"layers.{layer}.{key}"
-                out[key] = convert(val, layer)
+                out[key] = convert(val, layer, stack)
 
     walk({k: v for k, v in tree.items() if k != "layers"}, [], None)
     for i in range(len(model.layers)):
         walk(tree["layers"], [], i)
     modules = dict(model.named_modules())
     for key in out:
-        if key not in modules:
+        owner, _, stack = key.rpartition(".")
+        if key not in modules and not (stack in MOE_STACKS and
+                                       hasattr(modules.get(owner), stack)):
             raise KeyError(f"the port has no module {key}")
     return out
 

@@ -37,13 +37,16 @@ cudaError_t launch_flash_attention(const float* q, const float* k,
                                    int S, int H, int Kv, int D, bool causal,
                                    int window, float sm_scale,
                                    cudaStream_t stream);
-void launch_rns_matmul(const int* x, const int* w, int* out, int n_mod,
-                       int G, int M, int N, int g, const RnsModuli& mods,
+void launch_rns_matmul(const int* x, long long x_ms, const int* w,
+                       long long w_ms, int* out, int n_mod, int S, int M,
+                       int N, int g, const RnsModuli& mods,
                        cudaStream_t stream);
-void launch_rns_matmul_channel(const int* x, const int* w, const float* noise,
-                               int* out, unsigned long long* flips, int n_mod,
-                               int G, int M, int N, int g,
-                               const RnsModuli& mods, cudaStream_t stream);
+void launch_rns_matmul_channel(const int* x, long long x_ms, const int* w,
+                               long long w_ms, const float* noise,
+                               long long noise_ms, int period, int* out,
+                               unsigned long long* flips, int n_mod, int S,
+                               int M, int N, int g, const RnsModuli& mods,
+                               cudaStream_t stream);
 void launch_rrns_decode(const int* res, int* decoded, float* votes,
                         long long E, const RrnsTables& tables,
                         cudaStream_t stream);
@@ -253,26 +256,42 @@ void flash_attention(const torch::Tensor& q, const torch::Tensor& k,
       static_cast<float>(sm_scale), at::cuda::getCurrentCUDAStream()));
 }
 
+// A residue operand (n_mod, S, ., .): each modulus's part contiguous, any
+// stride between moduli (a block of whole experts sliced from a stack).
+void check_mod_major(const torch::Tensor& t, const char* name,
+                     c10::ScalarType type) {
+  TORCH_CHECK(t.is_cuda(), name, " must be a CUDA tensor");
+  TORCH_CHECK(t.scalar_type() == type, name, " has the wrong dtype");
+  TORCH_CHECK(t.dim() == 4, name, " must be (n_mod, S, ., .)");
+  TORCH_CHECK(t.size(0) == 1 || t.select(0, 0).is_contiguous(), name,
+              ": each modulus's part must be contiguous");
+  TORCH_CHECK(t.stride(0) >= 0, name, " must not have a negative stride");
+}
+
 // Checks the residue GEMM's operands and packs its moduli (and ADC steps).
 RnsModuli rns_args(const torch::Tensor& x, const torch::Tensor& w,
                    const torch::Tensor& out, const std::vector<int64_t>& m,
                    const std::vector<double>& steps) {
-  check_int_operand(x, "x_res");
-  check_int_operand(w, "w_res");
+  check_mod_major(x, "x_res", torch::kInt32);
+  check_mod_major(w, "w_res", torch::kInt32);
   check_int_operand(out, "out");
-  TORCH_CHECK(x.dim() == 4 && w.dim() == 4 && out.dim() == 4,
-              "x_res, w_res and out must be (n_mod, G, ., .)");
-  const int64_t n_mod = x.size(0), G = x.size(1), M = x.size(2),
+  TORCH_CHECK(out.dim() == 4, "out must be (n_mod, S, M, N)");
+  const int64_t n_mod = x.size(0), S = x.size(1), M = x.size(2),
                 g = x.size(3), N = w.size(3);
-  TORCH_CHECK(w.size(0) == n_mod && w.size(1) == G && w.size(2) == g,
-              "w_res must be (n_mod, G, g, N) matching x_res");
-  TORCH_CHECK(out.size(0) == n_mod && out.size(1) == G && out.size(2) == M &&
+  TORCH_CHECK(w.size(0) == n_mod && w.size(1) == S && w.size(2) == g,
+              "w_res must be (n_mod, S, g, N) matching x_res");
+  TORCH_CHECK(out.size(0) == n_mod && out.size(1) == S && out.size(2) == M &&
                   out.size(3) == N,
-              "out must be (n_mod, G, M, N)");
+              "out must be (n_mod, S, M, N)");
   TORCH_CHECK(g >= 1 && g <= 64, "group size g must be in [1, 64], got ", g);
   TORCH_CHECK(n_mod >= 1 && n_mod <= kRnsMaxModuli, "at most ",
               kRnsMaxModuli, " moduli, got ", n_mod);
-  TORCH_CHECK(n_mod * G <= 65535, "n_mod * G must be <= 65535");
+  // the general layout's one-dimensional grid: 128 columns and 16 or 64
+  // rows a block, over every slot
+  const int64_t blocks = (N + 127) / 128 * ((M + (M <= 16 ? 15 : 63)) /
+                                            (M <= 16 ? 16 : 64)) * n_mod * S;
+  TORCH_CHECK(blocks <= 2147483647LL, "the residue GEMM takes at most "
+              "2^31 - 1 blocks, got ", blocks);
   TORCH_CHECK(static_cast<int64_t>(m.size()) == n_mod &&
                   static_cast<int64_t>(steps.size()) == n_mod,
               "one modulus and one ADC step per residue channel");
@@ -290,7 +309,8 @@ void rns_matmul(const torch::Tensor& x, const torch::Tensor& w,
   const RnsModuli mods =
       rns_args(x, w, out, moduli, std::vector<double>(moduli.size(), 0.0));
   const c10::cuda::CUDAGuard guard(x.device());
-  launch_rns_matmul(x.data_ptr<int>(), w.data_ptr<int>(), out.data_ptr<int>(),
+  launch_rns_matmul(x.data_ptr<int>(), x.stride(0), w.data_ptr<int>(),
+                    w.stride(0), out.data_ptr<int>(),
                     static_cast<int>(x.size(0)), static_cast<int>(x.size(1)),
                     static_cast<int>(x.size(2)), static_cast<int>(w.size(3)),
                     static_cast<int>(x.size(3)), mods,
@@ -298,16 +318,22 @@ void rns_matmul(const torch::Tensor& x, const torch::Tensor& w,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// flips: empty, or n_mod int64 counters (zeroed by the caller) to which the
-// kernel adds, per modulus, the residues the detector noise moved.
+// noise: (n_mod, P, M, N) f32, each modulus's part contiguous, P dividing
+// S: slot s reads noise[:, s mod P]. flips: empty, or n_mod int64 counters
+// (zeroed by the caller) to which the kernel adds, per modulus, the
+// residues the detector noise moved.
 void rns_matmul_channel(const torch::Tensor& x, const torch::Tensor& w,
                         const torch::Tensor& noise, torch::Tensor& out,
                         torch::Tensor& flips,
                         const std::vector<int64_t>& moduli,
                         const std::vector<double>& steps) {
   const RnsModuli mods = rns_args(x, w, out, moduli, steps);
-  check_operand(noise, "noise");
-  TORCH_CHECK(noise.sizes() == out.sizes(), "noise must be (n_mod, G, M, N)");
+  check_mod_major(noise, "noise", torch::kFloat32);
+  const int64_t P = noise.size(1);
+  TORCH_CHECK(noise.size(0) == out.size(0) && P >= 1 &&
+                  out.size(1) % P == 0 && noise.size(2) == out.size(2) &&
+                  noise.size(3) == out.size(3),
+              "noise must be (n_mod, P, M, N) with P dividing the slots");
   const bool count = flips.numel() > 0;
   TORCH_CHECK(!count || (flips.is_cuda() &&
                          flips.scalar_type() == torch::kInt64 &&
@@ -316,14 +342,14 @@ void rns_matmul_channel(const torch::Tensor& x, const torch::Tensor& w,
               "flips must be empty or n_mod contiguous int64 counters");
   const c10::cuda::CUDAGuard guard(x.device());
   launch_rns_matmul_channel(
-      x.data_ptr<int>(), w.data_ptr<int>(), noise.data_ptr<float>(),
+      x.data_ptr<int>(), x.stride(0), w.data_ptr<int>(), w.stride(0),
+      noise.data_ptr<float>(), noise.stride(0), static_cast<int>(P),
       out.data_ptr<int>(),
       count ? reinterpret_cast<unsigned long long*>(flips.data_ptr<int64_t>())
             : nullptr,
-      static_cast<int>(x.size(0)),
-      static_cast<int>(x.size(1)), static_cast<int>(x.size(2)),
-      static_cast<int>(w.size(3)), static_cast<int>(x.size(3)), mods,
-      at::cuda::getCurrentCUDAStream());
+      static_cast<int>(x.size(0)), static_cast<int>(x.size(1)),
+      static_cast<int>(x.size(2)), static_cast<int>(w.size(3)),
+      static_cast<int>(x.size(3)), mods, at::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -372,7 +398,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_attention", &flash_attention,
         "GQA flash-attention forward, (B, L, heads, 64) f32");
   m.def("rns_matmul", &rns_matmul,
-        "per-slot residue GEMM (x @ w) mod m over (n_mod, G) slots, int32");
+        "per-slot residue GEMM (x @ w) mod m over (n_mod, S) slots, int32");
   m.def("rns_matmul_channel", &rns_matmul_channel,
         "residue GEMM + readout channel (detector noise, ADC) epilogue, "
         "optionally counting the residues the noise moved");

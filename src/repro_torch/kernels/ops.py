@@ -488,20 +488,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # residue GEMM, its fused readout channel, and the RRNS decode
 # --------------------------------------------------------------------------
 
+def _mod_major(t: torch.Tensor) -> bool:
+    """Each modulus's part of ``t (n_mod, S, ., .)`` is contiguous (any
+    stride between moduli: a block of whole experts sliced from a stack)."""
+    return t.dim() == 4 and (t.shape[0] == 1 or t[0].is_contiguous())
+
+
 def _check_residue_operands(x_res: torch.Tensor, w_res: torch.Tensor,
                             moduli: Sequence[int]) -> None:
+    if x_res.dim() != 4 or w_res.dim() != 4 or \
+            x_res.shape[:2] != w_res.shape[:2] or \
+            x_res.shape[3] != w_res.shape[2]:
+        raise ValueError(f"x_res must be (n_mod, S, M, g) and w_res "
+                         f"(n_mod, S, g, N), got {tuple(x_res.shape)}, "
+                         f"{tuple(w_res.shape)}")
     for t, name in ((x_res, "x_res"), (w_res, "w_res")):
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32 for the CUDA kernel, "
                             f"got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous for the CUDA kernel")
-    if x_res.dim() != 4 or w_res.dim() != 4 or \
-            x_res.shape[:2] != w_res.shape[:2] or \
-            x_res.shape[3] != w_res.shape[2]:
-        raise ValueError(f"x_res must be (n_mod, G, M, g) and w_res "
-                         f"(n_mod, G, g, N), got {tuple(x_res.shape)}, "
-                         f"{tuple(w_res.shape)}")
+        if not _mod_major(t):
+            raise ValueError(f"{name}: each modulus's part must be "
+                             f"contiguous for the CUDA kernel")
     if len(moduli) != x_res.shape[0]:
         raise ValueError(f"{len(moduli)} moduli for {x_res.shape[0]} "
                          f"residue channels")
@@ -513,9 +520,12 @@ def _check_residue_operands(x_res: torch.Tensor, w_res: torch.Tensor,
 
 def rns_group_matmul(x_res: torch.Tensor, w_res: torch.Tensor,
                      moduli: Sequence[int]) -> torch.Tensor:
-    """Group-batched residue GEMM, ``(x . w) mod m`` per (modulus, group)
-    slot: x_res (n_mod, G, M, g), w_res (n_mod, G, g, N) int32 residues in
-    [0, m) -> (n_mod, G, M, N) int32. One launch covers every slot."""
+    """Group-batched residue GEMM, ``(x . w) mod m`` per (modulus, slot):
+    x_res (n_mod, S, M, g), w_res (n_mod, S, g, N) int32 residues in [0, m)
+    -> (n_mod, S, M, N) int32, the slots the G groups of one GEMM or the E
+    x G (expert, group) slots of an expert stack. One launch covers every
+    slot; on the card each modulus's part of an operand must be contiguous
+    (any stride between moduli)."""
     _forward_only("rns_group_matmul", _NO_ROUTE + " (integer residues)",
                   x_res, w_res)
     if _on_cpu(x_res, w_res):
@@ -541,9 +551,11 @@ def rns_group_matmul_channel(x_res: torch.Tensor, w_res: torch.Tensor,
                              adc_bits: Optional[int] = None,
                              count_flips: bool = False):
     """:func:`rns_group_matmul` with the readout channel fused in: each
-    residue gets ``noise`` (n_mod, G, M, N) f32, pre-scaled to the
-    per-modulus detector sigmas, is rounded and wrapped mod m, then
-    re-gridded onto the ``adc_bits`` ADC levels.
+    residue gets its detector noise, pre-scaled to the per-modulus sigmas,
+    is rounded and wrapped mod m, then re-gridded onto the ``adc_bits`` ADC
+    levels. ``noise`` (n_mod, P, M, N) f32 has a group period P dividing
+    the slots S: slot s reads ``noise[:, s % P]``, so one draw at one
+    expert's shape (P = G) serves a whole stack of experts.
 
     ``count_flips=True`` returns ``(residues, flips)``: ``flips`` (n_mod,)
     int64 counts, per modulus, the residues the noise moved (wrapped
@@ -554,11 +566,16 @@ def rns_group_matmul_channel(x_res: torch.Tensor, w_res: torch.Tensor,
         return ref.rns_matmul_channel_ref(x_res, w_res, moduli, noise,
                                           adc_bits, count_flips)
     _check_residue_operands(x_res, w_res, moduli)
-    _check_cuda_operand(noise, "noise")
-    nm, G, M, _ = x_res.shape
-    shape = (nm, G, M, w_res.shape[-1])
-    if tuple(noise.shape) != shape:
-        raise ValueError(f"noise must be {shape}, got {tuple(noise.shape)}")
+    nm, S, M, _ = x_res.shape
+    shape = (nm, S, M, w_res.shape[-1])
+    if noise.dim() != 4 or noise.shape[0] != nm or \
+            tuple(noise.shape[2:]) != shape[2:] or \
+            noise.shape[1] < 1 or S % noise.shape[1]:
+        raise ValueError(f"noise must be (n_mod, P, M, N) with P dividing "
+                         f"the {S} slots, got {tuple(noise.shape)}")
+    if noise.dtype != torch.float32 or not _mod_major(noise):
+        raise TypeError("noise must be float32, each modulus's part "
+                        "contiguous, for the CUDA kernel")
     out = torch.empty(shape, dtype=torch.int32, device=x_res.device)
     flips = torch.zeros((nm if count_flips else 0,), dtype=torch.int64,
                         device=x_res.device)

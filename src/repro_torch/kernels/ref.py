@@ -85,8 +85,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def rns_matmul_ref(x_res: torch.Tensor, w_res: torch.Tensor,
                    moduli: Sequence[int]) -> torch.Tensor:
     """Plain version of ``csrc/rns_matmul.cu``: per modulus, a float64
-    batched matmul over the G groups (exact: sums stay far below 2^53) and
-    ``torch.remainder``. (n_mod, G, M, g) x (n_mod, G, g, N) -> int32."""
+    batched matmul over the S slots (exact: sums stay far below 2^53) and
+    ``torch.remainder``. (n_mod, S, M, g) x (n_mod, S, g, N) -> int32."""
     return torch.stack([
         torch.remainder(torch.matmul(x_res[i].to(torch.float64),
                                      w_res[i].to(torch.float64)), m)
@@ -100,9 +100,15 @@ def rns_matmul_channel_ref(x_res: torch.Tensor, w_res: torch.Tensor,
     """Plain version of the readout epilogue of ``csrc/rns_matmul.cu``:
     ``mod(round(o + noise), m)``, then the ADC re-grid
     ``clip(round(round(o / step) * step), 0, m - 1)`` where the converter
-    has fewer levels than m. ``count_flips=True`` also returns the (n_mod,)
-    int64 count of residues the noise moved, before the ADC."""
+    has fewer levels than m. ``noise`` (n_mod, P, M, N) has a group period
+    P: slot s reads ``noise[:, s % P]``. ``count_flips=True`` also returns
+    the (n_mod,) int64 count of residues the noise moved, before the ADC."""
     o = rns_matmul_ref(x_res, w_res, moduli).to(torch.float32)
+    S, P = o.shape[1], noise.shape[1]
+    if S % P:
+        raise ValueError(f"a noise period of {P} does not divide {S} slots")
+    if P != S:
+        noise = noise.repeat(1, S // P, 1, 1)
     outs, flips = [], []
     for i, m in enumerate(moduli):
         v = torch.remainder(torch.round(o[i] + noise[i]), float(m))

@@ -123,16 +123,14 @@ class MoELayer(_AttnLayer):
 def check_policy(cfg: ModelConfig, policy: MiragePolicy) -> None:
     """Raise where ``policy``'s GEMM backend cannot run ``cfg``'s layers:
     the MoE family's expert stacks need a backend that takes stacked
-    weights (``supports_batched_weights``)."""
+    weights (``supports_batched_weights``; every built-in mode does)."""
     from repro_torch.core import backends
-    from repro_torch.core.gemm import MOE_MODES_ITEM
 
     if cfg.family == "moe" and \
             not backends.resolve(policy).supports_batched_weights:
-        raise NotImplementedError(
+        raise TypeError(
             f"{cfg.arch_id} under {policy.mode!r}: the GEMM backend takes "
-            f"one (K, N) weight, not the MoE layer's expert stacks; MoE "
-            f"under it waits in {MOE_MODES_ITEM}")
+            f"one (K, N) weight, not the MoE layer's expert stacks")
 
 
 class LM(nn.Module):

@@ -62,6 +62,9 @@ class MoE(nn.Module):
         self.gate = common._normal((n_experts, d_model, d_ff), std_in, **kw)
         self.up = common._normal((n_experts, d_model, d_ff), std_in, **kw)
         self.down = common._normal((n_experts, d_ff, d_model), std_out, **kw)
+        # the stacks' programmed residues ({"gate", "up", "down"} ->
+        # StationaryResidues) while a serving engine installs them
+        self.stationary = None
 
 
 class Routing(NamedTuple):
@@ -142,10 +145,13 @@ def moe_apply(p: MoE, x: torch.Tensor, policy: MiragePolicy, *,
     flat.index_copy_(0, r.slot_index, src)
     buffers = flat[:E * C].view(E, C, d)
 
-    # the expert FFNs: one batched GEMM per weight stack over all E experts
-    h = torch.nn.functional.silu(mirage_matmul_auto(buffers, p.gate, policy)) \
-        * mirage_matmul_auto(buffers, p.up, policy)
-    out_buffers = mirage_matmul_auto(h, p.down, policy)         # (E, C, d)
+    # the expert FFNs: one batched GEMM per weight stack over all E
+    # experts, against the stacks' programmed residues where installed
+    w = p.stationary or {"gate": p.gate, "up": p.up, "down": p.down}
+    h = torch.nn.functional.silu(mirage_matmul_auto(buffers, w["gate"],
+                                                    policy)) \
+        * mirage_matmul_auto(buffers, w["up"], policy)
+    out_buffers = mirage_matmul_auto(h, w["down"], policy)      # (E, C, d)
 
     # combine: each token's K results (a dropped pair reads the zero row),
     # weighted by its gates
@@ -153,8 +159,8 @@ def moe_apply(p: MoE, x: torch.Tensor, policy: MiragePolicy, *,
                           torch.zeros((1, d), dtype=out_buffers.dtype,
                                       device=out_buffers.device)])
     gathered = out_flat[r.slot_index].reshape(T, K, d)
-    w = (r.gate_vals * r.keep).to(gathered.dtype)
-    out = torch.einsum("tkd,tk->td", gathered, w)
+    gates = (r.gate_vals * r.keep).to(gathered.dtype)
+    out = torch.einsum("tkd,tk->td", gathered, gates)
 
     # load-balancing aux loss (Switch-style)
     me = torch.mean(r.probs, dim=0)

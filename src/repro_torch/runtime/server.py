@@ -514,10 +514,12 @@ class LMServer:
     takes the model alone (the JAX engine takes ``params`` beside it).
 
     ``stationary_weights``: run the GEMMs against stationary residues
-    programmed once here. ``None`` turns it on exactly when the policy's
-    backend ``supports_stationary_residues``; the encodings are installed
-    on the model's ``Dense`` modules (``False`` clears them), so one model
-    serves one engine's programming at a time.
+    programmed once here. ``None`` follows the JAX engine's rule: on where
+    the policy's backend ``supports_stationary_residues`` and the model is
+    of the dense family (its MoE layers encode per call, as the JAX
+    engine's do; ``True`` programs the expert stacks too). The encodings
+    are installed on the model's ``Dense`` and MoE modules (``False``
+    clears them), so one model serves one engine's programming at a time.
 
     ``cache_layout``, ``block_size``, ``n_blocks``, ``prefill_chunk``,
     ``prefix_cache``, ``spec_k``, ``block_placement``, ``pipeline_depth``
@@ -651,9 +653,10 @@ class LMServer:
             raise ValueError(
                 f"stationary_weights=True needs a backend that supports "
                 f"stationary residues; {policy.mode!r} does not")
-        # None follows the backend, also across switch_backend
+        # None follows the backend and the family, also across
+        # switch_backend
         self._stationary_auto = stationary_weights is None
-        self.stationary_weights = backend.supports_stationary_residues \
+        self.stationary_weights = self._auto_stationary(backend) \
             if stationary_weights is None else bool(stationary_weights)
         stationary.install(model, stationary.encode_stationary_params(
             model, policy) if self.stationary_weights else None)
@@ -670,6 +673,14 @@ class LMServer:
         self._pipe: Optional[_PrefillPipeline] = \
             _PrefillPipeline(self, self.pipeline_depth) \
             if self.pipeline_depth else None
+
+    def _auto_stationary(self, backend) -> bool:
+        """The JAX engine's rule for ``stationary_weights=None``: program
+        once where the backend can and every GEMM weight of the family
+        flows through ``dense`` (``attn_mlp``); the MoE family's expert
+        stacks encode per call."""
+        return backend.supports_stationary_residues and \
+            set(self.model.cfg.layer_kinds()) == {"attn_mlp"}
 
     # ------------------------------------------------------------------
     # device-side steps
@@ -1866,7 +1877,7 @@ class LMServer:
         self._graphs.clear()
         self.model.policy = new_policy
         if self._stationary_auto:
-            self.stationary_weights = backend.supports_stationary_residues
+            self.stationary_weights = self._auto_stationary(backend)
         stationary.install(self.model, None)   # free the old residues first
         if self.stationary_weights and backend.supports_stationary_residues:
             stationary.install(self.model, stationary.encode_stationary_params(

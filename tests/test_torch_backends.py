@@ -140,8 +140,13 @@ def test_card_blocked_route_matches_one_launch(budget_groups):
         rns.from_rns_special(grouped.residue_dots(xr, wr, p.moduli),
                              p.k).to(torch.float32), sx, sw, (M,))
     if gb < G:
-        got = mirage_rns._rns_blocked(xr, wr, sx, sw, p, gb,
-                                      grouped.residue_dots)
+        def block(xb, wb, es, gs):
+            res = grouped.residue_dots(xb, wb, p.moduli)
+            return rns.from_rns_special(res, p.k).to(torch.float32) \
+                .reshape(1, -1, M, N)
+
+        got = mirage_rns.run_blocks(
+            *mirage_rns.as_stack(xr, wr, sx, sw, False), 1, gb, block)[0]
         exact = (sx * sw * torch.abs(rns.from_rns_special(
             grouped.residue_dots(xr, wr, p.moduli), p.k)).double()).sum(0)
         assert bool((torch.abs(got - one) <= 1e-5 * exact + 1e-30).all())

@@ -10,7 +10,7 @@ factor 8.0 and at the published 1.25, where pairs overflow and drop. The
 batched GEMM (``mirage_matmul_auto`` with an ``(E, K, N)`` weight) equals
 JAX's ``vmap`` of its GEMM bit for bit, also where experts' x rows are
 zero (their rows exactly +0.0, the bits the stream route writes when it
-skips them). Then both reduced MoE LMs: the full
+skips them); the GEMM modes that take one (K, N) weight run a stack too. Then both reduced MoE LMs: the full
 forward, the aux loss and ``LM.loss``. Card-only checks carry the ``cuda``
 marker.
 """
@@ -231,13 +231,19 @@ def test_plain_stack_with_empty_experts_equals_jax_vmap(dead, rounding):
 @pytest.mark.parametrize("mode", ["mirage_rns", "mirage_rrns",
                                   "mirage_faithful", "mirage_faithful_ref",
                                   "int8"])
-def test_two_d_backends_refuse_expert_stacks(mode):
-    """Backends that take one (K, N) weight raise on a stack, naming the
-    ROADMAP item; they do not loop over the experts."""
-    assert not backends.resolve(get_policy(mode)).supports_batched_weights
-    x, w = torch.ones((E, 4, 32)), torch.ones((E, 32, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*7a"):
-        gemm.mirage_matmul_nograd(x, w, get_policy(mode))
+def test_two_d_backends_take_expert_stacks(mode):
+    """The GEMM modes that take one (K, N) weight run a stack in one call,
+    each expert's product the 2-D GEMM's, bit for bit (JAX's vmap of each
+    is held in ``tests/test_torch_moe_rns.py``)."""
+    assert backends.resolve(get_policy(mode)).supports_batched_weights
+    x = torch.from_numpy(_rand((E, 4, 40), 11))
+    w = torch.from_numpy(_rand((E, 40, 9), 12, 0.2))
+    with torch.no_grad():
+        got = gemm.mirage_matmul_nograd(x, w, get_policy(mode))
+        for e in range(E):
+            one = gemm.mirage_matmul_nograd(x[e], w[e], get_policy(mode))
+            assert torch.equal(got[e].view(torch.int32),
+                               one.view(torch.int32)), e
 
 
 def test_fused_wrapper_stacks_on_the_cpu():
@@ -339,22 +345,49 @@ def test_load_jax_params_covers_every_moe_leaf(pair):
 
 
 @pytest.mark.parametrize("mode", ["mirage_rns", "mirage_rrns"])
-def test_moe_under_rns_policies_raises(pair, mode):
-    """MoE under the RNS family waits in the ROADMAP: building the model,
-    programming its stationary weights and switching a serving engine to
-    such a policy all raise, the engine left as it was."""
-    from repro_torch.runtime.server import LMServer
+def test_moe_under_rns_policies_builds_programs_and_switches(pair, mode):
+    """MoE under the RNS family: the model builds; programming its
+    stationary weights covers every Dense weight but the router and each
+    layer's three expert stacks; an engine switched to the policy (per-call
+    encoding, the JAX rule for MoE) and back drains the streams of fresh
+    engines under each policy. The JAX engine's streams are held in
+    ``tests/test_torch_server_moe_rrns.py``."""
+    from repro_torch.runtime.server import LMServer, Request
 
     arch, jm, params, tm = pair
     cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*7a"):
-        build_model(cfg, get_policy(mode), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*7a"):
-        stationary.encode_stationary_params(tm, get_policy(mode))
+    assert build_model(cfg, get_policy(mode), device="cpu").policy.mode == \
+        mode
+    enc = stationary.encode_stationary_params(tm, get_policy(mode))
+    stacks = {k for k in enc if k.rsplit(".", 1)[-1] in
+              stationary.MOE_STACKS}
+    assert len(stacks) == 3 * cfg.n_layers
+    assert not any(k.endswith("router") for k in enc)
+    assert enc["layers.0.moe.gate"].residues.shape[:2] == \
+        (len(stationary.stationary_moduli(get_policy(mode))), E)
+
+    def drain(server):
+        rng = np.random.default_rng(4)
+        for i in range(2):
+            server.submit(Request(rid=i, prompt=rng.integers(
+                0, 256, 5).astype(np.int32), max_tokens=3))
+        return {r.rid: r.tokens_out for r in server.run_until_drained()}
+
+    fast = drain(LMServer(tm, cap=20, batch_slots=2))
     server = LMServer(tm, cap=20, batch_slots=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*7a"):
-        server.switch_backend(get_policy(mode))
+    server.switch_backend(get_policy(mode))
+    assert not server.stationary_weights
+    switched = drain(server)
+    server.switch_backend(get_policy("mirage"))
     assert tm.policy.mode == "mirage_fast"
+    assert drain(server) == fast
+    tm.policy = get_policy(mode)
+    try:
+        fresh = LMServer(tm, cap=20, batch_slots=2)
+        assert not fresh.stationary_weights
+        assert drain(fresh) == switched
+    finally:
+        tm.policy = get_policy("mirage")
 
 
 @pytest.fixture
