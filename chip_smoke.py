@@ -94,20 +94,37 @@ launch, two steps from one state bitwise equal; qwen3-moe's expert
 stacks at 1 layer teacher-forced against the CPU (with the routing on
 the CPU's router input) and 1 layer under fp32 held to the CPU; both
 configs at 1 layer under weight-stationary quantization with BFP
-gradient compression, every kernel-1 and kernel-2 launch counted.
+gradient compression, every kernel-1 and kernel-2 launch counted, layer
+0's GEMMs teacher-forced against the CPU.
 
 Slice 6c (the MoE family under the paper's datapath): kernels 4, 5 and 6
 at the expert stacks' blocks of both MoE configs (decode and prefill;
 qwen3-moe's gate/up at decode one launch of 81,920 (modulus, expert,
 group) slots; a block of whole experts sliced in place; the readout
 noise one expert-shaped draw read at a group period), bit for bit against
-their plain versions and timed; both configs at slice_moe's depths served
+their plain versions and timed; both configs (2 layers and 1) served
 under mirage_rrns at 52 dB with the default engine (weights encoded per
 call), its clean twin (equal streams, no decode beyond the radius), the
 steady tick cold against warmed, and a short mirage_rns drain; both with
 stationary weights (every expert stack programmed once) at 2 and 1
 layers; and 2 mirage_rns training steps of qwen3-moe at 1 layer. Every
 launch is held to the residue blocks the backends ran.
+
+Slice 6d (command-r's parallel block and the vlm frontend): kernel 1 at
+the new shapes of these paths (internvl2's untied head at its odd
+vocabulary N = 92,553, whose rows are not 16-byte aligned; the head's dX
+in training, contracting over K = 92,553; command-r's widths and its
+merged projection) and flash at a GQA group of 12 (96 query heads over 8
+kv heads), each against its plain version and timed; internvl2-2b at its
+published widths and full depth served under mirage cold and warmed, one
+prefill led by 256 projected patches with decode steps from its cache,
+mirage_rrns at 52 dB against its clean twin, and layers 0 and 23 and the
+head teacher-forced against the CPU; internvl2-2b trained at full depth
+on ``with_extras``' patches (10 steps, two steps from one state bitwise
+equal, the projector's and layer 0's fp32 gradients teacher-forced
+against the CPU); command-r-plus-104b at 4 of 64 layers served cold and
+warmed, each layer's ``merge_parallel_proj`` projection held to the two
+it replaces, layer 0 teacher-forced against the CPU.
 
 Run as a script, it pins the CPU side's vector dispatch (ATen at AVX2,
 MKL's conditional reproducibility at AVX2) before importing torch, so the
@@ -979,18 +996,20 @@ def phase_slice(ops):
     return launches, batches, steps, model, cap, streams
 
 
-def device_profile(run, n: int):
+def device_profile(run, n: int, host: bool = True):
     """Device time by kernel over ``n`` calls of ``run`` (torch.profiler),
     per call, and the device's idle share of their wall time. Only the
     device's own events count: a host op's self device time is the time of
     the kernels it launched, which appear as events of their own, so
-    summing both would count every kernel twice."""
+    summing both would count every kernel twice. ``host=False`` records
+    the device's events alone (no graph launches are then seen), which
+    costs a step of ~46,000 kernels far less to record and sum."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=([ProfilerActivity.CPU] if host else []) +
+                 [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             run()
@@ -1288,8 +1307,10 @@ def phase_slice_rrns(ops, model, cap):
     check(health_same, f"slice_rrns health counters "
                        f"{ {k: health.get(k) for k in RRNS_HEALTH} } differ "
                        f"from the reference run's {RRNS_HEALTH}")
-    # the 52 dB tick's profile, cold and warmed: serve_warmup
-    return launches, c_launches, streams
+    # the 52 dB tick's profile, cold and warmed: serve_warmup, whose cold
+    # side is this drain
+    cold = ({**summary, "model_steps": batches + steps}, streams, health)
+    return launches, c_launches, streams, cold
 
 
 class ReadoutAudit:
@@ -1713,10 +1734,12 @@ def warmed(info: dict):
     return prepare
 
 
-def phase_serve_warmup(ops, model, cap):
+def phase_serve_warmup(ops, model, cap, cold_runs=None):
     """Warmed engines against cold ones, token for token: mirage_fast on
     the dense engine, the paged engine at block size 4, paged with spec_k =
-    3, and mirage_rrns at 52 dB (its health counters RRNS_HEALTH). A
+    3, and mirage_rrns at 52 dB (its health counters RRNS_HEALTH; its cold
+    drain is slice_rrns's, the same engine on the same requests, passed
+    in ``cold_runs`` as (summary, streams, health) by engine name). A
     warmed engine replays its tick as one CUDA graph: its launch counts
     must equal the cold drain's, its compile counts must hold across the
     drain, and its profile must show one graph launch a tick. Then the
@@ -1731,6 +1754,9 @@ def phase_serve_warmup(ops, model, cap):
         model.policy = serve_policy(policy)
         rows, streams, healths = {}, {}, {}
         for side in ("cold", "warmed"):
+            if side == "cold" and name in (cold_runs or {}):
+                rows[side], streams[side], healths[side] = cold_runs[name]
+                continue
             info = {}
             reqs = make_requests(Request, cfg.vocab_size)
             server, finished, dt, launches, program_s = serve_run(
@@ -2030,7 +2056,7 @@ def phase_serve_switch(ops, model, cap, dense_streams):
           "phase_seconds": time.perf_counter() - t_phase})
 
 
-def phase_slice_rrns_vs_cpu(model, cap, prompt_np, layers=(0, 23)):
+def phase_slice_rrns_vs_cpu(model, cap, prompt_np, layers=(0,)):
     """Teacher-forced card-vs-CPU check of clean mirage_rrns at full width:
     each listed layer and the head get the card's input on both sides."""
     from repro_torch.core import stationary
@@ -2269,7 +2295,7 @@ def phase_slice_train(ops):
           "losses": losses, "grad_norms": [m["grad_norm"] for m in logs]})
     check(finite, f"a training loss is not finite: {losses}")
     expect_launches(launches, want, "slice_train")
-    prof = device_profile(lambda: step(state, next(data)), 2)
+    prof = device_profile(lambda: step(state, next(data)), 2, host=False)
     emit({"phase": "train_step_profile", "steps": 2, **{
         k.replace("_ms", "_ms_per_step"): v for k, v in prof.items()}})
     emit({"phase": "train_step_breakdown", "steps": 3,
@@ -2926,7 +2952,7 @@ def phase_slice_train_rns(ops, ref, layers=(0, 23)):
     torch.cuda.synchronize()
     launches = {k: v + launches[k] for k, v in ops.LAUNCHES.items()}
     peak = max(peak, torch.cuda.max_memory_allocated() / 1e9)
-    prof = device_profile(lambda: step(state, next(data)), 1)
+    prof = device_profile(lambda: step(state, next(data)), 1, host=False)
     times, logs = times + more, logs + logs2
     losses = [m["loss"] for m in logs]
     want = {"rns_matmul": per_step * RNS_TRAIN_STEPS}
@@ -3679,12 +3705,12 @@ def route_margins(probs, ids_a, ids_b):
 def moe_layers_vs_cpu(model, prompt_np, layers):
     """Teacher-forced MoE layers, the card against the CPU's plain path:
     each listed layer gets the card's input on both sides, only its weights
-    copied to the host (into a one-layer model with a token vocabulary of
-    8). Beside each layer's relative L2: the (token, slot) routing choices
+    copied to the host, gridded on the card (:func:`layer_shell`). Beside
+    each layer's relative L2: the (token, slot) routing choices
     that differ, (a) on the same router input (the card's, so only the
     router matmul's f32 order differs) with each one's top-K probability
     gap, and (b) on each side's own input to the router."""
-    from repro_torch.models import build_model, common, moe
+    from repro_torch.models import common, moe
 
     cfg = model.cfg
     L = len(prompt_np)
@@ -3700,11 +3726,7 @@ def moe_layers_vs_cpu(model, prompt_np, layers):
             with RoutingTap() as tap_d:
                 out_d, _, _ = model._attn_mlp_block(layer_d, h, pos_d)
             if li in layers:
-                shell = build_model(
-                    dataclasses.replace(cfg, n_layers=1, vocab_size=8),
-                    model.policy, model.opt, device=DEV)
-                shell.layers[0] = copy.deepcopy(layer_d)
-                shell = shell.to("cpu")
+                shell = layer_shell(model, li, gridded=True)
                 with RoutingTap() as tap_h:
                     out_h, _, _ = shell._attn_mlp_block(
                         shell.layers[0], h.cpu(), pos_h)
@@ -4132,7 +4154,7 @@ def phase_slice_train_moe(ops, arch: str, n_layers: int, n_steps: int):
     check(finite, f"{name}: a loss or grad norm is not finite: {losses} "
                   f"{norms}")
     expect_launches(launches, want, name)
-    prof = device_profile(lambda: step(state, next(data)), 2)
+    prof = device_profile(lambda: step(state, next(data)), 2, host=False)
     emit({"phase": f"{name}_profile", "steps": 2, **{
         k.replace("_ms", "_ms_per_step"): v for k, v in prof.items()}})
     emit({"phase": f"{name}_breakdown", "steps": 2,
@@ -4233,10 +4255,12 @@ MOE_RNS_STACKS = (
     ("mixtral", "prefill gate/up", 8, 160, 4096, 14336),
 )
 #: (arch, layers) of the MoE serving slices under mirage_rrns and
-#: mirage_rns (slice_moe's depth cuts), and of the stationary-weight ones:
-#: stationary residues take ~20 bytes a weight, so qwen3-moe's 12 layers
-#: (~145 GB) do not fit one card
-MOE_RNS_SLICES = (("qwen3-moe-30b-a3b", 12), ("mixtral-8x7b", 4))
+#: mirage_rns (a sixth and a quarter of slice_moe's depths: the per-call
+#: weight encoding made these drains the script's longest phase, and the
+#: depth is what the script's time limit can give up), and of the
+#: stationary-weight ones: stationary residues take ~20 bytes a weight, so
+#: qwen3-moe's 12 layers (~145 GB) do not fit one card
+MOE_RNS_SLICES = (("qwen3-moe-30b-a3b", 2), ("mixtral-8x7b", 1))
 MOE_STATIONARY_SLICES = (("qwen3-moe-30b-a3b", 2), ("mixtral-8x7b", 1))
 MOE_RNS_TRAIN = ("qwen3-moe-30b-a3b", 1, 2)     # arch, layers, steps
 MOE_RNS_TICKS = 2             # steady ticks a side, cold then warmed
@@ -4404,9 +4428,10 @@ class BlockTap:
         self.module.run_blocks = self.inner
 
 
-def moe_rns_model(arch: str, n_layers: int, policy):
-    """An MoE config at its published widths cut to ``n_layers``, weights
-    from seed 0, under ``policy``, attention through the flash kernel."""
+def published_model(arch: str, n_layers: int, policy):
+    """``arch`` at its published widths (the reduced config in a CPU
+    rehearsal) cut to ``n_layers``, weights from seed 0 on the card, under
+    ``policy``, the prefill attention through the flash kernel."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.models.lm import LMCallOptions
@@ -4462,7 +4487,7 @@ def phase_slice_moe_rns(ops, arch: str, n_layers: int):
 
     t_phase = time.perf_counter()
     noisy = get_policy("mirage_rrns", snr_db=SNR_DB, noise_seed=NOISE_SEED)
-    model = moe_rns_model(arch, n_layers, noisy)
+    model = published_model(arch, n_layers, noisy)
     cfg = model.cfg
     n_params = sum(p.numel() for p in model.parameters())
     vocab = cfg.vocab_size
@@ -4557,7 +4582,7 @@ def phase_slice_moe_rrns_stationary(ops, arch: str, n_layers: int):
 
     t_phase = time.perf_counter()
     noisy = get_policy("mirage_rrns", snr_db=SNR_DB, noise_seed=NOISE_SEED)
-    model = moe_rns_model(arch, n_layers, noisy)
+    model = published_model(arch, n_layers, noisy)
     vocab = model.cfg.vocab_size
     summary, streams, health, launches, blocks, programmed, fin = \
         moe_rns_drain(ops, model, make_requests(Request, vocab),
@@ -4633,6 +4658,623 @@ def phase_slice_train_moe_rns(ops):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phases 37-41: slice 6d, command-r's parallel block and the vlm frontend
+# --------------------------------------------------------------------------
+
+VLM_ARCH, CR_ARCH = "internvl2-2b", "command-r-plus-104b"
+#: internvl2-2b at full depth (24 layers); command-r-plus-104b at its
+#: published widths cut to 4 of 64 layers: 50.3 GB of f32 weights (428 GB
+#: at full depth)
+VLM_LAYERS, CR_LAYERS, CR_FULL_LAYERS = 24, 4, 64
+#: the 52 dB drain of internvl2 and its clean twin (requests, tokens each)
+VLM_RRNS_REQUESTS, VLM_RRNS_TOKENS = 4, 8
+#: the direct vlm prefill: a prompt of this many tokens behind the 256
+#: patch positions, then this many decode steps
+VLM_PATCH_PROMPT, VLM_PATCH_DECODE = 64, 4
+#: the merged parallel projection against the two it replaces, a layer
+#: teacher-forced (the gate tests/test_merge_parallel.py holds JAX to)
+MERGE_RTOL = 2e-4
+#: fp32 grads of one teacher-forced layer, card against CPU
+LAYER_GRAD_RTOL = 1e-4
+#: kernel 1 at the shapes slice 6d's paths give it, checked against its
+#: plain version and timed: (arch, GEMM, M, K, N, weight stored (N, K),
+#: launches a model step of that path). internvl2's untied head has an odd
+#: N = 92,553, so its (K, N) rows are not 16-byte aligned; its dX in
+#: training contracts over K = 92,553 (a ragged last BFP group) on the
+#: transposed view of the head's weight
+SLICE6D_GEMMS = (
+    (VLM_ARCH, "head (decode)", SLOTS, 2048, 92553, False, 1),
+    (VLM_ARCH, "gate/up (decode)", SLOTS, 2048, 8192, False, 48),
+    (VLM_ARCH, "frontend fc1 (patch prefill)", 256, 1024, 2048, False, 1),
+    (VLM_ARCH, "head dX (train)", TRAIN_BATCH * TRAIN_SEQ, 92553, 2048,
+     True, 1),
+    (CR_ARCH, "q/o (decode)", SLOTS, 12288, 12288, False, 2 * CR_LAYERS),
+    (CR_ARCH, "k/v (decode)", SLOTS, 12288, 1024, False, 2 * CR_LAYERS),
+    (CR_ARCH, "gate/up (decode)", SLOTS, 12288, 33792, False,
+     2 * CR_LAYERS),
+    (CR_ARCH, "down (decode)", SLOTS, 33792, 12288, False, CR_LAYERS),
+    (CR_ARCH, "head (decode)", SLOTS, 12288, 256000, False, 1),
+    (CR_ARCH, "gate/up (prefill)", 512, 12288, 33792, False,
+     2 * CR_LAYERS),
+    (CR_ARCH, "merged o+down (layer check)", 16, 12288 + 33792, 12288,
+     False, 0),
+)
+#: flash at slice 6d's prefill shapes: (arch, B, L, H, Kv, D); command-r's
+#: 96 query heads over 8 kv heads (a GQA group of 12)
+SLICE6D_FLASH = ((CR_ARCH, 4, 128, 96, 8, 128),
+                 (CR_ARCH, 1, 17, 96, 8, 128),
+                 (VLM_ARCH, 4, 128, 16, 8, 128),
+                 (VLM_ARCH, 1, 256 + VLM_PATCH_PROMPT, 16, 8, 128))
+
+
+def gemm_row(ops, ref, policy, M, K, N, w_nk, seed):
+    """Kernel 1 at (M, K, N) against its plain version (the f32-order
+    bound of phase_gemm), twice bitwise, and timed beside the plain
+    version, ``torch.matmul`` on the folded operands and the bound."""
+    x, w = gemm_operands(M, K, N, seed=seed, w_nk=w_nk)
+    got = ops.mirage_matmul_fused(x, w, policy)
+    again = ops.mirage_matmul_fused(x, w, policy)
+    want = ref.mirage_gemm_ref(x, w, policy.b_m, policy.g)
+    xq, wq = folded(ref, x, w, policy)
+    tol = 1e-5 * (xq.abs() @ wq.abs()) + 1e-30
+    err = (got - want).abs()
+    bad = int((err > tol).sum())
+    over_tol = float((err / tol).max())
+    same = bool(torch.equal(got.view(torch.int32), again.view(torch.int32)))
+    del got, again, want, tol
+    plan = card_gemm_plan(ops, M, K, N, policy.b_m)
+    t_b, by = bound_rate(4.0 * (M * K + K * N + M * N), 2.0 * M * N * K,
+                         BF16_FLOPS_PER_S if plan.mma else F32_FLOPS_PER_S)
+    row = {"M": M, "K": K, "N": N, "w_layout": "NK" if w_nk else "KN",
+           "route": "mma_bf16" if plan.mma else "decode_f32",
+           "splits": plan.splits, "threads": plan.threads,
+           "x_rows_16b_aligned": K % 4 == 0,
+           "w_rows_16b_aligned": (K if w_nk else N) % 4 == 0,
+           "max_abs_err": float(err.max()), "max_err_over_tol": over_tol,
+           "bitwise_repeatable": same, "bad": bad,
+           "ms": time_ms(lambda: ops.mirage_matmul_fused(x, w, policy),
+                         n=10),
+           "plain_ms": time_ms(lambda: ref.mirage_gemm_ref(
+               x, w, policy.b_m, policy.g), n=5),
+           "library_ms": time_ms(lambda: torch.matmul(xq, wq), n=10),
+           "library": "torch.matmul (pre-folded)",
+           "bound_ms": t_b, "bound_by": by}
+    del x, w, xq, wq, err
+    return row
+
+
+def phase_slice6d_kernels(ops, ref, policy):
+    """Kernel 1 and flash attention at the new shapes of slice 6d's paths
+    (the odd-N head, the ragged-K dX, command-r's widths and its GQA group
+    of 12), each held against its plain version and timed (``timing``
+    lines with ``"path": "slice_6d"``). Returns (GEMM rows, flash rows,
+    the worst GEMM and flash errors)."""
+    gemm_rows, flash_rows = [], []
+    worst_gemm = worst_flash = 0.0
+    for i, (arch, name, M, K, N, w_nk, per_step) in enumerate(SLICE6D_GEMMS):
+        row = {"arch": arch, "gemm": name, "launches_per_step": per_step,
+               **gemm_row(ops, ref, policy, M, K, N, w_nk, seed=2300 + i)}
+        gemm_rows.append(row)
+        emit({"phase": "timing", "kernel": "mirage_gemm",
+              "path": "slice_6d", **row})
+        check(row["bad"] == 0 and row["bitwise_repeatable"],
+              f"slice 6d GEMM {arch} {name}: outside the bound in "
+              f"{row['bad']} elements, or not repeatable")
+        worst_gemm = max(worst_gemm, row["max_abs_err"])
+        free_card()
+    for i, (arch, B, L, H, Kv, D) in enumerate(SLICE6D_FLASH):
+        q, k, v = flash_operands(B, L, H, Kv, D, seed=2400 + i)
+        got = ops.flash_attention(q, k, v, causal=True)
+        want = ref.flash_attention_ref(q, k, v, causal=True)
+        err = float((got - want).abs().max())
+        ok = bool(torch.allclose(got, want, rtol=2e-5, atol=2e-5))
+        pos = torch.arange(L, device=DEV)
+        allowed = pos[:, None] >= pos[None, :]
+        pairs = int(allowed.sum())
+        moved = 4.0 * (2 * B * L * H * D + 2 * B * L * Kv * D)
+        flops = 4.0 * B * H * pairs * D
+        t_b, by = bound_rate(moved, 3 * flops, TF32_FLOPS_PER_S)
+        lib = sdpa_yardstick(ref, q, k, v, None, allowed)
+        row = {"arch": arch, "B": B, "L": L, "H": H, "Kv": Kv, "D": D,
+               "gqa_group": H // Kv, "max_abs_err": err, "ok": ok,
+               "ms": time_ms(lambda: ops.flash_attention(q, k, v, True)),
+               "plain_ms": time_ms(lambda: ref.flash_attention_ref(
+                   q, k, v, True), n=5),
+               "library_ms": lib["ms"], "library": lib["name"],
+               "bound_ms": t_b, "bound_by": by,
+               "bound_unit": "TF32 tensor cores, 3 products (3xTF32)"}
+        flash_rows.append(row)
+        emit({"phase": "timing", "kernel": "flash_attention",
+              "path": "slice_6d", **row})
+        check(ok, f"flash kernel outside rtol=atol=2e-5 at {arch} B={B} "
+                  f"L={L} H={H} Kv={Kv} D={D}")
+        worst_flash = max(worst_flash, err)
+        del q, k, v, got, want
+    return gemm_rows, flash_rows, worst_gemm, worst_flash
+
+
+def layer_shell(model, li: int, gridded: bool = False):
+    """Layer ``li`` of ``model`` alone, on the CPU: a one-layer model of
+    the same arch (a vocabulary of 8, no frontend) holding a copy of it
+    (its GEMM weights already on their BFP grid where ``gridded``:
+    :func:`gridded_cpu_copy`)."""
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(model.cfg, n_layers=1, vocab_size=8,
+                              frontend=None, frontend_dim=0,
+                              frontend_len=0)
+    shell = build_model(cfg, model.policy, model.opt, device=DEV)
+    layer = model.layers[li]
+    shell.layers[0] = gridded_cpu_copy(layer, model.policy) if gridded \
+        else copy.deepcopy(layer)
+    shell = shell.to("cpu")
+    if gridded:
+        shell.policy = model.policy.replace(assume_quantized_weights=True)
+    return shell
+
+
+def gridded_cpu_copy(module, policy):
+    """A CPU copy of ``module`` whose GEMM weights (each ``Dense`` but the
+    MoE router, and the expert stacks) lie on their BFP grid along K,
+    gridded on the card by the quantizer's plain version (no kernel of the
+    port, so the reference stays independent of ``bfp.cuh``, which kernels
+    1 and 2 share). Under ``assume_quantized_weights`` the CPU's plain
+    GEMMs then take them as they are: the product is the one they would
+    compute from the raw weights, without the weight-side quantization
+    that is most of a full-width layer's CPU time."""
+    from repro_torch.core.stationary import MOE_STACKS
+    from repro_torch.kernels import ref
+    from repro_torch.models.common import Dense
+    from repro_torch.models.moe import MoE
+
+    def grid(w):
+        q = ref.bfp_fake_quant_ref(torch.movedim(w.detach(), -2, -1),
+                                   policy.b_m, policy.g, policy.rounding)
+        return torch.movedim(q, -1, -2).cpu()
+
+    out = copy.deepcopy(module).to("cpu")
+    with torch.no_grad():
+        for (name, mod), (_, twin) in zip(module.named_modules(),
+                                          out.named_modules()):
+            if isinstance(mod, Dense) and not name.endswith("router"):
+                twin.w.copy_(grid(mod.w))
+            elif isinstance(mod, MoE):
+                for stack in MOE_STACKS:
+                    getattr(twin, stack).copy_(grid(getattr(mod, stack)))
+    return out
+
+
+def dense_layers_vs_cpu(model, prompt_np, layers, head: bool,
+                        patches=None):
+    """Teacher-forced layers of a dense model, the card against the CPU's
+    plain path: each listed layer (and, where ``head``, the final norm and
+    the head at the last position) gets the card's input on both sides,
+    its weights copied to the host alone. With ``patches`` the sequence
+    is led by their projection, as at a vlm prefill. Returns {layer:
+    relative L2} and the CPU seconds."""
+    from repro_torch.models import common
+
+    L = len(prompt_np)
+    prompt = torch.from_numpy(prompt_np[None].astype(np.int64)).to(DEV)
+    t0 = time.perf_counter()
+    errs = {}
+    with torch.inference_mode():
+        h, _ = model._embed_inputs(prompt, patches)
+        pos_d = torch.arange(h.shape[1], device=DEV)
+        for li, layer_d in enumerate(model.layers):
+            out_d, _, _ = model._attn_mlp_block(layer_d, h, pos_d)
+            if li in layers:
+                shell = layer_shell(model, li, gridded=True)
+                out_h, _, _ = shell._attn_mlp_block(
+                    shell.layers[0], h.cpu(), pos_d.cpu())
+                errs[f"layer_{li}"] = rel_l2(out_d.cpu(), out_h)
+                del shell
+            h = out_d
+        if head:
+            norm = copy.deepcopy(model.final_norm).to("cpu")
+            lm_head = copy.deepcopy(model.lm_head).to("cpu")
+            cfg = model.cfg
+            last = h[:, -1:]
+            plain = common.dense(lm_head, common.norm(
+                norm, last.cpu(), cfg.norm_eps, cfg.norm_type), model.policy)
+            errs["head"] = rel_l2(model._head(last).cpu(), plain)
+    return errs, time.perf_counter() - t0, L
+
+
+def serve_cold_and_warmed(ops, model, name, per_step, n_layers):
+    """The slice's requests through the cold dense engine and a warmed one
+    (the tick a CUDA graph): the streams equal, kernel 1 launched
+    ``per_step`` times a model step and flash ``n_layers`` times a prefill
+    batch; then the steady tick, cold against warmed. Returns (rows,
+    cold streams, launches by engine)."""
+    from repro_torch.runtime.server import LMServer, Request
+
+    vocab = model.cfg.vocab_size
+    warm = LMServer(model, cap=CAP, batch_slots=SLOTS)   # not counted
+    for r in make_requests(Request, vocab, max_tokens=2)[:2]:
+        warm.submit(r)
+    warm.run_until_drained()
+    del warm
+    rows, streams, launches_by = {}, {}, {}
+    for side in ("cold", "warmed"):
+        info = {}
+        server, finished, dt, launches, program_s = serve_run(
+            ops, model, CAP, make_requests(Request, vocab), LMServer,
+            prepare=warmed(info) if side == "warmed" else None)
+        m = server.metrics
+        want = {"mirage_gemm": per_step * model_steps(m),
+                "flash_attention": n_layers * m["prefill_batches"]}
+        rows[side] = {**serve_summary(server, finished, dt, launches,
+                                      program_s),
+                      "model_steps": model_steps(m),
+                      "expected_launches": want}
+        if side == "warmed":
+            rows[side]["warmup"] = info
+            check(info["graphs"] == 1, f"{name}: no tick graph captured")
+        streams[side] = {r.rid: r.tokens_out for r in finished}
+        launches_by[side] = launches
+        check_drain(f"{name} {side}", finished, N_REQUESTS, MAX_TOKENS,
+                    vocab)
+        expect_launches(launches, want, f"{name} {side}")
+        del server, m
+    check(streams["warmed"] == streams["cold"],
+          f"{name}: the warmed streams differ from the cold engine's")
+    reqs = make_requests(Request, vocab)
+    eng = {"cold": LMServer(model, cap=CAP, batch_slots=SLOTS),
+           "warmed": LMServer(model, cap=CAP, batch_slots=SLOTS)}
+    eng["warmed"].warmup()
+    ticks = {side: engine_tick_ms(server, reqs, 4)
+             for side, server in eng.items()}
+    prof = engine_tick_profile(eng["warmed"], reqs, 2)
+    rows["warmed_tick_profile"] = {k: prof[k] for k in (
+        "wall_ms", "device_busy_ms", "device_idle_share", "device_kernels",
+        "graph_launches", "top_device_ms", "port_kernels_ms")}
+    del eng
+    rows["tick_ms"] = ticks
+    return rows, streams["cold"], launches_by
+
+
+def decode_bound_ms(model):
+    """The decode tick's byte bound: every weight a tick reads (the layers
+    and the head, not the embedding's row lookup or the frontend), once,
+    at the HBM rate."""
+    skip = model.embed.emb.numel() + (
+        sum(p.numel() for p in model.frontend_proj.parameters())
+        if model.frontend_proj is not None else 0)
+    n = sum(p.numel() for p in model.parameters()) - skip
+    if model.lm_head is None:
+        n += model.embed.emb.numel()
+    return n * 4.0 / 1e9, n * 4.0 / HBM_BYTES_PER_S * 1e3
+
+
+def phase_slice_internvl2(ops):
+    """internvl2-2b at its published widths and full depth (random weights
+    from seed 0) served under mirage, text-only as the JAX engine serves
+    it: the slice's requests cold and warmed; one direct prefill of 256
+    patch positions (their projection: kernel 1 twice) and a prompt, and
+    decode steps from its cache; mirage_rrns at 52 dB against its clean
+    twin (equal streams, no decode beyond the radius); layers 0 and 23
+    and the head teacher-forced against the CPU."""
+    from repro_torch.core.precision import get_policy
+    from repro_torch.runtime.server import LMServer, Request
+
+    t_phase = time.perf_counter()
+    model = published_model(VLM_ARCH, VLM_LAYERS, get_policy("mirage"))
+    cfg = model.cfg
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    per_step = 7 * cfg.n_layers + 1
+    rows, streams, launches_by = serve_cold_and_warmed(
+        ops, model, "slice_internvl2", per_step, cfg.n_layers)
+
+    # the frontend: one prefill led by 256 projected patches
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    patches = torch.randn((1, cfg.frontend_len, cfg.frontend_dim),
+                          generator=gen, device=DEV)
+    prompt = make_requests(Request, cfg.vocab_size)[0].prompt[
+        :VLM_PATCH_PROMPT]
+    toks = torch.from_numpy(prompt[None].astype(np.int64)).to(DEV)
+    cap = cfg.frontend_len + len(prompt) + VLM_PATCH_DECODE
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        logits, cache = model.prefill(toks, cap, extra_embeds=patches)
+        out = [int(logits[0, -1].argmax())]
+        for _ in range(VLM_PATCH_DECODE):
+            logits, cache = model.decode_step(cache, torch.tensor(
+                [[out[-1]]], device=DEV))
+            out.append(int(logits[0, -1].argmax()))
+    torch.cuda.synchronize()
+    patch_launches = dict(ops.LAUNCHES)
+    patch_want = {"mirage_gemm": 2 + per_step * (1 + VLM_PATCH_DECODE),
+                  "flash_attention": cfg.n_layers}
+    idx = int(cache["idx"])
+    expect_launches(patch_launches, patch_want, "slice_internvl2 patches")
+    check(idx == cap and bool(torch.isfinite(logits).all()),
+          f"slice_internvl2 patches: idx {idx} (expected {cap}) or "
+          f"non-finite logits")
+    del cache, logits
+
+    # the paper's datapath: 52 dB against the clean channel, each engine
+    # programming every Dense weight once (5 residues of int32 a weight);
+    # one engine's encodings are dropped before the next one programs
+    from repro_torch.core import stationary
+    rrns, rrns_streams = {}, {}
+    for name, policy in (("rrns_52db", get_policy(
+            "mirage_rrns", snr_db=SNR_DB, noise_seed=NOISE_SEED)),
+            ("rrns_clean", get_policy("mirage_rrns",
+                                      noise_seed=NOISE_SEED))):
+        model.policy = policy
+        reqs = make_requests(Request, cfg.vocab_size,
+                             max_tokens=VLM_RRNS_TOKENS)[:VLM_RRNS_REQUESTS]
+        summary, streams_r, health_r, launches, blocks, programmed, \
+            finished = moe_rns_drain(ops, model, reqs)
+        kernel = "rns_matmul_channel" if name == "rrns_52db" \
+            else "rns_matmul"
+        want = {kernel: blocks, "rrns_decode": blocks,
+                "flash_attention": cfg.n_layers * summary["prefill_batches"]}
+        rrns[name] = {**summary, "stationary_weights": programmed,
+                      "health": health_r, "expected_launches": want}
+        rrns_streams[name] = streams_r
+        check_drain(f"slice_internvl2 {name}", finished, VLM_RRNS_REQUESTS,
+                    VLM_RRNS_TOKENS, cfg.vocab_size)
+        expect_launches(launches, want, f"slice_internvl2 {name}")
+        check(programmed and blocks >= per_step * summary["model_steps"],
+              f"slice_internvl2 {name}: the engine did not program its "
+              f"weights, or ran {blocks} residue blocks for "
+              f"{summary['model_steps']} model steps")
+        launches_by[name] = launches
+        stationary.install(model, None)
+        free_card()
+    health = rrns["rrns_52db"]["health"]
+    check(health["rrns_uncorrected"] == 0,
+          f"slice_internvl2: {health['rrns_uncorrected']} decodes beyond "
+          f"the correction radius at {SNR_DB} dB")
+    check(rrns_streams["rrns_52db"] == rrns_streams["rrns_clean"],
+          "slice_internvl2: the 52 dB streams differ from the clean "
+          "channel's")
+    model.policy = get_policy("mirage")
+    bound_gb, bound_ms = decode_bound_ms(model)
+    emit({"phase": "slice_internvl2", "arch": VLM_ARCH, "params": n_params,
+          "f32_gb": n_params * 4 / 1e9, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+          "vocab": cfg.vocab_size,
+          "policy": "mirage (mirage_fast b_m=4 g=16 k=5)", "slots": SLOTS,
+          "cap": CAP, "gemm_per_step": per_step, **rows,
+          "patch_prefill": {"patches": cfg.frontend_len,
+                            "prompt_len": len(prompt),
+                            "decode_steps": VLM_PATCH_DECODE,
+                            "tokens": out, "idx": idx,
+                            "launches": patch_launches,
+                            "expected_launches": patch_want},
+          "rrns": rrns, "rrns_streams_equal_clean": True,
+          "decode_bound_gb": bound_gb, "decode_bound_ms": bound_ms})
+    errs, cpu_s, L = dense_layers_vs_cpu(
+        model, make_requests(Request, cfg.vocab_size)[0].prompt[:16],
+        (0, cfg.n_layers - 1), head=True)
+    ok = max(errs.values()) < 1e-2
+    emit({"phase": "internvl2_vs_cpu_plain", "prompt_len": L,
+          "rel_l2": errs, "cpu_seconds": cpu_s, "ok": ok})
+    check(ok, f"internvl2 card vs CPU: a teacher-forced layer or the head "
+              f"differs by >= 1e-2 relative L2: {errs}")
+    del model
+    free_card()
+    emit({"phase": "slice_internvl2_seconds",
+          "phase_seconds": time.perf_counter() - t_phase})
+    launches_by["patch_prefill"] = patch_launches
+    return launches_by
+
+
+def frontend_layer_grads_vs_cpu(model, batch, li: int = 0):
+    """fp32 gradients of the frontend projector and layer ``li`` on the
+    card against the CPU's, teacher-forced: both sides take the card's
+    token embeddings and hidden input and one seeded upstream gradient of
+    the layer's output (layer 0 reads the projected patches, so the
+    projector's two GEMMs are inside)."""
+    from repro_torch.core.precision import get_policy
+    from repro_torch.models import common
+
+    fp32 = get_policy("fp32")
+    cpu_layer = copy.deepcopy(model.layers[li]).to("cpu")
+    cpu_proj = copy.deepcopy(model.frontend_proj).to("cpu")
+    shell = layer_shell(model, li)
+    shell.layers[0] = cpu_layer
+    shell.frontend_proj = cpu_proj
+    shell.policy = fp32
+    policy0 = model.policy
+    model.policy = fp32
+    toks = torch.from_numpy(batch["tokens"]).to(DEV)
+    patches = torch.from_numpy(batch["patches"]).to(DEV)
+    with torch.no_grad():
+        tok_emb = common.embed(model.embed, toks)
+    grads = {}
+    for side, m, layer, dev in (("card", model, model.layers[li], DEV),
+                                ("cpu", shell, cpu_layer, "cpu")):
+        proj = m.frontend_proj
+        pe = common.dense(proj.fc2, torch.nn.functional.gelu(
+            common.dense(proj.fc1, patches.to(dev), fp32),
+            approximate="tanh"), fp32)
+        h = torch.cat([pe, tok_emb.to(dev)], dim=1)
+        pos = torch.arange(h.shape[1], device=dev)
+        out, _, _ = m._attn_mlp_block(layer, h, pos)
+        gen = torch.Generator(device="cpu").manual_seed(11)
+        dout = torch.randn(out.shape, generator=gen).to(dev)
+        names = [f"frontend_proj.{n}" for n, _ in proj.named_parameters()] \
+            + [f"layers.{li}.{n}" for n, _ in layer.named_parameters()]
+        leaves = list(proj.parameters()) + list(layer.parameters())
+        g = torch.autograd.grad(out, leaves, dout, allow_unused=True)
+        grads[side] = {n: (x.cpu() if x is not None else None)
+                       for n, x in zip(names, g)}
+    model.policy = policy0
+    errs = {n: rel_l2(grads["card"][n], grads["cpu"][n])
+            for n, v in grads["cpu"].items() if v is not None and
+            float(v.abs().max()) > 0}
+    return errs
+
+
+def phase_slice_train_internvl2(ops):
+    """internvl2-2b at full width and depth trained as ``python -m
+    repro_torch.launch.train --arch internvl2-2b`` trains it: batch 4 x
+    64 tokens led by 256 patches from ``with_extras``, AdamW lr 1e-3,
+    clip 1.0, mirage; every forward, dX and dW GEMM one launch of kernel 1
+    (3 x (7 x 24 + 1) + 5 a step: the projector's fc2 three, its fc1 two,
+    as the patches take no gradient), finite losses; step time, tokens/s, peak memory; two steps from one
+    state bitwise equal; the frontend and layer 0's fp32 gradients
+    teacher-forced against the CPU."""
+    from repro_torch.core.precision import get_policy
+    from repro_torch.data.pipeline import with_extras
+
+    t_phase = time.perf_counter()
+    cfg, model, tc, data = train_setup(get_policy("mirage"), VLM_ARCH)
+    data = with_extras(data, cfg)
+    per_step = 3 * (7 * cfg.n_layers + 1) + 5
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_phase
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    state, step, times, logs = run_train(model, tc, data, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    positions = TRAIN_BATCH * (cfg.frontend_len + TRAIN_SEQ)
+    text = TRAIN_BATCH * TRAIN_SEQ
+    step_s = statistics.median(times[1:])
+    layer_w = sum(m.w.numel() for m in model.layers.modules()
+                  if hasattr(m, "w"))
+    front_w = sum(p.numel() for p in model.frontend_proj.parameters())
+    flops = 6.0 * (layer_w * positions + model.lm_head.w.numel() * text +
+                   front_w * TRAIN_BATCH * cfg.frontend_len)
+    losses = [m["loss"] for m in logs]
+    norms = [m["grad_norm"] for m in logs]
+    finite = all(math.isfinite(v) for v in losses + norms)
+    want = {"mirage_gemm": per_step * TRAIN_STEPS}
+    n_params = sum(p.numel() for p in model.parameters())
+    emit({"phase": "slice_train_internvl2", "arch": VLM_ARCH,
+          "n_layers": cfg.n_layers, "params": n_params,
+          "train_state_gb": 16.0 * n_params / 1e9,
+          "policy": "mirage (mirage_fast b_m=4 g=16 k=5)",
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "patches": cfg.frontend_len, "positions_per_step": positions,
+          "steps": TRAIN_STEPS, "optimizer": "adamw lr=1e-3 clip=1.0",
+          "gemm_per_step": per_step, "launches": launches,
+          "expected_launches": want,
+          "step_ms": [t * 1e3 for t in times],
+          "step_ms_median_2_on": step_s * 1e3,
+          "text_tok_per_s": text / step_s,
+          "positions_per_s": positions / step_s, "peak_mem_gb": peak,
+          "build_model_s": build_s, "model_flops_per_step": flops,
+          "model_flops_share_of_989_tflops": flops / step_s /
+          BF16_FLOPS_PER_S, "losses": losses, "grad_norms": norms})
+    check(finite, f"slice_train_internvl2: a loss or grad norm is not "
+                  f"finite: {losses} {norms}")
+    expect_launches(launches, want, "slice_train_internvl2")
+    prof = device_profile(lambda: step(state, next(data)), 1, host=False)
+    emit({"phase": "slice_train_internvl2_profile", "steps": 1, **{
+        k.replace("_ms", "_ms_per_step"): v for k, v in prof.items()}})
+    emit({"phase": "slice_train_internvl2_breakdown", "steps": 2,
+          **step_breakdown(model, tc, state, data, 2)})
+    del state
+    free_card()
+    batch = {k: np.asarray(v) for k, v in next(data).items()}
+    losses2, digests = repeat_step(model, batch)
+    same = bool(torch.equal(losses2[0].view(torch.int32),
+                            losses2[1].view(torch.int32))) and \
+        digests[0] == digests[1]
+    check(same, f"slice_train_internvl2: two steps from one state differ: "
+                f"{[float(v) for v in losses2]} {digests}")
+    free_card()
+    t0 = time.perf_counter()
+    errs = frontend_layer_grads_vs_cpu(model, batch)
+    ok = max(errs.values()) < LAYER_GRAD_RTOL
+    emit({"phase": "slice_train_internvl2_checks",
+          "repeat_losses": [float(v) for v in losses2],
+          "repeat_grad_digests": digests, "repeat_bitwise_equal": same,
+          "fp32_grads_vs_cpu_rel_l2": errs,
+          "fp32_grads_rtol": LAYER_GRAD_RTOL,
+          "cpu_seconds": time.perf_counter() - t0, "ok": ok,
+          "phase_seconds": time.perf_counter() - t_phase})
+    check(ok, f"slice_train_internvl2: fp32 gradients of the frontend or "
+              f"layer 0 differ from the CPU's by >= {LAYER_GRAD_RTOL} "
+              f"relative L2: {errs}")
+    del model
+    free_card()
+    return launches
+
+
+def phase_slice_command_r(ops):
+    """command-r-plus-104b at its published widths, cut to CR_LAYERS of
+    64 layers (random weights from seed 0), served under mirage: the
+    slice's requests cold and warmed (kernel 1: 7 launches a layer and the
+    head a model step; flash with 96 query heads over 8 kv heads); each
+    layer's ``merge_parallel_proj`` projection (which, as in the JAX
+    package, merges only the full-sequence forward) against the two it
+    replaces, teacher-forced on the card (kernel 1 at K = 12,288 +
+    33,792); layer 0 teacher-forced against the CPU."""
+    from repro_torch.core.precision import get_policy
+    from repro_torch.runtime.server import Request
+
+    t_phase = time.perf_counter()
+    model = published_model(CR_ARCH, CR_LAYERS, get_policy("mirage"))
+    cfg = model.cfg
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_phase
+    n_params = sum(p.numel() for p in model.parameters())
+    per_step = 7 * cfg.n_layers + 1
+    rows, _, launches_by = serve_cold_and_warmed(
+        ops, model, "slice_command_r", per_step, cfg.n_layers)
+
+    prompt = make_requests(Request, cfg.vocab_size)[0].prompt[:16]
+    merge_err = {}
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        toks = torch.from_numpy(prompt[None].astype(np.int64)).to(DEV)
+        h, _ = model._embed_inputs(toks)
+        pos = torch.arange(h.shape[1], device=DEV)
+        for li, layer in enumerate(model.layers):
+            out, _, _ = model._attn_mlp_block(layer, h, pos)
+            merged, _, _ = model._attn_mlp_block(layer, h, pos, merge=True)
+            merge_err[f"layer_{li}"] = rel_l2(merged, out)
+            h = out
+    torch.cuda.synchronize()
+    merge_launches = dict(ops.LAUNCHES)
+    # 7 GEMMs a layer unmerged, 6 merged (o and down become one); the
+    # attention twice, through the flash kernel
+    expect_launches(merge_launches, {"mirage_gemm": 13 * cfg.n_layers,
+                                     "flash_attention": 2 * cfg.n_layers},
+                    "slice_command_r merged layers")
+    merge_ok = max(merge_err.values()) < MERGE_RTOL
+    bound_gb, bound_ms = decode_bound_ms(model)
+    emit({"phase": "slice_command_r", "arch": CR_ARCH, "params": n_params,
+          "f32_gb": n_params * 4 / 1e9, "n_layers": cfg.n_layers,
+          "full_depth_f32_gb": 4.0 * (n_params + (
+              CR_FULL_LAYERS - cfg.n_layers) * sum(
+                  p.numel() for p in model.layers[0].parameters())) / 1e9,
+          "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+          "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+          "rope_theta": cfg.rope_theta,
+          "policy": "mirage (mirage_fast b_m=4 g=16 k=5)", "slots": SLOTS,
+          "cap": CAP, "gemm_per_step": per_step, **rows,
+          "merged_layers_rel_l2": merge_err, "merge_rtol": MERGE_RTOL,
+          "merged_layer_launches": merge_launches,
+          "decode_bound_gb": bound_gb, "decode_bound_ms": bound_ms,
+          "build_model_s": build_s})
+    check(merge_ok, f"slice_command_r: a merged parallel projection differs "
+                    f"from the two it replaces by >= {MERGE_RTOL} relative "
+                    f"L2: {merge_err}")
+    errs, cpu_s, L = dense_layers_vs_cpu(model, prompt, (0,), head=False)
+    ok = max(errs.values()) < 1e-2
+    emit({"phase": "command_r_vs_cpu_plain", "prompt_len": L,
+          "rel_l2": errs, "cpu_seconds": cpu_s, "ok": ok})
+    check(ok, f"command-r card vs CPU: teacher-forced layer 0 differs by "
+              f">= 1e-2 relative L2: {errs}")
+    del model
+    free_card()
+    emit({"phase": "slice_command_r_seconds",
+          "phase_seconds": time.perf_counter() - t_phase})
+    return launches_by
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a CUDA "
@@ -4672,18 +5314,24 @@ def main() -> int:
     err_batched, batched_rows = phase_gemm_batched(ops, ref, policy)
     err_gemm = max(err_gemm, err_batched)
     err_flash = phase_flash(ops, ref)
+    gemm6d_rows, flash6d_rows, err6d_gemm, err6d_flash = \
+        phase_slice6d_kernels(ops, ref, policy)
+    err_gemm = max(err_gemm, err6d_gemm)
+    err_flash = max(err_flash, err6d_flash)
     err_rns = phase_rns_matmul(ops, ref)
     err_channel = phase_rns_channel(ops, ref)
     err_decode = phase_rrns_decode(ops, ref)
     phase_rns_equals_fast(ops, ref)
     launches, batches, steps, model, cap, streams = phase_slice(ops)
     paged_launches = phase_slice_paged(ops, model, cap, streams)
-    rrns_launches, _, rrns_streams = phase_slice_rrns(ops, model, cap)
+    rrns_launches, _, rrns_streams, rrns_cold = phase_slice_rrns(
+        ops, model, cap)
     rrns_paged_launches = phase_slice_rrns_paged(ops, model, cap,
                                                  rrns_streams)
     rns_launches = phase_slice_rns(ops, model, cap)
     options_launches = phase_serve_paged_options(ops, model, cap)
-    warm_launches = phase_serve_warmup(ops, model, cap)
+    warm_launches = phase_serve_warmup(ops, model, cap,
+                                       {"rrns_52db": rrns_cold})
     pipe_launches = phase_serve_pipelined(ops, model, cap, streams)
     phase_serve_resize(ops, model, cap)
     phase_serve_switch(ops, model, cap, streams)
@@ -4716,6 +5364,9 @@ def main() -> int:
         MOE_ARCH_OF[arch]: phase_slice_moe_rrns_stationary(ops, arch, n)
         for arch, n in MOE_STATIONARY_SLICES}
     moe_rns_train_launches = phase_slice_train_moe_rns(ops)
+    vlm_launches = phase_slice_internvl2(ops)
+    vlm_train_launches = phase_slice_train_internvl2(ops)
+    cr_launches = phase_slice_command_r(ops)
     reduced_launches = phase_serve_reduced(ops)
     phase_train_resume()
     rns_train_launches, rns_per_step = phase_slice_train_rns(ops, ref,
@@ -4799,6 +5450,23 @@ def main() -> int:
         for r in rows["flash_attention"] if r["window"] is None and
         r["L"] == 128 and r["B"] == 4]
     flash["launches_serve_reduced"] = reduced_launches["flash_attention"]
+    # slice 6d: the new shapes of kernels 1 and 3, and their launches on
+    # the internvl2 and command-r paths
+    gemm["slice_6d"] = {
+        "rows": gemm6d_rows,
+        "launches": {"internvl2_dense_cold": vlm_launches["cold"]
+                     ["mirage_gemm"],
+                     "internvl2_patch_prefill": vlm_launches[
+                         "patch_prefill"]["mirage_gemm"],
+                     "train_internvl2": vlm_train_launches["mirage_gemm"],
+                     "command_r_dense_cold": cr_launches["cold"]
+                     ["mirage_gemm"]}}
+    flash["slice_6d"] = {
+        "rows": flash6d_rows,
+        "launches": {"internvl2_dense_cold": vlm_launches["cold"]
+                     ["flash_attention"],
+                     "command_r_dense_cold": cr_launches["cold"]
+                     ["flash_attention"]}}
     rns = entry("rns_matmul", "rns_matmul.cu",
                 "src/repro/kernels/rns_matmul.py:52", err_rns,
                 head_row("rns_matmul"), rns_launches)
@@ -4867,6 +5535,11 @@ def main() -> int:
                          **{f"{arch}_rrns_52db_stationary": n
                             for arch, n in moe_stationary_launches.items()},
                          "train_moe_qwen3-moe_rns": moe_rns_train_launches,
+                         **{f"internvl2_{k}": v
+                            for k, v in vlm_launches.items()},
+                         "train_internvl2": vlm_train_launches,
+                         **{f"command_r_{k}": v
+                            for k, v in cr_launches.items()},
                          "serve_reduced": reduced_launches,
                          "train_mirage_rns": rns_train_launches,
                          "twins": {k: v["launches"]
@@ -4915,7 +5588,14 @@ def main() -> int:
                              "(clean, mirage_rns) and rrns_decode once a "
                              "residue block, each expert stack over (n_mod, "
                              "E x G) slots in blocks of whole experts "
-                             "(moe_stacks)"}})
+                             "(moe_stacks); slice 6d (slice_internvl2, "
+                             "slice_train_internvl2, slice_command_r: "
+                             "internvl2_*, train_internvl2, command_r_*) "
+                             "launch mirage_gemm 7 x layers + 1 a model "
+                             "step (2 more where a prefill carries "
+                             "patches, 3 x (7 x layers + 1) + 5 a "
+                             "training step) and flash_attention once a "
+                             "layer a prefill batch"}})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -1,11 +1,15 @@
 """Architecture registry of the port.
 
-The dense qwen2/qwen3 configs and the MoE family (mixtral, qwen3-moe) are
-ported. The JAX package's other architectures raise
+The dense qwen2/qwen3 configs, command-r's parallel block, the vlm
+(internvl2) and the MoE family (mixtral, qwen3-moe) are ported. The JAX
+package's other architectures raise
 ``NotImplementedError`` naming the ROADMAP queue where their family waits.
 """
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.command_r_plus_104b import \
+    CONFIG as command_r_plus_104b
+from repro_torch.configs.internvl2_2b import CONFIG as internvl2_2b
 from repro_torch.configs.mixtral_8x7b import CONFIG as mixtral_8x7b
 from repro_torch.configs.qwen2_0_5b import CONFIG as qwen2_0_5b
 from repro_torch.configs.qwen2_1_5b import CONFIG as qwen2_1_5b
@@ -13,12 +17,11 @@ from repro_torch.configs.qwen3_14b import CONFIG as qwen3_14b
 from repro_torch.configs.qwen3_moe_30b_a3b import CONFIG as qwen3_moe_30b_a3b
 
 ARCHS = {c.arch_id: c for c in (qwen2_0_5b, qwen2_1_5b, qwen3_14b,
+                                command_r_plus_104b, internvl2_2b,
                                 mixtral_8x7b, qwen3_moe_30b_a3b)}
 
 #: architectures of the JAX package not ported yet, and where they wait
 _NOT_PORTED = {
-    "command-r-plus-104b": "ROADMAP.md queue 1, slice 6 (parallel-block dense family)",
-    "internvl2-2b": "ROADMAP.md queue 1, slice 6 (vlm frontend)",
     "mamba2-2.7b": "ROADMAP.md queue 1, slice 6 (SSM family)",
     "zamba2-2.7b": "ROADMAP.md queue 1, slice 6 (hybrid family)",
     "seamless-m4t-large-v2": "ROADMAP.md queue 1, slice 6 (enc-dec family)",
@@ -35,5 +38,6 @@ def get_config(arch_id: str) -> ModelConfig:
     raise KeyError(f"unknown arch {arch_id!r}; have {sorted(ARCHS)}")
 
 
-__all__ = ["ARCHS", "ModelConfig", "get_config", "mixtral_8x7b",
-           "qwen2_0_5b", "qwen2_1_5b", "qwen3_14b", "qwen3_moe_30b_a3b"]
+__all__ = ["ARCHS", "ModelConfig", "command_r_plus_104b", "get_config",
+           "internvl2_2b", "mixtral_8x7b", "qwen2_0_5b", "qwen2_1_5b",
+           "qwen3_14b", "qwen3_moe_30b_a3b"]

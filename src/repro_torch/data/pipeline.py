@@ -1,8 +1,8 @@
 """Deterministic, sharded, resumable data pipeline (the ``SyntheticLM``
-source of ``repro.data.pipeline``, copied: numpy only, so both packages draw
-the same batches bit for bit; the launcher passes the host's shard
-explicitly). The JAX package's ``FileSource`` and ``with_extras`` (the
-vit_stub and enc-dec inputs) are not ported yet.
+source and ``with_extras`` of ``repro.data.pipeline``, copied: numpy only,
+so both packages draw the same batches bit for bit; the launcher passes the
+host's shard explicitly). The JAX package's ``FileSource`` and the enc-dec
+branch of ``with_extras`` (its ``frames``) are not ported yet.
 
   * ``SyntheticLM`` yields fixed-length token sequences from a stationary
     Zipfian Markov stream (learnable structure — loss decreases measurably,
@@ -18,7 +18,7 @@ vit_stub and enc-dec inputs) are not ported yet.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator
+from typing import Dict, Iterable, Iterator
 
 import numpy as np
 
@@ -87,3 +87,24 @@ class SyntheticLM:
         self._step += 1
         return b
 
+
+def with_extras(source: Iterable[Dict[str, np.ndarray]], cfg
+                ) -> Iterator[Dict[str, np.ndarray]]:
+    """Wrap a token source with the modality stub its arch requires: a vlm
+    (``cfg.frontend == "vit_stub"``) batch gains ``patches``, (B,
+    frontend_len, frontend_dim) f32 standard normals drawn from
+    ``default_rng(i * 7919 + 13)`` for the i-th batch this wrapper yields,
+    as the JAX package draws them. Other archs' batches pass through. The
+    enc-dec family's ``frames`` wait with that family (ROADMAP.md queue 1,
+    item 7.5)."""
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: the enc-dec inputs wait in ROADMAP.md queue 1, "
+            f"slice 6")
+    for i, batch in enumerate(source):
+        if cfg.frontend == "vit_stub":
+            rng = np.random.default_rng(i * 7919 + 13)
+            batch["patches"] = rng.normal(size=(
+                batch["tokens"].shape[0], cfg.frontend_len,
+                cfg.frontend_dim)).astype(np.float32)
+        yield batch

@@ -3,10 +3,14 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch qwen3-moe-30b-a3b --layers 12
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch command-r-plus-104b --layers 4
 
 Serves the FULL-width config unless ``--reduced`` is given (``--layers N``
-keeps its first N layers: the MoE configs' f32 weights outgrow one card at
-full depth), with weights and prompts drawn from seed 0, through ``LMServer`` (greedy unless
+keeps its first N layers: the MoE configs' and command-r-plus-104b's f32
+weights outgrow one card at full depth; internvl2-2b serves text-only, as
+the JAX engine does), with weights and prompts drawn from seed 0, through
+``LMServer`` (greedy unless
 ``--sample``; whole-prompt prefill attention through the flash kernel),
 and prints tok/s, TTFT and TPOT. ``--device cpu`` runs the kernels' plain
 PyTorch versions instead (slow at full width).

@@ -15,19 +15,23 @@ field, which the JAX launcher does not expose): the GEMM weights are put on
 the BFP grid once per step (the BFP quantizer kernel on the card) and the
 policy skips their per-GEMM quantization.
 
-``--arch`` takes the dense and the MoE configs (``qwen3-moe-30b-a3b``,
+``--arch`` takes the dense configs (command-r's parallel block included),
+the vlm ``internvl2-2b`` (its batches carry the stub vision tower's
+``patches`` from :func:`repro_torch.data.pipeline.with_extras`, as the JAX
+launcher wraps its source) and the MoE configs (``qwen3-moe-30b-a3b``,
 ``mixtral-8x7b``: the expert stacks' forward, dX and dW GEMMs are each one
 batched launch of the GEMM kernel). ``--layers N`` keeps the config's first
 N layers at its published widths: the f32 train state (masters, gradients
-and both Adam moments, 16 bytes a parameter) of a full-depth MoE config
-outgrows one card.
+and both Adam moments, 16 bytes a parameter) of a full-depth MoE config,
+or of command-r-plus-104b, outgrows one card.
 
 ``--ckpt-dir DIR`` trains through the fault-tolerant loop: a checkpoint
 every ``--ckpt-every`` steps (written on a writer thread) and one on
 SIGTERM/SIGINT, after which the run stops; ``--resume`` continues from the
 latest checkpoint in DIR, on the batch the stopped run would have taken
-next. Checkpoints are in the JAX package's layout, so either launcher
-resumes the other's. ``--distributed`` waits for the distributed slice and
+next (a vlm run's patch draws start over, as the JAX launcher's do).
+Checkpoints are in the JAX package's layout, so either launcher resumes
+the other's. ``--distributed`` waits for the distributed slice and
 raises.
 """
 
@@ -42,7 +46,8 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.precision import get_policy
-from repro_torch.data.pipeline import SyntheticLM, SyntheticLMConfig
+from repro_torch.data.pipeline import (SyntheticLM, SyntheticLMConfig,
+                                       with_extras)
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
 from repro_torch.models.lm import LMCallOptions
@@ -134,6 +139,8 @@ def main(argv=None):
         if meta and "data" in meta:
             data.restore(meta["data"])
         print(f"resumed from step {int(state['step'])}")
+    if cfg.frontend is not None:
+        data = with_extras(data, cfg)
 
     if args.trace_export:
         from repro_torch.obs import trace as obs_trace

@@ -223,13 +223,16 @@ def attn_apply(p: Attention, x: torch.Tensor, policy: MiragePolicy, *,
                causal: bool = True, window: Optional[int] = None,
                qk_norm: bool = False, kv_repeat: int = 1,
                q_chunk: int = 1024, kv_chunk: int = 1024,
-               use_flash: bool = False
+               use_flash: bool = False, skip_o_proj: bool = False
                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence self-attention block (train and prefill path).
 
     ``positions`` are the sequence's positions 0..L-1 (what the flash
     kernel assumes, as the JAX ``use_flash`` condition does). Returns
-    ``(out, (k_cache, v_cache))`` so prefill can keep the projected KV."""
+    ``(out, (k_cache, v_cache))`` so prefill can keep the projected KV;
+    with ``skip_o_proj`` ``out`` is the context (B, L, H * D) before the
+    output projection, for a caller that merges that GEMM with another
+    (``LMCallOptions.merge_parallel_proj``)."""
     B, L, _ = x.shape
     q = common.dense(p.q, x, policy).reshape(B, L, n_heads, head_dim)
     k = common.dense(p.k, x, policy).reshape(B, L, n_kv_heads, head_dim)
@@ -248,6 +251,8 @@ def attn_apply(p: Attention, x: torch.Tensor, policy: MiragePolicy, *,
                                 window=window, q_chunk=q_chunk,
                                 kv_chunk=kv_chunk)
     out = out.reshape(B, L, n_heads * head_dim)
+    if skip_o_proj:
+        return out, (k, v)
     return common.dense(p.o, out, policy), (k, v)
 
 

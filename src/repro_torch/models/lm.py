@@ -1,16 +1,21 @@
-"""Decoder-only LM, dense and MoE families (port of ``repro.models.lm``).
+"""Decoder-only LM: the dense, vlm and MoE families (port of
+``repro.models.lm``).
 
 Pre-norm GQA attention + SwiGLU MLP per layer, with QKV bias and tied
 embeddings as qwen2 has them, qk-norm as qwen3 has it and a sliding window
-as mixtral has it; the MoE family (mixtral, qwen3-moe) replaces the MLP by
-the routed experts of :mod:`repro_torch.models.moe`. The JAX package's
-``lax.scan`` over stacked
+as mixtral has it. command-r's layers are parallel blocks (attention and the
+MLP both read ``ln1(h)``; the layer returns ``h + a + m``). The vlm family
+(internvl2) runs the same dense stack over ``[projected patch embeddings ;
+text tokens]``: the ``frontend_proj`` MLP maps the stub vision tower's patch
+embeddings into the LM stream. The MoE family (mixtral, qwen3-moe) replaces
+the MLP by the routed experts of :mod:`repro_torch.models.moe`. The JAX
+package's ``lax.scan`` over stacked
 layers becomes a loop over an ``nn.ModuleList``. Serving caches come in the
 dense layout (per-slot rings) and the paged one (global page pools and
 per-slot block tables, :meth:`LM.cache_spec`), with the speculative
 :meth:`LM.verify_step` and :meth:`LM.prefill_chunk` over the latter. The
-SSM, hybrid, enc-dec and vlm families and the parallel (command-r) block
-are not ported yet and raise ``NotImplementedError``.
+SSM, hybrid and enc-dec families are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,12 +28,13 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.gemm import mirage_matmul_auto
 from repro_torch.core.precision import MiragePolicy
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, common, moe
 from repro_torch.runtime.paging import blocks_for
 
-_FAMILIES = "the SSM, hybrid, enc-dec and vlm families wait in " \
+_FAMILIES = "the SSM, hybrid and enc-dec families wait in " \
             "ROADMAP.md queue 1, slice 6"
 
 
@@ -45,12 +51,18 @@ class LMCallOptions:
     (``torch.utils.checkpoint`` per layer, the JAX package's
     ``jax.checkpoint`` around the scanned layer); ``ce_chunk`` computes the
     loss over chunks of that many tokens without materializing the full
-    logits (:func:`chunked_ce`)."""
+    logits (:func:`chunked_ce`). ``merge_parallel_proj`` runs a parallel
+    block's two output projections as ONE GEMM, ``[a ; silu(gate) * up] @
+    [w_o ; w_down]``, in the full-sequence forward (:meth:`LM.forward_hidden`,
+    as in the JAX package; the serving steps keep the two): one row-sharded
+    GEMM, so one tensor-parallel all-reduce a layer where the weights are
+    sharded; on one device the same math in another order of sums."""
     kv_repeat: int = 1          # repeat kv heads (exact duplication)
     q_chunk: int = 1024
     kv_chunk: int = 1024
     remat: bool = False
     ce_chunk: int = 0           # chunked CE loss (0 = unchunked)
+    merge_parallel_proj: bool = False   # command-r: one o/down GEMM
     use_flash_kernel: bool = False   # flash attention kernel (forward only)
 
 
@@ -110,6 +122,19 @@ class Layer(_AttnLayer):
                               generator=generator, device=device)
 
 
+class FrontendProj(nn.Module):
+    """The vlm projector of the stub vision tower's patch embeddings:
+    ``fc2(gelu(fc1(x)))``, ``fc1`` frontend_dim -> d_model, ``fc2`` d_model
+    -> d_model, no biases (the JAX package's ``frontend_proj``)."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
+                 device: torch.device):
+        super().__init__()
+        kw = dict(generator=generator, device=device)
+        self.fc1 = common.Dense(cfg.frontend_dim, cfg.d_model, **kw)
+        self.fc2 = common.Dense(cfg.d_model, cfg.d_model, **kw)
+
+
 class MoELayer(_AttnLayer):
     """An ``attn_moe`` layer: attention, then the routed experts."""
 
@@ -134,9 +159,10 @@ def check_policy(cfg: ModelConfig, policy: MiragePolicy) -> None:
 
 
 class LM(nn.Module):
-    """The dense or MoE LM. Weights are drawn from ``generator`` (default: seed 0
-    on ``device``) with the JAX package's initializers; to compute the same
-    function as a JAX model, load its parameters with
+    """The dense, vlm or MoE LM. Weights are drawn from ``generator``
+    (default: seed 0 on ``device``) with the JAX package's initializers, in
+    the port's own order (embedding, layers, head, frontend projector); to
+    compute the same function as a JAX model, load its parameters with
     :func:`repro_torch.interop.load_jax_params`."""
 
     def __init__(self, cfg: ModelConfig, policy: MiragePolicy,
@@ -146,17 +172,15 @@ class LM(nn.Module):
         super().__init__()
         kinds = set(cfg.layer_kinds())
         if len(kinds) != 1 or not kinds <= {"attn_mlp", "attn_moe"} or \
-                cfg.is_encdec or cfg.frontend:
+                cfg.is_encdec or cfg.frontend not in (None, "vit_stub"):
             raise NotImplementedError(f"{cfg.arch_id}: {_FAMILIES}")
-        if cfg.arch_id.startswith("command-r"):
-            raise NotImplementedError(
-                f"{cfg.arch_id}: the parallel attention/MLP block waits in "
-                f"ROADMAP.md queue 1, slice 6")
         check_policy(cfg, policy)
         self.cfg = cfg
         self.policy = policy
         self.opt = options
         self.kind = kinds.pop()
+        # the JAX package's test for the parallel block
+        self.parallel = cfg.arch_id.startswith("command-r")
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
@@ -169,6 +193,8 @@ class LM(nn.Module):
                                       device=device)
         self.lm_head = None if cfg.tie_embeddings else common.Dense(
             cfg.d_model, cfg.vocab_size, False, scale=0.02, **kw)
+        self.frontend_proj = FrontendProj(cfg, **kw) \
+            if cfg.frontend is not None else None
 
     @property
     def device(self) -> torch.device:
@@ -176,8 +202,27 @@ class LM(nn.Module):
         return self.embed.emb.device
 
     # ------------------------------------------------------------------
-    # blocks
+    # embedding / head
     # ------------------------------------------------------------------
+
+    def _embed_inputs(self, tokens: torch.Tensor,
+                      extra_embeds: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, int]:
+        """The token embeddings, led by the projected patch embeddings
+        ``extra_embeds`` (B, P, frontend_dim) where given; returns (h,
+        n_prefix). The projector's activation is the JAX package's
+        ``jax.nn.gelu``, whose default is the tanh approximation."""
+        h = common.embed(self.embed, tokens)
+        if extra_embeds is None:
+            return h, 0
+        if self.frontend_proj is None:
+            raise ValueError(f"{self.cfg.arch_id} has no frontend to take "
+                             f"extra_embeds")
+        proj = self.frontend_proj
+        pe = common.dense(proj.fc2, torch.nn.functional.gelu(
+            common.dense(proj.fc1, extra_embeds, self.policy),
+            approximate="tanh"), self.policy)
+        return torch.cat([pe, h], dim=1), extra_embeds.shape[1]
 
     def _head(self, h: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -187,10 +232,14 @@ class LM(nn.Module):
         return common.dense(self.lm_head, h, self.policy)
 
     def _attn_mlp_block(self, layer: Union[Layer, MoELayer],
-                        h: torch.Tensor, positions: torch.Tensor):
+                        h: torch.Tensor, positions: torch.Tensor,
+                        merge: bool = False):
         """One layer over a full sequence; returns (h, (k, v), aux), aux
-        the MoE layer's router loss (0 for a dense layer)."""
+        the MoE layer's router loss (0 for a dense layer). ``merge`` runs a
+        parallel block's projections as one GEMM (``merge_parallel_proj``;
+        :meth:`forward_hidden` alone asks for it, as in the JAX package)."""
         cfg, opt = self.cfg, self.opt
+        merge = merge and self.parallel
         n1 = common.norm(layer.ln1, h, cfg.norm_eps, cfg.norm_type)
         a, kv = attention.attn_apply(
             layer.attn, n1, self.policy, n_heads=cfg.n_heads,
@@ -198,40 +247,73 @@ class LM(nn.Module):
             positions=positions, rope_theta=cfg.rope_theta, causal=True,
             window=cfg.sliding_window, qk_norm=cfg.qk_norm,
             kv_repeat=opt.kv_repeat, q_chunk=opt.q_chunk,
-            kv_chunk=opt.kv_chunk, use_flash=opt.use_flash_kernel)
-        h, aux = self._ffn_tail(layer, h + a)
+            kv_chunk=opt.kv_chunk, use_flash=opt.use_flash_kernel,
+            skip_o_proj=merge)
+        if merge:
+            return self._merged_tail(layer, h, n1, a), kv, \
+                torch.zeros((), dtype=torch.float32, device=h.device)
+        h, aux = self._ffn_tail(layer, h, n1, a)
         return h, kv, aux
 
-    def _ffn_tail(self, layer: Union[Layer, MoELayer], h: torch.Tensor
+    def _ffn_tail(self, layer: Union[Layer, MoELayer], h: torch.Tensor,
+                  n1: torch.Tensor, a: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The residual FFN after attention (the JAX ``_post_attn_combine``):
-        the MLP, or the routed experts; returns (h, aux)."""
+        """The residual and FFN after attention (the JAX
+        ``_post_attn_combine``), given the layer's input ``h``, its first
+        norm ``n1`` and the attention output ``a``: the routed experts, the
+        parallel block's MLP on ``n1`` (``h + a + m``), or the pre-norm MLP
+        on ``ln2(h + a)``; returns (h, aux)."""
         cfg = self.cfg
-        n2 = common.norm(layer.ln2, h, cfg.norm_eps, cfg.norm_type)
         if self.kind == "attn_moe":
+            h = h + a
+            n2 = common.norm(layer.ln2, h, cfg.norm_eps, cfg.norm_type)
             m, aux = moe.moe_apply(
                 layer.moe, n2, self.policy, n_experts=cfg.n_experts,
                 experts_per_token=cfg.experts_per_token,
                 capacity_factor=cfg.capacity_factor)
             return h + m, aux
-        return h + common.mlp(layer.mlp, n2, self.policy), \
-            torch.zeros((), dtype=torch.float32, device=h.device)
+        zero = torch.zeros((), dtype=torch.float32, device=h.device)
+        if self.parallel:
+            # ln2 is a parameter of the layer (the JAX init draws it) that
+            # the parallel block never reads
+            return h + a + common.mlp(layer.mlp, n1, self.policy), zero
+        h = h + a
+        n2 = common.norm(layer.ln2, h, cfg.norm_eps, cfg.norm_type)
+        return h + common.mlp(layer.mlp, n2, self.policy), zero
+
+    def _merged_tail(self, layer: Layer, h: torch.Tensor, n1: torch.Tensor,
+                     ctx: torch.Tensor) -> torch.Tensor:
+        """A parallel block's tail with ``merge_parallel_proj``: the
+        attention context ``ctx`` (B, L, H * D, before its output
+        projection) and the MLP's hidden ``silu(gate) * up`` go through ONE
+        GEMM against ``[w_o ; w_down]``. The two contractions' BFP groups
+        stay whole (H * D and d_ff are multiples of g)."""
+        mlp = layer.mlp
+        hh = torch.nn.functional.silu(common.dense(mlp.gate, n1, self.policy)) \
+            * common.dense(mlp.up, n1, self.policy)
+        cat = torch.cat([ctx, hh], dim=-1)
+        w_cat = torch.cat([layer.attn.o.w, mlp.down.w], dim=0)
+        return h + mirage_matmul_auto(cat, w_cat, self.policy)
 
     # ------------------------------------------------------------------
     # forward (train / logits over the full sequence)
     # ------------------------------------------------------------------
 
-    def forward_hidden(self, tokens: torch.Tensor
+    def forward_hidden(self, tokens: torch.Tensor,
+                       extra_embeds: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor, int]:
-        """Run the layer stack; returns (hidden, aux, n_prefix): aux is the
-        router loss summed over the layers (0 for the dense family); no
-        ported family has a frontend prefix."""
-        h = common.embed(self.embed, tokens)
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        """Run the layer stack over the tokens, led by the projected
+        ``extra_embeds`` (the vlm's patches) where given; returns (hidden,
+        aux, n_prefix): aux is the router loss summed over the layers (0
+        for the dense family), n_prefix the patch positions leading
+        ``hidden``."""
+        h, n_prefix = self._embed_inputs(tokens, extra_embeds)
+        positions = torch.arange(h.shape[1], device=tokens.device)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        merge = self.opt.merge_parallel_proj
 
         def block(layer, hh):
-            out, _, aux_l = self._attn_mlp_block(layer, hh, positions)
+            out, _, aux_l = self._attn_mlp_block(layer, hh, positions, merge)
             return out, aux_l
 
         for layer in self.layers:
@@ -240,20 +322,24 @@ class LM(nn.Module):
             else:
                 h, aux_l = block(layer, h)
             aux = aux + aux_l
-        return h, aux, 0
+        return h, aux, n_prefix
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens: (B, L) -> logits (B, L, V) (the JAX ``forward``'s first
-        output; its aux and prefix are those of :meth:`forward_hidden`)."""
-        return self._head(self.forward_hidden(tokens)[0])
+    def forward(self, tokens: torch.Tensor,
+                extra_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """tokens: (B, L) -> logits (B, P + L, V), P the patch positions
+        of ``extra_embeds`` (the JAX ``forward``'s first output; its aux
+        and prefix are those of :meth:`forward_hidden`)."""
+        return self._head(self.forward_hidden(tokens, extra_embeds)[0])
 
     def loss(self, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Mean next-token cross-entropy of ``batch`` (``tokens`` and
-        ``labels``, (B, L)) plus the router loss; returns (loss, metrics
-        ``ce``, ``aux``, ``ppl``) as the JAX ``loss`` does."""
+        ``labels``, (B, L); the vlm's ``patches`` (B, P, frontend_dim) lead
+        the sequence and are dropped before the head) plus the router loss;
+        returns (loss, metrics ``ce``, ``aux``, ``ppl``) as the JAX
+        ``loss`` does."""
         tokens, labels = batch["tokens"], batch["labels"]
-        h, aux, n_prefix = self.forward_hidden(tokens)
+        h, aux, n_prefix = self.forward_hidden(tokens, batch.get("patches"))
         h = h[:, n_prefix:, :]
         B, L, d = h.shape
         if self.opt.ce_chunk:
@@ -327,7 +413,8 @@ class LM(nn.Module):
         return cache
 
     def prefill(self, tokens: torch.Tensor, cap: int,
-                lens: Optional[torch.Tensor] = None
+                lens: Optional[torch.Tensor] = None,
+                extra_embeds: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Run the prompt, build the cache, return last-position logits.
 
@@ -336,14 +423,20 @@ class LM(nn.Module):
         token and the cache's per-slot ``idx`` is ``lens``; decode
         overwrites the padded positions one token at a time while the
         validity mask hides them (exact for attention: the causal mask keeps
-        real positions from reading padded ones)."""
-        B, L = tokens.shape
+        real positions from reading padded ones).
+
+        ``extra_embeds`` (the vlm's patches, (B, P, frontend_dim)) lead the
+        prompt, as in the JAX package: the P projected positions take
+        positions 0..P-1 in the sequence and the cache, the tokens follow,
+        and ``idx`` (without ``lens``) is P + L; ``lens`` then counts
+        positions of that whole sequence."""
+        h, _ = self._embed_inputs(tokens, extra_embeds)
+        B, L = h.shape[0], h.shape[1]
         cache_len = self.cache_len(cap)
         if lens is not None and L > cache_len:
             raise ValueError(
                 f"padded prefill length {L} exceeds cache capacity "
                 f"{cache_len}; raise cap or shrink the bucket")
-        h = common.embed(self.embed, tokens)
         positions = torch.arange(L, device=tokens.device)
         cache = self.init_cache(B, cap)
         # keep the last cache_len positions in ring layout (pos % cache_len)
@@ -389,7 +482,7 @@ class LM(nn.Module):
                 head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
                 window=cfg.sliding_window, qk_norm=cfg.qk_norm,
                 kv_repeat=self.opt.kv_repeat, block_tables=bt, plan=plan)
-            h = self._ffn_tail(layer, h + a)[0]
+            h = self._ffn_tail(layer, h, n1, a)[0]
         return self._head(h), dict(cache, idx=idx + 1)
 
     def verify_step(self, cache: Dict[str, torch.Tensor],
@@ -417,7 +510,7 @@ class LM(nn.Module):
                 head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
                 window=cfg.sliding_window, qk_norm=cfg.qk_norm,
                 kv_repeat=self.opt.kv_repeat, block_tables=bt, plan=plan)
-            h = self._ffn_tail(layer, h + a)[0]
+            h = self._ffn_tail(layer, h, n1, a)[0]
         return self._head(h), cache, None
 
     def prefill_chunk(self, cache: Dict[str, torch.Tensor],
@@ -447,7 +540,7 @@ class LM(nn.Module):
                 rope_theta=cfg.rope_theta, window=cfg.sliding_window,
                 qk_norm=cfg.qk_norm, kv_repeat=opt.kv_repeat,
                 q_chunk=opt.q_chunk, kv_chunk=opt.kv_chunk, plan=plan)
-            h = self._ffn_tail(layer, h + a)[0]
+            h = self._ffn_tail(layer, h, n1, a)[0]
         cache["idx"][slot] = pos0 + true_len
         last = max(true_len - 1, 0)
         return self._head(h[:, last:last + 1]), cache

@@ -677,10 +677,13 @@ class LMServer:
     def _auto_stationary(self, backend) -> bool:
         """The JAX engine's rule for ``stationary_weights=None``: program
         once where the backend can and every GEMM weight of the family
-        flows through ``dense`` (``attn_mlp``); the MoE family's expert
-        stacks encode per call."""
+        flows through ``dense`` (``attn_mlp``, the vlm's projector too);
+        the MoE family's expert stacks encode per call, and so does a model
+        whose options merge the parallel block's projections (the merged
+        GEMM concatenates the raw weights)."""
         return backend.supports_stationary_residues and \
-            set(self.model.cfg.layer_kinds()) == {"attn_mlp"}
+            set(self.model.cfg.layer_kinds()) == {"attn_mlp"} and \
+            not self.model.opt.merge_parallel_proj
 
     # ------------------------------------------------------------------
     # device-side steps

@@ -150,8 +150,8 @@ def test_load_jax_params_rejects_mismatched_trees():
         load_jax_params(tm, partial)
 
 
-@pytest.mark.parametrize("arch", ["internvl2-2b", "mamba2-2.7b",
-                                  "zamba2-2.7b", "seamless-m4t-large-v2"])
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b",
+                                  "seamless-m4t-large-v2"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         get_config(arch)
@@ -164,9 +164,10 @@ def test_unported_families_raise(arch):
 
 def test_config_matches_jax():
     """Every ported config, field by field, and its ``reduced()``: the
-    dense qwen2/qwen3 ones and the MoE family."""
+    dense qwen2/qwen3 ones, command-r, the vlm and the MoE family."""
     from repro_torch.configs import ARCHS
     assert set(ARCHS) == {"qwen2-0.5b", "qwen2-1.5b", "qwen3-14b",
+                          "command-r-plus-104b", "internvl2-2b",
                           "mixtral-8x7b", "qwen3-moe-30b-a3b"}
     for arch in ARCHS:
         a, b = jconfig(arch), get_config(arch)
