@@ -126,6 +126,24 @@ against the CPU); command-r-plus-104b at 4 of 64 layers served cold and
 warmed, each layer's ``merge_parallel_proj`` projection held to the two
 it replaces, layer 0 teacher-forced against the CPU.
 
+Slice 6e (the SSM family): kernel 1 at mamba2-2.7b's shapes (the decode
+tick's in_proj 2,560 -> 10,576 with its ragged last column tile, out_proj
+and the untied head; a prefill's projections; each one's training dX and
+dW), each against its plain version and timed; mamba2-2.7b at its
+published widths and full depth (64 layers) served under mirage cold and
+warmed (prefill batches of one exact prompt length; every slot's ``ssm``
+and ``conv`` state carried in place, inside the captured tick too), its
+layers 0 and 63 and head teacher-forced against the CPU, and at 2 layers
+under fp32 its logits and its decode after a prefill held to the CPU and
+to the prefill of the longer prompt; at 8 layers the paged (no page
+pool), chunked (exact-length final chunks), prefix-flagged (inert),
+speculative (the state rolled back to the accepted token), pipelined,
+per-slot, resized and switched engines against the dense engine's
+streams; at 16 layers mirage_rrns at 52 dB against its clean twin with
+stationary weights; and full-depth training (10 steps, two steps from one
+state bitwise equal, layer 0's fp32 gradients teacher-forced against the
+CPU).
+
 Run as a script, it pins the CPU side's vector dispatch (ATen at AVX2,
 MKL's conditional reproducibility at AVX2) before importing torch, so the
 CPU references do not depend on the host's own dispatch level.
@@ -2369,9 +2387,10 @@ def leaf_kinds(errs):
 
 
 def norm64(tree) -> float:
-    """The global norm of a tree of gradients, summed in f64."""
-    return math.sqrt(sum(float(t.double().square().sum())
-                         for t in tree.values()))
+    """The global norm of a tree of gradients, summed in f64 (each leaf's
+    norm reduced in f64 without an f64 copy of the leaf)."""
+    return math.sqrt(sum(float(torch.linalg.vector_norm(
+        t, dtype=torch.float64)) ** 2 for t in tree.values()))
 
 
 def grads_vs(got_loss, got, want_loss, want):
@@ -4713,6 +4732,15 @@ def gemm_row(ops, ref, policy, M, K, N, w_nk, seed):
     bound of phase_gemm), twice bitwise, and timed beside the plain
     version, ``torch.matmul`` on the folded operands and the bound."""
     x, w = gemm_operands(M, K, N, seed=seed, w_nk=w_nk)
+    return gemm_ab_row(ops, ref, policy, x, w)
+
+
+def gemm_ab_row(ops, ref, policy, x, w):
+    """:func:`gemm_row` on given operands: ``x`` (M, K) contiguous or a
+    transposed view (dW's X^T), ``w`` (K, N) contiguous or the transposed
+    view of an (N, K) matrix (read in place)."""
+    M, K, N = x.shape[0], x.shape[1], w.shape[1]
+    w_nk = not w.is_contiguous()
     got = ops.mirage_matmul_fused(x, w, policy)
     again = ops.mirage_matmul_fused(x, w, policy)
     want = ref.mirage_gemm_ref(x, w, policy.b_m, policy.g)
@@ -4727,6 +4755,7 @@ def gemm_row(ops, ref, policy, M, K, N, w_nk, seed):
     t_b, by = bound_rate(4.0 * (M * K + K * N + M * N), 2.0 * M * N * K,
                          BF16_FLOPS_PER_S if plan.mma else F32_FLOPS_PER_S)
     row = {"M": M, "K": K, "N": N, "w_layout": "NK" if w_nk else "KN",
+           "x_layout": "MK" if x.is_contiguous() else "KM",
            "route": "mma_bf16" if plan.mma else "decode_f32",
            "splits": plan.splits, "threads": plan.threads,
            "x_rows_16b_aligned": K % 4 == 0,
@@ -4845,6 +4874,14 @@ def gridded_cpu_copy(module, policy):
     return out
 
 
+def layer_forward(model, layer, h, pos):
+    """One layer of ``model`` over a full sequence: its attention-and-FFN
+    block, or the Mamba2 block of the SSM family."""
+    if model.kind == "mamba":
+        return model._mamba_block(layer, h)
+    return model._attn_mlp_block(layer, h, pos)[0]
+
+
 def dense_layers_vs_cpu(model, prompt_np, layers, head: bool,
                         patches=None):
     """Teacher-forced layers of a dense model, the card against the CPU's
@@ -4863,11 +4900,11 @@ def dense_layers_vs_cpu(model, prompt_np, layers, head: bool,
         h, _ = model._embed_inputs(prompt, patches)
         pos_d = torch.arange(h.shape[1], device=DEV)
         for li, layer_d in enumerate(model.layers):
-            out_d, _, _ = model._attn_mlp_block(layer_d, h, pos_d)
+            out_d = layer_forward(model, layer_d, h, pos_d)
             if li in layers:
                 shell = layer_shell(model, li, gridded=True)
-                out_h, _, _ = shell._attn_mlp_block(
-                    shell.layers[0], h.cpu(), pos_d.cpu())
+                out_h = layer_forward(shell, shell.layers[0], h.cpu(),
+                                      pos_d.cpu())
                 errs[f"layer_{li}"] = rel_l2(out_d.cpu(), out_h)
                 del shell
             h = out_d
@@ -4882,12 +4919,13 @@ def dense_layers_vs_cpu(model, prompt_np, layers, head: bool,
     return errs, time.perf_counter() - t0, L
 
 
-def serve_cold_and_warmed(ops, model, name, per_step, n_layers):
+def serve_cold_and_warmed(ops, model, name, per_step, flash_per_batch):
     """The slice's requests through the cold dense engine and a warmed one
     (the tick a CUDA graph): the streams equal, kernel 1 launched
-    ``per_step`` times a model step and flash ``n_layers`` times a prefill
-    batch; then the steady tick, cold against warmed. Returns (rows,
-    cold streams, launches by engine)."""
+    ``per_step`` times a model step and flash ``flash_per_batch`` times a
+    prefill batch (a layer's attention once; 0 for the SSM family); then
+    the steady tick, cold against warmed. Returns (rows, cold streams,
+    launches by engine)."""
     from repro_torch.runtime.server import LMServer, Request
 
     vocab = model.cfg.vocab_size
@@ -4904,7 +4942,7 @@ def serve_cold_and_warmed(ops, model, name, per_step, n_layers):
             prepare=warmed(info) if side == "warmed" else None)
         m = server.metrics
         want = {"mirage_gemm": per_step * model_steps(m),
-                "flash_attention": n_layers * m["prefill_batches"]}
+                "flash_attention": flash_per_batch * m["prefill_batches"]}
         rows[side] = {**serve_summary(server, finished, dt, launches,
                                       program_s),
                       "model_steps": model_steps(m),
@@ -5275,6 +5313,543 @@ def phase_slice_command_r(ops):
 
 
 
+# --------------------------------------------------------------------------
+# slice 6e: the SSM family (mamba2-2.7b)
+# --------------------------------------------------------------------------
+
+MAMBA_ARCH = "mamba2-2.7b"
+#: the served and trained depth (the published 64 layers), the engines'
+#: cut, the RRNS drains' cut (int32 residues of 5 moduli) and the fp32
+#: end-to-end gate's cut
+MAMBA_LAYERS, MAMBA_ENGINE_LAYERS = 64, 8
+MAMBA_RRNS_LAYERS, MAMBA_FP32_LAYERS = 16, 2
+#: the engines' chunked prefill (17-128-token prompts: exact-length final
+#: chunks) and speculative depth
+MAMBA_CHUNK, MAMBA_SPEC_K = 48, 4
+MAMBA_RRNS_REQUESTS, MAMBA_RRNS_TOKENS = 4, 8
+#: the teacher-forced tokens decoded after a prefill in the fp32 gate
+MAMBA_DECODE_CHECK = 3
+MAMBA_FP32_RTOL = 1e-4
+#: kernel 1 at mamba2-2.7b's GEMM shapes: (GEMM, kind, M, K, N, launches a
+#: model step of its path). in_proj is 2,560 -> 10,576 (N % 64 = 16: a
+#: ragged last column tile), out_proj 5,120 -> 2,560, the untied head
+#: 2,560 -> 50,280; training runs 256 tokens, dX = dO @ W^T on the
+#: weight's (N, K) view read in place, dW = X^T @ dO on X's transposed view
+MAMBA_GEMMS = (
+    ("in_proj (decode)", "fwd", SLOTS, 2560, 10576, MAMBA_LAYERS),
+    ("out_proj (decode)", "fwd", SLOTS, 5120, 2560, MAMBA_LAYERS),
+    ("head (decode)", "fwd", SLOTS, 2560, 50280, 1),
+    ("in_proj (prefill)", "fwd", 128, 2560, 10576, MAMBA_LAYERS),
+    ("out_proj (prefill)", "fwd", 128, 5120, 2560, MAMBA_LAYERS),
+    ("in_proj dX (train)", "dX", 256, 2560, 10576, MAMBA_LAYERS),
+    ("in_proj dW (train)", "dW", 256, 2560, 10576, MAMBA_LAYERS),
+    ("out_proj dX (train)", "dX", 256, 5120, 2560, MAMBA_LAYERS),
+    ("out_proj dW (train)", "dW", 256, 5120, 2560, MAMBA_LAYERS),
+    ("head dX (train)", "dX", 256, 2560, 50280, 1),
+    ("head dW (train)", "dW", 256, 2560, 50280, 1),
+)
+#: symbols of kernel 1 in a profiler trace
+GEMM_SYMBOLS = ("gemm_decode_kernel", "gemm_mma_kernel",
+                "splitk_reduce_kernel")
+
+
+def mamba_gemm_operands(kind: str, M: int, K: int, N: int, seed: int):
+    """Kernel 1's operands for one of MAMBA_GEMMS: the forward's x (M, K)
+    and contiguous weight (K, N); dX's dO (M, N) and the weight's (N, K)
+    view; dW's X^T (K, M view) and dO (M, N)."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    x = torch.randn((M, K), generator=gen, device=DEV)
+    w = torch.randn((K, N), generator=gen, device=DEV) / math.sqrt(K)
+    if kind == "fwd":
+        return x, w
+    dout = torch.randn((M, N), generator=gen, device=DEV) * 1e-2
+    return (dout, w.T) if kind == "dX" else (x.T, dout)
+
+
+def phase_slice_mamba2_kernels(ops, ref, policy):
+    """Kernel 1 at every new shape of the SSM family's paths: the decode
+    tick's in_proj, out_proj and head, a prefill's projections (M = 128)
+    and each one's training dX and dW, held against its plain version
+    within the f32-order bound, twice bitwise, and timed beside
+    ``torch.matmul`` on the pre-folded operands and its bound (``timing``
+    lines with ``"path": "slice_6e"``). Returns (rows, worst error)."""
+    rows, worst = [], 0.0
+    t_phase = time.perf_counter()
+    for i, (name, kind, M, K, N, per_step) in enumerate(MAMBA_GEMMS):
+        a, b = mamba_gemm_operands(kind, M, K, N, seed=2500 + i)
+        row = {"arch": MAMBA_ARCH, "gemm": name, "kind": kind,
+               "launches_per_step": per_step,
+               **gemm_ab_row(ops, ref, policy, a, b)}
+        rows.append(row)
+        emit({"phase": "timing", "kernel": "mirage_gemm",
+              "path": "slice_6e", **row})
+        check(row["bad"] == 0 and row["bitwise_repeatable"],
+              f"slice 6e GEMM {name}: outside the bound in {row['bad']} "
+              f"elements, or not repeatable")
+        worst = max(worst, row["max_abs_err"])
+        del a, b
+        free_card()
+    emit({"phase": "slice_mamba2_kernels", "gemms": len(rows),
+          "max_abs_err": worst,
+          "phase_seconds": time.perf_counter() - t_phase})
+    return rows, worst
+
+
+def ssm_state_gb(model, slots: int) -> float:
+    """Bytes of ``slots`` slots' recurrent state (``ssm`` and ``conv``)."""
+    spec = model.cache_spec(slots, CAP, per_slot_idx=True)
+    return sum(math.prod(shape) * 4 for k, (shape, _) in spec.items()
+               if k in ("ssm", "conv")) / 1e9
+
+
+def gemm_share(prof) -> float:
+    """Kernel 1's device ms in a profile (its decode, tensor-core and
+    split-K reduce kernels)."""
+    return sum(v for k, v in prof["port_kernels_ms"].items()
+               if any(s in k for s in GEMM_SYMBOLS))
+
+
+def mamba_fp32_vs_cpu(prompt_np):
+    """mamba2-2.7b at its widths cut to MAMBA_FP32_LAYERS layers under
+    fp32: the card's forward logits against the CPU's plain path on the
+    same weights, end to end; and a prefill of all but the last
+    MAMBA_DECODE_CHECK tokens, then those tokens decoded one at a time
+    (the recurrent step against the chunked scan), against the prefill of
+    the whole prompt, on the card and on the CPU. Returns relative L2s."""
+    from repro_torch.core.precision import get_policy
+
+    model = published_model(MAMBA_ARCH, MAMBA_FP32_LAYERS,
+                            get_policy("fp32"))
+    cpu = copy.deepcopy(model).to("cpu")
+    L, n = len(prompt_np), MAMBA_DECODE_CHECK
+    out = {}
+    with torch.inference_mode():
+        for side, m, dev in (("card", model, DEV), ("cpu", cpu, "cpu")):
+            toks = torch.from_numpy(prompt_np[None].astype(np.int64)).to(dev)
+            full = m.forward(toks)
+            _, cache = m.prefill(toks[:, :L - n], CAP)
+            for t in range(L - n, L):
+                logits, cache = m.decode_step(cache, toks[:, t:t + 1])
+            out[side] = (full.cpu(), logits[:, -1].cpu())
+    (full_d, dec_d), (full_h, dec_h) = out["card"], out["cpu"]
+    del model, cpu
+    free_card()
+    return {"layers": MAMBA_FP32_LAYERS, "prompt_len": L,
+            "forward_card_vs_cpu": rel_l2(full_d, full_h),
+            "decode_vs_prefill_card": rel_l2(dec_d, full_d[:, -1]),
+            "decode_vs_prefill_cpu": rel_l2(dec_h, full_h[:, -1]),
+            "decode_card_vs_prefill_cpu": rel_l2(dec_d, full_h[:, -1])}
+
+
+def phase_slice_mamba2(ops):
+    """mamba2-2.7b at its published widths and full depth (64 layers,
+    random weights from seed 0) served under mirage: the slice's requests
+    (8 of 17-128 prompt tokens, 32 tokens each, 4 slots) cold and warmed
+    (the tick a CUDA graph), the streams equal, kernel 1 launched 2 x 64 +
+    1 times a model step (prefill batches of one exact length, decode
+    ticks), the steady tick cold against warmed and profiled; then
+    layers 0 and 63 and the head teacher-forced against the CPU
+    (``mamba2_vs_cpu_plain``), with the fp32 gates of
+    :func:`mamba_fp32_vs_cpu`. Returns the launches by engine."""
+    from repro_torch.core.precision import get_policy
+    from repro_torch.runtime.server import Request
+
+    t_phase = time.perf_counter()
+    model = published_model(MAMBA_ARCH, MAMBA_LAYERS, get_policy("mirage"))
+    cfg = model.cfg
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    per_step = 2 * cfg.n_layers + 1
+    rows, _, launches_by = serve_cold_and_warmed(
+        ops, model, "slice_mamba2", per_step, 0)
+    prof = rows["warmed_tick_profile"]
+    gemm_ms = gemm_share(prof)
+    weights_gb, _ = decode_bound_ms(model)
+    state_gb = ssm_state_gb(model, SLOTS)
+    # a tick reads every layer and head weight once and reads and writes
+    # every slot's recurrent state
+    bound_gb = weights_gb + 2 * state_gb
+    emit({"phase": "slice_mamba2", "arch": MAMBA_ARCH, "params": n_params,
+          "f32_gb": n_params * 4 / 1e9, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "d_inner": cfg.d_inner,
+          "ssm_heads": cfg.ssm_heads, "ssm_headdim": cfg.ssm_headdim,
+          "ssm_state": cfg.ssm_state, "vocab": cfg.vocab_size,
+          "policy": "mirage (mirage_fast b_m=4 g=16 k=5)", "slots": SLOTS,
+          "cap": CAP, "gemm_per_step": per_step,
+          "prefill": "batches of one exact prompt length", **rows,
+          "state_gb_4_slots": state_gb,
+          "decode_bound_gb": bound_gb,
+          "decode_bound_ms": bound_gb * 1e9 / HBM_BYTES_PER_S * 1e3,
+          "warmed_tick_gemm_ms": gemm_ms,
+          "warmed_tick_gemm_share_of_busy":
+              gemm_ms / prof["device_busy_ms"],
+          "warmed_tick_ssm_and_glue_ms": prof["device_busy_ms"] - gemm_ms})
+    prompt = make_requests(Request, cfg.vocab_size)[0].prompt[:16]
+    errs, cpu_s, L = dense_layers_vs_cpu(model, prompt,
+                                         (0, cfg.n_layers - 1), head=True)
+    del model
+    free_card()
+    fp32 = mamba_fp32_vs_cpu(prompt)
+    ok_layers = max(errs.values()) < 1e-2
+    ok_fp32 = max(v for k, v in fp32.items() if k.startswith(
+        ("forward", "decode"))) < MAMBA_FP32_RTOL
+    emit({"phase": "mamba2_vs_cpu_plain", "prompt_len": L,
+          "rel_l2": errs, "cpu_seconds": cpu_s, "layers_rtol": 1e-2,
+          "fp32": fp32, "fp32_rtol": MAMBA_FP32_RTOL,
+          "ok": ok_layers and ok_fp32,
+          "phase_seconds": time.perf_counter() - t_phase})
+    check(ok_layers, f"mamba2 card vs CPU: a teacher-forced layer or the "
+                     f"head differs by >= 1e-2 relative L2: {errs}")
+    check(ok_fp32, f"mamba2 under fp32: the card's logits or its decode "
+                   f"after prefill differ by >= {MAMBA_FP32_RTOL} relative "
+                   f"L2: {fp32}")
+    return launches_by
+
+
+def mamba_engine_launches(metrics, nl: int, k: int) -> int:
+    """Kernel-1 launches of a drain from the engine's own counters: 2 x nl
+    + 1 a prefill batch, chunk or decode tick, and 2 x (k + 1) x nl + 1 a
+    verify tick (its k + 1 tokens run the recurrent step one at a time,
+    the head once over all of them)."""
+    per_step = 2 * nl + 1
+    return per_step * (metrics["prefill_batches"] + metrics["prefill_chunks"]
+                       + metrics["decode_steps"]) + \
+        (2 * (k + 1) * nl + 1) * metrics["spec_ticks"]
+
+
+def phase_slice_mamba2_engines(ops):
+    """mamba2-2.7b cut to MAMBA_ENGINE_LAYERS layers through every
+    single-device engine under mirage, each against the dense engine's
+    streams with its kernel-1 launches counted: paged (a pure SSM keeps no
+    page pool: no BlockAllocator, the state dense), paged with chunked
+    prefill (chunks of 48, exact-length final chunks), the prefix flag
+    (inert: no hit), speculative decoding (spec_k = 4, the state rolled
+    back to each slot's accepted token), pipelined prefill, the per-slot
+    oracle, a resize 4 -> 2 -> 4 mid-drain (against a fixed engine fed
+    the same arrivals) and switch_backend mirage -> mirage_rns ->
+    mirage. Returns the launches by engine."""
+    from repro_torch.core.precision import get_policy
+    from repro_torch.runtime.server import (LMServer, PerSlotLMServer,
+                                            Request)
+
+    t_phase = time.perf_counter()
+    model = published_model(MAMBA_ARCH, MAMBA_ENGINE_LAYERS,
+                            get_policy("mirage"))
+    cfg = model.cfg
+    nl, vocab = cfg.n_layers, cfg.vocab_size
+    per_step = 2 * nl + 1
+    rows, launches_by = {}, {}
+
+    def drain(name, **kw):
+        server, finished, dt, launches, program_s = serve_run(
+            ops, model, CAP, make_requests(Request, vocab), LMServer, **kw)
+        server.close()
+        m = server.metrics
+        want = {"mirage_gemm": mamba_engine_launches(m, nl, server.spec_k)}
+        rows[name] = {**serve_summary(server, finished, dt, launches,
+                                      program_s),
+                      "model_steps": model_steps(m),
+                      "prefill_chunks": m["prefill_chunks"],
+                      "spec_ticks": m["spec_ticks"],
+                      "prefix_hits": m["prefix_hits"],
+                      "block_allocator": server.alloc is not None,
+                      "expected_launches": want}
+        check_drain(f"slice_mamba2_engines {name}", finished, N_REQUESTS,
+                    MAX_TOKENS, vocab)
+        expect_launches(launches, want, f"slice_mamba2_engines {name}")
+        check(server.alloc is None and not server.prefix_cache and
+              m["prefix_hits"] == 0,
+              f"slice_mamba2_engines {name}: a pure SSM engine built a "
+              f"block pool or shared a prefix")
+        launches_by[name] = launches
+        return server, {r.rid: r.tokens_out for r in finished}
+
+    _, ref_streams = drain("dense")
+    paged = dict(cache_layout="paged", block_size=PAGED_BS)
+    for name, kw in (("paged", paged),
+                     ("paged_chunk", dict(paged, prefill_chunk=MAMBA_CHUNK)),
+                     ("prefix", dict(paged, prefix_cache=True)),
+                     ("spec", dict(paged, spec_k=MAMBA_SPEC_K)),
+                     ("pipelined", dict(pipeline_depth=PIPELINE_DEPTH))):
+        server, streams = drain(name, **kw)
+        rows[name]["streams_equal_dense"] = streams == ref_streams
+        if name == "paged_chunk":
+            rows[name]["final_chunk_lengths"] = sorted(
+                s[1] for s in server._shapes["chunk_last"])
+        if name == "spec":
+            m = server.metrics
+            rows[name]["accepted_per_slot_tick"] = \
+                m["spec_accepted"] / max(m["spec_slot_ticks"], 1)
+            # the verify step's per-token states against the live state
+            rows[name]["verify_states_gb"] = \
+                (MAMBA_SPEC_K + 1) * ssm_state_gb(model, SLOTS)
+            rows[name]["state_gb"] = ssm_state_gb(model, SLOTS)
+        del server
+        check(streams == ref_streams, f"slice_mamba2_engines {name}: the "
+                                      f"streams differ from the dense "
+                                      f"engine's")
+    # the per-slot oracle: one prefill a request, one decode a token
+    oracle = PerSlotLMServer(model, cap=CAP, batch_slots=SLOTS)
+    ops.reset_launch_counts()
+    for r in make_requests(Request, vocab):
+        oracle.submit(r)
+    finished = oracle.run_until_drained()
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    steps = sum(len(r.tokens_out) for r in finished)
+    want = {"mirage_gemm": per_step * steps}
+    streams = {r.rid: r.tokens_out for r in finished}
+    rows["oracle"] = {"launches": launches, "expected_launches": want,
+                      "model_steps": steps,
+                      "streams_equal_dense": streams == ref_streams}
+    expect_launches(launches, want, "slice_mamba2_engines oracle")
+    check(streams == ref_streams, "slice_mamba2_engines oracle: the "
+                                  "streams differ from the dense engine's")
+    launches_by["oracle"] = launches
+    del oracle
+    # resize 4 -> 2 -> 4 slots mid-drain, against a fixed 4-slot engine
+    # fed the same arrivals (the first two requests, then the rest)
+    resized = {}
+    for name in ("fixed", "resized"):
+        server = LMServer(model, cap=CAP, batch_slots=SLOTS)
+        reqs = make_requests(Request, vocab)
+        for r in reqs[:2]:
+            server.submit(r)
+        done = server.tick() + server.tick()
+        if name == "resized":
+            server.resize_slots(2)
+        done += server.tick() + server.tick()
+        if name == "resized":
+            server.resize_slots(SLOTS)
+        for r in reqs[2:]:
+            server.submit(r)
+        done += server.run_until_drained()
+        resized[name] = {r.rid: r.tokens_out for r in done}
+        check_drain(f"slice_mamba2_engines {name}", done, N_REQUESTS,
+                    MAX_TOKENS, vocab)
+        del server
+    rows["resize"] = {"slots": [SLOTS, 2, SLOTS],
+                      "streams_equal_fixed":
+                          resized["resized"] == resized["fixed"],
+                      "fixed_streams_equal_dense":
+                          resized["fixed"] == ref_streams}
+    check(resized["resized"] == resized["fixed"],
+          "slice_mamba2_engines resize: the resized engine's streams "
+          "differ from the fixed engine's")
+    # switch_backend mirage -> mirage_rns (programmed) -> mirage
+    server = LMServer(model, cap=CAP, batch_slots=SLOTS)
+    reqs = make_requests(Request, vocab)
+    for r in reqs:
+        server.submit(r)
+    done = []
+    for _ in range(SWITCH_AFTER_TICKS):
+        done += server.tick()
+    server.switch_backend(get_policy("mirage_rns"))
+    programmed = server.stationary_weights
+    for _ in range(SWITCH_AFTER_TICKS):
+        done += server.tick()
+    server.switch_backend(get_policy("mirage"))
+    done += server.run_until_drained()
+    switched = {r.rid: r.tokens_out for r in done}
+    rows["switch"] = {"path": "mirage -> mirage_rns -> mirage",
+                      "after_ticks": SWITCH_AFTER_TICKS,
+                      "mirage_rns_programmed": programmed,
+                      "streams_equal_dense": switched == ref_streams}
+    check_drain("slice_mamba2_engines switch", done, N_REQUESTS, MAX_TOKENS,
+                vocab)
+    check(programmed and switched == ref_streams,
+          "slice_mamba2_engines switch: mirage_rns did not program the "
+          "weights, or the switched streams differ from the dense "
+          "engine's")
+    del server, model
+    free_card()
+    emit({"phase": "slice_mamba2_engines", "arch": MAMBA_ARCH,
+          "n_layers": nl, "block_size": PAGED_BS,
+          "prefill_chunk": MAMBA_CHUNK, "spec_k": MAMBA_SPEC_K,
+          "pipeline_depth": PIPELINE_DEPTH, **rows,
+          "phase_seconds": time.perf_counter() - t_phase})
+    return launches_by
+
+
+def phase_slice_mamba2_rrns(ops):
+    """mamba2-2.7b cut to MAMBA_RRNS_LAYERS layers under mirage_rrns at 52
+    dB and its clean twin, each engine programming every projection and
+    the head once (stationary weights, the SSM family's default), 4
+    requests x 8 tokens: the streams equal, no decode beyond the
+    correction radius, every kernel-4/5 and kernel-6 launch one residue
+    block; the programmed bytes measured. Returns the launches by
+    channel."""
+    from repro_torch.core import stationary
+    from repro_torch.core.precision import get_policy
+    from repro_torch.runtime.server import Request
+
+    t_phase = time.perf_counter()
+    model = published_model(MAMBA_ARCH, MAMBA_RRNS_LAYERS,
+                            get_policy("mirage"))
+    cfg = model.cfg
+    rows, streams, launches_by = {}, {}, {}
+    for name, policy in (("rrns_52db", get_policy(
+            "mirage_rrns", snr_db=SNR_DB, noise_seed=NOISE_SEED)),
+            ("rrns_clean", get_policy("mirage_rrns",
+                                      noise_seed=NOISE_SEED))):
+        model.policy = policy
+        reqs = make_requests(Request, cfg.vocab_size,
+                             max_tokens=MAMBA_RRNS_TOKENS)[
+            :MAMBA_RRNS_REQUESTS]
+        summary, streams[name], health, launches, blocks, programmed, \
+            finished = moe_rns_drain(ops, model, reqs)
+        encoded = [m.stationary for m in model.modules()
+                   if getattr(m, "stationary", None) is not None]
+        residue_gb = sum(e.residues.numel() * e.residues.element_size()
+                         for e in encoded) / 1e9
+        del encoded
+        kernel = "rns_matmul_channel" if name == "rrns_52db" \
+            else "rns_matmul"
+        want = {kernel: blocks, "rrns_decode": blocks}
+        rows[name] = {**summary, "stationary_weights": programmed,
+                      "stationary_residues_gb": residue_gb,
+                      "health": health, "expected_launches": want}
+        check_drain(f"slice_mamba2_rrns {name}", finished,
+                    MAMBA_RRNS_REQUESTS, MAMBA_RRNS_TOKENS, cfg.vocab_size)
+        expect_launches(launches, want, f"slice_mamba2_rrns {name}")
+        per_step = 2 * cfg.n_layers + 1
+        check(programmed and blocks >= per_step * summary["model_steps"],
+              f"slice_mamba2_rrns {name}: the engine did not program its "
+              f"weights, or ran {blocks} residue blocks for "
+              f"{summary['model_steps']} model steps")
+        launches_by[name] = launches
+        stationary.install(model, None)
+        free_card()
+    health = rows["rrns_52db"]["health"]
+    equal = streams["rrns_52db"] == streams["rrns_clean"]
+    emit({"phase": "slice_mamba2_rrns", "arch": MAMBA_ARCH,
+          "n_layers": cfg.n_layers, "snr_db": SNR_DB,
+          "noise_seed": NOISE_SEED, **rows,
+          "streams_equal_clean": equal,
+          "phase_seconds": time.perf_counter() - t_phase})
+    check(health["rrns_uncorrected"] == 0,
+          f"slice_mamba2_rrns: {health['rrns_uncorrected']} decodes beyond "
+          f"the correction radius at {SNR_DB} dB")
+    check(equal, "slice_mamba2_rrns: the 52 dB streams differ from the "
+                 "clean channel's")
+    del model
+    free_card()
+    return launches_by
+
+
+def mamba_layer_grads_vs_cpu(model, batch, li: int = 0):
+    """fp32 gradients of layer ``li`` (its projections, ``conv_w``,
+    ``conv_b``, ``A_log``, ``D``, ``dt_bias`` and norms) on the card
+    against the CPU's, teacher-forced: both sides take the card's token
+    embeddings and one seeded upstream gradient of the layer's output."""
+    from repro_torch.core.precision import get_policy
+    from repro_torch.models import common
+
+    fp32 = get_policy("fp32")
+    shell = layer_shell(model, li)
+    shell.policy = fp32
+    policy0 = model.policy
+    model.policy = fp32
+    toks = torch.from_numpy(batch["tokens"]).to(DEV)
+    with torch.no_grad():
+        h = common.embed(model.embed, toks)
+    grads = {}
+    for side, m, layer, dev in (("card", model, model.layers[li], DEV),
+                                ("cpu", shell, shell.layers[0], "cpu")):
+        out = m._mamba_block(layer, h.to(dev))
+        gen = torch.Generator(device="cpu").manual_seed(11)
+        dout = torch.randn(out.shape, generator=gen).to(dev)
+        names = [n for n, _ in layer.named_parameters()]
+        g = torch.autograd.grad(out, list(layer.parameters()), dout)
+        grads[side] = {f"layers.{li}.{n}": x.cpu() for n, x in zip(names, g)}
+    model.policy = policy0
+    return {n: rel_l2(grads["card"][n], v) for n, v in grads["cpu"].items()}
+
+
+def phase_slice_train_mamba2(ops):
+    """mamba2-2.7b at full width and depth trained as ``python -m
+    repro_torch.launch.train --arch mamba2-2.7b`` trains it: 10 steps of
+    batch 4 x 64, AdamW lr 1e-3, clip 1.0, mirage; every forward, dX and
+    dW GEMM one launch of kernel 1 (3 x (2 x 64 + 1) a step), finite
+    losses; step time, tokens/s, the share of model FLOPs (the GEMMs
+    only: the SSD scan's are left out), peak memory and the step's split;
+    two steps from one state bitwise equal; layer 0's fp32 gradients
+    (``A_log``, ``D``, ``dt_bias``, ``conv_w`` among them) teacher-forced
+    against the CPU."""
+    from repro_torch.core.precision import get_policy
+
+    t_phase = time.perf_counter()
+    cfg, model, tc, data = train_setup(get_policy("mirage"), MAMBA_ARCH)
+    per_step = 3 * (2 * cfg.n_layers + 1)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_phase
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    state, step, times, logs = run_train(model, tc, data, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_s = statistics.median(times[1:])
+    gemm_w = sum(m.w.numel() for m in model.modules() if hasattr(m, "w"))
+    flops = 6.0 * gemm_w * tokens
+    losses = [m["loss"] for m in logs]
+    norms = [m["grad_norm"] for m in logs]
+    finite = all(math.isfinite(v) for v in losses + norms)
+    want = {"mirage_gemm": per_step * TRAIN_STEPS}
+    n_params = sum(p.numel() for p in model.parameters())
+    emit({"phase": "slice_train_mamba2", "arch": MAMBA_ARCH,
+          "n_layers": cfg.n_layers, "params": n_params,
+          "gemm_weights": gemm_w, "train_state_gb": 16.0 * n_params / 1e9,
+          "policy": "mirage (mirage_fast b_m=4 g=16 k=5)",
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+          "optimizer": "adamw lr=1e-3 clip=1.0",
+          "gemm_per_step": per_step, "launches": launches,
+          "expected_launches": want,
+          "step_ms": [t * 1e3 for t in times],
+          "step_ms_median_2_on": step_s * 1e3, "tok_per_s": tokens / step_s,
+          "peak_mem_gb": peak, "build_model_s": build_s,
+          "model_flops_per_step": flops,
+          "model_flops_note": "6 x GEMM weights x tokens; the SSD scan's "
+                              "FLOPs are left out",
+          "model_flops_share_of_989_tflops": flops / step_s /
+          BF16_FLOPS_PER_S, "losses": losses, "grad_norms": norms})
+    check(finite, f"slice_train_mamba2: a loss or grad norm is not "
+                  f"finite: {losses} {norms}")
+    expect_launches(launches, want, "slice_train_mamba2")
+    prof = device_profile(lambda: step(state, next(data)), 1, host=False)
+    emit({"phase": "slice_train_mamba2_profile", "steps": 1, **{
+        k.replace("_ms", "_ms_per_step"): v for k, v in prof.items()},
+        "gemm_ms_per_step": gemm_share(prof)})
+    emit({"phase": "slice_train_mamba2_breakdown", "steps": 2,
+          **step_breakdown(model, tc, state, data, 2)})
+    del state
+    free_card()
+    batch = {k: np.asarray(v) for k, v in next(data).items()}
+    losses2, digests = repeat_step(model, batch)
+    same = bool(torch.equal(losses2[0].view(torch.int32),
+                            losses2[1].view(torch.int32))) and \
+        digests[0] == digests[1]
+    check(same, f"slice_train_mamba2: two steps from one state differ: "
+                f"{[float(v) for v in losses2]} {digests}")
+    free_card()
+    t0 = time.perf_counter()
+    errs = mamba_layer_grads_vs_cpu(model, batch)
+    ok = max(errs.values()) < LAYER_GRAD_RTOL
+    emit({"phase": "slice_train_mamba2_checks",
+          "repeat_losses": [float(v) for v in losses2],
+          "repeat_grad_digests": digests, "repeat_bitwise_equal": same,
+          "fp32_grads_vs_cpu_rel_l2": errs,
+          "fp32_grads_rtol": LAYER_GRAD_RTOL,
+          "cpu_seconds": time.perf_counter() - t0, "ok": ok,
+          "phase_seconds": time.perf_counter() - t_phase})
+    check(ok, f"slice_train_mamba2: layer 0's fp32 gradients differ from "
+              f"the CPU's by >= {LAYER_GRAD_RTOL} relative L2: {errs}")
+    del model
+    free_card()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a CUDA "
@@ -5317,6 +5892,8 @@ def main() -> int:
     gemm6d_rows, flash6d_rows, err6d_gemm, err6d_flash = \
         phase_slice6d_kernels(ops, ref, policy)
     err_gemm = max(err_gemm, err6d_gemm)
+    gemm6e_rows, err6e_gemm = phase_slice_mamba2_kernels(ops, ref, policy)
+    err_gemm = max(err_gemm, err6e_gemm)
     err_flash = max(err_flash, err6d_flash)
     err_rns = phase_rns_matmul(ops, ref)
     err_channel = phase_rns_channel(ops, ref)
@@ -5367,6 +5944,10 @@ def main() -> int:
     vlm_launches = phase_slice_internvl2(ops)
     vlm_train_launches = phase_slice_train_internvl2(ops)
     cr_launches = phase_slice_command_r(ops)
+    mamba_launches = phase_slice_mamba2(ops)
+    mamba_eng_launches = phase_slice_mamba2_engines(ops)
+    mamba_rrns_launches = phase_slice_mamba2_rrns(ops)
+    mamba_train_launches = phase_slice_train_mamba2(ops)
     reduced_launches = phase_serve_reduced(ops)
     phase_train_resume()
     rns_train_launches, rns_per_step = phase_slice_train_rns(ops, ref,
@@ -5461,6 +6042,17 @@ def main() -> int:
                      "train_internvl2": vlm_train_launches["mirage_gemm"],
                      "command_r_dense_cold": cr_launches["cold"]
                      ["mirage_gemm"]}}
+    # slice 6e: kernel 1 at mamba2-2.7b's shapes, and its launches on the
+    # SSM family's paths
+    gemm["slice_6e"] = {
+        "rows": gemm6e_rows,
+        "launches": {"mamba2_dense_cold": mamba_launches["cold"]
+                     ["mirage_gemm"],
+                     "mamba2_dense_warmed": mamba_launches["warmed"]
+                     ["mirage_gemm"],
+                     **{f"mamba2_8_layers_{k}": v.get("mirage_gemm", 0)
+                        for k, v in mamba_eng_launches.items()},
+                     "train_mamba2": mamba_train_launches["mirage_gemm"]}}
     flash["slice_6d"] = {
         "rows": flash6d_rows,
         "launches": {"internvl2_dense_cold": vlm_launches["cold"]
@@ -5495,6 +6087,9 @@ def main() -> int:
             k_entry["launches_moe"]["train_qwen3-moe_rns"] = \
                 moe_rns_train_launches["rns_matmul"]
         k_entry["moe_stacks"] = moe_rns_rows[kernel]
+        k_entry["launches_mamba2_16_layers"] = {
+            path: n[kernel] for path, n in mamba_rrns_launches.items()
+            if kernel in n}
     emit({"kernels": [
         gemm,
         flash,
@@ -5540,6 +6135,13 @@ def main() -> int:
                          "train_internvl2": vlm_train_launches,
                          **{f"command_r_{k}": v
                             for k, v in cr_launches.items()},
+                         **{f"mamba2_{k}": v
+                            for k, v in mamba_launches.items()},
+                         **{f"mamba2_8_layers_{k}": v
+                            for k, v in mamba_eng_launches.items()},
+                         **{f"mamba2_16_layers_{k}": v
+                            for k, v in mamba_rrns_launches.items()},
+                         "train_mamba2": mamba_train_launches,
                          "serve_reduced": reduced_launches,
                          "train_mirage_rns": rns_train_launches,
                          "twins": {k: v["launches"]
@@ -5595,7 +6197,16 @@ def main() -> int:
                              "step (2 more where a prefill carries "
                              "patches, 3 x (7 x layers + 1) + 5 a "
                              "training step) and flash_attention once a "
-                             "layer a prefill batch"}})
+                             "layer a prefill batch; slice 6e (slice_mamba2 "
+                             "at 64 layers, slice_mamba2_engines at 8, "
+                             "slice_mamba2_rrns at 16, slice_train_mamba2 "
+                             "at 64: mamba2_*, train_mamba2) launch "
+                             "mirage_gemm 2 x layers + 1 a model step (a "
+                             "verify tick 2 x (k + 1) x layers + 1, a "
+                             "training step 3 x (2 x layers + 1)), "
+                             "rns_matmul_channel or rns_matmul and "
+                             "rrns_decode once a residue block, and no "
+                             "flash_attention"}})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -1,7 +1,8 @@
 """Architecture registry of the port.
 
 The dense qwen2/qwen3 configs, command-r's parallel block, the vlm
-(internvl2) and the MoE family (mixtral, qwen3-moe) are ported. The JAX
+(internvl2), the MoE family (mixtral, qwen3-moe) and the SSM family
+(mamba2) are ported. The JAX
 package's other architectures raise
 ``NotImplementedError`` naming the ROADMAP queue where their family waits.
 """
@@ -10,6 +11,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.command_r_plus_104b import \
     CONFIG as command_r_plus_104b
 from repro_torch.configs.internvl2_2b import CONFIG as internvl2_2b
+from repro_torch.configs.mamba2_2_7b import CONFIG as mamba2_2_7b
 from repro_torch.configs.mixtral_8x7b import CONFIG as mixtral_8x7b
 from repro_torch.configs.qwen2_0_5b import CONFIG as qwen2_0_5b
 from repro_torch.configs.qwen2_1_5b import CONFIG as qwen2_1_5b
@@ -18,13 +20,14 @@ from repro_torch.configs.qwen3_moe_30b_a3b import CONFIG as qwen3_moe_30b_a3b
 
 ARCHS = {c.arch_id: c for c in (qwen2_0_5b, qwen2_1_5b, qwen3_14b,
                                 command_r_plus_104b, internvl2_2b,
-                                mixtral_8x7b, qwen3_moe_30b_a3b)}
+                                mixtral_8x7b, qwen3_moe_30b_a3b,
+                                mamba2_2_7b)}
 
 #: architectures of the JAX package not ported yet, and where they wait
 _NOT_PORTED = {
-    "mamba2-2.7b": "ROADMAP.md queue 1, slice 6 (SSM family)",
-    "zamba2-2.7b": "ROADMAP.md queue 1, slice 6 (hybrid family)",
-    "seamless-m4t-large-v2": "ROADMAP.md queue 1, slice 6 (enc-dec family)",
+    "zamba2-2.7b": "ROADMAP.md queue 1, slice 6, item 7.4 (hybrid family)",
+    "seamless-m4t-large-v2":
+        "ROADMAP.md queue 1, slice 6, item 7.5 (enc-dec family)",
 }
 
 
@@ -39,5 +42,5 @@ def get_config(arch_id: str) -> ModelConfig:
 
 
 __all__ = ["ARCHS", "ModelConfig", "command_r_plus_104b", "get_config",
-           "internvl2_2b", "mixtral_8x7b", "qwen2_0_5b", "qwen2_1_5b",
-           "qwen3_14b", "qwen3_moe_30b_a3b"]
+           "internvl2_2b", "mamba2_2_7b", "mixtral_8x7b", "qwen2_0_5b",
+           "qwen2_1_5b", "qwen3_14b", "qwen3_moe_30b_a3b"]

@@ -58,6 +58,14 @@ class ModelConfig:
         return self.head_dim or (self.d_model // self.n_heads)
 
     @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim
+
+    @property
     def is_encdec(self) -> bool:
         return self.encoder_layers > 0
 

@@ -20,7 +20,9 @@ the vlm ``internvl2-2b`` (its batches carry the stub vision tower's
 ``patches`` from :func:`repro_torch.data.pipeline.with_extras`, as the JAX
 launcher wraps its source) and the MoE configs (``qwen3-moe-30b-a3b``,
 ``mixtral-8x7b``: the expert stacks' forward, dX and dW GEMMs are each one
-batched launch of the GEMM kernel). ``--layers N`` keeps the config's first
+batched launch of the GEMM kernel) and the SSM config ``mamba2-2.7b``
+(whose 45.3 GB train state fits the card at full depth). ``--layers N``
+keeps the config's first
 N layers at its published widths: the f32 train state (masters, gradients
 and both Adam moments, 16 bytes a parameter) of a full-depth MoE config,
 or of command-r-plus-104b, outgrows one card.

@@ -1,4 +1,4 @@
-"""Decoder-only LM: the dense, vlm and MoE families (port of
+"""Decoder-only LM: the dense, vlm, MoE and SSM families (port of
 ``repro.models.lm``).
 
 Pre-norm GQA attention + SwiGLU MLP per layer, with QKV bias and tied
@@ -8,13 +8,17 @@ MLP both read ``ln1(h)``; the layer returns ``h + a + m``). The vlm family
 (internvl2) runs the same dense stack over ``[projected patch embeddings ;
 text tokens]``: the ``frontend_proj`` MLP maps the stub vision tower's patch
 embeddings into the LM stream. The MoE family (mixtral, qwen3-moe) replaces
-the MLP by the routed experts of :mod:`repro_torch.models.moe`. The JAX
+the MLP by the routed experts of :mod:`repro_torch.models.moe`. The SSM
+family (mamba2) stacks attention-free Mamba2 blocks
+(:mod:`repro_torch.models.mamba2`) whose serving cache is the recurrent
+state ``ssm`` (n_layers, B, H, P, N) and ``conv`` (n_layers, B, K-1,
+conv_dim), O(1) per slot and dense under both layouts. The JAX
 package's ``lax.scan`` over stacked
 layers becomes a loop over an ``nn.ModuleList``. Serving caches come in the
 dense layout (per-slot rings) and the paged one (global page pools and
 per-slot block tables, :meth:`LM.cache_spec`), with the speculative
 :meth:`LM.verify_step` and :meth:`LM.prefill_chunk` over the latter. The
-SSM, hybrid and enc-dec families are not ported yet and raise
+hybrid and enc-dec families are not ported yet and raise
 ``NotImplementedError``.
 """
 
@@ -31,11 +35,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.gemm import mirage_matmul_auto
 from repro_torch.core.precision import MiragePolicy
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, common, moe
+from repro_torch.models import attention, common, mamba2, moe
 from repro_torch.runtime.paging import blocks_for
 
-_FAMILIES = "the SSM, hybrid and enc-dec families wait in " \
-            "ROADMAP.md queue 1, slice 6"
+_FAMILIES = "the hybrid and enc-dec families wait in " \
+            "ROADMAP.md queue 1, slice 6 (items 7.4 and 7.5)"
+_HYBRID = "the hybrid family (attn_every > 0, the shared attention " \
+          "block) waits in ROADMAP.md queue 1, slice 6, item 7.4"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,6 +151,26 @@ class MoELayer(_AttnLayer):
                            generator=generator, device=device)
 
 
+class MambaLayer(nn.Module):
+    """A ``mamba`` layer: the pre-norm Mamba2 block."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
+                 device: torch.device):
+        super().__init__()
+        self.ln1 = common.Norm(cfg.d_model, cfg.norm_type, device=device)
+        self.mamba = mamba2.Mamba(cfg, generator=generator, device=device)
+
+
+def _write_state(dst: torch.Tensor, new: torch.Tensor,
+                 keep: Optional[torch.Tensor]) -> None:
+    """Write a recurrent-state leaf in place (a captured graph replays the
+    write): ``new`` where ``keep`` (S,) is true, else the old value."""
+    if keep is not None:
+        new = torch.where(keep.reshape((-1,) + (1,) * (new.dim() - 1)),
+                          new, dst)
+    dst.copy_(new)
+
+
 def check_policy(cfg: ModelConfig, policy: MiragePolicy) -> None:
     """Raise where ``policy``'s GEMM backend cannot run ``cfg``'s layers:
     the MoE family's expert stacks need a backend that takes stacked
@@ -159,7 +185,7 @@ def check_policy(cfg: ModelConfig, policy: MiragePolicy) -> None:
 
 
 class LM(nn.Module):
-    """The dense, vlm or MoE LM. Weights are drawn from ``generator``
+    """The dense, vlm, MoE or SSM LM. Weights are drawn from ``generator``
     (default: seed 0 on ``device``) with the JAX package's initializers, in
     the port's own order (embedding, layers, head, frontend projector); to
     compute the same function as a JAX model, load its parameters with
@@ -171,9 +197,12 @@ class LM(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         kinds = set(cfg.layer_kinds())
-        if len(kinds) != 1 or not kinds <= {"attn_mlp", "attn_moe"} or \
+        if len(kinds) != 1 or \
+                not kinds <= {"attn_mlp", "attn_moe", "mamba"} or \
                 cfg.is_encdec or cfg.frontend not in (None, "vit_stub"):
             raise NotImplementedError(f"{cfg.arch_id}: {_FAMILIES}")
+        if cfg.attn_every or cfg.family == "hybrid":
+            raise NotImplementedError(f"{cfg.arch_id}: {_HYBRID}")
         check_policy(cfg, policy)
         self.cfg = cfg
         self.policy = policy
@@ -186,7 +215,8 @@ class LM(nn.Module):
             generator = torch.Generator(device=device).manual_seed(0)
         kw = dict(generator=generator, device=device)
         self.embed = common.Embed(cfg.vocab_size, cfg.d_model, **kw)
-        layer_cls = MoELayer if self.kind == "attn_moe" else Layer
+        layer_cls = {"attn_moe": MoELayer, "mamba": MambaLayer}.get(
+            self.kind, Layer)
         self.layers = nn.ModuleList(layer_cls(cfg, **kw)
                                     for _ in range(cfg.n_layers))
         self.final_norm = common.Norm(cfg.d_model, cfg.norm_type,
@@ -255,6 +285,13 @@ class LM(nn.Module):
         h, aux = self._ffn_tail(layer, h, n1, a)
         return h, kv, aux
 
+    def _mamba_block(self, layer: MambaLayer, h: torch.Tensor
+                     ) -> torch.Tensor:
+        """One Mamba2 layer over a full sequence: ``h + mamba(ln1(h))``."""
+        cfg = self.cfg
+        n1 = common.norm(layer.ln1, h, cfg.norm_eps, cfg.norm_type)
+        return h + mamba2.mamba_apply(layer.mamba, n1, cfg, self.policy)
+
     def _ffn_tail(self, layer: Union[Layer, MoELayer], h: torch.Tensor,
                   n1: torch.Tensor, a: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -313,6 +350,9 @@ class LM(nn.Module):
         merge = self.opt.merge_parallel_proj
 
         def block(layer, hh):
+            if self.kind == "mamba":
+                return self._mamba_block(layer, hh), torch.zeros(
+                    (), dtype=torch.float32, device=hh.device)
             out, _, aux_l = self._attn_mlp_block(layer, hh, positions, merge)
             return out, aux_l
 
@@ -374,7 +414,10 @@ class LM(nn.Module):
         no saving but never exhausted), and the ``(batch, ceil(cap /
         block_size))`` int32 block table ``bt``. Paged addressing is
         linear (no ring wrap): a sliding window is applied through the
-        mask, so paged capacity is ``cap`` positions."""
+        mask, so paged capacity is ``cap`` positions. The SSM family's
+        recurrent state, ``ssm`` ``(n_layers, batch, H, P, N)`` and
+        ``conv`` ``(n_layers, batch, K-1, conv_dim)``, is O(1) per slot and
+        dense under both layouts: it has no KV, pool or table."""
         if layout not in ("dense", "paged"):
             raise ValueError(f"unknown cache layout {layout!r}")
         paged = layout == "paged"
@@ -385,7 +428,13 @@ class LM(nn.Module):
         spec: Dict[str, Tuple[Tuple[int, ...], torch.dtype]] = {
             "idx": (((batch,) if per_slot_idx or paged else ()),
                     torch.int32)}
-        if paged:
+        if self.kind == "mamba":
+            conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+            spec["ssm"] = ((nl, batch, cfg.ssm_heads, cfg.ssm_headdim,
+                            cfg.ssm_state), torch.float32)
+            spec["conv"] = ((nl, batch, cfg.ssm_conv - 1, conv_dim),
+                            torch.float32)
+        elif paged:
             mb = blocks_for(cap, block_size)
             nb = n_blocks if n_blocks is not None else batch * mb
             spec["kp"] = ((nl, nb, block_size, kv_eff, hd), torch.float32)
@@ -429,7 +478,12 @@ class LM(nn.Module):
         prompt, as in the JAX package: the P projected positions take
         positions 0..P-1 in the sequence and the cache, the tokens follow,
         and ``idx`` (without ``lens``) is P + L; ``lens`` then counts
-        positions of that whole sequence."""
+        positions of that whole sequence.
+
+        The SSM family's cache is each layer's final ``ssm`` and ``conv``
+        state. Its recurrence carries state through padded steps, so its
+        callers pad to the exact length (``lens == L``), as the engine's
+        exact-length prefill batches do."""
         h, _ = self._embed_inputs(tokens, extra_embeds)
         B, L = h.shape[0], h.shape[1]
         cache_len = self.cache_len(cap)
@@ -442,7 +496,16 @@ class LM(nn.Module):
         # keep the last cache_len positions in ring layout (pos % cache_len)
         keep = min(L, cache_len)
         roll = max(L - cache_len, 0) % cache_len
+        cfg = self.cfg
         for li, layer in enumerate(self.layers):
+            if self.kind == "mamba":
+                n1 = common.norm(layer.ln1, h, cfg.norm_eps, cfg.norm_type)
+                o, (st, cv) = mamba2.mamba_apply(
+                    layer.mamba, n1, cfg, self.policy, return_cache=True)
+                h = h + o
+                cache["ssm"][li] = st
+                cache["conv"][li] = cv
+                continue
             h, (kk, vv), _ = self._attn_mlp_block(layer, h, positions)
             for leaf, val in (("k", kk), ("v", vv)):
                 val = torch.roll(val[:, L - keep:], roll, dims=1)
@@ -459,17 +522,32 @@ class LM(nn.Module):
         return self._head(h_last), cache
 
     def decode_step(self, cache: Dict[str, torch.Tensor],
-                    tokens: torch.Tensor
+                    tokens: torch.Tensor,
+                    active: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """tokens: (B, 1). Returns (logits (B, 1, V), cache with idx + 1).
 
         The layout follows the cache's keys: a ``bt`` leaf selects the
         paged pools ``kp``/``vp``, else the dense rings ``k``/``v``. Either
         is updated in place (see
-        :func:`repro_torch.models.attention.attn_decode_step`)."""
+        :func:`repro_torch.models.attention.attn_decode_step`). The SSM
+        family's ``ssm``/``conv`` state is updated in place too, except
+        for the rows where the (B,) bool ``active`` is false, which keep
+        their state (the engine's inactive slots; the JAX engine's tick
+        masks them after the step, with the same values)."""
         cfg = self.cfg
         h = common.embed(self.embed, tokens)
         idx = cache["idx"]
+        if self.kind == "mamba":
+            for li, layer in enumerate(self.layers):
+                n1 = common.norm(layer.ln1, h, cfg.norm_eps, cfg.norm_type)
+                o, st, cv = mamba2.mamba_decode_step(
+                    layer.mamba, n1, cfg, self.policy, cache["ssm"][li],
+                    cache["conv"][li])
+                h = h + o
+                _write_state(cache["ssm"][li], st, active)
+                _write_state(cache["conv"][li], cv, active)
+            return self._head(h), dict(cache, idx=idx + 1)
         bt = cache.get("bt")
         k_key, v_key = ("kp", "vp") if bt is not None else ("k", "v")
         plan = None if bt is None else attention.page_plan(
@@ -487,17 +565,46 @@ class LM(nn.Module):
 
     def verify_step(self, cache: Dict[str, torch.Tensor],
                     tokens: torch.Tensor
-                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], None]:
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                               Optional[Dict[str, torch.Tensor]]]:
         """Speculative-decoding verify over a PAGED cache: score ``T``
         tokens per slot in one step.
 
         tokens: ``(S, T)``, per slot ``[current token ; T-1 drafts]`` at
         positions ``idx[s] .. idx[s]+T-1``. Returns ``(logits (S, T, V),
         cache, steps)``; ``idx`` is NOT advanced (the caller commits the
-        accepted count), and ``steps`` is None (the JAX package's recurrent
-        per-token states, which the dense family has none of)."""
+        accepted count). ``steps`` is None for the attention families. For
+        the SSM family it is ``{"ssm": (nl, T, S, H, P, N), "conv": (nl,
+        T, S, K-1, C)}``, the recurrent state AFTER each of the ``T``
+        tokens (the per-token ``mamba_decode_step`` recurrence, token-exact
+        against one-token decode), so the caller can roll back to the
+        accepted position (``steps[...][:, a-1]``). The live ``ssm``/
+        ``conv`` tensors are left as they were; the returned cache holds
+        the full-T state (``steps[...][:, -1]``)."""
         cfg = self.cfg
         h = common.embed(self.embed, tokens)
+        if self.kind == "mamba":
+            T = tokens.shape[1]
+            steps = {k: torch.empty((cfg.n_layers, T) + cache[k].shape[1:],
+                                    dtype=cache[k].dtype, device=h.device)
+                     for k in ("ssm", "conv")}
+            for li, layer in enumerate(self.layers):
+                n1 = common.norm(layer.ln1, h, cfg.norm_eps, cfg.norm_type)
+                # token-major, so each token's (S, 1, d) rows are
+                # contiguous, as the card's GEMM kernel takes them
+                n1 = n1.transpose(0, 1).contiguous()
+                st, cv = cache["ssm"][li], cache["conv"][li]
+                outs = []
+                for t in range(T):
+                    o, st, cv = mamba2.mamba_decode_step(
+                        layer.mamba, n1[t][:, None], cfg, self.policy, st,
+                        cv)
+                    outs.append(o)
+                    steps["ssm"][li, t] = st
+                    steps["conv"][li, t] = cv
+                h = h + torch.cat(outs, dim=1)
+            return self._head(h), dict(cache, ssm=steps["ssm"][:, -1],
+                                       conv=steps["conv"][:, -1]), steps
         idx, bt = cache["idx"], cache["bt"]
         pos = idx[:, None] + torch.arange(tokens.shape[1],
                                           device=idx.device)[None, :]
@@ -525,9 +632,31 @@ class LM(nn.Module):
         integers. The chunk's k/v go straight into the pools through the
         slot's table (blocks must be mapped for positions ``< pos0 +
         true_len``), in place. Returns (logits (1, 1, V) at the chunk's
-        last real token, cache) with ``idx[slot] = pos0 + true_len``."""
+        last real token, cache) with ``idx[slot] = pos0 + true_len``.
+
+        The SSM family reads the slot's ``ssm``/``conv`` state and writes
+        it back in place, ``pos0 == 0`` starting from zeros (a reused
+        slot's stale state must not leak into a new request); its
+        recurrence runs through every step, so its callers send
+        exact-length chunks (``true_len == C``)."""
         cfg, opt = self.cfg, self.opt
         h = common.embed(self.embed, tokens)
+        if self.kind == "mamba":
+            for li, layer in enumerate(self.layers):
+                st = cache["ssm"][li, slot:slot + 1]
+                cv = cache["conv"][li, slot:slot + 1]
+                if pos0 == 0:
+                    st, cv = torch.zeros_like(st), torch.zeros_like(cv)
+                n1 = common.norm(layer.ln1, h, cfg.norm_eps, cfg.norm_type)
+                o, (st2, cv2) = mamba2.mamba_apply(
+                    layer.mamba, n1, cfg, self.policy, init_state=st,
+                    conv_state=cv, return_cache=True)
+                h = h + o
+                cache["ssm"][li, slot] = st2[0]
+                cache["conv"][li, slot] = cv2[0]
+            cache["idx"][slot] = pos0 + true_len
+            last = max(true_len - 1, 0)
+            return self._head(h[:, last:last + 1]), cache
         bt_row = cache["bt"][slot]
         plan = attention.chunk_plan(bt_row, pos0, tokens.shape[1], true_len,
                                     *cache["kp"].shape[1:3])

@@ -69,7 +69,9 @@ def resize_serving_state(model, state: Dict, cap: int, new_slots: int,
     bookkeeping (and, for the paged layout, the block allocator via
     ``BlockAllocator.remap_slots``) to ``range(len(keep))``.
 
-    Dense caches move through the ``models.lm`` gather/scatter helpers;
+    Dense caches (the SSM family's ``ssm``/``conv`` state among them, a
+    kept slot's row gathered) move through the ``models.lm``
+    gather/scatter helpers;
     paged caches keep their page POOLS (the same tensors: block ids are
     stable under slot compaction) and only gather the per-slot leaves,
     ``idx`` and the ``bt`` table rows. ``"health"``, the engine's

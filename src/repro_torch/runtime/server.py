@@ -33,6 +33,14 @@ shared block forks a private copy first. **Speculative decoding**
 token for token what greedy decode emits. :class:`PerSlotLMServer` is the
 slot-at-a-time loop, kept as the parity oracle.
 
+**The SSM family** (mamba2) keeps the JAX engine's rules for a recurrent
+state that cannot be skipped or padded: no page pool under the paged
+layout (its ``ssm``/``conv`` state is O(1) per slot and stays dense), the
+prefix flag inert, prefill batched by EXACT prompt length (still across
+same-length prompts) and chunked prefill with exact-length final chunks,
+inactive slots' state frozen in the tick, the speculative verify rolled
+back to each slot's accepted token, and stationary weights by default.
+
 Every step runs under ``torch.inference_mode()``. Sampled decode draws from
 ``torch.Generator``s seeded from ``sample_seed``, one for decode ticks, one
 for prefill batches and one for prefill chunks, so the prefill worker and
@@ -516,7 +524,7 @@ class LMServer:
     ``stationary_weights``: run the GEMMs against stationary residues
     programmed once here. ``None`` follows the JAX engine's rule: on where
     the policy's backend ``supports_stationary_residues`` and the model is
-    of the dense family (its MoE layers encode per call, as the JAX
+    of the dense or SSM family (its MoE layers encode per call, as the JAX
     engine's do; ``True`` programs the expert stacks too). The encodings
     are installed on the model's ``Dense`` and MoE modules (``False``
     clears them), so one model serves one engine's programming at a time.
@@ -603,7 +611,9 @@ class LMServer:
         self.block_size = block_size
         self.prefill_chunk = prefill_chunk
         self.spec_k = int(spec_k)
-        if cache_layout == "paged":
+        # pure-SSM models have no KV to page (their recurrent state is O(1)
+        # per slot and stays dense under both layouts): no pool, no tables
+        if cache_layout == "paged" and model.kind != "mamba":
             mb = blocks_for(cap, block_size)
             # default pool = slots * ceil(cap/bs): no memory saving but never
             # exhausts; a smaller n_blocks sized to the live-token budget
@@ -613,7 +623,11 @@ class LMServer:
                 nb, block_size, batch_slots, mb, placement=block_placement)
         else:
             self.alloc = None
-        self.prefix_cache = bool(prefix_cache) and self.alloc is not None
+        # prefix caching needs pages to share AND skippable prefill: an SSM
+        # state at the match point cannot be rebuilt from blocks, so the
+        # flag is inert for the mamba kind (the engine never shares)
+        self.prefix_cache = bool(prefix_cache) and self.alloc is not None \
+            and model.kind != "mamba"
         self.prefix_index: Optional[PrefixIndex] = \
             PrefixIndex(block_size) if self.prefix_cache else None
         # chunked-prefill in-flight entries: {"req", "slot", "pos"}
@@ -629,6 +643,10 @@ class LMServer:
         # their first decode write lands inside a shared block; the free
         # block for it is reserved until the guard resolves it
         self._fork_pending = [0] * batch_slots
+        # SSM recurrences carry state through padded steps, so that family
+        # batches prefill by EXACT prompt length (still batched across
+        # same-length prompts); attention families right-pad to buckets
+        self.pad_prefill = model.kind != "mamba"
         self.buckets = tuple(sorted(buckets)) if buckets else \
             default_buckets(self.cache_len)
         if self.buckets[-1] > self.cache_len:
@@ -677,12 +695,13 @@ class LMServer:
     def _auto_stationary(self, backend) -> bool:
         """The JAX engine's rule for ``stationary_weights=None``: program
         once where the backend can and every GEMM weight of the family
-        flows through ``dense`` (``attn_mlp``, the vlm's projector too);
-        the MoE family's expert stacks encode per call, and so does a model
-        whose options merge the parallel block's projections (the merged
-        GEMM concatenates the raw weights)."""
+        flows through ``dense`` (``attn_mlp``, the vlm's projector too, and
+        ``mamba``: its in/out projections and head); the MoE family's
+        expert stacks encode per call, and so does a model whose options
+        merge the parallel block's projections (the merged GEMM
+        concatenates the raw weights)."""
         return backend.supports_stationary_residues and \
-            set(self.model.cfg.layer_kinds()) == {"attn_mlp"} and \
+            self.model.kind in ("attn_mlp", "mamba") and \
             not self.model.opt.merge_parallel_proj
 
     # ------------------------------------------------------------------
@@ -780,9 +799,12 @@ class LMServer:
         device."""
         state = self.state
         idx0 = state["cache"]["idx"]
+        # the SSM family's inactive slots keep their recurrent state: a
+        # slot mid-chunked-prefill carries real state between its chunks
         with self._step_scope("decode") as hvals:
             logits, stepped = self.model.decode_step(
-                state["cache"], state["last_tok"][:, None])
+                state["cache"], state["last_tok"][:, None],
+                active=state["active"])
         self._fold(hvals)
         tok = self._select(logits[:, -1, :], "decode")
         active = state["active"]
@@ -914,7 +936,7 @@ class LMServer:
         drafts_d = self._drafts
         tokens = torch.cat([state["last_tok"][:, None], drafts_d], dim=1)
         with self._step_scope("decode") as hvals:
-            logits, _, _ = self.model.verify_step(state["cache"], tokens)
+            logits, _, steps = self.model.verify_step(state["cache"], tokens)
         self._fold(hvals)
         g = torch.argmax(logits, dim=-1).to(torch.int32)       # (S, k+1)
         active = state["active"]
@@ -944,6 +966,14 @@ class LMServer:
         # positions idx..idx+k before gathering); idx advances by the
         # accepted count. Inactive slots stay frozen.
         idx0.copy_(torch.where(active, idx0 + a, idx0).to(i32))
+        if steps is not None:
+            # recurrent rollback: each slot's state after token a-1
+            rows = torch.arange(S, device=dev)
+            for name in ("ssm", "conv"):
+                leaf = state["cache"][name]
+                sel = steps[name][:, (a - 1).long(), rows]    # (nl, S, ...)
+                m = active.reshape((1, -1) + (1,) * (sel.dim() - 2))
+                leaf.copy_(torch.where(m, sel, leaf))
         state["last_tok"].copy_(torch.where(active, last, state["last_tok"]))
         state["emitted"].copy_(emitted)
         active.copy_(active & ~done)
@@ -999,6 +1029,12 @@ class LMServer:
                     f"but the pool holds {self.alloc.n_blocks}; grow "
                     f"n_blocks")
         self.scheduler.submit(req)
+
+    def _bucket(self, length: int) -> int:
+        """The prefill length of a prompt: its bucket, or the exact length
+        for the SSM family."""
+        return pick_bucket(length, self.buckets) if self.pad_prefill \
+            else length
 
     def _block_budget(self, req: Request) -> int:
         """Blocks a request needs over its whole lifetime: prompt plus
@@ -1145,8 +1181,7 @@ class LMServer:
                 return retired
             groups: Dict[int, List[Request]] = {}
             for r in reqs:
-                groups.setdefault(pick_bucket(len(r.prompt), self.buckets),
-                                  []).append(r)
+                groups.setdefault(self._bucket(len(r.prompt)), []).append(r)
             for Lb, group in sorted(groups.items()):
                 B = len(group)
                 Bp = 1 << (B - 1).bit_length()      # pad batch to a pow2
@@ -1202,8 +1237,7 @@ class LMServer:
                 break
             groups: Dict[int, List[Request]] = {}
             for r in reqs:
-                groups.setdefault(pick_bucket(len(r.prompt), self.buckets),
-                                  []).append(r)
+                groups.setdefault(self._bucket(len(r.prompt)), []).append(r)
             # one take may submit a few groups past the depth bound; the
             # outer loop re-checks before claiming any further requests
             for Lb, group in sorted(groups.items()):
@@ -1417,15 +1451,17 @@ class LMServer:
                 break
             head = self.scheduler.waiting[0]
             m = self._match_prefix(head.prompt)
-            if self._block_budget(head) - len(m.block_ids) + \
+            if self.alloc is not None and \
+                    self._block_budget(head) - len(m.block_ids) + \
                     m.fork_extra > self._free_budget():
                 break
             req = self.scheduler.waiting.popleft()
             slot = free[0]
-            # reserve the lifetime budget but allocate lazily, one chunk's
-            # worth at a time — queued prompts must not pin pool blocks
-            # they won't write for many ticks
-            self._slot_budget[slot] = self._block_budget(req)
+            if self.alloc is not None:
+                # reserve the lifetime budget but allocate lazily, one
+                # chunk's worth at a time — queued prompts must not pin
+                # pool blocks they won't write for many ticks
+                self._slot_budget[slot] = self._block_budget(req)
             self._slot_poscap[slot] = len(req.prompt) + req.max_tokens
             self._fork_pending[slot] = 0
             self.slot_req[slot] = req
@@ -1462,9 +1498,12 @@ class LMServer:
         take = min(C, len(req.prompt) - pos)
         last = pos + take >= len(req.prompt)
         toks = np.asarray(req.prompt[pos:pos + take], np.int32)[None, :]
-        if take < C:
-            toks = np.pad(toks, ((0, 0), (0, C - take)))   # masked pads
-        self.alloc.ensure(slot, pos + take)   # reserved: cannot fail
+        if self.pad_prefill and take < C:
+            # attention families right-pad (masked); the SSM recurrence
+            # needs exact-length chunks, one shape a distinct final length
+            toks = np.pad(toks, ((0, 0), (0, C - take)))
+        if self.alloc is not None:
+            self.alloc.ensure(slot, pos + take)   # reserved: cannot fail
         self._sync_tables()
         if not last:
             self._chunk_step(toks, slot, pos, take)
@@ -1555,18 +1594,20 @@ class LMServer:
             ctx = np.concatenate([np.asarray(req.prompt, np.int32),
                                   np.asarray(req.tokens_out, np.int32)])
             drafts[i] = _lookup_draft(ctx, k)
-        cap_pos = self.alloc.max_blocks_per_slot * self.block_size
-        for i in decode_slots:
-            p0 = self._slot_pos[i]
-            # the verify writes positions [p0, p0+k]: fork/unindex shared
-            # blocks in that range, then map blocks up to the request's own
-            # position cap — accepted tokens always fit under it (the
-            # budget mask caps acceptance first), so drafted positions past
-            # it may drop on the device, never KV the request will read
-            self._cow_guard(i, p0, p0 + k + 1)
-            self.alloc.ensure(i, min(
-                p0 + 1 + k, max(self._slot_poscap[i], p0 + 1), cap_pos))
-        self._sync_tables()
+        if self.alloc is not None:
+            cap_pos = self.alloc.max_blocks_per_slot * self.block_size
+            for i in decode_slots:
+                p0 = self._slot_pos[i]
+                # the verify writes positions [p0, p0+k]: fork/unindex
+                # shared blocks in that range, then map blocks up to the
+                # request's own position cap — accepted tokens always fit
+                # under it (the budget mask caps acceptance first), so
+                # drafted positions past it may drop on the device, never
+                # KV the request will read
+                self._cow_guard(i, p0, p0 + k + 1)
+                self.alloc.ensure(i, min(
+                    p0 + 1 + k, max(self._slot_poscap[i], p0 + 1), cap_pos))
+            self._sync_tables()
         self._drafts.copy_(torch.from_numpy(drafts))
         payload = self._to_host(self._tick_step(   # the ONE transfer
             "verify_tick", self._verify_tick))
@@ -1633,9 +1674,12 @@ class LMServer:
         mask freezes every slot; garbage KV lands where admission
         overwrites it), the chunk shapes of ``prefill_chunk`` and the
         prefix cache's padded suffixes, and the prefix cache's attach, on
-        slot 0. The control leaves, ``idx`` and the health accumulators
-        are saved before and restored after, which is why warmup requires
-        an IDLE engine. Its noise and sampling come from warmup generators
+        slot 0. The control leaves, ``idx``, the SSM family's recurrent
+        state and the health accumulators are saved before and restored
+        after, which is why warmup requires an IDLE engine. The SSM
+        family's exact-length prefill is warmed at the bucket lengths
+        only, as in the JAX engine: other prompt lengths first run on
+        arrival. Its noise and sampling come from warmup generators
         of its own: the real ones are left where they were, so a warmed
         engine emits the exact token streams of a cold one, including
         under per-tick analog noise.
@@ -1704,11 +1748,14 @@ class LMServer:
         cur.wait_stream(self._capture_stream)
 
     def _save_leaves(self) -> Dict[str, Any]:
-        """Copies of the leaves warmup's steps write outside the KV."""
+        """Copies of the leaves warmup's steps write outside the KV: the
+        control leaves, ``idx``, the SSM family's recurrent state (a warm
+        chunk writes slot 0's) and the health accumulators."""
         st = self.state
         out = {k: v.clone() for k, v in st.items()
                if k not in ("cache", "health")}
-        out["idx"] = st["cache"]["idx"].clone()
+        out["cache"] = {k: st["cache"][k].clone()
+                        for k in ("idx", "ssm", "conv") if k in st["cache"]}
         if "health" in st:
             out["health"] = {k: v.clone() for k, v in st["health"].items()}
         return out
@@ -1718,8 +1765,9 @@ class LMServer:
         """Write :meth:`_save_leaves`' copies back, in place."""
         st = self.state
         for k, v in saved.items():
-            if k == "idx":
-                st["cache"]["idx"].copy_(v)
+            if k == "cache":
+                for c, cv in v.items():
+                    st["cache"][c].copy_(cv)
             elif k == "health":
                 for h, hv in v.items():
                     st["health"][h].copy_(hv)
