@@ -28,7 +28,8 @@ forward and dX on the trainer's own pre-quantized layout), then full-width
 qwen2-0.5b trained as ``python -m repro_torch.launch.train`` trains it
 (batch 4 x 64 tokens, AdamW, ``mirage``) for 10 steps, with every forward,
 dX and dW GEMM counted through the kernel and 2 steps profiled; fp32
-training held to the CPU end to end and step 1's gradients leaf by leaf
+training (at 8 of its 24 layers) held to the CPU end to end and step 1's
+gradients leaf by leaf
 (with a TF32 control the limits must catch), mirage training
 teacher-forced GEMM by GEMM; weight-stationary training with BFP gradient
 compression (the BFP quantizer kernel on its path; its GEMMs
@@ -130,19 +131,39 @@ Slice 6e (the SSM family): kernel 1 at mamba2-2.7b's shapes (the decode
 tick's in_proj 2,560 -> 10,576 with its ragged last column tile, out_proj
 and the untied head; a prefill's projections; each one's training dX and
 dW), each against its plain version and timed; mamba2-2.7b at its
-published widths and full depth (64 layers) served under mirage cold and
-warmed (prefill batches of one exact prompt length; every slot's ``ssm``
-and ``conv`` state carried in place, inside the captured tick too), its
-layers 0 and 63 and head teacher-forced against the CPU, and at 2 layers
+published widths, cut to 16 of 64 layers from PR 25 (full depth in PR
+24), served under mirage cold and warmed (prefill batches of one exact
+prompt length; every slot's ``ssm`` and ``conv`` state carried in place,
+inside the captured tick too), its first and last layers and head
+teacher-forced against the CPU, and at 2 layers
 under fp32 its logits and its decode after a prefill held to the CPU and
 to the prefill of the longer prompt; at 8 layers the paged (no page
 pool), chunked (exact-length final chunks), prefix-flagged (inert),
 speculative (the state rolled back to the accepted token), pipelined,
 per-slot, resized and switched engines against the dense engine's
 streams; at 16 layers mirage_rrns at 52 dB against its clean twin with
-stationary weights; and full-depth training (10 steps, two steps from one
+stationary weights; and training at 16 layers (10 steps, two steps from one
 state bitwise equal, layer 0's fp32 gradients teacher-forced against the
 CPU).
+
+Slice 6f (the hybrid family): kernel 1 at zamba2-2.7b's shapes (in_proj
+2,560 -> 10,448, the shared block's proj, attention and MLP, the head;
+prefill; the training dX and dW) and flash at the shared block's D = 80
+with 32 heads over 32 kv heads, each against its plain version and
+timed; zamba2-2.7b at its published widths and full depth (54 Mamba2
+layers, one shared attention + MLP block applied after every 6th, 9
+times, on concat(hidden, embeddings)) served under mirage cold and warmed
+(kernel 1 181 times a model step, flash 9 times a prefill batch), one
+shared application timed alone, layers 0, 5 and 53 (each with its shared
+application) and the head teacher-forced against the CPU, and at 12
+layers under fp32 its logits and its decode after a prefill held to the
+CPU; at 12 layers every engine (the paged ones building the shared KV's
+pool; the resize on the paged layout) against the dense engine's
+streams, and mirage_rrns at 52 dB against its clean twin with the health
+integers counting the Mamba2 and head GEMMs alone; and full-depth
+training (10 steps, 543 kernel-1 launches a step, two steps from one
+state bitwise equal, layer 5's and the shared block's fp32 gradients
+teacher-forced against the CPU).
 
 Run as a script, it pins the CPU side's vector dispatch (ATen at AVX2,
 MKL's conditional reproducibility at AVX2) before importing torch, so the
@@ -1473,13 +1494,15 @@ def model_steps(metrics) -> int:
 def pool_summary(server):
     """The paged pool after a drain: its geometry, peak use and bytes; the
     allocator's invariants must hold and every block must be back."""
+    from repro_torch.models.lm import pool_keys
+
     a = server.alloc
     a.check_invariants()
     cache = server.state["cache"]
     return {"block_size": a.block_size, "n_blocks": a.n_blocks,
             "peak_in_use": a.peak_in_use, "in_use_after_drain": a.used_count,
             "pool_gb": sum(cache[k].numel() * cache[k].element_size()
-                           for k in ("kp", "vp")) / 1e9}
+                           for k in pool_keys(cache)) / 1e9}
 
 
 def dense_cache_gb(model, cap) -> float:
@@ -1638,6 +1661,27 @@ def dense_top2_gap(model, prompt, tokens) -> float:
     return float(top[0] - top[1])
 
 
+def serve_streams(server, reqs):
+    """Drain ``reqs`` through ``server``; the streams by request id."""
+    for r in reqs:
+        server.submit(r)
+    return {r.rid: r.tokens_out for r in server.run_until_drained()}
+
+
+def first_differences(model, dense, streams, prompts):
+    """Where each stream first differs from the dense engine's, with the
+    dense logits' top-2 gap there (one forward pass of ``model``)."""
+    firsts = []
+    for rid, toks in dense.items():
+        j = next((i for i, (a, b) in enumerate(zip(streams[rid], toks))
+                  if a != b), None)
+        if j is not None:
+            firsts.append({"rid": rid, "position": j,
+                           "dense_top2_gap": dense_top2_gap(
+                               model, prompts[rid], toks[:j])})
+    return firsts
+
+
 def phase_serve_paged_options(ops, model, cap):
     """8 requests sharing a 64-token prefix through the dense engine and
     four paged ones (chunked prefill, prefix cache, speculative decoding,
@@ -1690,15 +1734,7 @@ def phase_serve_paged_options(ops, model, cap):
             row["streams_equal_dense"] = streams == dense
             if policy != "fp32" or name == "dense":
                 continue
-            firsts = []
-            for rid, toks in dense.items():
-                j = next((i for i, (a, b) in enumerate(zip(streams[rid],
-                                                           toks))
-                          if a != b), None)
-                if j is not None:
-                    firsts.append({"rid": rid, "position": j,
-                                   "dense_top2_gap": dense_top2_gap(
-                                       model, prompts[rid], toks[:j])})
+            firsts = first_differences(model, dense, streams, prompts)
             row["first_differences"] = firsts
             check(all(f["dense_top2_gap"] < TOP2_GAP for f in firsts),
                   f"serve_paged_options fp32 {name}: a stream differs from "
@@ -2120,6 +2156,10 @@ TRAIN_TOKENS = (TRAIN_BATCH * TRAIN_SEQ, 3 * 50)   # 256, and a ragged 150
 LAYER_GEMMS = ("q", "k", "v", "o", "gate", "up", "down")
 #: True only in a CPU rehearsal: the training phases take the reduced config
 REDUCED = False
+#: qwen2-0.5b's fp32 training gate against the CPU at its widths, cut to 8
+#: of 24 layers from PR 25 (the script's time limit; the CPU's steps over
+#: the full depth were most of the phase)
+TRAIN_FP32_LAYERS = 8
 
 
 def train_setup(policy, arch: str = "qwen2-0.5b",
@@ -4424,8 +4464,14 @@ class BlockTap:
 
     def __init__(self):
         from repro_torch.core.backends import mirage_rns
-        self.module = mirage_rns
+        from repro_torch.obs import health
+        self.module, self.health = mirage_rns, health
         self.blocks = self.stack_blocks = self.max_slots = 0
+        # GEMM calls (one run_blocks each) under an open health scope and
+        # inside a suppressed block (the hybrid's shared block), and the
+        # residue blocks of the former
+        self.counted_calls = self.suppressed_calls = 0
+        self.counted_blocks = 0
 
     def __enter__(self):
         self.inner = inner = self.module.run_blocks
@@ -4434,6 +4480,11 @@ class BlockTap:
             n_mod, E, G = xr.shape[:3]
             n = -(-E // eb) * -(-G // gb)
             self.blocks += n
+            if self.health.active():
+                self.counted_calls += 1
+                self.counted_blocks += n
+            elif self.health._stack():
+                self.suppressed_calls += 1
             if E > 1:
                 self.stack_blocks += n
             self.max_slots = max(self.max_slots,
@@ -4475,6 +4526,9 @@ def moe_rns_drain(ops, model, reqs, **engine_kw):
     summary["residue_blocks"] = tap.blocks
     summary["stack_blocks"] = tap.stack_blocks
     summary["most_slots_a_launch"] = tap.max_slots
+    summary["gemm_calls_health_counted"] = tap.counted_calls
+    summary["gemm_calls_health_suppressed"] = tap.suppressed_calls
+    summary["residue_blocks_health_counted"] = tap.counted_blocks
     out = (summary, {r.rid: r.tokens_out for r in finished},
            server.health_snapshot(), launches, tap.blocks,
            server.stationary_weights, finished)
@@ -4793,34 +4847,48 @@ def phase_slice6d_kernels(ops, ref, policy):
         worst_gemm = max(worst_gemm, row["max_abs_err"])
         free_card()
     for i, (arch, B, L, H, Kv, D) in enumerate(SLICE6D_FLASH):
-        q, k, v = flash_operands(B, L, H, Kv, D, seed=2400 + i)
-        got = ops.flash_attention(q, k, v, causal=True)
-        want = ref.flash_attention_ref(q, k, v, causal=True)
-        err = float((got - want).abs().max())
-        ok = bool(torch.allclose(got, want, rtol=2e-5, atol=2e-5))
-        pos = torch.arange(L, device=DEV)
-        allowed = pos[:, None] >= pos[None, :]
-        pairs = int(allowed.sum())
-        moved = 4.0 * (2 * B * L * H * D + 2 * B * L * Kv * D)
-        flops = 4.0 * B * H * pairs * D
-        t_b, by = bound_rate(moved, 3 * flops, TF32_FLOPS_PER_S)
-        lib = sdpa_yardstick(ref, q, k, v, None, allowed)
-        row = {"arch": arch, "B": B, "L": L, "H": H, "Kv": Kv, "D": D,
-               "gqa_group": H // Kv, "max_abs_err": err, "ok": ok,
-               "ms": time_ms(lambda: ops.flash_attention(q, k, v, True)),
-               "plain_ms": time_ms(lambda: ref.flash_attention_ref(
-                   q, k, v, True), n=5),
-               "library_ms": lib["ms"], "library": lib["name"],
-               "bound_ms": t_b, "bound_by": by,
-               "bound_unit": "TF32 tensor cores, 3 products (3xTF32)"}
+        row = flash_case_row(ops, ref, arch, B, L, H, Kv, D, 2400 + i,
+                             "slice_6d")
         flash_rows.append(row)
-        emit({"phase": "timing", "kernel": "flash_attention",
-              "path": "slice_6d", **row})
-        check(ok, f"flash kernel outside rtol=atol=2e-5 at {arch} B={B} "
-                  f"L={L} H={H} Kv={Kv} D={D}")
-        worst_flash = max(worst_flash, err)
-        del q, k, v, got, want
+        worst_flash = max(worst_flash, row["max_abs_err"])
     return gemm_rows, flash_rows, worst_gemm, worst_flash
+
+
+def flash_case_row(ops, ref, arch, B, L, H, Kv, D, seed, path):
+    """Flash attention (causal, no window) at (B, L, H, Kv, D) against its
+    plain version within rtol = atol = 2e-5, twice bitwise, and timed
+    beside the plain version, SDPA's fastest backend that takes the call
+    and the bound (a ``timing`` line with ``"path": path``)."""
+    q, k, v = flash_operands(B, L, H, Kv, D, seed=seed)
+    got = ops.flash_attention(q, k, v, causal=True)
+    again = ops.flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, rtol=2e-5, atol=2e-5))
+    same = bool(torch.equal(got.view(torch.int32), again.view(torch.int32)))
+    pos = torch.arange(L, device=DEV)
+    allowed = pos[:, None] >= pos[None, :]
+    pairs = int(allowed.sum())
+    moved = 4.0 * (2 * B * L * H * D + 2 * B * L * Kv * D)
+    flops = 4.0 * B * H * pairs * D
+    t_b, by = bound_rate(moved, 3 * flops, TF32_FLOPS_PER_S)
+    lib = sdpa_yardstick(ref, q, k, v, None, allowed)
+    row = {"arch": arch, "B": B, "L": L, "H": H, "Kv": Kv, "D": D,
+           "gqa_group": H // Kv, "max_abs_err": err, "ok": ok,
+           "bitwise_repeatable": same,
+           "ms": time_ms(lambda: ops.flash_attention(q, k, v, True)),
+           "plain_ms": time_ms(lambda: ref.flash_attention_ref(
+               q, k, v, True), n=5),
+           "library_ms": lib["ms"], "library": lib["name"],
+           "bound_ms": t_b, "bound_by": by,
+           "bound_unit": "TF32 tensor cores, 3 products (3xTF32)"}
+    emit({"phase": "timing", "kernel": "flash_attention", "path": path,
+          **row})
+    check(ok and same, f"flash kernel outside rtol=atol=2e-5 at {arch} "
+                       f"B={B} L={L} H={H} Kv={Kv} D={D}, or not "
+                       f"repeatable")
+    del q, k, v, got, again, want
+    return row
 
 
 def layer_shell(model, li: int, gridded: bool = False):
@@ -5318,10 +5386,12 @@ def phase_slice_command_r(ops):
 # --------------------------------------------------------------------------
 
 MAMBA_ARCH = "mamba2-2.7b"
-#: the served and trained depth (the published 64 layers), the engines'
-#: cut, the RRNS drains' cut (int32 residues of 5 moduli) and the fp32
-#: end-to-end gate's cut
-MAMBA_LAYERS, MAMBA_ENGINE_LAYERS = 64, 8
+#: the served and trained depth (16 of the published 64 layers: from PR
+#: 25 zamba2 drives a Mamba2 stack at full depth, 54 layers, and the
+#: script's time limit asked for the cut), the engines' cut, the RRNS
+#: drains' cut (int32 residues of 5 moduli) and the fp32 end-to-end gate's
+#: cut
+MAMBA_LAYERS, MAMBA_ENGINE_LAYERS = 16, 8
 MAMBA_RRNS_LAYERS, MAMBA_FP32_LAYERS = 16, 2
 #: the engines' chunked prefill (17-128-token prompts: exact-length final
 #: chunks) and speculative depth
@@ -5409,17 +5479,21 @@ def gemm_share(prof) -> float:
                if any(s in k for s in GEMM_SYMBOLS))
 
 
-def mamba_fp32_vs_cpu(prompt_np):
-    """mamba2-2.7b at its widths cut to MAMBA_FP32_LAYERS layers under
-    fp32: the card's forward logits against the CPU's plain path on the
-    same weights, end to end; and a prefill of all but the last
-    MAMBA_DECODE_CHECK tokens, then those tokens decoded one at a time
-    (the recurrent step against the chunked scan), against the prefill of
-    the whole prompt, on the card and on the CPU. Returns relative L2s."""
+def mamba_fp32_vs_cpu(prompt_np, arch: str = MAMBA_ARCH,
+                      n_layers: int = MAMBA_FP32_LAYERS):
+    """``arch`` (mamba2-2.7b, or the hybrid zamba2-2.7b) at its widths cut
+    to ``n_layers`` layers under fp32: the card's forward logits against
+    the CPU's plain path on the same weights, end to end; and a prefill of
+    all but the last MAMBA_DECODE_CHECK tokens (the hybrid's shared
+    attention through the flash kernel on the card), then those tokens
+    decoded one at a time (the recurrent step against the chunked scan,
+    the shared block's decode attention against its prefill), against the
+    forward of the whole prompt, on the card and on the CPU. Returns
+    relative L2s."""
     from repro_torch.core.precision import get_policy
 
-    model = published_model(MAMBA_ARCH, MAMBA_FP32_LAYERS,
-                            get_policy("fp32"))
+    model = published_model(arch, n_layers, get_policy("fp32"))
+    n_layers = model.cfg.n_layers
     cpu = copy.deepcopy(model).to("cpu")
     L, n = len(prompt_np), MAMBA_DECODE_CHECK
     out = {}
@@ -5434,7 +5508,7 @@ def mamba_fp32_vs_cpu(prompt_np):
     (full_d, dec_d), (full_h, dec_h) = out["card"], out["cpu"]
     del model, cpu
     free_card()
-    return {"layers": MAMBA_FP32_LAYERS, "prompt_len": L,
+    return {"layers": n_layers, "prompt_len": L,
             "forward_card_vs_cpu": rel_l2(full_d, full_h),
             "decode_vs_prefill_card": rel_l2(dec_d, full_d[:, -1]),
             "decode_vs_prefill_cpu": rel_l2(dec_h, full_h[:, -1]),
@@ -5442,13 +5516,13 @@ def mamba_fp32_vs_cpu(prompt_np):
 
 
 def phase_slice_mamba2(ops):
-    """mamba2-2.7b at its published widths and full depth (64 layers,
-    random weights from seed 0) served under mirage: the slice's requests
+    """mamba2-2.7b at its published widths cut to MAMBA_LAYERS layers
+    (random weights from seed 0) served under mirage: the slice's requests
     (8 of 17-128 prompt tokens, 32 tokens each, 4 slots) cold and warmed
-    (the tick a CUDA graph), the streams equal, kernel 1 launched 2 x 64 +
-    1 times a model step (prefill batches of one exact length, decode
-    ticks), the steady tick cold against warmed and profiled; then
-    layers 0 and 63 and the head teacher-forced against the CPU
+    (the tick a CUDA graph), the streams equal, kernel 1 launched 2 x
+    layers + 1 times a model step (prefill batches of one exact length,
+    decode ticks), the steady tick cold against warmed and profiled; then
+    layers 0 and the last and the head teacher-forced against the CPU
     (``mamba2_vs_cpu_plain``), with the fp32 gates of
     :func:`mamba_fp32_vs_cpu`. Returns the launches by engine."""
     from repro_torch.core.precision import get_policy
@@ -5506,46 +5580,93 @@ def phase_slice_mamba2(ops):
     return launches_by
 
 
-def mamba_engine_launches(metrics, nl: int, k: int) -> int:
-    """Kernel-1 launches of a drain from the engine's own counters: 2 x nl
-    + 1 a prefill batch, chunk or decode tick, and 2 x (k + 1) x nl + 1 a
-    verify tick (its k + 1 tokens run the recurrent step one at a time,
-    the head once over all of them)."""
-    per_step = 2 * nl + 1
-    return per_step * (metrics["prefill_batches"] + metrics["prefill_chunks"]
-                       + metrics["decode_steps"]) + \
-        (2 * (k + 1) * nl + 1) * metrics["spec_ticks"]
+def ssm_per_step(cfg) -> int:
+    """Kernel-1 launches of an SSM or hybrid model step: in_proj and
+    out_proj a Mamba2 layer, the shared block's 8 GEMMs an application
+    (proj, q, k, v, o, gate, up, down) and the head."""
+    return 2 * cfg.n_layers + ZAMBA_SHARED_GEMMS * ssm_napp(cfg) + 1
 
 
-def phase_slice_mamba2_engines(ops):
-    """mamba2-2.7b cut to MAMBA_ENGINE_LAYERS layers through every
+def ssm_napp(cfg) -> int:
+    """Applications of the hybrid family's shared block (0 for mamba2)."""
+    return cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+
+
+def mamba_engine_launches(metrics, cfg, k: int) -> dict:
+    """Kernel-1 and flash launches of a drain from the engine's own
+    counters: :func:`ssm_per_step` a prefill batch, chunk or decode tick,
+    and 2 x (k + 1) x layers + 8 x applications + 1 a verify tick (its
+    k + 1 tokens run the recurrent step one at a time, the shared block
+    and the head once over all of them); flash once an application a
+    prefill batch (chunks and verify ticks attend in plain PyTorch)."""
+    nl, napp = cfg.n_layers, ssm_napp(cfg)
+    want = {"mirage_gemm": ssm_per_step(cfg) * (
+        metrics["prefill_batches"] + metrics["prefill_chunks"] +
+        metrics["decode_steps"]) + (2 * (k + 1) * nl + ZAMBA_SHARED_GEMMS *
+                                    napp + 1) * metrics["spec_ticks"]}
+    if napp:
+        want["flash_attention"] = napp * metrics["prefill_batches"]
+    return want
+
+
+def phase_ssm_engines(ops, arch: str, n_layers: int, phase: str):
+    """An SSM or hybrid config cut to ``n_layers`` through every
     single-device engine under mirage, each against the dense engine's
-    streams with its kernel-1 launches counted: paged (a pure SSM keeps no
-    page pool: no BlockAllocator, the state dense), paged with chunked
-    prefill (chunks of 48, exact-length final chunks), the prefix flag
-    (inert: no hit), speculative decoding (spec_k = 4, the state rolled
-    back to each slot's accepted token), pipelined prefill, the per-slot
-    oracle, a resize 4 -> 2 -> 4 mid-drain (against a fixed engine fed
-    the same arrivals) and switch_backend mirage -> mirage_rns ->
-    mirage. Returns the launches by engine."""
+    streams with its kernel-1 (and flash) launches counted: paged (a pure
+    SSM keeps no page pool, no BlockAllocator, the state dense; the
+    hybrid pages its shared block's KV), paged with chunked prefill
+    (chunks of 48, exact-length final chunks), the prefix flag (inert: no
+    hit, the hybrid's pool still built), speculative decoding (spec_k = 4,
+    the state rolled back to each slot's accepted token), pipelined
+    prefill, the per-slot oracle, a resize 4 -> 2 -> 4 mid-drain (against
+    a fixed engine fed the same arrivals; the hybrid's on the paged
+    layout, its pool resized with the slots) and switch_backend mirage ->
+    mirage_rns -> mirage. Returns the launches by engine.
+
+    The hybrid's chunk steps attend through the plain chunked attention
+    over the pages, its verify ticks through the T-token verify attention
+    and the per-slot oracle at batch 1, where the dense engine takes the
+    flash kernel and the one-token decode attention over 4 slots: other
+    f32 orders, which full-width random-weight BFP turns into other
+    tokens (PR 17's finding), so under mirage those three engines'
+    streams are recorded against the dense engine's, and held to it under
+    fp32 (equal, or first differing where the dense logits' top-2 gap is
+    under TOP2_GAP). Every other engine's streams equal the dense
+    engine's; the stream checks run after the phase's line is
+    printed."""
     from repro_torch.core.precision import get_policy
     from repro_torch.runtime.server import (LMServer, PerSlotLMServer,
                                             Request)
 
     t_phase = time.perf_counter()
-    model = published_model(MAMBA_ARCH, MAMBA_ENGINE_LAYERS,
-                            get_policy("mirage"))
+    model = published_model(arch, n_layers, get_policy("mirage"))
     cfg = model.cfg
-    nl, vocab = cfg.n_layers, cfg.vocab_size
-    per_step = 2 * nl + 1
+    nl, vocab, napp = cfg.n_layers, cfg.vocab_size, ssm_napp(cfg)
+    per_step = ssm_per_step(cfg)
     rows, launches_by = {}, {}
+    paged = dict(cache_layout="paged", block_size=PAGED_BS)
+    engines = (("paged", paged),
+               ("paged_chunk", dict(paged, prefill_chunk=MAMBA_CHUNK)),
+               ("prefix", dict(paged, prefix_cache=True)),
+               ("spec", dict(paged, spec_k=MAMBA_SPEC_K)),
+               ("pipelined", dict(pipeline_depth=PIPELINE_DEPTH)))
+    float_paths = ("paged_chunk", "spec", "oracle") if napp else ()
+    differing = []
+
+    def pool_rule(server, kw):
+        """A page pool exactly where the family has KV to page and the
+        layout is paged; never a shared prefix."""
+        want_pool = bool(napp) and kw.get("cache_layout") == "paged"
+        return (server.alloc is not None) == want_pool and \
+            ("shared_kp" in server.state["cache"]) == want_pool and \
+            not server.prefix_cache
 
     def drain(name, **kw):
         server, finished, dt, launches, program_s = serve_run(
             ops, model, CAP, make_requests(Request, vocab), LMServer, **kw)
         server.close()
         m = server.metrics
-        want = {"mirage_gemm": mamba_engine_launches(m, nl, server.spec_k)}
+        want = mamba_engine_launches(m, cfg, server.spec_k)
         rows[name] = {**serve_summary(server, finished, dt, launches,
                                       program_s),
                       "model_steps": model_steps(m),
@@ -5554,28 +5675,28 @@ def phase_slice_mamba2_engines(ops):
                       "prefix_hits": m["prefix_hits"],
                       "block_allocator": server.alloc is not None,
                       "expected_launches": want}
-        check_drain(f"slice_mamba2_engines {name}", finished, N_REQUESTS,
-                    MAX_TOKENS, vocab)
-        expect_launches(launches, want, f"slice_mamba2_engines {name}")
-        check(server.alloc is None and not server.prefix_cache and
-              m["prefix_hits"] == 0,
-              f"slice_mamba2_engines {name}: a pure SSM engine built a "
-              f"block pool or shared a prefix")
+        if server.alloc is not None:
+            rows[name]["pool"] = pool_summary(server)
+        check_drain(f"{phase} {name}", finished, N_REQUESTS, MAX_TOKENS,
+                    vocab)
+        expect_launches(launches, want, f"{phase} {name}")
+        check(pool_rule(server, kw) and m["prefix_hits"] == 0,
+              f"{phase} {name}: the engine's page pool does not follow "
+              f"the family's rule, or it shared a prefix")
         launches_by[name] = launches
         return server, {r.rid: r.tokens_out for r in finished}
 
     _, ref_streams = drain("dense")
-    paged = dict(cache_layout="paged", block_size=PAGED_BS)
-    for name, kw in (("paged", paged),
-                     ("paged_chunk", dict(paged, prefill_chunk=MAMBA_CHUNK)),
-                     ("prefix", dict(paged, prefix_cache=True)),
-                     ("spec", dict(paged, spec_k=MAMBA_SPEC_K)),
-                     ("pipelined", dict(pipeline_depth=PIPELINE_DEPTH))):
+    for name, kw in engines:
         server, streams = drain(name, **kw)
         rows[name]["streams_equal_dense"] = streams == ref_streams
+        rows[name]["tokens_equal_dense"] = token_share(streams, ref_streams)
         if name == "paged_chunk":
             rows[name]["final_chunk_lengths"] = sorted(
                 s[1] for s in server._shapes["chunk_last"])
+            check(all(s[1] <= MAMBA_CHUNK for s in
+                      server._shapes["chunk_last"]),
+                  f"{phase} paged_chunk: a final chunk was padded")
         if name == "spec":
             m = server.metrics
             rows[name]["accepted_per_slot_tick"] = \
@@ -5585,57 +5706,94 @@ def phase_slice_mamba2_engines(ops):
                 (MAMBA_SPEC_K + 1) * ssm_state_gb(model, SLOTS)
             rows[name]["state_gb"] = ssm_state_gb(model, SLOTS)
         del server
-        check(streams == ref_streams, f"slice_mamba2_engines {name}: the "
-                                      f"streams differ from the dense "
-                                      f"engine's")
+        if streams != ref_streams and name not in float_paths:
+            differing.append(name)
     # the per-slot oracle: one prefill a request, one decode a token
     oracle = PerSlotLMServer(model, cap=CAP, batch_slots=SLOTS)
     ops.reset_launch_counts()
-    for r in make_requests(Request, vocab):
+    reqs = make_requests(Request, vocab)
+    for r in reqs:
         oracle.submit(r)
     finished = oracle.run_until_drained()
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     steps = sum(len(r.tokens_out) for r in finished)
     want = {"mirage_gemm": per_step * steps}
+    if napp:
+        want["flash_attention"] = napp * len(reqs)
     streams = {r.rid: r.tokens_out for r in finished}
     rows["oracle"] = {"launches": launches, "expected_launches": want,
                       "model_steps": steps,
-                      "streams_equal_dense": streams == ref_streams}
-    expect_launches(launches, want, "slice_mamba2_engines oracle")
-    check(streams == ref_streams, "slice_mamba2_engines oracle: the "
-                                  "streams differ from the dense engine's")
+                      "streams_equal_dense": streams == ref_streams,
+                      "tokens_equal_dense": token_share(streams,
+                                                        ref_streams)}
+    expect_launches(launches, want, f"{phase} oracle")
+    if streams != ref_streams and "oracle" not in float_paths:
+        differing.append("oracle")
     launches_by["oracle"] = launches
     del oracle
+    if float_paths:
+        # the float-path engines under fp32, against the fp32 dense engine
+        model.policy = get_policy("fp32")
+        fp32 = {}
+        for name, kw in (("dense", {}),) + tuple(
+                e for e in engines if e[0] in float_paths):
+            server = LMServer(model, cap=CAP, batch_slots=SLOTS, **kw)
+            fp32[name] = serve_streams(server, make_requests(Request,
+                                                             vocab))
+            server.close()
+            del server
+        fp32["oracle"] = serve_streams(
+            PerSlotLMServer(model, cap=CAP, batch_slots=SLOTS),
+            make_requests(Request, vocab))
+        prompts = {r.rid: r.prompt for r in make_requests(Request, vocab)}
+        for name in float_paths:
+            firsts = first_differences(model, fp32["dense"], fp32[name],
+                                       prompts)
+            rows[name]["fp32"] = {
+                "tokens_equal_dense": token_share(fp32[name],
+                                                  fp32["dense"]),
+                "first_differences": firsts}
+            if any(f["dense_top2_gap"] >= TOP2_GAP for f in firsts):
+                differing.append(f"{name} (fp32: {firsts})")
+        model.policy = get_policy("mirage")
     # resize 4 -> 2 -> 4 slots mid-drain, against a fixed 4-slot engine
-    # fed the same arrivals (the first two requests, then the rest)
+    # fed the same arrivals (the first two requests, then the rest); a
+    # paged engine's pool follows the slots
+    resize_kw = paged if napp else {}
     resized = {}
     for name in ("fixed", "resized"):
-        server = LMServer(model, cap=CAP, batch_slots=SLOTS)
+        server = LMServer(model, cap=CAP, batch_slots=SLOTS, **resize_kw)
         reqs = make_requests(Request, vocab)
         for r in reqs[:2]:
             server.submit(r)
         done = server.tick() + server.tick()
         if name == "resized":
             server.resize_slots(2)
+            if server.alloc is not None:
+                # the blocks in use and those reserved for the live
+                # requests' growth, no more
+                server.resize_block_pool(server.alloc.n_blocks -
+                                         server._free_budget())
         done += server.tick() + server.tick()
         if name == "resized":
             server.resize_slots(SLOTS)
+            if server.alloc is not None:
+                server.resize_block_pool(SLOTS * -(-CAP // PAGED_BS))
         for r in reqs[2:]:
             server.submit(r)
         done += server.run_until_drained()
         resized[name] = {r.rid: r.tokens_out for r in done}
-        check_drain(f"slice_mamba2_engines {name}", done, N_REQUESTS,
-                    MAX_TOKENS, vocab)
+        check_drain(f"{phase} {name}", done, N_REQUESTS, MAX_TOKENS, vocab)
         del server
     rows["resize"] = {"slots": [SLOTS, 2, SLOTS],
+                      "layout": resize_kw.get("cache_layout", "dense"),
                       "streams_equal_fixed":
                           resized["resized"] == resized["fixed"],
                       "fixed_streams_equal_dense":
                           resized["fixed"] == ref_streams}
-    check(resized["resized"] == resized["fixed"],
-          "slice_mamba2_engines resize: the resized engine's streams "
-          "differ from the fixed engine's")
+    if resized["resized"] != resized["fixed"]:
+        differing.append("resize")
     # switch_backend mirage -> mirage_rns (programmed) -> mirage
     server = LMServer(model, cap=CAP, batch_slots=SLOTS)
     reqs = make_requests(Request, vocab)
@@ -5655,19 +5813,19 @@ def phase_slice_mamba2_engines(ops):
                       "after_ticks": SWITCH_AFTER_TICKS,
                       "mirage_rns_programmed": programmed,
                       "streams_equal_dense": switched == ref_streams}
-    check_drain("slice_mamba2_engines switch", done, N_REQUESTS, MAX_TOKENS,
-                vocab)
-    check(programmed and switched == ref_streams,
-          "slice_mamba2_engines switch: mirage_rns did not program the "
-          "weights, or the switched streams differ from the dense "
-          "engine's")
+    check_drain(f"{phase} switch", done, N_REQUESTS, MAX_TOKENS, vocab)
+    if not programmed or switched != ref_streams:
+        differing.append("switch (or mirage_rns did not program)")
     del server, model
     free_card()
-    emit({"phase": "slice_mamba2_engines", "arch": MAMBA_ARCH,
-          "n_layers": nl, "block_size": PAGED_BS,
+    emit({"phase": phase, "arch": arch, "n_layers": nl,
+          "shared_applications": napp, "block_size": PAGED_BS,
           "prefill_chunk": MAMBA_CHUNK, "spec_k": MAMBA_SPEC_K,
-          "pipeline_depth": PIPELINE_DEPTH, **rows,
+          "pipeline_depth": PIPELINE_DEPTH,
+          "float_path_engines": list(float_paths), **rows,
           "phase_seconds": time.perf_counter() - t_phase})
+    check(not differing, f"{phase}: streams differ from their reference "
+                         f"in {differing}")
     return launches_by
 
 
@@ -5767,10 +5925,11 @@ def mamba_layer_grads_vs_cpu(model, batch, li: int = 0):
 
 
 def phase_slice_train_mamba2(ops):
-    """mamba2-2.7b at full width and depth trained as ``python -m
-    repro_torch.launch.train --arch mamba2-2.7b`` trains it: 10 steps of
-    batch 4 x 64, AdamW lr 1e-3, clip 1.0, mirage; every forward, dX and
-    dW GEMM one launch of kernel 1 (3 x (2 x 64 + 1) a step), finite
+    """mamba2-2.7b at full width cut to MAMBA_LAYERS layers trained as
+    ``python -m repro_torch.launch.train --arch mamba2-2.7b --layers 16``
+    trains it: 10 steps of batch 4 x 64, AdamW lr 1e-3, clip 1.0, mirage;
+    every forward, dX and dW GEMM one launch of kernel 1 (3 x (2 x layers
+    + 1) a step), finite
     losses; step time, tokens/s, the share of model FLOPs (the GEMMs
     only: the SSD scan's are left out), peak memory and the step's split;
     two steps from one state bitwise equal; layer 0's fp32 gradients
@@ -5779,7 +5938,8 @@ def phase_slice_train_mamba2(ops):
     from repro_torch.core.precision import get_policy
 
     t_phase = time.perf_counter()
-    cfg, model, tc, data = train_setup(get_policy("mirage"), MAMBA_ARCH)
+    cfg, model, tc, data = train_setup(get_policy("mirage"), MAMBA_ARCH,
+                                       MAMBA_LAYERS)
     per_step = 3 * (2 * cfg.n_layers + 1)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t_phase
@@ -5850,6 +6010,516 @@ def phase_slice_train_mamba2(ops):
     return launches
 
 
+# --------------------------------------------------------------------------
+# slice 6f: the hybrid family (zamba2-2.7b)
+# --------------------------------------------------------------------------
+
+ZAMBA_ARCH = "zamba2-2.7b"
+#: the served and trained depth (the published 54 layers: 9 applications
+#: of the shared block), and the engines', RRNS drains' and fp32 gate's cut
+#: (12 layers: 2 applications)
+ZAMBA_LAYERS, ZAMBA_CUT_LAYERS = 54, 12
+ZAMBA_APPS = ZAMBA_LAYERS // 6
+#: the shared block's GEMMs an application: proj, q, k, v, o, gate, up, down
+ZAMBA_SHARED_GEMMS = 8
+#: teacher-forced layer units against the CPU (PR 11's gate)
+ZAMBA_LAYER_RTOL = 0.005
+ZAMBA_RRNS_REQUESTS, ZAMBA_RRNS_TOKENS = 4, 8
+#: kernel 1 at zamba2-2.7b's GEMM shapes: (GEMM, kind, M, K, N, launches a
+#: model step of its path). in_proj is 2,560 -> 10,448 (N % 64 = 16: a
+#: ragged last column tile), out_proj and the shared proj 5,120 -> 2,560,
+#: the shared attention 2,560 -> 2,560 (32 heads of 80, MHA), its MLP
+#: 2,560 -> 10,240 -> 2,560, the untied head 2,560 -> 32,000; a prefill of
+#: 128 tokens; training 256 tokens (dX on the weight's (N, K) view read in
+#: place, dW on X's transposed view)
+ZAMBA_GEMMS = (
+    ("in_proj (decode)", "fwd", SLOTS, 2560, 10448, ZAMBA_LAYERS),
+    ("out_proj, shared proj (decode)", "fwd", SLOTS, 5120, 2560,
+     ZAMBA_LAYERS + ZAMBA_APPS),
+    ("shared q/k/v/o (decode)", "fwd", SLOTS, 2560, 2560, 4 * ZAMBA_APPS),
+    ("shared gate/up (decode)", "fwd", SLOTS, 2560, 10240, 2 * ZAMBA_APPS),
+    ("shared down (decode)", "fwd", SLOTS, 10240, 2560, ZAMBA_APPS),
+    ("head (decode)", "fwd", SLOTS, 2560, 32000, 1),
+    ("in_proj (prefill)", "fwd", 128, 2560, 10448, ZAMBA_LAYERS),
+    ("shared gate/up (prefill)", "fwd", 128, 2560, 10240, 2 * ZAMBA_APPS),
+    ("in_proj dX (train)", "dX", 256, 2560, 10448, ZAMBA_LAYERS),
+    ("in_proj dW (train)", "dW", 256, 2560, 10448, ZAMBA_LAYERS),
+    ("shared proj dX (train)", "dX", 256, 5120, 2560, ZAMBA_APPS),
+    ("shared proj dW (train)", "dW", 256, 5120, 2560, ZAMBA_APPS),
+    ("shared gate/up dX (train)", "dX", 256, 2560, 10240, 2 * ZAMBA_APPS),
+    ("shared gate/up dW (train)", "dW", 256, 2560, 10240, 2 * ZAMBA_APPS),
+    ("shared down dX (train)", "dX", 256, 10240, 2560, ZAMBA_APPS),
+    ("shared down dW (train)", "dW", 256, 10240, 2560, ZAMBA_APPS),
+    ("head dX (train)", "dX", 256, 2560, 32000, 1),
+    ("head dW (train)", "dW", 256, 2560, 32000, 1),
+)
+#: flash at the shared block's prefill shapes: (B, L, H, Kv, D), 32 heads
+#: of 80 over 32 kv heads (MHA), causal, no window
+ZAMBA_FLASH = ((4, 128, 32, 32, 80), (1, 17, 32, 32, 80),
+               (2, 64, 32, 32, 80))
+
+
+def phase_slice_zamba2_kernels(ops, ref, policy, flash_regs):
+    """Row 1f (kernel 1 at every GEMM shape of the hybrid's paths: the
+    decode tick's Mamba2 projections, the shared block's 8 GEMMs and the
+    head; a prefill's in_proj and shared MLP; the training dX and dW of
+    in_proj, the shared proj, the shared MLP and the head) and row 3c
+    (flash at D = 80, MHA, the shared block's prefill shapes), each held
+    against its plain version, twice bitwise, and timed beside its library
+    call and bound (``timing`` lines with ``"path": "slice_6f"``). Returns
+    (GEMM rows, flash rows, the worst GEMM and flash errors)."""
+    t_phase = time.perf_counter()
+    gemm_rows, flash_rows = [], []
+    worst_gemm = worst_flash = 0.0
+    for i, (name, kind, M, K, N, per_step) in enumerate(ZAMBA_GEMMS):
+        a, b = mamba_gemm_operands(kind, M, K, N, seed=2600 + i)
+        row = {"arch": ZAMBA_ARCH, "gemm": name, "kind": kind,
+               "launches_per_step": per_step,
+               **gemm_ab_row(ops, ref, policy, a, b)}
+        gemm_rows.append(row)
+        emit({"phase": "timing", "kernel": "mirage_gemm",
+              "path": "slice_6f", **row})
+        check(row["bad"] == 0 and row["bitwise_repeatable"],
+              f"slice 6f GEMM {name}: outside the bound in {row['bad']} "
+              f"elements, or not repeatable")
+        worst_gemm = max(worst_gemm, row["max_abs_err"])
+        del a, b
+        free_card()
+    for i, (B, L, H, Kv, D) in enumerate(ZAMBA_FLASH):
+        row = flash_case_row(ops, ref, ZAMBA_ARCH, B, L, H, Kv, D, 2700 + i,
+                             "slice_6f")
+        row["ptxas"] = flash_regs.get(D)
+        flash_rows.append(row)
+        worst_flash = max(worst_flash, row["max_abs_err"])
+    emit({"phase": "slice_zamba2_kernels", "gemms": len(gemm_rows),
+          "flash_cases": len(flash_rows), "max_abs_err_gemm": worst_gemm,
+          "max_abs_err_flash": worst_flash,
+          "flash_d80_ptxas": flash_regs.get(80),
+          "phase_seconds": time.perf_counter() - t_phase})
+    return gemm_rows, flash_rows, worst_gemm, worst_flash
+
+
+def hybrid_unit(model, layer, li: int, h, emb0, pos, flash: bool = False):
+    """Mamba2 layer ``layer`` (layer ``li`` of the stack) of a hybrid
+    model over a full sequence and, where the shared block follows layer
+    ``li``, that application of ``model.shared`` (reading ``emb0``); the
+    flash kernel in the shared attention where asked, as a serving
+    prefill runs it."""
+    out = model._mamba_block(layer, h)
+    if model._applies_shared(li) is not None:
+        out = model._shared_full(out, emb0, pos, flash)[0]
+    return out
+
+
+def hybrid_layers_vs_cpu(model, prompt_np, layers):
+    """Teacher-forced units of the hybrid, the card (the shared attention
+    through the flash kernel) against the CPU's plain path: each listed
+    Mamba2 layer with the shared application after it where there is one,
+    both sides fed the card's input and the prompt's embeddings as
+    ``emb0``, the layer's and the shared block's weights copied to the
+    host on their BFP grid; then the final norm and the head at the last
+    position. Returns {unit: relative L2}, the CPU seconds and L."""
+    from repro_torch.models import common
+
+    L = len(prompt_np)
+    prompt = torch.from_numpy(prompt_np[None].astype(np.int64)).to(DEV)
+    t0 = time.perf_counter()
+    errs, shared_h = {}, None
+    with torch.inference_mode():
+        h, _ = model._embed_inputs(prompt)
+        emb0 = h
+        pos = torch.arange(L, device=DEV)
+        for li, layer_d in enumerate(model.layers):
+            out_d = hybrid_unit(model, layer_d, li, h, emb0, pos, flash=True)
+            if li in layers:
+                shell = layer_shell(model, li, gridded=True)
+                if shared_h is None:
+                    shared_h = gridded_cpu_copy(model.shared, model.policy)
+                shell.shared = shared_h
+                out_h = hybrid_unit(shell, shell.layers[0], li, h.cpu(),
+                                    emb0.cpu(), pos.cpu())
+                name = f"layer_{li}" + (
+                    "" if model._applies_shared(li) is None else "_shared")
+                errs[name] = rel_l2(out_d.cpu(), out_h)
+                del shell
+            h = out_d
+        norm = copy.deepcopy(model.final_norm).to("cpu")
+        lm_head = copy.deepcopy(model.lm_head).to("cpu")
+        cfg = model.cfg
+        last = h[:, -1:]
+        plain = common.dense(lm_head, common.norm(
+            norm, last.cpu(), cfg.norm_eps, cfg.norm_type), model.policy)
+        errs["head"] = rel_l2(model._head(last).cpu(), plain)
+    return errs, time.perf_counter() - t0, L
+
+
+def shared_block_timing(model):
+    """One application of the shared block as a decode tick runs it (SLOTS
+    rows at position CAP // 2 of dense rings of CAP positions), timed with
+    the L2 flushed before each call (the block's 0.47 GB outgrows the L2,
+    so each of a tick's applications reads it again), against its byte
+    bound: the block's weights and the application's K/V rings read once.
+    """
+    from repro_torch.models import attention
+
+    cfg = model.cfg
+    cache = model.init_cache(SLOTS, CAP, per_slot_idx=True)
+    kc, vc = cache["shared_k"][0], cache["shared_v"][0]
+    idx = torch.full((SLOTS,), CAP // 2, dtype=torch.int32, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(31)
+    h = torch.randn((SLOTS, 1, cfg.d_model), generator=gen, device=DEV)
+    emb0 = 0.02 * torch.randn((SLOTS, 1, cfg.d_model), generator=gen,
+                              device=DEV)
+
+    def attend(attn, x):
+        return attention.attn_decode_step(
+            attn, x, kc, vc, idx, model.policy, n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
+            rope_theta=cfg.rope_theta)[0]
+
+    def one_application():
+        with torch.inference_mode():
+            return model._shared_apply(h, emb0, attend)
+
+    weights_gb = sum(p.numel() for p in model.shared.parameters()) * 4 / 1e9
+    kv_gb = 2 * kc.numel() * 4 / 1e9
+    ms = time_ms(one_application, n=10)
+    bound_app = (weights_gb + kv_gb) * 1e9 / HBM_BYTES_PER_S * 1e3
+    napp = ssm_napp(cfg)
+    del cache, kc, vc
+    return {"weights_gb": weights_gb, "kv_gb_an_application": kv_gb,
+            "ms_an_application": ms, "bound_ms_an_application": bound_app,
+            "applications_a_tick": napp, "ms_a_tick": ms * napp,
+            "bound_ms_a_tick": bound_app * napp,
+            "reread_gb_a_tick": (napp - 1) * weights_gb,
+            "reread_bound_ms_a_tick":
+                (napp - 1) * weights_gb * 1e9 / HBM_BYTES_PER_S * 1e3}
+
+
+def phase_slice_zamba2(ops):
+    """zamba2-2.7b at its published widths and full depth (54 Mamba2
+    layers, the shared block applied 9 times; random weights from seed 0)
+    served under mirage: the slice's requests cold and warmed (the tick a
+    CUDA graph), the streams equal, kernel 1 launched 2 x 54 + 8 x 9 + 1
+    times a model step and flash 9 times a prefill batch (exact-length
+    batches), the steady tick cold against warmed and profiled, against
+    its byte bound (the weights, the shared block re-read at each
+    application, the state read and written, the shared KV read); one
+    shared application timed alone; then layers 0, 5 (with the first
+    application) and 53 (with the last) and the head teacher-forced
+    against the CPU (``zamba2_vs_cpu_plain``, PR 11's 0.005), and at 12
+    layers (2 applications) under fp32 the logits and the decode after a
+    prefill against the CPU. Returns the launches by engine."""
+    from repro_torch.core.precision import get_policy
+    from repro_torch.runtime.server import Request
+
+    t_phase = time.perf_counter()
+    model = published_model(ZAMBA_ARCH, ZAMBA_LAYERS, get_policy("mirage"))
+    cfg = model.cfg
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    napp, per_step = ssm_napp(cfg), ssm_per_step(cfg)
+    rows, _, launches_by = serve_cold_and_warmed(
+        ops, model, "slice_zamba2", per_step, napp)
+    prof = rows["warmed_tick_profile"]
+    gemm_ms = gemm_share(prof)
+    weights_gb, _ = decode_bound_ms(model)
+    state_gb = ssm_state_gb(model, SLOTS)
+    shared = shared_block_timing(model)
+    spec = model.cache_spec(SLOTS, CAP, per_slot_idx=True)
+    kv_gb = sum(math.prod(shape) * 4 for k, (shape, _) in spec.items()
+                if k in ("shared_k", "shared_v")) / 1e9
+    # a tick reads every weight once, the shared block's again at each
+    # application after the first, every slot's recurrent state (read and
+    # written) and every application's K/V rings
+    bound_gb = weights_gb + shared["reread_gb_a_tick"] + 2 * state_gb + kv_gb
+    emit({"phase": "slice_zamba2", "arch": ZAMBA_ARCH, "params": n_params,
+          "shared_params": sum(p.numel() for p in model.shared.parameters()),
+          "f32_gb": n_params * 4 / 1e9, "n_layers": cfg.n_layers,
+          "shared_applications": napp, "d_model": cfg.d_model,
+          "d_inner": cfg.d_inner, "ssm_heads": cfg.ssm_heads,
+          "ssm_state": cfg.ssm_state, "heads": cfg.n_heads,
+          "kv_heads": cfg.n_kv_heads, "head_dim": cfg.resolved_head_dim,
+          "vocab": cfg.vocab_size,
+          "policy": "mirage (mirage_fast b_m=4 g=16 k=5)", "slots": SLOTS,
+          "cap": CAP, "gemm_per_step": per_step,
+          "flash_per_prefill_batch": napp,
+          "prefill": "batches of one exact prompt length", **rows,
+          "state_gb_4_slots": state_gb, "shared_kv_gb_4_slots": kv_gb,
+          "decode_bound_gb": bound_gb,
+          "decode_bound_ms": bound_gb * 1e9 / HBM_BYTES_PER_S * 1e3,
+          "shared_block": shared,
+          "warmed_tick_gemm_ms": gemm_ms,
+          "warmed_tick_gemm_share_of_busy":
+              gemm_ms / prof["device_busy_ms"],
+          "warmed_tick_ssm_attention_and_glue_ms":
+              prof["device_busy_ms"] - gemm_ms})
+    prompt = make_requests(Request, cfg.vocab_size)[0].prompt[:16]
+    every = cfg.attn_every
+    errs, cpu_s, L = hybrid_layers_vs_cpu(
+        model, prompt, (0, every - 1, cfg.n_layers - 1))
+    del model
+    free_card()
+    fp32 = mamba_fp32_vs_cpu(prompt, ZAMBA_ARCH, ZAMBA_CUT_LAYERS)
+    ok_layers = max(errs.values()) < ZAMBA_LAYER_RTOL
+    ok_fp32 = max(v for k, v in fp32.items() if k.startswith(
+        ("forward", "decode"))) < MAMBA_FP32_RTOL
+    emit({"phase": "zamba2_vs_cpu_plain", "prompt_len": L,
+          "rel_l2": errs, "cpu_seconds": cpu_s,
+          "layers_rtol": ZAMBA_LAYER_RTOL, "fp32": fp32,
+          "fp32_rtol": MAMBA_FP32_RTOL, "ok": ok_layers and ok_fp32,
+          "phase_seconds": time.perf_counter() - t_phase})
+    check(ok_layers, f"zamba2 card vs CPU: a teacher-forced unit or the "
+                     f"head differs by >= {ZAMBA_LAYER_RTOL} relative L2: "
+                     f"{errs}")
+    check(ok_fp32, f"zamba2 under fp32: the card's logits or its decode "
+                   f"after prefill differ by >= {MAMBA_FP32_RTOL} relative "
+                   f"L2: {fp32}")
+    return launches_by
+
+
+class RecordTap:
+    """Counts, while open, the health records of one name (each RRNS
+    decode records ``rrns_uncorrected`` once)."""
+
+    def __init__(self, name: str = "rrns_uncorrected"):
+        from repro_torch.obs import health
+        self.cls, self.name, self.records = health.HealthCollector, name, 0
+
+    def __enter__(self):
+        self.inner = inner = self.cls.add
+        tap = self
+
+        def add(collector, name, value):
+            if name == tap.name:
+                tap.records += 1
+            inner(collector, name, value)
+
+        self.cls.add = add
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.add = self.inner
+
+
+def phase_slice_zamba2_rrns(ops):
+    """zamba2-2.7b cut to 12 layers under mirage_rrns at 52 dB and its
+    clean twin, each engine programming every projection, the shared
+    block's 8 weights and the head once (stationary weights, the family's
+    default), 4 requests x 8 tokens: the streams equal, no decode beyond
+    the correction radius, every kernel-4/5 and kernel-6 launch one
+    residue block; the health integers count the Mamba2 projections' and
+    the head's decodes alone (2 x 12 + 1 GEMM calls a model step under
+    the open scope, the shared block's 8 x 2 suppressed, one record a
+    counted block), as the JAX package's ``_cond_suppressed`` leaves the
+    shared block out. Returns the launches by channel."""
+    from repro_torch.core import stationary
+    from repro_torch.core.precision import get_policy
+    from repro_torch.runtime.server import Request
+
+    t_phase = time.perf_counter()
+    model = published_model(ZAMBA_ARCH, ZAMBA_CUT_LAYERS,
+                            get_policy("mirage"))
+    cfg = model.cfg
+    napp = ssm_napp(cfg)
+    rows, streams, launches_by = {}, {}, {}
+    for name, policy in (("rrns_52db", get_policy(
+            "mirage_rrns", snr_db=SNR_DB, noise_seed=NOISE_SEED)),
+            ("rrns_clean", get_policy("mirage_rrns",
+                                      noise_seed=NOISE_SEED))):
+        model.policy = policy
+        reqs = make_requests(Request, cfg.vocab_size,
+                             max_tokens=ZAMBA_RRNS_TOKENS)[
+            :ZAMBA_RRNS_REQUESTS]
+        with RecordTap() as rec:
+            summary, streams[name], health, launches, blocks, programmed, \
+                finished = moe_rns_drain(ops, model, reqs)
+        encoded = [m.stationary for m in model.modules()
+                   if getattr(m, "stationary", None) is not None]
+        residue_gb = sum(e.residues.numel() * e.residues.element_size()
+                         for e in encoded) / 1e9
+        del encoded
+        kernel = "rns_matmul_channel" if name == "rrns_52db" \
+            else "rns_matmul"
+        want = {kernel: blocks, "rrns_decode": blocks,
+                "flash_attention": napp * summary["prefill_batches"]}
+        steps = summary["model_steps"]
+        counted = (2 * cfg.n_layers + 1) * steps
+        suppressed = ZAMBA_SHARED_GEMMS * napp * steps
+        rows[name] = {**summary, "stationary_weights": programmed,
+                      "stationary_residues_gb": residue_gb,
+                      "health": health, "health_records": rec.records,
+                      "expected_gemm_calls_counted": counted,
+                      "expected_gemm_calls_suppressed": suppressed,
+                      "expected_launches": want}
+        check_drain(f"slice_zamba2_rrns {name}", finished,
+                    ZAMBA_RRNS_REQUESTS, ZAMBA_RRNS_TOKENS, cfg.vocab_size)
+        expect_launches(launches, want, f"slice_zamba2_rrns {name}")
+        check(programmed and model.shared.proj.stationary is not None,
+              f"slice_zamba2_rrns {name}: the engine did not program its "
+              f"weights, the shared block's among them")
+        check(summary["gemm_calls_health_counted"] == counted and
+              summary["gemm_calls_health_suppressed"] == suppressed and
+              rec.records == summary["residue_blocks_health_counted"],
+              f"slice_zamba2_rrns {name}: the health integers do not count "
+              f"exactly the Mamba2 and head GEMMs' decodes: "
+              f"{summary['gemm_calls_health_counted']} / {counted} counted "
+              f"calls, {summary['gemm_calls_health_suppressed']} / "
+              f"{suppressed} suppressed, {rec.records} records for "
+              f"{summary['residue_blocks_health_counted']} blocks")
+        launches_by[name] = launches
+        stationary.install(model, None)
+        free_card()
+    health = rows["rrns_52db"]["health"]
+    equal = streams["rrns_52db"] == streams["rrns_clean"]
+    emit({"phase": "slice_zamba2_rrns", "arch": ZAMBA_ARCH,
+          "n_layers": cfg.n_layers, "shared_applications": napp,
+          "snr_db": SNR_DB, "noise_seed": NOISE_SEED, **rows,
+          "streams_equal_clean": equal,
+          "phase_seconds": time.perf_counter() - t_phase})
+    check(health["rrns_uncorrected"] == 0,
+          f"slice_zamba2_rrns: {health['rrns_uncorrected']} decodes beyond "
+          f"the correction radius at {SNR_DB} dB")
+    check(equal, "slice_zamba2_rrns: the 52 dB streams differ from the "
+                 "clean channel's")
+    del model
+    free_card()
+    return launches_by
+
+
+def hybrid_unit_grads_vs_cpu(model, batch, li: int):
+    """fp32 gradients of layer ``li`` and of the shared block's
+    application after it on the card against the CPU's, teacher-forced:
+    both sides take the card's fp32 input to layer ``li`` (the layers
+    before it run on the card), the batch's embeddings as ``emb0`` and one
+    seeded upstream gradient of the unit's output."""
+    from repro_torch.core.precision import get_policy
+    from repro_torch.models import common
+
+    fp32 = get_policy("fp32")
+    shell = layer_shell(model, li)
+    shell.shared = copy.deepcopy(model.shared).to("cpu")
+    shell.policy = fp32
+    policy0 = model.policy
+    model.policy = fp32
+    toks = torch.from_numpy(batch["tokens"]).to(DEV)
+    pos = torch.arange(toks.shape[1], device=DEV)
+    with torch.no_grad():
+        emb0 = common.embed(model.embed, toks)
+        h = emb0
+        for i in range(li):
+            h = hybrid_unit(model, model.layers[i], i, h, emb0, pos)
+    grads = {}
+    for side, m, layer, dev in (("card", model, model.layers[li], DEV),
+                                ("cpu", shell, shell.layers[0], "cpu")):
+        out = hybrid_unit(m, layer, li, h.to(dev), emb0.to(dev), pos.to(dev))
+        gen = torch.Generator(device="cpu").manual_seed(11)
+        dout = torch.randn(out.shape, generator=gen).to(dev)
+        named = [(f"layers.{li}.{n}", p)
+                 for n, p in layer.named_parameters()] + \
+            [(f"shared.{n}", p) for n, p in m.shared.named_parameters()]
+        g = torch.autograd.grad(out, [p for _, p in named], dout)
+        grads[side] = {n: x.cpu() for (n, _), x in zip(named, g)}
+        del out, g
+    model.policy = policy0
+    del shell
+    return {n: rel_l2(grads["card"][n], v) for n, v in grads["cpu"].items()}
+
+
+def phase_slice_train_zamba2(ops):
+    """zamba2-2.7b at full width and depth trained as ``python -m
+    repro_torch.launch.train --arch zamba2-2.7b`` trains it: 10 steps of
+    batch 4 x 64, AdamW lr 1e-3, clip 1.0, mirage; every forward, dX and
+    dW GEMM one launch of kernel 1 (3 x (2 x 54 + 8 x 9 + 1) a step; the
+    shared block's attention plain, as the JAX package trains it), finite
+    losses; step time, tokens/s, the share of model FLOPs (the GEMMs, the
+    shared block's counted at each of its 9 applications), peak memory
+    and the step's split; two steps from one state bitwise equal; layer
+    5's and the shared block's fp32 gradients teacher-forced against the
+    CPU."""
+    from repro_torch.core.precision import get_policy
+
+    t_phase = time.perf_counter()
+    cfg, model, tc, data = train_setup(get_policy("mirage"), ZAMBA_ARCH)
+    napp = ssm_napp(cfg)
+    per_step = 3 * ssm_per_step(cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_phase
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    state, step, times, logs = run_train(model, tc, data, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_s = statistics.median(times[1:])
+    shared_w = sum(m.w.numel() for m in model.shared.modules()
+                   if hasattr(m, "w"))
+    gemm_w = sum(m.w.numel() for m in model.modules() if hasattr(m, "w")) \
+        + (napp - 1) * shared_w
+    flops = 6.0 * gemm_w * tokens
+    losses = [m["loss"] for m in logs]
+    norms = [m["grad_norm"] for m in logs]
+    finite = all(math.isfinite(v) for v in losses + norms)
+    want = {"mirage_gemm": per_step * TRAIN_STEPS}
+    n_params = sum(p.numel() for p in model.parameters())
+    emit({"phase": "slice_train_zamba2", "arch": ZAMBA_ARCH,
+          "n_layers": cfg.n_layers, "shared_applications": napp,
+          "params": n_params, "gemm_weights_applied": gemm_w,
+          "train_state_gb": 16.0 * n_params / 1e9,
+          "policy": "mirage (mirage_fast b_m=4 g=16 k=5)",
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+          "optimizer": "adamw lr=1e-3 clip=1.0",
+          "gemm_per_step": per_step, "launches": launches,
+          "expected_launches": want,
+          "step_ms": [t * 1e3 for t in times],
+          "step_ms_median_2_on": step_s * 1e3, "tok_per_s": tokens / step_s,
+          "peak_mem_gb": peak, "build_model_s": build_s,
+          "model_flops_per_step": flops,
+          "model_flops_note": "6 x GEMM weights (the shared block's once "
+                              "an application) x tokens; the SSD scan's "
+                              "and attention's FLOPs are left out",
+          "model_flops_share_of_989_tflops": flops / step_s /
+          BF16_FLOPS_PER_S, "losses": losses, "grad_norms": norms})
+    check(finite, f"slice_train_zamba2: a loss or grad norm is not "
+                  f"finite: {losses} {norms}")
+    expect_launches(launches, want, "slice_train_zamba2")
+    prof = device_profile(lambda: step(state, next(data)), 1, host=False)
+    emit({"phase": "slice_train_zamba2_profile", "steps": 1, **{
+        k.replace("_ms", "_ms_per_step"): v for k, v in prof.items()},
+        "gemm_ms_per_step": gemm_share(prof)})
+    emit({"phase": "slice_train_zamba2_breakdown", "steps": 2,
+          **step_breakdown(model, tc, state, data, 2)})
+    del state
+    free_card()
+    batch = {k: np.asarray(v) for k, v in next(data).items()}
+    losses2, digests = repeat_step(model, batch)
+    same = bool(torch.equal(losses2[0].view(torch.int32),
+                            losses2[1].view(torch.int32))) and \
+        digests[0] == digests[1]
+    check(same, f"slice_train_zamba2: two steps from one state differ: "
+                f"{[float(v) for v in losses2]} {digests}")
+    free_card()
+    t0 = time.perf_counter()
+    li = cfg.attn_every - 1
+    errs = hybrid_unit_grads_vs_cpu(model, batch, li)
+    ok = max(errs.values()) < LAYER_GRAD_RTOL
+    emit({"phase": "slice_train_zamba2_checks",
+          "repeat_losses": [float(v) for v in losses2],
+          "repeat_grad_digests": digests, "repeat_bitwise_equal": same,
+          "fp32_grads_layer": li,
+          "fp32_grads_vs_cpu_rel_l2": errs,
+          "fp32_grads_rtol": LAYER_GRAD_RTOL,
+          "cpu_seconds": time.perf_counter() - t0, "ok": ok,
+          "phase_seconds": time.perf_counter() - t_phase})
+    check(ok, f"slice_train_zamba2: layer {li}'s or the shared block's fp32 "
+              f"gradients differ from the CPU's by >= {LAYER_GRAD_RTOL} "
+              f"relative L2: {errs}")
+    del model
+    free_card()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a CUDA "
@@ -5894,6 +6564,10 @@ def main() -> int:
     err_gemm = max(err_gemm, err6d_gemm)
     gemm6e_rows, err6e_gemm = phase_slice_mamba2_kernels(ops, ref, policy)
     err_gemm = max(err_gemm, err6e_gemm)
+    gemm6f_rows, flash6f_rows, err6f_gemm, err6f_flash = \
+        phase_slice_zamba2_kernels(ops, ref, policy, flash_regs)
+    err_gemm = max(err_gemm, err6f_gemm)
+    err_flash = max(err_flash, err6f_flash)
     err_flash = max(err_flash, err6d_flash)
     err_rns = phase_rns_matmul(ops, ref)
     err_channel = phase_rns_channel(ops, ref)
@@ -5919,7 +6593,7 @@ def main() -> int:
     moe_launches = {arch: phase_slice_moe(ops, arch, n, paged)
                     for arch, n, paged in MOE_SLICES}
     train_launches = phase_slice_train(ops)
-    phase_train_fp32_vs_cpu()
+    phase_train_fp32_vs_cpu(n_layers=TRAIN_FP32_LAYERS)
     phase_train_grads_vs_cpu(ops, ref)
     wsq_launches = phase_slice_train_wsq(ops, ref)
     free_card()
@@ -5945,9 +6619,15 @@ def main() -> int:
     vlm_train_launches = phase_slice_train_internvl2(ops)
     cr_launches = phase_slice_command_r(ops)
     mamba_launches = phase_slice_mamba2(ops)
-    mamba_eng_launches = phase_slice_mamba2_engines(ops)
+    mamba_eng_launches = phase_ssm_engines(
+        ops, MAMBA_ARCH, MAMBA_ENGINE_LAYERS, "slice_mamba2_engines")
     mamba_rrns_launches = phase_slice_mamba2_rrns(ops)
     mamba_train_launches = phase_slice_train_mamba2(ops)
+    zamba_launches = phase_slice_zamba2(ops)
+    zamba_eng_launches = phase_ssm_engines(
+        ops, ZAMBA_ARCH, ZAMBA_CUT_LAYERS, "slice_zamba2_engines")
+    zamba_rrns_launches = phase_slice_zamba2_rrns(ops)
+    zamba_train_launches = phase_slice_train_zamba2(ops)
     reduced_launches = phase_serve_reduced(ops)
     phase_train_resume()
     rns_train_launches, rns_per_step = phase_slice_train_rns(ops, ref,
@@ -6053,6 +6733,26 @@ def main() -> int:
                      **{f"mamba2_8_layers_{k}": v.get("mirage_gemm", 0)
                         for k, v in mamba_eng_launches.items()},
                      "train_mamba2": mamba_train_launches["mirage_gemm"]}}
+    # slice 6f: kernel 1 at zamba2-2.7b's shapes (row 1f) and flash at the
+    # shared block's D = 80 (row 3c), and their launches on the hybrid's
+    # paths
+    gemm["slice_6f"] = {
+        "rows": gemm6f_rows,
+        "launches": {"zamba2_dense_cold": zamba_launches["cold"]
+                     ["mirage_gemm"],
+                     "zamba2_dense_warmed": zamba_launches["warmed"]
+                     ["mirage_gemm"],
+                     **{f"zamba2_12_layers_{k}": v.get("mirage_gemm", 0)
+                        for k, v in zamba_eng_launches.items()},
+                     "train_zamba2": zamba_train_launches["mirage_gemm"]}}
+    flash["slice_6f"] = {
+        "rows": flash6f_rows, "ptxas_d80": flash_regs.get(80),
+        "launches": {"zamba2_dense_cold": zamba_launches["cold"]
+                     ["flash_attention"],
+                     "zamba2_dense_warmed": zamba_launches["warmed"]
+                     ["flash_attention"],
+                     **{f"zamba2_12_layers_{k}": v.get("flash_attention", 0)
+                        for k, v in zamba_eng_launches.items()}}}
     flash["slice_6d"] = {
         "rows": flash6d_rows,
         "launches": {"internvl2_dense_cold": vlm_launches["cold"]
@@ -6089,6 +6789,9 @@ def main() -> int:
         k_entry["moe_stacks"] = moe_rns_rows[kernel]
         k_entry["launches_mamba2_16_layers"] = {
             path: n[kernel] for path, n in mamba_rrns_launches.items()
+            if kernel in n}
+        k_entry["launches_zamba2_12_layers"] = {
+            path: n[kernel] for path, n in zamba_rrns_launches.items()
             if kernel in n}
     emit({"kernels": [
         gemm,
@@ -6142,6 +6845,13 @@ def main() -> int:
                          **{f"mamba2_16_layers_{k}": v
                             for k, v in mamba_rrns_launches.items()},
                          "train_mamba2": mamba_train_launches,
+                         **{f"zamba2_{k}": v
+                            for k, v in zamba_launches.items()},
+                         **{f"zamba2_12_layers_{k}": v
+                            for k, v in zamba_eng_launches.items()},
+                         **{f"zamba2_12_layers_{k}": v
+                            for k, v in zamba_rrns_launches.items()},
+                         "train_zamba2": zamba_train_launches,
                          "serve_reduced": reduced_launches,
                          "train_mirage_rns": rns_train_launches,
                          "twins": {k: v["launches"]
@@ -6198,15 +6908,25 @@ def main() -> int:
                              "patches, 3 x (7 x layers + 1) + 5 a "
                              "training step) and flash_attention once a "
                              "layer a prefill batch; slice 6e (slice_mamba2 "
-                             "at 64 layers, slice_mamba2_engines at 8, "
+                             "at 16 layers, slice_mamba2_engines at 8, "
                              "slice_mamba2_rrns at 16, slice_train_mamba2 "
-                             "at 64: mamba2_*, train_mamba2) launch "
+                             "at 16: mamba2_*, train_mamba2) launch "
                              "mirage_gemm 2 x layers + 1 a model step (a "
                              "verify tick 2 x (k + 1) x layers + 1, a "
                              "training step 3 x (2 x layers + 1)), "
                              "rns_matmul_channel or rns_matmul and "
                              "rrns_decode once a residue block, and no "
-                             "flash_attention"}})
+                             "flash_attention; slice 6f (slice_zamba2 at "
+                             "54 layers, slice_zamba2_engines and "
+                             "slice_zamba2_rrns at 12, slice_train_zamba2 "
+                             "at 54: zamba2_*, train_zamba2) launch "
+                             "mirage_gemm 2 x layers + 8 x applications + "
+                             "1 a model step (181 at 54 layers; a verify "
+                             "tick 2 x (k + 1) x layers + 8 x applications "
+                             "+ 1, a training step 3 x 181), "
+                             "flash_attention once an application a "
+                             "prefill batch (D = 80, MHA), and the "
+                             "residue kernels once a residue block"}})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

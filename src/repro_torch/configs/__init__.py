@@ -1,10 +1,10 @@
 """Architecture registry of the port.
 
 The dense qwen2/qwen3 configs, command-r's parallel block, the vlm
-(internvl2), the MoE family (mixtral, qwen3-moe) and the SSM family
-(mamba2) are ported. The JAX
-package's other architectures raise
-``NotImplementedError`` naming the ROADMAP queue where their family waits.
+(internvl2), the MoE family (mixtral, qwen3-moe), the SSM family (mamba2)
+and the hybrid family (zamba2) are ported. The JAX package's other
+architecture raises ``NotImplementedError`` naming the ROADMAP queue where
+its family waits.
 """
 
 from repro_torch.configs.base import ModelConfig
@@ -17,15 +17,15 @@ from repro_torch.configs.qwen2_0_5b import CONFIG as qwen2_0_5b
 from repro_torch.configs.qwen2_1_5b import CONFIG as qwen2_1_5b
 from repro_torch.configs.qwen3_14b import CONFIG as qwen3_14b
 from repro_torch.configs.qwen3_moe_30b_a3b import CONFIG as qwen3_moe_30b_a3b
+from repro_torch.configs.zamba2_2_7b import CONFIG as zamba2_2_7b
 
 ARCHS = {c.arch_id: c for c in (qwen2_0_5b, qwen2_1_5b, qwen3_14b,
                                 command_r_plus_104b, internvl2_2b,
                                 mixtral_8x7b, qwen3_moe_30b_a3b,
-                                mamba2_2_7b)}
+                                mamba2_2_7b, zamba2_2_7b)}
 
 #: architectures of the JAX package not ported yet, and where they wait
 _NOT_PORTED = {
-    "zamba2-2.7b": "ROADMAP.md queue 1, slice 6, item 7.4 (hybrid family)",
     "seamless-m4t-large-v2":
         "ROADMAP.md queue 1, slice 6, item 7.5 (enc-dec family)",
 }
@@ -43,4 +43,4 @@ def get_config(arch_id: str) -> ModelConfig:
 
 __all__ = ["ARCHS", "ModelConfig", "command_r_plus_104b", "get_config",
            "internvl2_2b", "mamba2_2_7b", "mixtral_8x7b", "qwen2_0_5b",
-           "qwen2_1_5b", "qwen3_14b", "qwen3_moe_30b_a3b"]
+           "qwen2_1_5b", "qwen3_14b", "qwen3_moe_30b_a3b", "zamba2_2_7b"]

@@ -6,13 +6,18 @@
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch command-r-plus-104b --layers 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
+      --cache-layout paged
 
 Serves the FULL-width config unless ``--reduced`` is given (``--layers N``
 keeps its first N layers: the MoE configs' and command-r-plus-104b's f32
 weights outgrow one card at full depth; internvl2-2b serves text-only, as
 the JAX engine does; mamba2-2.7b serves at full depth, its recurrent state
 in place of KV, so ``--cache-layout paged`` keeps no pool and
-``--prefix-cache`` shares nothing, as in the JAX engine), with weights and
+``--prefix-cache`` shares nothing, as in the JAX engine; zamba2-2.7b
+serves at full depth too, its shared attention block's KV paged under
+``--cache-layout paged`` while ``--prefix-cache`` still shares nothing,
+and ``--layers N`` keeps N // 6 applications of that block), with weights and
 prompts drawn from seed 0, through
 ``LMServer`` (greedy unless
 ``--sample``; whole-prompt prefill attention through the flash kernel),

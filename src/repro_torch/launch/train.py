@@ -2,6 +2,8 @@
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --steps 10 --policy mirage
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \\
+      --steps 10
 
 Trains the FULL-width config on the card unless ``--reduced`` is given,
 with weights drawn from ``--seed`` and ``SyntheticLM`` batches of the JAX
@@ -20,8 +22,11 @@ the vlm ``internvl2-2b`` (its batches carry the stub vision tower's
 ``patches`` from :func:`repro_torch.data.pipeline.with_extras`, as the JAX
 launcher wraps its source) and the MoE configs (``qwen3-moe-30b-a3b``,
 ``mixtral-8x7b``: the expert stacks' forward, dX and dW GEMMs are each one
-batched launch of the GEMM kernel) and the SSM config ``mamba2-2.7b``
-(whose 45.3 GB train state fits the card at full depth). ``--layers N``
+batched launch of the GEMM kernel), the SSM config ``mamba2-2.7b``
+(whose 45.3 GB train state fits the card at full depth) and the hybrid
+``zamba2-2.7b`` (54 Mamba2 layers and one shared attention block applied
+after every 6th, its gradient summed over the 9 applications; a 39.0 GB
+train state, which fits too). ``--layers N``
 keeps the config's first
 N layers at its published widths: the f32 train state (masters, gradients
 and both Adam moments, 16 bytes a parameter) of a full-depth MoE config,

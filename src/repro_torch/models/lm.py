@@ -1,4 +1,4 @@
-"""Decoder-only LM: the dense, vlm, MoE and SSM families (port of
+"""Decoder-only LM: the dense, vlm, MoE, SSM and hybrid families (port of
 ``repro.models.lm``).
 
 Pre-norm GQA attention + SwiGLU MLP per layer, with QKV bias and tied
@@ -12,14 +12,18 @@ the MLP by the routed experts of :mod:`repro_torch.models.moe`. The SSM
 family (mamba2) stacks attention-free Mamba2 blocks
 (:mod:`repro_torch.models.mamba2`) whose serving cache is the recurrent
 state ``ssm`` (n_layers, B, H, P, N) and ``conv`` (n_layers, B, K-1,
-conv_dim), O(1) per slot and dense under both layouts. The JAX
-package's ``lax.scan`` over stacked
-layers becomes a loop over an ``nn.ModuleList``. Serving caches come in the
-dense layout (per-slot rings) and the paged one (global page pools and
-per-slot block tables, :meth:`LM.cache_spec`), with the speculative
+conv_dim), O(1) per slot and dense under both layouts. The hybrid family
+(zamba2) is that Mamba2 stack with ONE shared attention + MLP block
+(:class:`SharedBlock`) applied after every ``attn_every``-th layer, the
+same weights each time, on ``concat(hidden, emb0)``, ``emb0`` the step's
+raw token embeddings; its serving cache adds a KV of its own per
+application (``shared_k``/``shared_v``, or the pools ``shared_kp``/
+``shared_vp`` through one block table). The JAX package's ``lax.scan`` over
+stacked layers becomes a loop over an ``nn.ModuleList``. Serving caches come
+in the dense layout (per-slot rings) and the paged one (global page pools
+and per-slot block tables, :meth:`LM.cache_spec`), with the speculative
 :meth:`LM.verify_step` and :meth:`LM.prefill_chunk` over the latter. The
-hybrid and enc-dec families are not ported yet and raise
-``NotImplementedError``.
+enc-dec family is not ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -36,12 +40,11 @@ from repro_torch.core.gemm import mirage_matmul_auto
 from repro_torch.core.precision import MiragePolicy
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, common, mamba2, moe
+from repro_torch.obs import health as obs_health
 from repro_torch.runtime.paging import blocks_for
 
-_FAMILIES = "the hybrid and enc-dec families wait in " \
-            "ROADMAP.md queue 1, slice 6 (items 7.4 and 7.5)"
-_HYBRID = "the hybrid family (attn_every > 0, the shared attention " \
-          "block) waits in ROADMAP.md queue 1, slice 6, item 7.4"
+_FAMILIES = "the enc-dec family waits in ROADMAP.md queue 1, slice 6, " \
+            "item 7.5"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,6 +164,25 @@ class MambaLayer(nn.Module):
         self.mamba = mamba2.Mamba(cfg, generator=generator, device=device)
 
 
+class SharedBlock(nn.Module):
+    """The hybrid family's shared block (the JAX ``params["shared"]``):
+    ``proj`` (2 d_model -> d_model) over ``concat(hidden, emb0)``, then a
+    pre-norm attention (no qkv bias, no qk-norm) and SwiGLU MLP. One set of
+    weights, applied after every ``attn_every``-th Mamba2 layer."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
+                 device: torch.device):
+        super().__init__()
+        kw = dict(generator=generator, device=device)
+        self.proj = common.Dense(2 * cfg.d_model, cfg.d_model, **kw)
+        self.ln1 = common.Norm(cfg.d_model, cfg.norm_type, device=device)
+        self.attn = attention.Attention(
+            cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+            False, False, **kw)
+        self.ln2 = common.Norm(cfg.d_model, cfg.norm_type, device=device)
+        self.mlp = common.MLP(cfg.d_model, cfg.d_ff, False, **kw)
+
+
 def _write_state(dst: torch.Tensor, new: torch.Tensor,
                  keep: Optional[torch.Tensor]) -> None:
     """Write a recurrent-state leaf in place (a captured graph replays the
@@ -185,10 +207,11 @@ def check_policy(cfg: ModelConfig, policy: MiragePolicy) -> None:
 
 
 class LM(nn.Module):
-    """The dense, vlm, MoE or SSM LM. Weights are drawn from ``generator``
-    (default: seed 0 on ``device``) with the JAX package's initializers, in
-    the port's own order (embedding, layers, head, frontend projector); to
-    compute the same function as a JAX model, load its parameters with
+    """The dense, vlm, MoE, SSM or hybrid LM. Weights are drawn from
+    ``generator`` (default: seed 0 on ``device``) with the JAX package's
+    initializers, in the port's own order (embedding, layers, head, shared
+    block, frontend projector); to compute the same function as a JAX
+    model, load its parameters with
     :func:`repro_torch.interop.load_jax_params`."""
 
     def __init__(self, cfg: ModelConfig, policy: MiragePolicy,
@@ -201,13 +224,19 @@ class LM(nn.Module):
                 not kinds <= {"attn_mlp", "attn_moe", "mamba"} or \
                 cfg.is_encdec or cfg.frontend not in (None, "vit_stub"):
             raise NotImplementedError(f"{cfg.arch_id}: {_FAMILIES}")
-        if cfg.attn_every or cfg.family == "hybrid":
-            raise NotImplementedError(f"{cfg.arch_id}: {_HYBRID}")
+        self.kind = kinds.pop()
+        if (cfg.family == "hybrid") != (cfg.attn_every > 0):
+            raise ValueError(
+                f"{cfg.arch_id}: a shared attention block (attn_every = "
+                f"{cfg.attn_every}) belongs to the hybrid family's Mamba2 "
+                f"stack alone (family {cfg.family!r})")
         check_policy(cfg, policy)
         self.cfg = cfg
         self.policy = policy
         self.opt = options
-        self.kind = kinds.pop()
+        #: applications of the shared block (one after every attn_every-th
+        #: layer); 0 outside the hybrid family
+        self.napp = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
         # the JAX package's test for the parallel block
         self.parallel = cfg.arch_id.startswith("command-r")
         device = resolve_device(device)
@@ -223,6 +252,8 @@ class LM(nn.Module):
                                       device=device)
         self.lm_head = None if cfg.tie_embeddings else common.Dense(
             cfg.d_model, cfg.vocab_size, False, scale=0.02, **kw)
+        self.shared = SharedBlock(cfg, **kw) if cfg.family == "hybrid" \
+            else None
         self.frontend_proj = FrontendProj(cfg, **kw) \
             if cfg.frontend is not None else None
 
@@ -292,6 +323,56 @@ class LM(nn.Module):
         n1 = common.norm(layer.ln1, h, cfg.norm_eps, cfg.norm_type)
         return h + mamba2.mamba_apply(layer.mamba, n1, cfg, self.policy)
 
+    def _applies_shared(self, li: int) -> Optional[int]:
+        """The shared block's application index after layer ``li`` (JAX's
+        ``(li + 1) // attn_every - 1``), or None where it does not run."""
+        every = self.cfg.attn_every
+        if every and (li + 1) % every == 0:
+            return (li + 1) // every - 1
+        return None
+
+    def _shared_apply(self, h: torch.Tensor, emb0: torch.Tensor,
+                      attend) -> torch.Tensor:
+        """One application of the shared block: ``u = proj(cat[h, emb0])``,
+        ``u = u + attend(attn, ln1(u))``, then ``h + u + mlp(ln2(u))``, the
+        JAX ``_shared_block``'s order of adds. ``attend(attn_module, x)``
+        is the step's attention (full sequence, decode, verify or chunk),
+        which reads and writes the application's KV itself. Its GEMMs are
+        not counted in the health counters: the JAX package runs the block
+        under ``obs.health.suppressed`` (its ``lax.cond`` branch has no
+        channel to carry them out)."""
+        cfg, sp = self.cfg, self.shared
+        with obs_health.suppressed():
+            u = common.dense(sp.proj, torch.cat([h, emb0], dim=-1),
+                             self.policy)
+            n1 = common.norm(sp.ln1, u, cfg.norm_eps, cfg.norm_type)
+            u = u + attend(sp.attn, n1)
+            n2 = common.norm(sp.ln2, u, cfg.norm_eps, cfg.norm_type)
+            return h + u + common.mlp(sp.mlp, n2, self.policy)
+
+    def _shared_full(self, h: torch.Tensor, emb0: torch.Tensor,
+                     positions: torch.Tensor, use_flash: bool = False
+                     ) -> Tuple[torch.Tensor,
+                                Tuple[torch.Tensor, torch.Tensor]]:
+        """The shared block over a full sequence; returns (h, (k, v)), the
+        application's keys and values for a prefill's cache. Training
+        never takes the flash kernel here (the JAX ``_shared_block`` passes
+        no options); serving's prefill does where its options ask."""
+        cfg, opt = self.cfg, self.opt
+        kv = []
+
+        def attend(attn, x):
+            a, kv_ = attention.attn_apply(
+                attn, x, self.policy, n_heads=cfg.n_heads,
+                n_kv_heads=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
+                positions=positions, rope_theta=cfg.rope_theta, causal=True,
+                kv_repeat=opt.kv_repeat, q_chunk=opt.q_chunk,
+                kv_chunk=opt.kv_chunk, use_flash=use_flash)
+            kv.append(kv_)
+            return a
+
+        return self._shared_apply(h, emb0, attend), kv[0]
+
     def _ffn_tail(self, layer: Union[Layer, MoELayer], h: torch.Tensor,
                   n1: torch.Tensor, a: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -343,24 +424,32 @@ class LM(nn.Module):
         ``extra_embeds`` (the vlm's patches) where given; returns (hidden,
         aux, n_prefix): aux is the router loss summed over the layers (0
         for the dense family), n_prefix the patch positions leading
-        ``hidden``."""
+        ``hidden``. The hybrid family's shared block follows every
+        ``attn_every``-th layer inside that layer's checkpointed unit
+        (``remat``), with the embeddings ``emb0`` an input of the unit."""
         h, n_prefix = self._embed_inputs(tokens, extra_embeds)
         positions = torch.arange(h.shape[1], device=tokens.device)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         merge = self.opt.merge_parallel_proj
+        emb0 = h
 
-        def block(layer, hh):
+        def block(layer, hh, e0, app):
             if self.kind == "mamba":
-                return self._mamba_block(layer, hh), torch.zeros(
-                    (), dtype=torch.float32, device=hh.device)
+                hh = self._mamba_block(layer, hh)
+                if app is not None:
+                    hh = self._shared_full(hh, e0, positions)[0]
+                return hh, torch.zeros((), dtype=torch.float32,
+                                       device=hh.device)
             out, _, aux_l = self._attn_mlp_block(layer, hh, positions, merge)
             return out, aux_l
 
-        for layer in self.layers:
+        for li, layer in enumerate(self.layers):
+            app = self._applies_shared(li)
             if self.opt.remat and torch.is_grad_enabled():
-                h, aux_l = checkpoint(block, layer, h, use_reentrant=False)
+                h, aux_l = checkpoint(block, layer, h, emb0, app,
+                                      use_reentrant=False)
             else:
-                h, aux_l = block(layer, h)
+                h, aux_l = block(layer, h, emb0, app)
             aux = aux + aux_l
         return h, aux, n_prefix
 
@@ -417,7 +506,12 @@ class LM(nn.Module):
         mask, so paged capacity is ``cap`` positions. The SSM family's
         recurrent state, ``ssm`` ``(n_layers, batch, H, P, N)`` and
         ``conv`` ``(n_layers, batch, K-1, conv_dim)``, is O(1) per slot and
-        dense under both layouts: it has no KV, pool or table."""
+        dense under both layouts: a pure SSM has no KV, pool or table. The
+        hybrid family adds its shared block's KV, indexed by application
+        (``napp = n_layers // attn_every``): the rings ``shared_k``/
+        ``shared_v`` ``(napp, batch, cache_len, kv_eff, hd)``, or the pools
+        ``shared_kp``/``shared_vp`` ``(napp, n_blocks, block_size, kv_eff,
+        hd)`` with one table ``bt`` for every application."""
         if layout not in ("dense", "paged"):
             raise ValueError(f"unknown cache layout {layout!r}")
         paged = layout == "paged"
@@ -428,22 +522,27 @@ class LM(nn.Module):
         spec: Dict[str, Tuple[Tuple[int, ...], torch.dtype]] = {
             "idx": (((batch,) if per_slot_idx or paged else ()),
                     torch.int32)}
+        prefix = ""
         if self.kind == "mamba":
             conv_dim = cfg.d_inner + 2 * cfg.ssm_state
             spec["ssm"] = ((nl, batch, cfg.ssm_heads, cfg.ssm_headdim,
                             cfg.ssm_state), torch.float32)
             spec["conv"] = ((nl, batch, cfg.ssm_conv - 1, conv_dim),
                             torch.float32)
-        elif paged:
+            if not cfg.attn_every:
+                return spec
+            nl, prefix = self.napp, "shared_"
+        if paged:
             mb = blocks_for(cap, block_size)
             nb = n_blocks if n_blocks is not None else batch * mb
-            spec["kp"] = ((nl, nb, block_size, kv_eff, hd), torch.float32)
-            spec["vp"] = ((nl, nb, block_size, kv_eff, hd), torch.float32)
+            for leaf in ("kp", "vp"):
+                spec[prefix + leaf] = ((nl, nb, block_size, kv_eff, hd),
+                                       torch.float32)
             spec["bt"] = ((batch, mb), torch.int32)
         else:
             shape = (nl, batch, self.cache_len(cap), kv_eff, hd)
-            spec["k"] = (shape, torch.float32)
-            spec["v"] = (shape, torch.float32)
+            spec[prefix + "k"] = (shape, torch.float32)
+            spec[prefix + "v"] = (shape, torch.float32)
         return spec
 
     def init_cache(self, batch: int, cap: int, per_slot_idx: bool = False,
@@ -458,7 +557,7 @@ class LM(nn.Module):
         cache = {k: torch.zeros(shape, dtype=dt, device=self.device)
                  for k, (shape, dt) in spec.items()}
         if "bt" in cache:
-            cache["bt"].fill_(spec["kp"][0][1])
+            cache["bt"].fill_(spec[pool_keys(spec)[0]][0][1])
         return cache
 
     def prefill(self, tokens: torch.Tensor, cap: int,
@@ -483,7 +582,11 @@ class LM(nn.Module):
         The SSM family's cache is each layer's final ``ssm`` and ``conv``
         state. Its recurrence carries state through padded steps, so its
         callers pad to the exact length (``lens == L``), as the engine's
-        exact-length prefill batches do."""
+        exact-length prefill batches do. The hybrid family's shared block
+        reads the prompt's embeddings as ``emb0`` and writes each
+        application's keys and values into ``shared_k``/``shared_v`` at
+        positions 0..L-1 (the last ``cache_len`` of them where L is longer,
+        with no ring roll, as in the JAX package)."""
         h, _ = self._embed_inputs(tokens, extra_embeds)
         B, L = h.shape[0], h.shape[1]
         cache_len = self.cache_len(cap)
@@ -497,6 +600,7 @@ class LM(nn.Module):
         keep = min(L, cache_len)
         roll = max(L - cache_len, 0) % cache_len
         cfg = self.cfg
+        emb0 = h
         for li, layer in enumerate(self.layers):
             if self.kind == "mamba":
                 n1 = common.norm(layer.ln1, h, cfg.norm_eps, cfg.norm_type)
@@ -505,6 +609,12 @@ class LM(nn.Module):
                 h = h + o
                 cache["ssm"][li] = st
                 cache["conv"][li] = cv
+                app = self._applies_shared(li)
+                if app is not None:
+                    h, (kk, vv) = self._shared_full(
+                        h, emb0, positions, self.opt.use_flash_kernel)
+                    cache["shared_k"][app, :, :keep] = kk[:, L - keep:]
+                    cache["shared_v"][app, :, :keep] = vv[:, L - keep:]
                 continue
             h, (kk, vv), _ = self._attn_mlp_block(layer, h, positions)
             for leaf, val in (("k", kk), ("v", vv)):
@@ -534,11 +644,34 @@ class LM(nn.Module):
         family's ``ssm``/``conv`` state is updated in place too, except
         for the rows where the (B,) bool ``active`` is false, which keep
         their state (the engine's inactive slots; the JAX engine's tick
-        masks them after the step, with the same values)."""
+        masks them after the step, with the same values). The hybrid
+        family's shared block reads this token's embedding as ``emb0`` and
+        its application's KV through the same path as an attention layer;
+        an inactive slot's KV write lands at its frozen position, which its
+        next real write overwrites."""
         cfg = self.cfg
         h = common.embed(self.embed, tokens)
         idx = cache["idx"]
+        bt = cache.get("bt")
+        prefix = "shared_" if self.kind == "mamba" else ""
+        k_key, v_key = (pool_keys(cache) if bt is not None
+                        else (prefix + "k", prefix + "v"))
+        plan = None if bt is None else attention.page_plan(
+            bt, idx, *cache[k_key].shape[1:3])
+
+        def attend(ck, cv, window, qk_norm):
+            def run(attn, x):
+                return attention.attn_decode_step(
+                    attn, x, ck, cv, idx, self.policy, n_heads=cfg.n_heads,
+                    n_kv_heads=cfg.n_kv_heads,
+                    head_dim=cfg.resolved_head_dim,
+                    rope_theta=cfg.rope_theta, window=window,
+                    qk_norm=qk_norm, kv_repeat=self.opt.kv_repeat,
+                    block_tables=bt, plan=plan)[0]
+            return run
+
         if self.kind == "mamba":
+            emb0 = h
             for li, layer in enumerate(self.layers):
                 n1 = common.norm(layer.ln1, h, cfg.norm_eps, cfg.norm_type)
                 o, st, cv = mamba2.mamba_decode_step(
@@ -547,19 +680,15 @@ class LM(nn.Module):
                 h = h + o
                 _write_state(cache["ssm"][li], st, active)
                 _write_state(cache["conv"][li], cv, active)
+                app = self._applies_shared(li)
+                if app is not None:
+                    h = self._shared_apply(h, emb0, attend(
+                        cache[k_key][app], cache[v_key][app], None, False))
             return self._head(h), dict(cache, idx=idx + 1)
-        bt = cache.get("bt")
-        k_key, v_key = ("kp", "vp") if bt is not None else ("k", "v")
-        plan = None if bt is None else attention.page_plan(
-            bt, idx, *cache["kp"].shape[1:3])
         for li, layer in enumerate(self.layers):
             n1 = common.norm(layer.ln1, h, cfg.norm_eps, cfg.norm_type)
-            a, _, _ = attention.attn_decode_step(
-                layer.attn, n1, cache[k_key][li], cache[v_key][li], idx,
-                self.policy, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
-                window=cfg.sliding_window, qk_norm=cfg.qk_norm,
-                kv_repeat=self.opt.kv_repeat, block_tables=bt, plan=plan)
+            a = attend(cache[k_key][li], cache[v_key][li],
+                       cfg.sliding_window, cfg.qk_norm)(layer.attn, n1)
             h = self._ffn_tail(layer, h, n1, a)[0]
         return self._head(h), dict(cache, idx=idx + 1)
 
@@ -574,16 +703,41 @@ class LM(nn.Module):
         positions ``idx[s] .. idx[s]+T-1``. Returns ``(logits (S, T, V),
         cache, steps)``; ``idx`` is NOT advanced (the caller commits the
         accepted count). ``steps`` is None for the attention families. For
-        the SSM family it is ``{"ssm": (nl, T, S, H, P, N), "conv": (nl,
-        T, S, K-1, C)}``, the recurrent state AFTER each of the ``T``
-        tokens (the per-token ``mamba_decode_step`` recurrence, token-exact
-        against one-token decode), so the caller can roll back to the
-        accepted position (``steps[...][:, a-1]``). The live ``ssm``/
+        the SSM and hybrid families it is ``{"ssm": (nl, T, S, H, P, N),
+        "conv": (nl, T, S, K-1, C)}``, the recurrent state AFTER each of the
+        ``T`` tokens (the per-token ``mamba_decode_step`` recurrence,
+        token-exact against one-token decode), so the caller can roll back
+        to the accepted position (``steps[...][:, a-1]``). The live ``ssm``/
         ``conv`` tensors are left as they were; the returned cache holds
-        the full-T state (``steps[...][:, -1]``)."""
+        the full-T state (``steps[...][:, -1]``). The hybrid family's
+        shared block writes all T tokens' KV of each application into its
+        pools, as an attention layer does; the rejected tail needs no
+        rollback there either."""
         cfg = self.cfg
         h = common.embed(self.embed, tokens)
+        idx, bt = cache["idx"], cache.get("bt")
+        plan = None
+        if bt is None and (self.kind != "mamba" or self.napp):
+            raise ValueError("the verify step requires the paged layout")
+        if bt is not None:
+            pos = idx[:, None] + torch.arange(tokens.shape[1],
+                                              device=idx.device)[None, :]
+            k_key, v_key = pool_keys(cache)
+            plan = attention.page_plan(bt, pos, *cache[k_key].shape[1:3])
+
+        def attend(ck, cv, window, qk_norm):
+            def run(attn, x):
+                return attention.attn_verify_step(
+                    attn, x, ck, cv, idx, self.policy, n_heads=cfg.n_heads,
+                    n_kv_heads=cfg.n_kv_heads,
+                    head_dim=cfg.resolved_head_dim,
+                    rope_theta=cfg.rope_theta, window=window,
+                    qk_norm=qk_norm, kv_repeat=self.opt.kv_repeat,
+                    block_tables=bt, plan=plan)[0]
+            return run
+
         if self.kind == "mamba":
+            emb0 = h
             T = tokens.shape[1]
             steps = {k: torch.empty((cfg.n_layers, T) + cache[k].shape[1:],
                                     dtype=cache[k].dtype, device=h.device)
@@ -603,20 +757,16 @@ class LM(nn.Module):
                     steps["ssm"][li, t] = st
                     steps["conv"][li, t] = cv
                 h = h + torch.cat(outs, dim=1)
+                app = self._applies_shared(li)
+                if app is not None:
+                    h = self._shared_apply(h, emb0, attend(
+                        cache[k_key][app], cache[v_key][app], None, False))
             return self._head(h), dict(cache, ssm=steps["ssm"][:, -1],
                                        conv=steps["conv"][:, -1]), steps
-        idx, bt = cache["idx"], cache["bt"]
-        pos = idx[:, None] + torch.arange(tokens.shape[1],
-                                          device=idx.device)[None, :]
-        plan = attention.page_plan(bt, pos, *cache["kp"].shape[1:3])
         for li, layer in enumerate(self.layers):
             n1 = common.norm(layer.ln1, h, cfg.norm_eps, cfg.norm_type)
-            a, _, _ = attention.attn_verify_step(
-                layer.attn, n1, cache["kp"][li], cache["vp"][li], idx,
-                self.policy, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
-                window=cfg.sliding_window, qk_norm=cfg.qk_norm,
-                kv_repeat=self.opt.kv_repeat, block_tables=bt, plan=plan)
+            a = attend(cache[k_key][li], cache[v_key][li],
+                       cfg.sliding_window, cfg.qk_norm)(layer.attn, n1)
             h = self._ffn_tail(layer, h, n1, a)[0]
         return self._head(h), cache, None
 
@@ -638,10 +788,33 @@ class LM(nn.Module):
         it back in place, ``pos0 == 0`` starting from zeros (a reused
         slot's stale state must not leak into a new request); its
         recurrence runs through every step, so its callers send
-        exact-length chunks (``true_len == C``)."""
+        exact-length chunks (``true_len == C``). The hybrid family's
+        shared block reads the chunk's embeddings as ``emb0`` and writes
+        each application's KV into its pools through the slot's table."""
         cfg, opt = self.cfg, self.opt
         h = common.embed(self.embed, tokens)
+        bt = cache.get("bt")
+        plan = None
+        if bt is not None:
+            bt_row = bt[slot]
+            k_key, v_key = pool_keys(cache)
+            plan = attention.chunk_plan(bt_row, pos0, tokens.shape[1],
+                                        true_len, *cache[k_key].shape[1:3])
+
+        def attend(kp, vp, window, qk_norm):
+            def run(attn, x):
+                return attention.attn_chunk_step(
+                    attn, x, kp, vp, bt_row, pos0, true_len, self.policy,
+                    n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                    head_dim=cfg.resolved_head_dim,
+                    rope_theta=cfg.rope_theta, window=window,
+                    qk_norm=qk_norm, kv_repeat=opt.kv_repeat,
+                    q_chunk=opt.q_chunk, kv_chunk=opt.kv_chunk,
+                    plan=plan)[0]
+            return run
+
         if self.kind == "mamba":
+            emb0 = h
             for li, layer in enumerate(self.layers):
                 st = cache["ssm"][li, slot:slot + 1]
                 cv = cache["conv"][li, slot:slot + 1]
@@ -654,22 +827,16 @@ class LM(nn.Module):
                 h = h + o
                 cache["ssm"][li, slot] = st2[0]
                 cache["conv"][li, slot] = cv2[0]
-            cache["idx"][slot] = pos0 + true_len
-            last = max(true_len - 1, 0)
-            return self._head(h[:, last:last + 1]), cache
-        bt_row = cache["bt"][slot]
-        plan = attention.chunk_plan(bt_row, pos0, tokens.shape[1], true_len,
-                                    *cache["kp"].shape[1:3])
-        for li, layer in enumerate(self.layers):
-            n1 = common.norm(layer.ln1, h, cfg.norm_eps, cfg.norm_type)
-            a, _, _ = attention.attn_chunk_step(
-                layer.attn, n1, cache["kp"][li], cache["vp"][li], bt_row,
-                pos0, true_len, self.policy, n_heads=cfg.n_heads,
-                n_kv_heads=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
-                rope_theta=cfg.rope_theta, window=cfg.sliding_window,
-                qk_norm=cfg.qk_norm, kv_repeat=opt.kv_repeat,
-                q_chunk=opt.q_chunk, kv_chunk=opt.kv_chunk, plan=plan)
-            h = self._ffn_tail(layer, h, n1, a)[0]
+                app = self._applies_shared(li)
+                if app is not None:
+                    h = self._shared_apply(h, emb0, attend(
+                        cache[k_key][app], cache[v_key][app], None, False))
+        else:
+            for li, layer in enumerate(self.layers):
+                n1 = common.norm(layer.ln1, h, cfg.norm_eps, cfg.norm_type)
+                a = attend(cache[k_key][li], cache[v_key][li],
+                           cfg.sliding_window, cfg.qk_norm)(layer.attn, n1)
+                h = self._ffn_tail(layer, h, n1, a)[0]
         cache["idx"][slot] = pos0 + true_len
         last = max(true_len - 1, 0)
         return self._head(h[:, last:last + 1]), cache
@@ -681,9 +848,18 @@ class LM(nn.Module):
 # layout adds the global pools (NOT per slot) and the per-slot table "bt".
 # --------------------------------------------------------------------------
 
-PAGE_POOL_LEAVES = ("kp", "vp")
+PAGE_POOL_LEAVES = ("kp", "vp", "shared_kp", "shared_vp")
 # paged pool leaf -> the dense prefill leaf whose rows scatter into it
-_POOL_SRC = {"kp": "k", "vp": "v"}
+_POOL_SRC = {"kp": "k", "vp": "v", "shared_kp": "shared_k",
+             "shared_vp": "shared_v"}
+
+
+def pool_keys(cache) -> Tuple[str, str]:
+    """The (keys, values) page-pool leaves of a paged cache (or of its
+    :meth:`LM.cache_spec`): ``kp``/``vp`` of the attention families,
+    ``shared_kp``/``shared_vp`` of the hybrid family. Their block dim (1)
+    and block size (2) are the pool's."""
+    return ("kp", "vp") if "kp" in cache else ("shared_kp", "shared_vp")
 
 
 def cache_slot_axis(name: str) -> int:

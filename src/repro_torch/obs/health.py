@@ -16,8 +16,12 @@ to the hot loop. Instead:
 
 The JAX package's ``lifted``/``lifting_scan`` have no counterpart: the
 port's layers are a Python loop, so a record made in any layer reaches the
-open scope directly. Counters are int64 (the JAX package's are int32).
-Recording never feeds back into the value path.
+open scope directly. :func:`suppressed` is ported: the JAX package runs the
+hybrid family's shared block under it (a ``lax.cond`` branch has no channel
+to carry records out), so its GEMMs go uncounted there, and the port
+suppresses the same GEMMs to report the same integers. Counters are int64
+(the JAX package's are int32). Recording never feeds back into the value
+path.
 """
 
 from __future__ import annotations
@@ -51,16 +55,18 @@ def _stack():
 
 
 def active() -> bool:
-    """True when a :func:`collect` scope is open on this thread; record
-    sites guard their summaries on it."""
-    return bool(_stack())
+    """True when a :func:`collect` scope is open on this thread and no
+    :func:`suppressed` block sits inside it; record sites guard their
+    summaries on it."""
+    stack = _stack()
+    return bool(stack) and stack[-1] is not None
 
 
 def record(name: str, value: torch.Tensor) -> None:
-    """Add ``value`` into the innermost open scope; no-op without one."""
-    stack = _stack()
-    if stack:
-        stack[-1].add(name, value)
+    """Add ``value`` into the innermost open scope; no-op without one or
+    inside a :func:`suppressed` block."""
+    if active():
+        _stack()[-1].add(name, value)
 
 
 @contextlib.contextmanager
@@ -71,6 +77,18 @@ def collect():
     stack.append(c)
     try:
         yield c
+    finally:
+        stack.pop()
+
+
+@contextlib.contextmanager
+def suppressed():
+    """Record nothing inside the block, even under an open
+    :func:`collect` scope (the JAX package's ``suppressed``)."""
+    stack = _stack()
+    stack.append(None)
+    try:
+        yield
     finally:
         stack.pop()
 

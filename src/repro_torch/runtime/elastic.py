@@ -72,7 +72,8 @@ def resize_serving_state(model, state: Dict, cap: int, new_slots: int,
     Dense caches (the SSM family's ``ssm``/``conv`` state among them, a
     kept slot's row gathered) move through the ``models.lm``
     gather/scatter helpers;
-    paged caches keep their page POOLS (the same tensors: block ids are
+    paged caches (the hybrid family's shared-KV pools among them) keep
+    their page POOLS (the same tensors: block ids are
     stable under slot compaction) and only gather the per-slot leaves,
     ``idx`` and the ``bt`` table rows. ``"health"``, the engine's
     pool-wide accumulators, carries over unchanged. Every other leaf is a
@@ -84,10 +85,11 @@ def resize_serving_state(model, state: Dict, cap: int, new_slots: int,
         raise ValueError(f"{len(keep)} live slots do not fit in {new_slots}")
     cache = state["cache"]
     paged = "bt" in cache
+    pool = cache[lm_helpers.pool_keys(cache)[0]] if paged else None
     spec = model.cache_spec(
         new_slots, cap, per_slot_idx=True,
-        **(dict(layout="paged", block_size=cache["kp"].shape[2],
-                n_blocks=cache["kp"].shape[1]) if paged else {}))
+        **(dict(layout="paged", block_size=pool.shape[2],
+                n_blocks=pool.shape[1]) if paged else {}))
     new_cache = {}
     for k, (shape, dtype) in spec.items():
         if k in lm_helpers.PAGE_POOL_LEAVES:
@@ -96,7 +98,7 @@ def resize_serving_state(model, state: Dict, cap: int, new_slots: int,
             new_cache[k] = torch.zeros(shape, dtype=dtype,
                                        device=cache["idx"].device)
     if paged:
-        new_cache["bt"].fill_(cache["kp"].shape[1])   # the sentinel
+        new_cache["bt"].fill_(pool.shape[1])   # the sentinel
     new_state = {"cache": new_cache}
     if "health" in state:
         new_state["health"] = state["health"]

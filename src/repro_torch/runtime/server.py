@@ -40,6 +40,11 @@ prefix flag inert, prefill batched by EXACT prompt length (still across
 same-length prompts) and chunked prefill with exact-length final chunks,
 inactive slots' state frozen in the tick, the speculative verify rolled
 back to each slot's accepted token, and stationary weights by default.
+**The hybrid family** (zamba2) keeps those rules, but its shared block's
+KV is paged like an attention layer's: a paged hybrid engine builds the
+pool and its allocator (the prefix flag stays inert all the same), and
+the verify tick rolls back only ``ssm``/``conv`` (the next tick rewrites
+the rejected tail's shared KV before any read).
 
 Every step runs under ``torch.inference_mode()``. Sampled decode draws from
 ``torch.Generator``s seeded from ``sample_seed``, one for decode ticks, one
@@ -612,8 +617,10 @@ class LMServer:
         self.prefill_chunk = prefill_chunk
         self.spec_k = int(spec_k)
         # pure-SSM models have no KV to page (their recurrent state is O(1)
-        # per slot and stays dense under both layouts): no pool, no tables
-        if cache_layout == "paged" and model.kind != "mamba":
+        # per slot and stays dense under both layouts): no pool, no tables;
+        # the hybrid family pages its shared block's KV
+        has_pages = not (model.kind == "mamba" and not model.cfg.attn_every)
+        if cache_layout == "paged" and has_pages:
             mb = blocks_for(cap, block_size)
             # default pool = slots * ceil(cap/bs): no memory saving but never
             # exhausts; a smaller n_blocks sized to the live-token budget
@@ -625,7 +632,8 @@ class LMServer:
             self.alloc = None
         # prefix caching needs pages to share AND skippable prefill: an SSM
         # state at the match point cannot be rebuilt from blocks, so the
-        # flag is inert for the mamba kind (the engine never shares)
+        # flag is inert for the mamba kind, the hybrid's pool notwithstanding
+        # (the engine never shares)
         self.prefix_cache = bool(prefix_cache) and self.alloc is not None \
             and model.kind != "mamba"
         self.prefix_index: Optional[PrefixIndex] = \
@@ -1104,7 +1112,7 @@ class LMServer:
         """Device-side page copy for a copy-on-write fork (every pool
         leaf; layer dim leads, block dim is axis 1)."""
         cache = self.state["cache"]
-        for leaf in lm_helpers.PAGE_POOL_LEAVES:
+        for leaf in lm_helpers.pool_keys(cache):
             cache[leaf][:, dst] = cache[leaf][:, src]
 
     def _cow_guard(self, slot: int, pos_lo: int, pos_hi: int) -> None:

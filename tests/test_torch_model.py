@@ -150,7 +150,7 @@ def test_load_jax_params_rejects_mismatched_trees():
         load_jax_params(tm, partial)
 
 
-@pytest.mark.parametrize("arch", ["zamba2-2.7b", "seamless-m4t-large-v2"])
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         get_config(arch)
@@ -181,15 +181,36 @@ def test_reduced_mamba2_builds_and_equals_jax_forward():
                                atol=1e-5)
 
 
+def test_reduced_zamba2_builds_and_equals_jax_forward():
+    """The hybrid family is ported (it was a case of the unported-families
+    test): the reduced zamba2 builds from the port's own config, with its
+    shared block applied after layers 1 and 3, and on the JAX init's
+    weights its forward logits equal JAX's within 1e-5."""
+    cfg = jconfig("zamba2-2.7b").reduced()
+    jm = jbuild(cfg, jpolicy("fp32"))
+    params = jm.init(jax.random.PRNGKey(0))
+    tm = build_model(get_config("zamba2-2.7b").reduced(),
+                     get_policy("fp32"), device="cpu")
+    assert tm.kind == "mamba" and tm.shared is not None and tm.napp == 2
+    load_jax_params(tm, jax.tree_util.tree_map(np.asarray, params))
+    toks = np.random.default_rng(0).integers(0, 256, (2, 20)).astype(
+        np.int32)
+    want = jax.jit(lambda p, t: jm.forward(p, t)[0])(params, toks)
+    with torch.no_grad():
+        got = tm.forward(torch.from_numpy(toks))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
 def test_config_matches_jax():
     """Every ported config, field by field, and its ``reduced()``: the
-    dense qwen2/qwen3 ones, command-r, the vlm, the MoE family and
-    mamba2."""
+    dense qwen2/qwen3 ones, command-r, the vlm, the MoE family, mamba2 and
+    zamba2."""
     from repro_torch.configs import ARCHS
     assert set(ARCHS) == {"qwen2-0.5b", "qwen2-1.5b", "qwen3-14b",
                           "command-r-plus-104b", "internvl2-2b",
                           "mixtral-8x7b", "qwen3-moe-30b-a3b",
-                          "mamba2-2.7b"}
+                          "mamba2-2.7b", "zamba2-2.7b"}
     for arch in ARCHS:
         a, b = jconfig(arch), get_config(arch)
         for f in ModelConfig.__dataclass_fields__:
