@@ -40,9 +40,10 @@ instance), 80 and 128 (and each instance's registers and spills from
 ``nvcc -Xptxas -v``, built beside the extension), ``python -m
 repro_torch.launch.serve --reduced`` through the flash kernel at head_dim
 16 (under fp32, greedy streams equal to the CPU's), full-width mirage
-training through ``launch.train`` stopped by SIGTERM at step 2 and
-resumed with ``--resume``, bit for bit equal to 4 straight steps (then the
-checkpoint's bytes and its save and restore times), 2 full-width
+training through ``launch.train`` (at 8 of 24 layers from PR 26) stopped
+by SIGTERM at step 2 and resumed with ``--resume``, bit for bit equal to
+4 straight steps (then the full-width state's checkpoint bytes and its
+save and restore times), 2 full-width
 ``mirage_rns`` steps with kernel 4 launched over group blocks (peak memory
 under 24 GB, step 1's GEMMs teacher-forced against mirage_fast), and the
 four example twins (``python -m repro_torch.examples.*``) on the card.
@@ -57,10 +58,11 @@ a pool of half the default, which queues admissions for blocks), the
 52 dB mirage_rrns drain through the paged engine (the dense drain's
 streams and health integers), and 8 requests sharing a 64-token prefix
 through five engines (dense; paged with chunked prefill, with the prefix
-cache, with speculative decoding, with all three): under fp32 each
-engine's streams equal the dense engine's (or differ first where the
-dense logits' top-2 gap is under 1e-4), under mirage the GEMM launches
-equal 169 x the engine's own count of model steps.
+cache, with speculative decoding, with all three; at 8 of the 24 layers
+from PR 26): under fp32 each engine's streams equal the dense engine's
+(or differ first where the dense logits' top-2 gap is under 1e-4), under
+mirage the GEMM launches equal 7 x layers + 1 x the engine's own count
+of model steps.
 
 The rest of slice 5: each path's requests through a warmed engine against
 a cold one (mirage_fast dense, paged at block size 4, paged with spec_k
@@ -157,13 +159,34 @@ times, on concat(hidden, embeddings)) served under mirage cold and warmed
 shared application timed alone, layers 0, 5 and 53 (each with its shared
 application) and the head teacher-forced against the CPU, and at 12
 layers under fp32 its logits and its decode after a prefill held to the
-CPU; at 12 layers every engine (the paged ones building the shared KV's
-pool; the resize on the paged layout) against the dense engine's
-streams, and mirage_rrns at 52 dB against its clean twin with the health
-integers counting the Mamba2 and head GEMMs alone; and full-depth
-training (10 steps, 543 kernel-1 launches a step, two steps from one
+CPU; at 6 layers (from PR 26) every engine (the paged ones building the
+shared KV's pool; the resize on the paged layout) against the dense
+engine's streams, at 12 mirage_rrns at 52 dB against its clean twin with
+the health integers counting the Mamba2 and head GEMMs alone; and
+full-depth training (10 steps, 543 kernel-1 launches a step, two steps from one
 state bitwise equal, layer 5's and the shared block's fp32 gradients
 teacher-forced against the CPU).
+
+Slice 6g (the enc-dec family): flash non-causal (the encoder's
+bidirectional attention; in the flash check and timed at its served shape,
+4 x 1,024 frames, 16 heads over 16 of 64) and kernel 1 at
+seamless-m4t-large-v2's shapes (the decode step's projections, GELU MLP
+and untied head at N = 256,206; the encoder's prefill GEMMs at M = 4,096;
+the head's training dX and dW), each against its plain version and
+timed; seamless-m4t-large-v2 at its published widths and full depth (24
+encoder and 24 decoder layers) served as both packages serve it, the
+model's own prefill (4 rows of 1,024 frames, 16-token prompts) and 31
+greedy decode steps under mirage (kernel 1 386 times a prefill and 193 a
+step, flash 48 times a prefill), the decode step's wall, busy and idle
+time against its byte bound; encoder layers 0 and 23, decoder layers 0
+and 23 and the head teacher-forced against the CPU under mirage and
+fp32, and at 6 + 6 layers under fp32 its logits and its decode after a
+prefill against the CPU; at 4 + 4 layers mirage_rrns at 52 dB against
+its clean twin with stationary weights, every GEMM call in the health
+scope; and full-depth training (1,157 kernel-1 launches a step, two steps
+from one state bitwise equal, frontend_proj's, encoder layer 0's and
+decoder layers 0's and 23's fp32 gradients teacher-forced against the
+CPU).
 
 Run as a script, it pins the CPU side's vector dispatch (ATen at AVX2,
 MKL's conditional reproducibility at AVX2) before importing torch, so the
@@ -172,6 +195,7 @@ CPU references do not depend on the host's own dispatch level.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -239,6 +263,14 @@ FLASH_CASES += tuple(case for D in FLASH_DIMS for case in (
     (2, 1, 14, 2, D, None), (2, 17, 14, 2, D, None),
     (4, 128, 14, 2, D, 40), (2, 512, 14, 2, D, None),
     (2, 77, 4, 4, D, None), (4, 32, 4, 2, D, None)))
+# the non-causal cases (the enc-dec encoder's bidirectional attention, from
+# PR 26): its served shape (16 heads over 16 at D = 64, 1,024 frames), one
+# row, L = 1 and a partial 16-row warp tile, GQA, and the other instances
+FLASH_NONCAUSAL = ((4, 1024, 16, 16, 64), (1, 1024, 16, 16, 64),
+                   (2, 1, 16, 16, 64), (2, 17, 16, 16, 64),
+                   (2, 77, 14, 2, 64), (1, 300, 8, 2, 64),
+                   (2, 77, 4, 4, 16), (2, 128, 32, 32, 80),
+                   (2, 77, 14, 2, 128))
 # the timed attention shapes (the first is the headline row; the last three
 # the other instances at the headline shape)
 FLASH_TIMED = ((4, 128, 14, 2, 64, None), (1, 32, 14, 2, 64, None),
@@ -640,6 +672,24 @@ def phase_flash(ops, ref):
         check(ok, f"flash kernel outside rtol=atol=2e-5 at B={B} L={L} "
                   f"H={H} Kv={Kv} D={D} window={window}")
         worst = max(worst, float(err.max()))
+    for i, (B, L, H, Kv, D) in enumerate(FLASH_NONCAUSAL):
+        q, k, v = flash_operands(B, L, H, Kv, D, seed=150 + i)
+        got = ops.flash_attention(q, k, v, causal=False)
+        again = ops.flash_attention(q, k, v, causal=False)
+        want = ref.flash_attention_ref(q, k, v, causal=False)
+        err = (got - want).abs()
+        ok = bool(torch.allclose(got, want, rtol=2e-5, atol=2e-5))
+        same = bool(torch.equal(got.view(torch.int32),
+                                again.view(torch.int32)))
+        emit({"phase": "flash_vs_plain", "B": B, "L": L, "H": H, "Kv": Kv,
+              "D": D, "instance": ops.flash_head_dim(D), "window": None,
+              "causal": False, "max_abs_err": float(err.max()), "ok": ok,
+              "bitwise_repeatable": same})
+        check(ok and same, f"non-causal flash kernel outside rtol=atol=2e-5 "
+                           f"at B={B} L={L} H={H} Kv={Kv} D={D}, or not "
+                           f"repeatable")
+        worst = max(worst, float(err.max()))
+        del q, k, v, got, again, want, err
     return worst
 
 
@@ -1469,6 +1519,9 @@ SMALL_POOL = dict(block_size=16, n_blocks=22)   # half of 4 slots x 11 blocks
 SHARED_PREFIX, TAIL_LENS = 64, (17, 64)
 SPEC_K, PREFILL_CHUNK = 3, 32
 TOP2_GAP = 1e-4               # fp32: a differing token needs a near-tie
+#: serve_paged_options' depth: 8 of qwen2-0.5b's 24 layers from PR 26 (the
+#: script's time limit; its five engines' drains are host-bound)
+OPTIONS_LAYERS = 8
 OPTION_ENGINES = (
     ("dense", {}),
     ("paged_chunk", dict(cache_layout="paged", block_size=PAGED_BS,
@@ -1682,16 +1735,19 @@ def first_differences(model, dense, streams, prompts):
     return firsts
 
 
-def phase_serve_paged_options(ops, model, cap):
-    """8 requests sharing a 64-token prefix through the dense engine and
-    four paged ones (chunked prefill, prefix cache, speculative decoding,
-    all three). fp32: the streams equal the dense engine's, or first
-    differ where the dense logits' top-2 gap is under TOP2_GAP. mirage:
-    speed, the share of tokens equal to dense, the prefix and speculative
-    counters, and GEMM launches = 169 x the engine's model steps."""
+def phase_serve_paged_options(ops, cap):
+    """qwen2-0.5b at its widths cut to OPTIONS_LAYERS layers: 8 requests
+    sharing a 64-token prefix through the dense engine and four paged ones
+    (chunked prefill, prefix cache, speculative decoding, all three). fp32:
+    the streams equal the dense engine's, or first differ where the dense
+    logits' top-2 gap is under TOP2_GAP. mirage: speed, the share of
+    tokens equal to dense, the prefix and speculative counters, and GEMM
+    launches = 7 x layers + 1 x the engine's model steps."""
     from repro_torch.core.precision import get_policy
     from repro_torch.runtime.server import LMServer, Request
 
+    model = published_model("qwen2-0.5b", OPTIONS_LAYERS,
+                            get_policy("mirage"))
     cfg = model.cfg
     per_step = 7 * cfg.n_layers + 1
     out, total = {}, {}
@@ -1741,7 +1797,10 @@ def phase_serve_paged_options(ops, model, cap):
                   f"the dense engine's where the top-2 gap is >= "
                   f"{TOP2_GAP}: {firsts}")
         out[policy] = {name: row for name, (_, _, row) in runs.items()}
-    emit({"phase": "serve_paged_options", "slots": SLOTS, "cap": cap,
+    del model
+    free_card()
+    emit({"phase": "serve_paged_options", "n_layers": cfg.n_layers,
+          "slots": SLOTS, "cap": cap,
           "block_size": PAGED_BS, "prefill_chunk": PREFILL_CHUNK,
           "spec_k": SPEC_K, "shared_prefix": SHARED_PREFIX,
           "tail_lens": list(TAIL_LENS), **out})
@@ -2402,13 +2461,13 @@ def step_breakdown(model, tc, state, data, n: int):
 
 
 def step1_grads(model, batch):
-    """Step 1's loss and gradients (by parameter name, on the CPU) of
-    ``model`` on a numpy ``batch``."""
+    """Step 1's loss and gradients (by parameter name, on the model's
+    device) of ``model`` on a numpy ``batch``."""
     params = dict(model.named_parameters())
     loss, _ = model.loss({k: torch.from_numpy(v).to(model.device)
                           for k, v in batch.items()})
     grads = torch.autograd.grad(loss, list(params.values()))
-    return float(loss.detach()), {k: g.cpu() for k, g in zip(params, grads)}
+    return float(loss.detach()), dict(zip(params, grads))
 
 
 def leaf_errors(got, want):
@@ -2433,13 +2492,13 @@ def norm64(tree) -> float:
         t, dtype=torch.float64)) ** 2 for t in tree.values()))
 
 
-def grads_vs(got_loss, got, want_loss, want):
+def grads_vs(got_loss, got, want_loss, want, want_norm: float):
     """Loss, global grad norm and per-leaf errors of one set of step-1
-    gradients against another."""
+    gradients against another (``want_norm``: ``norm64(want)``)."""
     errs = leaf_errors(got, want)
     worst = sorted(errs.items(), key=lambda kv: -kv[1])[:8]
     return {"loss_rel": abs(got_loss - want_loss) / abs(want_loss),
-            "grad_norm_rel": abs(norm64(got) - norm64(want)) / norm64(want),
+            "grad_norm_rel": abs(norm64(got) - want_norm) / want_norm,
             "leaf_rel_max": worst[0][1], "worst_leaves": dict(worst),
             "by_kind": leaf_kinds(errs)}
 
@@ -2464,17 +2523,11 @@ def phase_train_fp32_vs_cpu(arch: str = "qwen2-0.5b",
     cpu_model = copy.deepcopy(model).to("cpu")
     batches = [data.batch_at(i) for i in range(n_steps)]
     cpu_loss, cpu_grads = step1_grads(cpu_model, batches[0])
-    leaves = grads_vs(*step1_grads(model, batches[0]), cpu_loss, cpu_grads)
-    pin = baselines._pin_full_f32   # the fp32 backend pins TF32 off
-    baselines._pin_full_f32 = lambda: None
-    torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-        tf32 = grads_vs(*step1_grads(model, batches[0]), cpu_loss,
-                        cpu_grads)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        baselines._pin_full_f32 = pin
-    exact = norm64(cpu_grads)
+    # the CPU's gradients are compared on the card (a copy of each leaf):
+    # the f64 norms and per-leaf maxima of ~1.25 B values took ~31 s of
+    # the MoE phase on the card's host, and the card takes a second
+    want = {k: v.to(DEV) for k, v in cpu_grads.items()}
+    exact = norm64(want)
     serial = torch.linalg.vector_norm(torch.stack(
         torch._foreach_norm(list(cpu_grads.values()))))
     cpu_norm = {"global_norm_rel_to_f64":
@@ -2482,6 +2535,17 @@ def phase_train_fp32_vs_cpu(arch: str = "qwen2-0.5b",
                 "f32_foreach_norm_rel_to_f64": abs(float(serial) - exact) /
                 exact}
     del cpu_grads
+    leaves = grads_vs(*step1_grads(model, batches[0]), cpu_loss, want, exact)
+    pin = baselines._pin_full_f32   # the fp32 backend pins TF32 off
+    baselines._pin_full_f32 = lambda: None
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = grads_vs(*step1_grads(model, batches[0]), cpu_loss, want,
+                        exact)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        baselines._pin_full_f32 = pin
+    del want
     card = plain = []
     card_s = cpu_s = 0.0
     rel = {"loss": [leaves["loss_rel"]],
@@ -2741,6 +2805,10 @@ def phase_slice_train_wsq(ops, ref, layers=(0, 11, 23),
 CKPT_ROOT = pathlib.Path(__file__).resolve().parent / "build" / \
     "chip_smoke_ckpt"
 RESUME_STEPS, RNS_TRAIN_STEPS = 4, 2
+#: the stop-and-resume run's depth (8 of qwen2-0.5b's 24 layers from PR 26,
+#: the script's time limit: its three runs wrote full-width checkpoints;
+#: checkpoint_times keeps the full-width state)
+RESUME_LAYERS = 8
 RNS_TRAIN_PEAK_GB = 24.0
 
 
@@ -2815,7 +2883,8 @@ def read_checkpoint(d: pathlib.Path):
 
 
 def phase_train_resume():
-    """Full width under mirage through ``launch.train.main``: 4 steps
+    """Full width under mirage through ``launch.train.main`` (at
+    RESUME_LAYERS of the 24 layers, ``--layers``): 4 steps
     straight, against 2 steps, SIGTERM (the guard checkpoints and stops),
     ``--resume`` and 2 more. The step-4 checkpoints (params, both moments
     and their count, the step, and the data state in the metadata) must be
@@ -2839,7 +2908,8 @@ def phase_train_resume():
     CKPT_ROOT.mkdir(parents=True)
     disk_free_gb = shutil.disk_usage(CKPT_ROOT).free / 1e9
     straight, stopped = CKPT_ROOT / "straight", CKPT_ROOT / "stopped"
-    common = entry_argv(["--ckpt-every", str(RESUME_STEPS)], reduced=True)
+    common = entry_argv(["--ckpt-every", str(RESUME_STEPS),
+                         "--layers", str(RESUME_LAYERS)], reduced=True)
     t0 = time.perf_counter()
     quiet(train_launch.main, ["--steps", str(RESUME_STEPS), "--ckpt-dir",
                               str(straight)] + common)
@@ -3247,20 +3317,22 @@ def sdpa_backends(fn):
     return times, outs
 
 
-def sdpa_yardstick(ref, q, k, v, window, allowed):
+def sdpa_yardstick(ref, q, k, v, window, allowed, causal: bool = True):
     """PyTorch's scaled_dot_product_attention on the same f32 inputs, as
     (B, heads, L, D) copies with enable_gqa: is_causal where there is no
-    window (no mask tensor), the boolean mask otherwise. The fastest backend
-    that accepts the call is the yardstick. Beside it, not the yardstick:
-    each backend on K/V repeated to every query head beforehand (another
-    call, reading rep x the K/V bytes)."""
+    window (no mask tensor), the boolean mask otherwise, and neither where
+    the call is not causal. The fastest backend that accepts the call is
+    the yardstick. Beside it, not the yardstick: each backend on K/V
+    repeated to every query head beforehand (another call, reading rep x
+    the K/V bytes)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    kw = {"is_causal": True} if window is None else {"attn_mask": allowed}
+    kw = {"attn_mask": allowed} if window is not None else (
+        {"is_causal": True} if causal else {})
     by_backend, outs = sdpa_backends(
         lambda: sdpa(qt, kt, vt, enable_gqa=True, **kw))
     ms, name = min((t, n) for n, t in by_backend.items() if t is not None)
-    want = ref.flash_attention_ref(q, k, v, True, window)
+    want = ref.flash_attention_ref(q, k, v, causal, window)
     rep = q.shape[2] // k.shape[2]
     kr, vr = (t.repeat_interleave(rep, dim=1) for t in (kt, vt))
     repeated, _ = sdpa_backends(lambda: sdpa(qt, kr, vr, **kw))
@@ -4500,14 +4572,17 @@ class BlockTap:
 
 def published_model(arch: str, n_layers: int, policy):
     """``arch`` at its published widths (the reduced config in a CPU
-    rehearsal) cut to ``n_layers``, weights from seed 0 on the card, under
-    ``policy``, the prefill attention through the flash kernel."""
+    rehearsal) cut to ``n_layers`` (of each stack of an enc-dec model),
+    weights from seed 0 on the card, under ``policy``, the prefill
+    attention through the flash kernel."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.models.lm import LMCallOptions
 
     cfg = get_config(arch).reduced() if REDUCED else get_config(arch)
-    cfg = dataclasses.replace(cfg, n_layers=min(n_layers, cfg.n_layers))
+    cfg = dataclasses.replace(
+        cfg, n_layers=min(n_layers, cfg.n_layers),
+        encoder_layers=min(n_layers, cfg.encoder_layers))
     return build_model(cfg, policy, LMCallOptions(use_flash_kernel=True),
                        device=DEV,
                        generator=torch.Generator(device=DEV).manual_seed(0))
@@ -4854,39 +4929,42 @@ def phase_slice6d_kernels(ops, ref, policy):
     return gemm_rows, flash_rows, worst_gemm, worst_flash
 
 
-def flash_case_row(ops, ref, arch, B, L, H, Kv, D, seed, path):
-    """Flash attention (causal, no window) at (B, L, H, Kv, D) against its
-    plain version within rtol = atol = 2e-5, twice bitwise, and timed
-    beside the plain version, SDPA's fastest backend that takes the call
-    and the bound (a ``timing`` line with ``"path": path``)."""
+def flash_case_row(ops, ref, arch, B, L, H, Kv, D, seed, path,
+                   causal: bool = True):
+    """Flash attention (no window; causal unless asked otherwise) at (B, L,
+    H, Kv, D) against its plain version within rtol = atol = 2e-5, twice
+    bitwise, and timed beside the plain version, SDPA's fastest backend
+    that takes the call and the bound (a ``timing`` line with ``"path":
+    path``)."""
     q, k, v = flash_operands(B, L, H, Kv, D, seed=seed)
-    got = ops.flash_attention(q, k, v, causal=True)
-    again = ops.flash_attention(q, k, v, causal=True)
-    want = ref.flash_attention_ref(q, k, v, causal=True)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    again = ops.flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
     err = float((got - want).abs().max())
     ok = bool(torch.allclose(got, want, rtol=2e-5, atol=2e-5))
     same = bool(torch.equal(got.view(torch.int32), again.view(torch.int32)))
     pos = torch.arange(L, device=DEV)
-    allowed = pos[:, None] >= pos[None, :]
+    allowed = pos[:, None] >= pos[None, :] if causal else \
+        torch.ones((L, L), dtype=torch.bool, device=DEV)
     pairs = int(allowed.sum())
     moved = 4.0 * (2 * B * L * H * D + 2 * B * L * Kv * D)
     flops = 4.0 * B * H * pairs * D
     t_b, by = bound_rate(moved, 3 * flops, TF32_FLOPS_PER_S)
-    lib = sdpa_yardstick(ref, q, k, v, None, allowed)
+    lib = sdpa_yardstick(ref, q, k, v, None, allowed, causal)
     row = {"arch": arch, "B": B, "L": L, "H": H, "Kv": Kv, "D": D,
-           "gqa_group": H // Kv, "max_abs_err": err, "ok": ok,
-           "bitwise_repeatable": same,
-           "ms": time_ms(lambda: ops.flash_attention(q, k, v, True)),
+           "causal": causal, "gqa_group": H // Kv, "max_abs_err": err,
+           "ok": ok, "bitwise_repeatable": same,
+           "ms": time_ms(lambda: ops.flash_attention(q, k, v, causal)),
            "plain_ms": time_ms(lambda: ref.flash_attention_ref(
-               q, k, v, True), n=5),
+               q, k, v, causal), n=5),
            "library_ms": lib["ms"], "library": lib["name"],
            "bound_ms": t_b, "bound_by": by,
            "bound_unit": "TF32 tensor cores, 3 products (3xTF32)"}
     emit({"phase": "timing", "kernel": "flash_attention", "path": path,
           **row})
     check(ok and same, f"flash kernel outside rtol=atol=2e-5 at {arch} "
-                       f"B={B} L={L} H={H} Kv={Kv} D={D}, or not "
-                       f"repeatable")
+                       f"B={B} L={L} H={H} Kv={Kv} D={D} causal={causal}, "
+                       f"or not repeatable")
     del q, k, v, got, again, want
     return row
 
@@ -6016,9 +6094,12 @@ def phase_slice_train_mamba2(ops):
 
 ZAMBA_ARCH = "zamba2-2.7b"
 #: the served and trained depth (the published 54 layers: 9 applications
-#: of the shared block), and the engines', RRNS drains' and fp32 gate's cut
-#: (12 layers: 2 applications)
+#: of the shared block), and the RRNS drains' and fp32 gate's cut (12
+#: layers: 2 applications)
 ZAMBA_LAYERS, ZAMBA_CUT_LAYERS = 54, 12
+#: the engines' cut (6 layers: 1 application; 12 in PR 25, cut in PR 26
+#: for the script's time limit)
+ZAMBA_ENGINE_LAYERS = 6
 ZAMBA_APPS = ZAMBA_LAYERS // 6
 #: the shared block's GEMMs an application: proj, q, k, v, o, gate, up, down
 ZAMBA_SHARED_GEMMS = 8
@@ -6520,6 +6601,669 @@ def phase_slice_train_zamba2(ops):
     return launches
 
 
+# --------------------------------------------------------------------------
+# slice 6g: the enc-dec family (seamless-m4t-large-v2)
+# --------------------------------------------------------------------------
+
+SEAMLESS_ARCH = "seamless-m4t-large-v2"
+#: full depth: 24 encoder and 24 decoder layers
+SEAMLESS_LAYERS = 24
+#: the served batch: 4 rows of 1,024 frames (the config's frontend_len) and
+#: 4 prompts of one length (the model's scalar idx), 32 greedy tokens
+SEAMLESS_ROWS, SEAMLESS_FRAMES = 4, 1024
+SEAMLESS_PROMPT, SEAMLESS_TOKENS = 16, 32
+SEAMLESS_CAP = SEAMLESS_PROMPT + SEAMLESS_TOKENS
+#: the fp32 end-to-end gate's cut (6 encoder + 6 decoder layers, one row of
+#: 256 frames) and its tokens decoded after a prefill
+SEAMLESS_FP32_LAYERS, SEAMLESS_FP32_FRAMES = 6, 256
+SEAMLESS_FP32_RTOL = 1e-5
+#: the teacher-forced layers (encoder and decoder) and their gates
+SEAMLESS_UNITS = (0, 23)
+SEAMLESS_LAYER_RTOL = {"mirage": 0.005, "fp32": 1e-5}
+#: the RRNS drains' cut (4 + 4 layers; int32 residues of 5 moduli), their
+#: frames and tokens
+SEAMLESS_RRNS_LAYERS, SEAMLESS_RRNS_FRAMES, SEAMLESS_RRNS_TOKENS = 4, 128, 8
+SEAMLESS_TRAIN_STEPS = 5
+#: kernel 1 at seamless's GEMM shapes: (GEMM, kind, M, K, N, launches a
+#: model step of its path: a decode step, a prefill or a training step's
+#: dX / dW). A decode step runs the self-attention's q/k/v/o and the
+#: cross-attention's q/o at 1,024 -> 1,024, the GELU MLP at 1,024 -> 8,192
+#: -> 1,024 and the untied head at N = 256,206 (N % 4 = 2: rows not 16-byte
+#: aligned); a prefill of 4 x 1,024 frames runs the encoder's GEMMs and the
+#: cross k/v at M = 4,096
+SEAMLESS_GEMMS = (
+    ("attention 1,024 -> 1,024 (decode)", "fwd", SLOTS, 1024, 1024, 6 * 24),
+    ("mlp up (decode)", "fwd", SLOTS, 1024, 8192, 24),
+    ("mlp down (decode)", "fwd", SLOTS, 8192, 1024, 24),
+    ("head (decode)", "fwd", SLOTS, 1024, 256206, 1),
+    ("encoder q/k/v/o and cross k/v (prefill)", "fwd", 4096, 1024, 1024,
+     6 * 24),
+    ("encoder mlp up (prefill)", "fwd", 4096, 1024, 8192, 24),
+    ("encoder mlp down (prefill)", "fwd", 4096, 8192, 1024, 24),
+    ("head dX (train)", "dX", 256, 1024, 256206, 1),
+    ("head dW (train)", "dW", 256, 1024, 256206, 1),
+)
+#: flash at the encoder's bidirectional self-attention (row 3d): the
+#: served prefill's shape, one row, and the fp32 gate's
+SEAMLESS_FLASH = ((4, 1024, 16, 16, 64), (1, 1024, 16, 16, 64),
+                  (1, 256, 16, 16, 64))
+
+
+def seamless_per_step(cfg) -> dict:
+    """Kernel-1 launches of the enc-dec paths: a prefill (frontend_proj,
+    6 a encoder layer, 10 a decoder layer, the head), a decode step (8 a
+    decoder layer: the cross-attention projects q and o alone, and the
+    head) and a training step (the prefill's forward, every dW, every dX
+    but frontend_proj's: the frames need none); and flash a prefill (every
+    encoder layer and every decoder layer's self-attention; the
+    cross-attention stays plain, as in the JAX package)."""
+    fwd = 1 + 6 * cfg.encoder_layers + 10 * cfg.n_layers + 1
+    return {"prefill": fwd, "decode": 8 * cfg.n_layers + 1,
+            "train": 3 * fwd - 1,
+            "flash_prefill": cfg.encoder_layers + cfg.n_layers}
+
+
+def seamless_inputs(cfg, rows: int, frames: int, prompt: int):
+    """``rows`` rows of ``frames`` f32 normal frames and ``rows`` prompts of
+    ``prompt`` tokens, from numpy seed 0."""
+    rng = np.random.default_rng(0)
+    f = rng.normal(size=(rows, frames, cfg.frontend_dim)).astype(np.float32)
+    p = rng.integers(0, cfg.vocab_size, (rows, prompt)).astype(np.int64)
+    return f, p
+
+
+def seamless_greedy(model, frames, prompts, n_tokens: int, cap: int,
+                    scope=contextlib.nullcontext):
+    """The served path: ``prefill`` then greedy ``decode_step``s until
+    ``n_tokens`` tokens a row (n_tokens - 1 decode steps: the prefill's
+    logits give the first), each model call inside ``scope()``. Returns
+    (tokens (B, n_tokens), the prefill's wall ms, each decode step's wall
+    ms, the last logits, the cache)."""
+    steps_ms = []
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with scope():
+            logits, cache = model.prefill(frames, prompts, cap)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        toks = []
+        for i in range(n_tokens):
+            nxt = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+            toks.append(nxt)
+            if i == n_tokens - 1:
+                break
+            t0 = time.perf_counter()
+            with scope():
+                logits, cache = model.decode_step(cache, nxt)
+            torch.cuda.synchronize()
+            steps_ms.append((time.perf_counter() - t0) * 1e3)
+    return torch.cat(toks, 1), prefill_ms, steps_ms, logits, cache
+
+
+def seamless_decode_bound(model, cache) -> tuple:
+    """A decode step's bytes (GB) and byte bound (ms): the decoder's
+    weights but the cross-attention's k and v (their keys and values are
+    cached), the final norm and the untied head, read once; the cross KV
+    and the self KV rings read whole."""
+    skip = ("cross_attn.k.", "cross_attn.v.")
+    n = sum(p.numel() for name, p in model.dec_layers.named_parameters()
+            if not any(s in name for s in skip))
+    n += sum(p.numel() for p in model.final_norm.parameters())
+    n += sum(p.numel() for p in model.lm_head.parameters())
+    kv = sum(cache[k].numel() for k in ("self_k", "self_v", "cross_k",
+                                         "cross_v"))
+    gb = (n + kv) * 4.0 / 1e9
+    return gb, gb * 1e9 / HBM_BYTES_PER_S * 1e3, n * 4.0 / 1e9, kv * 4.0 / 1e9
+
+
+def phase_slice_seamless_kernels(ops, ref, policy):
+    """Row 1g (kernel 1 at seamless's GEMM shapes: the decode step's
+    attention projections, GELU MLP and untied head at N = 256,206; the
+    encoder's prefill GEMMs at M = 4,096; the head's training dX and dW)
+    and row 3d (flash non-causal, the encoder's bidirectional attention
+    at L = 1,024, 16 heads over 16 of 64), each held against its plain
+    version, twice bitwise, and timed beside its library call and bound
+    (``timing`` lines with ``"path": "slice_6g"``). Returns (GEMM rows,
+    flash rows, the worst GEMM and flash errors)."""
+    t_phase = time.perf_counter()
+    gemm_rows, flash_rows = [], []
+    worst_gemm = worst_flash = 0.0
+    for i, (name, kind, M, K, N, per_step) in enumerate(SEAMLESS_GEMMS):
+        a, b = mamba_gemm_operands(kind, M, K, N, seed=2800 + i)
+        row = {"arch": SEAMLESS_ARCH, "gemm": name, "kind": kind,
+               "launches_per_step": per_step,
+               **gemm_ab_row(ops, ref, policy, a, b)}
+        gemm_rows.append(row)
+        emit({"phase": "timing", "kernel": "mirage_gemm",
+              "path": "slice_6g", **row})
+        check(row["bad"] == 0 and row["bitwise_repeatable"],
+              f"slice 6g GEMM {name}: outside the bound in {row['bad']} "
+              f"elements, or not repeatable")
+        worst_gemm = max(worst_gemm, row["max_abs_err"])
+        del a, b
+        free_card()
+    for i, (B, L, H, Kv, D) in enumerate(SEAMLESS_FLASH):
+        row = flash_case_row(ops, ref, SEAMLESS_ARCH, B, L, H, Kv, D,
+                             2900 + i, "slice_6g", causal=False)
+        flash_rows.append(row)
+        worst_flash = max(worst_flash, row["max_abs_err"])
+    emit({"phase": "slice_seamless_kernels", "gemms": len(gemm_rows),
+          "flash_cases": len(flash_rows), "max_abs_err_gemm": worst_gemm,
+          "max_abs_err_flash": worst_flash,
+          "phase_seconds": time.perf_counter() - t_phase})
+    return gemm_rows, flash_rows, worst_gemm, worst_flash
+
+
+def encdec_shell(model, enc=(), dec=(), gridded: bool = False,
+                 policy=None):
+    """A CPU enc-dec model of ``model``'s widths (a vocabulary of 8) holding
+    copies of ``model``'s frontend_proj and of the listed encoder and
+    decoder layers (the GEMM weights already on their BFP grid where
+    ``gridded``: :func:`gridded_cpu_copy`), under ``policy`` (``model``'s
+    by default)."""
+    from repro_torch.models import build_model
+
+    policy = policy or model.policy
+    cfg = dataclasses.replace(model.cfg, n_layers=max(len(dec), 1),
+                              encoder_layers=max(len(enc), 1), vocab_size=8)
+    shell = build_model(cfg, policy, model.opt, device="cpu")
+
+    def take(module):
+        return gridded_cpu_copy(module, policy) if gridded \
+            else copy.deepcopy(module).to("cpu")
+
+    shell.frontend_proj = take(model.frontend_proj)
+    for i, li in enumerate(enc):
+        shell.enc_layers[i] = take(model.enc_layers[li])
+    for i, li in enumerate(dec):
+        shell.dec_layers[i] = take(model.dec_layers[li])
+    if gridded:
+        shell.policy = policy.replace(assume_quantized_weights=True)
+    return shell
+
+
+def seamless_layers_vs_cpu(model, frames_np, prompt_np, units):
+    """Teacher-forced layers of the enc-dec model, the card (its encoder's
+    attention through the flash kernel) against the CPU's plain path, one
+    row: the encoder layers and the decoder layers listed in ``units``
+    (each fed the card's input on both sides, the decoder layers the
+    card's encoder output too), then the final norm and the head at the
+    last position. Under ``mirage`` the CPU copies' GEMM weights lie on
+    their BFP grid (:func:`gridded_cpu_copy`). Returns ({unit: relative
+    L2}, the CPU seconds)."""
+    from repro_torch.models import common
+
+    gridded = model.policy.mode != "fp32"
+    frames = torch.from_numpy(frames_np[None]).to(DEV)
+    prompt = torch.from_numpy(prompt_np[None]).to(DEV)
+    t0 = time.perf_counter()
+    errs = {}
+    shell = encdec_shell(model, units, units, gridded)
+    with torch.inference_mode():
+        h = common.dense(model.frontend_proj, frames, model.policy)
+        pos = torch.arange(h.shape[1], device=DEV)
+        for li, layer in enumerate(model.enc_layers):
+            out = model.enc_layer(layer, h, pos)
+            if li in units:
+                i = units.index(li)
+                errs[f"enc_layer_{li}"] = rel_l2(out.cpu(), shell.enc_layer(
+                    shell.enc_layers[i], h.cpu(), pos.cpu()))
+            h = out
+        enc_out = model._norm(model.enc_norm, h)
+        h = common.embed(model.embed, prompt)
+        pos = torch.arange(h.shape[1], device=DEV)
+        for li, layer in enumerate(model.dec_layers):
+            out = model.dec_layer(layer, h, pos, enc_out)[0]
+            if li in units:
+                i = units.index(li)
+                errs[f"dec_layer_{li}"] = rel_l2(out.cpu(), shell.dec_layer(
+                    shell.dec_layers[i], h.cpu(), pos.cpu(),
+                    enc_out.cpu())[0])
+            h = out
+        norm = copy.deepcopy(model.final_norm).to("cpu")
+        lm_head = copy.deepcopy(model.lm_head).to("cpu")
+        cfg = model.cfg
+        last = model._norm(model.final_norm, h[:, -1:])
+        plain = common.dense(lm_head, common.norm(
+            norm, h[:, -1:].cpu(), cfg.norm_eps, cfg.norm_type),
+            model.policy)
+        errs["head"] = rel_l2(common.dense(model.lm_head, last,
+                                           model.policy).cpu(), plain)
+    del shell
+    return errs, time.perf_counter() - t0
+
+
+def seamless_fp32_vs_cpu(frames_np, prompt_np):
+    """The enc-dec model at its widths cut to SEAMLESS_FP32_LAYERS of each
+    stack, under fp32, one row of SEAMLESS_FP32_FRAMES frames: the card's
+    teacher-forced logits (``forward``) and a prefill of all but the last
+    MAMBA_DECODE_CHECK tokens then those tokens decoded one at a time,
+    against the same on the CPU's plain path, end to end. Returns relative
+    L2s."""
+    from repro_torch.core.precision import get_policy
+
+    model = published_model(SEAMLESS_ARCH, SEAMLESS_FP32_LAYERS,
+                            get_policy("fp32"))
+    cpu = copy.deepcopy(model).to("cpu")
+    L, n = len(prompt_np), MAMBA_DECODE_CHECK
+    out = {}
+    with torch.inference_mode():
+        for side, m, dev in (("card", model, DEV), ("cpu", cpu, "cpu")):
+            f = torch.from_numpy(frames_np[None]).to(dev)
+            toks = torch.from_numpy(prompt_np[None]).to(dev)
+            full = m.forward(f, toks)
+            _, cache = m.prefill(f, toks[:, :L - n], SEAMLESS_CAP)
+            for t in range(L - n, L):
+                logits, cache = m.decode_step(cache, toks[:, t:t + 1])
+            out[side] = (full.cpu(), logits[:, -1].cpu())
+    (full_d, dec_d), (full_h, dec_h) = out["card"], out["cpu"]
+    n_layers = model.cfg.n_layers
+    del model, cpu
+    free_card()
+    return {"layers": n_layers, "frames": len(frames_np), "prompt_len": L,
+            "forward_card_vs_cpu": rel_l2(full_d, full_h),
+            "decode_vs_forward_card": rel_l2(dec_d, full_d[:, -1]),
+            "decode_vs_forward_cpu": rel_l2(dec_h, full_h[:, -1]),
+            "decode_card_vs_forward_cpu": rel_l2(dec_d, full_h[:, -1])}
+
+
+def phase_slice_seamless(ops):
+    """seamless-m4t-large-v2 at its published widths and full depth (24
+    encoder and 24 decoder layers; random weights from seed 0) served as
+    the JAX package serves it, the model's own prefill and greedy decode
+    (no engine serves enc-dec in either package): 4 rows of 1,024 frames
+    and 4 prompts of 16 tokens, 32 tokens a row, under mirage; kernel 1
+    launched 386 times a prefill and 193 a decode step, flash 48 times a
+    prefill (every encoder layer non-causal, every decoder self-attention
+    causal); the decode step's wall time, busy time and idle share against
+    its byte bound; peak memory; the tokens in the vocabulary and the
+    logits finite. Then ``seamless_vs_cpu_plain``: encoder layers 0 and 23,
+    decoder layers 0 and 23 and the head teacher-forced against the CPU
+    under mirage (0.005 relative L2) and fp32 (1e-5), and at 6 + 6 layers
+    under fp32 the logits and the decode after a prefill end to end
+    (1e-5). Returns the launches."""
+    from repro_torch.core.precision import get_policy
+
+    t_phase = time.perf_counter()
+    model = published_model(SEAMLESS_ARCH, SEAMLESS_LAYERS,
+                            get_policy("mirage"))
+    cfg = model.cfg
+    per = seamless_per_step(cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    frames_np, prompts_np = seamless_inputs(
+        cfg, SEAMLESS_ROWS, cfg.frontend_len if not REDUCED else 16,
+        SEAMLESS_PROMPT)
+    frames = torch.from_numpy(frames_np).to(DEV)
+    prompts = torch.from_numpy(prompts_np).to(DEV)
+    # a short run first: the launches and times below are the cold
+    # path's, not the first call's
+    seamless_greedy(model, frames[:, :64].contiguous(), prompts, 2,
+                    SEAMLESS_CAP)
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    toks, prefill_ms, steps_ms, logits, cache = seamless_greedy(
+        model, frames, prompts, SEAMLESS_TOKENS, SEAMLESS_CAP)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_steps = SEAMLESS_TOKENS - 1
+    want = {"mirage_gemm": per["prefill"] + per["decode"] * n_steps,
+            "flash_attention": per["flash_prefill"]}
+    expect_launches(launches, want, "slice_seamless")
+    finite = bool(torch.isfinite(logits).all())
+    in_vocab = bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+    nxt = toks[:, -1:].contiguous()
+
+    def one_step():
+        with torch.inference_mode():
+            model.decode_step(cache, nxt)
+
+    prof = device_profile(one_step, 3)
+    bound_gb, bound_ms, weights_gb, kv_gb = seamless_decode_bound(
+        model, cache)
+    rows = {"prefill_ms": prefill_ms, "decode_step_ms": steps_ms,
+            "decode_step_ms_median": statistics.median(steps_ms),
+            "decode_step_profile": {k: prof[k] for k in (
+                "wall_ms", "device_busy_ms", "device_idle_share",
+                "device_kernels", "top_device_ms", "port_kernels_ms")},
+            "decode_step_gemm_ms": gemm_share(prof),
+            "tok_per_s": SEAMLESS_ROWS * SEAMLESS_TOKENS /
+            ((prefill_ms + sum(steps_ms)) / 1e3)}
+    del cache, logits
+    emit({"phase": "slice_seamless", "arch": SEAMLESS_ARCH,
+          "params": n_params, "f32_gb": n_params * 4 / 1e9,
+          "encoder_layers": cfg.encoder_layers, "decoder_layers":
+          cfg.n_layers, "d_model": cfg.d_model, "heads": cfg.n_heads,
+          "kv_heads": cfg.n_kv_heads, "head_dim": cfg.resolved_head_dim,
+          "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+          "policy": "mirage (mirage_fast b_m=4 g=16 k=5)",
+          "rows": SEAMLESS_ROWS, "frames": frames_np.shape[1],
+          "prompt_len": SEAMLESS_PROMPT, "tokens": SEAMLESS_TOKENS,
+          "cap": SEAMLESS_CAP, "decode_steps": n_steps,
+          "launches": launches, "expected_launches": want,
+          "gemm_per_prefill": per["prefill"],
+          "gemm_per_decode_step": per["decode"],
+          "flash_per_prefill": per["flash_prefill"], **rows,
+          "decode_bound_gb": bound_gb, "decode_bound_ms": bound_ms,
+          "decode_bound_weights_gb": weights_gb,
+          "decode_bound_kv_gb": kv_gb, "peak_mem_gb": peak,
+          "tokens_row_0": toks[0].tolist(), "logits_finite": finite,
+          "tokens_in_vocab": in_vocab})
+    check(finite and in_vocab, "slice_seamless: non-finite logits or a "
+                               "token outside the vocabulary")
+    errs = {}
+    cpu_s = 0.0
+    for name in ("mirage", "fp32"):
+        model.policy = get_policy(name)
+        errs[name], dt = seamless_layers_vs_cpu(
+            model, frames_np[0], prompts_np[0], SEAMLESS_UNITS)
+        cpu_s += dt
+    del model, frames, prompts
+    free_card()
+    fp32 = seamless_fp32_vs_cpu(frames_np[0, :SEAMLESS_FP32_FRAMES],
+                                prompts_np[0])
+    ok_layers = all(max(errs[k].values()) <= SEAMLESS_LAYER_RTOL[k]
+                    for k in errs)
+    ok_fp32 = max(v for k, v in fp32.items() if k.startswith(
+        ("forward", "decode"))) <= SEAMLESS_FP32_RTOL
+    emit({"phase": "seamless_vs_cpu_plain", "prompt_len": SEAMLESS_PROMPT,
+          "frames": frames_np.shape[1], "rel_l2": errs,
+          "cpu_seconds": cpu_s, "layers_rtol": SEAMLESS_LAYER_RTOL,
+          "fp32": fp32, "fp32_rtol": SEAMLESS_FP32_RTOL,
+          "ok": ok_layers and ok_fp32,
+          "phase_seconds": time.perf_counter() - t_phase})
+    check(ok_layers, f"seamless card vs CPU: a teacher-forced layer or the "
+                     f"head differs beyond {SEAMLESS_LAYER_RTOL} relative "
+                     f"L2: {errs}")
+    check(ok_fp32, f"seamless under fp32: the card's logits or its decode "
+                   f"after prefill differ by > {SEAMLESS_FP32_RTOL} "
+                   f"relative L2: {fp32}")
+    return launches
+
+
+def phase_slice_seamless_rrns(ops):
+    """seamless-m4t-large-v2 cut to 4 encoder and 4 decoder layers under
+    mirage_rrns at 52 dB and its clean twin, every GEMM weight programmed
+    once (stationary residues, as the engine programs a dense model), 4
+    rows of 128 frames, 16-token prompts and 8 tokens: the streams equal,
+    no decode beyond the correction radius, every kernel-4/5 and kernel-6
+    launch one residue block, flash once an encoder layer and a decoder
+    self-attention, and every GEMM call of the path counted in the health
+    scope (66 a prefill, 33 a decode step at this cut) with one record a
+    block. Returns the launches by channel."""
+    from repro_torch.core import gemm, stationary
+    from repro_torch.core.precision import get_policy
+    from repro_torch.obs import health
+
+    t_phase = time.perf_counter()
+    model = published_model(SEAMLESS_ARCH, SEAMLESS_RRNS_LAYERS,
+                            get_policy("mirage"))
+    cfg = model.cfg
+    per = seamless_per_step(cfg)
+    frames_np, prompts_np = seamless_inputs(
+        cfg, SEAMLESS_ROWS, SEAMLESS_RRNS_FRAMES, SEAMLESS_PROMPT)
+    frames = torch.from_numpy(frames_np).to(DEV)
+    prompts = torch.from_numpy(prompts_np).to(DEV)
+    rows, streams, launches_by = {}, {}, {}
+    for name, policy in (("rrns_52db", get_policy(
+            "mirage_rrns", snr_db=SNR_DB, noise_seed=NOISE_SEED)),
+            ("rrns_clean", get_policy("mirage_rrns",
+                                      noise_seed=NOISE_SEED))):
+        model.policy = policy
+        t0 = time.perf_counter()
+        stationary.install(model, stationary.encode_stationary_params(
+            model, policy))
+        torch.cuda.synchronize()
+        program_s = time.perf_counter() - t0
+        encoded = [m.stationary for m in model.modules()
+                   if getattr(m, "stationary", None) is not None]
+        residue_gb = sum(e.residues.numel() * e.residues.element_size()
+                         for e in encoded) / 1e9
+        n_encoded = len(encoded)
+        del encoded
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        acc = health.init(health.spec(policy), DEV)
+        gen = torch.Generator(device=DEV).manual_seed(NOISE_SEED)
+
+        @contextlib.contextmanager
+        def scope():
+            # the engine's plumbing around a model call: the GEMMs' noise
+            # from one generator, the health records added into the
+            # accumulators
+            with gemm.noise_scope(gen), health.collect() as hc:
+                yield
+            health.fold(acc, hc.values)
+
+        t0 = time.perf_counter()
+        with BlockTap() as tap, RecordTap() as rec:
+            toks = seamless_greedy(model, frames, prompts,
+                                   SEAMLESS_RRNS_TOKENS, SEAMLESS_CAP,
+                                   scope)[0]
+        dt = time.perf_counter() - t0
+        counters = {k: v.cpu().tolist() for k, v in acc.items()}
+        launches = dict(ops.LAUNCHES)
+        kernel = "rns_matmul_channel" if name == "rrns_52db" \
+            else "rns_matmul"
+        want = {kernel: tap.blocks, "rrns_decode": tap.blocks,
+                "flash_attention": per["flash_prefill"]}
+        calls = per["prefill"] + per["decode"] * (SEAMLESS_RRNS_TOKENS - 1)
+        rows[name] = {"launches": launches, "expected_launches": want,
+                      "residue_blocks": tap.blocks,
+                      "gemm_calls_health_counted": tap.counted_calls,
+                      "expected_gemm_calls": calls,
+                      "health_records": rec.records,
+                      "residue_blocks_health_counted": tap.counted_blocks,
+                      "health": counters, "seconds": dt,
+                      "program_weights_s": program_s,
+                      "stationary_weights": n_encoded,
+                      "stationary_residues_gb": residue_gb,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        streams[name] = toks.cpu().tolist()
+        expect_launches(launches, want, f"slice_seamless_rrns {name}")
+        check(tap.counted_calls == calls and tap.suppressed_calls == 0 and
+              rec.records == tap.counted_blocks,
+              f"slice_seamless_rrns {name}: {tap.counted_calls} GEMM calls "
+              f"counted in the health scope, expected {calls}; "
+              f"{rec.records} records for {tap.counted_blocks} blocks")
+        check(all(0 <= t < cfg.vocab_size for r in streams[name]
+                  for t in r), f"slice_seamless_rrns {name}: a token "
+                               f"outside the vocabulary")
+        launches_by[name] = launches
+        stationary.install(model, None)
+        free_card()
+    counters = rows["rrns_52db"]["health"]
+    equal = streams["rrns_52db"] == streams["rrns_clean"]
+    emit({"phase": "slice_seamless_rrns", "arch": SEAMLESS_ARCH,
+          "encoder_layers": cfg.encoder_layers,
+          "decoder_layers": cfg.n_layers, "frames": SEAMLESS_RRNS_FRAMES,
+          "prompt_len": SEAMLESS_PROMPT, "tokens": SEAMLESS_RRNS_TOKENS,
+          "snr_db": SNR_DB, "noise_seed": NOISE_SEED, **rows,
+          "streams_equal_clean": equal,
+          "phase_seconds": time.perf_counter() - t_phase})
+    check(counters["rrns_uncorrected"] == 0,
+          f"slice_seamless_rrns: {counters['rrns_uncorrected']} decodes "
+          f"beyond the correction radius at {SNR_DB} dB")
+    check(equal, "slice_seamless_rrns: the 52 dB streams differ from the "
+                 "clean channel's")
+    del model, frames, prompts
+    free_card()
+    return launches_by
+
+
+def seamless_grads_vs_cpu(model, batch, dec_layers):
+    """fp32 gradients on the card against the CPU's, teacher-forced, both
+    sides fed the card's inputs and one seeded upstream gradient a unit:
+    ``frontend_proj`` with encoder layer 0 after it (over the batch's
+    frames), and each decoder layer of ``dec_layers`` (its input and the
+    encoder's output computed on the card). Returns, by unit and leaf, the
+    leaf's relative L2 error, its max abs error over the unit's largest
+    gradient (the gate), and its own largest gradient over the unit's."""
+    from repro_torch.core.precision import get_policy
+    from repro_torch.models import common
+
+    fp32 = get_policy("fp32")
+    policy0 = model.policy
+    model.policy = fp32
+    shell = encdec_shell(model, (0,), dec_layers, policy=fp32)
+    frames = torch.from_numpy(batch["frames"]).to(DEV)
+    toks = torch.from_numpy(batch["tokens"]).to(DEV)
+    pos = torch.arange(toks.shape[1], device=DEV)
+    inputs = {}
+    with torch.no_grad():
+        enc_out = model.encode(frames)
+        h = common.embed(model.embed, toks)
+        for li, layer in enumerate(model.dec_layers[:max(dec_layers) + 1]):
+            inputs[li] = h
+            h = model.dec_layer(layer, h, pos, enc_out)[0]
+    grads = {}
+    for side, m, dev in (("card", model, DEV), ("cpu", shell, "cpu")):
+        p = pos.to(dev)
+        x = common.dense(m.frontend_proj, frames.to(dev), fp32)
+        outs = [m.enc_layer(m.enc_layers[0], x, p)]
+        units = {"frontend_proj+enc_layers.0": [
+            (f"frontend_proj.{n}", q)
+            for n, q in m.frontend_proj.named_parameters()] + [
+            (f"enc_layers.0.{n}", q)
+            for n, q in m.enc_layers[0].named_parameters()]}
+        for i, li in enumerate(dec_layers):
+            layer = m.dec_layers[li if side == "card" else i]
+            outs.append(m.dec_layer(layer, inputs[li].to(dev), p,
+                                    enc_out.to(dev))[0])
+            units[f"dec_layers.{li}"] = [(f"dec_layers.{li}.{n}", q)
+                                         for n, q in layer.named_parameters()]
+        gen = torch.Generator(device="cpu").manual_seed(11)
+        douts = [torch.randn(o.shape, generator=gen).to(dev) for o in outs]
+        named = [nq for unit in units.values() for nq in unit]
+        g = torch.autograd.grad(outs, [q for _, q in named], douts)
+        got = {n: x.cpu() for (n, _), x in zip(named, g)}
+        grads[side] = {u: {n: got[n] for n, _ in unit}
+                       for u, unit in units.items()}
+        del outs, g, got
+    model.policy = policy0
+    del shell, inputs, enc_out
+    out = {}
+    for unit, want in grads["cpu"].items():
+        top = max(float(v.abs().max()) for v in want.values())
+        out[unit] = {n: {"rel_l2": rel_l2(grads["card"][unit][n], v),
+                         "over_unit_max": float(
+                             (grads["card"][unit][n] - v).abs().max()) / top,
+                         "scale": float(v.abs().max()) / top}
+                     for n, v in want.items()}
+    return out
+
+
+def phase_slice_train_seamless(ops):
+    """seamless-m4t-large-v2 at full width and depth trained as ``python
+    -m repro_torch.launch.train --arch seamless-m4t-large-v2`` trains it:
+    SEAMLESS_TRAIN_STEPS steps of batch 4 x 64 with the frames
+    ``with_extras`` draws (one a token), AdamW lr 1e-3, clip 1.0, mirage;
+    every forward, dX and dW GEMM one launch of kernel 1 (3 x 386 - 1 a
+    step: the frames take no dX; attention plain, as the JAX package
+    trains it), finite losses; step time, tokens/s, the share of model
+    FLOPs, peak memory and the step's split; two steps from one state
+    bitwise equal; frontend_proj's, encoder layer 0's and decoder layers
+    0's and 23's fp32 gradients teacher-forced against the CPU (1e-4 of
+    each unit's largest gradient)."""
+    from repro_torch.core.precision import get_policy
+    from repro_torch.data.pipeline import with_extras
+
+    t_phase = time.perf_counter()
+    cfg, model, tc, data = train_setup(get_policy("mirage"), SEAMLESS_ARCH)
+    data = with_extras(data, cfg)
+    per_step = seamless_per_step(cfg)["train"]
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_phase
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    state, step, times, logs = run_train(model, tc, data,
+                                         SEAMLESS_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_s = statistics.median(times[1:])
+    gemm_w = sum(m.w.numel() for m in model.modules() if hasattr(m, "w"))
+    flops = 6.0 * gemm_w * tokens
+    losses = [m["loss"] for m in logs]
+    norms = [m["grad_norm"] for m in logs]
+    finite = all(math.isfinite(v) for v in losses + norms)
+    want = {"mirage_gemm": per_step * SEAMLESS_TRAIN_STEPS}
+    n_params = sum(p.numel() for p in model.parameters())
+    emit({"phase": "slice_train_seamless", "arch": SEAMLESS_ARCH,
+          "encoder_layers": cfg.encoder_layers,
+          "decoder_layers": cfg.n_layers, "params": n_params,
+          "gemm_weights": gemm_w, "train_state_gb": 16.0 * n_params / 1e9,
+          "policy": "mirage (mirage_fast b_m=4 g=16 k=5)",
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "frames": "with_extras: (4, 64, 1024) f32 normals a batch",
+          "steps": SEAMLESS_TRAIN_STEPS,
+          "optimizer": "adamw lr=1e-3 clip=1.0",
+          "gemm_per_step": per_step, "launches": launches,
+          "expected_launches": want,
+          "step_ms": [t * 1e3 for t in times],
+          "step_ms_median_2_on": step_s * 1e3, "tok_per_s": tokens / step_s,
+          "peak_mem_gb": peak, "build_model_s": build_s,
+          "model_flops_per_step": flops,
+          "model_flops_note": "6 x GEMM weights x tokens (the encoder over "
+                              "64 frames a row); attention's FLOPs are "
+                              "left out",
+          "model_flops_share_of_989_tflops": flops / step_s /
+          BF16_FLOPS_PER_S, "losses": losses, "grad_norms": norms})
+    check(finite, f"slice_train_seamless: a loss or grad norm is not "
+                  f"finite: {losses} {norms}")
+    expect_launches(launches, want, "slice_train_seamless")
+    prof = device_profile(lambda: step(state, next(data)), 1, host=False)
+    emit({"phase": "slice_train_seamless_profile", "steps": 1, **{
+        k.replace("_ms", "_ms_per_step"): v for k, v in prof.items()},
+        "gemm_ms_per_step": gemm_share(prof)})
+    emit({"phase": "slice_train_seamless_breakdown", "steps": 2,
+          **step_breakdown(model, tc, state, data, 2)})
+    del state
+    free_card()
+    batch = {k: np.asarray(v) for k, v in next(data).items()}
+    losses2, digests = repeat_step(model, batch)
+    same = bool(torch.equal(losses2[0].view(torch.int32),
+                            losses2[1].view(torch.int32))) and \
+        digests[0] == digests[1]
+    check(same, f"slice_train_seamless: two steps from one state differ: "
+                f"{[float(v) for v in losses2]} {digests}")
+    free_card()
+    t0 = time.perf_counter()
+    dec_layers = (0, cfg.n_layers - 1)
+    errs = seamless_grads_vs_cpu(model, batch, dec_layers)
+    worst = max(e["over_unit_max"] for unit in errs.values()
+                for e in unit.values())
+    ok = worst < LAYER_GRAD_RTOL
+    emit({"phase": "slice_train_seamless_checks",
+          "repeat_losses": [float(v) for v in losses2],
+          "repeat_grad_digests": digests, "repeat_bitwise_equal": same,
+          "fp32_grads_vs_cpu": errs,
+          "fp32_grads_worst_over_unit_max": worst,
+          "fp32_grads_worst_rel_l2": {
+              unit: max(e["rel_l2"] for e in leaves.values())
+              for unit, leaves in errs.items()},
+          "fp32_grads_rtol": LAYER_GRAD_RTOL,
+          "fp32_grads_note": "each leaf's max abs error over its unit's "
+                             "largest gradient (the gate), its relative L2 "
+                             "and its scale (its largest gradient over the "
+                             "unit's) beside it: the attention-score "
+                             "leaves' gradients are differences of nearly "
+                             "equal f32 terms, whose error follows the "
+                             "terms' scale, not the difference's",
+          "cpu_seconds": time.perf_counter() - t0, "ok": ok,
+          "phase_seconds": time.perf_counter() - t_phase})
+    check(ok, f"slice_train_seamless: an fp32 gradient of frontend_proj, "
+              f"encoder layer 0 or decoder layer {dec_layers} differs from "
+              f"the CPU's by {worst} >= {LAYER_GRAD_RTOL} of its unit's "
+              f"largest gradient")
+    del model
+    free_card()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a CUDA "
@@ -6568,6 +7312,10 @@ def main() -> int:
         phase_slice_zamba2_kernels(ops, ref, policy, flash_regs)
     err_gemm = max(err_gemm, err6f_gemm)
     err_flash = max(err_flash, err6f_flash)
+    gemm6g_rows, flash6g_rows, err6g_gemm, err6g_flash = \
+        phase_slice_seamless_kernels(ops, ref, policy)
+    err_gemm = max(err_gemm, err6g_gemm)
+    err_flash = max(err_flash, err6g_flash)
     err_flash = max(err_flash, err6d_flash)
     err_rns = phase_rns_matmul(ops, ref)
     err_channel = phase_rns_channel(ops, ref)
@@ -6580,7 +7328,7 @@ def main() -> int:
     rrns_paged_launches = phase_slice_rrns_paged(ops, model, cap,
                                                  rrns_streams)
     rns_launches = phase_slice_rns(ops, model, cap)
-    options_launches = phase_serve_paged_options(ops, model, cap)
+    options_launches = phase_serve_paged_options(ops, cap)
     warm_launches = phase_serve_warmup(ops, model, cap,
                                        {"rrns_52db": rrns_cold})
     pipe_launches = phase_serve_pipelined(ops, model, cap, streams)
@@ -6625,9 +7373,12 @@ def main() -> int:
     mamba_train_launches = phase_slice_train_mamba2(ops)
     zamba_launches = phase_slice_zamba2(ops)
     zamba_eng_launches = phase_ssm_engines(
-        ops, ZAMBA_ARCH, ZAMBA_CUT_LAYERS, "slice_zamba2_engines")
+        ops, ZAMBA_ARCH, ZAMBA_ENGINE_LAYERS, "slice_zamba2_engines")
     zamba_rrns_launches = phase_slice_zamba2_rrns(ops)
     zamba_train_launches = phase_slice_train_zamba2(ops)
+    seamless_launches = phase_slice_seamless(ops)
+    seamless_rrns_launches = phase_slice_seamless_rrns(ops)
+    seamless_train_launches = phase_slice_train_seamless(ops)
     reduced_launches = phase_serve_reduced(ops)
     phase_train_resume()
     rns_train_launches, rns_per_step = phase_slice_train_rns(ops, ref,
@@ -6742,7 +7493,7 @@ def main() -> int:
                      ["mirage_gemm"],
                      "zamba2_dense_warmed": zamba_launches["warmed"]
                      ["mirage_gemm"],
-                     **{f"zamba2_12_layers_{k}": v.get("mirage_gemm", 0)
+                     **{f"zamba2_6_layers_{k}": v.get("mirage_gemm", 0)
                         for k, v in zamba_eng_launches.items()},
                      "train_zamba2": zamba_train_launches["mirage_gemm"]}}
     flash["slice_6f"] = {
@@ -6751,8 +7502,20 @@ def main() -> int:
                      ["flash_attention"],
                      "zamba2_dense_warmed": zamba_launches["warmed"]
                      ["flash_attention"],
-                     **{f"zamba2_12_layers_{k}": v.get("flash_attention", 0)
+                     **{f"zamba2_6_layers_{k}": v.get("flash_attention", 0)
                         for k, v in zamba_eng_launches.items()}}}
+    # slice 6g: kernel 1 at seamless-m4t-large-v2's shapes (row 1g) and
+    # flash non-causal at its encoder's L = 1,024 (row 3d), and their
+    # launches on the enc-dec paths
+    gemm["slice_6g"] = {
+        "rows": gemm6g_rows,
+        "launches": {"seamless_served": seamless_launches["mirage_gemm"],
+                     "train_seamless": seamless_train_launches["mirage_gemm"]}}
+    flash["slice_6g"] = {
+        "rows": flash6g_rows,
+        "launches": {"seamless_served": seamless_launches["flash_attention"],
+                     **{f"seamless_4_layers_{k}": v["flash_attention"]
+                        for k, v in seamless_rrns_launches.items()}}}
     flash["slice_6d"] = {
         "rows": flash6d_rows,
         "launches": {"internvl2_dense_cold": vlm_launches["cold"]
@@ -6793,6 +7556,9 @@ def main() -> int:
         k_entry["launches_zamba2_12_layers"] = {
             path: n[kernel] for path, n in zamba_rrns_launches.items()
             if kernel in n}
+        k_entry["launches_seamless_4_layers"] = {
+            path: n[kernel] for path, n in seamless_rrns_launches.items()
+            if n.get(kernel)}
     emit({"kernels": [
         gemm,
         flash,
@@ -6847,11 +7613,15 @@ def main() -> int:
                          "train_mamba2": mamba_train_launches,
                          **{f"zamba2_{k}": v
                             for k, v in zamba_launches.items()},
-                         **{f"zamba2_12_layers_{k}": v
+                         **{f"zamba2_6_layers_{k}": v
                             for k, v in zamba_eng_launches.items()},
                          **{f"zamba2_12_layers_{k}": v
                             for k, v in zamba_rrns_launches.items()},
                          "train_zamba2": zamba_train_launches,
+                         "seamless_served": seamless_launches,
+                         **{f"seamless_4_layers_{k}": v
+                            for k, v in seamless_rrns_launches.items()},
+                         "train_seamless": seamless_train_launches,
                          "serve_reduced": reduced_launches,
                          "train_mirage_rns": rns_train_launches,
                          "twins": {k: v["launches"]
@@ -6917,7 +7687,7 @@ def main() -> int:
                              "rns_matmul_channel or rns_matmul and "
                              "rrns_decode once a residue block, and no "
                              "flash_attention; slice 6f (slice_zamba2 at "
-                             "54 layers, slice_zamba2_engines and "
+                             "54 layers, slice_zamba2_engines at 6, "
                              "slice_zamba2_rrns at 12, slice_train_zamba2 "
                              "at 54: zamba2_*, train_zamba2) launch "
                              "mirage_gemm 2 x layers + 8 x applications + "
@@ -6926,7 +7696,22 @@ def main() -> int:
                              "+ 1, a training step 3 x 181), "
                              "flash_attention once an application a "
                              "prefill batch (D = 80, MHA), and the "
-                             "residue kernels once a residue block"}})
+                             "residue kernels once a residue block; slice "
+                             "6g (slice_seamless at 24 + 24 layers, "
+                             "slice_seamless_rrns at 4 + 4, "
+                             "slice_train_seamless at 24 + 24: seamless_*, "
+                             "train_seamless) serves through the model's "
+                             "own prefill and greedy decode_step (no engine "
+                             "serves enc-dec in either package) and "
+                             "launches mirage_gemm 1 + 6 x encoder layers + "
+                             "10 x decoder layers + 1 a prefill (386), 8 x "
+                             "decoder layers + 1 a decode step (193), 3 x "
+                             "386 - 1 a training step (the frames take no "
+                             "dX), flash_attention once an encoder layer "
+                             "(non-causal) and once a decoder "
+                             "self-attention (causal) a prefill (48; the "
+                             "cross-attention stays plain, as in JAX), and "
+                             "the residue kernels once a residue block"}})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

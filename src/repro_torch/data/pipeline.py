@@ -1,8 +1,8 @@
 """Deterministic, sharded, resumable data pipeline (the ``SyntheticLM``
 source and ``with_extras`` of ``repro.data.pipeline``, copied: numpy only,
 so both packages draw the same batches bit for bit; the launcher passes the
-host's shard explicitly). The JAX package's ``FileSource`` and the enc-dec
-branch of ``with_extras`` (its ``frames``) are not ported yet.
+host's shard explicitly). The JAX package's ``FileSource`` is not ported
+yet.
 
   * ``SyntheticLM`` yields fixed-length token sequences from a stationary
     Zipfian Markov stream (learnable structure — loss decreases measurably,
@@ -90,21 +90,22 @@ class SyntheticLM:
 
 def with_extras(source: Iterable[Dict[str, np.ndarray]], cfg
                 ) -> Iterator[Dict[str, np.ndarray]]:
-    """Wrap a token source with the modality stub its arch requires: a vlm
-    (``cfg.frontend == "vit_stub"``) batch gains ``patches``, (B,
-    frontend_len, frontend_dim) f32 standard normals drawn from
-    ``default_rng(i * 7919 + 13)`` for the i-th batch this wrapper yields,
-    as the JAX package draws them. Other archs' batches pass through. The
-    enc-dec family's ``frames`` wait with that family (ROADMAP.md queue 1,
-    item 7.5)."""
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the enc-dec inputs wait in ROADMAP.md queue 1, "
-            f"slice 6")
+    """Wrap a token source with the modality stub its arch requires, as the
+    JAX package draws it, from ``default_rng(i * 7919 + 13)`` for the i-th
+    batch this wrapper yields: a vlm (``cfg.frontend == "vit_stub"``)
+    batch gains ``patches``, (B, frontend_len, frontend_dim) f32 standard
+    normals; an enc-dec batch gains ``frames``, (B, L, frontend_dim) f32
+    standard normals, one frame a token (so the encoder's length in
+    training is the token length, not ``frontend_len``). Other archs'
+    batches pass through."""
     for i, batch in enumerate(source):
+        rng = np.random.default_rng(i * 7919 + 13)
         if cfg.frontend == "vit_stub":
-            rng = np.random.default_rng(i * 7919 + 13)
             batch["patches"] = rng.normal(size=(
                 batch["tokens"].shape[0], cfg.frontend_len,
+                cfg.frontend_dim)).astype(np.float32)
+        if cfg.is_encdec:
+            batch["frames"] = rng.normal(size=(
+                batch["tokens"].shape[0], batch["tokens"].shape[1],
                 cfg.frontend_dim)).astype(np.float32)
         yield batch

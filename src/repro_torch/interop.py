@@ -1,12 +1,15 @@
 """Carry the JAX package's parameters into the port's modules.
 
-The JAX LM keeps its parameters as a nested dict whose ``layers`` subtree is
-stacked on axis 0 (the ``vmap`` init). Given that tree with numpy leaves
-(``jax.tree_util.tree_map(np.asarray, params)`` on the caller's side; this
-module imports no JAX), :func:`load_jax_params` copies every leaf into the
-parameter of the same name, unstacking the layers, so both packages compute
-the same function. The port's module attribute names and layouts are the
-JAX tree's, including the tied ``embed.emb``.
+The JAX models keep their parameters as a nested dict whose layer subtrees
+are stacked on axis 0 (the ``vmap`` init): ``layers`` in the LM,
+``enc_layers`` and ``dec_layers`` in the enc-dec model. A port model names
+its stacks in ``stacks``, each an ``nn.ModuleList`` of the same name.
+Given the tree with numpy leaves (``jax.tree_util.tree_map(np.asarray,
+params)`` on the caller's side; this module imports no JAX),
+:func:`load_jax_params` copies every leaf into the parameter of the same
+name, unstacking the layers, so both packages compute the same function.
+The port's module attribute names and layouts are the JAX tree's,
+including the tied ``embed.emb``.
 
 :func:`load_jax_train_state` carries a whole JAX train state over (params,
 optimizer moments and count, step, and the BFP error-feedback buffer), so a
@@ -51,18 +54,21 @@ def _load(module: nn.Module, subtree: Mapping[str, Any], path: str) -> int:
 
 
 def load_jax_params(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
-    """Copy a JAX LM parameter tree (numpy leaves) into ``model`` in place.
+    """Copy a JAX parameter tree (numpy leaves) into ``model`` in place.
 
     Raises if a leaf has no counterpart, a shape differs, or a parameter of
     the model is left unloaded."""
-    layers = tree["layers"]
+    names = model.stacks
     loaded = 0
     with torch.no_grad():
         loaded += _load(model, {k: v for k, v in tree.items()
-                                if k != "layers"}, "")
-        for i, layer in enumerate(model.layers):
-            unstacked = _index(layers, i)
-            loaded += _load(layer, unstacked, f"layers[{i}]")
+                                if k not in names}, "")
+        for stack in names:
+            if stack not in tree:
+                continue
+            for i, layer in enumerate(getattr(model, stack)):
+                loaded += _load(layer, _index(tree[stack], i),
+                                f"{stack}[{i}]")
     total = sum(p.numel() for p in model.parameters())
     if loaded != total:
         raise ValueError(f"loaded {loaded} of the model's {total} parameter "
@@ -89,6 +95,7 @@ def load_jax_stationary(model: nn.Module, tree: Mapping[str, Any]
     from repro_torch.core.stationary import MOE_STACKS, StationaryResidues
 
     dev = model.device
+    names = model.stacks
     out: Dict[str, Any] = {}
 
     def convert(sr, i=None, stack=False):
@@ -105,10 +112,10 @@ def load_jax_stationary(model: nn.Module, tree: Mapping[str, Any]
             moduli=tuple(int(m) for m in sr.moduli), b_m=int(sr.b_m),
             g=int(sr.g), orig_k=int(sr.orig_k))
 
-    def walk(subtree, prefix, layer):
+    def walk(subtree, prefix, layer, owner=None):
         for name, val in subtree.items():
             if isinstance(val, Mapping):
-                walk(val, prefix + [name], layer)
+                walk(val, prefix + [name], layer, owner)
             elif hasattr(val, "residues") and hasattr(val, "scale"):
                 stack = name in MOE_STACKS and prefix[-1:] == ["moe"]
                 if name != "w" and not stack:
@@ -117,12 +124,13 @@ def load_jax_stationary(model: nn.Module, tree: Mapping[str, Any]
                                    f"expert stack")
                 key = ".".join(prefix + ([name] if stack else []))
                 if layer is not None:
-                    key = f"layers.{layer}.{key}"
+                    key = f"{owner}.{layer}.{key}"
                 out[key] = convert(val, layer, stack)
 
-    walk({k: v for k, v in tree.items() if k != "layers"}, [], None)
-    for i in range(len(model.layers)):
-        walk(tree["layers"], [], i)
+    walk({k: v for k, v in tree.items() if k not in names}, [], None)
+    for owner in names:
+        for i in range(len(getattr(model, owner))):
+            walk(tree[owner], [], i, owner)
     modules = dict(model.named_modules())
     for key in out:
         owner, _, stack = key.rpartition(".")
@@ -133,14 +141,15 @@ def load_jax_stationary(model: nn.Module, tree: Mapping[str, Any]
 
 
 def _by_name(model: nn.Module, tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
-    """The leaves of a JAX parameter-shaped tree (stacked ``layers``) keyed
-    by the port's parameter names."""
+    """The leaves of a JAX parameter-shaped tree (stacked layer subtrees)
+    keyed by the port's parameter names."""
+    names = model.stacks
     out = {}
     for name, _ in model.named_parameters():
         parts = name.split(".")
         node, layer = tree, None
-        if parts[0] == "layers":
-            node, layer, parts = tree["layers"], int(parts[1]), parts[2:]
+        if parts[0] in names:
+            node, layer, parts = tree[parts[0]], int(parts[1]), parts[2:]
         for part in parts:
             node = node[part]
         val = np.asarray(node)
@@ -192,20 +201,21 @@ def _jax_layout(model: nn.Module, tree: Mapping[str, torch.Tensor],
                 leaf, stack) -> Dict[str, Any]:
     """A name-keyed tree (the port's params, or a moment tree of the same
     names) laid out as the JAX parameter tree: nested by the names' parts,
-    with each layer leaf stacked on axis 0 over the layers."""
+    with each layer leaf stacked on axis 0 over its stack's layers."""
+    n_layers = {s: len(getattr(model, s)) for s in model.stacks}
     out: Dict[str, Any] = {}
     per_layer: Dict[tuple, list] = {}
-    n_layers = len(model.layers)
     for name, _ in model.named_parameters():
         parts = name.split(".")
         val = leaf(tree[name])
-        if parts[0] == "layers":
-            per_layer.setdefault(tuple(parts[2:]), [None] * n_layers)[
+        if parts[0] in n_layers:
+            per_layer.setdefault((parts[0],) + tuple(parts[2:]),
+                                 [None] * n_layers[parts[0]])[
                 int(parts[1])] = val
         else:
             _put(out, parts, val)
     for parts, vals in per_layer.items():
-        _put(out.setdefault("layers", {}), list(parts), stack(vals))
+        _put(out.setdefault(parts[0], {}), list(parts[1:]), stack(vals))
     return out
 
 

@@ -17,8 +17,11 @@ in place of KV, so ``--cache-layout paged`` keeps no pool and
 ``--prefix-cache`` shares nothing, as in the JAX engine; zamba2-2.7b
 serves at full depth too, its shared attention block's KV paged under
 ``--cache-layout paged`` while ``--prefix-cache`` still shares nothing,
-and ``--layers N`` keeps N // 6 applications of that block), with weights and
-prompts drawn from seed 0, through
+and ``--layers N`` keeps N // 6 applications of that block; the enc-dec
+seamless-m4t-large-v2 raises ``ValueError``: as in the JAX package, no
+engine serves it, and its served path is ``EncDec.prefill`` and
+``EncDec.decode_step``), with weights and prompts drawn from seed 0,
+through
 ``LMServer`` (greedy unless
 ``--sample``; whole-prompt prefill attention through the flash kernel),
 and prints tok/s, TTFT and TPOT. ``--device cpu`` runs the kernels' plain
@@ -149,6 +152,12 @@ def build(args: argparse.Namespace):
     attention through the flash kernel."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
+    if cfg.is_encdec:
+        raise ValueError(
+            f"{cfg.arch_id}: the serving engine takes decoder-only models; "
+            f"the JAX package's engine serves no enc-dec model either. Its "
+            f"served path is the model's own EncDec.prefill(frames, tokens, "
+            f"cap) and greedy EncDec.decode_step(cache, tokens)")
     if args.reduced:
         cfg = cfg.reduced()
     if args.layers is not None:

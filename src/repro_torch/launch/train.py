@@ -4,6 +4,8 @@
       --steps 10 --policy mirage
   PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \\
       --steps 10
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch seamless-m4t-large-v2 --steps 10
 
 Trains the FULL-width config on the card unless ``--reduced`` is given,
 with weights drawn from ``--seed`` and ``SyntheticLM`` batches of the JAX
@@ -26,17 +28,21 @@ batched launch of the GEMM kernel), the SSM config ``mamba2-2.7b``
 (whose 45.3 GB train state fits the card at full depth) and the hybrid
 ``zamba2-2.7b`` (54 Mamba2 layers and one shared attention block applied
 after every 6th, its gradient summed over the 9 applications; a 39.0 GB
-train state, which fits too). ``--layers N``
-keeps the config's first
-N layers at its published widths: the f32 train state (masters, gradients
-and both Adam moments, 16 bytes a parameter) of a full-depth MoE config,
-or of command-r-plus-104b, outgrows one card.
+train state, which fits too) and the enc-dec ``seamless-m4t-large-v2``
+(24 encoder and 24 decoder layers, a 26.1 GB train state; its batches
+carry the stub speech frontend's ``frames``, one a token, from
+:func:`repro_torch.data.pipeline.with_extras`). ``--layers N`` keeps the
+config's first N layers at its published widths (an enc-dec config's
+first N of each stack): the f32 train state (masters, gradients and both
+Adam moments, 16 bytes a parameter) of a full-depth MoE config, or of
+command-r-plus-104b, outgrows one card.
 
 ``--ckpt-dir DIR`` trains through the fault-tolerant loop: a checkpoint
 every ``--ckpt-every`` steps (written on a writer thread) and one on
 SIGTERM/SIGINT, after which the run stops; ``--resume`` continues from the
 latest checkpoint in DIR, on the batch the stopped run would have taken
-next (a vlm run's patch draws start over, as the JAX launcher's do).
+next (a vlm run's patch draws and an enc-dec run's frame draws start
+over, as the JAX launcher's do).
 Checkpoints are in the JAX package's layout, so either launcher resumes
 the other's. ``--distributed`` waits for the distributed slice and
 raises.
@@ -119,8 +125,9 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced()
     if args.layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=min(args.layers,
-                                                    cfg.n_layers))
+        cfg = dataclasses.replace(
+            cfg, n_layers=min(args.layers, cfg.n_layers),
+            encoder_layers=min(args.layers, cfg.encoder_layers))
     overrides = {}
     if args.snr_db is not None:
         overrides["snr_db"] = args.snr_db

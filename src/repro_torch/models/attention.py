@@ -1,8 +1,10 @@
 """GQA attention: full-sequence path + cached decode over the dense rings
-or the paged pool, the speculative verify step and the chunked-prefill step.
+or the paged pool, the speculative verify step and the chunked-prefill step;
+self-attention, or the enc-dec decoder's cross-attention over the encoder's
+output (``x_kv``, and a decode step that reads a fixed cross cache).
 
-Port of ``repro.models.attention`` for the dense family. Full-sequence
-attention is the hand-written flash kernel
+Port of ``repro.models.attention``. Full-sequence self-attention is the
+hand-written flash kernel
 (:func:`repro_torch.kernels.ops.flash_attention`; its plain version on a
 CPU tensor) where the caller asks for it (``use_flash``, the JAX package's
 ``LMCallOptions.use_flash_kernel``: serving's prefill), and otherwise the
@@ -222,32 +224,46 @@ def attn_apply(p: Attention, x: torch.Tensor, policy: MiragePolicy, *,
                positions: torch.Tensor, rope_theta: float,
                causal: bool = True, window: Optional[int] = None,
                qk_norm: bool = False, kv_repeat: int = 1,
+               x_kv: Optional[torch.Tensor] = None, use_rope: bool = True,
                q_chunk: int = 1024, kv_chunk: int = 1024,
+               kv_positions: Optional[torch.Tensor] = None,
                use_flash: bool = False, skip_o_proj: bool = False
                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Full-sequence self-attention block (train and prefill path).
+    """Full-sequence attention block (train and prefill path).
 
-    ``positions`` are the sequence's positions 0..L-1 (what the flash
-    kernel assumes, as the JAX ``use_flash`` condition does). Returns
-    ``(out, (k_cache, v_cache))`` so prefill can keep the projected KV;
-    with ``skip_o_proj`` ``out`` is the context (B, L, H * D) before the
-    output projection, for a caller that merges that GEMM with another
+    ``x_kv`` is the source of k/v (the enc-dec decoder's cross-attention
+    over the encoder's output; ``x`` itself by default), whose positions
+    are ``kv_positions`` (default: ``positions`` for self-attention,
+    ``arange(S)`` for a source of S rows); ``use_rope=False`` skips the
+    rotary embedding (cross-attention). The flash kernel runs where
+    ``use_flash`` asks and the call is self-attention at the sequence's
+    own positions (no ``x_kv``, no ``kv_positions``), as the JAX
+    package's ``use_flash`` condition has it: ``positions`` are then
+    0..L-1, what the kernel assumes. Returns ``(out, (k_cache,
+    v_cache))`` so prefill can keep the projected KV; with
+    ``skip_o_proj`` ``out`` is the context (B, L, H * D) before the output
+    projection, for a caller that merges that GEMM with another
     (``LMCallOptions.merge_parallel_proj``)."""
     B, L, _ = x.shape
+    src = x if x_kv is None else x_kv
+    S = src.shape[1]
     q = common.dense(p.q, x, policy).reshape(B, L, n_heads, head_dim)
-    k = common.dense(p.k, x, policy).reshape(B, L, n_kv_heads, head_dim)
-    v = common.dense(p.v, x, policy).reshape(B, L, n_kv_heads, head_dim)
+    k = common.dense(p.k, src, policy).reshape(B, S, n_kv_heads, head_dim)
+    v = common.dense(p.v, src, policy).reshape(B, S, n_kv_heads, head_dim)
     if qk_norm:
         q = common.head_rmsnorm(p.q_norm, q)
         k = common.head_rmsnorm(p.k_norm, k)
-    q = common.apply_rope(q, positions, rope_theta)
-    k = common.apply_rope(k, positions, rope_theta)
+    kv_pos = kv_positions if kv_positions is not None else (
+        positions if x_kv is None else torch.arange(S, device=x.device))
+    if use_rope:
+        q = common.apply_rope(q, positions, rope_theta)
+        k = common.apply_rope(k, kv_pos, rope_theta)
     k = _repeat_kv(k, kv_repeat)
     v = _repeat_kv(v, kv_repeat)
-    if use_flash:
+    if use_flash and x_kv is None and kv_positions is None:
         out = ops.flash_attention(q, k, v, causal=causal, window=window)
     else:
-        out = chunked_attention(q, k, v, positions, positions, causal=causal,
+        out = chunked_attention(q, k, v, positions, kv_pos, causal=causal,
                                 window=window, q_chunk=q_chunk,
                                 kv_chunk=kv_chunk)
     out = out.reshape(B, L, n_heads * head_dim)
@@ -261,7 +277,8 @@ def attn_decode_step(p: Attention, x: torch.Tensor, cache_k: torch.Tensor,
                      policy: MiragePolicy, *, n_heads: int, n_kv_heads: int,
                      head_dim: int, rope_theta: float,
                      window: Optional[int] = None, qk_norm: bool = False,
-                     kv_repeat: int = 1,
+                     kv_repeat: int = 1, use_rope: bool = True,
+                     cross: bool = False,
                      block_tables: Optional[torch.Tensor] = None,
                      plan: Optional[PagePlan] = None):
     """One decode step. x: (B, 1, d).
@@ -286,25 +303,42 @@ def attn_decode_step(p: Attention, x: torch.Tensor, cache_k: torch.Tensor,
     Unlike the JAX function, the new key/value are written into cache_k/v
     IN PLACE (the serving cache is large and its old value is never read
     again); the updated tensors are also returned.
+
+    ``cross=True`` is the enc-dec decoder's cross-attention: cache_k/v
+    are the dense ``(B, S_enc, Kv_eff, D)`` keys and values projected from
+    the encoder's output at prefill, read whole (every position valid);
+    only q and o are projected, and nothing is written. ``use_rope=False``
+    skips the rotary embedding (cross-attention has none).
     """
     B = x.shape[0]
     paged = block_tables is not None
     per_slot = idx.dim() == 1
-    if paged and not per_slot:
-        raise ValueError("paged decode needs a per-slot idx vector")
+    if paged and (cross or not per_slot):
+        raise ValueError("paged decode needs a per-slot idx vector and a "
+                         "self-attention cache")
     q = common.dense(p.q, x, policy).reshape(B, 1, n_heads, head_dim)
-    knew = common.dense(p.k, x, policy).reshape(B, 1, n_kv_heads, head_dim)
-    vnew = common.dense(p.v, x, policy).reshape(B, 1, n_kv_heads, head_dim)
     if qk_norm:
         q = common.head_rmsnorm(p.q_norm, q)
-        knew = common.head_rmsnorm(p.k_norm, knew)
     rope_pos = idx.reshape(B, 1) if per_slot else idx.reshape(1)
-    q = common.apply_rope(q, rope_pos, rope_theta)
-    knew = _repeat_kv(common.apply_rope(knew, rope_pos, rope_theta),
-                      kv_repeat)
-    vnew = _repeat_kv(vnew, kv_repeat)
+    if use_rope:
+        q = common.apply_rope(q, rope_pos, rope_theta)
+    if not cross:
+        knew = common.dense(p.k, x, policy).reshape(B, 1, n_kv_heads,
+                                                     head_dim)
+        vnew = common.dense(p.v, x, policy).reshape(B, 1, n_kv_heads,
+                                                    head_dim)
+        if qk_norm:
+            knew = common.head_rmsnorm(p.k_norm, knew)
+        if use_rope:
+            knew = common.apply_rope(knew, rope_pos, rope_theta)
+        knew = _repeat_kv(knew, kv_repeat)
+        vnew = _repeat_kv(vnew, kv_repeat)
 
-    if paged:
+    if cross:
+        valid = torch.ones(cache_k.shape[1], dtype=torch.bool,
+                           device=x.device)
+        keys, vals = cache_k, cache_v
+    elif paged:
         if plan is None:
             plan = page_plan(block_tables, idx, cache_k.shape[0],
                              cache_k.shape[1])

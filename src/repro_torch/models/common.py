@@ -63,14 +63,18 @@ class Norm(nn.Module):
 
 
 class MLP(nn.Module):
-    """SwiGLU feed-forward weights (gate, up, down). The JAX package's GELU
-    variant serves only the enc-dec family, which is not ported."""
+    """Feed-forward weights: SwiGLU (gate, up, down), or with ``mlp_type=
+    "gelu"`` (the enc-dec family's) up and down alone, no gate."""
 
-    def __init__(self, d: int, d_ff: int, bias: bool = False, *,
-                 generator: torch.Generator, device: torch.device):
+    def __init__(self, d: int, d_ff: int, bias: bool = False,
+                 mlp_type: str = "swiglu", *, generator: torch.Generator,
+                 device: torch.device):
         super().__init__()
+        if mlp_type not in ("swiglu", "gelu"):
+            raise ValueError(f"unknown mlp_type {mlp_type!r}")
         kw = dict(generator=generator, device=device)
-        self.gate = Dense(d, d_ff, bias, **kw)
+        self.gate = Dense(d, d_ff, bias, **kw) if mlp_type == "swiglu" \
+            else None
         self.up = Dense(d, d_ff, bias, **kw)
         self.down = Dense(d_ff, d, bias, **kw)
 
@@ -155,6 +159,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # --------------------------------------------------------------------------
 
 def mlp(p: MLP, x: torch.Tensor, policy: MiragePolicy) -> torch.Tensor:
-    h = torch.nn.functional.silu(dense(p.gate, x, policy)) * \
-        dense(p.up, x, policy)
+    """SwiGLU, or GELU where ``p`` has no gate. The GELU is the JAX
+    package's ``jax.nn.gelu``, whose default is the tanh approximation (the
+    exact erf form differs in the last bits, which flips BFP roundings)."""
+    if p.gate is None:
+        h = torch.nn.functional.gelu(dense(p.up, x, policy),
+                                     approximate="tanh")
+    else:
+        h = torch.nn.functional.silu(dense(p.gate, x, policy)) * \
+            dense(p.up, x, policy)
     return dense(p.down, h, policy)

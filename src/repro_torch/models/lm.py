@@ -23,7 +23,8 @@ stacked layers becomes a loop over an ``nn.ModuleList``. Serving caches come
 in the dense layout (per-slot rings) and the paged one (global page pools
 and per-slot block tables, :meth:`LM.cache_spec`), with the speculative
 :meth:`LM.verify_step` and :meth:`LM.prefill_chunk` over the latter. The
-enc-dec family is not ported yet and raises ``NotImplementedError``.
+enc-dec family is :class:`repro_torch.models.encdec.EncDec`; ``LM``
+refuses its configs.
 """
 
 from __future__ import annotations
@@ -43,8 +44,8 @@ from repro_torch.models import attention, common, mamba2, moe
 from repro_torch.obs import health as obs_health
 from repro_torch.runtime.paging import blocks_for
 
-_FAMILIES = "the enc-dec family waits in ROADMAP.md queue 1, slice 6, " \
-            "item 7.5"
+_ENCDEC = "an enc-dec config is built as repro_torch.models.encdec.EncDec " \
+          "(models.build_model picks it)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -214,16 +215,21 @@ class LM(nn.Module):
     model, load its parameters with
     :func:`repro_torch.interop.load_jax_params`."""
 
+    #: the layer stack, named as the JAX tree's stacked subtree
+    stacks = ("layers",)
+
     def __init__(self, cfg: ModelConfig, policy: MiragePolicy,
                  options: LMCallOptions = LMCallOptions(), *,
                  device: Optional[Union[str, torch.device]] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         kinds = set(cfg.layer_kinds())
+        if cfg.is_encdec or cfg.frontend not in (None, "vit_stub"):
+            raise ValueError(f"{cfg.arch_id}: {_ENCDEC}")
         if len(kinds) != 1 or \
-                not kinds <= {"attn_mlp", "attn_moe", "mamba"} or \
-                cfg.is_encdec or cfg.frontend not in (None, "vit_stub"):
-            raise NotImplementedError(f"{cfg.arch_id}: {_FAMILIES}")
+                not kinds <= {"attn_mlp", "attn_moe", "mamba"}:
+            raise ValueError(f"{cfg.arch_id}: layer kinds {sorted(kinds)} "
+                             f"are not a decoder-only LM's")
         self.kind = kinds.pop()
         if (cfg.family == "hybrid") != (cfg.attn_every > 0):
             raise ValueError(

@@ -92,6 +92,26 @@ def test_flash_plain_matches_pallas(shape, window):
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("shape", [
+    (1, 32, 4, 16, 4),            # MHA (the enc-dec encoder's layout)
+    (2, 24, 8, 16, 2),            # GQA 4:1
+    (1, 17, 6, 8, 3),             # ragged length, GQA 2:1
+])
+def test_flash_plain_matches_pallas_noncausal(shape):
+    """Bidirectional attention (the enc-dec encoder's): every query reads
+    every key."""
+    B, L, H, D, Kv = shape
+    q = _rand((B, L, H, D), 11, 0.5)
+    k = _rand((B, L, Kv, D), 12, 0.5)
+    v = _rand((B, L, Kv, D), 13, 0.5)
+    want = np.asarray(jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             causal=False, block_q=8, block_k=8,
+                             interpret=True))
+    got = ref.flash_attention_ref(torch.from_numpy(q), torch.from_numpy(k),
+                                  torch.from_numpy(v), causal=False)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_chunked_attention_matches_jax(causal):
     B, L, H, D, Kv = 2, 40, 4, 16, 2
@@ -571,3 +591,19 @@ def test_cuda_flash_kernel_vs_plain(cuda):
             ops.flash_attention(q, k, v, True, window),
             ref.flash_attention_ref(q, k, v, True, window),
             rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_kernel_noncausal_vs_plain(cuda):
+    """Bidirectional attention: the enc-dec encoder's (B 4, L 1,024, 16 /
+    16 heads, D 64) and ragged and GQA cases, twice bitwise."""
+    cases = ((4, 1024, 16, 16), (2, 77, 14, 2), (1, 33, 4, 4))
+    for i, (B, L, H, Kv) in enumerate(cases):
+        q = torch.from_numpy(_rand((B, L, H, 64), 3 * i + 40, 0.5)).to(cuda)
+        k = torch.from_numpy(_rand((B, L, Kv, 64), 3 * i + 41, 0.5)).to(cuda)
+        v = torch.from_numpy(_rand((B, L, Kv, 64), 3 * i + 42, 0.5)).to(cuda)
+        got = ops.flash_attention(q, k, v, causal=False)
+        torch.testing.assert_close(
+            got, ref.flash_attention_ref(q, k, v, causal=False),
+            rtol=2e-5, atol=2e-5)
+        assert torch.equal(got, ops.flash_attention(q, k, v, causal=False))

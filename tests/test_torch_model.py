@@ -150,15 +150,30 @@ def test_load_jax_params_rejects_mismatched_trees():
         load_jax_params(tm, partial)
 
 
-@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config(arch)
-    jcfg = jconfig(arch).reduced()
-    fields = {f: getattr(jcfg, f) for f in ModelConfig.__dataclass_fields__}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(ModelConfig(**fields), get_policy("mirage"),
-                    device="cpu")
+def test_reduced_seamless_builds_and_equals_jax_prefill():
+    """The enc-dec family is ported (it was the last case of the
+    unported-families test): the reduced seamless-m4t-large-v2 builds from
+    the port's own config as an ``EncDec``, and on the JAX init's weights
+    its prefill logits equal JAX's within 1e-5."""
+    from repro_torch.models import EncDec
+
+    cfg = jconfig("seamless-m4t-large-v2").reduced()
+    jm = jbuild(cfg, jpolicy("fp32"))
+    params = jm.init(jax.random.PRNGKey(0))
+    tm = build_model(get_config("seamless-m4t-large-v2").reduced(),
+                     get_policy("fp32"), device="cpu")
+    assert isinstance(tm, EncDec)
+    load_jax_params(tm, jax.tree_util.tree_map(np.asarray, params))
+    rng = np.random.default_rng(0)
+    frames = rng.normal(size=(2, 12, cfg.frontend_dim)).astype(np.float32)
+    toks = rng.integers(0, 256, (2, 9)).astype(np.int32)
+    want, _ = jax.jit(lambda p, f, t: jm.prefill(p, f, t, 16))(
+        params, frames, toks)
+    with torch.no_grad():
+        got, _ = tm.prefill(torch.from_numpy(frames), torch.from_numpy(toks),
+                            16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
 
 
 def test_reduced_mamba2_builds_and_equals_jax_forward():
@@ -203,14 +218,15 @@ def test_reduced_zamba2_builds_and_equals_jax_forward():
 
 
 def test_config_matches_jax():
-    """Every ported config, field by field, and its ``reduced()``: the
-    dense qwen2/qwen3 ones, command-r, the vlm, the MoE family, mamba2 and
-    zamba2."""
+    """Every config of the JAX package, ported field by field, and its
+    ``reduced()``: the dense qwen2/qwen3 ones, command-r, the vlm, the MoE
+    family, mamba2, zamba2 and seamless-m4t."""
+    from repro.configs import ARCHS as JARCHS
     from repro_torch.configs import ARCHS
-    assert set(ARCHS) == {"qwen2-0.5b", "qwen2-1.5b", "qwen3-14b",
-                          "command-r-plus-104b", "internvl2-2b",
-                          "mixtral-8x7b", "qwen3-moe-30b-a3b",
-                          "mamba2-2.7b", "zamba2-2.7b"}
+    assert set(ARCHS) == set(JARCHS) == {
+        "qwen2-0.5b", "qwen2-1.5b", "qwen3-14b", "command-r-plus-104b",
+        "internvl2-2b", "mixtral-8x7b", "qwen3-moe-30b-a3b", "mamba2-2.7b",
+        "zamba2-2.7b", "seamless-m4t-large-v2"}
     for arch in ARCHS:
         a, b = jconfig(arch), get_config(arch)
         for f in ModelConfig.__dataclass_fields__:
