@@ -224,22 +224,19 @@ def attn_apply(p: Attention, x: torch.Tensor, policy: MiragePolicy, *,
                positions: torch.Tensor, rope_theta: float,
                causal: bool = True, window: Optional[int] = None,
                qk_norm: bool = False, kv_repeat: int = 1,
-               x_kv: Optional[torch.Tensor] = None, use_rope: bool = True,
+               x_kv: Optional[torch.Tensor] = None,
                q_chunk: int = 1024, kv_chunk: int = 1024,
-               kv_positions: Optional[torch.Tensor] = None,
                use_flash: bool = False, skip_o_proj: bool = False
                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence attention block (train and prefill path).
 
-    ``x_kv`` is the source of k/v (the enc-dec decoder's cross-attention
-    over the encoder's output; ``x`` itself by default), whose positions
-    are ``kv_positions`` (default: ``positions`` for self-attention,
-    ``arange(S)`` for a source of S rows); ``use_rope=False`` skips the
-    rotary embedding (cross-attention). The flash kernel runs where
-    ``use_flash`` asks and the call is self-attention at the sequence's
-    own positions (no ``x_kv``, no ``kv_positions``), as the JAX
-    package's ``use_flash`` condition has it: ``positions`` are then
-    0..L-1, what the kernel assumes. Returns ``(out, (k_cache,
+    ``x_kv`` is the source of k/v for the enc-dec decoder's
+    cross-attention over the encoder's output: its S rows sit at
+    positions 0..S-1, every one valid, and neither side takes rope.
+    Without it the call is self-attention over ``x`` at ``positions``
+    with rope, and takes the flash kernel where ``use_flash`` asks, as
+    the JAX package's ``use_flash`` condition has it: ``positions`` are
+    then 0..L-1, what the kernel assumes. Returns ``(out, (k_cache,
     v_cache))`` so prefill can keep the projected KV; with
     ``skip_o_proj`` ``out`` is the context (B, L, H * D) before the output
     projection, for a caller that merges that GEMM with another
@@ -253,14 +250,15 @@ def attn_apply(p: Attention, x: torch.Tensor, policy: MiragePolicy, *,
     if qk_norm:
         q = common.head_rmsnorm(p.q_norm, q)
         k = common.head_rmsnorm(p.k_norm, k)
-    kv_pos = kv_positions if kv_positions is not None else (
-        positions if x_kv is None else torch.arange(S, device=x.device))
-    if use_rope:
+    if x_kv is None:
+        kv_pos = positions
         q = common.apply_rope(q, positions, rope_theta)
-        k = common.apply_rope(k, kv_pos, rope_theta)
+        k = common.apply_rope(k, positions, rope_theta)
+    else:
+        kv_pos = torch.arange(S, device=x.device)
     k = _repeat_kv(k, kv_repeat)
     v = _repeat_kv(v, kv_repeat)
-    if use_flash and x_kv is None and kv_positions is None:
+    if use_flash and x_kv is None:
         out = ops.flash_attention(q, k, v, causal=causal, window=window)
     else:
         out = chunked_attention(q, k, v, positions, kv_pos, causal=causal,
@@ -277,8 +275,7 @@ def attn_decode_step(p: Attention, x: torch.Tensor, cache_k: torch.Tensor,
                      policy: MiragePolicy, *, n_heads: int, n_kv_heads: int,
                      head_dim: int, rope_theta: float,
                      window: Optional[int] = None, qk_norm: bool = False,
-                     kv_repeat: int = 1, use_rope: bool = True,
-                     cross: bool = False,
+                     kv_repeat: int = 1, cross: bool = False,
                      block_tables: Optional[torch.Tensor] = None,
                      plan: Optional[PagePlan] = None):
     """One decode step. x: (B, 1, d).
@@ -307,8 +304,8 @@ def attn_decode_step(p: Attention, x: torch.Tensor, cache_k: torch.Tensor,
     ``cross=True`` is the enc-dec decoder's cross-attention: cache_k/v
     are the dense ``(B, S_enc, Kv_eff, D)`` keys and values projected from
     the encoder's output at prefill, read whole (every position valid);
-    only q and o are projected, and nothing is written. ``use_rope=False``
-    skips the rotary embedding (cross-attention has none).
+    only q and o are projected, no rope is applied, and nothing is
+    written.
     """
     B = x.shape[0]
     paged = block_tables is not None
@@ -320,17 +317,15 @@ def attn_decode_step(p: Attention, x: torch.Tensor, cache_k: torch.Tensor,
     if qk_norm:
         q = common.head_rmsnorm(p.q_norm, q)
     rope_pos = idx.reshape(B, 1) if per_slot else idx.reshape(1)
-    if use_rope:
-        q = common.apply_rope(q, rope_pos, rope_theta)
     if not cross:
+        q = common.apply_rope(q, rope_pos, rope_theta)
         knew = common.dense(p.k, x, policy).reshape(B, 1, n_kv_heads,
                                                      head_dim)
         vnew = common.dense(p.v, x, policy).reshape(B, 1, n_kv_heads,
                                                     head_dim)
         if qk_norm:
             knew = common.head_rmsnorm(p.k_norm, knew)
-        if use_rope:
-            knew = common.apply_rope(knew, rope_pos, rope_theta)
+        knew = common.apply_rope(knew, rope_pos, rope_theta)
         knew = _repeat_kv(knew, kv_repeat)
         vnew = _repeat_kv(vnew, kv_repeat)
 

@@ -175,11 +175,9 @@ class EncDec(nn.Module):
                                    self._norm(layer.ln1, h), positions,
                                    causal=True)
         h = h + a
-        enc_pos = torch.arange(enc_out.shape[1], device=h.device)
         c, (xk, xv) = self._attend(layer.cross_attn,
                                    self._norm(layer.ln_x, h), positions,
-                                   causal=False, x_kv=enc_out,
-                                   use_rope=False, kv_positions=enc_pos)
+                                   causal=False, x_kv=enc_out)
         h = h + c
         h = h + common.mlp(layer.mlp, self._norm(layer.ln2, h), self.policy)
         return h, (sk, sv, xk, xv)
@@ -311,7 +309,7 @@ class EncDec(nn.Module):
             c, _, _ = attention.attn_decode_step(
                 layer.cross_attn, self._norm(layer.ln_x, h),
                 cache["cross_k"][li], cache["cross_v"][li], idx,
-                self.policy, cross=True, use_rope=False, **kw)
+                self.policy, cross=True, **kw)
             h = h + c
             h = h + common.mlp(layer.mlp, self._norm(layer.ln2, h),
                                self.policy)

@@ -30,7 +30,10 @@ perturbed from numpy seed 0 so that every one of them matters.
   path; ``load_jax_params``' mismatch errors on an ``EncDec`` tree.
 """
 
+import copy
 import dataclasses
+import importlib.util
+import pathlib
 
 import numpy as np
 import jax
@@ -215,8 +218,7 @@ def test_cross_attn_apply_equals_jax(policy):
     with torch.no_grad():
         got, (k, v) = attention.attn_apply(
             mod, _t(x), tp, positions=torch.arange(7), causal=False,
-            x_kv=_t(enc), use_rope=False, kv_positions=torch.arange(12),
-            use_flash=True, **KW)
+            x_kv=_t(enc), use_flash=True, **KW)
     _close(got, want, 1e-6)
     _close(k, wk, 1e-6)
     _close(v, wv, 1e-6)
@@ -245,7 +247,7 @@ def test_cross_attn_decode_step_equals_jax_and_writes_nothing(policy):
     with torch.no_grad():
         got, k2, v2 = attention.attn_decode_step(
             mod, _t(x), tk, tv, torch.tensor(idx, dtype=torch.int32),
-            get_policy(policy), cross=True, use_rope=False, **KW)
+            get_policy(policy), cross=True, **KW)
     _close(got, want, 1e-6)
     assert torch.equal(tk, _t(ck)) and torch.equal(tv, _t(cv))
     assert k2 is tk and v2 is tv
@@ -367,6 +369,57 @@ def test_loss_and_grads_equal_jax(pair):
                                rtol=1e-5)
     grads = torch.autograd.grad(loss, list(tm.parameters()))
     _grads_close(tm, grads, jg, TOL)
+
+
+def _chip_smoke():
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_exact_reference_grads_equal_port():
+    """chip_smoke.py's f64 reference of the teacher-forced units (the
+    layers written out in plain tensor ops, which its training phase holds
+    the card's fp32 gradients against) against the port's fp32 CPU path:
+    each unit's output and every gradient leaf within 1e-5 of its leaf's
+    largest magnitude, the cross-attention key bias within 1e-6 of its
+    unit's largest gradient on both sides."""
+    cs = _chip_smoke()
+    _, _, tm = _pair("fp32")
+    exact = copy.deepcopy(tm).double()
+    b = _batch(L=12)
+    frames, toks = _t(b["frames"]), _t(b["tokens"]).long()
+    pos, dec = torch.arange(12), (0, 3)
+    inputs = {}
+    with torch.no_grad():
+        enc_out = tm.encode(frames)
+        h = common.embed(tm.embed, toks)
+        for li in range(4):
+            inputs[li] = h
+            want = tm.dec_layer(tm.dec_layers[li], h, pos, enc_out)[0]
+            got = cs.exact_dec_layer(exact.cfg, exact.dec_layers[li],
+                                     h.double(), pos, enc_out.double())
+            _close(got.float() / want.abs().max(), want / want.abs().max())
+            h = want
+        x = common.dense(tm.frontend_proj, frames, tm.policy)
+        want = tm.enc_layer(tm.enc_layers[0], x, pos)
+        got = cs.exact_enc_layer(exact.cfg, exact.enc_layers[0], x.double(),
+                                 pos)
+        _close(got.float() / want.abs().max(), want / want.abs().max())
+    sides = [cs.seamless_unit_grads(m, frames, inputs, enc_out, dec, "cpu",
+                                    exact=m is exact) for m in (tm, exact)]
+    for unit, want in sides[1].items():
+        top = max(float(v.abs().max()) for v in want.values())
+        for name, v in want.items():
+            g = sides[0][unit][name]
+            if name.endswith(ZERO_GRAD):
+                assert float(g.abs().max()) <= 1e-6 * top, name
+                assert float(v.abs().max()) <= 1e-6 * top, name
+                continue
+            scale = float(v.abs().max())
+            _close(g / scale, (v / scale).float())
 
 
 def test_remat_and_chunked_ce():
