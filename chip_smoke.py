@@ -188,6 +188,23 @@ from one state bitwise equal, frontend_proj's, encoder layer 0's and
 decoder layers 0's and 23's fp32 gradients teacher-forced, each leaf
 held against an f64 reference beside the CPU's f32).
 
+Slice 7 (fault-managed serving): kernels 4 and 6 at n_mod 7 (the
+guardian's r = 4 rung: moduli 31, 32, 33, 37, 41, 43, 47, 35 subsets) bit
+for bit against their plain versions at every slice GEMM shape and timed
+(rows 4c, 6c); full-width qwen2-0.5b under mirage_rrns at 52 dB served
+under a seeded chaos schedule (4 requests of 16 prompt tokens): the SNR
+guardian under an SNR collapse streaming exactly the fp32 engine's tokens
+(the ladder walked r=2 -> r=4 -> fp32), the unguarded collapse reporting
+uncorrected decodes, a transient hole escalated and probed back down,
+every GEMM under the open fault scope through kernel 4 and the plain
+readout, then kernel 6, and kernel 5 never; width-1 burst storms and a
+stuck redundant channel corrected to the clean twin's streams, cold and
+warmed (the captured tick reading the live controls); a crashed prefill
+job, a squeezed pool and a corrupted payload on the paged, pipelined
+engine retried to the clean streams; queue and decode deadlines, the
+admission cap, a snapshot resumed by a fresh warmed engine with the
+uninterrupted streams and health, and the metrics exporter on loopback.
+
 Run as a script, it pins the CPU side's vector dispatch (ATen at AVX2,
 MKL's conditional reproducibility at AVX2) before importing torch, so the
 CPU references do not depend on the host's own dispatch level.
@@ -2204,6 +2221,514 @@ def phase_slice_rrns_vs_cpu(model, cap, prompt_np, layers=(0,)):
 
 
 # --------------------------------------------------------------------------
+# slice 7: fault-managed serving (the chaos schedule, the SNR guardian,
+# deadlines and admission caps, snapshots, the metrics exporter) over
+# kernels 3, 4 and 6 at full width
+# --------------------------------------------------------------------------
+
+#: the guardian's middle rung, r = 4: the base moduli and the first four
+#: primes above 2^5 + 1 (default_redundant_moduli(5, 4)); 35 subsets of 3
+RRNS_R4 = (31, 32, 33, 37, 41, 43, 47)
+#: the chaos drains: 4 requests of 16 prompt tokens, 8 tokens each; the
+#: engines a phase warms take the one prompt bucket they use
+CHAOS_REQUESTS, CHAOS_PROMPT, CHAOS_TOKENS = 4, 16, 8
+CHAOS_CAP = CHAOS_PROMPT + CHAOS_TOKENS + 4
+CHAOS_ENGINE = dict(cap=CHAOS_CAP, batch_slots=SLOTS,
+                    buckets=(CHAOS_PROMPT,))
+COLLAPSE = "snr_drop@0:100000:scale=1e6"    # -120 dB from tick 0
+TRANSIENT = "snr_drop@0:4:scale=1e6"        # a four-tick hole
+GUARDIAN_WINDOW = 2
+#: faults inside r = 2's correction radius on the clean channel: a storm
+#: of width-1 bursts, then a stuck redundant channel (modulus 41). At 52 dB
+#: each decode tick's ~1.2e8 decoded elements would add ~10 double errors
+#: (a noise flip of modulus 37 beside the stuck 41), beyond the radius
+CHANNEL_CHAOS = ("burst_storm@0:3:rate=0.05,width=1;"
+                 "stuck_channel@3:100000:channel=4,level=7")
+#: the host faults of the paged, pipelined engine: the first prefill job
+#: crashes (all four requests: one bucket, four free slots), the pool is
+#: squeezed by 4 of its 8 unreserved blocks, and one decode payload (four
+#: live slots) is corrupted
+HOST_CHAOS = ("worker_crash@0;pool_exhaustion@2:5:blocks=4;"
+              "host_corruption@5:6:rate=1.0")
+HOST_POOL = dict(cache_layout="paged", block_size=PAGED_BS, n_blocks=32)
+#: the n_mod-7 shapes timed (rows 4c and 6c): the decode head and the
+#: largest prefill's gate/up
+CHAOS_TIMED = ((SLOTS, 896, 151936), (RNS_M[-1], 896, 4864))
+
+
+def chaos_requests(Request, vocab: int, n: int = CHAOS_REQUESTS):
+    rng = np.random.default_rng(27)
+    return [Request(rid=i, prompt=rng.integers(0, vocab, CHAOS_PROMPT
+                                               ).astype(np.int32),
+                    max_tokens=CHAOS_TOKENS) for i in range(n)]
+
+
+def drain_streams(server, reqs, runner=None):
+    """Submit ``reqs``, drain (through ``runner``, a guardian's, say) and
+    return every retired request's stream by rid."""
+    for r in reqs:
+        server.submit(r)
+    (runner or server.run_until_drained)()
+    torch.cuda.synchronize()
+    return {r.rid: list(map(int, r.tokens_out))
+            for r in server.scheduler.finished}
+
+
+def statuses(server):
+    out = {}
+    for r in server.scheduler.finished:
+        out[r.status] = out.get(r.status, 0) + 1
+    return out
+
+
+def phase_chaos_kernels(ops, ref):
+    """Kernels 4 and 6 at n_mod 7 (the guardian's r = 4 rung), which no
+    earlier card run had: every slice GEMM shape bit for bit against the
+    plain versions (kernel 4 on BFP mantissas encoded as the path encodes
+    them; kernel 6 on kernel 4's outputs through 52 dB noise, and at the
+    decode shapes also on random residue tuples, where every element runs
+    all 35 subsets); the decode head and the largest prefill's gate/up
+    timed beside their bounds (rows 4c and 6c), kernel 4 beside torch.bmm
+    with no mod."""
+    from repro_torch.analog import rrns
+    from repro_torch.analog.channel import add_noise
+
+    t_phase = time.perf_counter()
+    psi = (math.prod(RNS_BASE) - 1) // 2
+    tables = rrns.get_tables(RRNS_R4, len(RNS_BASE), psi)
+    tables_ok = bool(tables.f32_exact) and tables.n_subsets == 35 and \
+        list(tables.binom) == [1, 4, 10, 20, 35]
+    check(tables_ok, f"the r = 4 tables are not the expected f32-exact "
+                     f"35-subset set: {tables.binom}")
+    n = len(RRNS_R4)
+    rows = {"rns_matmul": [], "rrns_decode": []}
+    for i, (M, (K, N)) in enumerate((M, kn) for M in RNS_M
+                                    for kn in GEMM_KN):
+        if M > SLOTS and N == 151936:
+            continue
+        t0 = time.perf_counter()
+        G = K // 16
+        xr, wr = encoded_residue_operands(RRNS_R4, M, K, N, seed=700 + i)
+        got = ops.rns_group_matmul(xr, wr, RRNS_R4)
+        bad4 = int((got != ref.rns_matmul_ref(xr, wr, RRNS_R4)).sum())
+        gen = torch.Generator(device=DEV).manual_seed(800 + i)
+        res = add_noise(got, RRNS_R4, detector_noise(RRNS_R4, (G, M, N),
+                                                     SNR_DB, gen))
+        inputs = {"path": res}
+        if M == SLOTS and N != 151936:
+            inputs["random residue tuples"] = random_residues(
+                RRNS_R4, (G, M, N), gen)
+        bad6 = {}
+        for kind, r in inputs.items():
+            dec, votes = ops.rrns_decode(r, tables)
+            want_dec, want_votes = ref.rrns_decode_ref(r, tables)
+            bad6[kind] = int((dec != want_dec).sum()) + int(
+                (votes.view(torch.int32) !=
+                 want_votes.view(torch.int32)).sum())
+        torch.cuda.synchronize()
+        ok = bad4 == 0 and not any(bad6.values())
+        emit({"phase": "chaos_kernels_vs_plain", "moduli": list(RRNS_R4),
+              "M": M, "K": K, "N": N, "rns_matmul_mismatches": bad4,
+              "rrns_decode_mismatches": bad6, "ok": ok,
+              "seconds": time.perf_counter() - t0})
+        check(ok, f"kernel 4 or 6 differs from its plain version at n_mod "
+                  f"7, M={M} K={K} N={N}: {bad4}, {bad6}")
+        if (M, K, N) in CHAOS_TIMED:
+            S = n * G
+            shape = {"M": M, "K": K, "N": N, "n_mod": n, "G": G,
+                     "path": "slice_7"}
+            xf = xr.reshape(S, M, 16).float()
+            wf = wr.reshape(S, 16, N).float()
+            t_b, by = bound_rate(
+                4.0 * (S * M * 16 + S * 16 * N + S * M * N),
+                2.0 * S * M * N * 16, INT_OPS_PER_S)
+            rows["rns_matmul"].append({
+                **shape,
+                "ms": time_ms(lambda: ops.rns_group_matmul(xr, wr,
+                                                           RRNS_R4)),
+                "plain_ms": time_ms(lambda: ref.rns_matmul_ref(
+                    xr, wr, RRNS_R4), n=5),
+                "library_ms": time_ms(lambda: torch.bmm(xf, wf)),
+                "library": "torch.bmm (no mod)",
+                "bound_ms": t_b, "bound_by": by})
+            del xf, wf
+            rows["rrns_decode"].append(decode_timing_row(
+                ops, ref, res, tables, {**shape, "inputs": "path"}))
+        del xr, wr, got, res, inputs
+    for name, shapes in rows.items():
+        for row in shapes:
+            emit({"phase": "timing", "kernel": name, **row})
+    emit({"phase": "chaos_kernels", "tables": {
+        "moduli": list(RRNS_R4), "subsets": tables.n_subsets,
+        "binom": list(tables.binom), "f32_exact": bool(tables.f32_exact)},
+        "phase_seconds": time.perf_counter() - t_phase})
+    free_card()
+    return rows
+
+
+def phase_chaos_guardian(ops, model):
+    """The JAX gate ``_chaos_parity`` (tests/test_resilience.py) on the
+    card at full width: under ``snr_drop`` at scale 1e6 from tick 0 the
+    guardian (windows of 2 ticks) streams exactly the fp32 engine's
+    tokens, its ladder walked r=2 -> r=4 -> fp32; the same collapse
+    without it streams something else with uncorrected decodes; a
+    four-tick hole escalates and then probes back down. While the fault
+    scope is open every GEMM takes kernel 4 and the plain readout, then
+    kernel 6, once a residue block, and kernel 5 never."""
+    from repro_torch.core.precision import get_policy
+    from repro_torch.runtime.faults import FaultInjector, FaultSchedule
+    from repro_torch.runtime.resilience import SNRGuardian, _rung_name
+    from repro_torch.runtime.server import LMServer, Request
+
+    cfg = model.cfg
+    t_phase = time.perf_counter()
+    model.policy = get_policy("fp32")
+    fp32 = drain_streams(LMServer(model, cap=CHAOS_CAP, batch_slots=SLOTS),
+                         chaos_requests(Request, cfg.vocab_size))
+    rows, launches = {}, {}
+    for name, spec, cooldown in (("collapse_guarded", COLLAPSE, 10_000),
+                                 ("collapse_naked", COLLAPSE, None),
+                                 ("transient_guarded", TRANSIENT, 1)):
+        model.policy = serve_policy("mirage_rrns")
+        inj = FaultInjector(FaultSchedule.parse(spec), seed=0)
+        server = LMServer(model, cap=CHAOS_CAP, batch_slots=SLOTS,
+                          fault_injector=inj)
+        guardian = None if cooldown is None else SNRGuardian(
+            server, window=GUARDIAN_WINDOW, cooldown=cooldown)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with BlockTap() as tap:
+            streams = drain_streams(
+                server, chaos_requests(Request, cfg.vocab_size),
+                guardian.run_until_drained if guardian else None)
+        dt = time.perf_counter() - t0
+        n = dict(ops.LAUNCHES)
+        launches[name] = n
+        health = server.health_snapshot()
+        row = {"schedule": spec, "seconds": dt, "statuses": statuses(server),
+               "launches": n, "residue_blocks": tap.blocks,
+               "streams_equal_fp32": streams == fp32,
+               "health_at_end": health, "chaos_log": inj.log}
+        if guardian is not None:
+            row.update(level=guardian.level, transitions=guardian.transitions,
+                       ladder=[_rung_name(p) for p in guardian.ladder])
+        rows[name] = row
+        check(row["statuses"] == {"completed": CHAOS_REQUESTS},
+              f"chaos_guardian {name}: {row['statuses']}")
+        check(n["rns_matmul"] == n["rrns_decode"] == tap.blocks > 0 and
+              n["rns_matmul_channel"] == 0 and n["mirage_gemm"] == 0,
+              f"chaos_guardian {name}: launches {n} against "
+              f"{tap.blocks} residue blocks (kernel 5 must not launch "
+              f"under an open fault scope)")
+        check(n["flash_attention"] > 0 and
+              n["flash_attention"] % cfg.n_layers == 0,
+              f"chaos_guardian {name}: flash launched "
+              f"{n['flash_attention']} times")
+        if name == "collapse_guarded":
+            check(streams == fp32, "chaos_guardian: the guardian's streams "
+                                   "under the collapse differ from the fp32 "
+                                   "engine's")
+            check(guardian.level == len(guardian.ladder) - 1 and
+                  len(guardian.transitions) >= 2,
+                  f"chaos_guardian: the ladder did not walk to fp32: "
+                  f"{guardian.transitions}")
+        elif name == "collapse_naked":
+            check(streams != fp32 and health["rrns_uncorrected"] > 0,
+                  "chaos_guardian: the unguarded collapse streamed the "
+                  "fp32 tokens or reported no uncorrected decode")
+        else:
+            check(any("escalate" in t for t in guardian.transitions) and
+                  any("probe down" in t for t in guardian.transitions),
+                  f"chaos_guardian: the transient hole did not escalate "
+                  f"and probe down: {guardian.transitions}")
+        del server, guardian
+        free_card()
+    model.policy = serve_policy("mirage_rrns")
+    emit({"phase": "chaos_guardian", "arch": cfg.arch_id, "slots": SLOTS,
+          "policy": f"mirage_rrns snr_db={SNR_DB} noise_seed={NOISE_SEED}",
+          "window": GUARDIAN_WINDOW, **rows,
+          "phase_seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def phase_chaos_channel(ops, model):
+    """Channel faults inside r = 2's correction radius, on the clean
+    channel (the faults alone): every decode corrected, none uncorrected,
+    the streams of the same engine without the injector; cold and then
+    warmed (``warmup()`` with the injector: the tick replays as a graph
+    that reads the device control tensors, rewritten before each tick, and
+    draws the bursts from its registered generator), the warmed health
+    equal to the cold, which a graph with its controls baked in could not
+    give. Then a steady chaos tick of each engine profiled (the stuck
+    channel's scope open: the plain readout and the burst draws), beside
+    serve_warmup's clean 52 dB tick, cold and warmed, of the same run."""
+    from repro_torch.core.precision import get_policy
+    from repro_torch.runtime.faults import FaultInjector, FaultSchedule
+    from repro_torch.runtime.server import LMServer, Request
+
+    cfg = model.cfg
+    t_phase = time.perf_counter()
+    reqs = lambda: chaos_requests(Request, cfg.vocab_size)
+    model.policy = get_policy("mirage_rrns", noise_seed=NOISE_SEED)
+    twin = drain_streams(LMServer(model, **CHAOS_ENGINE), reqs())
+    rows, launches, engines = {}, {}, {}
+    for side in ("cold", "warmed"):
+        inj = FaultInjector(FaultSchedule.parse(CHANNEL_CHAOS), seed=0)
+        server = LMServer(model, fault_injector=inj, **CHAOS_ENGINE)
+        info = server.warmup() if side == "warmed" else {}
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with BlockTap() as tap:
+            streams = drain_streams(server, reqs())
+        n = dict(ops.LAUNCHES)
+        launches[side] = n
+        health = server.health_snapshot()
+        rows[side] = {"statuses": statuses(server), "launches": n,
+                      "residue_blocks": tap.blocks, "health": health,
+                      "graphs": len(server._graphs), "warmup": info,
+                      "streams_equal_clean_twin": streams == twin,
+                      "chaos_log": inj.log}
+        check(rows[side]["statuses"] == {"completed": CHAOS_REQUESTS} and
+              streams == twin,
+              f"chaos_channel {side}: {rows[side]['statuses']}, streams "
+              f"equal to the clean twin's: {streams == twin}")
+        check(health["rrns_uncorrected"] == 0 and
+              health["rrns_corrected"] > 0,
+              f"chaos_channel {side}: health {health}")
+        # a replayed tick runs no Python, so the tap sees the warmed
+        # drain's eager prefills alone; its launches are held to the cold
+        # drain's below
+        check(n["rns_matmul"] == n["rrns_decode"] and
+              n["rns_matmul_channel"] == 0 and
+              (side == "warmed" or n["rns_matmul"] == tap.blocks),
+              f"chaos_channel {side}: launches {n}, {tap.blocks} blocks")
+        engines[side] = server
+    check(rows["warmed"]["graphs"] == 1 and
+          rows["warmed"]["health"] == rows["cold"]["health"] and
+          rows["warmed"]["launches"] == rows["cold"]["launches"],
+          f"chaos_channel: the warmed drain's health or launches differ "
+          f"from the cold drain's: {rows['warmed']['health']} vs "
+          f"{rows['cold']['health']}")
+    # a steady chaos tick of each engine, its stuck channel's scope open
+    profile = {}
+    for side, server in engines.items():
+        prof = engine_tick_profile(server, reqs(), 1)
+        profile[side] = {k: prof[k] for k in (
+            "wall_ms", "device_busy_ms", "device_idle_share",
+            "device_kernels", "graph_launches", "top_device_ms")}
+    del engines, server
+    emit({"phase": "chaos_channel", "schedule": CHANNEL_CHAOS,
+          "policy": f"mirage_rrns clean noise_seed={NOISE_SEED}", **rows,
+          "tick_profile": profile,
+          "phase_seconds": time.perf_counter() - t_phase})
+    check(profile["warmed"]["graph_launches"] == 1,
+          f"chaos_channel: the warmed chaos tick's profile shows "
+          f"{profile['warmed']['graph_launches']} graph launches, expected "
+          f"1")
+    free_card()
+    return launches
+
+
+def phase_chaos_host(ops, model):
+    """The host sites on the paged, pipelined engine at 52 dB: a crashed
+    prefill job, a squeezed pool, a corrupted decode payload. Every
+    request completes with the streams of the same engine without faults;
+    ``retried`` equals what the injector's log says it did (the flipped
+    tokens, four live slots, and four requests a crashed job); the
+    allocator's invariants hold every tick and the pool ends empty."""
+    import re
+
+    from repro_torch.runtime.faults import FaultInjector, FaultSchedule
+    from repro_torch.runtime.server import LMServer, Request
+
+    cfg = model.cfg
+    t_phase = time.perf_counter()
+    model.policy = serve_policy("mirage_rrns")
+    kw = dict(cap=CHAOS_CAP, batch_slots=SLOTS,
+              pipeline_depth=PIPELINE_DEPTH, max_retries=4, **HOST_POOL)
+    clean_srv = LMServer(model, **kw)
+    try:
+        clean = drain_streams(clean_srv, chaos_requests(Request,
+                                                        cfg.vocab_size))
+    finally:
+        clean_srv.close()
+    inj = FaultInjector(FaultSchedule.parse(HOST_CHAOS), seed=0)
+    server = LMServer(model, fault_injector=inj, **kw)
+    squeezed = []
+    ops.reset_launch_counts()
+    try:
+        for r in chaos_requests(Request, cfg.vocab_size):
+            server.submit(r)
+        while server.scheduler.waiting or \
+                any(s is not None for s in server.slot_req):
+            server.tick()
+            server.alloc.check_invariants()
+            squeezed.append(len(server.alloc.quarantined))
+    finally:
+        server.close()
+    torch.cuda.synchronize()
+    n = dict(ops.LAUNCHES)
+    streams = {r.rid: list(map(int, r.tokens_out))
+               for r in server.scheduler.finished}
+    flipped = sum(int(m.group(1)) for line in inj.log
+                  for m in [re.search(r"flipped (\d+) token", line)] if m)
+    crashes = sum("worker_crash fired" in line for line in inj.log)
+    row = {"schedule": HOST_CHAOS, "statuses": statuses(server),
+           "retried": server.metrics["retried"], "flipped_tokens": flipped,
+           "crashed_jobs": crashes, "quarantine_by_tick": squeezed,
+           "streams_equal_clean": streams == clean, "launches": n,
+           "pool_in_use_at_end": server.alloc.used_count,
+           "chaos_log": inj.log, "health": server.health_snapshot()}
+    emit({"phase": "chaos_host", "engine": {k: v for k, v in kw.items()
+                                            if k != "cap"},
+          **row, "phase_seconds": time.perf_counter() - t_phase})
+    check(row["statuses"] == {"completed": CHAOS_REQUESTS} and
+          streams == clean, f"chaos_host: {row['statuses']}, streams "
+                            f"equal to the clean drain's: {streams == clean}")
+    check(crashes == 1 and flipped == SLOTS and
+          row["retried"] == flipped + SLOTS * crashes,
+          f"chaos_host: retried {row['retried']} against {flipped} flipped "
+          f"tokens and {crashes} crashed jobs of {SLOTS} requests")
+    check(max(squeezed) == 4 and squeezed[-1] == 0 and
+          row["pool_in_use_at_end"] == 0,
+          f"chaos_host: quarantine {squeezed}, "
+          f"{row['pool_in_use_at_end']} blocks in use at the end")
+    free_card()
+    return n
+
+
+def phase_deadlines_and_snapshot(ops, model):
+    """Deadlines, the admission cap, a crash-consistent snapshot and the
+    metrics exporter at full width under 52 dB: a queue TTL retires two
+    waiting requests before admission and a decode TTL aborts one
+    mid-flight, freeing its blocks; ``max_queue_depth`` refuses with a
+    retry-after hint; a snapshot at tick 3 (through pickle) restored into
+    a fresh, warmed engine (the graph keeps its addresses, its generators
+    take the snapshot's states) resumes the uninterrupted streams and
+    health counters, which count every detector flip the draws made;
+    ``MetricsServer`` on 127.0.0.1:0 serves the deadline engine's
+    registry."""
+    import pickle
+    import urllib.request
+
+    from repro_torch.obs.http import MetricsServer
+    from repro_torch.runtime.server import (AdmissionRejected, LMServer,
+                                            Request)
+
+    cfg = model.cfg
+    t_phase = time.perf_counter()
+    model.policy = serve_policy("mirage_rrns")
+    reqs = lambda n=CHAOS_REQUESTS: chaos_requests(Request, cfg.vocab_size,
+                                                   n)
+    # deadlines on the paged engine
+    server = LMServer(model, cap=CHAOS_CAP, batch_slots=SLOTS, **HOST_POOL)
+    batch = reqs(SLOTS + 2)
+    for r in batch[SLOTS:]:
+        r.queue_ttl_s = 0.0
+    for r in batch:
+        server.submit(r)
+    server.tick()
+    owned = int(server.alloc.n_owned[0])
+    used0 = server.alloc.used_count
+    batch[0].ttl_s = 1e-9
+    server.tick()
+    freed = used0 - server.alloc.used_count
+    server.run_until_drained()
+    torch.cuda.synchronize()
+    server.alloc.check_invariants()
+    deadlines = {"statuses": statuses(server),
+                 "timed_out": server.metrics["timed_out"],
+                 "errors": sorted({r.error for r in batch if r.error}),
+                 "blocks_of_aborted_slot": owned,
+                 "blocks_freed_by_abort": freed,
+                 "pool_in_use_at_end": server.alloc.used_count}
+    check(deadlines["statuses"] == {"completed": SLOTS - 1,
+                                    "timed_out": 3} and
+          deadlines["timed_out"] == 3 and freed >= owned > 0 and
+          server.alloc.used_count == 0,
+          f"deadlines: {deadlines}")
+    # the exporter over that engine's registry
+    http = MetricsServer(port=0, registry=server.scheduler.registry).start()
+    try:
+        got = {}
+        for path in ("/metrics", "/metrics.json", "/trace"):
+            with urllib.request.urlopen(http.url + path, timeout=10) as rsp:
+                got[path] = rsp.read().decode()
+    finally:
+        http.stop()
+    text = server.scheduler.registry.prometheus_text()
+    exporter = {"url": http.url, "bytes": {k: len(v) for k, v in got.items()},
+                "metrics_equal_registry": got["/metrics"] == text,
+                "timed_out_line": "serve_timed_out_total 3" in
+                got["/metrics"].splitlines(),
+                "health_gauges": sum(ln.startswith("serve_health_")
+                                     for ln in got["/metrics"].splitlines()),
+                "json_keys": len(json.loads(got["/metrics.json"])),
+                "trace_events": len(json.loads(got["/trace"])["traceEvents"])}
+    check(exporter["metrics_equal_registry"] and exporter["timed_out_line"]
+          and exporter["health_gauges"] > 0,
+          f"metrics exporter: {exporter}")
+    del server
+    # the admission cap
+    capped = LMServer(model, cap=CHAOS_CAP, batch_slots=SLOTS,
+                      max_queue_depth=2)
+    rejected = []
+    for r in reqs():
+        try:
+            capped.submit(r)
+        except AdmissionRejected as e:
+            rejected.append(e.retry_after_s)
+    capped.drain()
+    cap_row = {"rejected": len(rejected), "retry_after_s": rejected,
+               "statuses": statuses(capped),
+               "rejected_metric": capped.metrics["rejected"]}
+    check(len(rejected) == 2 and all(s > 0 for s in rejected) and
+          cap_row["statuses"] == {"completed": 2},
+          f"admission cap: {cap_row}")
+    del capped
+    # a snapshot at tick 3, resumed by a fresh warmed engine
+    whole = LMServer(model, **CHAOS_ENGINE)
+    want = drain_streams(whole, reqs())
+    want_health = whole.health_snapshot()
+    del whole
+    half = LMServer(model, **CHAOS_ENGINE)
+    for r in reqs():
+        half.submit(r)
+    for _ in range(3):
+        half.tick()
+    t0 = time.perf_counter()
+    blob = pickle.dumps(half.snapshot())
+    snap_s = time.perf_counter() - t0
+    del half
+    fresh = LMServer(model, **CHAOS_ENGINE)
+    fresh.warmup()
+    t0 = time.perf_counter()
+    fresh.restore(pickle.loads(blob))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    fresh.run_until_drained()
+    torch.cuda.synchronize()
+    got_streams = {r.rid: list(map(int, r.tokens_out))
+                   for r in fresh.scheduler.finished}
+    snap_row = {"snapshot_bytes": len(blob), "snapshot_s": snap_s,
+                "restore_s": restore_s, "graphs": len(fresh._graphs),
+                "streams_equal_uninterrupted": got_streams == want,
+                "health": fresh.health_snapshot(),
+                "health_uninterrupted": want_health}
+    emit({"phase": "deadlines_and_snapshot", "deadlines": deadlines,
+          "exporter": exporter, "admission_cap": cap_row,
+          "snapshot": snap_row,
+          "phase_seconds": time.perf_counter() - t_phase})
+    check(got_streams == want and snap_row["health"] == want_health and
+          snap_row["graphs"] == 1,
+          f"snapshot: the resumed engine's streams or health differ from "
+          f"the uninterrupted drain's: {snap_row}")
+    del fresh
+    free_card()
+
+
+# --------------------------------------------------------------------------
 # phases 8-12: slice 2, training full-width qwen2-0.5b on the card
 # --------------------------------------------------------------------------
 
@@ -2579,15 +3104,36 @@ def phase_train_fp32_vs_cpu(arch: str = "qwen2-0.5b",
                      f"{leaves['worst_leaves']}")
 
 
+class _GradTap(torch.autograd.Function):
+    """The identity on (x, w) that records the gradients ONE GEMM sends to
+    them in the model's own backward: its dX and dW, as ``function_grads``
+    would recompute them from (x, w, dO) on the same device."""
+
+    @staticmethod
+    def forward(ctx, x, w, rec):
+        ctx.rec = rec
+        return x.view_as(x), w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, gx, gw):
+        for name, g in (("dX", gx), ("dW", gw)):
+            if g is not None:
+                ctx.rec[name] = g.detach().clone()
+        return gx, gw, None
+
+
 class GemmCapture:
     """Records (x, w, dO) and the policy of the model GEMMs at the listed
     call indices by wrapping ``repro_torch.core.gemm.mirage_matmul`` (the
     differentiable op ``mirage_matmul_auto`` takes under grad); w keeps
-    its layout."""
+    its layout. With ``grads`` the backward's dX and dW of each recorded
+    GEMM are kept too (``_GradTap``), so the CPU side need not recompute
+    them."""
 
-    def __init__(self, keep):
+    def __init__(self, keep, grads: bool = False):
         from repro_torch.core import gemm
         self.gemm, self.keep, self.calls, self.got = gemm, set(keep), 0, {}
+        self.grads = grads
 
     def __enter__(self):
         self.inner = inner = self.gemm.mirage_matmul
@@ -2595,13 +3141,14 @@ class GemmCapture:
         def recorded(x, w, policy):
             i = self.calls
             self.calls += 1
-            out = inner(x, w, policy)
-            if i in self.keep:
-                rec = self.got[i] = {"x": x.detach().clone(),
-                                     "w": w.detach(), "policy": policy}
-                out.register_hook(
-                    lambda g, rec=rec: rec.__setitem__("dO",
-                                                       g.detach().clone()))
+            if i not in self.keep:
+                return inner(x, w, policy)
+            rec = self.got[i] = {"x": x.detach().clone(), "w": w.detach(),
+                                 "policy": policy}
+            out = inner(*(_GradTap.apply(x, w, rec) if self.grads
+                          else (x, w)), policy)
+            out.register_hook(
+                lambda g, rec=rec: rec.__setitem__("dO", g.detach().clone()))
             return out
 
         self.gemm.mirage_matmul = recorded
@@ -2642,7 +3189,7 @@ def cpu_capture(cpu_model, batch, layers, wsq_policy=None,
         ([head] if with_head else [])
     batch = {k: torch.from_numpy(v) for k, v in batch.items()}
     run = dict(cpu_model.named_parameters())
-    with GemmCapture(keep) as cap:
+    with GemmCapture(keep, grads=True) as cap:
         if wsq_policy is None:
             loss, _ = cpu_model.loss(batch)
         else:
@@ -2663,7 +3210,10 @@ def teacher_forced(ref, cap, head):
     for i, rec in sorted(cap.got.items()):
         name = "head" if i == head else f"layer_{i // n}.{LAYER_GEMMS[i % n]}"
         policy = rec["policy"]
-        want = function_grads(rec["x"], rec["w"], rec["dO"], policy)
+        # the CPU backward's own dX and dW of this GEMM (recomputed only
+        # where the backward sent it none)
+        want = (rec["dX"], rec["dW"]) if "dX" in rec and "dW" in rec \
+            else function_grads(rec["x"], rec["w"], rec["dO"], policy)
         x, w, d = to_card(rec["x"]), to_card(rec["w"]), to_card(rec["dO"])
         got = function_grads(x, w, d, policy)
         # a stack of experts (E, C, .) is held per expert as it is
@@ -7445,6 +7995,7 @@ def main() -> int:
     err_channel = phase_rns_channel(ops, ref)
     err_decode = phase_rrns_decode(ops, ref)
     phase_rns_equals_fast(ops, ref)
+    chaos_rows = phase_chaos_kernels(ops, ref)
     launches, batches, steps, model, cap, streams = phase_slice(ops)
     paged_launches = phase_slice_paged(ops, model, cap, streams)
     rrns_launches, _, rrns_streams, rrns_cold = phase_slice_rrns(
@@ -7460,6 +8011,10 @@ def main() -> int:
     phase_serve_switch(ops, model, cap, streams)
     phase_slice_rrns_vs_cpu(model, cap, make_requests(
         Request, model.cfg.vocab_size)[0].prompt)
+    guardian_launches = phase_chaos_guardian(ops, model)
+    channel_launches = phase_chaos_channel(ops, model)
+    host_launches = phase_chaos_host(ops, model)
+    phase_deadlines_and_snapshot(ops, model)
     del model
     free_card()
     moe_launches = {arch: phase_slice_moe(ops, arch, n, paged)
@@ -7683,6 +8238,18 @@ def main() -> int:
         k_entry["launches_seamless_4_layers"] = {
             path: n[kernel] for path, n in seamless_rrns_launches.items()
             if n.get(kernel)}
+        # slice 7: the chaos drains (kernel 5 none under an open scope)
+        k_entry["launches_chaos"] = {
+            **{f"guardian_{k}": n[kernel]
+               for k, n in guardian_launches.items()},
+            **{f"channel_faults_{k}": n[kernel]
+               for k, n in channel_launches.items()},
+            "host_faults": host_launches[kernel]}
+    # rows 4c and 6c: kernels 4 and 6 at n_mod 7 (the guardian's r = 4)
+    rns["n_mod_7"] = chaos_rows["rns_matmul"]
+    decode["n_mod_7"] = chaos_rows["rrns_decode"]
+    flash["launches_chaos"] = {f"guardian_{k}": n["flash_attention"]
+                               for k, n in guardian_launches.items()}
     emit({"kernels": [
         gemm,
         flash,
@@ -7742,6 +8309,11 @@ def main() -> int:
                          **{f"zamba2_12_layers_{k}": v
                             for k, v in zamba_rrns_launches.items()},
                          "train_zamba2": zamba_train_launches,
+                         **{f"chaos_guardian_{k}": n
+                            for k, n in guardian_launches.items()},
+                         **{f"chaos_channel_{k}": n
+                            for k, n in channel_launches.items()},
+                         "chaos_host": host_launches,
                          "seamless_served": seamless_launches,
                          **{f"seamless_4_layers_{k}": v
                             for k, v in seamless_rrns_launches.items()},
@@ -7835,7 +8407,17 @@ def main() -> int:
                              "(non-causal) and once a decoder "
                              "self-attention (causal) a prefill (48; the "
                              "cross-attention stays plain, as in JAX), and "
-                             "the residue kernels once a residue block"}})
+                             "the residue kernels once a residue block; "
+                             "slice 7 (chaos_guardian, chaos_channel, "
+                             "chaos_host at full width, 4 requests of 16 "
+                             "prompt tokens, 8 tokens each: chaos_*, "
+                             "launches_chaos) runs every GEMM under an open "
+                             "fault scope through rns_matmul and the plain "
+                             "readout, then rrns_decode, once a residue "
+                             "block each (rns_matmul_channel never), at "
+                             "n_mod 5 and, on the guardian's r = 4 rung, 7 "
+                             "(rows n_mod_7), and flash once a layer a "
+                             "prefill batch on every rung"}})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -23,17 +23,30 @@ object, one named draw per stage. :class:`GeneratorDraws` serves them in
 call order from a ``torch.Generator`` (the serving engine's device
 generators); a test can instead replay the exact arrays the JAX package
 drew for the same stage names, which is how the two packages are held
-bit for bit. The JAX package's runtime fault controls (chaos injection)
-are not ported: :func:`fault_scope` raises.
+bit for bit.
+
+Runtime fault controls (chaos injection, :mod:`repro_torch.runtime.faults`):
+:func:`fault_scope` makes a small dict of device tensors ambient
+(``sigma_scale``, ``burst_rate``, ``burst_width``, ``stuck_mask``,
+``stuck_level``), which the readout stages read as tensors, never as
+Python numbers: a step captured as a CUDA graph reads them at their
+addresses, and the engine rewrites them in place between replays. Under a
+scope the detector noise is drawn even where the config's sigma is zero,
+its sigma scaled by ``sigma_scale``; stuck channels are clamped after the
+noise; the bursts are drawn at the config's rate plus ``burst_rate``. With
+identity controls (:func:`identity_fault_controls`) every stage computes
+what it computes without a scope, bit for bit, from the same draws.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
+import threading
 import zlib
-from typing import NamedTuple, Optional, Protocol, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Protocol, Sequence, Tuple
 
 import torch
 
@@ -58,21 +71,31 @@ class Draws(Protocol):
 
 class GeneratorDraws:
     """:class:`Draws` from one ``torch.Generator``, on its device, in call
-    order (the stage names only label the draws)."""
+    order (the stage names only label the draws). ``bursts``, where given,
+    serves the burst stages (``burst_*``) from a generator of their own,
+    so that bursts drawn under a fault scope leave the detector noise's
+    stream where an unscoped run leaves it."""
 
-    def __init__(self, generator: torch.Generator):
+    def __init__(self, generator: torch.Generator,
+                 bursts: Optional[torch.Generator] = None):
         self.generator = generator
+        self.bursts = bursts
+
+    def _gen(self, stage: str) -> torch.Generator:
+        if self.bursts is not None and stage.startswith("burst"):
+            return self.bursts
+        return self.generator
 
     def normal(self, stage, shape):
-        g = self.generator
+        g = self._gen(stage)
         return torch.randn(tuple(shape), generator=g, device=g.device)
 
     def uniform(self, stage, shape):
-        g = self.generator
+        g = self._gen(stage)
         return torch.rand(tuple(shape), generator=g, device=g.device)
 
     def randint(self, stage, shape, low, high):
-        g = self.generator
+        g = self._gen(stage)
         return torch.randint(low, high, tuple(shape), generator=g,
                              device=g.device, dtype=torch.int32)
 
@@ -111,11 +134,55 @@ def seeded_generator(device, *parts) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
-def fault_scope(controls):
-    """Chaos injection into the channel stages is not ported yet."""
-    raise NotImplementedError(
-        "channel fault controls (chaos injection) wait in ROADMAP.md "
-        "queue 1, slice 7")
+# -- runtime fault controls (chaos injection) ----------------------------
+
+_FAULT = threading.local()
+
+#: the control tensors and their dtypes (the JAX package's pytree leaves)
+FAULT_CONTROL_DTYPES = {"sigma_scale": torch.float32,
+                        "burst_rate": torch.float32,
+                        "burst_width": torch.int32,
+                        "stuck_mask": torch.bool,
+                        "stuck_level": torch.int32}
+
+
+def fault_control_tensors(values, device=None) -> Dict[str, torch.Tensor]:
+    """Tensors on ``device`` of the control values ``values`` (numbers,
+    lists or numpy values, as :meth:`repro_torch.runtime.faults
+    .FaultInjector.controls` returns them)."""
+    return {k: torch.as_tensor(values[k], dtype=dtype, device=device)
+            for k, dtype in FAULT_CONTROL_DTYPES.items()}
+
+
+def identity_fault_controls(n_moduli: int,
+                            device=None) -> Dict[str, torch.Tensor]:
+    """The do-nothing controls of an ``n_moduli``-channel readout: the
+    detector sigma unscaled, no extra bursts, no stuck channel."""
+    return fault_control_tensors(
+        {"sigma_scale": 1.0, "burst_rate": 0.0, "burst_width": 1,
+         "stuck_mask": [False] * n_moduli, "stuck_level": [0] * n_moduli},
+        device)
+
+
+@contextlib.contextmanager
+def fault_scope(controls: Optional[Dict[str, torch.Tensor]]):
+    """Make ``controls`` ambient for the channel stages run inside the
+    block, on this thread. ``None`` pushes an inert scope (the stages run
+    unfaulted), so call sites can pass through unconditionally."""
+    stack = getattr(_FAULT, "stack", None)
+    if stack is None:
+        stack = _FAULT.stack = []
+    stack.append(controls)
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
+def fault_controls() -> Optional[Dict[str, torch.Tensor]]:
+    """The innermost active fault controls, or ``None``."""
+    stack = getattr(_FAULT, "stack", None)
+    return stack[-1] if stack else None
 
 
 def detector_sigma_levels(m: int, snr_db: float) -> float:
@@ -223,15 +290,27 @@ def converter_quantize(residues: torch.Tensor, moduli: Sequence[int],
     return torch.stack(outs, dim=0)
 
 
+def scaled_sigmas(sigmas: Sequence[float], ctl, ndim: int,
+                  dev) -> torch.Tensor:
+    """The per-modulus sigmas as an f32 column of ``ndim`` dims, times the
+    fault controls' ``sigma_scale`` under a scope (``ctl``; the f32
+    product the JAX package forms before scaling its normal draw)."""
+    col = _col(sigmas, ndim, dev)
+    return col if ctl is None else col * ctl["sigma_scale"]
+
+
 def draw_noise(residues_shape, sigmas, draws: Draws, device,
-               stage: str = "detector", stack: bool = False) -> torch.Tensor:
+               stage: str = "detector", stack: bool = False,
+               ctl=None) -> torch.Tensor:
     """Gaussian phase noise for residues of ``residues_shape``, scaled per
-    modulus to ``sigmas`` levels: one draw at one expert's shape, with a
-    broadcast expert axis where ``stack``."""
+    modulus to ``sigmas`` levels (times the fault controls' ``ctl``
+    ``sigma_scale``, see :func:`scaled_sigmas`): one draw at one expert's
+    shape, with a broadcast expert axis where ``stack``."""
     shape = tuple(residues_shape)
     if stack:
         shape = shape[:1] + shape[2:]
-    noise = draws.normal(stage, shape) * _col(sigmas, len(shape), device)
+    noise = draws.normal(stage, shape) * scaled_sigmas(sigmas, ctl,
+                                                       len(shape), device)
     return noise.unsqueeze(1) if stack else noise
 
 
@@ -285,9 +364,10 @@ class Bursts(NamedTuple):
                       tuple(e[index] for e in self.errs))
 
 
-def draw_bursts(shape: Tuple[int, ...], moduli: Sequence[int], rate: float,
+def draw_bursts(shape: Tuple[int, ...], moduli: Sequence[int], rate,
                 draws: Draws) -> Bursts:
-    """The burst stage's draws over output elements of ``shape``."""
+    """The burst stage's draws over output elements of ``shape``; ``rate``
+    a float or a 0-dim f32 tensor (the fault controls)."""
     n = len(moduli)
     return Bursts(draws.uniform("burst_hit", shape) < rate,
                   draws.randint("burst_pos", shape, 0, n),
@@ -295,11 +375,12 @@ def draw_bursts(shape: Tuple[int, ...], moduli: Sequence[int], rate: float,
                         for i, m in enumerate(moduli)))
 
 
-def apply_bursts(residues: torch.Tensor, moduli: Sequence[int], width: int,
+def apply_bursts(residues: torch.Tensor, moduli: Sequence[int], width,
                  b: Bursts, stack: bool = False) -> torch.Tensor:
     """Apply drawn bursts to ``residues (n_mod, ...)``; where ``stack``,
     the draws cover one expert (``residues (n_mod, E, ...)``) and every
-    expert takes them. Records ``burst_hits`` summed over the experts."""
+    expert takes them. ``width`` an int or a 0-dim int32 tensor. Records
+    ``burst_hits`` summed over the experts."""
     n = len(moduli)
     if stack:
         b = Bursts(b.hit[None], b.start[None], tuple(e[None] for e in b.errs))
@@ -315,12 +396,14 @@ def apply_bursts(residues: torch.Tensor, moduli: Sequence[int], width: int,
     return torch.stack(outs, dim=0)
 
 
-def burst_errors(residues: torch.Tensor, moduli: Sequence[int], rate: float,
-                 width: int, draws: Draws) -> torch.Tensor:
+def burst_errors(residues: torch.Tensor, moduli: Sequence[int], rate,
+                 width, draws: Draws) -> torch.Tensor:
     """Correlated bursts: with probability ``rate`` per output element,
     ``width`` ADJACENT residue channels (wrapping at the edge) take uniform
-    errors in ``[1, m-1]`` at once."""
-    if rate <= 0:
+    errors in ``[1, m-1]`` at once. ``rate``/``width`` may be device
+    tensors (the fault controls); the zero-rate short cut holds only for a
+    number."""
+    if not isinstance(rate, torch.Tensor) and rate <= 0:
         return residues
     return apply_bursts(residues, moduli, width, draw_bursts(
         tuple(residues.shape[1:]), moduli, rate, draws))
@@ -348,6 +431,17 @@ def apply_program_channel(residues: torch.Tensor, moduli: Sequence[int],
     return out
 
 
+def stuck_clamp(residues: torch.Tensor, moduli: Sequence[int],
+                ctl) -> torch.Tensor:
+    """The fault controls' stuck channels pinned to their levels (mod m)."""
+    shape = (-1,) + (1,) * (residues.dim() - 1)
+    mask = ctl["stuck_mask"].reshape(shape)
+    level = _wrap(torch.remainder(
+        ctl["stuck_level"].to(torch.float32).reshape(shape),
+        _col(moduli, residues.dim(), residues.device)), moduli)
+    return torch.where(mask, level, residues)
+
+
 def apply_readout_channel(residues: torch.Tensor, moduli: Sequence[int],
                           cfg: AnalogChannelConfig, draws: Optional[Draws],
                           group_axis: int = 1, stack: bool = False,
@@ -357,20 +451,33 @@ def apply_readout_channel(residues: torch.Tensor, moduli: Sequence[int],
 
     ``stack``: ``residues (n_mod, E, G, M, N)``, the crosstalk along each
     expert's groups and one noise draw for all experts. ``noise``: the
-    detector noise already drawn and scaled (:func:`draw_noise`), in place
-    of a draw from ``draws``."""
+    detector noise already drawn and scaled (by :func:`scaled_sigmas`, the
+    fault scope's ``sigma_scale`` included), in place of a draw from
+    ``draws``.
+
+    Under an open :func:`fault_scope` the noise stage runs even at zero
+    sigma, its sigma scaled by ``sigma_scale`` (the same normal draw, so
+    scale 1.0 changes nothing), and the stuck channels are clamped after
+    it, the residues the clamp moved counted into ``detector_flips`` a
+    second time (the JAX package's order and counts)."""
     if stack:
         group_axis = 2
+    ctl = fault_controls()
     out = crosstalk_mix(residues, moduli, cfg.crosstalk, group_axis)
     sigmas = cfg.detector_sigmas(moduli)
-    if any(s > 0 for s in sigmas):
+    if ctl is not None or any(s > 0 for s in sigmas):
         if noise is None:
             noise = draw_noise(out.shape, sigmas, draws, out.device,
-                               stack=stack)
+                               stack=stack, ctl=ctl)
         noisy = add_noise(out, moduli, noise)
         if obs_health.active():
             # residues the detector noise moved >= 1 level (what the RRNS
             # decode then has to correct)
             obs_health.record("detector_flips", _flips(noisy, out))
         out = noisy
+    if ctl is not None:
+        stuck = stuck_clamp(out, moduli, ctl)
+        if obs_health.active():
+            obs_health.record("detector_flips", _flips(stuck, out))
+        out = stuck
     return converter_quantize(out, moduli, cfg.adc_bits)

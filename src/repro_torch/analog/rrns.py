@@ -174,21 +174,16 @@ def _is_multiple_f32(d: torch.Tensor, m: int) -> torch.Tensor:
     return d - k * float(m) == 0.0
 
 
-def decode_votes(residues: torch.Tensor, tables: RRNSTables
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The fused decode in plain PyTorch: ``(decoded int32, votes f32)``.
-
-    ``votes`` is the winner's vote count, -1 where no subset is legal (the
-    value is then 0). The plain version of ``csrc/rrns_decode.cu``."""
-    S = tables.n_subsets
+def _vote(res: torch.Tensor, tables: RRNSTables, subsets,
+          best_votes: torch.Tensor, best_val: torch.Tensor
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fold the votes of ``subsets`` (in order) into the running winners of
+    the elements ``res (n_total, E)``; every step is elementwise."""
     n_comp = tables.comp.shape[1]
     moduli = tables.moduli
     fast = tables.f32_exact
-    res = residues.to(torch.float32 if fast else torch.int32)
     shape = res.shape[1:]
-    best_votes = torch.full(shape, -2.0, device=res.device)
-    best_val = torch.zeros(shape, dtype=res.dtype, device=res.device)
-    for s in range(S):
+    for s in subsets:
         M_s = int(tables.subset_M[s])
         psi_s = int(tables.subset_psi[s])
         if fast:
@@ -223,10 +218,36 @@ def decode_votes(residues: torch.Tensor, tables: RRNSTables
         better = votes > best_votes
         best_votes = torch.where(better, votes, best_votes)
         best_val = torch.where(better, X, best_val)
+    return best_votes, best_val
+
+
+def decode_votes(residues: torch.Tensor, tables: RRNSTables
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused decode in plain PyTorch: ``(decoded int32, votes f32)``.
+
+    ``votes`` is the winner's vote count, -1 where no subset is legal (the
+    value is then 0). The plain version of ``csrc/rrns_decode.cu``. After
+    subset 0 only the elements short of the largest vote go on (a later
+    subset cannot beat it under the strict >): the same values, and a
+    clean readout decodes at subset 0 alone, as the kernel does."""
+    n_total = residues.shape[0]
+    shape = residues.shape[1:]
+    res = residues.to(torch.float32 if tables.f32_exact else torch.int32
+                      ).reshape(n_total, -1)
+    best_votes = torch.full(res.shape[1:], -2.0, device=res.device)
+    best_val = torch.zeros(res.shape[1:], dtype=res.dtype,
+                           device=res.device)
+    best_votes, best_val = _vote(res, tables, range(1), best_votes, best_val)
+    top = float(tables.binom[tables.comp.shape[1]])
+    pend = torch.nonzero(best_votes < top)[:, 0]
+    if pend.numel():
+        best_votes[pend], best_val[pend] = _vote(
+            res[:, pend], tables, range(1, tables.n_subsets),
+            best_votes[pend], best_val[pend])
     decoded = torch.where(best_votes >= 0.0, best_val,
                           torch.zeros((), dtype=best_val.dtype,
                                       device=res.device))
-    return decoded.to(torch.int32), best_votes
+    return decoded.to(torch.int32).reshape(shape), best_votes.reshape(shape)
 
 
 def rrns_decode(residues: torch.Tensor, tables: RRNSTables

@@ -39,6 +39,15 @@ explicit, the engine's :func:`repro_torch.core.gemm.noise_scope`, or, at
 keyless call sites, a generator seeded from ``policy.noise_seed`` and the
 operand dims (a static error pattern per GEMM site, as the JAX package's
 ``_channel_key``).
+
+Under an open :func:`repro_torch.analog.channel.fault_scope` (the serving
+engine's chaos injection) the stages read the fault controls: the
+detector noise is drawn even on a clean config, at the sigmas times
+``sigma_scale``; the bursts are drawn at the config's rate plus the
+controls' ``burst_rate``, at the wider of the two widths; and on the card
+the GEMM takes the residue kernel followed by the plain readout chain
+(which clamps the stuck channels), never the fused readout, as the JAX
+package's ``use_pallas`` route does under a scope.
 """
 
 from __future__ import annotations
@@ -121,7 +130,11 @@ def _analog_forward(x, w, policy, draws, correct: bool,
     cfg = channel.AnalogChannelConfig.from_policy(policy)
     moduli = rrns.rrns_moduli(policy) if correct else tuple(policy.moduli)
     stack = grouped.is_stack(w)
-    if cfg.stochastic:
+    # runtime fault controls make the otherwise static stages data
+    # dependent: the noise and burst stages run even where the config
+    # alone would skip them, and they need draws
+    ctl = channel.fault_controls()
+    if cfg.stochastic or ctl is not None:
         k_shape = (w.orig_k, w.n_out) \
             if isinstance(w, stationary.StationaryResidues) \
             else tuple(w.shape[-2:])
@@ -139,15 +152,25 @@ def _analog_forward(x, w, policy, draws, correct: bool,
     nm, E, G, M, _ = xr.shape
     N = wr.shape[-1]
     sig = cfg.detector_sigmas(moduli)
-    noisy = any(s > 0 for s in sig)
+    noisy = any(s > 0 for s in sig) or ctl is not None
     # every draw once, at one expert's shape, in the stages' order
     unit = draws.normal("detector", (nm, G, M, N)) if noisy else None
-    bursts = channel.draw_bursts((G, M, N), moduli, cfg.burst_rate, draws) \
-        if cfg.burst_rate > 0 else None
+    bursts, width = None, cfg.burst_width
+    if ctl is not None:
+        # the schedule's storm adds onto the config's rate; the width is
+        # the wider of the two
+        bursts = channel.draw_bursts((G, M, N), moduli,
+                                     ctl["burst_rate"] + cfg.burst_rate,
+                                     draws)
+        width = torch.clamp_min(ctl["burst_width"], cfg.burst_width)
+    elif cfg.burst_rate > 0:
+        bursts = channel.draw_bursts((G, M, N), moduli, cfg.burst_rate,
+                                     draws)
     on_card = x.is_cuda and not reference
     # crosstalk mixes NEIGHBOUR group outputs, out of one output element's
-    # reach, and a noiseless readout has nothing to fuse
-    fused = on_card and noisy and not cfg.crosstalk
+    # reach, a noiseless readout has nothing to fuse, and the fault
+    # controls' stuck clamp runs after the noise, in the plain chain
+    fused = on_card and noisy and not cfg.crosstalk and ctl is None
     eb, gb = E, G
     if on_card and stack:
         # a 2-D GEMM stays one launch, as it always ran (its largest, the
@@ -158,8 +181,7 @@ def _analog_forward(x, w, policy, draws, correct: bool,
     if correct:
         tables = rrns.get_tables(moduli, n_required=len(policy.moduli),
                                  psi=policy.psi)
-    sig_col = channel.device_constant(tuple(sig), torch.float32,
-                                      xr.device).reshape(-1, 1, 1, 1)
+    sig_col = channel.scaled_sigmas(sig, ctl, 4, xr.device)
 
     def block(xb, wb, es, gs):
         shape = (nm, es.stop - es.start, gs.stop - gs.start, M, N)
@@ -177,8 +199,8 @@ def _analog_forward(x, w, policy, draws, correct: bool,
                 noise=None if noise is None else noise[:, None])
         del noise
         if bursts is not None:
-            res = channel.apply_bursts(res, moduli, cfg.burst_width,
-                                       bursts.block(gs), stack=True)
+            res = channel.apply_bursts(res, moduli, width, bursts.block(gs),
+                                       stack=True)
         if not correct:
             return rns.from_rns_special(res, policy.k).to(torch.float32)
         if reference:

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
+from typing import Optional
 
 import torch
 
@@ -35,14 +36,17 @@ from repro_torch.obs import trace as obs_trace
 _AMBIENT = threading.local()
 
 @contextlib.contextmanager
-def noise_scope(generator: torch.Generator):
+def noise_scope(generator: torch.Generator,
+                bursts: Optional[torch.Generator] = None):
     """Make ``generator`` the randomness of stochastic GEMMs inside the
-    block. Re-entrant (inner scopes shadow)."""
+    block (``bursts``, where given, that of their burst stages: see
+    :class:`repro_torch.analog.channel.GeneratorDraws`). Re-entrant (inner
+    scopes shadow)."""
     from repro_torch.analog.channel import GeneratorDraws
     stack = getattr(_AMBIENT, "stack", None)
     if stack is None:
         stack = _AMBIENT.stack = []
-    stack.append(GeneratorDraws(generator))
+    stack.append(GeneratorDraws(generator, bursts))
     try:
         yield
     finally:

@@ -25,8 +25,8 @@ constraints, in order:
 Exposition: :meth:`MetricsRegistry.snapshot` returns a plain JSON-able
 dict; :meth:`MetricsRegistry.prometheus_text` renders the text exposition
 format (``# HELP`` / ``# TYPE`` / ``name{label="v"} value``, histograms as
-cumulative ``_bucket{le=...}`` + ``_sum`` + ``_count``). The HTTP exporter
-that serves it is not ported yet (ROADMAP.md queue 1, slice 7).
+cumulative ``_bucket{le=...}`` + ``_sum`` + ``_count``), which
+:mod:`repro_torch.obs.http` serves.
 """
 
 from __future__ import annotations

@@ -1,8 +1,12 @@
 """Span tracer: a thread-safe ring buffer of timed spans, ~zero cost off.
 
-Port of ``repro.obs.trace``. The trainer's steps (``train.data_next`` /
+Port of ``repro.obs.trace``. The serving tick (``serve.tick`` around
+``serve.admit``, ``serve.prefill_batch`` / ``serve.prefill_scatter`` /
+``serve.chunk``, ``serve.decode`` or ``serve.verify``, and
+``serve.host_sync``), the trainer's steps (``train.data_next`` /
 ``train.step`` / ``train.host_sync``) and the GEMM backend dispatch
-(``gemm.<mode>``) are instrumented with :meth:`SpanTracer.span`. Design:
+(``gemm.<mode>``) are instrumented with :meth:`SpanTracer.span`;
+:meth:`SpanTracer.instant` records a marker. Design:
 
   * **disabled is the default and costs one attribute check**: ``span()``
     on a disabled tracer returns a shared no-op context manager — no
@@ -13,14 +17,15 @@ Port of ``repro.obs.trace``. The trainer's steps (``train.data_next`` /
     (``capacity`` spans, default 64k); wraparound keeps the most recent
     spans. A long soak never grows the tracer.
   * **Chrome-trace export**: :meth:`chrome_trace` renders the ring as a
-    ``traceEvents`` JSON object (``ph: "X"`` complete events, microsecond
-    timestamps) loadable in ``chrome://tracing`` / Perfetto;
-    :meth:`export` writes it to a file (``launch/train.py
-    --trace-export``).
+    ``traceEvents`` JSON object (``ph: "X"`` complete events, ``ph: "i"``
+    markers, microsecond timestamps) loadable in ``chrome://tracing`` /
+    Perfetto; :meth:`export` writes it to a file (``launch/train.py`` and
+    ``launch/serve.py --trace-export``).
   * **torch.profiler composition**: with ``annotate=True`` every span also
     opens a ``torch.profiler.record_function`` range (the JAX package's
     ``TraceAnnotation``), so host spans line up with the card's kernels
-    inside a ``torch.profiler`` capture. PyTorch runs
+    inside a ``torch.profiler`` capture (:func:`profile_window`,
+    ``launch/serve.py --profile-window``). PyTorch runs
     eagerly and returns before the device finishes, so a span measures
     host dispatch unless it ends in a synchronize (``train.host_sync``
     does); device-side truth comes from the profiler capture.
@@ -107,10 +112,16 @@ class SpanTracer:
             return _NULL
         return _SpanCM(self, name, args)
 
-    def _record(self, name, t0_ns, dur_ns, args):
+    def instant(self, name: str, args: Optional[Dict] = None) -> None:
+        """Zero-duration marker event."""
+        if not self.enabled:
+            return
+        self._record(name, time.perf_counter_ns(), 0, args, ph="i")
+
+    def _record(self, name, t0_ns, dur_ns, args, ph="X"):
         tid = threading.get_ident()
         with self._lock:
-            self._ring[self._head] = (name, t0_ns, dur_ns, tid, args)
+            self._ring[self._head] = (name, t0_ns, dur_ns, tid, args, ph)
             self._head = (self._head + 1) % self.capacity
             self._total += 1
 
@@ -123,7 +134,8 @@ class SpanTracer:
             start = (self._head - n) % self.capacity
             raw = [self._ring[(start + i) % self.capacity] for i in range(n)]
         return [{"name": s[0], "t0_ns": s[1], "dur_ns": s[2], "tid": s[3],
-                 "args": s[4] or {}} for s in raw if s is not None]
+                 "args": s[4] or {}, "ph": s[5]} for s in raw
+                if s is not None]
 
     @property
     def n_recorded(self) -> int:
@@ -145,10 +157,16 @@ class SpanTracer:
     def chrome_trace(self) -> Dict:
         """Chrome-trace / Perfetto ``traceEvents`` JSON object."""
         pid = os.getpid()
-        events = [{"name": s["name"], "ph": "X",
-                   "ts": (s["t0_ns"] - self._t_origin) / 1e3,   # µs
-                   "dur": s["dur_ns"] / 1e3, "pid": pid, "tid": s["tid"],
-                   "args": s["args"]} for s in self.spans()]
+        events = []
+        for s in self.spans():
+            ev = {"name": s["name"], "ph": s["ph"],
+                  "ts": (s["t0_ns"] - self._t_origin) / 1e3,   # µs
+                  "pid": pid, "tid": s["tid"], "args": s["args"]}
+            if s["ph"] == "X":
+                ev["dur"] = s["dur_ns"] / 1e3
+            else:
+                ev["s"] = "t"  # instant event scope: thread
+            events.append(ev)
         return {"traceEvents": events, "displayTimeUnit": "ms",
                 "otherData": {"dropped_spans": self.n_dropped}}
 
@@ -180,3 +198,41 @@ def configure(enabled: Optional[bool] = None,
                               annotate=_default.annotate)
     return _default.configure(enabled=enabled, annotate=annotate)
 
+
+
+@contextlib.contextmanager
+def profile_window(logdir: str, tracer: Optional[SpanTracer] = None):
+    """Capture a ``torch.profiler`` trace of the enclosed block into
+    ``logdir`` (``trace.json``, Chrome-trace JSON: the host's operators
+    and, on the card, its kernels), with the span tracer's annotations on
+    (spans appear as named ranges beside the kernels). Degrades to a
+    warning where the profiler cannot start."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    prev = None
+    if tracer is not None:
+        prev = (tracer.enabled, tracer.annotate)
+        tracer.configure(enabled=True, annotate=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = None
+    try:
+        try:
+            prof = profile(activities=activities)
+            prof.__enter__()
+        except Exception as e:  # pragma: no cover - env dependent
+            print(f"# profile window unavailable: {e}")
+            prof = None
+        yield
+    finally:
+        if prof is not None:
+            try:
+                prof.__exit__(None, None, None)
+                os.makedirs(logdir, exist_ok=True)
+                prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+            except Exception as e:  # pragma: no cover
+                print(f"# profile stop failed: {e}")
+        if tracer is not None and prev is not None:
+            tracer.configure(enabled=prev[0], annotate=prev[1])

@@ -81,13 +81,29 @@ slots and its block pool mid-flight (:meth:`LMServer.resize_slots`,
 :meth:`LMServer.resize_block_pool`) and switches its numeric backend
 (:meth:`LMServer.switch_backend`).
 
+**Robustness** (the JAX engine's, slice 7): requests carry deadlines
+(``ttl_s``, ``queue_ttl_s``; the engine-wide ``default_ttl_s`` and
+``default_queue_ttl_s``) and retire ``"timed_out"`` past them; admission
+caps at ``max_queue_depth`` (:class:`AdmissionRejected` with a
+``retry_after_s`` hint); :meth:`LMServer.drain` and
+:meth:`LMServer.shutdown` stop admission; a ``fault_injector``
+(:mod:`repro_torch.runtime.faults`) drives a seeded chaos schedule: its
+channel sites enter every step as device control tensors through
+:func:`repro_torch.analog.channel.fault_scope`, rewritten in place before
+each tick (so a captured tick reads the live values), and its host sites
+squeeze the block pool, crash the prefill worker and corrupt the decode
+payload, which the engine detects and retries. :meth:`LMServer.snapshot`
+and :meth:`LMServer.restore` carry the whole engine (device state,
+allocator, prefix index, queues, generator states) through one picklable
+host tree, which :mod:`repro_torch.runtime.resilience`'s guardian rolls
+back to.
+
 The metrics count what ran on the device: ``prefill_batches`` the bucketed
 batches, ``prefill_chunks`` every chunk step (also the one that prefills a
 prefix-cache admission's unmatched suffix), ``decode_steps`` the plain
-decode ticks and ``spec_ticks`` the verify ticks. The JAX engine's other
-options (meshes, fault injection, deadlines and admission caps) are not
-ported yet: passing one raises ``NotImplementedError`` naming the ROADMAP
-slice where it waits.
+decode ticks and ``spec_ticks`` the verify ticks. The JAX engine's meshed
+serving is not ported yet: passing ``mesh`` raises
+``NotImplementedError`` naming the ROADMAP slice where it waits.
 """
 
 from __future__ import annotations
@@ -95,6 +111,7 @@ from __future__ import annotations
 import collections
 import collections.abc
 import contextlib
+import copy
 import dataclasses
 import queue
 import threading
@@ -104,11 +121,13 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analog import channel as analog_channel
 from repro_torch.analog.channel import seeded_generator
 from repro_torch.core import backends, gemm, stationary
 from repro_torch.kernels import ops
 from repro_torch.models import lm as lm_helpers
 from repro_torch.obs import health as obs_health
+from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.runtime.paging import BlockAllocator, PrefixIndex, blocks_for
 
@@ -146,17 +165,17 @@ def _lookup_draft(ctx: np.ndarray, k: int, n: int = 3) -> np.ndarray:
 
 class AdmissionRejected(RuntimeError):
     """Raised by ``submit`` when the engine refuses a request instead of
-    queueing it unboundedly (queue-depth cap hit). Carries
-    ``retry_after_s``, the backoff hint a load balancer would surface."""
+    queueing it unboundedly (queue-depth cap hit, or the engine is
+    draining). Carries ``retry_after_s``, the backoff hint a load balancer
+    would surface as HTTP 429 Retry-After."""
 
     def __init__(self, msg: str, retry_after_s: float = 0.1):
         super().__init__(msg)
         self.retry_after_s = float(retry_after_s)
 
 
-#: terminal request statuses of the ported engine (the JAX engine's
-#: deadlines add "timed_out")
-TERMINAL_STATUSES = ("completed", "rejected", "failed")
+#: terminal request statuses: every submitted request ends in exactly one
+TERMINAL_STATUSES = ("completed", "timed_out", "rejected", "failed")
 
 
 @dataclasses.dataclass
@@ -170,10 +189,12 @@ class Request:
     t_admit: float = 0.0
     t_first_token: float = 0.0
     t_done: float = 0.0
-    # queued -> active -> completed | failed; rejected at submit. A request
-    # whose prefill job failed goes active -> queued again (bounded by
-    # retries), restarting its stream from scratch.
+    # queued -> active -> completed | timed_out | failed; rejected at
+    # submit. A fault-aborted request goes active -> queued again (bounded
+    # by retries), restarting its stream from scratch.
     status: str = "queued"
+    ttl_s: Optional[float] = None        # total deadline from enqueue
+    queue_ttl_s: Optional[float] = None  # admission deadline from enqueue
     max_retries: int = 0          # 0 = use the engine default
     retries: int = 0
     error: Optional[str] = None   # why a request was rejected or failed
@@ -181,6 +202,17 @@ class Request:
     @property
     def terminal(self) -> bool:
         return self.status in TERMINAL_STATUSES
+
+    def deadline(self, now: float) -> bool:
+        """Total-TTL expiry at wall time ``now``."""
+        return self.ttl_s is not None and now - self.t_enqueue > self.ttl_s
+
+    def queue_deadline(self, now: float) -> bool:
+        """Queue-TTL (or total-TTL) expiry while still waiting."""
+        if self.queue_ttl_s is not None and \
+                now - self.t_enqueue > self.queue_ttl_s:
+            return True
+        return self.deadline(now)
 
     @property
     def queue_time(self) -> float:
@@ -242,10 +274,10 @@ class _SchedulerMetrics(collections.abc.MutableMapping):
         ("spec_ticks", "speculative verify ticks run"),
         ("spec_slot_ticks", "per-slot speculative verify steps"),
         ("spec_accepted", "draft tokens accepted"),
-        ("rejected", "requests refused at admission (queue cap)"),
+        ("timed_out", "requests retired by queue/decode deadline"),
+        ("rejected", "requests refused at admission (queue cap/drain)"),
         ("failed", "requests terminally failed (retries exhausted)"),
-        ("retried", "requests returned to the queue after a failed "
-                    "prefill job"),
+        ("retried", "fault-aborted requests returned to the queue"),
     )
 
     def __init__(self, registry: MetricsRegistry):
@@ -364,6 +396,23 @@ class Scheduler:
         self.finished.append(req)
         return req
 
+    def expire_queued(self, now: Optional[float] = None) -> List[Request]:
+        """Retire waiting requests whose queue (or total) deadline passed;
+        FCFS order of the survivors is preserved."""
+        now = time.perf_counter() if now is None else now
+        if not any(r.queue_ttl_s is not None or r.ttl_s is not None
+                   for r in self.waiting):
+            return []
+        expired, kept = [], collections.deque()
+        for r in self.waiting:
+            if r.queue_deadline(now):
+                r.error = "deadline exceeded in queue"
+                expired.append(self.retire(r, status="timed_out"))
+            else:
+                kept.append(r)
+        self.waiting = kept
+        return expired
+
     def latency_summary(self) -> Dict[str, float]:
         """Means + exact p50/p95/p99 of TTFT and TPOT over retired requests
         (zeros for an empty drain; phases a request never reached are
@@ -389,11 +438,6 @@ class Scheduler:
 #: JAX-engine options that are not ported yet: (default, where they wait)
 _NOT_PORTED = {
     "mesh": (None, "ROADMAP.md queue 1, slice 8 (meshed serving)"),
-    "fault_injector": (None, "ROADMAP.md queue 1, slice 7 (faults)"),
-    "default_ttl_s": (None, "ROADMAP.md queue 1, slice 7 (deadlines)"),
-    "default_queue_ttl_s": (None, "ROADMAP.md queue 1, slice 7 (deadlines)"),
-    "max_queue_depth": (None, "ROADMAP.md queue 1, slice 7 (admission "
-                              "caps; a Scheduler built with one works)"),
 }
 
 
@@ -411,7 +455,9 @@ class _PrefillPipeline:
     stream waits before the scatter. Backpressure is the ``depth`` bound
     on jobs in flight. Single producer, single worker, FIFO queues: jobs
     complete and scatter in submission order, so the prefill noise and
-    sampling generators draw in the synchronous engine's order."""
+    sampling generators draw in the synchronous engine's order. A job
+    carries its own copy of the fault controls of the tick that submitted
+    it (the decode thread rewrites the engine's between ticks)."""
 
     _STALL_S = 300.0
 
@@ -419,6 +465,10 @@ class _PrefillPipeline:
         self.server = server
         self.depth = int(depth)
         self.inflight = 0      # submitted, not yet collected (decode thread)
+        # chaos hook (runtime.faults ``worker_crash``): fail the NEXT job
+        # the worker picks up, as a real compute crash would, exercising
+        # the release/requeue recovery path
+        self.crash_next = False
         dev = server.device
         self.stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
         self._in: queue.Queue = queue.Queue()
@@ -442,11 +492,14 @@ class _PrefillPipeline:
         """(tok, new_cache, health values) of one job and, on the card, the
         event recorded behind them on the worker's stream."""
         srv = self.server
+        # the job's fault controls, where the engine runs under them
+        args = (job["tokens"], job["lens"]) + \
+            (() if job.get("ctl") is None else (job["ctl"],))
         if self.stream is None:
-            return srv._prefill_compute(job["tokens"], job["lens"]), None
+            return srv._prefill_compute(*args), None
         with torch.cuda.stream(self.stream):
             self.stream.wait_event(job["ready"])
-            out = srv._prefill_compute(job["tokens"], job["lens"])
+            out = srv._prefill_compute(*args)
             return out, self.stream.record_event()
 
     def _worker(self) -> None:
@@ -454,6 +507,11 @@ class _PrefillPipeline:
             job = self._in.get()
             if job is None:
                 return
+            if self.crash_next:
+                self.crash_next = False
+                self._out.put((job, None, RuntimeError(
+                    "injected prefill worker crash")))
+                continue
             try:
                 self._out.put((job, self._compute(job), None))
             except Exception as e:   # the decode thread retires the job
@@ -506,6 +564,45 @@ class _StepGraph:
 _STREAMS = ("decode", "prefill", "chunk")
 
 
+def _readout_moduli(policy) -> Tuple[int, ...]:
+    """The moduli a policy's readout runs over: the RRNS set under the
+    correcting modes, the base moduli otherwise."""
+    from repro_torch.analog import rrns
+    if policy.mode in ("mirage_rrns", "mirage_rrns_ref"):
+        return rrns.rrns_moduli(policy)
+    return tuple(policy.moduli)
+
+
+def _tree_map(fn, tree):
+    """``fn`` over the tensors of a nested dict (the engine's state)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _load_tree(dst, src) -> bool:
+    """Copy the host tree ``src`` into the tensors of ``dst`` in place when
+    both have the same keys, shapes and dtypes; False (nothing written)
+    otherwise."""
+    def same(d, s):
+        if isinstance(d, dict) or isinstance(s, dict):
+            return isinstance(d, dict) and isinstance(s, dict) and \
+                d.keys() == s.keys() and all(same(d[k], s[k]) for k in d)
+        return d.shape == s.shape and d.dtype == s.dtype
+
+    def load(d, s):
+        if isinstance(d, dict):
+            for k in d:
+                load(d[k], s[k])
+        else:
+            d.copy_(s)
+
+    if not same(dst, src):
+        return False
+    load(dst, src)
+    return True
+
+
 class LMServer:
     """Continuous-batching serving engine (the deployment path).
 
@@ -535,10 +632,13 @@ class LMServer:
     clears them), so one model serves one engine's programming at a time.
 
     ``cache_layout``, ``block_size``, ``n_blocks``, ``prefill_chunk``,
-    ``prefix_cache``, ``spec_k``, ``block_placement``, ``pipeline_depth``
-    and ``max_retries`` are the JAX engine's options with its checks (see
-    the module docstring). An engine with ``pipeline_depth`` owns a worker
-    thread: :meth:`close` stops it.
+    ``prefix_cache``, ``spec_k``, ``block_placement``, ``pipeline_depth``,
+    ``max_retries``, ``instrument``, ``fault_injector``,
+    ``max_queue_depth``, ``default_ttl_s`` and ``default_queue_ttl_s`` are
+    the JAX engine's options with its checks (see the module docstring).
+    ``instrument=False`` builds the engine without the analog-health
+    counters. An engine with ``pipeline_depth`` owns a worker thread:
+    :meth:`close` stops it.
 
     Every step writes the state's tensors in place, so a tick captured as
     a CUDA graph (:meth:`warmup`) reads and writes them at the addresses
@@ -562,6 +662,11 @@ class LMServer:
                  block_placement: str = "locality",
                  pipeline_depth: int = 0,
                  max_retries: int = 1,
+                 instrument: bool = True,
+                 fault_injector=None,
+                 max_queue_depth: Optional[int] = None,
+                 default_ttl_s: Optional[float] = None,
+                 default_queue_ttl_s: Optional[float] = None,
                  **not_ported: Any):
         for name, value in not_ported.items():
             if name not in _NOT_PORTED:
@@ -661,9 +766,25 @@ class LMServer:
             raise ValueError(f"bucket {self.buckets[-1]} exceeds cache "
                              f"capacity {self.cache_len}")
         self.scheduler = scheduler or Scheduler(on_token=on_token)
+        if max_queue_depth is not None:
+            self.scheduler.max_queue_depth = int(max_queue_depth)
         self.slot_req: List[Optional[Request]] = [None] * batch_slots
+        # request-level robustness: per-request deadlines default to these
+        # engine-wide TTLs at submit; fault-aborted requests retry up to
+        # ``max_retries`` times (per request: ``Request.max_retries``)
+        # before failing terminally
+        self.default_ttl_s = default_ttl_s
+        self.default_queue_ttl_s = default_queue_ttl_s
         self.max_retries = int(max_retries)
+        self._draining = False
         self.last_prefill_error: Optional[BaseException] = None
+        # chaos harness (runtime.faults): host sites apply between ticks;
+        # channel sites enter every step through the device control
+        # tensors ``_ctl_dev`` (see _compute_fault_ctl)
+        self._injector = fault_injector
+        self._chaos_tick = 0
+        # decode and verify steps run: the guardian's clock
+        self._tick_count = 0
         # one sampling generator per stream: the prefill worker and the
         # decode loop never draw from one generator at once
         self._sample_gens = {
@@ -674,7 +795,9 @@ class LMServer:
         lm_helpers.check_policy(model.cfg, policy)
         backend = backends.resolve(policy)
         self._reseed_noise(policy)
-        self._health_spec = obs_health.spec(policy)
+        self.instrument = bool(instrument)
+        self._set_health_spec(policy)
+        self._compute_fault_ctl()
         if stationary_weights and not backend.supports_stationary_residues:
             raise ValueError(
                 f"stationary_weights=True needs a backend that supports "
@@ -760,22 +883,68 @@ class LMServer:
 
     def _reseed_noise(self, policy) -> None:
         """One noise generator per stream, seeded from ``policy.noise_seed``
-        (0 when unset)."""
+        (0 when unset), and one per stream for the bursts drawn under a
+        fault scope."""
         seed = policy.noise_seed if policy.noise_seed is not None else 0
         self._noise_gens = {
             stream: seeded_generator(self.device, "serve", seed, stream)
             for stream in _STREAMS}
+        self._burst_gens = {
+            stream: seeded_generator(self.device, "serve", seed, stream,
+                                     "burst") for stream in _STREAMS}
+
+    def _set_health_spec(self, policy) -> None:
+        """The analog-health accumulators' spec (none when the engine is
+        not instrumented) and the moduli its per-channel counters run
+        over."""
+        self._health_spec = obs_health.spec(policy) if self.instrument \
+            else {}
+        self._health_moduli = _readout_moduli(policy) \
+            if self._health_spec else ()
+
+    def _compute_fault_ctl(self) -> None:
+        """Whether the steps run under the channel fault controls: only
+        when an injector schedules a channel fault AND the current backend
+        routes through the analog channel. Re-run by :meth:`switch_backend`
+        (the fp32 fallback has no channel to fault). The controls live in
+        ``_ctl_dev``, device tensors a captured step reads at their
+        addresses: :meth:`_load_controls` rewrites them in place."""
+        pol = self.model.policy
+        self._ctl_n_moduli = len(_readout_moduli(pol)) \
+            if backends.resolve(pol).supports_noise else 0
+        self._use_fault_ctl = (
+            self._injector is not None and self._ctl_n_moduli > 0
+            and self._injector.channel_faults_scheduled())
+        self._ctl_dev = analog_channel.identity_fault_controls(
+            self._ctl_n_moduli, self.device) if self._use_fault_ctl else None
+        self._ctl_loaded = None       # the host values _ctl_dev holds
+
+    def _load_controls(self, values) -> None:
+        """Write the injector's control values for this tick into the
+        device control tensors, in place (only when they changed)."""
+        key = tuple(np.asarray(values[k]).tobytes()
+                    for k in analog_channel.FAULT_CONTROL_DTYPES)
+        if key == self._ctl_loaded:
+            return
+        for k, v in analog_channel.fault_control_tensors(values).items():
+            self._ctl_dev[k].copy_(v)
+        self._ctl_loaded = key
 
     def _seen(self, step: str, shape) -> None:
         """Record a shape ``step`` ran at (:meth:`compile_counts`)."""
         self._shapes[step].add(shape)
 
     @contextlib.contextmanager
-    def _step_scope(self, stream: str):
-        """Ambient noise of one step (its stream's generator) and, under a
-        policy with health counters, their collection: yields the dict the
-        step's records land in, for :meth:`_fold`."""
-        with gemm.noise_scope(self._noise_gens[stream]):
+    def _step_scope(self, stream: str, ctl=None):
+        """Ambient noise of one step (its stream's generators), the fault
+        controls (``ctl``, else the engine's, where channel faults are
+        scheduled) and, under a policy with health counters, their
+        collection: yields the dict the step's records land in, for
+        :meth:`_fold`."""
+        bursts = self._burst_gens[stream] if self._use_fault_ctl else None
+        ctl = ctl if ctl is not None else self._ctl_dev
+        with gemm.noise_scope(self._noise_gens[stream], bursts), \
+                analog_channel.fault_scope(ctl):
             if not self._health_spec:
                 yield {}
                 return
@@ -831,14 +1000,16 @@ class LMServer:
         return payload
 
     @torch.inference_mode()
-    def _prefill_compute(self, tokens: np.ndarray, lens: np.ndarray):
+    def _prefill_compute(self, tokens: np.ndarray, lens: np.ndarray,
+                         ctl=None):
         """The slot-independent half of bucketed prefill: the forward pass
         and the token selection, from the parameters and the prompt tokens
         alone. Nothing it reads or writes belongs to the live state, which
-        is what lets the pipeline's worker run it beside the decode loop.
-        Returns (tok, dense prefill cache, health records)."""
+        is what lets the pipeline's worker run it beside the decode loop
+        (with the fault controls ``ctl`` its job carries). Returns (tok,
+        dense prefill cache, health records)."""
         dev = self.device
-        with self._step_scope("prefill") as hvals:
+        with self._step_scope("prefill", ctl) as hvals:
             logits, new_cache = self.model.prefill(
                 torch.from_numpy(tokens).to(dev), self.cap,
                 lens=torch.from_numpy(lens).to(dev))
@@ -1007,6 +1178,16 @@ class LMServer:
     # ------------------------------------------------------------------
 
     def submit(self, req: Request) -> None:
+        if self._draining:
+            req.status = "rejected"
+            req.error = "server draining"
+            self.scheduler.metrics["rejected"] += 1
+            raise AdmissionRejected(
+                f"request {req.rid}: server is draining")
+        if req.ttl_s is None:
+            req.ttl_s = self.default_ttl_s
+        if req.queue_ttl_s is None:
+            req.queue_ttl_s = self.default_queue_ttl_s
         # chunked prefill streams prompts up to the paged cache's linear
         # capacity; bucketed prefill is bounded by the largest bucket
         limit = self.cap if self.prefill_chunk else self.buckets[-1]
@@ -1212,8 +1393,10 @@ class LMServer:
                     self._slot_poscap[slot] = len(r.prompt) + r.max_tokens
                 self.scheduler.record_admit(group)
                 self._sync_tables()
-                payload = self._to_host(self._prefill_insert(
-                    tokens, lens, slots, eos, max_tok))
+                with obs_trace.get_tracer().span(
+                        "serve.prefill_batch", {"bucket": Lb, "batch": B}):
+                    payload = self._to_host(self._prefill_insert(
+                        tokens, lens, slots, eos, max_tok))
                 # TTFT is stamped only once the token bytes are on the host
                 t_host = time.perf_counter()
                 for j, r in enumerate(group):
@@ -1276,7 +1459,9 @@ class LMServer:
                 self._seen("prefill_compute", tokens.shape)
                 job = {"group": group, "my_slots": my_slots,
                        "tokens": tokens, "lens": lens, "slots": slots,
-                       "eos": eos, "max_tok": max_tok}
+                       "eos": eos, "max_tok": max_tok,
+                       "ctl": None if self._ctl_dev is None else
+                       {k: v.clone() for k, v in self._ctl_dev.items()}}
                 for j, r in enumerate(group):
                     self.prefilling.append(
                         {"req": r, "slot": my_slots[j], "pos": 0,
@@ -1304,9 +1489,11 @@ class LMServer:
                     t.record_stream(stream)
             self._sync_tables()
             self._seen("prefill_scatter", job["slots"].shape)
-            payload = self._to_host(self._prefill_scatter(
-                tok, new_cache, hvals, job["slots"], job["eos"],
-                job["max_tok"]))
+            with obs_trace.get_tracer().span(
+                    "serve.prefill_scatter", {"batch": len(job["group"])}):
+                payload = self._to_host(self._prefill_scatter(
+                    tok, new_cache, hvals, job["slots"], job["eos"],
+                    job["max_tok"]))
             t_host = time.perf_counter()
             for j, r in enumerate(job["group"]):
                 s = job["my_slots"][j]
@@ -1513,13 +1700,16 @@ class LMServer:
         if self.alloc is not None:
             self.alloc.ensure(slot, pos + take)   # reserved: cannot fail
         self._sync_tables()
+        tr = obs_trace.get_tracer()
         if not last:
-            self._chunk_step(toks, slot, pos, take)
+            with tr.span("serve.chunk", {"take": take}):
+                self._chunk_step(toks, slot, pos, take)
             e["pos"] = pos + take
         else:
             eos = -1 if req.eos_id is None else req.eos_id
-            payload = self._to_host(self._chunk_step(
-                toks, slot, pos, take, final=(eos, req.max_tokens)))
+            with tr.span("serve.chunk", {"take": take, "last": True}):
+                payload = self._to_host(self._chunk_step(
+                    toks, slot, pos, take, final=(eos, req.max_tokens)))
             req.t_first_token = time.perf_counter()
             self.prefilling.pop(0)
             self._slot_pos[slot] = len(req.prompt)
@@ -1537,21 +1727,98 @@ class LMServer:
         """Admit waiting requests (piggybacking one prefill chunk when
         chunked prefill is on), then decode one token for EVERY active slot
         in a single step with a single device->host transfer — or, with
-        ``spec_k``, verify ``k`` drafted tokens per slot in one step."""
+        ``spec_k``, verify ``k`` drafted tokens per slot in one step.
+
+        Robustness hooks run first: the scheduled chaos faults apply for
+        this tick, then queue and decode deadlines retire expired requests,
+        so every path out of the engine leaves a terminal status."""
         if self.scheduler.registry is not self._bound_registry:
             self._bind_observability()
+        tr = obs_trace.get_tracer()
         t_tick = time.perf_counter()
-        done: List[Request] = list(self._admit())
-        mid_prefill = {e["slot"] for e in self.prefilling}
-        decode_slots = [i for i, r in enumerate(self.slot_req)
-                        if r is not None and i not in mid_prefill]
-        if decode_slots and self.spec_k:
-            done.extend(self._spec_tick(decode_slots))
-        elif decode_slots:
-            done.extend(self._plain_tick(decode_slots))
+        if self._injector is not None:
+            self._apply_host_faults()
+        with tr.span("serve.tick"):
+            done = self._expire_deadlines()
+            with tr.span("serve.admit"):
+                done.extend(self._admit())
+            mid_prefill = {e["slot"] for e in self.prefilling}
+            decode_slots = [i for i, r in enumerate(self.slot_req)
+                            if r is not None and i not in mid_prefill]
+            if decode_slots and self.spec_k:
+                done.extend(self._spec_tick(decode_slots))
+            elif decode_slots:
+                done.extend(self._plain_tick(decode_slots))
         self.scheduler.metrics["ticks"] += 1
+        self._chaos_tick += 1
         self._h_tick.observe(time.perf_counter() - t_tick)
         return done
+
+    def _apply_host_faults(self) -> None:
+        """Evaluate the fault schedule at this engine tick: load the
+        channel controls into the device control tensors and apply the
+        host sites (block-pool squeeze, prefill-worker crash). The squeeze
+        only ever takes blocks from the FREE budget, so blocks reserved for
+        admitted requests stay allocatable and the decode and chunk paths'
+        ``reserved: cannot fail`` invariants survive any schedule."""
+        inj, t = self._injector, self._chaos_tick
+        if self._use_fault_ctl:
+            self._load_controls(inj.controls(t, self._ctl_n_moduli))
+        if self.alloc is not None:
+            want = inj.pool_squeeze(t)
+            have = len(self.alloc.quarantined)
+            if want > have:
+                take = min(want - have, max(0, self._free_budget()))
+                if take > 0:
+                    self.alloc.quarantine(take)
+            elif want < have:
+                self.alloc.unquarantine(
+                    sorted(self.alloc.quarantined)[:have - want])
+        if self._pipe is not None and inj.worker_crash(t):
+            self._pipe.crash_next = True
+
+    def _expire_deadlines(self) -> List[Request]:
+        """Retire queued requests past their queue or total TTL and abort
+        active slots past their total TTL (terminal status ``timed_out``:
+        deadlines are final, never retried). Slots mid-PIPELINED-prefill
+        are skipped until their scatter lands (the worker's job still
+        holds them); they expire on the next tick."""
+        now = time.perf_counter()
+        done: List[Request] = list(self.scheduler.expire_queued(now))
+        pipe_mid = {e["slot"] for e in self.prefilling} \
+            if self._pipe is not None else set()
+        for i, req in enumerate(self.slot_req):
+            if req is None or i in pipe_mid:
+                continue
+            if req.deadline(now):
+                req.error = "deadline exceeded mid-flight"
+                self._abort_slot(i)
+                done.append(self.scheduler.retire(req, status="timed_out"))
+        return done
+
+    @torch.inference_mode()
+    def _abort_slot(self, slot: int) -> None:
+        """Tear a live slot down outside the normal retirement path
+        (deadline or fault abort): drop the host bookkeeping, release its
+        blocks, and clear its device active bit in place, so the next tick
+        freezes the slot instead of emitting for it."""
+        self.slot_req[slot] = None
+        self.prefilling = [e for e in self.prefilling if e["slot"] != slot]
+        self._release_slot(slot)
+        self._slot_pos[slot] = 0
+        self._slot_budget[slot] = 0
+        self._slot_poscap[slot] = 0
+        self.state["active"][slot] = False
+
+    def _corrupt(self, payload: np.ndarray, cols) -> np.ndarray:
+        """The host payload after the chaos site ``host_corruption`` (a
+        copy; unchanged without an injector)."""
+        if self._injector is None:
+            return payload
+        payload = payload.copy()
+        payload[:, cols] = self._injector.corrupt_tokens(
+            self._chaos_tick, payload[:, cols], self.model.cfg.vocab_size)
+        return payload
 
     def _plain_tick(self, decode_slots: List[int]) -> List[Request]:
         if self.alloc is not None:
@@ -1565,14 +1832,29 @@ class LMServer:
                 self._cow_guard(i, self._slot_pos[i], self._slot_pos[i] + 1)
                 self.alloc.ensure(i, min(self._slot_pos[i] + 1, cap_pos))
             self._sync_tables()
-        payload = self._to_host(self._tick_step(   # the ONE transfer
-            "decode_tick", self._decode_tick))
+        tr = obs_trace.get_tracer()
+        self._tick_count += 1
+        with tr.span("serve.decode", {"slots": len(decode_slots)}):
+            payload = self._tick_step("decode_tick", self._decode_tick)
+        with tr.span("serve.host_sync"):
+            payload = self._to_host(payload)      # the ONE transfer
         self.scheduler.metrics["decode_steps"] += 1
+        vocab = self.model.cfg.vocab_size
+        payload = self._corrupt(payload, 0)
         t_host = time.perf_counter()
         done: List[Request] = []
         for i, (tok, is_done) in enumerate(payload):
             req = self.slot_req[i]
             if req is None or tok < 0:
+                continue
+            if tok >= vocab:
+                # an out-of-vocab token is a corrupted device->host
+                # transfer: the stream can no longer be trusted, so abort
+                # the slot and retry the request from scratch (bounded)
+                self._abort_slot(i)
+                t = self._retry_or_fail(req, "corrupted host transfer")
+                if t is not None:
+                    done.append(t)
                 continue
             self._slot_pos[i] += 1
             if req.t_first_token == 0.0:
@@ -1617,13 +1899,26 @@ class LMServer:
                     p0 + 1 + k, max(self._slot_poscap[i], p0 + 1), cap_pos))
             self._sync_tables()
         self._drafts.copy_(torch.from_numpy(drafts))
-        payload = self._to_host(self._tick_step(   # the ONE transfer
-            "verify_tick", self._verify_tick))
+        tr = obs_trace.get_tracer()
+        self._tick_count += 1
+        with tr.span("serve.verify", {"slots": len(decode_slots), "k": k}):
+            payload = self._tick_step("verify_tick", self._verify_tick)
+        with tr.span("serve.host_sync"):
+            payload = self._to_host(payload)      # the ONE transfer
+        vocab = self.model.cfg.vocab_size
+        payload = self._corrupt(payload, slice(0, k + 1))
         t_host = time.perf_counter()
         done: List[Request] = []
         self.scheduler.metrics["spec_ticks"] += 1
         for i in decode_slots:
             req = self.slot_req[i]
+            if np.any(payload[i, :k + 1] >= vocab):
+                # a corrupted transfer (see _plain_tick): abort and retry
+                self._abort_slot(i)
+                t = self._retry_or_fail(req, "corrupted host transfer")
+                if t is not None:
+                    done.append(t)
+                continue
             is_done = payload[i, k + 1]
             n_acc = 0
             for t in payload[i, :k + 1]:
@@ -1652,6 +1947,31 @@ class LMServer:
                 break
             finished.extend(self.tick())
         return finished
+
+    def drain(self, max_ticks: int = 10_000) -> List[Request]:
+        """Graceful drain: stop admitting NEW work (``submit`` raises
+        :class:`AdmissionRejected` while draining) but run every queued
+        and in-flight request to a terminal status."""
+        self._draining = True
+        try:
+            return self.run_until_drained(max_ticks)
+        finally:
+            self._draining = False
+
+    def shutdown(self, max_ticks: int = 10_000) -> List[Request]:
+        """Teardown: reject everything still WAITING (terminal status
+        ``rejected``), drain the in-flight slots to completion, stop the
+        pipeline worker. Returns every request retired here; the engine
+        admits nothing afterwards."""
+        self._draining = True
+        out: List[Request] = []
+        while self.scheduler.waiting:
+            r = self.scheduler.waiting.popleft()
+            r.error = "server shutting down"
+            out.append(self.scheduler.retire(r, status="rejected"))
+        out.extend(self.run_until_drained(max_ticks))
+        self.close()
+        return out
 
     # ------------------------------------------------------------------
     # warmup, CUDA graphs
@@ -1713,12 +2033,17 @@ class LMServer:
         if on_card and self._capture_stream is None:
             self._capture_stream = torch.cuda.Stream(self.device)
         saved = self._save_leaves()
-        real = (self._noise_gens, self._sample_gens)
-        self._noise_gens = {s: seeded_generator(self.device, "warmup",
-                                                "noise", s) for s in _STREAMS}
-        self._sample_gens = {s: seeded_generator(self.device, "warmup",
-                                                 "sample", s)
-                             for s in _STREAMS}
+        real = (self._noise_gens, self._sample_gens, self._burst_gens)
+        self._noise_gens, self._sample_gens, self._burst_gens = (
+            {s: seeded_generator(self.device, "warmup", kind, s)
+             for s in _STREAMS} for kind in ("noise", "sample", "burst"))
+        if self._use_fault_ctl:
+            # warm (and capture) with identity controls, as the JAX engine
+            # warms its fault-wrapped steps; the next tick loads its own
+            for k, v in analog_channel.identity_fault_controls(
+                    self._ctl_n_moduli).items():
+                self._ctl_dev[k].copy_(v)
+            self._ctl_loaded = None
         try:
             self._warm_prefill_and_chunks()
             # the tick steps on the stream that captures them, so whatever
@@ -1726,7 +2051,7 @@ class LMServer:
             with self._on_capture_stream():
                 self._warm_ticks()
         finally:
-            self._noise_gens, self._sample_gens = real
+            self._noise_gens, self._sample_gens, self._burst_gens = real
             self._restore_leaves(saved)
         if on_card:
             if self.spec_k:
@@ -1829,12 +2154,15 @@ class LMServer:
 
     def _capture(self, name: str, step: Callable[[], torch.Tensor]) -> None:
         """Capture ``step`` as a CUDA graph on the capture stream, with the
-        decode stream's noise and sampling generators registered (a
-        replay then advances them as the eager step does). The capture
+        decode stream's noise and sampling generators (and, under channel
+        faults, its burst generator) registered, so a replay advances them
+        as the eager step does; the captured step reads the fault controls
+        from ``_ctl_dev``. The capture
         launches nothing, so the launch counts it adds are taken back and
         kept as the graph's per-replay counts; the generators' states are
         restored."""
-        gens = (self._noise_gens["decode"], self._sample_gens["decode"])
+        gens = (self._noise_gens["decode"], self._sample_gens["decode"]) + \
+            ((self._burst_gens["decode"],) if self._use_fault_ctl else ())
         states = [g.get_state() for g in gens]
         graph = torch.cuda.CUDAGraph()
         for g in gens:
@@ -1859,7 +2187,7 @@ class LMServer:
             self._pipe = None
 
     # ------------------------------------------------------------------
-    # elastic resize, backend switch
+    # elastic resize
     # ------------------------------------------------------------------
 
     def resize_slots(self, new_slots: int) -> None:
@@ -1915,6 +2243,159 @@ class LMServer:
             self.prefix_index.remap(
                 {int(o): int(n) for o, n in zip(old_ids, new_ids)})
 
+    # ------------------------------------------------------------------
+    # crash-consistent snapshots
+    # ------------------------------------------------------------------
+
+    _SNAP_VERSION = 1
+
+    @staticmethod
+    def _req_to_dict(r: Request) -> Dict[str, Any]:
+        return {"rid": r.rid, "prompt": np.asarray(r.prompt, np.int32),
+                "max_tokens": int(r.max_tokens), "eos_id": r.eos_id,
+                "tokens_out": list(r.tokens_out),
+                "t_enqueue": r.t_enqueue, "t_admit": r.t_admit,
+                "t_first_token": r.t_first_token, "t_done": r.t_done,
+                "status": r.status, "ttl_s": r.ttl_s,
+                "queue_ttl_s": r.queue_ttl_s,
+                "max_retries": int(r.max_retries),
+                "retries": int(r.retries), "error": r.error}
+
+    def _generators(self) -> Dict[str, Dict[str, torch.Generator]]:
+        return {"noise": self._noise_gens, "burst": self._burst_gens,
+                "sample": self._sample_gens}
+
+    def snapshot(self) -> Dict[str, Any]:
+        """Crash-consistent engine snapshot: ONE picklable host tree
+        holding the device state (as CPU tensors), the allocator tables,
+        the prefix index, the request queues, the states of the engine's
+        noise, burst and sampling generators (those a captured tick
+        advances included: a replay moves its registered generators'
+        states) and its clocks. Restoring it, into this engine or an
+        identically configured one in a fresh process, resumes
+        token-identical streams, per-tick analog noise included. Requires
+        a quiescent prefill pipeline (in-flight worker compute is thread
+        state that cannot be captured consistently): tick until no prefill
+        is in flight first."""
+        if self._pipe is not None and self._pipe.inflight:
+            raise RuntimeError(
+                "snapshot requires a quiescent prefill pipeline (tick "
+                "until no prefill is in flight)")
+        live: Dict[int, Request] = {}
+        for r in list(self.scheduler.waiting) + \
+                [e["req"] for e in self.prefilling] + \
+                [x for x in self.slot_req if x is not None]:
+            live[r.rid] = r
+        return {
+            "version": self._SNAP_VERSION,
+            "n_slots": self.n_slots,
+            "state": _tree_map(lambda t: t.detach().to("cpu", copy=True),
+                               self.state),
+            "alloc": copy.deepcopy(self.alloc.__dict__)
+            if self.alloc is not None else None,
+            "prefix": copy.deepcopy(self.prefix_index.__dict__)
+            if self.prefix_index is not None else None,
+            "requests": {rid: self._req_to_dict(r)
+                         for rid, r in live.items()},
+            "waiting": [r.rid for r in self.scheduler.waiting],
+            "slot_req": [r.rid if r is not None else None
+                         for r in self.slot_req],
+            "prefilling": [{"rid": e["req"].rid, "slot": e["slot"],
+                            "pos": e["pos"]} for e in self.prefilling],
+            "slot_pos": list(self._slot_pos),
+            "slot_budget": list(self._slot_budget),
+            "slot_poscap": list(self._slot_poscap),
+            "fork_pending": list(self._fork_pending),
+            "counters": {"tick": self._tick_count,
+                         "chaos": self._chaos_tick},
+            "generators": {kind: {s: g.get_state() for s, g in gens.items()}
+                           for kind, gens in self._generators().items()},
+            "metrics": {k: int(v)
+                        for k, v in self.scheduler.metrics.items()
+                        if k != "prefilling"},
+            "finished_rids": [r.rid for r in self.scheduler.finished],
+        }
+
+    def restore(self, snap: Dict[str, Any],
+                requests: Optional[Dict[int, Request]] = None) -> None:
+        """Load a :meth:`snapshot` back into this engine (same model,
+        policy and layout). The device state is written in place where its
+        tensors match the snapshot's (a captured tick keeps reading them);
+        otherwise they are replaced and the graphs dropped. ``requests``
+        optionally maps rid -> live ``Request`` objects to update in place
+        (the guardian's rollback, which keeps object identity); without
+        it, requests are rebuilt from the snapshot (the fresh-process
+        recovery path; requests already finished at snapshot time are not
+        rebuilt: their streams were delivered before the crash)."""
+        if snap.get("version") != self._SNAP_VERSION:
+            raise ValueError(f"snapshot version {snap.get('version')!r} != "
+                             f"engine version {self._SNAP_VERSION}")
+        if snap["n_slots"] != self.n_slots:
+            raise ValueError(f"snapshot has {snap['n_slots']} slots, "
+                             f"engine has {self.n_slots}")
+        if self._pipe is not None and self._pipe.inflight:
+            raise RuntimeError("cannot restore over in-flight prefills")
+        with torch.inference_mode():
+            if not _load_tree(self.state, snap["state"]):
+                self._graphs.clear()
+                self.state = _tree_map(
+                    lambda t: t.to(self.device, copy=True), snap["state"])
+        if self.alloc is not None and snap["alloc"] is not None:
+            self.alloc.__dict__.clear()
+            self.alloc.__dict__.update(copy.deepcopy(snap["alloc"]))
+            self.alloc.dirty = True
+            self._sync_tables()
+        if self.prefix_index is not None and snap["prefix"] is not None:
+            self.prefix_index.__dict__.clear()
+            self.prefix_index.__dict__.update(copy.deepcopy(snap["prefix"]))
+        pool: Dict[int, Request] = {
+            r.rid: r for r in self.scheduler.finished}
+        for r in list(self.scheduler.waiting) + \
+                [x for x in self.slot_req if x is not None] + \
+                [e["req"] for e in self.prefilling]:
+            pool[r.rid] = r
+        if requests:
+            pool.update(requests)
+
+        def revive(rid: int) -> Request:
+            d = snap["requests"][rid]
+            r = pool.get(rid)
+            if r is None:
+                r = Request(rid=d["rid"],
+                            prompt=np.asarray(d["prompt"], np.int32),
+                            max_tokens=d["max_tokens"], eos_id=d["eos_id"])
+                pool[rid] = r
+            for k in ("t_enqueue", "t_admit", "t_first_token", "t_done",
+                      "status", "ttl_s", "queue_ttl_s", "max_retries",
+                      "retries", "error"):
+                setattr(r, k, d[k])
+            r.tokens_out = list(d["tokens_out"])
+            return r
+
+        self.scheduler.waiting = collections.deque(
+            revive(rid) for rid in snap["waiting"])
+        self.slot_req = [revive(rid) if rid is not None else None
+                         for rid in snap["slot_req"]]
+        self.prefilling = [{"req": revive(e["rid"]), "slot": e["slot"],
+                            "pos": e["pos"]} for e in snap["prefilling"]]
+        self._slot_pos = list(snap["slot_pos"])
+        self._slot_budget = list(snap["slot_budget"])
+        self._slot_poscap = list(snap["slot_poscap"])
+        self._fork_pending = list(snap["fork_pending"])
+        self._tick_count = snap["counters"]["tick"]
+        self._chaos_tick = snap["counters"]["chaos"]
+        for kind, gens in self._generators().items():
+            for stream, st in snap["generators"][kind].items():
+                gens[stream].set_state(st)
+        for k, v in snap["metrics"].items():
+            self.scheduler.metrics[k] = v
+        self.scheduler.finished = [
+            pool[rid] for rid in snap["finished_rids"] if rid in pool]
+
+    # ------------------------------------------------------------------
+    # backend switch
+    # ------------------------------------------------------------------
+
     def switch_backend(self, new_policy) -> None:
         """Reprogram the engine's numeric backend mid-flight (the
         SNR-adaptive degradation path of the JAX package's resilience
@@ -1924,9 +2405,11 @@ class LMServer:
         (residue coding is policy-specific; an engine built with
         ``stationary_weights=None`` follows the new backend's capability),
         swap the health accumulators to the new policy's spec, reseed the
-        noise generators from its ``noise_seed``, and drop the captured
-        graphs (see :meth:`warmup`). In-flight KV is plain numeric state,
-        not policy-coded: live streams continue under the new backend from
+        noise generators from its ``noise_seed``, decide afresh whether
+        the steps run under the channel fault controls (the fp32 fallback
+        has no channel), and drop the captured graphs (see
+        :meth:`warmup`). In-flight KV is plain numeric state, not
+        policy-coded: live streams continue under the new backend from
         their current positions."""
         if self._pipe is not None and self._pipe.inflight:
             raise RuntimeError(
@@ -1941,12 +2424,13 @@ class LMServer:
         if self.stationary_weights and backend.supports_stationary_residues:
             stationary.install(self.model, stationary.encode_stationary_params(
                 self.model, new_policy))
-        self._health_spec = obs_health.spec(new_policy)
+        self._set_health_spec(new_policy)
         self.state.pop("health", None)
         if self._health_spec:
             self.state["health"] = obs_health.init(self._health_spec,
                                                    self.device)
         self._reseed_noise(new_policy)
+        self._compute_fault_ctl()
 
     # ------------------------------------------------------------------
     # observability
@@ -1979,6 +2463,8 @@ class LMServer:
         self._h_tick = reg.histogram(
             "serve_tick_seconds", help="engine tick walltime (admit + "
                                        "decode/verify + host sync)")
+        if self._health_spec:
+            reg.add_collector(self._collect_health)
         if self.alloc is None:
             return
         alloc = self.alloc
@@ -2010,6 +2496,20 @@ class LMServer:
                 g.labels(str(k)).set(v)
 
         reg.add_collector(_collect_shard_depth)
+
+    def _collect_health(self, reg) -> None:
+        """The analog-health counters as ``serve_health_<name>`` gauges (a
+        ``channel`` label per modulus), one transfer a scrape."""
+        for name, val in self.health_snapshot().items():
+            if isinstance(val, list):
+                g = reg.gauge(f"serve_health_{name}",
+                              help="per-channel analog fault counter",
+                              label_names=("channel",))
+                for mod, v in zip(self._health_moduli, val):
+                    g.labels(str(mod)).set(v)
+            else:
+                reg.gauge(f"serve_health_{name}",
+                          help="analog fault counter").set(val)
 
     def health_snapshot(self) -> Dict[str, Any]:
         """The analog-health counters as plain ints (per-channel ones as

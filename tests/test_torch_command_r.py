@@ -86,11 +86,26 @@ def _drain(server, reqs):
     return out
 
 
-def _pair(policy, merge=False, cfg=None, **overrides):
+@pytest.fixture(scope="module")
+def jax_init():
+    """The JAX init of each config, run once for the module: the policy and
+    the options draw the same parameters."""
+    cache = {}
+
+    def init(jcfg):
+        if repr(jcfg) not in cache:
+            cache[repr(jcfg)] = jbuild(jcfg, jpolicy("fp32")).init(
+                jax.random.PRNGKey(0))
+        return cache[repr(jcfg)]
+
+    return init
+
+
+def _pair(jax_init, policy, merge=False, cfg=None, **overrides):
     jcfg = jconfig(ARCH).reduced() if cfg is None else cfg
     jm = jbuild(jcfg, jpolicy(policy, **overrides),
                 JOptions(q_chunk=16, kv_chunk=16, merge_parallel_proj=merge))
-    params = jm.init(jax.random.PRNGKey(0))
+    params = jax_init(jcfg)
     fields = {f: getattr(jcfg, f) for f in ModelConfig.__dataclass_fields__}
     tm = build_model(ModelConfig(**fields),
                      get_policy(policy, **overrides),
@@ -108,8 +123,8 @@ def _batch(seed=0, B=2, L=12):
 
 @pytest.mark.parametrize("merge", [False, True])
 @pytest.mark.parametrize("policy", ["fp32", "mirage"])
-def test_forward_loss_and_grads_equal_jax(policy, merge):
-    jm, params, tm = _pair(policy, merge)
+def test_forward_loss_and_grads_equal_jax(jax_init, policy, merge):
+    jm, params, tm = _pair(jax_init, policy, merge)
     assert tm.parallel and tm.opt.merge_parallel_proj == merge
     batch = _batch()
     jl = jax.jit(lambda p, t: jm.forward(p, t)[0])(params, batch["tokens"])
@@ -138,11 +153,11 @@ def test_forward_loss_and_grads_equal_jax(policy, merge):
 
 
 @pytest.mark.parametrize("policy", ["fp32", "mirage"])
-def test_merged_projection_equals_unmerged(policy):
+def test_merged_projection_equals_unmerged(jax_init, policy):
     """One GEMM over ``[a ; silu(gate) * up]`` against ``[w_o ; w_down]``
     is the two projections' sum, in another order of f32 sums."""
-    _, _, plain = _pair(policy)
-    _, _, merged = _pair(policy, merge=True)
+    _, _, plain = _pair(jax_init, policy)
+    _, _, merged = _pair(jax_init, policy, merge=True)
     toks = torch.from_numpy(_batch(seed=1)["tokens"])
     with torch.no_grad():
         a, b = plain.forward(toks), merged.forward(toks)
@@ -151,20 +166,20 @@ def test_merged_projection_equals_unmerged(policy):
 
 
 @pytest.fixture(scope="module")
-def served():
-    jm, params, tm = _pair("mirage")
+def served(jax_init):
+    jm, params, tm = _pair(jax_init, "mirage")
     want = _drain(JServer(jm, params, **ENGINE), _shared(JRequest))
     return want, tm
 
 
 @pytest.mark.parametrize("engine", list(ENGINES))
-def test_engines_equal_jax_engine(served, engine):
+def test_engines_equal_jax_engine(jax_init, served, engine):
     want, tm = served
     assert len(want) == 4 and all(len(t) == 4 for t in want.values())
     if engine == "oracle":
         server = PerSlotLMServer(tm, **ENGINE)
     elif engine == "merged_model":
-        _, _, merged = _pair("mirage", merge=True)
+        _, _, merged = _pair(jax_init, "mirage", merge=True)
         server = LMServer(merged, **ENGINE)
     else:
         server = LMServer(tm, **ENGINE, **ENGINES[engine])
@@ -173,11 +188,11 @@ def test_engines_equal_jax_engine(served, engine):
     assert _drain(server, _shared(Request)) == want, engine
 
 
-def test_rrns_60db_engine_equals_jax_engine():
+def test_rrns_60db_engine_equals_jax_engine(jax_init):
     """At 60 dB every RRNS decode corrects exactly, so the streams do not
     depend on the noise drawn (the port's numbers differ from JAX's)."""
     kw = dict(snr_db=60.0, noise_seed=7)
-    jm, params, tm = _pair("mirage_rrns", **kw)
+    jm, params, tm = _pair(jax_init, "mirage_rrns", **kw)
     reqs = lambda cls: _shared(cls, n=2, seed=5)
     want = _drain(JServer(jm, params, **ENGINE), reqs(JRequest))
     server = LMServer(tm, **ENGINE)
@@ -185,16 +200,16 @@ def test_rrns_60db_engine_equals_jax_engine():
     assert _drain(server, reqs(Request)) == want and len(want) == 2
     assert server.health_snapshot()["rrns_uncorrected"] == 0
     # the merged projection concatenates raw weights: no programming
-    _, _, merged = _pair("mirage_rrns", merge=True, **kw)
+    _, _, merged = _pair(jax_init, "mirage_rrns", merge=True, **kw)
     assert not LMServer(merged, **ENGINE).stationary_weights
 
 
-def test_gqa_group_of_12_equals_jax():
+def test_gqa_group_of_12_equals_jax(jax_init):
     """12 query heads over 1 kv head (the published group, 96 / 8)."""
     cfg = dataclasses.replace(jconfig(ARCH).reduced(), n_heads=12,
                               n_kv_heads=1)
     assert get_config(ARCH).n_heads // get_config(ARCH).n_kv_heads == 12
-    jm, params, tm = _pair("mirage", cfg=cfg)
+    jm, params, tm = _pair(jax_init, "mirage", cfg=cfg)
     toks = _batch(seed=2)["tokens"]
     jl = jax.jit(lambda p, t: jm.forward(p, t)[0])(params, toks)
     with torch.no_grad():

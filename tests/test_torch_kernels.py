@@ -607,3 +607,66 @@ def test_cuda_flash_kernel_noncausal_vs_plain(cuda):
             got, ref.flash_attention_ref(q, k, v, causal=False),
             rtol=2e-5, atol=2e-5)
         assert torch.equal(got, ops.flash_attention(q, k, v, causal=False))
+
+
+#: the SNR guardian's r = 4 rung: the base moduli and four redundant ones
+#: (35 subsets of 3), which no serving path used before slice 7
+RRNS_R4 = (31, 32, 33, 37, 41, 43, 47)
+
+
+def _residues_r4(shape, gen, device):
+    return torch.stack([torch.randint(0, m, shape, generator=gen,
+                                      device=device, dtype=torch.int32)
+                        for m in RRNS_R4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(4, 896, 4864), (4, 4864, 896),
+                                   (64, 896, 896), (4, 896, 151936)])
+def test_cuda_rns_matmul_n_mod_7_vs_plain(cuda, M, K, N):
+    """Kernel 4 over the r = 4 moduli at qwen2-0.5b's decode and prefill
+    GEMM shapes, bit for bit against its plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(M + K + N)
+    G = K // 16
+    xr = _residues_r4((G, M, 16), gen, cuda)
+    wr = _residues_r4((G, 16, N), gen, cuda)
+    assert torch.equal(ops.rns_group_matmul(xr, wr, RRNS_R4),
+                       ref.rns_matmul_ref(xr, wr, RRNS_R4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inputs", ["legal_with_errors", "random_tuples"])
+def test_cuda_rrns_decode_n_mod_7_vs_plain(cuda, inputs):
+    """Kernel 6 over the r = 4 tables: decoded values and votes bit for bit
+    against its plain version, on legal values with 0, 1 or 2 residue
+    errors at random channels (r = 4 corrects two: each decodes to its
+    value) and on random residue tuples (every element runs all 35
+    subsets)."""
+    from repro_torch.analog import rrns
+
+    psi = (31 * 32 * 33 - 1) // 2
+    tables = rrns.get_tables(RRNS_R4, 3, psi)
+    assert tables.f32_exact and tables.n_subsets == 35
+    gen = torch.Generator(device=cuda).manual_seed(27)
+    E = 1_000_003
+    if inputs == "random_tuples":
+        res = _residues_r4((E,), gen, cuda)
+    else:
+        xs = torch.randint(-psi, psi + 1, (E,), generator=gen, device=cuda)
+        n_err = torch.arange(E, device=cuda) % 3
+        first = torch.randint(0, 7, (E,), generator=gen, device=cuda)
+        second = (first + torch.randint(1, 7, (E,), generator=gen,
+                                        device=cuda)) % 7
+        rows = []
+        for i, m in enumerate(RRNS_R4):
+            hit = ((n_err >= 1) & (first == i)) | \
+                ((n_err == 2) & (second == i))
+            delta = torch.randint(1, m, (E,), generator=gen, device=cuda)
+            rows.append(torch.remainder(xs + torch.where(hit, delta, 0), m))
+        res = torch.stack(rows).to(torch.int32).contiguous()
+    dec, votes = ops.rrns_decode(res, tables)
+    want_dec, want_votes = ref.rrns_decode_ref(res, tables)
+    assert torch.equal(dec, want_dec)
+    assert torch.equal(votes.view(torch.int32), want_votes.view(torch.int32))
+    if inputs == "legal_with_errors":
+        assert torch.equal(dec, xs.to(torch.int32))

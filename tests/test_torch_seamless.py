@@ -99,10 +99,17 @@ def _perturb(tree, seed=0):
     return walk(tree)
 
 
-def _pair(policy, options=None):
+@pytest.fixture(scope="module")
+def jax_params():
+    """The JAX init of the reduced config (perturbed), run once for the
+    module: every policy draws the same parameters."""
+    return _perturb(jbuild(jconfig(ARCH).reduced(), jpolicy("fp32")).init(
+        jax.random.PRNGKey(0)))
+
+
+def _pair(policy, params, options=None):
     cfg = jconfig(ARCH).reduced()
     jm = jbuild(cfg, jpolicy(policy))
-    params = _perturb(jm.init(jax.random.PRNGKey(0)))
     tm = build_model(get_config(ARCH).reduced(), get_policy(policy),
                      options or LMCallOptions(), device="cpu")
     load_jax_params(tm, jax.tree_util.tree_map(np.asarray, params))
@@ -110,13 +117,13 @@ def _pair(policy, options=None):
 
 
 @pytest.fixture(scope="module", params=["fp32", "mirage"])
-def pair(request):
-    return request.param, _pair(request.param)
+def pair(request, jax_params):
+    return request.param, _pair(request.param, jax_params)
 
 
 @pytest.fixture(scope="module")
-def mirage_pair():
-    return _pair("mirage")
+def mirage_pair(jax_params):
+    return _pair("mirage", jax_params)
 
 
 def _t(a):
@@ -315,11 +322,11 @@ def test_greedy_stream_equals_jax(mirage_pair):
     assert torch.equal(c["cross_k"], c0["cross_k"])
 
 
-def test_decode_after_prefill_equals_forward():
+def test_decode_after_prefill_equals_forward(jax_params):
     """Teacher-forced decode from a prefill of the first 6 tokens: each
     step's logits equal the full forward's at that position (the
     JAX package's ``test_prefill_then_decode``, held to the forward)."""
-    _, _, tm = _pair("fp32")
+    _, _, tm = _pair("fp32", jax_params)
     frames, toks = _inputs(seed=2, L=12)
     with torch.no_grad():
         full = tm.forward(_t(frames), _t(toks))
@@ -379,7 +386,7 @@ def _chip_smoke():
     return mod
 
 
-def test_exact_reference_grads_equal_port():
+def test_exact_reference_grads_equal_port(jax_params):
     """chip_smoke.py's f64 reference of the teacher-forced units (the
     layers written out in plain tensor ops, which its training phase holds
     the card's fp32 gradients against) against the port's fp32 CPU path:
@@ -387,7 +394,7 @@ def test_exact_reference_grads_equal_port():
     largest magnitude, the cross-attention key bias within 1e-6 of its
     unit's largest gradient on both sides."""
     cs = _chip_smoke()
-    _, _, tm = _pair("fp32")
+    _, _, tm = _pair("fp32", jax_params)
     exact = copy.deepcopy(tm).double()
     b = _batch(L=12)
     frames, toks = _t(b["frames"]), _t(b["tokens"]).long()
@@ -422,11 +429,11 @@ def test_exact_reference_grads_equal_port():
             _close(g / scale, (v / scale).float())
 
 
-def test_remat_and_chunked_ce():
+def test_remat_and_chunked_ce(jax_params):
     """``remat`` (every encoder and decoder layer a checkpointed unit)
     gives the same loss and gradients bit for bit; ``ce_chunk`` the same
     loss as JAX's chunked CE within 1e-6."""
-    jm, params, tm = _pair("mirage")
+    jm, params, tm = _pair("mirage", jax_params)
     batch = {k: _t(v) for k, v in _batch(seed=1).items()}
     out = []
     for opts in (LMCallOptions(), LMCallOptions(remat=True)):

@@ -208,11 +208,19 @@ def test_integer_wrappers_are_forward_only():
 # the model's loss and gradients against jax.value_and_grad
 # --------------------------------------------------------------------------
 
-def _pair(policy, **opts):
+@pytest.fixture(scope="module")
+def jax_params():
+    """The JAX init of the reduced config, run once for the module: every
+    policy and option draws the same parameters."""
+    return jbuild(jconfig("qwen2-0.5b").reduced(), jpolicy("fp32"),
+                  JOptions(q_chunk=32, kv_chunk=32)).init(
+                      jax.random.PRNGKey(0))
+
+
+def _pair(policy, params, **opts):
     cfg = jconfig("qwen2-0.5b").reduced()
     jm = jbuild(cfg, jpolicy(policy), JOptions(q_chunk=32, kv_chunk=32,
                                               **opts))
-    params = jm.init(jax.random.PRNGKey(0))
     fields = {f: getattr(cfg, f) for f in ModelConfig.__dataclass_fields__}
     tm = build_model(ModelConfig(**fields), get_policy(policy),
                      LMCallOptions(q_chunk=32, kv_chunk=32, **opts),
@@ -229,8 +237,8 @@ def _batch(seq=48, batch=4, step=0):
 @pytest.mark.parametrize("policy", ["fp32", "mirage"])
 @pytest.mark.parametrize("opts", [{}, {"ce_chunk": 40, "remat": True}],
                          ids=["plain", "ce_chunk_remat"])
-def test_loss_and_grads_match_jax(policy, opts):
-    jm, params, tm = _pair(policy, **opts)
+def test_loss_and_grads_match_jax(jax_params, policy, opts):
+    jm, params, tm = _pair(policy, jax_params, **opts)
     b = _batch()
     (jl, jmet), jg = jax.value_and_grad(jm.loss, has_aux=True)(
         params, {k: jnp.asarray(v) for k, v in b.items()})
@@ -248,7 +256,8 @@ def test_loss_and_grads_match_jax(policy, opts):
             + 1e-8, n
 
 
-def test_flash_attention_only_where_the_options_ask(monkeypatch):
+def test_flash_attention_only_where_the_options_ask(monkeypatch,
+                                                   jax_params):
     """Full-sequence attention goes to the flash kernel's wrapper exactly
     where ``LMCallOptions.use_flash_kernel`` is set (serving); training
     keeps the default, the plain attention, as the JAX package does. With
@@ -263,7 +272,7 @@ def test_flash_attention_only_where_the_options_ask(monkeypatch):
         return inner(*a, **kw)
 
     monkeypatch.setattr(attention.ops, "flash_attention", spy)
-    _, _, plain = _pair("fp32")
+    _, _, plain = _pair("fp32", jax_params)
     flash = build_model(plain.cfg, get_policy("fp32"),
                         LMCallOptions(use_flash_kernel=True), device="cpu")
     flash.load_state_dict(plain.state_dict())
@@ -385,9 +394,9 @@ def test_wsq_with_bfp_compression_matches_jax_steps():
     assert set(tstate["err"]) == set(tstate["params"])
 
 
-def test_prequantize_matches_jax():
+def test_prequantize_matches_jax(jax_params):
     from repro.runtime.trainer import _prequantize_params as jpre
-    jm, params, tm = _pair("mirage")
+    jm, params, tm = _pair("mirage", jax_params)
     pol = get_policy("mirage")
     got = trainer._prequantize_params(dict(tm.named_parameters()), pol,
                                       torch.float32)

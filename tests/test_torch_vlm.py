@@ -72,10 +72,18 @@ ENGINES = {
 }
 
 
-def _pair(policy):
+@pytest.fixture(scope="module")
+def jax_params():
+    """The JAX init of the reduced config, run once for the module (every
+    policy draws the same parameters)."""
+    return jbuild(jconfig(ARCH).reduced(), jpolicy("fp32"),
+                  JOptions(q_chunk=16, kv_chunk=16)).init(
+                      jax.random.PRNGKey(0))
+
+
+def _pair(policy, params):
     cfg = jconfig(ARCH).reduced()
     jm = jbuild(cfg, jpolicy(policy), JOptions(q_chunk=16, kv_chunk=16))
-    params = jm.init(jax.random.PRNGKey(0))
     tm = build_model(get_config(ARCH).reduced(), get_policy(policy),
                      LMCallOptions(q_chunk=16, kv_chunk=16), device="cpu")
     load_jax_params(tm, jax.tree_util.tree_map(np.asarray, params))
@@ -83,8 +91,8 @@ def _pair(policy):
 
 
 @pytest.fixture(scope="module", params=["fp32", "mirage"])
-def pair(request):
-    return request.param, _pair(request.param)
+def pair(request, jax_params):
+    return request.param, _pair(request.param, jax_params)
 
 
 def _source(module, cfg, batch=2, seq=12, seed=0):
@@ -261,8 +269,8 @@ def test_head_gemm_at_the_odd_vocabulary_equals_jax():
 
 
 @pytest.fixture(scope="module")
-def served():
-    jm, params, tm = _pair("mirage")
+def served(jax_params):
+    jm, params, tm = _pair("mirage", jax_params)
     reqs = _requests(JRequest)
     server = JServer(jm, params, **ENGINE)
     for r in reqs:
