@@ -205,6 +205,19 @@ engine retried to the clean streams; queue and decode deadlines, the
 admission cap, a snapshot resumed by a fresh warmed engine with the
 uninterrupted streams and health, and the metrics exporter on loopback.
 
+Slice 8a (sharded training): kernel 1 at qwen2-0.5b's TP = 2 shard
+shapes (forward, dX and dW at M = 128 and 256) against its plain version,
+gate/up and down timed (row 1h); then 4 ranks spawned on the one card over
+gloo (NCCL takes one rank a card), a (data 2, model 2) mesh: 3 mirage
+steps of full-width qwen2-0.5b (507 kernel-1 launches a rank a step at the
+shard shapes, collective bytes by kind, peak memory a rank) with the
+step-1 loss held to one device's, one fp32 step held to one device's leaf
+by leaf; ``moe_apply_ep`` over qwen3-moe-30b-a3b's first layer at full
+width against the single-device ``moe_apply``, dropless and per data
+shard; a 2x2 train state restored onto 1x4 and one device bit for bit;
+``launch.train --distributed`` as one NCCL rank, and a second rank on the
+card refused.
+
 Run as a script, it pins the CPU side's vector dispatch (ATen at AVX2,
 MKL's conditional reproducibility at AVX2) before importing torch, so the
 CPU references do not depend on the host's own dispatch level.
@@ -372,6 +385,12 @@ def spin_ms() -> float:
     end.record()
     end.synchronize()
     return max(start.elapsed_time(end), 1e-3)
+
+
+#: how the plain versions are timed: once after one warm-up. They are the
+#: reference of each check, not a yardstick of speed (the library call is),
+#: and the script's time limit is shared by every phase
+PLAIN_TIMING = dict(n=1, warmup=1)
 
 
 def time_ms(fn, n: int = 20, warmup: int = 3, flush_l2: bool = True) -> float:
@@ -1045,9 +1064,11 @@ def phase_slice(ops):
     warm.run_until_drained()
     del warm
 
+    t_prog = time.perf_counter()
     server = LMServer(model, cap=cap, batch_slots=SLOTS)
     reqs = make_requests(Request, cfg.vocab_size)
     torch.cuda.synchronize()
+    program_s = time.perf_counter() - t_prog
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t_run = time.perf_counter()
@@ -1057,6 +1078,7 @@ def phase_slice(ops):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t_run
     launches = dict(ops.LAUNCHES)
+    cold_drain("dense", server, finished, dt, launches, program_s)
 
     m = server.metrics
     batches, steps = m["prefill_batches"], m["decode_steps"]
@@ -1306,6 +1328,19 @@ def serve_run(ops, model, cap, reqs, LMServer, prepare=None, **engine_kw):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t_run
     return server, finished, dt, dict(ops.LAUNCHES), program_s
+
+
+#: the cold drains of engines that serve_warmup holds its warmed engines
+#: against, kept by the phases that drained them first (the same engine
+#: options, model and requests): name -> (summary, streams, health)
+COLD_DRAINS = {}
+
+
+def cold_drain(name, server, finished, dt, launches, program_s) -> None:
+    COLD_DRAINS[name] = (
+        {**serve_summary(server, finished, dt, launches, program_s),
+         "model_steps": model_steps(server.metrics)},
+        {r.rid: r.tokens_out for r in finished}, server.health_snapshot())
 
 
 def serve_summary(server, finished, dt, launches, program_s):
@@ -1647,6 +1682,7 @@ def phase_slice_paged(ops, model, cap, dense_streams):
         expect_launches(launches, want, f"slice_paged {name}")
         if first is None:
             first = launches
+            cold_drain("paged", server, finished, dt, launches, program_s)
             check(streams == dense_streams, "slice_paged: the block-size-4 "
                   "streams differ from the dense engine's")
     # the steady tick of both layouts in turns (dense, paged, paged, dense,
@@ -1836,8 +1872,9 @@ WARM_ENGINES = (
                                   spec_k=SPEC_K)),
     ("rrns_52db", "mirage_rrns", {}),
 )
-#: (runs a side, ticks a run) of the cold-against-warmed tick timing
-WARM_TICK_RUNS = {"dense": (4, 10), "rrns_52db": (1, 4)}
+#: (runs a side, ticks a run) of the cold-against-warmed tick timing (the
+#: dense engine's 2 runs a side from PR 28, for the script's time limit)
+WARM_TICK_RUNS = {"dense": (2, 10), "rrns_52db": (1, 4)}
 PIPELINE_DEPTH = 2
 
 
@@ -1868,8 +1905,9 @@ def phase_serve_warmup(ops, model, cap, cold_runs=None):
     """Warmed engines against cold ones, token for token: mirage_fast on
     the dense engine, the paged engine at block size 4, paged with spec_k =
     3, and mirage_rrns at 52 dB (its health counters RRNS_HEALTH; its cold
-    drain is slice_rrns's, the same engine on the same requests, passed
-    in ``cold_runs`` as (summary, streams, health) by engine name). A
+    drain is slice_rrns's, the dense and paged ones slice's and
+    slice_paged's: the same engines on the same requests, passed in
+    ``cold_runs`` as (summary, streams, health) by engine name). A
     warmed engine replays its tick as one CUDA graph: its launch counts
     must equal the cold drain's, its compile counts must hold across the
     drain, and its profile must show one graph launch a tick. Then the
@@ -2347,7 +2385,7 @@ def phase_chaos_kernels(ops, ref):
                 "ms": time_ms(lambda: ops.rns_group_matmul(xr, wr,
                                                            RRNS_R4)),
                 "plain_ms": time_ms(lambda: ref.rns_matmul_ref(
-                    xr, wr, RRNS_R4), n=5),
+                    xr, wr, RRNS_R4), **PLAIN_TIMING),
                 "library_ms": time_ms(lambda: torch.bmm(xf, wf)),
                 "library": "torch.bmm (no mod)",
                 "bound_ms": t_b, "bound_by": by})
@@ -3175,11 +3213,13 @@ def function_grads(x, w, dout, policy):
 
 
 def cpu_capture(cpu_model, batch, layers, wsq_policy=None,
-                gemms=LAYER_GEMMS, with_head: bool = True):
+                gemms=LAYER_GEMMS, with_head: bool = True,
+                prequantized=None):
     """The CPU's step-1 forward and backward with the ``gemms`` of
     ``layers`` and the head recorded; under ``wsq_policy`` on the
-    weight-stationary copies, as the trainer runs it. Returns (loss,
-    capture, head index)."""
+    weight-stationary copies, as the trainer runs it (``prequantized``:
+    those copies, made already, by name). Returns (loss, capture, head
+    index)."""
     from repro_torch.runtime.trainer import _Loss, _prequantize_params
 
     n_layers = len(cpu_model.layers)
@@ -3193,7 +3233,10 @@ def cpu_capture(cpu_model, batch, layers, wsq_policy=None,
         if wsq_policy is None:
             loss, _ = cpu_model.loss(batch)
         else:
-            run = _prequantize_params(run, wsq_policy, torch.float32)
+            run = _prequantize_params(run, wsq_policy, torch.float32) \
+                if prequantized is None else {
+                    k: v.detach().requires_grad_(True)
+                    for k, v in prequantized.items()}
             loss, _ = torch.func.functional_call(
                 _Loss(cpu_model), {f"model.{k}": v for k, v in run.items()},
                 (batch,))
@@ -3284,7 +3327,8 @@ def phase_slice_train_wsq(ops, ref, layers=(0, 11, 23),
     runs the kernel on that contiguous copy as it is. ``n_layers`` cuts
     the depth of ``arch`` as ``--layers`` does."""
     from repro_torch.core.precision import get_policy
-    from repro_torch.runtime.trainer import _quantized_names
+    from repro_torch.runtime.trainer import (_prequantize_params,
+                                             _quantized_names)
 
     t_phase = time.perf_counter()
     policy = get_policy("mirage", assume_quantized_weights=True)
@@ -3294,6 +3338,18 @@ def phase_slice_train_wsq(ops, ref, layers=(0, 11, 23),
     cpu_model = copy.deepcopy(model).to("cpu")
     batches = [data.batch_at(i) for i in range(WSQ_STEPS)]
     params = dict(model.named_parameters())
+    # the CPU step's weight-stationary copies: the card's quantizer (kernel
+    # 2, bit for bit the plain one: phase bfp) on step 1's weights, copied
+    # over; the CPU's plain quantizer took ~8 s over mixtral's experts. The
+    # first quantized leaf is held to the CPU's own quantizer here.
+    pre = {k: v.detach().to("cpu") for k, v in _prequantize_params(
+        params, policy, torch.float32).items()}
+    first = _quantized_names(params)[0]
+    own = _prequantize_params({first: cpu_model.get_parameter(first)},
+                              policy, torch.float32)[first]
+    check(torch.equal(own, pre[first]), f"{phase}: the card's weight-"
+          f"stationary copy of {first} differs from the CPU quantizer's")
+    del own
     n_quant = len(_quantized_names(params))
     n_leaves = sum(1 for p in params.values() if p.dim() > 0)
     per_step = 7 * cfg.n_layers + 1
@@ -3309,9 +3365,10 @@ def phase_slice_train_wsq(ops, ref, layers=(0, 11, 23),
     want = {"mirage_gemm": 3 * per_step * WSQ_STEPS,
             "bfp_quantize": (n_quant + n_leaves) * WSQ_STEPS}
     t0 = time.perf_counter()
-    cpu_loss, cap, head = cpu_capture(cpu_model, batches[0], layers, policy)
+    cpu_loss, cap, head = cpu_capture(cpu_model, batches[0], layers, policy,
+                                      prequantized=pre)
     cpu_s = time.perf_counter() - t0
-    del cpu_model
+    del cpu_model, pre
     rows, bad = teacher_forced(ref, cap, head)
     # dX = dO @ W^T must read the contiguous (N, K) copy as a row-major
     # (K' = N, N' = K) operand, the kernel's quantize-skipping (K, N) route
@@ -3726,7 +3783,8 @@ def phase_timing_train(ops, ref, policy):
             "ms": time_ms(lambda: ops.mirage_matmul_fused(
                 a, b, policy, quantize_w=qw)),
             "plain_ms": time_ms(lambda: ref.mirage_gemm_ref(
-                a, b, policy.b_m, policy.g, quantize_w=qw)),
+                a, b, policy.b_m, policy.g, quantize_w=qw),
+                **PLAIN_TIMING),
             "library_ms": time_ms(lambda: torch.matmul(aq, bq)),
             "bound_ms": t_b, "bound_by": by})
         if name == "dW":
@@ -3768,7 +3826,7 @@ def phase_timing(ops, ref, policy, per_tick):
                 "launches_per_step": per_tick[(K, N)],
                 "ms": time_ms(lambda: ops.mirage_matmul_fused(x, w, policy)),
                 "plain_ms": time_ms(lambda: ref.mirage_gemm_ref(
-                    x, w, policy.b_m, policy.g)),
+                    x, w, policy.b_m, policy.g), **PLAIN_TIMING),
                 "library_ms": time_ms(lambda: torch.matmul(xq, wq)),
                 "bound_ms": t_b, "bound_by": by})
     for i, (B, L, H, Kv, D, window) in enumerate(FLASH_TIMED):
@@ -3789,7 +3847,7 @@ def phase_timing(ops, ref, policy, per_tick):
             "launches_per_prefill_batch": 24, "launches_per_decode_tick": 0,
             "ms": time_ms(lambda: ops.flash_attention(q, k, v, True, window)),
             "plain_ms": time_ms(lambda: ref.flash_attention_ref(
-                q, k, v, True, window)),
+                q, k, v, True, window), **PLAIN_TIMING),
             "library_ms": lib["ms"], "library": lib["name"],
             "sdpa_ms_by_backend": lib["by_backend"],
             "sdpa_repeated_kv_ms_by_backend": lib["repeated_kv_by_backend"],
@@ -3809,7 +3867,7 @@ def phase_timing(ops, ref, policy, per_tick):
             "misaligned_view": misaligned,
             "ms": time_ms(lambda: ops.bfp_fake_quant(x, policy)),
             "plain_ms": time_ms(lambda: ref.bfp_fake_quant_ref(
-                x, policy.b_m, policy.g)),
+                x, policy.b_m, policy.g), **PLAIN_TIMING),
             "library_ms": None, "bound_ms": t_b, "bound_by": by})
     # weight-stationary training with BFP gradient compression: the
     # quantizer's standalone launches per step, by (rows, K): each GEMM
@@ -3828,7 +3886,7 @@ def phase_timing(ops, ref, policy, per_tick):
             "misaligned_view": False,
             "ms": time_ms(lambda: ops.bfp_fake_quant(x, policy)),
             "plain_ms": time_ms(lambda: ref.bfp_fake_quant_ref(
-                x, policy.b_m, policy.g)),
+                x, policy.b_m, policy.g), **PLAIN_TIMING),
             "library_ms": None, "bound_ms": t_b, "bound_by": by})
         del x
     for name, shapes in rows.items():
@@ -3932,7 +3990,7 @@ def decode_timing_row(ops, ref, res, tables, shape):
     return {**shape, "E": E, "subsets_per_element": n_sub / E,
             "ms": time_ms(lambda: ops.rrns_decode(res, tables)),
             "plain_ms": time_ms(lambda: ref.rrns_decode_ref(res, tables),
-                                n=5),
+                                **PLAIN_TIMING),
             "library_ms": None, "bound_ms": t_b, "bound_by": by}
 
 
@@ -3968,7 +4026,7 @@ def phase_timing_rns(ops, ref, per_tick):
                 "ms": time_ms(lambda: ops.rns_group_matmul(xr, wr,
                                                            RRNS_ALL)),
                 "plain_ms": time_ms(lambda: ref.rns_matmul_ref(
-                    xr, wr, RRNS_ALL), n=5),
+                    xr, wr, RRNS_ALL), **PLAIN_TIMING),
                 "library_ms": time_ms(lambda: torch.bmm(xf, wf)),
                 "bound_ms": t_b, "bound_by": by})
             t_b, by = bound_rate(b4 + 4.0 * S * M * N, o4, INT_OPS_PER_S)
@@ -3977,7 +4035,7 @@ def phase_timing_rns(ops, ref, per_tick):
                 "ms": time_ms(lambda: ops.rns_group_matmul_channel(
                     xr, wr, RRNS_ALL, noise)),
                 "plain_ms": time_ms(lambda: ref.rns_matmul_channel_ref(
-                    xr, wr, RRNS_ALL, noise), n=5),
+                    xr, wr, RRNS_ALL, noise), **PLAIN_TIMING),
                 "library_ms": time_ms(lambda: torch.bmm(xf, wf)),
                 "bound_ms": t_b, "bound_by": by})
             res = ops.rns_group_matmul_channel(xr, wr, RRNS_ALL, noise)
@@ -4027,7 +4085,7 @@ def phase_timing_train_rns(ops, ref):
             "launches_per_train_step": per_step,
             "ms": time_ms(lambda: ops.rns_group_matmul(xr, wr, RNS_BASE)),
             "plain_ms": time_ms(lambda: ref.rns_matmul_ref(xr, wr, RNS_BASE),
-                                n=5),
+                                **PLAIN_TIMING),
             "library_ms": time_ms(lambda: torch.bmm(xf, wf)),
             "bound_ms": t_b, "bound_by": by})
         del xr, wr, xf, wf
@@ -4290,7 +4348,7 @@ def phase_gemm_batched(ops, ref, policy):
                "splits": plan.splits,
                "ms": time_ms(lambda: ops.mirage_matmul_fused(x, w, policy)),
                "plain_ms": time_ms(lambda: ref.mirage_gemm_ref(
-                   x, w, policy.b_m, policy.g)),
+                   x, w, policy.b_m, policy.g), **PLAIN_TIMING),
                "library_ms": time_ms(lambda: torch.bmm(xq, wq)),
                "library": "torch.bmm on the folded operands",
                "bound_ms": t_b, "bound_by": by}
@@ -4724,7 +4782,7 @@ def phase_gemm_bwd_batched(ops, ref, policy):
                        "ms": time_ms(lambda: ops.mirage_matmul_fused(
                            a, b, policy)),
                        "plain_ms": time_ms(lambda: ref.mirage_gemm_ref(
-                           a, b, policy.b_m, policy.g)),
+                           a, b, policy.b_m, policy.g), **PLAIN_TIMING),
                        "library_ms": time_ms(lambda: torch.bmm(aq, bq)),
                        "library": "torch.bmm on the folded operands",
                        "bound_ms": t_b, "bound_by": by}
@@ -5008,7 +5066,7 @@ def phase_rns_stacks(ops, ref):
             "ms": time_ms(lambda: ops.rns_group_matmul(xr, wr, RNS_BASE),
                           n=10),
             "plain_ms": time_ms(lambda: ref.rns_matmul_ref(xr, wr,
-                                                           RNS_BASE), n=3),
+                                                           RNS_BASE), **PLAIN_TIMING),
             "library_ms": time_ms(lambda: torch.bmm(xf, wf), n=10),
             "bound_ms": t_b, "bound_by": by})
         rows["rns_matmul"].append(row4)
@@ -5063,7 +5121,7 @@ def phase_rns_stacks(ops, ref):
             "ms": time_ms(lambda: ops.rns_group_matmul_channel(
                 xr, wr, RRNS_ALL, noise), n=10),
             "plain_ms": time_ms(lambda: ref.rns_matmul_channel_ref(
-                xr, wr, RRNS_ALL, noise), n=3),
+                xr, wr, RRNS_ALL, noise), **PLAIN_TIMING),
             "library_ms": time_ms(lambda: torch.bmm(xf, wf), n=10),
             "bound_ms": t_b, "bound_by": by})
         del xf, wf, xr, wr, noise
@@ -5444,7 +5502,7 @@ def gemm_ab_row(ops, ref, policy, x, w):
            "ms": time_ms(lambda: ops.mirage_matmul_fused(x, w, policy),
                          n=10),
            "plain_ms": time_ms(lambda: ref.mirage_gemm_ref(
-               x, w, policy.b_m, policy.g), n=5),
+               x, w, policy.b_m, policy.g), **PLAIN_TIMING),
            "library_ms": time_ms(lambda: torch.matmul(xq, wq), n=10),
            "library": "torch.matmul (pre-folded)",
            "bound_ms": t_b, "bound_by": by}
@@ -5506,7 +5564,7 @@ def flash_case_row(ops, ref, arch, B, L, H, Kv, D, seed, path,
            "ok": ok, "bitwise_repeatable": same,
            "ms": time_ms(lambda: ops.flash_attention(q, k, v, causal)),
            "plain_ms": time_ms(lambda: ref.flash_attention_ref(
-               q, k, v, causal), n=5),
+               q, k, v, causal), **PLAIN_TIMING),
            "library_ms": lib["ms"], "library": lib["name"],
            "bound_ms": t_b, "bound_by": by,
            "bound_unit": "TF32 tensor cores, 3 products (3xTF32)"}
@@ -7938,6 +7996,683 @@ def phase_slice_train_seamless(ops):
     return launches
 
 
+# --------------------------------------------------------------------------
+# slice 8a: sharded training (FSDP x TP over a 2x2 mesh), expert-parallel
+# MoE and elastic restore, as 4 ranks on the one card over gloo
+# --------------------------------------------------------------------------
+
+#: the mesh of the slice-8 phases: 4 ranks on the one card (NCCL takes one
+#: rank a card, so the ranks meet over gloo, passed explicitly)
+SLICE8_MESH, SLICE8_BACKEND = (2, 2), "gloo"
+SLICE8_STEPS = 3
+#: the elastic phase's depth cut (of 24 layers): its checkpoint is written
+#: once and read by 5 processes inside the script's time limit
+ELASTIC_LAYERS = 2
+#: the EP phase: qwen3-moe-30b-a3b at full width, its first layer; x is 4 x
+#: 64 tokens (128 a data rank)
+MOE_EP_BATCH = (4, 64)
+#: qwen2-0.5b's GEMMs at TP = 2, in the order a layer calls them: (K, N) of
+#: the local shard (q 896 -> 448, k/v -> 64, o 448 -> 896, gate/up 896 ->
+#: 2,432, down 2,432 -> 896) and the tied head's vocab shard
+SHARD_LAYER_KN = ((896, 448), (896, 64), (896, 64), (448, 896),
+                  (896, 2432), (896, 2432), (2432, 896))
+SHARD_HEAD_KN = (896, 75968)
+#: the kernel-1 rows at the shard shapes (row 1h): M = 256 (B x L of one
+#: device), and M = 128 (a data rank's tokens on the 2x2 mesh)
+SHARD_M = (128, 256)
+SHARD_TIMED = ((896, 2432), (2432, 896))
+#: the mirage 2x2 step's loss against one device's, relative. The forward
+#: differs from one device's only in f32 sum orders (the row-parallel o and
+#: down GEMMs end in a sum over 2 ranks; the vocab-parallel cross-entropy
+#: sums its exponentials per shard), but a BFP model flips a rounding
+#: wherever such a last-bit difference crosses a grid midpoint, and the
+#: flips compound over 24 layers (ROADMAP's parity contract). A dropped or
+#: doubled shard moves the loss by O(1); the fp32 gates hold the sums to
+#: 1e-5.
+SLICE8_MIRAGE_LOSS_TOL = 1e-3
+#: AdamW's first step moves a parameter by lr * g / (|g| + 1e-8): where |g|
+#: >= 1e-6 that is +-lr within 1%, and a gradient off by its f32 order
+#: moves it by ~10 x that error; below, the step's slope (lr * 1e-8 / (|g|
+#: + 1e-8)^2, up to lr / 4e-8 at |g| = 1e-8) turns the same error into a
+#: sizeable share of lr. The fp32 params gate (5e-5, the JAX test's) holds
+#: where |g| >= SLICE8_ADAM_G; the rest are counted and reported.
+SLICE8_ADAM_G = 1e-6
+
+
+def _dsync() -> None:
+    if DEV != "cpu":
+        torch.cuda.synchronize()
+
+
+def _free() -> None:
+    import gc
+    gc.collect()
+    if DEV != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def _peak_gb() -> float:
+    return torch.cuda.max_memory_allocated() / 1e9 if DEV != "cpu" else 0.0
+
+
+class GemmShapeTap:
+    """The (M, K, N) of every 2-D launch of kernel 1 while open (a wrapper
+    around ``ops.mirage_matmul_fused``, which the mirage backend calls)."""
+
+    def __init__(self, ops):
+        self.ops, self.shapes = ops, []
+
+    def __enter__(self):
+        inner = self.inner = self.ops.mirage_matmul_fused
+
+        def tapped(x, w, *a, **k):
+            if w.dim() == 2:
+                self.shapes.append((x.numel() // x.shape[-1],
+                                    int(w.shape[0]), int(w.shape[1])))
+            return inner(x, w, *a, **k)
+        self.ops.mirage_matmul_fused = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.mirage_matmul_fused = self.inner
+
+
+def shard_cases():
+    """(gemm, M, a, b) operands of kernel 1 at the 2x2 step's local shard
+    shapes: each layer GEMM's forward, dX and dW, and the head's."""
+    for M in SHARD_M:
+        for i, (K, N) in enumerate(sorted(set(SHARD_LAYER_KN))
+                                   + [SHARD_HEAD_KN]):
+            gen = torch.Generator(device=DEV).manual_seed(800 + i + M)
+            x = torch.randn((M, K), generator=gen, device=DEV)
+            dout = torch.randn((M, N), generator=gen, device=DEV) * 1e-2
+            if (K, N) == SHARD_HEAD_KN:
+                w = (torch.randn((N, K), generator=gen, device=DEV)
+                     * 0.02).T
+            else:
+                w = torch.randn((K, N), generator=gen, device=DEV) / \
+                    math.sqrt(K)
+            yield "fwd", M, K, N, x, w
+            yield "dX", M, K, N, dout, w.T
+            yield "dW", M, K, N, x.T, dout
+
+
+def phase_slice8_kernels(ops, ref, policy):
+    """Kernel 1 at every shard shape of the 2x2 step (M = 128) and of one
+    device's batch (M = 256) against its plain version within the f32-order
+    bound, bitwise repeatable; row 1h: gate/up and down with their dX and
+    dW timed beside the plain version, ``torch.matmul`` on the pre-folded
+    operands and the bound."""
+    worst, rows = 0.0, []
+    for name, M, K, N, a, b in shard_cases():
+        got = ops.mirage_matmul_fused(a, b, policy)
+        again = ops.mirage_matmul_fused(a, b, policy)
+        want = ref.mirage_gemm_ref(a, b, policy.b_m, policy.g)
+        tol = gemm_bound(ref, a, b)
+        err = (got - want).abs()
+        bad = int((err > tol).sum())
+        same = bool(torch.equal(got.view(torch.int32),
+                                again.view(torch.int32)))
+        Mc, Kc, Nc = a.shape[0], a.shape[1], b.shape[1]
+        plan = card_gemm_plan(ops, Mc, Kc, Nc, policy.b_m)
+        row = {"gemm": name, "tokens": M, "layer_K": K, "layer_N": N,
+               "M": Mc, "K": Kc, "N": Nc, "weight_read": weight_read(b),
+               "route": "mma_bf16" if plan.mma else "decode_f32",
+               "splits": plan.splits, "max_abs_err": float(err.max()),
+               "max_err_over_tol": float((err / tol).max()),
+               "bitwise_repeatable": same}
+        check(bad == 0, f"kernel 1 outside its bound in {bad} elements at "
+                        f"the shard shape {name} M={M} K={K} N={N}")
+        check(same, f"two launches of kernel 1 differ at the shard shape "
+                    f"{name} M={M} K={K} N={N}")
+        worst = max(worst, float(err.max()))
+        if (K, N) in SHARD_TIMED:
+            aq = ref.bfp_fake_quant_ref(a, policy.b_m, policy.g)
+            bq = ref.bfp_fake_quant_ref(b.T, policy.b_m, policy.g).T
+            t_b, by = bound_rate(4.0 * (Mc * Kc + Kc * Nc + Mc * Nc),
+                                 2.0 * Mc * Nc * Kc,
+                                 BF16_FLOPS_PER_S if plan.mma
+                                 else F32_FLOPS_PER_S)
+            row.update(
+                ms=time_ms(lambda: ops.mirage_matmul_fused(a, b, policy)),
+                plain_ms=time_ms(lambda: ref.mirage_gemm_ref(
+                    a, b, policy.b_m, policy.g), **PLAIN_TIMING),
+                library_ms=time_ms(lambda: torch.matmul(aq, bq)),
+                library="torch.matmul on the pre-folded operands",
+                bound_ms=t_b, bound_by=by)
+            rows.append(row)
+            del aq, bq
+        emit({"phase": "gemm_shard_vs_plain", **row})
+        del a, b, got, again, want, tol, err
+    for row in rows:
+        emit({"phase": "timing", "kernel": "mirage_gemm", "path": "slice_8",
+              **row})
+    return rows, worst
+
+
+def _slice8_train(rank, comm, ops, out_dir):
+    """The 2x2 step of full-width qwen2-0.5b under mirage (SLICE8_STEPS
+    steps), rank 0's single-device steps on the same batches; then one fp32
+    step of each, gradients and params gathered whole."""
+    from repro_torch.core.precision import get_policy
+    from repro_torch.parallel.shard import local_batch
+    from repro_torch.runtime.trainer import init_train_state, make_train_step
+
+    out = {}
+    cfg, model, tc, data = train_setup(get_policy("mirage"))
+    data = iter(data)
+    step = make_train_step(model, tc, mesh=comm)
+    state = init_train_state(model, tc)
+    _dsync()
+    if DEV != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    batches, times, launches, stats, losses, shapes = [], [], [], [], [], []
+    for i in range(SLICE8_STEPS):
+        batch = next(data)
+        batches.append(batch)
+        comm.stats.reset()
+        ops.reset_launch_counts()
+        with GemmShapeTap(ops) as tap:
+            _dsync()
+            t0 = time.perf_counter()
+            state, metrics = step(state, local_batch(batch, comm))
+            _dsync()
+            times.append(time.perf_counter() - t0)
+        launches.append(dict(ops.LAUNCHES))
+        stats.append(comm.stats.as_dict())
+        losses.append(float(metrics["loss"]))
+        shapes.append(tap.shapes)
+    out.update(step_s=times, launches=launches, comm=stats, losses=losses,
+               shapes=shapes, peak_gb=_peak_gb(),
+               params=sum(p.numel() for p in model.parameters()),
+               full_params=sum(math.prod(pl.shape)
+                               for pl in model.placements.values()),
+               layers=cfg.n_layers)
+    del model, state, step
+    _free()
+    comm.barrier()
+    if rank == 0:
+        # the single-device port on the same global batches
+        _, model, tc, _ = train_setup(get_policy("mirage"))
+        step = make_train_step(model, tc)
+        state = init_train_state(model, tc)
+        ref_losses = []
+        for batch in batches:
+            state, metrics = step(state, batch)
+            ref_losses.append(float(metrics["loss"]))
+        out["single_losses"] = ref_losses
+        del model, state, step
+        _free()
+    comm.barrier()
+
+    # fp32 (the backend pins TF32 off): one step of each, held leaf by
+    # leaf. Every rank runs the single-device step too and keeps its slices
+    # of it (no shard leaves its rank); the sums and maxima meet over the
+    # ranks, each shard counted once.
+    cfg, model, tc, _ = train_setup(get_policy("fp32"))
+    step = make_train_step(model, tc, mesh=comm, keep_grads=True)
+    pls = model.placements
+    _, ref, ref_tc, _ = train_setup(get_policy("fp32"))
+    ref_step = make_train_step(ref, ref_tc, keep_grads=True)
+    ref_state, ref_metrics = ref_step(init_train_state(ref, ref_tc),
+                                      batches[0])
+    want_loss = float(ref_metrics["loss"])
+    want_g = {k: pls[k].local(g).clone()
+              for k, g in ref_step.last_grads.items()}
+    want_p = {k: pls[k].local(p).detach().clone()
+              for k, p in ref_state["params"].items()}
+    del ref, ref_state, ref_step, ref_metrics
+    _free()
+    state = init_train_state(model, tc)
+    state, metrics = step(state, local_batch(batches[0], comm))
+    loss = float(metrics["loss"])
+    names = list(pls)
+    sq = torch.zeros((2, len(names)), dtype=torch.float64, device=DEV)
+    hi = torch.zeros(4, dtype=torch.float64, device=DEV)
+    with torch.no_grad():
+        for i, k in enumerate(names):
+            g = want_g[k].double()
+            sq[0, i] = torch.sum((step.last_grads[k].double() - g) ** 2)
+            sq[1, i] = torch.sum(g ** 2)
+            sq[:, i] /= pls[k].replicas
+            d = (state["params"][k] - want_p[k]).abs().double()
+            g = g.abs()
+            off = d > 5e-5
+            zero = torch.zeros_like(g)
+            hi[0] = torch.maximum(hi[0], d.max())
+            hi[1] = torch.maximum(hi[1], torch.where(off, g, zero).max())
+            hi[2] = torch.maximum(hi[2], torch.where(
+                g >= SLICE8_ADAM_G, d, zero).max())
+            hi[3] += off.sum()
+    sq = comm.all_reduce(sq, "world")
+    hi[:3] = comm.all_reduce(hi[:3], "world",
+                             op=torch.distributed.ReduceOp.MAX)
+    hi[3] = comm.all_reduce(hi[3:], "world")[0]
+    rel = torch.sqrt(sq[0] / torch.clamp_min(sq[1], 1e-300))
+    worst = int(torch.argmax(rel))
+    out["fp32"] = {"loss": loss, "single_loss": want_loss,
+                   "loss_rel": abs(loss - want_loss) / abs(want_loss),
+                   "grad_rel_l2_max": float(rel[worst]),
+                   "grad_rel_l2_worst_leaf": names[worst],
+                   "param_max_abs": float(hi[0]),
+                   "params_off_over_5e-5_rank_sum": float(hi[3]),
+                   "their_grad_abs_max": float(hi[1]),
+                   "param_max_abs_where_grad_ge_1e-6": float(hi[2])}
+    del model, state, step, want_g, want_p
+    _free()
+    comm.barrier()
+    return out
+
+
+def _slice8_moe_ep(rank, comm, ops, out_dir):
+    """``moe_apply_ep`` over the 2x2 mesh at full width (qwen3-moe-30b-a3b,
+    layer 0: 128 experts, 64 a rank), dropless and at capacity 1.25, with
+    its backward; each data shard's first rank holds it against the
+    single-device ``moe_apply``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import get_policy
+    from repro_torch.models import build_model, moe
+    from repro_torch.models.lm import LMCallOptions
+    from repro_torch.parallel.shard import local_rows, shard_model
+
+    policy = get_policy("mirage")
+    cfg = dataclasses.replace(
+        get_config("qwen3-moe-30b-a3b").reduced() if REDUCED
+        else get_config("qwen3-moe-30b-a3b"), n_layers=1)
+    model = build_model(cfg, policy, LMCallOptions(moe_impl="ep_shard_map"),
+                        device=DEV, generator=torch.Generator(
+                            device=DEV).manual_seed(0))
+    leader = comm.tp_rank == 0
+    ref_moe = copy.deepcopy(model.layers[0].moe) if leader else None
+    shard_model(model, comm)
+    layer = model.layers[0].moe
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    x = torch.randn(MOE_EP_BATCH + (cfg.d_model,), generator=gen,
+                    device=DEV)
+    r = torch.randn(MOE_EP_BATCH + (cfg.d_model,), generator=gen,
+                    device=DEV)
+    names = ("router.w", "gate", "up", "down")
+    params = [layer.router.w, layer.gate, layer.up, layer.down]
+    kw = dict(n_experts=cfg.n_experts,
+              experts_per_token=cfg.experts_per_token)
+    out = {"experts_local": int(layer.gate.shape[0]),
+           "experts": cfg.n_experts, "tokens_local": int(
+               local_rows(x, comm).shape[0] * x.shape[1])}
+    for factor in (8.0, 1.25):
+        xl = local_rows(x, comm).clone().requires_grad_(True)
+        ops.reset_launch_counts()
+        _dsync()
+        t0 = time.perf_counter()
+        y, aux = moe.moe_apply_ep(layer, xl, policy, capacity_factor=factor,
+                                  comm=comm, **kw)
+        grads = torch.autograd.grad(
+            torch.sum(y * local_rows(r, comm)) + aux / comm.dp,
+            params + [xl])
+        _dsync()
+        res = {"seconds": time.perf_counter() - t0,
+               "launches": dict(ops.LAUNCHES), "aux": float(aux),
+               "grads_finite": all(bool(torch.isfinite(g).all())
+                                   for g in grads),
+               "grad_norms": {n: float(g.norm())
+                              for n, g in zip(names + ("x",), grads)}}
+        if leader:
+            with torch.no_grad():
+                full = moe.moe_apply(ref_moe, x, policy,
+                                     capacity_factor=factor, **kw)
+                own = moe.moe_apply(ref_moe, local_rows(x, comm), policy,
+                                    capacity_factor=factor, **kw)
+            T = xl.shape[0] * xl.shape[1]
+            C = moe.capacity(T, cfg.n_experts, cfg.experts_per_token,
+                             factor)
+            with torch.no_grad():
+                rt = moe.route(ref_moe.router, local_rows(x, comm).reshape(
+                    T, -1), cfg.experts_per_token, C)
+            want = local_rows(full[0], comm) if factor == 8.0 else own[0]
+            res.update(
+                dropped_local=int((~rt.keep).sum()),
+                y_rel_max=float((y.detach() - want).abs().max()
+                                / want.abs().max()),
+                aux_vs_global=abs(float(aux) - float(full[1])),
+                reference="moe_apply on the whole batch" if factor == 8.0
+                else "moe_apply on the data shard alone")
+        out[f"factor_{factor}"] = res
+        del y, aux, grads, xl
+    del model, ref_moe, layer, params
+    _free()
+    comm.barrier()
+    return out
+
+
+def _slice8_elastic(rank, comm, ops, out_dir):
+    """One 2x2 step at ELASTIC_LAYERS of qwen2-0.5b's 24 layers, saved; the
+    checkpoint restored onto a 1x4 mesh (the same 4 ranks) and, on rank 0,
+    onto one device; every leaf compared bit for bit."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core.precision import get_policy
+    from repro_torch.interop import restore_train_state, to_jax_train_state
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.parallel.comm import MeshComm
+    from repro_torch.parallel.shard import (_tree, gather_train_state,
+                                            local_batch, state_placements)
+    from repro_torch.runtime.trainer import init_train_state, make_train_step
+
+    def diff(a, b):
+        worst = 0.0
+        for tree in ("params", "err"):
+            for k in a.get(tree, {}):
+                worst = max(worst, float((a[tree][k] - b[tree][k])
+                                         .abs().max()))
+        for mom in ("m", "v"):
+            for k in a["opt"][mom]:
+                worst = max(worst, float((a["opt"][mom][k] -
+                                          b["opt"][mom][k]).abs().max()))
+        return worst
+
+    t0 = time.perf_counter()
+    policy = get_policy("mirage")
+    cfg, model, tc, data = train_setup(policy, n_layers=ELASTIC_LAYERS,
+                                       grad_compression="bfp")
+    step = make_train_step(model, tc, mesh=comm)
+    state = init_train_state(model, tc)
+    state, _ = step(state, local_batch(next(iter(data)), comm))
+    ck = Checkpointer(str(out_dir / "ckpt"))
+    t1 = time.perf_counter()
+    saved = gather_train_state(model, state)
+    ck.save(to_jax_train_state(model, saved, gathered=True), step=1)
+    save_s = time.perf_counter() - t1
+    del model, state, step
+    out = {"layers": ELASTIC_LAYERS, "save_s": save_s}
+    # onto 1x4: a fresh model (zeroed) on the same ranks, another mesh
+    mesh14 = MeshComm(make_debug_mesh(1, 4, device=comm.device,
+                                      backend=SLICE8_BACKEND), comm.device)
+    _, model, tc, _ = train_setup(policy, n_layers=ELASTIC_LAYERS,
+                                  grad_compression="bfp")
+    with torch.no_grad():
+        for p in model.parameters():
+            p.zero_()
+    make_train_step(model, tc, mesh=mesh14)
+    state = init_train_state(model, tc)
+    t1 = time.perf_counter()
+    state, _ = restore_train_state(ck, model, state)
+    out["restore_1x4_s"] = time.perf_counter() - t1
+    # each rank's 1x4 shards against its slices of the saved whole state
+    pls = state_placements(model, state)
+    mine = {key: {k: pl.local(_tree(saved, key)[k])
+                  for k, pl in tree.items()} for key, tree in pls.items()}
+    got = {"params": state["params"], "err": state["err"],
+           "opt": {"m": state["opt"]["m"], "v": state["opt"]["v"]}}
+    want = {"params": mine["params"], "err": mine["err"],
+            "opt": {"m": mine["opt/m"], "v": mine["opt/v"]}}
+    out["q_shard_1x4"] = tuple(model.layers[0].attn.q.w.shape)
+    out["o_shard_1x4"] = tuple(model.layers[0].attn.o.w.shape)
+    out["diff_1x4"] = diff(want, got)
+    out["step_1x4"] = int(state["step"])
+    del model, state, got, want, mine
+    if rank == 0:
+        _, model, tc, _ = train_setup(policy, n_layers=ELASTIC_LAYERS,
+                                      grad_compression="bfp")
+        state = init_train_state(model, tc)
+        state, _ = restore_train_state(ck, model, state)
+        out["diff_1x1"] = diff(saved, state)
+        out["step_1x1"] = int(state["step"])
+        del model, state
+    out["seconds"] = time.perf_counter() - t0
+    del saved
+    _free()
+    comm.barrier()
+    return out
+
+
+def slice8_rank(rank: int, world: int, out_dir: str, reduced: bool,
+                device: str) -> None:
+    """One rank of the slice-8 phases (a process of its own): the gloo
+    group from a file store, the 2x2 mesh on ``device``, then the three
+    phases; what it found goes to ``out_dir/rank<r>.pt``."""
+    global REDUCED, DEV
+    REDUCED, DEV = reduced, device
+    import torch.distributed as dist
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch.mesh import init_distributed, make_debug_mesh
+    from repro_torch.parallel.comm import MeshComm
+
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out_dir = pathlib.Path(out_dir)
+    dev = torch.device(device if device != "cuda" else "cuda:0")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"rank {rank} finds no CUDA device")
+        build.extension()
+    init_distributed(dev, SLICE8_BACKEND, rank=rank, world_size=world,
+                     store=dist.FileStore(str(out_dir / "store"), world))
+    comm = MeshComm(make_debug_mesh(*SLICE8_MESH, device=dev,
+                                    backend=SLICE8_BACKEND), dev)
+    res = {"rank": rank, "backend": comm.backend, "coord": comm.coord,
+           "device": str(dev)}
+    for name, fn in (("train", _slice8_train), ("moe_ep", _slice8_moe_ep),
+                     ("elastic", _slice8_elastic)):
+        t0 = time.perf_counter()
+        res[name] = fn(rank, comm, ops, out_dir)
+        res[name]["seconds"] = time.perf_counter() - t0
+        if rank == 0:
+            print(json.dumps({"slice8_rank0": name,
+                              "seconds": res[name]["seconds"]}), flush=True)
+    torch.save(res, out_dir / f"rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def start_launcher_nccl(out_dir: pathlib.Path):
+    """``python -m repro_torch.launch.train --distributed`` as ONE torchrun
+    rank on cuda:0 under NCCL (the card's only NCCL path: two ranks on one
+    card are refused), 1 step at ELASTIC_LAYERS layers, in the
+    background."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    src = pathlib.Path(__file__).resolve().parent / "src"
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+               PYTHONPATH=str(src))
+    argv = [sys.executable, "-m", "repro_torch.launch.train",
+            "--distributed", "--steps", "1", "--layers",
+            str(ELASTIC_LAYERS)] + (["--reduced", "--device", "cpu"]
+                                    if REDUCED else [])
+    return subprocess.Popen(argv, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            cwd=str(out_dir))
+
+
+def start_launcher_shared_card():
+    """The same launcher as a second torchrun rank whose LOCAL_RANK (1)
+    names a card this host does not have: NCCL would put two ranks on one
+    card, and the launcher refuses before it joins a group."""
+    src = pathlib.Path(__file__).resolve().parent / "src"
+    env = dict(os.environ, RANK="1", WORLD_SIZE="2", LOCAL_RANK="1",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT="1",
+               PYTHONPATH=str(src))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--distributed",
+         "--steps", "1"], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def phase_slice8(ops):
+    """The three slice-8 phases in one spawn of 4 ranks (the NCCL launcher
+    run beside their start-up), each phase's line from the ranks' files;
+    returns the launches of kernel 1 a rank made on the 2x2 train path."""
+    import shutil
+    import torch.multiprocessing as mp
+
+    out_dir = pathlib.Path(__file__).resolve().parent / "build" / "slice8"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    world = SLICE8_MESH[0] * SLICE8_MESH[1]
+    _free()
+    t0 = time.perf_counter()
+    launcher = start_launcher_nccl(out_dir)
+    refused = start_launcher_shared_card()
+    try:
+        mp.spawn(slice8_rank, args=(world, str(out_dir), REDUCED, DEV),
+                 nprocs=world)
+    finally:
+        try:
+            stdout, stderr = launcher.communicate(timeout=300)
+            _, refused_err = refused.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            launcher.kill()
+            refused.kill()
+            raise
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
+             for r in range(world)]
+    shutil.rmtree(out_dir / "ckpt", ignore_errors=True)
+
+    # --- slice_8_train ---
+    tr = [r["train"] for r in ranks]
+    per_step = 3 * (7 * tr[0]["layers"] + 1)
+    cfg_kn = SHARD_LAYER_KN * tr[0]["layers"] + (SHARD_HEAD_KN,)
+    if REDUCED:
+        cfg_kn = None
+    shapes_ok, full_reads = True, []
+    for t in tr:
+        for shapes in t["shapes"]:
+            fwd = [(k, n) for _, k, n in shapes[:len(shapes) // 3]]
+            if cfg_kn is not None and tuple(fwd) != cfg_kn:
+                shapes_ok = False
+            full_reads += [s for s in shapes if 4864 in s or 151936 in s]
+    mirage_rel = [abs(a - b) / abs(b) for a, b in
+                  zip(tr[0]["losses"], tr[0]["single_losses"])]
+    fp32 = tr[0]["fp32"]
+    line = {"phase": "slice_8_train", "arch": "qwen2-0.5b", "mesh":
+            {"data": SLICE8_MESH[0], "model": SLICE8_MESH[1]},
+            "backend": ranks[0]["backend"], "device": ranks[0]["device"],
+            "ranks_on_one_card": world, "policy": "mirage", "steps":
+            SLICE8_STEPS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "params_per_rank": [t["params"] for t in tr],
+            "params_full": tr[0]["full_params"],
+            "step_ms": [[s * 1e3 for s in t["step_s"]] for t in tr],
+            "peak_mem_gb": [t["peak_gb"] for t in tr],
+            "mirage_gemm_per_step": [[n["mirage_gemm"] for n in t["launches"]]
+                                     for t in tr],
+            "expected_per_step": per_step,
+            "gemm_shapes_rank0_step1": sorted(
+                {f"{m}x{k}x{n}": tr[0]["shapes"][0].count((m, k, n))
+                 for m, k, n in set(tr[0]["shapes"][0])}.items()),
+            "forward_reads_shards": shapes_ok,
+            "launches_reading_a_whole_sharded_dim": len(full_reads),
+            "collectives_per_step_rank0": tr[0]["comm"],
+            "collective_note": "ranks on one card over gloo: host-clock "
+                               "seconds of the code path (staging through "
+                               "pinned host memory, loopback TCP), not "
+                               "NVLink",
+            "losses": tr[0]["losses"], "single_device_losses":
+            tr[0]["single_losses"], "mirage_loss_rel": mirage_rel,
+            "mirage_loss_rel_tol": SLICE8_MIRAGE_LOSS_TOL, "fp32": fp32,
+            "seconds": tr[0]["seconds"]}
+    emit(line)
+    checks = []
+
+    def check(ok, what):      # noqa: F811 (every phase's line first)
+        checks.append((bool(ok), what))
+    for r, t in enumerate(tr):
+        check(all(n["mirage_gemm"] == per_step for n in t["launches"]),
+              f"rank {r} launched kernel 1 {[n['mirage_gemm'] for n in t['launches']]} "
+              f"times a step, not {per_step} (the single-device step's)")
+    check(shapes_ok, "a forward GEMM of the 2x2 step read other than its "
+                     "shard (N/2 or K/2)")
+    check(not full_reads, f"{len(full_reads)} GEMMs read a whole sharded "
+                          f"dim: {full_reads[:4]}")
+    check(all(math.isfinite(v) for v in tr[0]["losses"]),
+          f"a sharded loss is not finite: {tr[0]['losses']}")
+    check(fp32["loss_rel"] <= 1e-5, f"fp32 2x2 loss {fp32['loss']} vs one "
+                                    f"device {fp32['single_loss']}")
+    check(fp32["grad_rel_l2_max"] <= 1e-5,
+          f"fp32 2x2 gradient {fp32['grad_rel_l2_worst_leaf']} at "
+          f"{fp32['grad_rel_l2_max']} relative L2")
+    check(fp32["param_max_abs_where_grad_ge_1e-6"] <= 5e-5,
+          f"fp32 2x2 params off by "
+          f"{fp32['param_max_abs_where_grad_ge_1e-6']} where |g| >= "
+          f"{SLICE8_ADAM_G}")
+    check(mirage_rel[0] <= SLICE8_MIRAGE_LOSS_TOL,
+          f"mirage 2x2 step-1 loss off one device's by {mirage_rel[0]}")
+
+    # --- slice_8_moe_ep ---
+    me = [r["moe_ep"] for r in ranks]
+    emit({"phase": "slice_8_moe_ep", "arch": "qwen3-moe-30b-a3b",
+          "layers": 1, "moe_impl": "ep_shard_map", "backend":
+          ranks[0]["backend"], "experts": me[0]["experts"],
+          "experts_per_rank": me[0]["experts_local"],
+          "tokens_per_data_rank": me[0]["tokens_local"],
+          "ranks": {r: {k: v for k, v in m.items() if k.startswith("factor")}
+                    for r, m in enumerate(me)},
+          "seconds": me[0]["seconds"]})
+    for r, m in enumerate(me):
+        for f in ("factor_8.0", "factor_1.25"):
+            res = m[f]
+            check(res["grads_finite"] and all(
+                v > 0 for v in res["grad_norms"].values()),
+                f"rank {r} EP gradients at {f}: {res['grad_norms']}")
+            check(res["launches"]["mirage_gemm"] >= 9,
+                  f"rank {r} EP launched kernel 1 {res['launches']} times")
+            if "y_rel_max" in res:
+                check(res["y_rel_max"] <= 1e-5,
+                      f"rank {r} EP output at {f} off {res['reference']} "
+                      f"by {res['y_rel_max']} (relative to its max)")
+                check(res["aux_vs_global"] <= 1e-5,
+                      f"rank {r} EP aux at {f} off the global means' by "
+                      f"{res['aux_vs_global']}")
+        check(m["factor_8.0"].get("dropped_local", 0) == 0,
+              "the dropless EP case dropped tokens")
+    check(any(m["factor_1.25"].get("dropped_local", 0) > 0 for m in me),
+          "capacity 1.25 dropped no token: the per-shard case is not "
+          "exercised")
+
+    # --- slice_8_elastic ---
+    el = [r["elastic"] for r in ranks]
+    emit({"phase": "slice_8_elastic", "arch": "qwen2-0.5b",
+          "layers": ELASTIC_LAYERS, "reduced": {"n_layers": f"{ELASTIC_LAYERS} "
+                                                "of 24 (time limit)"},
+          "saved_on": "2x2", "restored_on": ["1x4", "1x1"],
+          "diff_1x4": max(e["diff_1x4"] for e in el),
+          "diff_1x1": el[0]["diff_1x1"], "q_shard_1x4": el[0]["q_shard_1x4"],
+          "o_shard_1x4": el[0]["o_shard_1x4"],
+          "save_s": el[0]["save_s"], "restore_1x4_s": el[0]["restore_1x4_s"],
+          "seconds": el[0]["seconds"]})
+    check(all(e["diff_1x4"] == 0.0 and e["step_1x4"] == 1 for e in el),
+          "the 2x2 state restored onto 1x4 is not bit for bit")
+    check(el[0]["diff_1x1"] == 0.0 and el[0]["step_1x1"] == 1,
+          "the 2x2 state restored onto one device is not bit for bit")
+
+    # --- the launcher under NCCL (1 rank) ---
+    ok = launcher.returncode == 0 and "final loss" in stdout
+    emit({"phase": "slice_8_launcher_nccl", "ranks": 1, "backend": "nccl"
+          if not REDUCED else "gloo", "returncode": launcher.returncode,
+          "stdout_tail": stdout[-300:], "stderr_tail": stderr[-600:]
+          if not ok else "", "spawn_and_phases_s": spawn_s})
+    check(ok, f"launch.train --distributed (1 rank, NCCL) failed: "
+              f"{stderr[-2000:]}")
+    refused_ok = refused.returncode != 0 and \
+        "two ranks would share" in refused_err
+    emit({"phase": "slice_8_launcher_shared_card", "local_rank": 1,
+          "cards": torch.cuda.device_count() if DEV != "cpu" else 0,
+          "returncode": refused.returncode,
+          "error": refused_err.strip().splitlines()[-1:]})
+    check(refused_ok or REDUCED, "a second rank on the one card was not "
+                                 "refused with a clear error")
+    for ok, what in checks:
+        globals()["check"](ok, what)
+    return {"train_2x2_rank_per_step": [
+        [n["mirage_gemm"] for n in t["launches"]] for t in tr],
+        "moe_ep_rank0": {f: me[0][f]["launches"]["mirage_gemm"]
+                         for f in ("factor_8.0", "factor_1.25")}}
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a CUDA "
@@ -8005,7 +8740,8 @@ def main() -> int:
     rns_launches = phase_slice_rns(ops, model, cap)
     options_launches = phase_serve_paged_options(ops, cap)
     warm_launches = phase_serve_warmup(ops, model, cap,
-                                       {"rrns_52db": rrns_cold})
+                                       {"rrns_52db": rrns_cold,
+                                        **COLD_DRAINS})
     pipe_launches = phase_serve_pipelined(ops, model, cap, streams)
     phase_serve_resize(ops, model, cap)
     phase_serve_switch(ops, model, cap, streams)
@@ -8023,6 +8759,10 @@ def main() -> int:
     phase_train_fp32_vs_cpu(n_layers=TRAIN_FP32_LAYERS)
     phase_train_grads_vs_cpu(ops, ref)
     wsq_launches = phase_slice_train_wsq(ops, ref)
+    free_card()
+    slice8_rows, err8 = phase_slice8_kernels(ops, ref, policy)
+    err_gemm = max(err_gemm, err8)
+    slice8_launches = phase_slice8(ops)
     free_card()
     moe_train_launches = {arch: phase_slice_train_moe(ops, arch, n, steps)
                           for arch, n, steps in MOE_TRAIN_SLICES}
@@ -8195,6 +8935,9 @@ def main() -> int:
         "launches": {"seamless_served": seamless_launches["flash_attention"],
                      **{f"seamless_4_layers_{k}": v["flash_attention"]
                         for k, v in seamless_rrns_launches.items()}}}
+    # slice 8a: kernel 1 at qwen2-0.5b's TP = 2 shard shapes (row 1h), and
+    # its launches a rank on the 2x2 training step and the EP MoE path
+    gemm["slice_8"] = {"rows": slice8_rows, "launches": slice8_launches}
     flash["slice_6d"] = {
         "rows": flash6d_rows,
         "launches": {"internvl2_dense_cold": vlm_launches["cold"]
@@ -8279,6 +9022,9 @@ def main() -> int:
                             for name, n in runs.items()},
                          "mirage_rns": rns_launches,
                          "train_mirage": train_launches,
+                         "train_mirage_2x2_per_rank_step":
+                             slice8_launches["train_2x2_rank_per_step"],
+                         "moe_ep_2x2_rank0": slice8_launches["moe_ep_rank0"],
                          "train_wsq_bfp": wsq_launches,
                          **{f"train_moe_{arch}": n
                             for arch, n in moe_train_launches.items()},

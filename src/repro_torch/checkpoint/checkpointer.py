@@ -19,6 +19,15 @@ train state is written through
 JAX package's train state (``params/...``, ``opt/...``, ``step``,
 ``err/...``, layers stacked), so each package reads the other's
 checkpoints.
+
+On a mesh every leaf is stored unsharded: ``to_jax_train_state`` of a
+sharded model gathers each leaf to its whole tensor on every rank, and the
+writer rank (rank 0 of the default process group) writes it while the
+others wait at a barrier. :meth:`Checkpointer.restore` with
+``shardings`` (a tree of :class:`repro_torch.parallel.shard.Placement`s
+matching the template, None for a whole leaf) cuts each stored array to
+the rank's shard of TODAY's mesh, so a checkpoint restores onto any mesh
+(:func:`repro_torch.runtime.elastic.elastic_restore`).
 """
 
 from __future__ import annotations
@@ -92,10 +101,31 @@ def to_host(tree):
     return _to_host(tree)
 
 
+def _distributed() -> bool:
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_initialized() and \
+        dist.get_world_size() > 1
+
+
+def _barrier() -> None:
+    if _distributed():
+        import torch.distributed as dist
+        dist.barrier()
+
+
 class Checkpointer:
-    def __init__(self, directory: str, keep_last: int = 3):
+    """``writer`` says whether this process writes (default: rank 0 of the
+    default process group where one runs, else True); with several ranks
+    :meth:`save` and :meth:`wait` are collective (every rank calls them)."""
+
+    def __init__(self, directory: str, keep_last: int = 3,
+                 writer: Optional[bool] = None):
         self.dir = directory
         self.keep_last = keep_last
+        if writer is None:
+            import torch.distributed as dist
+            writer = not _distributed() or dist.get_rank() == 0
+        self.writer = writer
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[Exception] = None
@@ -121,12 +151,16 @@ class Checkpointer:
     def save(self, state, step: int, metadata: Optional[Dict] = None):
         """Synchronous atomic save of a tree of tensors or arrays."""
         self.wait()
-        self._write(to_host(state), step, metadata or {})
+        if self.writer:
+            self._write(to_host(state), step, metadata or {})
+        _barrier()
 
     def save_async(self, state, step: int, metadata: Optional[Dict] = None):
         """Device-to-host copy now; the disk write on a writer thread."""
-        host_state = to_host(state)
+        host_state = to_host(state) if self.writer else None
         self.wait()
+        if not self.writer:
+            return
         self._thread = threading.Thread(
             target=self._write_logged, args=(host_state, step,
                                              metadata or {}), daemon=True)
@@ -137,6 +171,7 @@ class Checkpointer:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        _barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise RuntimeError("an asynchronous checkpoint write failed") \
@@ -174,12 +209,15 @@ class Checkpointer:
         for s in steps[:-self.keep_last] if self.keep_last else []:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
 
-    def restore(self, template, step: Optional[int] = None
-                ) -> tuple[Any, Dict]:
+    def restore(self, template, step: Optional[int] = None,
+                shardings=None) -> tuple[Any, Dict]:
         """Load checkpoint ``step`` (default: the latest) into the structure
         of ``template``. A tensor leaf of the template gets its leaf back
         on its own device and dtype; any other leaf (``None`` will do) gets
-        the stored numpy array. Returns ``(state, metadata)``."""
+        the stored numpy array. ``shardings`` (a tree like ``template`` of
+        :class:`repro_torch.parallel.shard.Placement`s, None for a whole
+        leaf) cuts each stored array to the rank's shard first. Returns
+        ``(state, metadata)``."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -188,4 +226,8 @@ class Checkpointer:
             manifest = json.load(f)
         flat = {path: np.load(os.path.join(d, fname))
                 for path, fname in manifest["leaves"].items()}
+        if shardings is not None:
+            for path, pl in _flatten(shardings).items():
+                if pl is not None:
+                    flat[path] = pl.local(flat[path])
         return _unflatten_into(template, flat), manifest["metadata"]

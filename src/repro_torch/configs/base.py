@@ -107,8 +107,10 @@ class ModelConfig:
 class TrainConfig:
     """The JAX package's training config, less its ``remat`` and ``zero1``
     fields, which its trainer does not read either (the model's
-    ``LMCallOptions.remat`` checkpoints the layers; ZeRO-1 belongs to the
-    distributed slice)."""
+    ``LMCallOptions.remat`` checkpoints the layers; on a mesh ZeRO-1 is the
+    fsdp component of the sharding rules, which shard every optimizer
+    moment as its parameter: ``repro_torch.parallel.sharding
+    .train_state_shardings``)."""
     policy: MiragePolicy = PAPER_POLICY
     optimizer: str = "adamw"          # sgdm | adam | adamw
     lr: float = 3e-4

@@ -12,13 +12,16 @@ yet.
     is what makes checkpoint/restart bitwise reproducible.
   * host sharding: each data-parallel host pulls only its shard
     (``shard_id``/``num_shards``), the standard multi-host input pattern.
+    On a mesh the shard is the rank's coordinate on the batch axes
+    (:func:`mesh_shard`), not its global rank, so the ranks of one
+    tensor-parallel group read the same rows.
   * ``state()``/``restore()`` round-trips through the checkpoint metadata.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterable, Iterator
+from typing import Dict, Iterable, Iterator, Tuple
 
 import numpy as np
 
@@ -86,6 +89,14 @@ class SyntheticLM:
         b = self.batch_at(self._step)
         self._step += 1
         return b
+
+
+def mesh_shard(comm) -> Tuple[int, int]:
+    """``(shard_id, num_shards)`` of a rank on a mesh
+    (:class:`repro_torch.parallel.comm.MeshComm`): its coordinate on the
+    batch axes (``pod``, ``data``) and their size; the ranks of one
+    ``model`` group share it."""
+    return comm.dp_rank, comm.dp
 
 
 def with_extras(source: Iterable[Dict[str, np.ndarray]], cfg

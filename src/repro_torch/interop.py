@@ -237,8 +237,8 @@ def _train_state_layout(model: nn.Module, state: Mapping[str, Any],
     return out
 
 
-def to_jax_train_state(model: nn.Module, state: Mapping[str, Any]
-                       ) -> Dict[str, Any]:
+def to_jax_train_state(model: nn.Module, state: Mapping[str, Any],
+                       gathered: bool = False) -> Dict[str, Any]:
     """The JAX package's train-state tree, with numpy leaves, of a port
     train state: the inverse of :func:`load_jax_train_state`. Every leaf is
     copied to the host here (the card's tensors included), the layer
@@ -246,6 +246,11 @@ def to_jax_train_state(model: nn.Module, state: Mapping[str, Any]
     moments and error buffer; int32 step and count)."""
     from repro_torch.checkpoint.checkpointer import to_host
 
+    if getattr(model, "comm", None) is not None and not gathered:
+        # a sharded model's state: every leaf gathered whole first
+        # (``gathered``: the caller holds it whole already)
+        from repro_torch.parallel.shard import gather_train_state
+        state = gather_train_state(model, state)
     # to_host copies each tensor: the trainer updates them in place
     return _train_state_layout(model, state, to_host, np.stack)
 
@@ -255,11 +260,17 @@ def restore_train_state(checkpointer, model: nn.Module,
     """Read the checkpoint ``step`` (default: the latest) of ``checkpointer``,
     written in the JAX layout by either package, into the port train state
     ``state`` in place: the params into ``model``'s parameters, the moments,
-    count, step and error buffer into ``state``. Returns ``(state,
-    metadata)``."""
+    count, step and error buffer into ``state``. A sharded model (on any
+    mesh, whatever mesh wrote the checkpoint) reads its shards. Returns
+    ``(state, metadata)``."""
     template = _train_state_layout(model, state, lambda t: None,
                                    lambda vals: None)
-    jstate, meta = checkpointer.restore(template, step)
+    shardings = None
+    if getattr(model, "comm", None) is not None:
+        # each rank reads its shards of the stored whole leaves
+        from repro_torch.parallel.shard import train_state_shardings_tree
+        shardings = train_state_shardings_tree(model, state)
+    jstate, meta = checkpointer.restore(template, step, shardings=shardings)
     load_jax_params(model, jstate["params"])
     _copy_train_state(model, state, jstate)
     return state, meta

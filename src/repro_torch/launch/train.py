@@ -44,8 +44,25 @@ latest checkpoint in DIR, on the batch the stopped run would have taken
 next (a vlm run's patch draws and an enc-dec run's frame draws start
 over, as the JAX launcher's do).
 Checkpoints are in the JAX package's layout, so either launcher resumes
-the other's. ``--distributed`` waits for the distributed slice and
-raises.
+the other's.
+
+``--distributed`` trains ONE model over every rank of a torchrun launch,
+the global batch split over them: the process group starts from torchrun's
+environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+``MASTER_PORT``), each rank on ``cuda:LOCAL_RANK`` under NCCL (``--device
+cpu``: the CPU under gloo), and the step runs sharded over a ``(data =
+world, model = 1)`` mesh (:func:`repro_torch.runtime.trainer
+.make_train_step` with ``mesh=``: FSDP over the ranks, the gradients
+reduce-scattered), each rank reading the ``SyntheticLM`` shard of its data
+coordinate (``--batch`` rows a rank). Two ranks that would share one card
+under NCCL raise. The JAX launcher's ``--distributed`` initializes
+``jax.distributed`` and shards the data by process, but attaches no
+shardings, so its processes never exchange gradients; the port's trains
+the one model the global batch defines. A checkpoint is written whole by
+rank 0 and restores onto any rank count.
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --distributed \
+      --steps 10
 """
 
 from __future__ import annotations
@@ -60,7 +77,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.precision import get_policy
 from repro_torch.data.pipeline import (SyntheticLM, SyntheticLMConfig,
-                                       with_extras)
+                                       mesh_shard, with_extras)
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
 from repro_torch.models.lm import LMCallOptions
@@ -68,9 +85,30 @@ from repro_torch.checkpoint import Checkpointer
 from repro_torch.interop import restore_train_state
 from repro_torch.runtime.elastic import (PreemptionGuard, StragglerMitigator,
                                          fault_tolerant_train_loop)
-from repro_torch.runtime.trainer import init_train_state, train_loop
+from repro_torch.runtime.trainer import (init_train_state, make_train_step,
+                                         train_loop)
 
-_SLICE_8 = "waits in ROADMAP.md queue 1, slice 8 (distributed)"
+
+
+def _distributed_device(device_arg):
+    """The rank's device and backend under torchrun: ``cuda:LOCAL_RANK``
+    with NCCL, or the CPU with gloo for ``--device cpu``."""
+    import os
+
+    if device_arg is not None and torch.device(device_arg).type == "cpu":
+        return torch.device("cpu"), "gloo"
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    n = torch.cuda.device_count()
+    if n == 0:
+        raise RuntimeError("--distributed finds no CUDA card; run on the "
+                           "CPU with --device cpu")
+    if local >= n:
+        raise RuntimeError(
+            f"LOCAL_RANK {local} names cuda:{local}, but this host has {n} "
+            f"card(s): NCCL takes one rank a card, so two ranks would share "
+            f"one. Start at most {n} ranks a host (torchrun "
+            f"--nproc-per-node {n}), or run on the CPU with --device cpu")
+    return torch.device("cuda", local), "nccl"
 
 
 def main(argv=None):
@@ -117,10 +155,20 @@ def main(argv=None):
     if args.layers is not None and args.layers < 1:
         ap.error("--layers must be >= 1")
 
+    mesh = None
+    shard_id, num_shards = 0, 1
     if args.distributed:
-        raise NotImplementedError(f"--distributed {_SLICE_8}")
+        from repro_torch.launch.mesh import init_distributed, make_debug_mesh
+        from repro_torch.parallel.comm import MeshComm
 
-    device = resolve_device(args.device)
+        device, backend = _distributed_device(args.device)
+        init_distributed(device, backend)
+        world = torch.distributed.get_world_size()
+        mesh = MeshComm(make_debug_mesh(world, 1, device=device,
+                                        backend=backend), device)
+        shard_id, num_shards = mesh_shard(mesh)
+    else:
+        device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -145,7 +193,9 @@ def main(argv=None):
                             device=device).manual_seed(args.seed))
     data = SyntheticLM(SyntheticLMConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq, batch_size=args.batch,
-        seed=args.seed, shard_id=0, num_shards=1))
+        seed=args.seed, shard_id=shard_id, num_shards=num_shards))
+    # on a mesh the step shards the model first, then the state is built
+    step_fn = make_train_step(model, tc, mesh=mesh)
     state = init_train_state(model, tc)
     ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
     if ckpt and args.resume and ckpt.latest_step() is not None:
@@ -167,11 +217,12 @@ def main(argv=None):
             state, metrics = fault_tolerant_train_loop(
                 model, tc, state, iter(data), args.steps, ckpt,
                 ckpt_every=args.ckpt_every, guard=guard,
-                straggler=StragglerMitigator())
+                straggler=StragglerMitigator(), step_fn=step_fn)
         finally:
             guard.uninstall()
     else:
-        state, metrics = train_loop(model, tc, state, iter(data), args.steps)
+        state, metrics = train_loop(model, tc, state, iter(data), args.steps,
+                                    step_fn=step_fn)
     dt = time.time() - t0
     print(f"trained {args.steps} steps in {dt:.1f}s "
           f"({args.steps / dt:.2f} steps/s) on {device}; final loss "
@@ -182,6 +233,9 @@ def main(argv=None):
         tracer.export(args.trace_export)
         print(f"chrome trace ({tracer.n_recorded} spans) -> "
               f"{args.trace_export}")
+    if args.distributed:
+        torch.distributed.barrier()     # every rank done before any leaves
+        torch.distributed.destroy_process_group()
     return 0
 
 

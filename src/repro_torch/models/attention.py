@@ -35,6 +35,7 @@ from torch import nn
 from repro_torch.core.precision import MiragePolicy
 from repro_torch.kernels import ops
 from repro_torch.models import common
+from repro_torch.parallel import comm as pcomm
 
 NEG_INF = -1e30
 
@@ -219,6 +220,23 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
     return torch.repeat_interleave(k, n_rep, dim=2)
 
 
+def _local_kv(p: Attention, n_local: int, n_heads: int, k: torch.Tensor,
+              v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (repeated) kv heads that the rank's ``n_local`` of the
+    ``n_heads`` query heads read, where q is head-sharded over ``model``
+    and k/v are not (fewer kv heads than ranks): a slice of the replicated
+    k/v whose gradient is summed over ``model``."""
+    if n_local == n_heads or common.tp_dim(p.k)[0] is not None:
+        return k, v
+    comm = common.tp_dim(p.q)[1]
+    g = n_heads // k.shape[2]
+    first = comm.tp_rank * n_local
+    idx = torch.arange(first // g, (first + n_local - 1) // g + 1,
+                       device=k.device)
+    return (pcomm.select_tp(k, comm, 2, idx),
+            pcomm.select_tp(v, comm, 2, idx))
+
+
 def attn_apply(p: Attention, x: torch.Tensor, policy: MiragePolicy, *,
                n_heads: int, n_kv_heads: int, head_dim: int,
                positions: torch.Tensor, rope_theta: float,
@@ -244,9 +262,15 @@ def attn_apply(p: Attention, x: torch.Tensor, policy: MiragePolicy, *,
     B, L, _ = x.shape
     src = x if x_kv is None else x_kv
     S = src.shape[1]
-    q = common.dense(p.q, x, policy).reshape(B, L, n_heads, head_dim)
-    k = common.dense(p.k, src, policy).reshape(B, S, n_kv_heads, head_dim)
-    v = common.dense(p.v, src, policy).reshape(B, S, n_kv_heads, head_dim)
+    if x_kv is None:
+        xq, xk, xv = common.tp_inputs(x, p.q, p.k, p.v)
+    else:
+        (xq,), (xk, xv) = common.tp_inputs(x, p.q), \
+            common.tp_inputs(src, p.k, p.v)
+    # -1: the rank's heads where q/k/v are head-sharded over ``model``
+    q = common.dense(p.q, xq, policy).reshape(B, L, -1, head_dim)
+    k = common.dense(p.k, xk, policy).reshape(B, S, -1, head_dim)
+    v = common.dense(p.v, xv, policy).reshape(B, S, -1, head_dim)
     if qk_norm:
         q = common.head_rmsnorm(p.q_norm, q)
         k = common.head_rmsnorm(p.k_norm, k)
@@ -258,13 +282,14 @@ def attn_apply(p: Attention, x: torch.Tensor, policy: MiragePolicy, *,
         kv_pos = torch.arange(S, device=x.device)
     k = _repeat_kv(k, kv_repeat)
     v = _repeat_kv(v, kv_repeat)
+    k, v = _local_kv(p, q.shape[2], n_heads, k, v)
     if use_flash and x_kv is None:
         out = ops.flash_attention(q, k, v, causal=causal, window=window)
     else:
         out = chunked_attention(q, k, v, positions, kv_pos, causal=causal,
                                 window=window, q_chunk=q_chunk,
                                 kv_chunk=kv_chunk)
-    out = out.reshape(B, L, n_heads * head_dim)
+    out = out.reshape(B, L, -1)
     if skip_o_proj:
         return out, (k, v)
     return common.dense(p.o, out, policy), (k, v)
@@ -313,16 +338,17 @@ def attn_decode_step(p: Attention, x: torch.Tensor, cache_k: torch.Tensor,
     if paged and (cross or not per_slot):
         raise ValueError("paged decode needs a per-slot idx vector and a "
                          "self-attention cache")
-    q = common.dense(p.q, x, policy).reshape(B, 1, n_heads, head_dim)
+    xq, xk, xv = common.tp_inputs(x, p.q, p.k, p.v)
+    # -1: the rank's heads where q/k/v are head-sharded over ``model``
+    # (the cache then holds the rank's kv heads)
+    q = common.dense(p.q, xq, policy).reshape(B, 1, -1, head_dim)
     if qk_norm:
         q = common.head_rmsnorm(p.q_norm, q)
     rope_pos = idx.reshape(B, 1) if per_slot else idx.reshape(1)
     if not cross:
         q = common.apply_rope(q, rope_pos, rope_theta)
-        knew = common.dense(p.k, x, policy).reshape(B, 1, n_kv_heads,
-                                                     head_dim)
-        vnew = common.dense(p.v, x, policy).reshape(B, 1, n_kv_heads,
-                                                    head_dim)
+        knew = common.dense(p.k, xk, policy).reshape(B, 1, -1, head_dim)
+        vnew = common.dense(p.v, xv, policy).reshape(B, 1, -1, head_dim)
         if qk_norm:
             knew = common.head_rmsnorm(p.k_norm, knew)
         knew = common.apply_rope(knew, rope_pos, rope_theta)
@@ -368,7 +394,7 @@ def attn_decode_step(p: Attention, x: torch.Tensor, cache_k: torch.Tensor,
         keys, vals = cache_k, cache_v
 
     Kv_eff = keys.shape[2]
-    rep = n_heads // Kv_eff
+    rep = q.shape[2] // Kv_eff
     q5 = q.reshape(B, 1, Kv_eff, rep, head_dim)
     s = torch.einsum("bqkrd,bskd->bqkrs", q5, keys) * \
         (1.0 / math.sqrt(head_dim))
@@ -377,7 +403,7 @@ def attn_decode_step(p: Attention, x: torch.Tensor, cache_k: torch.Tensor,
     s = torch.where(vmask, s, torch.full_like(s, NEG_INF))
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bqkrs,bskd->bqkrd", w, vals)
-    out = out.reshape(B, 1, n_heads * head_dim)
+    out = out.reshape(B, 1, -1)
     return common.dense(p.o, out, policy), cache_k, cache_v
 
 

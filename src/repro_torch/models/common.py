@@ -7,6 +7,17 @@ the JAX parameter tree's (``Dense.w`` is ``(d_in, d_out)`` as in JAX, not
 PyTorch's ``(out, in)``), so :mod:`repro_torch.interop` maps one onto the
 other leaf by leaf. The apply functions are plain functions on tensors, as in
 the JAX package. Initializers draw from an explicit ``torch.Generator``.
+
+On a mesh (:func:`repro_torch.parallel.shard.shard_model`) a module's
+``placements`` say where its parameters live, and the apply functions run
+on the rank's shards: :func:`weight` gathers an FSDP-sharded leaf over
+``data`` where it is used; :func:`dense` runs a column-parallel GEMM
+(N sharded over ``model``: its input goes through
+:func:`tp_inputs`' ``copy_to_tp``) or a row-parallel one (K sharded: its
+output is all-reduced over ``model``), each on the local shard, so the GEMM
+kernel reads N/tp or K/tp; :func:`embed` looks up a vocab-parallel table
+and :func:`unembed` returns the vocab shard's logits. Without placements
+every function is the single-device one, operation for operation.
 """
 
 from __future__ import annotations
@@ -19,6 +30,7 @@ from torch import nn
 
 from repro_torch.core.gemm import mirage_matmul_auto
 from repro_torch.core.precision import MiragePolicy
+from repro_torch.parallel import comm as pcomm
 
 
 def _normal(shape, std: float, generator: torch.Generator,
@@ -83,18 +95,88 @@ class MLP(nn.Module):
 # Apply functions
 # --------------------------------------------------------------------------
 
+def _placement(p: nn.Module, name: str):
+    return (p.__dict__.get("placements") or {}).get(name)
+
+
+def weight(p: nn.Module, name: str = "w") -> torch.Tensor:
+    """The parameter ``name`` of ``p`` as a layer uses it: gathered over
+    ``data`` where it is FSDP-sharded (its TP shard stays local)."""
+    t = getattr(p, name)
+    pl = _placement(p, name)
+    return t if pl is None else pl.gather(t)
+
+
+def tp_dim(p: nn.Module, name: str = "w"):
+    """The dim of ``p.<name>`` sharded over ``model`` (None: replicated or
+    no mesh) and the mesh's comm."""
+    pl = _placement(p, name)
+    return (None, None) if pl is None else (pl.tp_dim, pl.comm)
+
+
+def tp_inputs(x: torch.Tensor, *mods: nn.Module):
+    """The input of each GEMM of ``mods`` that read the same ``x``: one
+    ``copy_to_tp`` of it for the column-parallel ones (their dX partial
+    sums meet in its backward's single all-reduce), ``x`` itself for the
+    rest."""
+    shared = None
+    out = []
+    for m in mods:
+        dim, comm = tp_dim(m) if m is not None else (None, None)
+        if dim is not None and dim == m.w.dim() - 1:
+            if shared is None:
+                shared = pcomm.copy_to_tp(x, comm)
+            out.append(shared)
+        else:
+            out.append(x)
+    return out
+
+
 def dense(p: Dense, x: torch.Tensor, policy: MiragePolicy) -> torch.Tensor:
     """The Mirage-quantized GEMM. x: (..., d_in) @ w: (d_in, d_out), or
-    the installed stationary residues of ``w``."""
-    w = p.w if p.stationary is None else p.stationary
+    the installed stationary residues of ``w``. A row-parallel shard (K
+    over ``model``) takes the local part of ``x`` (sliced here where the
+    caller holds all of it) and all-reduces its output over ``model``."""
+    if p.stationary is not None:
+        w = p.stationary
+    else:
+        w = weight(p)
+    dim, comm = tp_dim(p)
+    if dim == 0 and x.shape[-1] != w.shape[0]:
+        k = w.shape[0]
+        x = pcomm.select_tp(x, comm, x.dim() - 1, torch.arange(
+            comm.tp_rank * k, (comm.tp_rank + 1) * k, device=x.device))
     y = mirage_matmul_auto(x, w, policy)
+    if dim == 0:
+        y = pcomm.reduce_from_tp(y, comm)
     if p.b is not None:
-        y = y + p.b
+        y = y + weight(p, "b")
     return y
 
 
+def vocab_range(p: Embed):
+    """(first row, rows) of the rank's vocab shard of ``p.emb``, and the
+    comm, or None where the table is not vocab-parallel."""
+    dim, comm = tp_dim(p, "emb")
+    if dim != 0:
+        return None
+    v = p.emb.shape[0]
+    return comm.tp_rank * v, v, comm
+
+
 def embed(p: Embed, tokens: torch.Tensor) -> torch.Tensor:
-    return torch.nn.functional.embedding(tokens, p.emb)
+    """The token embeddings; a vocab-parallel table looks up the tokens of
+    its rows, zeros the rest, and sums the shards over ``model``."""
+    emb = weight(p, "emb")
+    vr = vocab_range(p)
+    if vr is None:
+        return torch.nn.functional.embedding(tokens, emb)
+    v0, v, comm = vr
+    local = tokens - v0
+    mine = (local >= 0) & (local < v)
+    h = torch.nn.functional.embedding(torch.clamp(local, 0, v - 1), emb)
+    h = h * mine[..., None].to(h.dtype)
+    return pcomm.reduce_from_tp(h, comm)
 
 
 def unembed(p: Embed, x: torch.Tensor, policy: MiragePolicy) -> torch.Tensor:
@@ -103,10 +185,15 @@ def unembed(p: Embed, x: torch.Tensor, policy: MiragePolicy) -> torch.Tensor:
     always quantizes (and, under the RNS backends, encodes) its weight side
     per call. The
     transposed view is passed as is: the card's kernel reads ``(N, K)``
-    row-major weights in place."""
+    row-major weights in place. A vocab-parallel table gives the logits of
+    its vocab shard (``vocab_range``)."""
     if policy.assume_quantized_weights:
         policy = policy.replace(assume_quantized_weights=False)
-    return mirage_matmul_auto(x, p.emb.T, policy)
+    emb = weight(p, "emb")
+    vr = vocab_range(p)
+    if vr is not None:
+        x = pcomm.copy_to_tp(x, vr[2])
+    return mirage_matmul_auto(x, emb.T, policy)
 
 
 def norm(p: Norm, x: torch.Tensor, eps: float = 1e-5,
@@ -162,10 +249,11 @@ def mlp(p: MLP, x: torch.Tensor, policy: MiragePolicy) -> torch.Tensor:
     """SwiGLU, or GELU where ``p`` has no gate. The GELU is the JAX
     package's ``jax.nn.gelu``, whose default is the tanh approximation (the
     exact erf form differs in the last bits, which flips BFP roundings)."""
+    xg, xu = tp_inputs(x, p.gate, p.up)
     if p.gate is None:
-        h = torch.nn.functional.gelu(dense(p.up, x, policy),
+        h = torch.nn.functional.gelu(dense(p.up, xu, policy),
                                      approximate="tanh")
     else:
-        h = torch.nn.functional.silu(dense(p.gate, x, policy)) * \
-            dense(p.up, x, policy)
+        h = torch.nn.functional.silu(dense(p.gate, xg, policy)) * \
+            dense(p.up, xu, policy)
     return dense(p.down, h, policy)

@@ -42,6 +42,7 @@ from repro_torch.core.precision import MiragePolicy
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, common, mamba2, moe
 from repro_torch.obs import health as obs_health
+from repro_torch.parallel import comm as pcomm
 from repro_torch.runtime.paging import blocks_for
 
 _ENCDEC = "an enc-dec config is built as repro_torch.models.encdec.EncDec " \
@@ -66,26 +67,65 @@ class LMCallOptions:
     [w_o ; w_down]``, in the full-sequence forward (:meth:`LM.forward_hidden`,
     as in the JAX package; the serving steps keep the two): one row-sharded
     GEMM, so one tensor-parallel all-reduce a layer where the weights are
-    sharded; on one device the same math in another order of sums."""
+    sharded; on one device the same math in another order of sums.
+    ``moe_impl`` picks the MoE layer on a mesh: ``"gspmd"``
+    (:func:`repro_torch.models.moe.moe_apply`, the single-device function
+    of the global batch) or ``"ep_shard_map"``
+    (:func:`repro_torch.models.moe.moe_apply_ep`, routing per data shard).
+    ``act_dp``, ``act_tp`` and ``mesh_sizes`` name the mesh's batch and
+    tensor axes and their sizes (:func:`repro_torch.parallel.shard
+    .shard_model` sets them)."""
     kv_repeat: int = 1          # repeat kv heads (exact duplication)
     q_chunk: int = 1024
     kv_chunk: int = 1024
     remat: bool = False
     ce_chunk: int = 0           # chunked CE loss (0 = unchunked)
     merge_parallel_proj: bool = False   # command-r: one o/down GEMM
+    moe_impl: str = "gspmd"     # gspmd | ep_shard_map (MoE on a mesh)
     use_flash_kernel: bool = False   # flash attention kernel (forward only)
+    # the mesh the model runs on: act_dp/act_tp name its batch and tensor
+    # axes, mesh_sizes carries their sizes (set by parallel.shard)
+    act_dp: Optional[Tuple[str, ...]] = None
+    act_tp: Optional[str] = None
+    mesh_sizes: Tuple[Tuple[str, int], ...] = ()
+
+    def axis_size(self, ax) -> int:
+        sizes = dict(self.mesh_sizes)
+        if isinstance(ax, tuple):
+            n = 1
+            for a in ax:
+                n *= sizes.get(a, 1)
+            return n
+        return sizes.get(ax, 1)
 
 
-def _token_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def _token_ce(logits: torch.Tensor, labels: torch.Tensor,
+              vocab=None) -> torch.Tensor:
     """Per-token log-likelihood of ``labels`` (clamped at 0) under f32
-    ``logits`` (..., V)."""
-    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    return torch.gather(logp, -1, torch.clamp_min(labels, 0).long()[..., None]
-                        )[..., 0]
+    ``logits`` (..., V). ``vocab`` (first row, rows, comm) marks logits of
+    one vocab shard over ``model``: the max, the sum of exponentials and
+    the label's logit then meet over ``model``
+    (``logit - max - log(sum exp(logits - max))``, log_softmax's
+    formula)."""
+    logits = logits.to(torch.float32)
+    labels = torch.clamp_min(labels, 0).long()
+    if vocab is None:
+        logp = torch.log_softmax(logits, dim=-1)
+        return torch.gather(logp, -1, labels[..., None])[..., 0]
+    v0, v, comm = vocab
+    m = comm.all_reduce(torch.amax(logits, dim=-1, keepdim=True), "model",
+                        op=torch.distributed.ReduceOp.MAX)
+    z = logits - m
+    se = pcomm.reduce_from_tp(torch.sum(torch.exp(z), dim=-1), comm)
+    local = labels - v0
+    mine = (local >= 0) & (local < v)
+    tl = torch.gather(z, -1, torch.clamp(local, 0, v - 1)[..., None])[..., 0]
+    tl = pcomm.reduce_from_tp(tl * mine.to(tl.dtype), comm)
+    return tl - torch.log(se)
 
 
 def chunked_ce(h: torch.Tensor, labels: torch.Tensor, head_fn,
-               chunk: int) -> torch.Tensor:
+               chunk: int, vocab=None) -> torch.Tensor:
     """Cross-entropy without materializing (T, V) logits: a loop over token
     chunks, each recomputing its logits in the backward pass
     (``torch.utils.checkpoint``). h: (T, d), labels: (T,); label -1 (the
@@ -98,7 +138,7 @@ def chunked_ce(h: torch.Tensor, labels: torch.Tensor, head_fn,
         labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
 
     def body(hh, ll):
-        ll_tok = _token_ce(head_fn(hh), ll)
+        ll_tok = _token_ce(head_fn(hh), ll, vocab)
         return -torch.sum(torch.where(ll >= 0, ll_tok,
                                       torch.zeros_like(ll_tok)))
 
@@ -217,6 +257,10 @@ class LM(nn.Module):
 
     #: the layer stack, named as the JAX tree's stacked subtree
     stacks = ("layers",)
+    #: :func:`repro_torch.parallel.shard.shard_model` places this model
+    supports_mesh = True
+    #: the mesh's comm once the model is sharded (None: one device)
+    comm = None
 
     def __init__(self, cfg: ModelConfig, policy: MiragePolicy,
                  options: LMCallOptions = LMCallOptions(), *,
@@ -291,12 +335,38 @@ class LM(nn.Module):
             approximate="tanh"), self.policy)
         return torch.cat([pe, h], dim=1), extra_embeds.shape[1]
 
-    def _head(self, h: torch.Tensor) -> torch.Tensor:
+    def _head_local(self, h: torch.Tensor):
+        """The final norm and the head: (logits, vocab), ``vocab`` (first
+        row, rows, comm) where the logits are one vocab shard over
+        ``model`` (a vocab-parallel tied table or a column-parallel
+        ``lm_head``), else None."""
         cfg = self.cfg
         h = common.norm(self.final_norm, h, cfg.norm_eps, cfg.norm_type)
         if self.lm_head is None:
-            return common.unembed(self.embed, h, self.policy)
-        return common.dense(self.lm_head, h, self.policy)
+            return common.unembed(self.embed, h, self.policy), self._vocab()
+        logits = common.dense(self.lm_head,
+                              common.tp_inputs(h, self.lm_head)[0],
+                              self.policy)
+        return logits, self._vocab()
+
+    def _vocab(self):
+        """(first row, rows, comm) of the rank's vocab shard of the head,
+        or None where the head's logits cover the whole vocab."""
+        if self.lm_head is None:
+            return common.vocab_range(self.embed)
+        dim, comm = common.tp_dim(self.lm_head)
+        if dim != 1:
+            return None
+        v = self.lm_head.w.shape[1]
+        return comm.tp_rank * v, v, comm
+
+    def _head(self, h: torch.Tensor) -> torch.Tensor:
+        """The logits over the whole vocab (gathered over ``model`` where
+        the head is vocab-sharded)."""
+        logits, vocab = self._head_local(h)
+        if vocab is None:
+            return logits
+        return pcomm.gather_tp(logits, vocab[2], logits.dim() - 1)
 
     def _attn_mlp_block(self, layer: Union[Layer, MoELayer],
                         h: torch.Tensor, positions: torch.Tensor,
@@ -391,10 +461,12 @@ class LM(nn.Module):
         if self.kind == "attn_moe":
             h = h + a
             n2 = common.norm(layer.ln2, h, cfg.norm_eps, cfg.norm_type)
-            m, aux = moe.moe_apply(
+            apply = (moe.moe_apply_ep if self.opt.moe_impl == "ep_shard_map"
+                     else moe.moe_apply)
+            m, aux = apply(
                 layer.moe, n2, self.policy, n_experts=cfg.n_experts,
                 experts_per_token=cfg.experts_per_token,
-                capacity_factor=cfg.capacity_factor)
+                capacity_factor=cfg.capacity_factor, comm=self.comm)
             return h + m, aux
         zero = torch.zeros((), dtype=torch.float32, device=h.device)
         if self.parallel:
@@ -413,11 +485,19 @@ class LM(nn.Module):
         GEMM against ``[w_o ; w_down]``. The two contractions' BFP groups
         stay whole (H * D and d_ff are multiples of g)."""
         mlp = layer.mlp
-        hh = torch.nn.functional.silu(common.dense(mlp.gate, n1, self.policy)) \
-            * common.dense(mlp.up, n1, self.policy)
+        xg, xu = common.tp_inputs(n1, mlp.gate, mlp.up)
+        hh = torch.nn.functional.silu(common.dense(mlp.gate, xg,
+                                                   self.policy)) \
+            * common.dense(mlp.up, xu, self.policy)
         cat = torch.cat([ctx, hh], dim=-1)
-        w_cat = torch.cat([layer.attn.o.w, mlp.down.w], dim=0)
-        return h + mirage_matmul_auto(cat, w_cat, self.policy)
+        w_cat = torch.cat([common.weight(layer.attn.o),
+                           common.weight(mlp.down)], dim=0)
+        y = mirage_matmul_auto(cat, w_cat, self.policy)
+        dim, comm = common.tp_dim(layer.attn.o)
+        if dim == 0:
+            # row-parallel on both halves: ONE all-reduce for the layer
+            y = pcomm.reduce_from_tp(y, comm)
+        return h + y
 
     # ------------------------------------------------------------------
     # forward (train / logits over the full sequence)
@@ -479,9 +559,11 @@ class LM(nn.Module):
         B, L, d = h.shape
         if self.opt.ce_chunk:
             ce = chunked_ce(h.reshape(B * L, d), labels.reshape(B * L),
-                            self._head, self.opt.ce_chunk)
+                            lambda hh: self._head_local(hh)[0],
+                            self.opt.ce_chunk, self._vocab())
         else:
-            ce = -torch.mean(_token_ce(self._head(h), labels))
+            ce = -torch.mean(_token_ce(*self._head_local(h)[:1], labels,
+                                       self._vocab()))
         total = ce + self.cfg.router_aux_loss * aux / max(self.cfg.n_layers,
                                                           1)
         return total, {"ce": ce, "aux": aux,

@@ -59,11 +59,31 @@ def global_norm(tree: Tree) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms)).to(torch.float32)
 
 
-def clip_by_global_norm(grads: Tree, max_norm: float) -> Tuple[Tree,
-                                                               torch.Tensor]:
+def sharded_global_norm(tree: Tree, placements, comm) -> torch.Tensor:
+    """:func:`global_norm` of a tree whose leaves are shards on a mesh
+    (``placements`` by name, :class:`repro_torch.parallel.shard
+    .Placement`): each leaf's local sum of squares (f64) divided by the
+    ranks that hold the same shard, so a replicated leaf counts once,
+    summed over every rank."""
+    names = list(tree)
+    leaves = [tree[k].to(torch.float32) for k in names]
+    if not leaves:
+        return torch.zeros(())
+    norms = torch._foreach_norm(leaves, 2, dtype=torch.float64)
+    sq = torch.stack([n * n / placements[k].replicas
+                      for k, n in zip(names, norms)]).sum()
+    return torch.sqrt(comm.all_reduce(sq, "world")).to(torch.float32)
+
+
+def clip_by_global_norm(grads: Tree, max_norm: float,
+                        norm: torch.Tensor = None
+                        ) -> Tuple[Tree, torch.Tensor]:
     """Scale every gradient by min(1, max_norm / max(norm, 1e-9)); returns
-    (clipped grads, the norm before clipping). No host sync."""
-    norm = global_norm(grads)
+    (clipped grads, the norm before clipping). No host sync. ``norm``
+    defaults to :func:`global_norm` of ``grads`` (a sharded step passes
+    :func:`sharded_global_norm`'s)."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-9), max=1.0)
     leaves = list(grads.values())
     if leaves:

@@ -9,8 +9,9 @@ metadata, so a resumed run continues on exactly the batch the stopped one
 would have taken next. :func:`resize_serving_state` and
 :func:`resize_block_pool` change a serving engine's slot count and page
 pool mid-flight (``LMServer.resize_slots`` / ``resize_block_pool``).
-Restoring on another mesh (``elastic_restore``) waits with the
-distributed slice (ROADMAP.md queue 1, slice 8).
+:func:`elastic_restore` restores a checkpoint onto TODAY's mesh, whatever
+mesh (or single device) wrote it: leaves are stored whole, and each rank
+cuts its shards of them.
 """
 
 from __future__ import annotations
@@ -192,6 +193,18 @@ class StragglerMitigator:
         self.ema = dt if self.ema == 0 else (self.beta * self.ema
                                              + (1 - self.beta) * dt)
         return slow
+
+
+def elastic_restore(ckpt: Checkpointer, abstract_state, shardings,
+                    step: Optional[int] = None):
+    """Restore checkpoint ``step`` (default: the latest) onto the CURRENT
+    mesh. Leaves are stored unsharded (host numpy) and cut to each rank's
+    shard by today's ``shardings`` (a tree like ``abstract_state`` of
+    :class:`repro_torch.parallel.shard.Placement`s), so this works across
+    rank-count changes (elastic up/down scale). For a port model's train
+    state, :func:`repro_torch.interop.restore_train_state` builds the
+    template and the shardings from the model."""
+    return ckpt.restore(abstract_state, step=step, shardings=shardings)
 
 
 def fault_tolerant_train_loop(model, train_cfg, state, data, n_steps: int,

@@ -24,7 +24,7 @@ O(prompt blocks).
 
 Blocks are ALSO the unit of device **placement**: when the page pools
 shard their block dim over a ``data`` mesh axis (the JAX package's meshed
-engine; meshed serving of the port waits in ROADMAP.md queue 1, slice 8),
+engine; meshed serving of the port waits in ROADMAP.md queue 1, slice 8b),
 the ``data``-shard of physical block ``b`` is ``b // (n_blocks //
 n_shards)`` (the sharded dim splits into equal contiguous chunks).
 Slots shard over the same axis, so a slot's page-gather decode is LOCAL

@@ -437,7 +437,7 @@ class Scheduler:
 
 #: JAX-engine options that are not ported yet: (default, where they wait)
 _NOT_PORTED = {
-    "mesh": (None, "ROADMAP.md queue 1, slice 8 (meshed serving)"),
+    "mesh": (None, "ROADMAP.md queue 1, slice 8b (meshed serving)"),
 }
 
 

@@ -12,6 +12,20 @@ step updates the masters, the moments and the buffers IN PLACE and returns
 the same dict: the masters and each moment of a full-width model are 2 GB.
 Gradients come from ``torch.autograd.grad`` (the JAX ``value_and_grad``),
 so no ``.grad`` field is read or left behind.
+
+``make_train_step(..., mesh=)`` runs the step sharded over a mesh
+(FSDP x TP, :mod:`repro_torch.parallel`), computing the JAX step's logical
+global step as GSPMD does with the sharding rules: each rank holds its
+shards of the params, moments and error buffer, as
+:func:`repro_torch.parallel.sharding.train_state_shardings` places them,
+and takes its rows of the global batch. Its loss is the rank's mean
+scaled by 1/dp, so the gradients summed over the data ranks are the
+global batch's mean: an FSDP-sharded leaf's gradient comes back
+reduce-scattered from the FSDP gather's backward, a leaf replicated over
+``data`` is all-reduced over the batch axes. The loss and metrics are the
+global means, the clip norm counts every shard once (a replicated leaf
+once), and BFP compression with error feedback runs on the reduced
+gradient's shard (compression after the reduction, as in the JAX step).
 """
 
 from __future__ import annotations
@@ -29,7 +43,9 @@ from repro_torch.kernels import ops
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.optim import grad_compress
-from repro_torch.optim.optimizers import clip_by_global_norm, make_optimizer
+from repro_torch.optim.optimizers import (clip_by_global_norm,
+                                          make_optimizer,
+                                          sharded_global_norm)
 from repro_torch.optim.schedules import constant
 
 Tree = Dict[str, torch.Tensor]
@@ -99,8 +115,28 @@ def _to_device(batch, device) -> Tree:
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
+def _reduce_grads(grads: Tree, placements, comm) -> Tree:
+    """Sum each rank's gradients over the batch axes: leaves replicated over
+    ``data`` are all-reduced; FSDP leaves come reduce-scattered over
+    ``data`` already (and are all-reduced over ``pod``)."""
+    out = {}
+    for k, g in grads.items():
+        if placements[k].data_dim is None:
+            out[k] = comm.all_reduce(g, "dp")
+        elif comm.size("pod") > 1:
+            out[k] = comm.all_reduce(g, "pod")
+        else:
+            out[k] = g
+    return out
+
+
+def _global_mean(t: torch.Tensor, comm) -> torch.Tensor:
+    return comm.all_reduce(t, "dp") / comm.dp
+
+
 def make_train_step(model: nn.Module, train_cfg: TrainConfig,
-                    lr_schedule: Optional[Callable] = None):
+                    lr_schedule: Optional[Callable] = None, mesh=None,
+                    keep_grads: bool = False):
     """Returns train_step(state, batch) -> (state, metrics).
 
     Microbatching: the batch is split along axis 0 into ``microbatches``
@@ -111,7 +147,16 @@ def make_train_step(model: nn.Module, train_cfg: TrainConfig,
     masters (paper Eq. 4). As in the JAX package, the GEMMs skip their own
     weight-side quantization only where the model's policy says
     ``assume_quantized_weights``. Metrics are 0-d tensors on the model's
-    device (no host sync inside the step)."""
+    device (no host sync inside the step).
+
+    With a ``mesh`` (a ``DeviceMesh`` named ``data``/``model``, or its
+    :class:`repro_torch.parallel.comm.MeshComm`) the model is sharded in
+    place first (:func:`repro_torch.parallel.shard.shard_model`: build the
+    train state AFTER this call, from the sharded model), and the step
+    takes the rank's rows of the global batch
+    (:func:`repro_torch.parallel.shard.local_batch`). ``keep_grads``
+    leaves the step's gradients (summed over the data ranks, before
+    compression and clipping) in ``train_step.last_grads``."""
     from repro_torch.core import backends
 
     _, opt_update = make_optimizer(train_cfg)
@@ -124,6 +169,18 @@ def make_train_step(model: nn.Module, train_cfg: TrainConfig,
     qdtype = (torch.bfloat16 if train_cfg.quant_param_dtype == "bfloat16"
               else torch.float32)
     loss_module = _Loss(model)
+    comm = None
+    if mesh is not None:
+        from repro_torch.parallel import shard
+
+        comm = shard.shard_model(model, mesh)
+        shard.check_bfp_groups(
+            model, train_cfg.policy, weight_stationary=wsq,
+            compress_g=(train_cfg.policy.g
+                        if train_cfg.grad_compression == "bfp" else None))
+    # each data rank's mean, scaled so the sum over data ranks is the
+    # global batch's mean
+    scale = 1.0 / comm.dp if comm is not None and comm.dp > 1 else None
 
     def value_and_grad(run: Tree, batch: Tree):
         names = list(run)
@@ -133,7 +190,8 @@ def make_train_step(model: nn.Module, train_cfg: TrainConfig,
                 (batch,))
         else:
             loss, metrics = model.loss(batch)
-        grads = torch.autograd.grad(loss, [run[k] for k in names],
+        grads = torch.autograd.grad(loss if scale is None else loss * scale,
+                                    [run[k] for k in names],
                                     allow_unused=True)
         grads = {k: torch.zeros_like(run[k]) if g is None else g
                  for k, g in zip(names, grads)}
@@ -143,6 +201,14 @@ def make_train_step(model: nn.Module, train_cfg: TrainConfig,
     def train_step(state, batch):
         params = state["params"]
         batch = _to_device(batch, model.device)
+        if comm is not None and comm.dp > 1 and \
+                train_cfg.policy.mode.startswith("mirage") and \
+                batch["tokens"].numel() // nmb % train_cfg.policy.g:
+            # the dW GEMMs group the tokens along M: a data rank's tokens
+            # must hold whole groups of the global batch's
+            raise ValueError(
+                f"{batch['tokens'].numel() // nmb} tokens a data rank (a "
+                f"microbatch) cut BFP groups of {train_cfg.policy.g}")
         run = params
         if wsq:
             # quantize once per step; grads flow straight through to the
@@ -170,6 +236,14 @@ def make_train_step(model: nn.Module, train_cfg: TrainConfig,
             # gradients of bf16 weight copies come back in bf16, as in JAX
             grads = {k: g.to(torch.float32) for k, g in grads.items()}
         del run
+        if comm is not None:
+            grads = _reduce_grads(grads, model.placements, comm)
+            loss = _global_mean(loss, comm)
+            ce = _global_mean(metrics["ce"], comm)
+            metrics = dict(metrics, ce=ce,
+                           ppl=torch.exp(torch.clamp_max(ce, 20.0)))
+        if keep_grads:
+            train_step.last_grads = grads
 
         if train_cfg.grad_compression == "bfp":
             grads, state["err"] = grad_compress.compress_with_error_feedback(
@@ -177,7 +251,10 @@ def make_train_step(model: nn.Module, train_cfg: TrainConfig,
                 train_cfg.policy.g)
 
         if train_cfg.grad_clip > 0:
-            grads, gnorm = clip_by_global_norm(grads, train_cfg.grad_clip)
+            norm = None if comm is None else sharded_global_norm(
+                grads, model.placements, comm)
+            grads, gnorm = clip_by_global_norm(grads, train_cfg.grad_clip,
+                                               norm)
         else:
             gnorm = torch.zeros((), device=model.device)
 

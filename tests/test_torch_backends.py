@@ -80,9 +80,10 @@ def test_faithful_gradients_match_jax_vjp():
     x, w, dout = _rand((2, 5, 48), 5), _rand((48, 9), 6, 0.2), \
         _rand((2, 5, 9), 7)
     jp = jpolicy("mirage_faithful")
-    want, vjp = jax.vjp(lambda a, b: jgemm.mirage_matmul(a, b, jp),
-                        jnp.asarray(x), jnp.asarray(w))
-    jdx, jdw = vjp(jnp.asarray(dout))
+    # jitted: one XLA compile instead of the eager op-by-op ones
+    want, jdx, jdw = jax.jit(lambda a, b, d: (lambda y, f: (y,) + f(d))(
+        *jax.vjp(lambda a, b: jgemm.mirage_matmul(a, b, jp), a, b)))(
+            jnp.asarray(x), jnp.asarray(w), jnp.asarray(dout))
     tx, tw = _t(x).requires_grad_(), _t(w).requires_grad_()
     got = gemm.mirage_matmul(tx, tw, get_policy("mirage_faithful"))
     got.backward(_t(dout))

@@ -61,7 +61,7 @@ def _close(got, want, policy):
 def test_forward_matches_jax(pair):
     policy, (jm, params, tm) = pair
     toks = _tokens((2, 19))
-    want, _, _ = jm.forward(params, jnp.asarray(toks))
+    want, _, _ = jax.jit(jm.forward)(params, jnp.asarray(toks))
     with torch.inference_mode():
         got = tm(torch.from_numpy(toks))
     _close(got.numpy(), want, policy)
@@ -73,7 +73,10 @@ def test_prefill_and_decode_match_jax(pair):
     policy, (jm, params, tm) = pair
     toks = _tokens((3, 12), seed=1)
     lens = np.array([12, 7, 9], np.int32)
-    jl, jc = jm.prefill(params, jnp.asarray(toks), 24, lens=jnp.asarray(lens))
+    # jitted JAX references: one XLA compile each instead of eager ops
+    jl, jc = jax.jit(jm.prefill, static_argnums=2)(
+        params, jnp.asarray(toks), 24, lens=jnp.asarray(lens))
+    jdecode = jax.jit(jm.decode_step)
     with torch.inference_mode():
         tl, tc = tm.prefill(torch.from_numpy(toks), 24,
                             lens=torch.from_numpy(lens))
@@ -84,7 +87,7 @@ def test_prefill_and_decode_match_jax(pair):
 
     tok = np.array(jnp.argmax(jl[:, -1], -1), np.int32)[:, None]
     for _ in range(4):
-        jl, jc = jm.decode_step(params, jc, jnp.asarray(tok))
+        jl, jc = jdecode(params, jc, jnp.asarray(tok))
         with torch.inference_mode():
             tl, tc = tm.decode_step(tc, torch.from_numpy(tok))
         _close(tl.numpy(), jl, policy)
@@ -99,12 +102,13 @@ def test_scalar_idx_prefill_and_decode_match_jax(pair):
     """Unpadded prefill keeps one scalar position for the whole batch."""
     policy, (jm, params, tm) = pair
     toks = _tokens((2, 10), seed=2)
-    jl, jc = jm.prefill(params, jnp.asarray(toks), 16)
+    jl, jc = jax.jit(jm.prefill, static_argnums=2)(
+        params, jnp.asarray(toks), 16)
     with torch.inference_mode():
         tl, tc = tm.prefill(torch.from_numpy(toks), 16)
     assert tc["idx"].dim() == 0 and int(tc["idx"]) == 10
     tok = np.array([[5], [9]], np.int32)
-    jl, jc = jm.decode_step(params, jc, jnp.asarray(tok))
+    jl, jc = jax.jit(jm.decode_step)(params, jc, jnp.asarray(tok))
     with torch.inference_mode():
         tl, tc = tm.decode_step(tc, torch.from_numpy(tok))
     _close(tl.numpy(), jl, policy)
@@ -117,7 +121,8 @@ def test_qk_norm_and_kv_repeat_match_jax():
     jm, params, tm = _pair("mirage", kv_repeat=2, arch="qwen3-14b")
     assert tm.layers[0].attn.q_norm is not None
     toks = _tokens((1, 9), seed=3)
-    jl, jc = jm.prefill(params, jnp.asarray(toks), 12)
+    jl, jc = jax.jit(jm.prefill, static_argnums=2)(
+        params, jnp.asarray(toks), 12)
     with torch.inference_mode():
         tl, tc = tm.prefill(torch.from_numpy(toks), 12)
     _close(tl.numpy(), jl, "mirage")

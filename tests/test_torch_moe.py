@@ -312,9 +312,10 @@ def test_lm_forward_and_loss_match_jax(pair):
         np.int32)
     labels = np.random.default_rng(1).integers(0, 256, (2, 19)).astype(
         np.int32)
-    want, want_aux, _ = jm.forward(params, jnp.asarray(toks))
-    want_loss, want_m = jm.loss(params, {"tokens": jnp.asarray(toks),
-                                         "labels": jnp.asarray(labels)})
+    # jitted JAX references: one XLA compile each instead of eager ops
+    want, want_aux, _ = jax.jit(jm.forward)(params, jnp.asarray(toks))
+    want_loss, want_m = jax.jit(jm.loss)(
+        params, {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)})
     with torch.no_grad():
         got = tm(torch.from_numpy(toks))
         _, got_aux, _ = tm.forward_hidden(torch.from_numpy(toks))

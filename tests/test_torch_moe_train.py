@@ -221,7 +221,8 @@ def _jax_loss_and_grads(arch, policy, opts=()):
     on the test batch: (loss, aux, gradients by the port's names)."""
     jm = jbuild(_cfgs(arch)[0], jpolicy(policy),
                 JOptions(q_chunk=16, kv_chunk=16, **dict(opts)))
-    (jl, jmet), jg = jax.value_and_grad(jm.loss, has_aux=True)(
+    # jitted: one XLA compile instead of the eager op-by-op ones
+    (jl, jmet), jg = jax.jit(jax.value_and_grad(jm.loss, has_aux=True))(
         _jax_params(arch), {k: jnp.asarray(v) for k, v in _batch().items()})
     return float(jl), float(jmet["aux"]), _by_name(
         _port(arch, get_policy("fp32")),

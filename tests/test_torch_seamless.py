@@ -183,7 +183,9 @@ def test_gelu_mlp_equals_jax(policy):
     with torch.no_grad():
         _load(mod, jax.tree_util.tree_map(np.asarray, p), "")
     x = rng.normal(size=(3, 5, 64)).astype(np.float32)
-    want = jcommon.mlp(p, jnp.asarray(x), jpolicy(policy), "gelu")
+    # jitted JAX references: one XLA compile each instead of eager ops
+    want = jax.jit(lambda p, x: jcommon.mlp(p, x, jpolicy(policy), "gelu"))(
+        p, jnp.asarray(x))
     with torch.no_grad():
         got = common.mlp(mod, _t(x), get_policy(policy))
     _close(got, want, 1e-6)
@@ -219,9 +221,9 @@ def test_cross_attn_apply_equals_jax(policy):
     enc = rng.normal(size=(2, 12, 64)).astype(np.float32)
     jp, tp = jpolicy(policy), get_policy(policy)
     pos, epos = jnp.arange(7), jnp.arange(12)
-    want, (wk, wv) = jattention.attn_apply(
-        p, jnp.asarray(x), jp, positions=pos, causal=False,
-        x_kv=jnp.asarray(enc), use_rope=False, kv_positions=epos, **KW)
+    want, (wk, wv) = jax.jit(lambda p, x, e: jattention.attn_apply(
+        p, x, jp, positions=pos, causal=False, x_kv=e, use_rope=False,
+        kv_positions=epos, **KW))(p, jnp.asarray(x), jnp.asarray(enc))
     with torch.no_grad():
         got, (k, v) = attention.attn_apply(
             mod, _t(x), tp, positions=torch.arange(7), causal=False,
@@ -229,8 +231,8 @@ def test_cross_attn_apply_equals_jax(policy):
     _close(got, want, 1e-6)
     _close(k, wk, 1e-6)
     _close(v, wv, 1e-6)
-    want, _ = jattention.attn_apply(p, jnp.asarray(enc), jp, positions=epos,
-                                    causal=False, **KW)
+    want, _ = jax.jit(lambda p, e: jattention.attn_apply(
+        p, e, jp, positions=epos, causal=False, **KW))(p, jnp.asarray(enc))
     with torch.no_grad():
         got, _ = attention.attn_apply(mod, _t(enc), tp,
                                       positions=torch.arange(12),
@@ -246,10 +248,10 @@ def test_cross_attn_decode_step_equals_jax_and_writes_nothing(policy):
     ck = rng.normal(size=(2, 12, 2, 16)).astype(np.float32)
     cv = rng.normal(size=(2, 12, 2, 16)).astype(np.float32)
     idx = 5
-    want, jk, jv = jattention.attn_decode_step(
+    want, jk, jv = jax.jit(lambda p, x, ck, cv, i: jattention.attn_decode_step(
+        p, x, ck, cv, i, jpolicy(policy), cross=True, use_rope=False, **KW))(
         p, jnp.asarray(x), jnp.asarray(ck), jnp.asarray(cv),
-        jnp.asarray(idx, jnp.int32), jpolicy(policy), cross=True,
-        use_rope=False, **KW)
+        jnp.asarray(idx, jnp.int32))
     tk, tv = _t(ck).clone(), _t(cv).clone()
     with torch.no_grad():
         got, k2, v2 = attention.attn_decode_step(

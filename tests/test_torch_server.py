@@ -173,7 +173,7 @@ def test_sampled_decode_deterministic_per_seed(model):
     ("default_queue_ttl_s", 1.0), ("max_queue_depth", 4),
 ])
 def test_unported_options_raise(model, option, value):
-    """Only ``mesh`` still waits (slice 8); the options of slice 7 build
+    """Only ``mesh`` still waits (slice 8b); the options of slice 7 build
     an engine that holds them."""
     if option == "mesh":
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -82,9 +82,13 @@ def test_gemm_function_matches_jax_vjp(mode, aq, shape):
         w = _wsq_weight(w)
     dout = _rand((B, L, N), 3)
     jp = jpolicy(mode, assume_quantized_weights=aq)
-    want, vjp = jax.vjp(lambda a, b: jgemm.mirage_matmul(a, b, jp),
-                        jnp.asarray(x), jnp.asarray(w))
-    jdx, jdw = vjp(jnp.asarray(dout))
+
+    @jax.jit   # one XLA compile instead of the eager op-by-op ones
+    def fwd_bwd(a, b, d):
+        out, vjp = jax.vjp(lambda a, b: jgemm.mirage_matmul(a, b, jp), a, b)
+        return (out,) + vjp(d)
+    want, jdx, jdw = fwd_bwd(jnp.asarray(x), jnp.asarray(w),
+                             jnp.asarray(dout))
     tx = torch.from_numpy(x).requires_grad_()
     tw = torch.from_numpy(w).requires_grad_()
     got = gemm.mirage_matmul(tx, tw, get_policy(mode,
@@ -124,9 +128,9 @@ def test_tied_head_emb_grad_matches_jax():
     x, emb, dout = _rand((2, 9, 32), 7), _rand((50, 32), 8, 0.02), \
         _rand((2, 9, 50), 9)
     jp = jpolicy("mirage")
-    _, vjp = jax.vjp(lambda e: jcommon.unembed({"emb": e}, jnp.asarray(x),
-                                               jp), jnp.asarray(emb))
-    (want,) = vjp(jnp.asarray(dout))
+    (want,) = jax.jit(lambda e, d: jax.vjp(lambda e: jcommon.unembed(
+        {"emb": e}, jnp.asarray(x), jp), e)[1](d))(jnp.asarray(emb),
+                                                   jnp.asarray(dout))
     p = common.Embed.__new__(common.Embed)
     torch.nn.Module.__init__(p)
     p.emb = torch.nn.Parameter(torch.from_numpy(emb))
@@ -240,7 +244,8 @@ def _batch(seq=48, batch=4, step=0):
 def test_loss_and_grads_match_jax(jax_params, policy, opts):
     jm, params, tm = _pair(policy, jax_params, **opts)
     b = _batch()
-    (jl, jmet), jg = jax.value_and_grad(jm.loss, has_aux=True)(
+    # jitted: one XLA compile instead of the eager op-by-op ones
+    (jl, jmet), jg = jax.jit(jax.value_and_grad(jm.loss, has_aux=True))(
         params, {k: jnp.asarray(v) for k, v in b.items()})
     tl, tmet = tm.loss({k: torch.from_numpy(v) for k, v in b.items()})
     names = [n for n, _ in tm.named_parameters()]
@@ -294,7 +299,9 @@ def test_flash_attention_only_where_the_options_ask(monkeypatch,
 # --------------------------------------------------------------------------
 
 def _train_both(policy, steps, seq=48, batch=4, tc_kw=None, pol_kw=None,
-                jit=True):
+                jit=True, first=None):
+    """Both packages' steps side by side; ``first`` (a dict) receives both
+    states' params after step 1, as numpy trees."""
     tc_kw, pol_kw = tc_kw or {}, pol_kw or {}
     cfg = jconfig("qwen2-0.5b").reduced()
     jp = jpolicy(policy, **pol_kw)
@@ -316,11 +323,16 @@ def _train_both(policy, steps, seq=48, batch=4, tc_kw=None, pol_kw=None,
     tdata = SyntheticLM(SyntheticLMConfig(vocab_size=256, seq_len=seq,
                                           batch_size=batch))
     out = []
-    for _ in range(steps):
+    for i in range(steps):
         jstate, jmet = jstep(jstate, next(jdata))
         tstate, tmet = tstep(tstate, next(tdata))
         out.append((float(jmet["loss"]), float(tmet["loss"]),
                     float(jmet["grad_norm"]), float(tmet["grad_norm"])))
+        if i == 0 and first is not None:
+            first["jax"] = _by_name(tm, jax.tree_util.tree_map(
+                np.asarray, jstate["params"]))
+            first["port"] = {n: p.detach().numpy().copy()
+                             for n, p in tstate["params"].items()}
     return np.array(out), jstate, tstate, tm
 
 
@@ -342,16 +354,14 @@ def test_quickstart_trajectory_mirage_step_one_exact_then_chaotic():
     its loss, grad norm and every updated parameter (the per-parameter
     step-1 gradients are held in test_loss_and_grads_match_jax); over the
     10 steps both runs must learn."""
-    traj, jstate, tstate, tm = _train_both("mirage", steps=1)
+    first = {}
+    traj, _, _, _ = _train_both("mirage", steps=10, first=first)
     np.testing.assert_allclose(traj[0, 1], traj[0, 0], rtol=1e-6)
     np.testing.assert_allclose(traj[0, 3], traj[0, 2], rtol=1e-6)
-    want = _by_name(tm, jax.tree_util.tree_map(np.asarray,
-                                               jstate["params"]))
-    for n, p in tstate["params"].items():
+    for n, p in first["port"].items():
         # Adam moves each element by ~lr; 1e-5 is 1% of one update
-        np.testing.assert_allclose(p.detach().numpy(), want[n], rtol=0,
-                                   atol=1e-5, err_msg=n)
-    traj, _, _, _ = _train_both("mirage", steps=10)
+        np.testing.assert_allclose(p, first["jax"][n], rtol=0, atol=1e-5,
+                                   err_msg=n)
     assert traj[-1, 0] < traj[0, 0] and traj[-1, 1] < traj[0, 1]
 
 
@@ -436,11 +446,26 @@ def test_launch_train_cpu_smoke():
         capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert "trained 2 steps" in res.stdout and "on cpu" in res.stdout
+    # --distributed without torchrun's environment says what it needs
     res = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
          "--reduced", "--steps", "1", "--distributed"], env=env,
         capture_output=True, text=True, timeout=120)
-    assert res.returncode != 0 and "slice 8" in res.stderr
+    assert res.returncode != 0 and "torchrun" in res.stderr
+    # and trains as one torchrun rank on the CPU (gloo); two ranks are
+    # held to one process in tests/test_torch_distributed.py
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
+         "--reduced", "--steps", "1", "--seq", "16", "--distributed"],
+        env=dict(env, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                 MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)),
+        capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "trained 1 steps" in res.stdout
 
 
 # --------------------------------------------------------------------------

@@ -172,10 +172,12 @@ def test_prefill_with_patches_equals_jax(pair):
     batch = _batch(tm.cfg, seed=1)
     toks, patches = batch["tokens"], batch["patches"]
     tt, tp = torch.from_numpy(toks), torch.from_numpy(patches)
+    # jitted JAX references: one XLA compile each instead of eager ops
+    jprefill = jax.jit(jm.prefill, static_argnums=2)
     for lens in (None, np.array([20, 15], np.int32)):
-        jl, jc = jm.prefill(params, jnp.asarray(toks), 32,
-                            extra_embeds=jnp.asarray(patches),
-                            lens=None if lens is None else jnp.asarray(lens))
+        jl, jc = jprefill(params, jnp.asarray(toks), 32,
+                          extra_embeds=jnp.asarray(patches),
+                          lens=None if lens is None else jnp.asarray(lens))
         with torch.no_grad():
             tl, tc = tm.prefill(tt, 32, extra_embeds=tp,
                                 lens=None if lens is None
@@ -189,7 +191,7 @@ def test_prefill_with_patches_equals_jax(pair):
                                        np.asarray(jc[leaf]), rtol=TOL,
                                        atol=TOL)
     # decode steps from the prefix cache
-    jd, _ = jm.decode_step(params, jc, jnp.asarray(toks[:, :1]))
+    jd, _ = jax.jit(jm.decode_step)(params, jc, jnp.asarray(toks[:, :1]))
     with torch.no_grad():
         td, _ = tm.decode_step(tc, tt[:, :1])
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=TOL,
@@ -251,8 +253,10 @@ def test_head_gemm_at_the_odd_vocabulary_equals_jax():
     x = rng.standard_normal((M, K)).astype(np.float32)
     w = (rng.standard_normal((K, N)) * 0.02).astype(np.float32)
     dout = rng.standard_normal((M, N)).astype(np.float32)
-    jy, vjp = jax.vjp(lambda a, b: jmatmul(a, b, jpolicy("mirage")), x, w)
-    jdx, jdw = vjp(dout)
+    # jitted: one XLA compile instead of the eager op-by-op ones
+    jy, jdx, jdw = jax.jit(lambda a, b, d: (lambda y, f: (y,) + f(d))(
+        *jax.vjp(lambda a, b: jmatmul(a, b, jpolicy("mirage")), a, b)))(
+            x, w, dout)
     xt = torch.from_numpy(x).requires_grad_()
     wt = torch.from_numpy(w).requires_grad_()
     y = mirage_matmul(xt, wt, get_policy("mirage"))
