@@ -114,18 +114,16 @@ def _barrier() -> None:
 
 
 class Checkpointer:
-    """``writer`` says whether this process writes (default: rank 0 of the
-    default process group where one runs, else True); with several ranks
-    :meth:`save` and :meth:`wait` are collective (every rank calls them)."""
+    """Rank 0 of the default process group writes, where one runs; with
+    several ranks :meth:`save` and :meth:`wait` are collective (every rank
+    calls them)."""
 
-    def __init__(self, directory: str, keep_last: int = 3,
-                 writer: Optional[bool] = None):
+    def __init__(self, directory: str, keep_last: int = 3):
+        import torch.distributed as dist
+
         self.dir = directory
         self.keep_last = keep_last
-        if writer is None:
-            import torch.distributed as dist
-            writer = not _distributed() or dist.get_rank() == 0
-        self.writer = writer
+        self.writer = not _distributed() or dist.get_rank() == 0
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[Exception] = None

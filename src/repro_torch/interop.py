@@ -237,8 +237,8 @@ def _train_state_layout(model: nn.Module, state: Mapping[str, Any],
     return out
 
 
-def to_jax_train_state(model: nn.Module, state: Mapping[str, Any],
-                       gathered: bool = False) -> Dict[str, Any]:
+def to_jax_train_state(model: nn.Module, state: Mapping[str, Any]
+                       ) -> Dict[str, Any]:
     """The JAX package's train-state tree, with numpy leaves, of a port
     train state: the inverse of :func:`load_jax_train_state`. Every leaf is
     copied to the host here (the card's tensors included), the layer
@@ -246,9 +246,8 @@ def to_jax_train_state(model: nn.Module, state: Mapping[str, Any],
     moments and error buffer; int32 step and count)."""
     from repro_torch.checkpoint.checkpointer import to_host
 
-    if getattr(model, "comm", None) is not None and not gathered:
+    if getattr(model, "comm", None) is not None:
         # a sharded model's state: every leaf gathered whole first
-        # (``gathered``: the caller holds it whole already)
         from repro_torch.parallel.shard import gather_train_state
         state = gather_train_state(model, state)
     # to_host copies each tensor: the trainer updates them in place

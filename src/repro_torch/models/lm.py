@@ -71,10 +71,7 @@ class LMCallOptions:
     ``moe_impl`` picks the MoE layer on a mesh: ``"gspmd"``
     (:func:`repro_torch.models.moe.moe_apply`, the single-device function
     of the global batch) or ``"ep_shard_map"``
-    (:func:`repro_torch.models.moe.moe_apply_ep`, routing per data shard).
-    ``act_dp``, ``act_tp`` and ``mesh_sizes`` name the mesh's batch and
-    tensor axes and their sizes (:func:`repro_torch.parallel.shard
-    .shard_model` sets them)."""
+    (:func:`repro_torch.models.moe.moe_apply_ep`, routing per data shard)."""
     kv_repeat: int = 1          # repeat kv heads (exact duplication)
     q_chunk: int = 1024
     kv_chunk: int = 1024
@@ -83,20 +80,6 @@ class LMCallOptions:
     merge_parallel_proj: bool = False   # command-r: one o/down GEMM
     moe_impl: str = "gspmd"     # gspmd | ep_shard_map (MoE on a mesh)
     use_flash_kernel: bool = False   # flash attention kernel (forward only)
-    # the mesh the model runs on: act_dp/act_tp name its batch and tensor
-    # axes, mesh_sizes carries their sizes (set by parallel.shard)
-    act_dp: Optional[Tuple[str, ...]] = None
-    act_tp: Optional[str] = None
-    mesh_sizes: Tuple[Tuple[str, int], ...] = ()
-
-    def axis_size(self, ax) -> int:
-        sizes = dict(self.mesh_sizes)
-        if isinstance(ax, tuple):
-            n = 1
-            for a in ax:
-                n *= sizes.get(a, 1)
-            return n
-        return sizes.get(ax, 1)
 
 
 def _token_ce(logits: torch.Tensor, labels: torch.Tensor,

@@ -118,10 +118,9 @@ def placements_of(module: nn.Module) -> Dict[str, Placement]:
 def shard_model(model: nn.Module, mesh) -> MeshComm:
     """Cut ``model``'s parameters (full, identical on every rank: built
     from one seed) to this rank's shards in place; returns its
-    :class:`MeshComm`. Sets the options the sharded path reads
-    (``act_dp``, ``act_tp``, ``mesh_sizes``, and ``kv_repeat`` from
+    :class:`MeshComm`. Sets ``kv_repeat`` from
     :func:`~repro_torch.parallel.sharding.kv_repeat_for` where the model
-    had none)."""
+    had none."""
     if getattr(model, "comm", None) is not None:
         return model.comm
     if not getattr(model, "supports_mesh", False):
@@ -143,12 +142,9 @@ def shard_model(model: nn.Module, mesh) -> MeshComm:
         owner, leaf = name.rpartition(".")[::2]
         mod = model.get_submodule(owner) if owner else model
         mod.__dict__.setdefault("placements", {})[leaf] = pl
-    opt = model.opt
-    repl = dict(act_dp=sharding.dp_axes(comm.sizes), act_tp="model",
-                mesh_sizes=tuple(sorted(comm.sizes.items())))
-    if opt.kv_repeat == 1:
-        repl["kv_repeat"] = sharding.kv_repeat_for(cfg, comm.sizes)
-    model.opt = dataclasses.replace(opt, **repl)
+    if model.opt.kv_repeat == 1:
+        model.opt = dataclasses.replace(
+            model.opt, kv_repeat=sharding.kv_repeat_for(cfg, comm.sizes))
     model.comm = comm
     model.placements = placements
     check_bfp_groups(model, model.policy)

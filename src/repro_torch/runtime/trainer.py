@@ -118,7 +118,11 @@ def _to_device(batch, device) -> Tree:
 def _reduce_grads(grads: Tree, placements, comm) -> Tree:
     """Sum each rank's gradients over the batch axes: leaves replicated over
     ``data`` are all-reduced; FSDP leaves come reduce-scattered over
-    ``data`` already (and are all-reduced over ``pod``)."""
+    ``data`` already (and are all-reduced over ``pod``). Without a mesh
+    (``comm`` None) the gradients as they are. The step's gradients, before
+    compression and clipping, are this function's result in every step."""
+    if comm is None:
+        return grads
     out = {}
     for k, g in grads.items():
         if placements[k].data_dim is None:
@@ -135,8 +139,7 @@ def _global_mean(t: torch.Tensor, comm) -> torch.Tensor:
 
 
 def make_train_step(model: nn.Module, train_cfg: TrainConfig,
-                    lr_schedule: Optional[Callable] = None, mesh=None,
-                    keep_grads: bool = False):
+                    lr_schedule: Optional[Callable] = None, mesh=None):
     """Returns train_step(state, batch) -> (state, metrics).
 
     Microbatching: the batch is split along axis 0 into ``microbatches``
@@ -154,9 +157,7 @@ def make_train_step(model: nn.Module, train_cfg: TrainConfig,
     place first (:func:`repro_torch.parallel.shard.shard_model`: build the
     train state AFTER this call, from the sharded model), and the step
     takes the rank's rows of the global batch
-    (:func:`repro_torch.parallel.shard.local_batch`). ``keep_grads``
-    leaves the step's gradients (summed over the data ranks, before
-    compression and clipping) in ``train_step.last_grads``."""
+    (:func:`repro_torch.parallel.shard.local_batch`)."""
     from repro_torch.core import backends
 
     _, opt_update = make_optimizer(train_cfg)
@@ -236,14 +237,13 @@ def make_train_step(model: nn.Module, train_cfg: TrainConfig,
             # gradients of bf16 weight copies come back in bf16, as in JAX
             grads = {k: g.to(torch.float32) for k, g in grads.items()}
         del run
+        grads = _reduce_grads(grads, getattr(model, "placements", None),
+                              comm)
         if comm is not None:
-            grads = _reduce_grads(grads, model.placements, comm)
             loss = _global_mean(loss, comm)
             ce = _global_mean(metrics["ce"], comm)
             metrics = dict(metrics, ce=ce,
                            ppl=torch.exp(torch.clamp_max(ce, 20.0)))
-        if keep_grads:
-            train_step.last_grads = grads
 
         if train_cfg.grad_compression == "bfp":
             grads, state["err"] = grad_compress.compress_with_error_feedback(

@@ -86,6 +86,26 @@ class ShapeTap:
         self.gemm._forward_impl = self.inner
 
 
+class GradTap:
+    """The step's gradients while open: summed over the data ranks, before
+    compression and clipping (what ``runtime.trainer._reduce_grads``
+    returns in every step, with a mesh or without)."""
+
+    def __enter__(self):
+        from repro_torch.runtime import trainer
+        self.trainer, self.inner, self.grads = trainer, \
+            trainer._reduce_grads, None
+
+        def tapped(*a, **k):
+            self.grads = self.inner(*a, **k)
+            return self.grads
+        trainer._reduce_grads = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.trainer._reduce_grads = self.inner
+
+
 def merged_arch():
     """Reduced command-r with its parallel block's projections merged."""
     from repro_torch.configs import get_config
@@ -102,13 +122,12 @@ def _train(rank, comm, out, variant):
     cfg, opt = merged_arch() if variant == "merged" else (qwen2(), {})
     tc = train_config(variant)
     model = build(cfg, tc.policy, **opt)
-    step = make_train_step(model, tc, mesh=comm, keep_grads=True)
+    step = make_train_step(model, tc, mesh=comm)
     state = init_train_state(model, tc)
-    with ShapeTap() as tap:
+    with ShapeTap() as tap, GradTap() as gtap:
         state, metrics = step(state, local_batch(train_batch(cfg), comm))
     full = gather_train_state(model, state)
-    grads = {k: model.placements[k].full(g)
-             for k, g in step.last_grads.items()}
+    grads = {k: model.placements[k].full(g) for k, g in gtap.grads.items()}
     if variant == "mirage":
         ck = Checkpointer(os.path.join(out, "ckpt"))
         ck.save(to_jax_train_state(model, state), step=1)

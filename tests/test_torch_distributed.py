@@ -31,7 +31,8 @@ import _torch_dist_ranks as ranks  # noqa: E402
 from repro_torch.checkpoint import Checkpointer  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.precision import get_policy  # noqa: E402
-from repro_torch.interop import restore_train_state  # noqa: E402
+from repro_torch.interop import (_by_name, restore_train_state,  # noqa: E402
+                                 to_jax_train_state)
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.parallel import shard  # noqa: E402
 from repro_torch.runtime.trainer import (init_train_state,  # noqa: E402
@@ -58,21 +59,71 @@ def dist_run(tmp_path_factory):
     return SimpleNamespace(dir=str(out), load=load)
 
 
+VARIANTS = ("mirage", "bfp", "wsq", "merged")
+
+
+def _jax_step(variant, model, jstate, batch):
+    """The JAX package's step of ``variant`` on a JAX train state (the
+    port's, through ``interop``) and the same batch, jitted: its new state,
+    its metrics and its gradients (before compression and clipping), the
+    trees keyed by the port's names."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_config as jconfig
+    from repro.configs.base import TrainConfig as JTrainConfig
+    from repro.core.precision import get_policy as jpolicy
+    from repro.models import build_model as jbuild
+    from repro.models.lm import LMCallOptions as JOptions
+    from repro.runtime import trainer as jtrainer
+
+    arch = "command-r-plus-104b" if variant == "merged" else "qwen2-0.5b"
+    opt = {"merge_parallel_proj": True} if variant == "merged" else {}
+    wsq = variant == "wsq"
+    jp = jpolicy("mirage", assume_quantized_weights=wsq)
+    jtc = JTrainConfig(policy=jp, lr=1e-3, weight_stationary_quant=wsq,
+                       grad_compression="bfp" if variant == "bfp" else "none")
+    jm = jbuild(jconfig(arch).reduced(), jp,
+                JOptions(q_chunk=16, kv_chunk=16, **opt))
+    jstep = jtrainer.make_train_step(jm, jtc)
+
+    def both(state, b):
+        # the step's own gradients: of the weight-stationary copies where
+        # it takes them, as the step does
+        params = jtrainer._prequantize_params(
+            state["params"], jp, jnp.float32) if wsq else state["params"]
+        _, g = jax.value_and_grad(jm.loss, has_aux=True)(params, b)
+        return jstep(state, b), g
+    (new, met), grads = jax.jit(both)(
+        jax.tree_util.tree_map(jnp.asarray, jstate),
+        {k: jnp.asarray(v) for k, v in batch.items()})
+    return SimpleNamespace(
+        params=_by_name(model, jax.tree_util.tree_map(np.asarray,
+                                                      new["params"])),
+        metrics={k: float(v) for k, v in met.items()},
+        grads=_by_name(model, jax.tree_util.tree_map(np.asarray, grads)))
+
+
 @pytest.fixture(scope="module")
 def single():
-    """The single-device port's steps on the global batch."""
+    """The single-device port's steps on the global batch, and JAX's step
+    on the same initial state and batch."""
     out = {}
-    for variant in ("mirage", "bfp", "wsq", "merged"):
+    for variant in VARIANTS:
         cfg, opt = ranks.merged_arch() if variant == "merged" else (
             ranks.qwen2(), {})
         tc = ranks.train_config(variant)
         model = ranks.build(cfg, tc.policy, **opt)
-        step = make_train_step(model, tc, keep_grads=True)
+        step = make_train_step(model, tc)
         state = init_train_state(model, tc)
-        state, metrics = step(state, ranks.train_batch(cfg))
+        batch = ranks.train_batch(cfg)
+        # a copy: the port's step updates its state in place
+        jax_ref = _jax_step(variant, model, to_jax_train_state(model, state),
+                            batch)
+        with ranks.GradTap() as tap:
+            state, metrics = step(state, batch)
         out[variant] = SimpleNamespace(model=model, state=state,
-                                       metrics=metrics,
-                                       grads=step.last_grads)
+                                       metrics=metrics, grads=tap.grads,
+                                       jax=jax_ref)
     return out
 
 
@@ -80,7 +131,28 @@ def _max_diff(a, b):
     return max(float((a[k] - b[k]).abs().max()) for k in a)
 
 
-@pytest.mark.parametrize("variant", ["mirage", "bfp", "wsq", "merged"])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_single_device_step_matches_jax(single, variant):
+    """The single-device step that the 2x2 step is held to, held to JAX's
+    step on the same initial state and batch at ``test_torch_train``'s
+    step-one bounds: the loss and grad norm within 1e-6 relative, every
+    gradient leaf within 1e-4 of its largest element, every updated
+    parameter within 1e-5 (1% of one AdamW update)."""
+    got, want = single[variant], single[variant].jax
+    np.testing.assert_allclose(float(got.metrics["loss"]),
+                               want.metrics["loss"], rtol=1e-6)
+    np.testing.assert_allclose(float(got.metrics["grad_norm"]),
+                               want.metrics["grad_norm"], rtol=1e-6)
+    for n, g in got.grads.items():
+        scale = float(np.abs(want.grads[n]).max()) + 1e-30
+        assert float(np.abs(g.numpy() - want.grads[n]).max()) <= \
+            1e-4 * scale + 1e-8, n
+    for n, p in got.state["params"].items():
+        np.testing.assert_allclose(p.detach().numpy(), want.params[n],
+                                   rtol=0, atol=1e-5, err_msg=n)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
 def test_train_step_2x2_matches_single_device(dist_run, single, variant):
     """One step on the 2x2 mesh == the same step on one device: params
     within 5e-5, loss within 1e-5 (``test_multidevice.py``'s bounds).
@@ -98,7 +170,7 @@ def test_train_step_2x2_matches_single_device(dist_run, single, variant):
         assert _max_diff(want.state["err"], got["state"]["err"]) < 1e-6
 
 
-@pytest.mark.parametrize("variant", ["mirage", "bfp", "wsq", "merged"])
+@pytest.mark.parametrize("variant", VARIANTS)
 def test_train_step_2x2_gradients(dist_run, single, variant):
     """Every gradient leaf, summed over the data ranks, within 1e-5
     relative L2 of the single-device gradient."""
@@ -135,24 +207,62 @@ def test_tp_gemms_read_the_local_shard(dist_run):
         assert len(shapes) == 3 * (7 * cfg.n_layers + 1)
 
 
-def test_decode_step_sharded_matches_single(dist_run):
-    """Reduced mixtral's decode step with params and cache sharded by the
-    rules (kv heads over model, rows over data) == one device within 5e-4
-    (``test_multidevice.py``'s bound)."""
+@pytest.fixture(scope="module")
+def decode_single():
+    """Reduced mixtral's prefill and one decode step on one device, as the
+    ranks run them, and JAX's on the same weights and tokens (jitted)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_config as jconfig
+    from repro.core.precision import get_policy as jpolicy
+    from repro.models import build_model as jbuild
+    from repro.models.lm import LMCallOptions as JOptions
+    from repro_torch.interop import _jax_layout
+
     cfg = get_config("mixtral-8x7b").reduced()
     model = ranks.build(cfg, get_policy("mirage"))
     rng = np.random.default_rng(1)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 12))
-                            .astype(np.int64))
+    toks = rng.integers(0, cfg.vocab_size, (2, 12)).astype(np.int64)
     with torch.no_grad():
-        logits, cache = model.prefill(toks, 16)
+        logits, cache = model.prefill(torch.from_numpy(toks), 16)
         nxt = torch.argmax(logits[:, -1:, :], dim=-1)
         want, _ = model.decode_step(cache, nxt)
+    jm = jbuild(jconfig("mixtral-8x7b").reduced(), jpolicy("mirage"),
+                JOptions(q_chunk=16, kv_chunk=16))
+    params = _jax_layout(model, dict(model.named_parameters()),
+                         lambda t: jnp.asarray(t.detach().numpy()),
+                         jnp.stack)
+    jl, jc = jax.jit(jm.prefill, static_argnums=2)(
+        params, jnp.asarray(toks.astype(np.int32)), 16)
+    jnxt = jnp.argmax(jl[:, -1:, :], axis=-1).astype(jnp.int32)
+    jl2, _ = jax.jit(jm.decode_step)(params, jc, jnxt)
+    return SimpleNamespace(logits=logits, nxt=nxt, step=want,
+                           jax_logits=np.asarray(jl),
+                           jax_nxt=np.asarray(jnxt), jax_step=np.asarray(jl2))
+
+
+def test_decode_step_sharded_matches_single(dist_run, decode_single):
+    """Reduced mixtral's decode step with params and cache sharded by the
+    rules (kv heads over model, rows over data) == one device within 5e-4
+    (``test_multidevice.py``'s bound)."""
     parts = [dist_run.load(f"decode_{r}.pt") for r in range(4)]
     got = torch.cat([parts[0]["logits"], parts[2]["logits"]])
     assert torch.equal(parts[0]["logits"], parts[1]["logits"])
     assert parts[0]["cache_k"][1] == 1 and parts[0]["cache_k"][3] == 1
-    assert float((got - want).abs().max()) < 5e-4
+    assert float((got - decode_single.step).abs().max()) < 5e-4
+
+
+def test_decode_step_single_matches_jax(decode_single):
+    """The one-device prefill and decode step that the sharded step is held
+    to, held to JAX's on the same weights and tokens at
+    ``test_torch_model``'s mirage bound (1e-4), with the same next
+    tokens."""
+    d = decode_single
+    np.testing.assert_allclose(d.logits.numpy(), d.jax_logits, rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_array_equal(d.nxt.numpy(), d.jax_nxt)
+    np.testing.assert_allclose(d.step.numpy(), d.jax_step, rtol=1e-4,
+                               atol=1e-4)
 
 
 @pytest.fixture(scope="module")
