@@ -1124,6 +1124,12 @@ def phase_slice(ops):
     return launches, batches, steps, model, cap, streams
 
 
+#: the host ops that draw random numbers (their time includes their
+#: kernels' launches)
+RNG_HOST_OPS = ("aten::randn", "aten::rand", "aten::randint",
+                "aten::exponential_")
+
+
 def device_profile(run, n: int, host: bool = True):
     """Device time by kernel over ``n`` calls of ``run`` (torch.profiler),
     per call, and the device's idle share of their wall time. Only the
@@ -1152,6 +1158,12 @@ def device_profile(run, n: int, host: bool = True):
         elif avg.key == "cudaGraphLaunch":
             graph_launches += avg.count
     busy_ms = sum(by_kernel.values()) / 1e3
+    # the random draws: torch's RNG kernels on the device, and the host
+    # time of the ops that launch them (inclusive of their launches)
+    rng_dev_us = sum(v for k, v in by_kernel.items() if "distribution_" in k)
+    rng_host_us = sum(avg.cpu_time_total for avg in prof.key_averages()
+                      if avg.device_type == DeviceType.CPU and
+                      avg.key in RNG_HOST_OPS)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
     ours = {k[:80]: v / 1e3 / n for k, v in by_kernel.items()
             if any(name in k for name in PORT_KERNEL_SYMBOLS)}
@@ -1159,7 +1171,9 @@ def device_profile(run, n: int, host: bool = True):
             "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
             "top_device_ms": {k[:80]: v / 1e3 / n for k, v in top},
             "port_kernels_ms": ours, "device_kernels": launches / n,
-            "graph_launches": graph_launches / n}
+            "graph_launches": graph_launches / n,
+            "rng_device_ms": rng_dev_us / 1e3 / n,
+            "rng_host_ms": rng_host_us / 1e3 / n}
 
 
 def profile_ticks(model, cap, reqs, LMServer, policy_name: str,
@@ -1632,6 +1646,19 @@ def tick_ms(model, cap, reqs, n_ticks: int, **engine_kw) -> float:
                                    **engine_kw), reqs, n_ticks)
 
 
+@contextlib.contextmanager
+def eager(server, on: bool = True):
+    """``server`` ticking eagerly while open (``on``): its captured graphs
+    set aside, then put back."""
+    graphs = dict(server._graphs) if on else {}
+    if on:
+        server._graphs.clear()
+    try:
+        yield server
+    finally:
+        server._graphs.update(graphs)
+
+
 def engine_tick_ms(server, reqs, n_ticks: int) -> float:
     """Host wall time of one steady tick of ``server`` (the mean of
     ``n_ticks``, after the admission tick), to a synchronize; the
@@ -1920,7 +1947,7 @@ def phase_serve_warmup(ops, model, cap, cold_runs=None):
     out, launches_warm = {}, {}
     for name, policy, kw in WARM_ENGINES:
         model.policy = serve_policy(policy)
-        rows, streams, healths = {}, {}, {}
+        rows, streams, healths, warm = {}, {}, {}, None
         for side in ("cold", "warmed"):
             if side == "cold" and name in (cold_runs or {}):
                 rows[side], streams[side], healths[side] = cold_runs[name]
@@ -1939,6 +1966,7 @@ def phase_serve_warmup(ops, model, cap, cold_runs=None):
                 len(r.tokens_out) == MAX_TOKENS for r in finished),
                 f"serve_warmup {name} {side}: not every request completed")
             if side == "warmed":
+                warm = server
                 info["compile_counts_after"] = server.compile_counts()
                 rows[side]["warmup"] = info
                 launches_warm[name] = launches
@@ -1966,26 +1994,28 @@ def phase_serve_warmup(ops, model, cap, cold_runs=None):
                       f"the reference run's {RRNS_HEALTH}")
         reqs = make_requests(Request, cfg.vocab_size)
         if name in WARM_TICK_RUNS:
+            # the warmed drain's engine, ticked with its captured graph
+            # ("warmed") and with it set aside ("cold": the eager step of
+            # an engine before warmup()); one engine, so no second one
+            # programs and warms the same weights again (for the
+            # script's time limit)
             runs, n_ticks = WARM_TICK_RUNS[name]
-            engines = {"cold": LMServer(model, cap=cap, batch_slots=SLOTS,
-                                        **kw),
-                       "warmed": LMServer(model, cap=cap, batch_slots=SLOTS,
-                                          **kw)}
-            engines["warmed"].warmup()
             ticks = {"cold": [], "warmed": []}
             for order in (("cold", "warmed"), ("warmed", "cold")) * \
                     (runs // 2) + ((("cold", "warmed"),) if runs % 2
                                    else ()):
                 for side in order:
-                    ticks[side].append(engine_tick_ms(engines[side], reqs,
-                                                      n_ticks))
+                    with eager(warm, side == "cold"):
+                        ticks[side].append(engine_tick_ms(warm, reqs,
+                                                          n_ticks))
             med = {k: statistics.median(v) for k, v in ticks.items()}
             row.update({"tick_ms": ticks, "tick_ms_median": med,
                         "warmed_over_cold_tick": med["warmed"] /
                         med["cold"], "ticks_per_run": n_ticks})
             row["profile"] = {}
-            for side, server in engines.items():
-                prof = engine_tick_profile(server, reqs, 2)
+            for side in ("cold", "warmed"):
+                with eager(warm, side == "cold"):
+                    prof = engine_tick_profile(warm, reqs, 2)
                 row["profile"][side] = {
                     k: prof[k] for k in ("wall_ms", "device_busy_ms",
                                          "device_idle_share",
@@ -1995,7 +2025,7 @@ def phase_serve_warmup(ops, model, cap, cold_runs=None):
                   f"serve_warmup {name}: the warmed tick's profile shows "
                   f"{row['profile']['warmed']['graph_launches']} graph "
                   f"launches a tick, expected 1")
-            del engines, server
+        del warm, server
         out[name] = row
     emit({"phase": "serve_warmup", "slots": SLOTS, "cap": cap,
           "block_size": PAGED_BS, "spec_k": SPEC_K, **out,
@@ -8547,11 +8577,517 @@ def _slice8_elastic(rank, comm, ops, out_dir):
     return out
 
 
+# --------------------------------------------------------------------------
+# slice 8b: meshed serving (LMServer(mesh=...)) at full width, in the
+# slice-8 spawn: the weights cut over ``model``, the slots and the paged
+# pools' blocks over ``data``
+# --------------------------------------------------------------------------
+
+#: the tokens every request of the phase shares at its head: one block, so
+#: the prefix cache hits and, under round_robin, across the shards
+SERVE8_PREFIX = 16
+#: the mirage prefill held layer by layer, teacher-forced, against one
+#: device's: each layer of the sharded model gets the one-device layer's
+#: input, and its output's relative L2 distance from the one-device
+#: output must stay under this. Set from the card's readings (PERF.md
+#: §6): every layer reads 0.0 (BFP(4, 16) products and group sums are
+#: exact in f32, so the row-parallel sum over 2 ranks lands on one
+#: device's bits), a planted fault (layer 0 on the wrong kv head) 1.42;
+#: the limit leaves room for a reordered f32 sum (~1e-7 a layer) and
+#: stays five orders under the fault
+SERVE8_LAYER_TOL = 1e-5
+#: steady decode ticks that rank 0 profiles (the ranks tick in lockstep),
+#: and the drains it profiles
+SERVE8_PROFILE_TICKS = 2
+SERVE8_PROFILED = ("mirage", "rrns_52db")
+#: the meshed drains and the tokens a request of each (the slice's 32 for
+#: fp32 on locality blocks; fewer elsewhere, for the script's time limit:
+#: a gloo tick of 4 ranks on one card takes ~150 ms, ~350 under the
+#: analog channel)
+SERVE8_RUNS = {"fp32_locality": ("fp32", {}, MAX_TOKENS),
+               "fp32_round_robin_prefix": ("fp32", dict(
+                   block_placement="round_robin", prefix_cache=True), 16),
+               "mirage": ("mirage", {}, 16),
+               "rrns_52db": ("mirage_rrns", {}, 8)}
+#: kernel 1 at the meshed decode tick's shard shapes: M = SLOTS / 2 slots a
+#: data rank, (K, N) of the layer GEMMs at TP = 2 and the head's vocab
+#: shard; the timed ones
+SERVE8_M = SLOTS // SLICE8_MESH[0]
+SERVE8_TIMED = ((896, 2432), (2432, 896), SHARD_HEAD_KN)
+#: flash at the meshed prefill's shape: a rank's 7 of 14 q heads over its 1
+#: of 2 kv heads (group 7), the slice's longest bucket
+SERVE8_FLASH = (2, 128, 7, 1, 64)
+
+
+def serve8_requests(Request, vocab: int, max_tokens: int = MAX_TOKENS):
+    """The slice's 8 requests (17-128 prompt tokens, numpy seed 0) with a
+    common first block of ``SERVE8_PREFIX`` tokens."""
+    reqs = make_requests(Request, vocab, max_tokens)
+    head = np.random.default_rng(1).integers(0, vocab, SERVE8_PREFIX)
+    for r in reqs:
+        r.prompt[:SERVE8_PREFIX] = head
+    return reqs
+
+
+def serve8_policy(pol: str):
+    from repro_torch.core.precision import get_policy
+    if pol == "mirage_rrns":
+        return get_policy(pol, snr_db=SNR_DB, noise_seed=NOISE_SEED)
+    return get_policy(pol)
+
+
+def serve8_model(policy):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import LMCallOptions
+
+    cfg = get_config("qwen2-0.5b")
+    cfg = cfg.reduced() if REDUCED else cfg
+    return build_model(cfg, policy, LMCallOptions(use_flash_kernel=True),
+                       device=DEV, generator=torch.Generator(
+                           device=DEV).manual_seed(0))
+
+
+def _kv_leaves(layer):
+    """The k and v projections' parameters of ``layer`` by (module,
+    leaf)."""
+    return {(mod, leaf): t for mod in (layer.attn.k, layer.attn.v)
+            for leaf, t in mod.named_parameters(recurse=False)}
+
+
+def _teacher_forced_layers(model, tokens, mesh):
+    """Each layer's prefill output on one device from its one-device
+    input, then (the model sharded in place onto ``mesh``'s serving
+    placement) the sharded layer's from the same input: the relative L2
+    distance a layer, the flash launches of the sharded layers, and a
+    planted fault's distance: layer 0 again with its k and v projections
+    cut to the next model rank's kv heads (the wrong kv-head slice),
+    which the layer gate must see."""
+    from repro_torch.parallel import shard
+
+    with torch.inference_mode():
+        h = model._embed_inputs(tokens)[0]
+        pos = torch.arange(h.shape[1], device=DEV)
+        ins, outs = [], []
+        for layer in model.layers:
+            ins.append(h)
+            h = model._attn_mlp_block(layer, h, pos)[0]
+            outs.append(h)
+        full = {k: t.detach().clone()
+                for k, t in _kv_leaves(model.layers[0]).items()}
+        comm = shard.shard_model(model, mesh, serving=True)
+        model.comm = comm.rows_whole()
+        before = ops_launches("flash_attention")
+        rel = [rel_l2(model._attn_mlp_block(layer, x, pos)[0], y)
+               for layer, x, y in zip(model.layers, ins, outs)]
+        flash = ops_launches("flash_attention") - before
+        saved = {}
+        for (mod, leaf), t in _kv_leaves(model.layers[0]).items():
+            n, whole = t.shape[-1], full[(mod, leaf)]
+            if n == whole.shape[-1]:
+                raise RuntimeError("the serving placement left the k/v "
+                                   "projections whole over model")
+            nxt = (comm.tp_rank + 1) % comm.tp
+            saved[(mod, leaf)] = t.data
+            t.data = whole.narrow(-1, nxt * n, n).contiguous()
+        planted = rel_l2(model._attn_mlp_block(model.layers[0], ins[0],
+                                               pos)[0], outs[0])
+        for (mod, leaf), t in _kv_leaves(model.layers[0]).items():
+            t.data = saved[(mod, leaf)]
+        model.comm = comm
+    return rel, flash, planted
+
+
+def ops_launches(name: str) -> int:
+    from repro_torch.kernels import ops
+    return ops.LAUNCHES[name]
+
+
+def _serve8_drain(rank, comm, ops, model, reqs, kw, profile=False):
+    """One meshed drain on ``comm``: the streams, the engine's counters, the
+    kernel launches and kernel 1's 2-D shapes, the collectives by kind, and
+    (``profile``) rank 0's device time over steady ticks after it."""
+    from repro_torch.runtime.server import LMServer
+
+    comm.barrier()
+    comm.stats.reset()
+    ops.reset_launch_counts()
+    srv = LMServer(model, cap=CAP, batch_slots=SLOTS,
+                   cache_layout="paged", mesh=comm, **kw)
+    ticks, remote = [], 0.0
+    with GemmShapeTap(ops) as tap:
+        for r in reqs:
+            srv.submit(dataclasses.replace(r, tokens_out=[]))
+        _dsync()
+        t0 = time.perf_counter()
+        while srv.scheduler.waiting or any(s is not None
+                                           for s in srv.slot_req):
+            t = time.perf_counter()
+            srv.tick()
+            _dsync()
+            ticks.append(time.perf_counter() - t)
+            remote = max(remote, srv.alloc.remote_fraction())
+        wall = time.perf_counter() - t0
+    m = srv.metrics
+    out = {"streams": {r.rid: list(map(int, r.tokens_out))
+                       for r in srv.scheduler.finished},
+           "statuses": statuses(srv), "wall_s": wall,
+           "tick_ms": [t * 1e3 for t in ticks],
+           "decode_steps": m["decode_steps"], "spec_ticks": m["spec_ticks"],
+           "prefill_batches": m["prefill_batches"],
+           "prefill_chunks": m["prefill_chunks"],
+           "prefix_hits": m["prefix_hits"],
+           "launches": dict(ops.LAUNCHES),
+           "shapes": sorted({f"{a}x{b}x{c}": tap.shapes.count((a, b, c))
+                             for a, b, c in set(tap.shapes)}.items()),
+           "whole_dim_reads": [s for s in tap.shapes
+                               if 4864 in s or 151936 in s],
+           "comm": comm.stats.as_dict(),
+           "alloc": {"n_shards": srv.alloc.n_shards,
+                     "placement": srv.alloc.placement,
+                     "local_allocs": srv.alloc.local_allocs,
+                     "spilled_allocs": srv.alloc.spilled_allocs,
+                     "remote_fraction_max": remote},
+           "local_state": {"slots": tuple(srv.state["last_tok"].shape),
+                           "pool": tuple(srv.state["cache"]["kp"].shape)},
+           "health": srv.health_snapshot()}
+    if profile:
+        steady_requests(srv, reqs, SERVE8_PROFILE_TICKS)
+        if rank == 0 and DEV != "cpu":
+            out["profile"] = device_profile(srv.tick, SERVE8_PROFILE_TICKS)
+        else:
+            for _ in range(SERVE8_PROFILE_TICKS):
+                srv.tick()
+        srv.run_until_drained()
+    del srv
+    return out
+
+
+def _serve8_single(model, reqs, kw):
+    from repro_torch.runtime.server import LMServer
+    srv = LMServer(model, cap=CAP, batch_slots=SLOTS, cache_layout="paged",
+                   **kw)
+    for r in reqs:
+        srv.submit(dataclasses.replace(r, tokens_out=[]))
+    srv.run_until_drained()
+    _dsync()
+    out = {r.rid: list(map(int, r.tokens_out))
+           for r in srv.scheduler.finished}
+    del srv
+    return out
+
+
+def _slice8_serve(rank, comm, ops, out_dir):
+    """Full-width qwen2-0.5b served by ONE engine over the 2x2 mesh (every
+    rank runs the host side in lockstep): fp32 with ``locality`` blocks and
+    again with ``round_robin`` blocks and the prefix cache (every prefix
+    hit then reads pages homed on both shards); mirage with its prefill
+    teacher-forced layer by layer against one device's (and a planted
+    fault); mirage_rrns at 52 dB; each drain against the one-device
+    engine with the same options, and the two BFP drains' steady ticks
+    profiled on rank 0. The one-device references run first, one a rank,
+    side by side."""
+    from repro_torch.runtime.server import Request
+
+    t0 = time.perf_counter()
+    out = {}
+    runs = list(SERVE8_RUNS.items())
+    if rank < len(runs):
+        name, (pol, kw, n_tok) = runs[rank]
+        model = serve8_model(serve8_policy(pol))
+        out[f"{name}_single"] = _serve8_single(
+            model, serve8_requests(Request, model.cfg.vocab_size, n_tok), kw)
+        del model
+        _free()
+    out["single_s"] = time.perf_counter() - t0
+    for name, (pol, kw, n_tok) in runs:
+        model = serve8_model(serve8_policy(pol))
+        reqs = serve8_requests(Request, model.cfg.vocab_size, n_tok)
+        if name == "mirage":
+            # two of the slice's prompts, cut to the shorter: a prefill
+            # batch
+            L = min(len(r.prompt) for r in reqs[:2])
+            probe = torch.tensor(np.stack([r.prompt[:L] for r in reqs[:2]]),
+                                 device=DEV, dtype=torch.long)
+            comm.barrier()
+            (out["mirage_layer_rel_l2"], out["mirage_probe_flash"],
+             out["mirage_planted_rel_l2"]) = \
+                _teacher_forced_layers(model, probe, comm)
+            out["mirage_probe_tokens"] = tuple(probe.shape)
+        out[name] = _serve8_drain(rank, comm, ops, model, reqs, kw,
+                                  profile=name in SERVE8_PROFILED)
+        del model
+        _free()
+    out["seconds"] = time.perf_counter() - t0
+    comm.barrier()
+    return out
+
+
+def phase_slice8_serve_kernels(ops, ref, policy):
+    """The kernels of the meshed decode tick at a rank's shapes: kernel 1
+    at M = SERVE8_M (its slots) for every layer GEMM's shard and the head's
+    vocab shard, against its plain version within the f32-order bound and
+    bitwise repeatable, the SERVE8_TIMED ones timed (row 1i); flash at a
+    rank's heads (group 7); kernels 5 and 6 on a rank's (n_mod, G, M, N)
+    blocks at 52 dB, bit for bit, timed (rows 5b and 6d)."""
+    from repro_torch.analog import rrns
+
+    t_phase = time.perf_counter()
+    rows, worst = [], 0.0
+    for i, (K, N) in enumerate(sorted(set(SHARD_LAYER_KN)) +
+                               [SHARD_HEAD_KN]):
+        gen = torch.Generator(device=DEV).manual_seed(900 + i)
+        a = torch.randn((SERVE8_M, K), generator=gen, device=DEV)
+        b = (torch.randn((N, K), generator=gen, device=DEV) * 0.02).T \
+            if (K, N) == SHARD_HEAD_KN else \
+            torch.randn((K, N), generator=gen, device=DEV) / math.sqrt(K)
+        got = ops.mirage_matmul_fused(a, b, policy)
+        again = ops.mirage_matmul_fused(a, b, policy)
+        want = ref.mirage_gemm_ref(a, b, policy.b_m, policy.g)
+        tol = gemm_bound(ref, a, b)
+        err = (got - want).abs()
+        bad = int((err > tol).sum())
+        same = bool(torch.equal(got.view(torch.int32),
+                                again.view(torch.int32)))
+        plan = card_gemm_plan(ops, SERVE8_M, K, N, policy.b_m)
+        row = {"gemm": "fwd", "M": SERVE8_M, "K": K, "N": N,
+               "weight_read": weight_read(b),
+               "route": "mma_bf16" if plan.mma else "decode_f32",
+               "splits": plan.splits, "max_abs_err": float(err.max()),
+               "max_err_over_tol": float((err / tol).max()),
+               "bitwise_repeatable": same}
+        check(bad == 0 and same, f"kernel 1 outside its bound in {bad} "
+                                 f"elements, or not repeatable, at the "
+                                 f"meshed decode shape M={SERVE8_M} K={K} "
+                                 f"N={N}")
+        worst = max(worst, float(err.max()))
+        if (K, N) in SERVE8_TIMED:
+            aq = ref.bfp_fake_quant_ref(a, policy.b_m, policy.g)
+            bq = ref.bfp_fake_quant_ref(b.T, policy.b_m, policy.g).T
+            t_b, by = bound_rate(4.0 * (SERVE8_M * K + K * N + SERVE8_M * N),
+                                 2.0 * SERVE8_M * N * K, F32_FLOPS_PER_S)
+            row.update(
+                ms=time_ms(lambda: ops.mirage_matmul_fused(a, b, policy)),
+                plain_ms=time_ms(lambda: ref.mirage_gemm_ref(
+                    a, b, policy.b_m, policy.g), **PLAIN_TIMING),
+                library_ms=time_ms(lambda: torch.matmul(aq, bq)),
+                library="torch.matmul on the pre-folded operands",
+                bound_ms=t_b, bound_by=by)
+            rows.append(row)
+            del aq, bq
+        emit({"phase": "gemm_serve_shard_vs_plain", **row})
+        del a, b, got, again, want, tol, err
+    for row in rows:
+        emit({"phase": "timing", "kernel": "mirage_gemm", "path": "slice_8b",
+              **row})
+    B, L, H, Kv, D = SERVE8_FLASH
+    flash_row = flash_case_row(ops, ref, "qwen2-0.5b", B, L, H, Kv, D,
+                               seed=950, path="slice_8b")
+    # kernels 5 and 6 on a rank's blocks of the decode tick's GEMMs
+    psi = (math.prod(RNS_BASE) - 1) // 2
+    tables = rrns.get_tables(RRNS_ALL, len(RNS_BASE), psi)
+    n = len(RRNS_ALL)
+    res_rows = {"rns_matmul_channel": [], "rrns_decode": []}
+    for i, (K, N) in enumerate(SERVE8_TIMED):
+        G = K // 16
+        xr, wr = encoded_residue_operands(RRNS_ALL, SERVE8_M, K, N,
+                                          seed=960 + i)
+        gen = torch.Generator(device=DEV).manual_seed(970 + i)
+        noise = detector_noise(RRNS_ALL, (G, SERVE8_M, N), SNR_DB, gen)
+        got, flips = ops.rns_group_matmul_channel(
+            xr, wr, RRNS_ALL, noise, None, count_flips=True)
+        want, want_flips = ref.rns_matmul_channel_ref(
+            xr, wr, RRNS_ALL, noise, None, count_flips=True)
+        bad5 = int((got != want).sum()) + int(
+            flips.tolist() != want_flips.tolist())
+        dec, votes = ops.rrns_decode(got, tables)
+        want_dec, want_votes = ref.rrns_decode_ref(got, tables)
+        bad6 = int((dec != want_dec).sum()) + int(
+            (votes.view(torch.int32) != want_votes.view(torch.int32)).sum())
+        check(bad5 == 0 and bad6 == 0,
+              f"kernel 5 or 6 differs from its plain version on a rank's "
+              f"block M={SERVE8_M} K={K} N={N}: {bad5}, {bad6}")
+        S = n * G
+        shape = {"M": SERVE8_M, "K": K, "N": N, "n_mod": n, "G": G,
+                 "path": "slice_8b", "mismatches": bad5}
+        t_b, by = bound_rate(
+            4.0 * (S * SERVE8_M * 16 + S * 16 * N + 2 * S * SERVE8_M * N),
+            2.0 * S * SERVE8_M * N * 16, INT_OPS_PER_S)
+        xf = xr.reshape(S, SERVE8_M, 16).float()
+        wf = wr.reshape(S, 16, N).float()
+        res_rows["rns_matmul_channel"].append({
+            **shape,
+            "ms": time_ms(lambda: ops.rns_group_matmul_channel(
+                xr, wr, RRNS_ALL, noise, None)),
+            "plain_ms": time_ms(lambda: ref.rns_matmul_channel_ref(
+                xr, wr, RRNS_ALL, noise, None), **PLAIN_TIMING),
+            "library_ms": time_ms(lambda: torch.bmm(xf, wf)),
+            "library": "torch.bmm (no mod, no readout)",
+            "bound_ms": t_b, "bound_by": by})
+        res_rows["rrns_decode"].append(decode_timing_row(
+            ops, ref, got, tables, {**shape, "mismatches": bad6,
+                                    "inputs": "path"}))
+        del xr, wr, noise, got, want, dec, votes, xf, wf
+    for name, rs in res_rows.items():
+        for row in rs:
+            emit({"phase": "timing", "kernel": name, **row})
+    emit({"phase": "slice8_serve_kernels",
+          "phase_seconds": time.perf_counter() - t_phase})
+    free_card()
+    return {"mirage_gemm": rows, "flash": flash_row, **res_rows}, worst
+
+
+def serve8_line(ranks):
+    """The ``slice_8_serve`` line from the ranks' results, and its checks
+    (run by the caller after every slice-8 line is out)."""
+    sv = [r["serve"] for r in ranks]
+    s0 = sv[0]
+    checks = []
+
+    def gate(ok, what):
+        checks.append((bool(ok), what))
+    n_layers = 24 if not REDUCED else len(s0["mirage_layer_rel_l2"])
+    per_step = 7 * n_layers + 1
+    summary = {}
+    for key, (_, _, n_tok) in SERVE8_RUNS.items():
+        runs = [s[key] for s in sv]
+        r0 = runs[0]
+        steps = r0["decode_steps"] + r0["prefill_batches"] + \
+            r0["prefill_chunks"]
+        summary[key] = {
+            "statuses": r0["statuses"], "ticks": len(r0["tick_ms"]),
+            "decode_steps": r0["decode_steps"],
+            "prefill_batches": r0["prefill_batches"],
+            "prefill_chunks": r0["prefill_chunks"],
+            "prefix_hits": r0["prefix_hits"],
+            "wall_s_by_rank": [r["wall_s"] for r in runs],
+            "tick_ms_median_by_rank": [float(np.median(r["tick_ms"]))
+                                       for r in runs],
+            "launches_by_rank": [{k: v for k, v in r["launches"].items()
+                                  if v} for r in runs],
+            "model_steps": steps,
+            "comm_rank0": r0["comm"],
+            "page_exchange_bytes_per_tick": r0["comm"]["page_exchange"]
+            ["bytes"] / max(len(r0["tick_ms"]), 1),
+            "alloc": r0["alloc"], "local_state": r0["local_state"],
+            "health": r0["health"]}
+        gate(all(r["streams"] == r0["streams"] for r in runs),
+             f"{key}: the ranks' hosts read different streams")
+        summary[key]["max_tokens"] = n_tok
+        gate(len(r0["streams"]) == N_REQUESTS and all(
+            len(t) == n_tok for t in r0["streams"].values()),
+            f"{key}: not every request drained with its tokens")
+        gate(not any(r["whole_dim_reads"] for r in runs),
+             f"{key}: kernel 1 read a whole sharded dim (N = 4,864 or "
+             f"151,936)")
+        if key != "fp32_locality" and key != "fp32_round_robin_prefix":
+            for r, run in enumerate(runs):
+                gate(run["launches"]["mirage_gemm" if key == "mirage" else
+                                     "rns_matmul_channel"] ==
+                     per_step * steps,
+                     f"{key}: rank {r} launched "
+                     f"{run['launches']} for {steps} model steps, not "
+                     f"{per_step} a step")
+    def single_of(name):
+        return next(s[f"{name}_single"] for s in sv
+                    if f"{name}_single" in s)
+    for name in SERVE8_RUNS:
+        single = single_of(name)
+        same = [rid for rid, t in single.items()
+                if s0[name]["streams"].get(rid) == t]
+        summary[name]["equal_to_one_device"] = len(same)
+        gate(len(same) == N_REQUESTS,
+             f"{name}: the meshed streams equal the one-device engine's in "
+             f"{len(same)} of {N_REQUESTS} requests")
+    loc = summary["fp32_locality"]["alloc"]
+    gate(loc["n_shards"] == 2 and loc["local_allocs"] > 0 and
+         loc["spilled_allocs"] == 0 and loc["remote_fraction_max"] == 0.0,
+         f"locality placement: {loc}")
+    gate(summary["fp32_locality"]["comm_rank0"]["page_exchange"]["bytes"]
+         == 0, "pages moved under locality placement")
+    rr = summary["fp32_round_robin_prefix"]
+    gate(rr["prefix_hits"] > 0 and
+         rr["comm_rank0"]["page_exchange"]["bytes"] > 0 and
+         rr["alloc"]["remote_fraction_max"] > 0,
+         f"round_robin + prefix moved no page or hit no prefix: {rr}")
+    # the first tokens of the locality drain's streams
+    summary["fp32_round_robin_prefix"]["equal_to_locality_streams"] = all(
+        t == s0["fp32_locality"]["streams"][rid][:len(t)]
+        for rid, t in s0["fp32_round_robin_prefix"]["streams"].items())
+    mirage = s0["mirage"]
+    same = sum(a == b for rid, t in single_of("mirage").items()
+               for a, b in zip(t, mirage["streams"][rid]))
+    summary["mirage"]["token_share_vs_one_device"] = \
+        same / sum(len(t) for t in mirage["streams"].values())
+    rel = [max(s["mirage_layer_rel_l2"][i] for s in sv)
+           for i in range(n_layers)]
+    gate(max(rel) <= SERVE8_LAYER_TOL,
+         f"mirage prefill, teacher-forced: layer {int(np.argmax(rel))} at "
+         f"{max(rel)} relative L2 of one device's (limit "
+         f"{SERVE8_LAYER_TOL})")
+    planted = [s["mirage_planted_rel_l2"] for s in sv]
+    gate(min(planted) > SERVE8_LAYER_TOL,
+         f"the layer gate missed a planted fault (layer 0 on the wrong kv "
+         f"heads): {planted} relative L2, limit {SERVE8_LAYER_TOL}")
+    for r, s in enumerate(sv):
+        gate(s["mirage_probe_flash"] == n_layers,
+             f"rank {r}: the sharded prefill launched flash "
+             f"{s['mirage_probe_flash']} times, not once a layer")
+        run = s["mirage"]
+        gate(run["launches"]["flash_attention"] ==
+             n_layers * run["prefill_batches"],
+             f"rank {r}: flash {run['launches']['flash_attention']} times "
+             f"for {run['prefill_batches']} prefill batches")
+    decode_shapes = {f"{SERVE8_M}x{k}x{n}" for k, n in SHARD_LAYER_KN} | \
+        {f"{SERVE8_M}x{SHARD_HEAD_KN[0]}x{SHARD_HEAD_KN[1]}"}
+    seen = {k for k, _ in mirage["shapes"] if k.startswith(f"{SERVE8_M}x")}
+    if not REDUCED:
+        gate(seen == decode_shapes, f"the meshed decode tick ran kernel 1 "
+                                    f"at {sorted(seen)}, not the shard "
+                                    f"shapes {sorted(decode_shapes)}")
+    rrns = s0["rrns_52db"]
+    gate(rrns["health"].get("rrns_uncorrected", 0) == 0,
+         f"mirage_rrns 52 dB on the mesh: {rrns['health']}")
+    for r, s in enumerate(sv):
+        run = s["rrns_52db"]
+        gate(run["launches"]["rrns_decode"] ==
+             run["launches"]["rns_matmul_channel"],
+             f"rank {r}: rrns_decode {run['launches']['rrns_decode']} vs "
+             f"rns_matmul_channel {run['launches']['rns_matmul_channel']}")
+    profiles = {name: {k: (s0[name].get("profile") or {}).get(k) for k in (
+        "wall_ms", "device_busy_ms", "device_idle_share", "device_kernels",
+        "rng_device_ms", "rng_host_ms", "top_device_ms")}
+        for name in SERVE8_PROFILED}
+    line = {"phase": "slice_8_serve", "arch": "qwen2-0.5b",
+            "mesh": {"data": SLICE8_MESH[0], "model": SLICE8_MESH[1]},
+            "backend": ranks[0]["backend"], "device": ranks[0]["device"],
+            "ranks_on_one_card": len(ranks), "slots": SLOTS,
+            "requests": N_REQUESTS,
+            "prompt_lens": list(PROMPT_LENS), "shared_prefix": SERVE8_PREFIX,
+            "cap": CAP, "expected_gemm_per_model_step": per_step,
+            "mirage_layer_rel_l2": rel, "mirage_layer_tol": SERVE8_LAYER_TOL,
+            "mirage_planted_rel_l2_by_rank": planted,
+            "mirage_probe_tokens": s0["mirage_probe_tokens"],
+            "decode_tick_profile_rank0": profiles,
+            "mirage_gemm_shapes_rank0": mirage["shapes"],
+            "runs": summary,
+            "collective_note": "ranks on one card over gloo: host-clock "
+                               "seconds of the code path (staging through "
+                               "pinned host memory, loopback TCP), not "
+                               "NVLink",
+            "single_s_by_rank": [s["single_s"] for s in sv],
+            "seconds": s0["seconds"]}
+    emit(line)
+    return checks, {f"serve_2x2_{k}_rank0": v["launches_by_rank"][0]
+                    for k, v in summary.items()}
+
+
 def slice8_rank(rank: int, world: int, out_dir: str, reduced: bool,
                 device: str) -> None:
     """One rank of the slice-8 phases (a process of its own): the gloo
-    group from a file store, the 2x2 mesh on ``device``, then the three
-    phases; what it found goes to ``out_dir/rank<r>.pt``."""
+    group from a file store, the 2x2 mesh on ``device``, then slice 8a's
+    three phases and slice 8b's ``serve``; what it found goes to
+    ``out_dir/rank<r>.pt``."""
     global REDUCED, DEV
     REDUCED, DEV = reduced, device
     import torch.distributed as dist
@@ -8575,7 +9111,7 @@ def slice8_rank(rank: int, world: int, out_dir: str, reduced: bool,
     res = {"rank": rank, "backend": comm.backend, "coord": comm.coord,
            "device": str(dev)}
     for name, fn in (("train", _slice8_train), ("moe_ep", _slice8_moe_ep),
-                     ("elastic", _slice8_elastic)):
+                     ("elastic", _slice8_elastic), ("serve", _slice8_serve)):
         t0 = time.perf_counter()
         res[name] = fn(rank, comm, ops, out_dir)
         res[name]["seconds"] = time.perf_counter() - t0
@@ -8829,12 +9365,17 @@ def phase_slice8(ops):
           "error": refused_err.strip().splitlines()[-1:]})
     check(refused_ok or REDUCED, "a second rank on the one card was not "
                                  "refused with a clear error")
+
+    # --- slice_8_serve (slice 8b) ---
+    serve_checks, serve_launches = serve8_line(ranks)
+    checks += serve_checks
     for ok, what in checks:
         globals()["check"](ok, what)
     return {"train_2x2_rank_per_step": [
         [n["mirage_gemm"] for n in t["launches"]] for t in tr],
         "moe_ep_rank0": {f: me[0][f]["launches"]["mirage_gemm"]
-                         for f in ("factor_8.0", "factor_1.25")}}
+                         for f in ("factor_8.0", "factor_1.25")},
+        **serve_launches}
 
 
 
@@ -8927,6 +9468,8 @@ def main() -> int:
     free_card()
     slice8_rows, err8 = phase_slice8_kernels(ops, ref, policy)
     err_gemm = max(err_gemm, err8)
+    serve8_rows, err8b = phase_slice8_serve_kernels(ops, ref, policy)
+    err_gemm = max(err_gemm, err8b)
     slice8_launches = phase_slice8(ops)
     free_card()
     moe_train_launches = {arch: phase_slice_train_moe(ops, arch, n, steps)
@@ -9104,6 +9647,15 @@ def main() -> int:
     # slice 8a: kernel 1 at qwen2-0.5b's TP = 2 shard shapes (row 1h), and
     # its launches a rank on the 2x2 training step and the EP MoE path
     gemm["slice_8"] = {"rows": slice8_rows, "launches": slice8_launches}
+    # slice 8b: kernel 1 at the meshed decode tick's shard shapes (row 1i),
+    # flash at a rank's heads, kernels 5 and 6 on a rank's blocks, and their
+    # launches a rank on the 2x2 engine's drains
+    gemm["slice_8b"] = {"rows": serve8_rows["mirage_gemm"], "launches": {
+        k: v.get("mirage_gemm", 0) for k, v in slice8_launches.items()
+        if k.startswith("serve_2x2")}}
+    flash["slice_8b"] = {"rows": [serve8_rows["flash"]], "launches": {
+        k: v.get("flash_attention", 0) for k, v in slice8_launches.items()
+        if k.startswith("serve_2x2")}}
     flash["slice_6d"] = {
         "rows": flash6d_rows,
         "launches": {"internvl2_dense_cold": vlm_launches["cold"]
@@ -9157,6 +9709,12 @@ def main() -> int:
     # rows 4c and 6c: kernels 4 and 6 at n_mod 7 (the guardian's r = 4)
     rns["n_mod_7"] = chaos_rows["rns_matmul"]
     decode["n_mod_7"] = chaos_rows["rrns_decode"]
+    for kernel, k_entry in (("rns_matmul_channel", channel),
+                            ("rrns_decode", decode)):
+        k_entry["slice_8b"] = {
+            "rows": serve8_rows[kernel],
+            "launches": slice8_launches["serve_2x2_rrns_52db_rank0"]
+            .get(kernel, 0)}
     flash["launches_chaos"] = {f"guardian_{k}": n["flash_attention"]
                                for k, n in guardian_launches.items()}
     emit({"kernels": [
@@ -9191,6 +9749,8 @@ def main() -> int:
                          "train_mirage_2x2_per_rank_step":
                              slice8_launches["train_2x2_rank_per_step"],
                          "moe_ep_2x2_rank0": slice8_launches["moe_ep_rank0"],
+                         **{k: v for k, v in slice8_launches.items()
+                            if k.startswith("serve_2x2")},
                          "train_wsq_bfp": wsq_launches,
                          **{f"train_moe_{arch}": n
                             for arch, n in moe_train_launches.items()},

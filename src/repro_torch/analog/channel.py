@@ -185,6 +185,85 @@ def fault_controls() -> Optional[Dict[str, torch.Tensor]]:
     return stack[-1] if stack else None
 
 
+# -- one rank's block of a sharded GEMM (meshed serving) -----------------
+
+_BLOCK = threading.local()
+
+#: the dims of a draw, counted from its end, that a block cuts: the
+#: readout stages draw over (..., G, M, N), the programming drift over
+#: (..., G, g, N)
+_BLOCK_AXES = {"drift": {-3: "groups", -1: "cols"}}
+_READOUT_AXES = {-3: "groups", -2: "rows", -1: "cols"}
+
+
+@contextlib.contextmanager
+def block_scope(**parts: Tuple[int, int]):
+    """Open while the GEMMs inside compute one rank's block of a GEMM that
+    a mesh cuts: ``rows`` (its M, the slots a data rank holds), ``cols``
+    (its N, a column-parallel shard) or ``groups`` (its K groups, a
+    row-parallel shard), each ``(index, parts)``: the block is the
+    ``index``-th of ``parts`` equal parts. Nested scopes add their parts.
+    The stochastic stages of such a GEMM draw the whole GEMM's numbers and
+    keep their block (:class:`BlockDraws`), so each element sees what the
+    one-device engine draws for it."""
+    prev = getattr(_BLOCK, "parts", {})
+    _BLOCK.parts = {**prev, **{k: v for k, v in parts.items()
+                               if v is not None and v[1] > 1}}
+    try:
+        yield
+    finally:
+        _BLOCK.parts = prev
+
+
+def block_parts() -> Dict[str, Tuple[int, int]]:
+    """The parts of the innermost :func:`block_scope` ({} outside one)."""
+    return getattr(_BLOCK, "parts", {})
+
+
+class BlockDraws:
+    """:class:`Draws` of one block of a sharded GEMM: each request is
+    widened along the dims the block cuts (``parts``, as
+    :func:`block_scope` holds them), drawn whole from ``draws`` and cut
+    back to the block. The generator advances as the whole GEMM's draw
+    advances it, so the next GEMM's numbers line up too. Costs the whole
+    draw on every rank that holds a block."""
+
+    def __init__(self, draws: Draws, parts: Dict[str, Tuple[int, int]]):
+        self.draws = draws
+        self.parts = parts
+
+    def _whole(self, stage: str, shape):
+        full, cut = list(shape), [slice(None)] * len(shape)
+        for ax, name in _BLOCK_AXES.get(stage, _READOUT_AXES).items():
+            if name in self.parts and len(shape) >= -ax:
+                i, n = self.parts[name]
+                full[ax] = shape[ax] * n
+                cut[ax] = slice(i * shape[ax], (i + 1) * shape[ax])
+        return tuple(full), tuple(cut)
+
+    def _get(self, kind, stage, shape, *args):
+        full, cut = self._whole(stage, shape)
+        return getattr(self.draws, kind)(stage, full, *args)[cut] \
+            .contiguous()
+
+    def normal(self, stage, shape):
+        return self._get("normal", stage, shape)
+
+    def uniform(self, stage, shape):
+        return self._get("uniform", stage, shape)
+
+    def randint(self, stage, shape, low, high):
+        return self._get("randint", stage, shape, low, high)
+
+
+def block_draws(draws: Optional[Draws]) -> Optional[Draws]:
+    """``draws`` cut to the open :func:`block_scope`'s block (``draws``
+    itself outside one)."""
+    parts = block_parts()
+    return BlockDraws(draws, parts) if parts and draws is not None \
+        else draws
+
+
 def detector_sigma_levels(m: int, snr_db: float) -> float:
     """Detector noise sigma in phase-level units for modulus m at SNR (dB)."""
     return m / (10.0 ** (snr_db / 20.0))

@@ -140,6 +140,10 @@ def _analog_forward(x, w, policy, draws, correct: bool,
             else tuple(w.shape[-2:])
         x_shape = tuple(x.shape[1:]) if stack else tuple(x.shape)
         draws = _channel_draws(policy, draws, (x_shape, k_shape), x.device)
+        if not stack:
+            # one rank's block of a meshed GEMM draws the whole GEMM's
+            # numbers (an expert stack's draw is one expert's, whole)
+            draws = channel.block_draws(draws)
     if reference and stack:
         # the oracle runs one expert at a time, every expert on one draw
         shared = channel.SharedDraws(draws) if draws is not None else None

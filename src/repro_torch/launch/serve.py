@@ -64,6 +64,21 @@ admission (rejected with a retry-after hint). For example, on the CPU::
       --policy mirage_rrns --snr-db 60 \
       --chaos "snr_drop@0:100000:scale=1e6" --guardian
 
+Meshed serving (the JAX launcher's ``--mesh-data``/``--mesh-model``):
+``--distributed`` serves ONE engine over every rank of a torchrun launch
+on a ``(--mesh-data, --mesh-model)`` mesh (``LMServer(mesh=...)``: the
+weights cut over ``model``, the slots and the paged pools' blocks over
+``data``), the process group from torchrun's environment; the world size
+must be data x model. Each rank serves on ``cuda:LOCAL_RANK`` under NCCL,
+one rank a card, or with ``--backend gloo`` ranks may share a card
+(``cuda:LOCAL_RANK % cards``); ``--device cpu`` runs the ranks on the CPU
+over gloo. Every rank runs the engine's host side in lockstep; rank 0
+prints the mesh, the allocator's shards and placement, and the streams.
+On a box with one card::
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.serve --distributed \
+      --mesh-data 2 --mesh-model 2 --backend gloo --cache-layout paged
+
 Observability: ``--metrics-port P`` serves the engine's metrics registry
 over HTTP (``/metrics`` Prometheus text, ``/metrics.json``, ``/trace``;
 port 0 picks a free one); ``--trace-export F`` enables the span tracer and
@@ -187,7 +202,24 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--max-queue-depth", type=int, default=None,
                     help="admission cap: reject submissions (with a "
                          "retry-after hint) past this queue depth")
+    ap.add_argument("--distributed", action="store_true",
+                    help="one engine over every rank of a torchrun launch, "
+                         "on a (--mesh-data, --mesh-model) mesh")
+    ap.add_argument("--mesh-data", type=int, default=1)
+    ap.add_argument("--mesh-model", type=int, default=1)
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                    help="the ranks' collectives (default: nccl on the "
+                         "card, gloo on the CPU); gloo lets ranks share "
+                         "a card")
     args = ap.parse_args(argv)
+    if args.mesh_data < 1 or args.mesh_model < 1:
+        ap.error("--mesh-data and --mesh-model must be >= 1")
+    if args.mesh_data * args.mesh_model > 1 and not args.distributed:
+        ap.error("--mesh-data/--mesh-model serve over processes, one a "
+                 "rank: add --distributed and start the ranks with "
+                 "torchrun")
+    if args.distributed and args.engine == "oracle":
+        ap.error("--distributed needs the batched engine")
     if args.layers is not None and args.layers < 1:
         ap.error("--layers must be >= 1")
     if args.engine == "oracle" and args.sample:
@@ -219,11 +251,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def build(args: argparse.Namespace):
+def build(args: argparse.Namespace, device=None):
     """The model the launcher serves: the config (reduced under
-    ``--reduced``, cut to ``--layers``) with weights from seed 0, prefill
-    attention through the flash kernel."""
-    device = resolve_device(args.device)
+    ``--reduced``, cut to ``--layers``) with weights from seed 0 (the same
+    on every rank), prefill attention through the flash kernel, on
+    ``device`` (default ``--device``'s)."""
+    device = resolve_device(args.device) if device is None else device
     cfg = get_config(args.arch)
     if cfg.is_encdec:
         raise ValueError(
@@ -243,6 +276,43 @@ def build(args: argparse.Namespace):
                        LMCallOptions(use_flash_kernel=True), device=device)
 
 
+def distributed_mesh(args: argparse.Namespace):
+    """``--distributed``: the rank's device and the ``(--mesh-data,
+    --mesh-model)`` mesh over torchrun's process group (started here
+    unless the caller started it); refuses a world size that is not data
+    x model."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed, make_debug_mesh
+
+    if args.device is not None and torch.device(args.device).type == "cpu":
+        device, backend = torch.device("cpu"), args.backend or "gloo"
+    else:
+        n = torch.cuda.device_count()
+        if n == 0:
+            raise RuntimeError("--distributed finds no CUDA card; run on "
+                               "the CPU with --device cpu")
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        backend = args.backend or "nccl"
+        if backend == "nccl" and local >= n:
+            raise RuntimeError(
+                f"LOCAL_RANK {local} names cuda:{local}, but this host has "
+                f"{n} card(s): NCCL takes one rank a card. Start at most {n} "
+                f"ranks a host, or pass --backend gloo to share cards")
+        device = torch.device("cuda", local % n)
+    init_distributed(device, backend)
+    world = dist.get_world_size()
+    if world != args.mesh_data * args.mesh_model:
+        raise ValueError(
+            f"a (data={args.mesh_data}, model={args.mesh_model}) mesh needs "
+            f"{args.mesh_data * args.mesh_model} ranks; torchrun started "
+            f"{world}")
+    return device, make_debug_mesh(args.mesh_data, args.mesh_model,
+                                   device=device, backend=backend)
+
+
 def make_injector(args: argparse.Namespace):
     """The ``--chaos`` schedule's injector, or None."""
     if not args.chaos:
@@ -254,7 +324,7 @@ def make_injector(args: argparse.Namespace):
 
 
 def serve(model, args: argparse.Namespace, injector=None, on_server=None,
-          drain=None):
+          drain=None, mesh=None):
     """Serve the launcher's requests (prompts from seed 0, the first
     ``--shared-prefix`` tokens common to all) on ``model``'s device, under
     the ``--chaos`` ``injector``; ``on_server`` sees the engine before any
@@ -280,7 +350,7 @@ def serve(model, args: argparse.Namespace, injector=None, on_server=None,
                           fault_injector=injector,
                           max_queue_depth=args.max_queue_depth,
                           default_ttl_s=args.ttl_s,
-                          default_queue_ttl_s=args.queue_ttl_s)
+                          default_queue_ttl_s=args.queue_ttl_s, mesh=mesh)
         if args.warmup:
             w = server.warmup()
             print(f"warmup: {w['compiled']:.0f} shapes run, "
@@ -331,7 +401,26 @@ def _latency(finished):
 
 def main(argv=None):
     args = parse_args(argv)
-    model = build(args)
+    if not args.distributed:
+        return _main(args)
+    import io
+
+    import torch.distributed as dist
+    started = not dist.is_initialized()
+    device, mesh = distributed_mesh(args)
+    # every rank serves; rank 0 reports
+    out = contextlib.nullcontext() if dist.get_rank() == 0 else \
+        contextlib.redirect_stdout(io.StringIO())
+    with out:
+        _main(args, device, mesh)
+    if started:
+        dist.barrier()
+        dist.destroy_process_group()
+    return 0
+
+
+def _main(args, device=None, mesh=None):
+    model = build(args, device)
     cfg, device = model.cfg, model.device
     injector = make_injector(args)
     if args.trace_export:
@@ -362,7 +451,7 @@ def main(argv=None):
         return guardian.run_until_drained()
 
     server, finished, dt = serve(model, args, injector, start_metrics,
-                                 drain)
+                                 drain, mesh)
     tot_toks = sum(len(r.tokens_out) for r in finished)
     lat = _latency(finished)
     where = torch.cuda.get_device_name(device) if device.type == "cuda" \
@@ -392,6 +481,15 @@ def main(argv=None):
         print(f"  paged KV: block_size={a.block_size}, pool={a.n_blocks} "
               f"blocks, peak in use {a.peak_in_use} "
               f"({a.peak_in_use / a.n_blocks:.0%})")
+    if mesh is not None:
+        comm = model.comm
+        print(f"  mesh: data={args.mesh_data} x model={args.mesh_model} "
+              f"over {comm.backend} on {where}; collectives "
+              f"{json.dumps(comm.stats.as_dict())}")
+        if a is not None:
+            print(f"  block shards: {a.n_shards} ({a.placement}), "
+                  f"{a.local_allocs} local / {a.spilled_allocs} spilled "
+                  f"allocations")
     m = server.metrics
     if args.prefix_cache:
         print(f"  prefix cache: {m['prefix_hits']} hits "
@@ -405,7 +503,7 @@ def main(argv=None):
     health = server.health_snapshot() if args.engine == "batched" else {}
     if health:
         print(f"  analog health: {health}")
-    for r in finished[:3]:
+    for r in finished if mesh is not None else finished[:3]:
         print(f"  req {r.rid}: {r.tokens_out[:8]}...")
     if http_srv is not None:
         # self-scrape: the exposition endpoint round-trips before exit

@@ -237,6 +237,29 @@ def _local_kv(p: Attention, n_local: int, n_heads: int, k: torch.Tensor,
             pcomm.select_tp(v, comm, 2, idx))
 
 
+def _cache_heads(p: Attention, new: torch.Tensor, n_cache: int
+                 ) -> torch.Tensor:
+    """The heads of freshly projected keys or values ``new`` (B, L, Kw, D)
+    that the rank's cache holds (``n_cache`` of them): all of them where
+    the cache holds what the projection gives, the rank's slice where k/v
+    are replicated over ``model`` and the cache is cut over it."""
+    if new.shape[2] == n_cache:
+        return new
+    r = common.tp_dim(p.k)[1].tp_rank
+    return new[:, :, r * n_cache:(r + 1) * n_cache]
+
+
+def _read_heads(p: Attention, n_local: int, n_heads: int, kv_full: int,
+                keys: torch.Tensor, vals: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cached heads the rank's ``n_local`` query heads read: the cache
+    itself where it holds the rank's heads, :func:`_local_kv`'s slice where
+    it holds all ``kv_full`` of them and q is cut over ``model``."""
+    if keys.shape[2] != kv_full:
+        return keys, vals
+    return _local_kv(p, n_local, n_heads, keys, vals)
+
+
 def attn_apply(p: Attention, x: torch.Tensor, policy: MiragePolicy, *,
                n_heads: int, n_kv_heads: int, head_dim: int,
                positions: torch.Tensor, rope_theta: float,
@@ -352,8 +375,8 @@ def attn_decode_step(p: Attention, x: torch.Tensor, cache_k: torch.Tensor,
         if qk_norm:
             knew = common.head_rmsnorm(p.k_norm, knew)
         knew = common.apply_rope(knew, rope_pos, rope_theta)
-        knew = _repeat_kv(knew, kv_repeat)
-        vnew = _repeat_kv(vnew, kv_repeat)
+        knew = _cache_heads(p, _repeat_kv(knew, kv_repeat), cache_k.shape[-2])
+        vnew = _cache_heads(p, _repeat_kv(vnew, kv_repeat), cache_v.shape[-2])
 
     if cross:
         valid = torch.ones(cache_k.shape[1], dtype=torch.bool,
@@ -393,6 +416,8 @@ def attn_decode_step(p: Attention, x: torch.Tensor, cache_k: torch.Tensor,
             valid = valid & (kpos >= idx_b - (window - 1))
         keys, vals = cache_k, cache_v
 
+    keys, vals = _read_heads(p, q.shape[2], n_heads, n_kv_heads * kv_repeat,
+                             keys, vals)
     Kv_eff = keys.shape[2]
     rep = q.shape[2] // Kv_eff
     q5 = q.reshape(B, 1, Kv_eff, rep, head_dim)
@@ -429,16 +454,20 @@ def attn_verify_step(p: Attention, x: torch.Tensor, cache_k: torch.Tensor,
     if block_tables is None:
         raise ValueError("the verify step requires the paged layout")
     B, T = x.shape[0], x.shape[1]
-    q = common.dense(p.q, x, policy).reshape(B, T, n_heads, head_dim)
-    knew = common.dense(p.k, x, policy).reshape(B, T, n_kv_heads, head_dim)
-    vnew = common.dense(p.v, x, policy).reshape(B, T, n_kv_heads, head_dim)
+    xq, xk, xv = common.tp_inputs(x, p.q, p.k, p.v)
+    # -1: the rank's heads where q/k/v are head-sharded over ``model``
+    q = common.dense(p.q, xq, policy).reshape(B, T, -1, head_dim)
+    knew = common.dense(p.k, xk, policy).reshape(B, T, -1, head_dim)
+    vnew = common.dense(p.v, xv, policy).reshape(B, T, -1, head_dim)
     if qk_norm:
         q = common.head_rmsnorm(p.q_norm, q)
         knew = common.head_rmsnorm(p.k_norm, knew)
     pos = idx[:, None] + torch.arange(T, device=x.device)[None, :]   # (B, T)
     q = common.apply_rope(q, pos, rope_theta)
-    knew = _repeat_kv(common.apply_rope(knew, pos, rope_theta), kv_repeat)
-    vnew = _repeat_kv(vnew, kv_repeat)
+    knew = _cache_heads(p, _repeat_kv(common.apply_rope(knew, pos,
+                                                        rope_theta),
+                                      kv_repeat), cache_k.shape[-2])
+    vnew = _cache_heads(p, _repeat_kv(vnew, kv_repeat), cache_v.shape[-2])
 
     # positions within a slot are distinct, and slots never share a
     # writable block (the engine forks shared blocks before any write), so
@@ -455,8 +484,10 @@ def attn_verify_step(p: Attention, x: torch.Tensor, cache_k: torch.Tensor,
     if window:
         valid = valid & (kpos[None, None, :] > pos[:, :, None] - window)
 
+    keys, vals = _read_heads(p, q.shape[2], n_heads, n_kv_heads * kv_repeat,
+                             keys, vals)
     Kv_eff = keys.shape[2]
-    rep = n_heads // Kv_eff
+    rep = q.shape[2] // Kv_eff
     q5 = q.reshape(B, T, Kv_eff, rep, head_dim)
     s = torch.einsum("btkrd,bskd->btkrs", q5, keys) * \
         (1.0 / math.sqrt(head_dim))
@@ -464,7 +495,7 @@ def attn_verify_step(p: Attention, x: torch.Tensor, cache_k: torch.Tensor,
                     torch.full_like(s, NEG_INF))
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("btkrs,bskd->btkrd", w, vals)
-    out = out.reshape(B, T, n_heads * head_dim)
+    out = out.reshape(B, T, -1)
     return common.dense(p.o, out, policy), cache_k, cache_v
 
 
@@ -492,15 +523,19 @@ def attn_chunk_step(p: Attention, x: torch.Tensor, k_pages: torch.Tensor,
     B, C = x.shape[0], x.shape[1]
     dev = x.device
     positions = pos0 + torch.arange(C, device=dev)
-    q = common.dense(p.q, x, policy).reshape(B, C, n_heads, head_dim)
-    k = common.dense(p.k, x, policy).reshape(B, C, n_kv_heads, head_dim)
-    v = common.dense(p.v, x, policy).reshape(B, C, n_kv_heads, head_dim)
+    xq, xk, xv = common.tp_inputs(x, p.q, p.k, p.v)
+    # -1: the rank's heads where q/k/v are head-sharded over ``model``
+    q = common.dense(p.q, xq, policy).reshape(B, C, -1, head_dim)
+    k = common.dense(p.k, xk, policy).reshape(B, C, -1, head_dim)
+    v = common.dense(p.v, xv, policy).reshape(B, C, -1, head_dim)
     if qk_norm:
         q = common.head_rmsnorm(p.q_norm, q)
         k = common.head_rmsnorm(p.k_norm, k)
     q = common.apply_rope(q, positions, rope_theta)
-    k = _repeat_kv(common.apply_rope(k, positions, rope_theta), kv_repeat)
-    v = _repeat_kv(v, kv_repeat)
+    k = _cache_heads(p, _repeat_kv(common.apply_rope(k, positions,
+                                                     rope_theta), kv_repeat),
+                     k_pages.shape[-2])
+    v = _cache_heads(p, _repeat_kv(v, kv_repeat), v_pages.shape[-2])
     # pads and positions past the table's capacity are dropped
     if plan is None:
         plan = chunk_plan(table_row, pos0, C, true_len, k_pages.shape[0],
@@ -512,8 +547,10 @@ def attn_chunk_step(p: Attention, x: torch.Tensor, k_pages: torch.Tensor,
     kpos = torch.arange(kb.shape[1], device=dev)
     kpos = torch.where(kpos < pos0 + true_len, kpos,
                        torch.full_like(kpos, 2**30))
+    kb, vb = _read_heads(p, q.shape[2], n_heads, n_kv_heads * kv_repeat,
+                         kb, vb)
     out = chunked_attention(q, kb, vb, positions, kpos, causal=True,
                             window=window, q_chunk=q_chunk,
                             kv_chunk=kv_chunk)
-    out = out.reshape(B, C, n_heads * head_dim)
+    out = out.reshape(B, C, -1)
     return common.dense(p.o, out, policy), k_pages, v_pages

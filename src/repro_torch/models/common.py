@@ -22,14 +22,17 @@ every function is the single-device one, operation for operation.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
 import torch
 from torch import nn
 
+from repro_torch.analog import channel as analog_channel
 from repro_torch.core.gemm import mirage_matmul_auto
 from repro_torch.core.precision import MiragePolicy
+from repro_torch.obs import health as obs_health
 from repro_torch.parallel import comm as pcomm
 
 
@@ -101,10 +104,34 @@ def _placement(p: nn.Module, name: str):
 
 def weight(p: nn.Module, name: str = "w") -> torch.Tensor:
     """The parameter ``name`` of ``p`` as a layer uses it: gathered over
-    ``data`` where it is FSDP-sharded (its TP shard stays local)."""
+    ``data`` where it is FSDP-sharded (its TP shard stays local), or the
+    gather an open :func:`gathered` block made."""
+    memo = p.__dict__.get("gathered_leaves")
+    if memo and name in memo:
+        return memo[name]
     t = getattr(p, name)
     pl = _placement(p, name)
     return t if pl is None else pl.gather(t)
+
+
+@contextlib.contextmanager
+def gathered(p: nn.Module, name: str):
+    """Inside the block every :func:`weight` of ``p.<name>`` is the one
+    FSDP gather made on entry: the tied table, which the embedding and the
+    head both read, moves once a step (one all-gather forward, one
+    reduce-scatter of the summed gradient backward) where each use would
+    gather it again. A use recomputed in the backward (``remat``,
+    ``ce_chunk``) runs after the block and gathers anew."""
+    pl = _placement(p, name)
+    if pl is None or pl.data_dim is None:
+        yield
+        return
+    memo = p.__dict__.setdefault("gathered_leaves", {})
+    memo[name] = pl.gather(getattr(p, name))
+    try:
+        yield
+    finally:
+        memo.pop(name, None)
 
 
 def tp_dim(p: nn.Module, name: str = "w"):
@@ -132,6 +159,22 @@ def tp_inputs(x: torch.Tensor, *mods: nn.Module):
     return out
 
 
+def _matmul(x, w, policy, dim, comm, names):
+    """The GEMM, and on a mesh its block: a shard of ``names[dim]`` over
+    ``model`` (:func:`repro_torch.analog.channel.block_scope`, so its
+    stochastic stages draw the whole GEMM's numbers and keep the shard's),
+    or, where the GEMM is replicated over ``model``, its health records
+    kept on model rank 0 alone (the others compute the same elements)."""
+    if comm is None or comm.tp == 1:
+        return mirage_matmul_auto(x, w, policy)
+    if dim is None:
+        with (obs_health.suppressed() if comm.tp_rank else
+              contextlib.nullcontext()):
+            return mirage_matmul_auto(x, w, policy)
+    with analog_channel.block_scope(**{names[dim]: (comm.tp_rank, comm.tp)}):
+        return mirage_matmul_auto(x, w, policy)
+
+
 def dense(p: Dense, x: torch.Tensor, policy: MiragePolicy) -> torch.Tensor:
     """The Mirage-quantized GEMM. x: (..., d_in) @ w: (d_in, d_out), or
     the installed stationary residues of ``w``. A row-parallel shard (K
@@ -139,14 +182,15 @@ def dense(p: Dense, x: torch.Tensor, policy: MiragePolicy) -> torch.Tensor:
     caller holds all of it) and all-reduces its output over ``model``."""
     if p.stationary is not None:
         w = p.stationary
+        k = w.orig_k
     else:
         w = weight(p)
-    dim, comm = tp_dim(p)
-    if dim == 0 and x.shape[-1] != w.shape[0]:
         k = w.shape[0]
+    dim, comm = tp_dim(p)
+    if dim == 0 and x.shape[-1] != k:
         x = pcomm.select_tp(x, comm, x.dim() - 1, torch.arange(
             comm.tp_rank * k, (comm.tp_rank + 1) * k, device=x.device))
-    y = mirage_matmul_auto(x, w, policy)
+    y = _matmul(x, w, policy, dim, comm, ("groups", "cols"))
     if dim == 0:
         y = pcomm.reduce_from_tp(y, comm)
     if p.b is not None:
@@ -191,9 +235,10 @@ def unembed(p: Embed, x: torch.Tensor, policy: MiragePolicy) -> torch.Tensor:
         policy = policy.replace(assume_quantized_weights=False)
     emb = weight(p, "emb")
     vr = vocab_range(p)
-    if vr is not None:
-        x = pcomm.copy_to_tp(x, vr[2])
-    return mirage_matmul_auto(x, emb.T, policy)
+    if vr is None:
+        return _matmul(x, emb.T, policy, None, tp_dim(p, "emb")[1], ())
+    x = pcomm.copy_to_tp(x, vr[2])
+    return _matmul(x, emb.T, policy, 1, vr[2], (None, "cols"))
 
 
 def norm(p: Norm, x: torch.Tensor, eps: float = 1e-5,

@@ -527,7 +527,8 @@ class LM(nn.Module):
         """tokens: (B, L) -> logits (B, P + L, V), P the patch positions
         of ``extra_embeds`` (the JAX ``forward``'s first output; its aux
         and prefix are those of :meth:`forward_hidden`)."""
-        return self._head(self.forward_hidden(tokens, extra_embeds)[0])
+        with common.gathered(self.embed, "emb"):
+            return self._head(self.forward_hidden(tokens, extra_embeds)[0])
 
     def loss(self, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -537,16 +538,19 @@ class LM(nn.Module):
         returns (loss, metrics ``ce``, ``aux``, ``ppl``) as the JAX
         ``loss`` does."""
         tokens, labels = batch["tokens"], batch["labels"]
-        h, aux, n_prefix = self.forward_hidden(tokens, batch.get("patches"))
-        h = h[:, n_prefix:, :]
-        B, L, d = h.shape
-        if self.opt.ce_chunk:
-            ce = chunked_ce(h.reshape(B * L, d), labels.reshape(B * L),
-                            lambda hh: self._head_local(hh)[0],
-                            self.opt.ce_chunk, self._vocab())
-        else:
-            ce = -torch.mean(_token_ce(*self._head_local(h)[:1], labels,
-                                       self._vocab()))
+        # the tied table's FSDP gather, once for the embedding and the head
+        with common.gathered(self.embed, "emb"):
+            h, aux, n_prefix = self.forward_hidden(tokens,
+                                                   batch.get("patches"))
+            h = h[:, n_prefix:, :]
+            B, L, d = h.shape
+            if self.opt.ce_chunk:
+                ce = chunked_ce(h.reshape(B * L, d), labels.reshape(B * L),
+                                lambda hh: self._head_local(hh)[0],
+                                self.opt.ce_chunk, self._vocab())
+            else:
+                ce = -torch.mean(_token_ce(*self._head_local(h)[:1], labels,
+                                           self._vocab()))
         total = ce + self.cfg.router_aux_loss * aux / max(self.cfg.n_layers,
                                                           1)
         return total, {"ce": ce, "aux": aux,
@@ -622,9 +626,16 @@ class LM(nn.Module):
                    ) -> Dict[str, torch.Tensor]:
         """Zeroed cache of :meth:`cache_spec`'s shapes on the model's
         device; unmapped block-table entries hold the sentinel
-        ``n_blocks``."""
+        ``n_blocks``. On a mesh (the model sharded) each leaf is cut over
+        ``model`` as :func:`repro_torch.parallel.sharding.cache_spec`
+        places it (the rank's kv heads) and kept whole over the batch
+        axes: the cache a rank's prefill fills for the whole batch."""
         spec = self.cache_spec(batch, cap, per_slot_idx, layout=layout,
                                block_size=block_size, n_blocks=n_blocks)
+        if self.comm is not None:
+            from repro_torch.parallel.shard import tp_local_shape
+            spec = {k: (tp_local_shape(self.comm, self.cfg, k, shape), dt)
+                    for k, (shape, dt) in spec.items()}
         cache = {k: torch.zeros(shape, dtype=dt, device=self.device)
                  for k, (shape, dt) in spec.items()}
         if "bt" in cache:
@@ -955,7 +966,8 @@ def _scatter_pages(pages: torch.Tensor, dense: torch.Tensor,
 
 
 def cache_insert(live: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],
-                 slots: torch.Tensor) -> Dict[str, torch.Tensor]:
+                 slots: torch.Tensor, pages: Optional[torch.Tensor] = None
+                 ) -> Dict[str, torch.Tensor]:
     """Scatter a batched prefill cache into the live per-slot cache.
 
     ``new`` is a DENSE prefill cache of ``B_new`` rows; ``slots`` the
@@ -966,18 +978,25 @@ def cache_insert(live: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],
     host to keep the mask off the device. When ``live`` is PAGED, the
     dense ``k``/``v`` rows go through the live block tables into the pools
     (the rows' blocks must be mapped already; unmapped ones drop). The live
-    leaves are written in place and returned."""
+    leaves are written in place and returned. ``pages`` (``(B_new,
+    max_blocks)``) are the tables every row's KV goes through instead,
+    whatever its slot (a meshed engine's rank writes the pages homed on
+    its shard of every row, the others dropped)."""
     rows = torch.nonzero(slots < live["idx"].shape[0])[:, 0]
-    if rows.numel() == 0:
-        return live
     dst = slots[rows].to(live["idx"].device)
     src = rows.to(new["idx"].device)
     for name, leaf in live.items():
         if name == "bt":
             continue
         if name in PAGE_POOL_LEAVES:
-            _scatter_pages(leaf, new[_POOL_SRC[name]][:, src],
-                           live["bt"][dst])
+            if pages is not None:
+                _scatter_pages(leaf, new[_POOL_SRC[name]],
+                               pages.to(leaf.device))
+            elif rows.numel():
+                _scatter_pages(leaf, new[_POOL_SRC[name]][:, src],
+                               live["bt"][dst])
+        elif rows.numel() == 0:
+            continue
         elif name == "idx":
             leaf[dst] = new[name][src].to(leaf.dtype)
         else:

@@ -42,13 +42,14 @@ The autograd rules are Megatron's, written out:
 from __future__ import annotations
 
 import collections
+import copy
 import time
 from typing import Dict, Optional
 
 import torch
 import torch.distributed as dist
 
-KINDS = ("all_reduce", "all_gather", "reduce_scatter")
+KINDS = ("all_reduce", "all_gather", "reduce_scatter", "page_exchange")
 
 
 class CommStats:
@@ -138,10 +139,11 @@ class MeshComm:
                        time.perf_counter() - t0)
         return out
 
-    def all_gather(self, t: torch.Tensor, axis: str, dim: int = 0
-                   ) -> torch.Tensor:
+    def all_gather(self, t: torch.Tensor, axis: str, dim: int = 0,
+                   kind: str = "all_gather") -> torch.Tensor:
         """The group's shards of ``t`` concatenated along ``dim`` in
-        coordinate order."""
+        coordinate order; counted under ``kind`` (the serving engine's
+        page exchange counts its own)."""
         n = self.size(axis)
         if n == 1:
             return t
@@ -156,7 +158,7 @@ class MeshComm:
         # contiguous: the GEMM kernel reads a (K, N) weight, its transpose,
         # or a stack of either, not any other strides
         out = torch.movedim(out.to(dev), 0, dim).contiguous()
-        self.stats.add("all_gather", out.numel() * out.element_size(),
+        self.stats.add(kind, out.numel() * out.element_size(),
                        time.perf_counter() - t0)
         return out
 
@@ -179,6 +181,17 @@ class MeshComm:
         out = torch.movedim(out.to(dev), 0, dim).contiguous()
         self.stats.add("reduce_scatter", nbytes, time.perf_counter() - t0)
         return out
+
+    def rows_whole(self) -> "MeshComm":
+        """This comm with its batch axes folded to one rank: for a step
+        whose rows every data rank holds whole (the serving engine's
+        prefill), so a layer that combines rows over the data ranks (the
+        MoE dispatch) takes them as the whole batch. The ``model`` groups
+        and the counters are this comm's."""
+        view = copy.copy(self)
+        view.dp = view.n_data = 1
+        view.dp_rank = view.data_rank = 0
+        return view
 
     def chunk(self, t: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
         """This rank's equal part of ``t`` along ``dim`` over ``axis``."""

@@ -115,12 +115,40 @@ def placements_of(module: nn.Module) -> Dict[str, Placement]:
     return module.__dict__.get("placements") or {}
 
 
-def shard_model(model: nn.Module, mesh) -> MeshComm:
+def tp_only(spec: Tuple[Any, ...]) -> Tuple[Any, ...]:
+    """``spec`` with its batch axes (``data``, ``pod``) dropped: the leaf
+    whole over them and cut over ``model`` alone."""
+    out = []
+    for ax in spec:
+        axes = ax if isinstance(ax, tuple) else (ax,)
+        out.append("model" if "model" in axes else None)
+    return tuple(out)
+
+
+def tp_local_shape(comm: MeshComm, cfg, name: str,
+                   shape: Tuple[int, ...]) -> Tuple[int, ...]:
+    """The shape of a cache leaf cut over ``model`` alone, as
+    :func:`~repro_torch.parallel.sharding.cache_spec` places it (the
+    rank's kv heads; the batch whole)."""
+    spec = sharding.cache_spec(comm.sizes, cfg, name, tuple(shape))
+    return Placement(comm, tp_only(spec or (None,) * len(shape)),
+                     tuple(shape)).local_shape()
+
+
+def shard_model(model: nn.Module, mesh, serving: bool = False) -> MeshComm:
     """Cut ``model``'s parameters (full, identical on every rank: built
     from one seed) to this rank's shards in place; returns its
     :class:`MeshComm`. Sets ``kv_repeat`` from
     :func:`~repro_torch.parallel.sharding.kv_repeat_for` where the model
-    had none."""
+    had none.
+
+    ``serving=True`` is the serving engine's placement: each leaf cut to
+    its ``model`` (TP) shard by ``param_spec`` and kept whole over
+    ``data`` (:func:`tp_only`): gathered once, here, and never at a use,
+    where the JAX engine's ``param_shardings`` keep the FSDP shard at rest
+    and let the partitioner gather it. The GEMMs and their results are
+    the same; only where the weights sit in memory differs (a data rank
+    holds a TP shard whole, 1/tp of the model)."""
     if getattr(model, "comm", None) is not None:
         return model.comm
     if not getattr(model, "supports_mesh", False):
@@ -135,6 +163,8 @@ def shard_model(model: nn.Module, mesh) -> MeshComm:
         shape = tuple(p.shape)
         spec = sharding.param_spec(comm.sizes, cfg, path,
                                    ((1,) if lead else ()) + shape)
+        if serving:
+            spec = tp_only(spec)
         pl = Placement(comm, spec[1:] if lead else spec, shape)
         with torch.no_grad():
             p.data = pl.local(p.data).contiguous().clone()
@@ -198,6 +228,23 @@ def local_rows(x, comm: MeshComm):
 
 def local_batch(batch: Mapping[str, Any], comm: MeshComm) -> Dict[str, Any]:
     return {k: local_rows(v, comm) for k, v in batch.items()}
+
+
+def serve_state_placements(comm: MeshComm, cfg,
+                           shapes: Mapping[str, Tuple[int, ...]]
+                           ) -> Dict[str, Placement]:
+    """The placement of every leaf of a serving engine's state, the flat
+    ``{path: full shape}`` tree (``cache/kp``, ``last_tok``,
+    ``health/...``), by :func:`~repro_torch.parallel.sharding
+    .serve_state_shardings`: slots over the batch axes, the paged pools'
+    block dim over them where :func:`~repro_torch.parallel.sharding
+    .serve_block_shards` splits it, kv heads over ``model``
+    (``kv_repeat_for`` makes them divide), ``health/`` and the hybrid
+    family's whole state replicated. A rank's local block of a leaf is
+    ``placement.local(full)``, its shape ``placement.local_shape()``."""
+    specs = sharding.serve_state_shardings(comm.sizes, cfg, dict(shapes))
+    return {k: Placement(comm, specs[k] or (None,) * len(shape),
+                         tuple(shape)) for k, shape in shapes.items()}
 
 
 def shard_cache(cache: Mapping[str, torch.Tensor], comm: MeshComm,

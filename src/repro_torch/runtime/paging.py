@@ -24,9 +24,10 @@ O(prompt blocks).
 
 Blocks are ALSO the unit of device **placement**: when the page pools
 shard their block dim over a ``data`` mesh axis (the JAX package's meshed
-engine; meshed serving of the port waits in ROADMAP.md queue 1, slice 8b),
-the ``data``-shard of physical block ``b`` is ``b // (n_blocks //
-n_shards)`` (the sharded dim splits into equal contiguous chunks).
+engine, and the port's ``LMServer(mesh=...)``), the ``data``-shard of
+physical block ``b`` is ``b // (n_blocks // n_shards)`` (the sharded dim
+splits into equal contiguous chunks) and its row in that shard's pool
+``b % (n_blocks // n_shards)`` (:meth:`BlockAllocator.locate`).
 Slots shard over the same axis, so a slot's page-gather decode is LOCAL
 exactly when its table references blocks homed on its own shard. The
 allocator therefore keeps **per-shard free lists** and prefers same-shard
@@ -155,6 +156,37 @@ class BlockAllocator:
         that don't divide evenly (locality then degrades gracefully)."""
         return min(int(slot) * self.n_shards // max(self.n_slots, 1),
                    self.n_shards - 1)
+
+    def locate(self, blocks, n_parts: Optional[int] = None
+               ) -> Tuple[np.ndarray, np.ndarray]:
+        """(shard, row within the shard's pool) of each global block id in
+        ``blocks`` over ``n_parts`` equal contiguous parts of the block
+        dim (default: the allocator's ``n_shards``): the address a data
+        rank's local page pool holds the block at. The sentinel maps to
+        shard ``n_parts``."""
+        n = self.n_shards if n_parts is None else int(n_parts)
+        b = np.asarray(blocks, np.int64)
+        per = self.n_blocks // n
+        return np.where(b < self.n_blocks, b // per, n), b % per
+
+    def reshard(self, n_shards: int) -> None:
+        """Re-cut the free lists into ``n_shards`` home shards (a snapshot
+        of another mesh restored into this engine): every block keeps its
+        id, tables and refcounts; only which heap a free block sits on
+        changes."""
+        n_shards = int(n_shards)
+        if n_shards < 1 or self.n_blocks % n_shards:
+            raise ValueError(f"n_shards={n_shards} must divide "
+                             f"n_blocks={self.n_blocks}")
+        free = sorted(b for h in self._free for b in h)
+        self.n_shards = n_shards
+        self._per_shard = self.n_blocks // n_shards
+        self._free = [[] for _ in range(n_shards)]
+        for b in free:
+            self._free[self.shard_of_block(b)].append(b)
+        for h in self._free:
+            heapq.heapify(h)
+        self._rr = 0
 
     # -- queries ---------------------------------------------------------
 

@@ -98,12 +98,33 @@ allocator, prefix index, queues, generator states) through one picklable
 host tree, which :mod:`repro_torch.runtime.resilience`'s guardian rolls
 back to.
 
+**Meshed serving** (``mesh=``, a ``(data, model)`` ``DeviceMesh`` from
+:func:`repro_torch.launch.mesh.make_debug_mesh` or a
+:class:`repro_torch.parallel.comm.MeshComm`): one engine over every rank,
+each rank running the host side above in lockstep (the JAX engine's
+single controller; every rank submits the same requests), every payload
+the host reads the same on every rank. The weights are cut to their
+``model`` shards and kept whole over ``data``
+(:func:`repro_torch.parallel.shard.shard_model` with ``serving=True``:
+gathered once here, where the JAX engine's ``param_shardings`` keep the
+FSDP shard at rest; the results are the same). The state is placed by
+``serve_state_shardings``: slots over ``data`` (a decode or verify tick
+runs the rank's own), the paged pools' block dim over ``data`` where
+``serve_block_shards`` splits it (the allocator then keeps per-shard free
+lists), kv heads over ``model``. A prefill or a chunk runs the whole
+batch on every data rank, each writing the pages homed on its shard;
+blocks a tick reads from another shard move in one all-gather before it
+and back after (:class:`_ServeMesh`). Under the analog channel each rank
+draws the one-device noise of a GEMM and keeps its block. ``snapshot``
+gathers the whole state; ``restore`` cuts it onto this engine's mesh (a
+snapshot crosses between a mesh and one device). ``warmup()`` and
+``pipeline_depth > 0`` on a mesh raise ``NotImplementedError`` (ROADMAP
+slice 8c).
+
 The metrics count what ran on the device: ``prefill_batches`` the bucketed
 batches, ``prefill_chunks`` every chunk step (also the one that prefills a
 prefix-cache admission's unmatched suffix), ``decode_steps`` the plain
-decode ticks and ``spec_ticks`` the verify ticks. The JAX engine's meshed
-serving is not ported yet: passing ``mesh`` raises
-``NotImplementedError`` naming the ROADMAP slice where it waits.
+decode ticks and ``spec_ticks`` the verify ticks.
 """
 
 from __future__ import annotations
@@ -120,6 +141,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.analog import channel as analog_channel
 from repro_torch.analog.channel import seeded_generator
@@ -129,6 +151,8 @@ from repro_torch.models import lm as lm_helpers
 from repro_torch.obs import health as obs_health
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.parallel import shard as shard_mod
+from repro_torch.parallel import sharding
 from repro_torch.runtime.paging import BlockAllocator, PrefixIndex, blocks_for
 
 
@@ -396,16 +420,15 @@ class Scheduler:
         self.finished.append(req)
         return req
 
-    def expire_queued(self, now: Optional[float] = None) -> List[Request]:
-        """Retire waiting requests whose queue (or total) deadline passed;
-        FCFS order of the survivors is preserved."""
-        now = time.perf_counter() if now is None else now
-        if not any(r.queue_ttl_s is not None or r.ttl_s is not None
-                   for r in self.waiting):
+    def expire_queued(self, due: Sequence[bool]) -> List[Request]:
+        """Retire the waiting requests whose queue (or total) deadline the
+        caller found passed (``due``, one flag a waiting request, in queue
+        order); FCFS order of the survivors is preserved."""
+        if not any(due):
             return []
         expired, kept = [], collections.deque()
-        for r in self.waiting:
-            if r.queue_deadline(now):
+        for r, late in zip(list(self.waiting), due):
+            if late:
                 r.error = "deadline exceeded in queue"
                 expired.append(self.retire(r, status="timed_out"))
             else:
@@ -433,12 +456,6 @@ class Scheduler:
             for q in (50, 95, 99):
                 out[f"{name}_p{q}_s"] = float(np.percentile(arr, q))
         return out
-
-
-#: JAX-engine options that are not ported yet: (default, where they wait)
-_NOT_PORTED = {
-    "mesh": (None, "ROADMAP.md queue 1, slice 8b (meshed serving)"),
-}
 
 
 class _PrefillPipeline:
@@ -603,6 +620,404 @@ def _load_tree(dst, src) -> bool:
     return True
 
 
+def _flatten(tree, prefix=""):
+    """``{path: leaf}`` of a nested dict (the engine's state)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _unflatten(flat):
+    out: Dict[str, Any] = {}
+    for path, v in flat.items():
+        *dirs, leaf = path.split("/")
+        node = out
+        for d in dirs:
+            node = node.setdefault(d, {})
+        node[leaf] = v
+    return out
+
+
+def _is_pool(path: str) -> bool:
+    return path.split("/")[-1] in lm_helpers.PAGE_POOL_LEAVES
+
+
+class _ServeMesh:
+    """The engine's state on a ``(data, model)`` mesh (``LMServer(mesh=
+    ...)``), one rank's part of it, and the collectives of its steps.
+
+    The host side of the engine (scheduler, allocator, prefix index,
+    generators) runs on every rank, replicated and in lockstep, as the JAX
+    engine's single controller runs it: every rank submits the same
+    requests, and every payload the host reads is the same on every rank
+    (a decode tick's rows gathered over the batch axes, a whole step's
+    taken from data rank 0). The device state is placed by
+    :func:`repro_torch.parallel.shard.serve_state_placements`: the slots
+    over the batch axes, the paged pools' block dim over them where
+    ``serve_block_shards`` splits it, kv heads over ``model``.
+
+    Steps come in two kinds. A decode or verify tick runs the rank's own
+    slots (``sharded``): its GEMMs' rows are the rank's block of the
+    one-device tick's (:func:`repro_torch.analog.channel.block_scope`).
+    A bucketed prefill and a prefill chunk run the whole batch on every
+    data rank (``whole``): each rank scatters the rows of its slots and
+    writes the pages homed on its shard, so no prefill sends a page back.
+
+    Pages: a rank's pool holds the blocks homed on its shard (global id
+    ``b`` at row ``b % per_shard``, :meth:`BlockAllocator.locate`) and
+    ``n_scratch`` rows more. Before a step, the blocks its slots read from
+    another shard (``round_robin`` placement, a ``locality`` spill, a
+    prefix block shared across shards) come over in one all-gather over
+    the batch axes into those rows, the rank's table pointing at them;
+    after a decode or verify tick the blocks it wrote there go back to
+    their homes in another (``page_exchange`` in :class:`MeshComm`'s
+    counters). With every block at home nothing moves."""
+
+    def __init__(self, srv: "LMServer", comm):
+        self.srv = srv
+        self.comm = comm
+        self.whole = comm.rows_whole()
+        self.place(srv.n_slots)
+
+    # -- geometry ----------------------------------------------------------
+
+    def place(self, n_slots: int) -> None:
+        """The placements of a state of ``n_slots`` slots and the
+        geometry they give."""
+        srv, comm = self.srv, self.comm
+        self.spec = srv._state_spec(n_slots)
+        self.pl = shard_mod.serve_state_placements(
+            comm, srv.model.cfg, {k: v[0] for k, v in self.spec.items()})
+        self.slot_part = self.pl["last_tok"].spec[0] is not None
+        self.n_local = n_slots // comm.dp if self.slot_part else n_slots
+        self.s0 = comm.dp_rank * self.n_local if self.slot_part else 0
+        pools = [k for k in self.spec if _is_pool(k)]
+        self.pools = [k.split("/")[-1] for k in pools]
+        self.block_part = bool(pools) and \
+            self.pl[pools[0]].spec[1] is not None
+        self.parts = comm.dp if self.block_part else 1
+        self.nb_local = self.spec[pools[0]][0][1] // self.parts \
+            if pools else 0
+        mb = self.spec["cache/bt"][0][1] if "cache/bt" in self.spec else 0
+        # the most remote blocks one step reads: every block of the
+        # rank's slots (a prefill chunk reads one slot's)
+        self.n_scratch = self.n_local * mb if self.block_part else 0
+        self.sentinel = self.nb_local + self.n_scratch
+        self._bt_host: Optional[np.ndarray] = None
+
+    def local_slot(self, slot: int) -> Optional[int]:
+        """The row of global ``slot`` in this rank's state (None: another
+        data rank holds it)."""
+        i = int(slot) - self.s0
+        return i if 0 <= i < self.n_local else None
+
+    def slots_of(self, d: int) -> range:
+        """The global slots data rank ``d`` runs (every slot where the
+        slots are not cut)."""
+        s0 = d * self.n_local if self.slot_part else 0
+        return range(s0, s0 + self.n_local)
+
+    def init_state(self) -> Dict[str, Any]:
+        flat = {}
+        for path, (shape, dtype, fill) in self.spec.items():
+            loc = list(self.pl[path].local_shape())
+            if _is_pool(path):
+                loc[1] += self.n_scratch
+            if path == "cache/bt":
+                fill = self.sentinel
+            flat[path] = torch.full(loc, fill, dtype=dtype,
+                                    device=self.srv.device)
+        self._bt_host = None
+        return _unflatten(flat)
+
+    @torch.inference_mode()
+    def local(self, full: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's state cut from a whole one (host or device
+        tensors, the tables the allocator's)."""
+        dev = self.srv.device
+        flat = {}
+        for path, t in _flatten(full).items():
+            loc = self.pl[path].local(t).to(dev, copy=True).contiguous()
+            if _is_pool(path) and self.n_scratch:
+                pad = torch.zeros(loc.shape[:1] + (self.n_scratch,) +
+                                  loc.shape[2:], dtype=loc.dtype, device=dev)
+                loc = torch.cat([loc, pad], dim=1)
+            if path == "cache/bt":
+                loc.fill_(self.sentinel)
+            if path.startswith("health/") and dist.get_rank():
+                loc.zero_()       # the whole count sits on rank 0
+            flat[path] = loc
+        self._bt_host = None
+        return _unflatten(flat)
+
+    @torch.inference_mode()
+    def full(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        """The whole state from every rank's part (a collective: every
+        rank gets it) as one device would hold it, the tables the
+        allocator's."""
+        flat = {}
+        for path, t in _flatten(state).items():
+            if path == "cache/bt":
+                flat[path] = torch.from_numpy(np.array(
+                    self.srv.alloc.tables)).to(t.device)
+                continue
+            if _is_pool(path):
+                t = t[:, :self.nb_local].contiguous()
+            if path.startswith("health/"):
+                # each rank holds the counts of its elements
+                t = self.comm.all_reduce(t, "world")
+            flat[path] = self.pl[path].full(t)
+        return _unflatten(flat)
+
+    # -- the two kinds of step ---------------------------------------------
+
+    @contextlib.contextmanager
+    def step(self, kind: str):
+        """Open around a step's model call: ``"sharded"`` (the rank's
+        slots: the GEMMs' rows are a block of the one-device step's) or
+        ``"whole"`` (every data rank runs the whole batch: the model's
+        layers take its rows as the whole batch)."""
+        if kind == "sharded" and self.slot_part:
+            with analog_channel.block_scope(
+                    rows=(self.comm.dp_rank, self.comm.dp)):
+                yield
+            return
+        model = self.srv.model
+        model.comm = self.whole
+        try:
+            yield
+        finally:
+            model.comm = self.comm
+
+    def keeps_health(self, kind: str) -> bool:
+        """Whether this rank folds a step's health records: the ranks of a
+        sharded tick hold distinct rows; a whole step's rows are data rank
+        0's to count."""
+        return (kind == "sharded" and self.slot_part) or \
+            self.comm.dp_rank == 0
+
+    def payload(self, payload: torch.Tensor, kind: str) -> torch.Tensor:
+        """The payload every rank's host reads: a sharded tick's rows
+        gathered over the batch axes in slot order, a whole step's from
+        data rank 0 (the ranks computed the same rows; one copy keeps the
+        hosts in lockstep)."""
+        if self.comm.dp == 1:
+            return payload
+        got = self.comm.all_gather(payload.contiguous(), "dp", 0)
+        if kind == "sharded" and self.slot_part:
+            return got
+        return got[:payload.shape[0]]
+
+    # -- pages -------------------------------------------------------------
+
+    def _rows(self, rows: np.ndarray, d: int, remote: bool
+              ) -> Tuple[np.ndarray, List[int]]:
+        """Data rank ``d``'s copy of the global table ``rows``: blocks
+        homed on its shard at their rows there, the others at its scratch
+        rows in increasing id order (``remote``) or dropped; returns it and
+        the remote blocks it reads."""
+        if not self.block_part:
+            return rows.astype(np.int32), []
+        shard, row = self.srv.alloc.locate(rows, self.parts)
+        out = np.full(rows.shape, self.sentinel, np.int32)
+        mine = shard == d
+        out[mine] = row[mine]
+        if not remote:
+            return out, []
+        away = (shard < self.parts) & ~mine
+        ids = sorted(set(int(b) for b in rows[away]))
+        at = {b: self.nb_local + j for j, b in enumerate(ids)}
+        out[away] = [at[int(b)] for b in rows[away]]
+        return out, ids
+
+    def page_tables(self, slots: np.ndarray) -> torch.Tensor:
+        """The tables through which this rank writes a whole prefill's rows
+        (``slots``; the ``n_slots`` sentinel marks a pad row): each row's
+        blocks homed here; the rest drop."""
+        alloc = self.srv.alloc
+        rows = np.full((len(slots), alloc.max_blocks_per_slot),
+                       alloc.sentinel, np.int32)
+        real = slots < self.srv.n_slots
+        rows[real] = alloc.tables[slots[real]]
+        return torch.from_numpy(self._rows(rows, self.comm.dp_rank,
+                                           False)[0])
+
+    def _exchange(self, sends: List[List[int]]) -> Tuple[torch.Tensor, int]:
+        """One all-gather over the batch axes: data rank ``d`` sends rows
+        ``sends[d]`` of its pools; returns every pool leaf's gathered rows,
+        stacked ((leaves, nl, parts x n, bs, kv, hd), rank d's at d x n),
+        and ``n``."""
+        n = max(len(s) for s in sends)
+        me = sends[self.comm.dp_rank]
+        buf = self._local_rows(me + [0] * (n - len(me)))
+        return self.comm.all_gather(buf, "dp", 2, kind="page_exchange"), n
+
+    def _store(self, got: torch.Tensor, src: List[int],
+               dst: List[int]) -> None:
+        if not dst:
+            return
+        cache = self.srv.state["cache"]
+        si = torch.as_tensor(src, dtype=torch.long, device=self.srv.device)
+        di = torch.as_tensor(dst, dtype=torch.long, device=self.srv.device)
+        for i, k in enumerate(self.pools):
+            cache[k].index_copy_(1, di, got[i].index_select(1, si))
+
+    @torch.inference_mode()
+    def fetch(self, needs: List[List[int]]) -> None:
+        """Fill each data rank's scratch rows with the remote blocks it
+        reads (``needs[d]``, in its scratch order) from their homes."""
+        if not any(needs):
+            return
+        alloc = self.srv.alloc
+        union = sorted(set().union(*map(set, needs)))
+        shard, row = alloc.locate(union, self.parts)
+        by_home = [[b for b, s in zip(union, shard) if s == d]
+                   for d in range(self.parts)]
+        at = dict(zip(union, row.tolist()))
+        got, n = self._exchange([[at[b] for b in by_home[d]]
+                                 for d in range(self.parts)])
+        mine = needs[self.comm.dp_rank]
+        homes = alloc.locate(mine, self.parts)[0] if mine else []
+        src = [int(s) * n + by_home[int(s)].index(b)
+               for b, s in zip(mine, homes)]
+        self._store(got, src, [self.nb_local + j for j in range(len(mine))])
+
+    @torch.inference_mode()
+    def write_back(self, wrote: List[List[Tuple[int, int]]]) -> None:
+        """Send the remote blocks each data rank's tick wrote (``wrote[d]``:
+        (global block, its scratch row there)) back to their homes."""
+        if not any(wrote):
+            return
+        got, n = self._exchange([[r for _, r in w] for w in wrote])
+        src, dst = [], []
+        for d, w in enumerate(wrote):
+            for j, (b, _) in enumerate(w):
+                s, r = self.srv.alloc.locate([b], self.parts)
+                if int(s[0]) == self.comm.dp_rank:
+                    src.append(d * n + j)
+                    dst.append(int(r[0]))
+        self._store(got, src, dst)
+
+    @torch.inference_mode()
+    def before_tick(self, decode_slots: List[int], width: int
+                    ) -> List[List[Tuple[int, int]]]:
+        """Point this rank's tables at its slots' blocks and fetch the
+        remote ones; returns, per data rank, the remote blocks its tick
+        writes (positions ``[pos, pos + width)`` of each decoding slot)
+        with their scratch rows there, for :meth:`write_back`."""
+        srv = self.srv
+        if srv.alloc is None:
+            return []
+        tables, me = srv.alloc.tables, self.comm.dp_rank
+        if not self.block_part:
+            mine = self.slots_of(me)
+            self._set_bt(tables[mine.start:mine.stop].astype(np.int32))
+            return []
+        bs, mb = srv.block_size, srv.alloc.max_blocks_per_slot
+        decoding = set(decode_slots)
+        needs, wrote = [], []
+        for d in range(self.parts):
+            slots = self.slots_of(d)
+            rows, ids = self._rows(tables[slots.start:slots.stop], d, True)
+            needs.append(ids)
+            if d == me:
+                self._set_bt(rows)
+            at = {b: self.nb_local + j for j, b in enumerate(ids)}
+            w: List[Tuple[int, int]] = []
+            # where every rank runs every slot, each home writes its own
+            for s in (slots if self.slot_part else ()):
+                if s not in decoding:
+                    continue
+                p = srv._slot_pos[s]
+                for j in range(p // bs, min((p + width - 1) // bs + 1, mb)):
+                    b = int(tables[s, j])
+                    if b in at and (b, at[b]) not in w:
+                        w.append((b, at[b]))
+            wrote.append(w)
+        self.fetch(needs)
+        return wrote
+
+    def _set_bt(self, rows: np.ndarray) -> None:
+        if self._bt_host is None or not np.array_equal(rows, self._bt_host):
+            self.srv.state["cache"]["bt"].copy_(torch.from_numpy(rows))
+            self._bt_host = rows.copy()
+
+    @torch.inference_mode()
+    def chunk_view(self, slot: int, pos0: int
+                   ) -> Tuple[Dict[str, torch.Tensor], Optional[int]]:
+        """The cache a whole prefill chunk of ``slot`` runs on, as slot 0
+        of it: the pools, the slot's table as this rank reads it (its
+        blocks before ``pos0`` homed elsewhere fetched; later ones the
+        chunk writes before it reads them), and the slot's ``idx`` and
+        recurrent state: its rows here where this rank holds the slot,
+        else copies (the holder's state after the earlier chunks).
+        Returns it and the slot's row here (None: held elsewhere)."""
+        srv = self.srv
+        cache = srv.state["cache"]
+        ls = self.local_slot(slot)
+        view = {k: cache[k] for k in self.pools}
+        if srv.alloc is not None:
+            row = srv.alloc.tables[slot:slot + 1]
+            logical = {int(b): j for j, b in enumerate(row[0])}
+            needs, early = [], False
+            for d in range(self.parts):
+                t, ids = self._rows(row, d, True)
+                needs.append(ids)
+                early |= any(logical[b] * srv.block_size < pos0 for b in ids)
+                if d == self.comm.dp_rank:
+                    view["bt"] = torch.from_numpy(t).to(srv.device)
+            # a block from pos0 on is written before it is read
+            if early:
+                self.fetch(needs)
+        for k in ("idx", "ssm", "conv"):
+            if k not in cache:
+                continue
+            ax = lm_helpers.cache_slot_axis(k)
+            if ls is not None:
+                view[k] = cache[k].narrow(ax, ls, 1)
+            else:
+                shape = list(cache[k].shape)
+                shape[ax] = 1
+                view[k] = torch.zeros(shape, dtype=cache[k].dtype,
+                                      device=srv.device)
+        if self.slot_part and pos0 > 0 and "ssm" in cache:
+            # the holder's recurrent state after the slot's earlier chunks
+            owner = slot // self.n_local
+            for k in ("ssm", "conv"):
+                got = self.comm.all_gather(view[k].contiguous(), "dp", 1)
+                view[k].copy_(got.narrow(1, owner, 1))
+        return view, ls
+
+    @torch.inference_mode()
+    def copy_block(self, src: int, dst: int) -> None:
+        """A copy-on-write fork's page copy: ``src``'s home sends the
+        block, ``dst``'s home stores it (a local copy where both are
+        here)."""
+        shard, row = self.srv.alloc.locate([src, dst], self.parts)
+        me = self.comm.dp_rank if self.block_part else 0
+        if shard[0] == shard[1]:
+            if shard[0] == me:
+                self._store(self._local_rows([int(row[0])]), [0],
+                            [int(row[1])])
+            return
+        got, n = self._exchange([[int(row[0])] if d == shard[0] else []
+                                 for d in range(self.parts)])
+        if shard[1] == me:
+            self._store(got, [int(shard[0]) * n], [int(row[1])])
+
+    def _local_rows(self, rows: List[int]) -> torch.Tensor:
+        """Rows ``rows`` of this rank's pools, every pool leaf stacked:
+        (leaves, nl, len(rows), bs, kv, hd)."""
+        idx = torch.as_tensor(rows, dtype=torch.long, device=self.srv.device)
+        cache = self.srv.state["cache"]
+        return torch.stack([cache[k].index_select(1, idx)
+                            for k in self.pools])
+
+
 class LMServer:
     """Continuous-batching serving engine (the deployment path).
 
@@ -634,8 +1049,9 @@ class LMServer:
     ``cache_layout``, ``block_size``, ``n_blocks``, ``prefill_chunk``,
     ``prefix_cache``, ``spec_k``, ``block_placement``, ``pipeline_depth``,
     ``max_retries``, ``instrument``, ``fault_injector``,
-    ``max_queue_depth``, ``default_ttl_s`` and ``default_queue_ttl_s`` are
-    the JAX engine's options with its checks (see the module docstring).
+    ``max_queue_depth``, ``default_ttl_s``, ``default_queue_ttl_s`` and
+    ``mesh`` are the JAX engine's options with its checks (see the module
+    docstring); on a mesh the state is this rank's part.
     ``instrument=False`` builds the engine without the analog-health
     counters. An engine with ``pipeline_depth`` owns a worker thread:
     :meth:`close` stops it.
@@ -667,16 +1083,7 @@ class LMServer:
                  max_queue_depth: Optional[int] = None,
                  default_ttl_s: Optional[float] = None,
                  default_queue_ttl_s: Optional[float] = None,
-                 **not_ported: Any):
-        for name, value in not_ported.items():
-            if name not in _NOT_PORTED:
-                raise TypeError(f"LMServer got an unexpected keyword "
-                                f"argument {name!r}")
-            default, where = _NOT_PORTED[name]
-            if value != default:
-                raise NotImplementedError(
-                    f"LMServer option {name}={value!r} is not ported to "
-                    f"repro_torch yet; it waits in {where}")
+                 mesh=None):
         if pipeline_depth < 0:
             raise ValueError(f"pipeline_depth must be >= 0, got "
                              f"{pipeline_depth}")
@@ -711,6 +1118,22 @@ class LMServer:
                 raise ValueError(
                     "spec_k requires greedy=True (verify-then-accept is "
                     "exact under greedy sampling only)")
+        comm = None
+        if mesh is not None:
+            from repro_torch.parallel.comm import MeshComm
+            if not (isinstance(mesh, MeshComm) or
+                    hasattr(mesh, "mesh_dim_names")):
+                raise TypeError(
+                    f"mesh must be a DeviceMesh (repro_torch.launch.mesh"
+                    f".make_debug_mesh) or a MeshComm, not "
+                    f"{type(mesh).__name__}")
+            if pipeline_depth:
+                raise NotImplementedError(
+                    "pipeline_depth > 0 on a mesh: a worker thread's "
+                    "collectives would interleave with the decode "
+                    "thread's across the ranks; it waits in ROADMAP.md "
+                    "queue 1, slice 8c")
+            comm = shard_mod.shard_model(model, mesh, serving=True)
         self.model = model
         self.cap = cap
         self.greedy = greedy
@@ -731,8 +1154,14 @@ class LMServer:
             # exhausts; a smaller n_blocks sized to the live-token budget
             # realizes the paged win
             nb = n_blocks if n_blocks is not None else batch_slots * mb
+            # on a mesh the pools' block dim and the slots split over the
+            # batch axes alike: the allocator keeps each slot's blocks on
+            # its own shard where it can (``block_placement``)
+            n_shards = 1 if comm is None else sharding.serve_block_shards(
+                comm.sizes, nb, batch_slots)
             self.alloc: Optional[BlockAllocator] = BlockAllocator(
-                nb, block_size, batch_slots, mb, placement=block_placement)
+                nb, block_size, batch_slots, mb, n_shards=n_shards,
+                placement=block_placement)
         else:
             self.alloc = None
         # prefix caching needs pages to share AND skippable prefill: an SSM
@@ -785,6 +1214,8 @@ class LMServer:
         self._chaos_tick = 0
         # decode and verify steps run: the guardian's clock
         self._tick_count = 0
+        # on a mesh, the health counts summed at the last tick's end
+        self._health_host: Dict[str, Any] = {}
         # one sampling generator per stream: the prefill worker and the
         # decode loop never draw from one generator at once
         self._sample_gens = {
@@ -810,6 +1241,8 @@ class LMServer:
         stationary.install(model, stationary.encode_stationary_params(
             model, policy) if self.stationary_weights else None)
 
+        self._mesh: Optional[_ServeMesh] = None \
+            if comm is None else _ServeMesh(self, comm)
         self.state = self._init_state(batch_slots)
         self._drafts = self._init_drafts(batch_slots)
         # shapes each step has run (compile_counts) and the captured ticks
@@ -839,37 +1272,48 @@ class LMServer:
     # device-side steps
     # ------------------------------------------------------------------
 
+    def _state_spec(self, n_slots: int
+                    ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype, Any]]:
+        """The state's leaves at ``n_slots`` slots as one device holds them:
+        ``{path: (shape, dtype, initial value)}`` (``cache/kp``,
+        ``last_tok``, ``health/...``)."""
+        paged = {} if self.alloc is None else dict(
+            layout="paged", block_size=self.block_size,
+            n_blocks=self.alloc.n_blocks)
+        cache = self.model.cache_spec(n_slots, self.cap, per_slot_idx=True,
+                                      **paged)
+        spec = {f"cache/{k}": (shape, dt, 0)
+                for k, (shape, dt) in cache.items()}
+        if "cache/bt" in spec:
+            spec["cache/bt"] = spec["cache/bt"][:2] + (self.alloc.n_blocks,)
+        for name, dt, fill in (("last_tok", torch.int32, 0),
+                               ("active", torch.bool, False),
+                               ("emitted", torch.int32, 0),
+                               ("eos", torch.int32, -1),
+                               ("max_tok", torch.int32, 0)):
+            spec[name] = ((n_slots,), dt, fill)
+        for k, shape in sorted(self._health_spec.items()):
+            spec[f"health/{k}"] = (tuple(shape), torch.int64, 0)
+        return spec
+
     @torch.inference_mode()
     def _init_state(self, n_slots: int) -> Dict[str, Any]:
-        def full(value, dtype):
-            return torch.full((n_slots,), value, dtype=dtype,
-                              device=self.device)
-        if self.alloc is not None:
-            cache = self.model.init_cache(
-                n_slots, self.cap, per_slot_idx=True, layout="paged",
-                block_size=self.block_size, n_blocks=self.alloc.n_blocks)
-        else:
-            cache = self.model.init_cache(n_slots, self.cap,
-                                          per_slot_idx=True)
-        state = {
-            "cache": cache,
-            "last_tok": full(0, torch.int32),
-            "active": full(False, torch.bool),
-            "emitted": full(0, torch.int32),
-            "eos": full(-1, torch.int32),
-            "max_tok": full(0, torch.int32),
-        }
-        if self._health_spec:
-            state["health"] = obs_health.init(self._health_spec, self.device)
-        return state
+        """The zeroed state (on a mesh, this rank's part of it)."""
+        if self._mesh is not None:
+            return self._mesh.init_state()
+        return _unflatten({
+            path: torch.full(shape, fill, dtype=dt, device=self.device)
+            for path, (shape, dt, fill) in self._state_spec(n_slots).items()})
 
     @torch.inference_mode()
     def _sync_tables(self) -> None:
         """Copy the allocator's block tables to the device's ``bt`` leaf,
-        only when alloc/free/share/fork changed them."""
+        only when alloc/free/share/fork changed them (on a mesh each tick
+        points the rank's table at its slots' blocks itself)."""
         if self.alloc is not None and self.alloc.dirty:
-            self.state["cache"]["bt"].copy_(
-                torch.from_numpy(self.alloc.tables))
+            if self._mesh is None:
+                self.state["cache"]["bt"].copy_(
+                    torch.from_numpy(self.alloc.tables))
             self.alloc.dirty = False
 
     def _init_drafts(self, n_slots: int) -> Optional[torch.Tensor]:
@@ -878,7 +1322,8 @@ class LMServer:
         verify tick reads."""
         if not self.spec_k:
             return None
-        return torch.zeros((n_slots, self.spec_k), dtype=torch.int32,
+        rows = n_slots if self._mesh is None else self._mesh.n_local
+        return torch.zeros((rows, self.spec_k), dtype=torch.int32,
                            device=self.device)
 
     def _reseed_noise(self, policy) -> None:
@@ -935,38 +1380,59 @@ class LMServer:
         self._shapes[step].add(shape)
 
     @contextlib.contextmanager
-    def _step_scope(self, stream: str, ctl=None):
+    def _step_scope(self, stream: str, ctl=None, kind: str = "whole"):
         """Ambient noise of one step (its stream's generators), the fault
         controls (``ctl``, else the engine's, where channel faults are
-        scheduled) and, under a policy with health counters, their
-        collection: yields the dict the step's records land in, for
-        :meth:`_fold`."""
+        scheduled), on a mesh the step's kind (``"sharded"``: the rank's
+        slots; ``"whole"``: the whole batch on every data rank) and, under
+        a policy with health counters, their collection: yields the dict
+        the step's records land in, for :meth:`_fold`."""
         bursts = self._burst_gens[stream] if self._use_fault_ctl else None
         ctl = ctl if ctl is not None else self._ctl_dev
         with gemm.noise_scope(self._noise_gens[stream], bursts), \
-                analog_channel.fault_scope(ctl):
+                analog_channel.fault_scope(ctl), \
+                (self._mesh.step(kind) if self._mesh is not None
+                 else contextlib.nullcontext()):
             if not self._health_spec:
                 yield {}
                 return
             with obs_health.collect() as hc:
                 yield hc.values
 
-    def _fold(self, hvals: Dict[str, torch.Tensor]) -> None:
-        """Add a step's health records into the accumulators, in place."""
-        if self._health_spec:
+    def _fold(self, hvals: Dict[str, torch.Tensor],
+              kind: str = "whole") -> None:
+        """Add a step's health records into the accumulators, in place
+        (on a mesh, where this rank counts the step's rows)."""
+        if self._health_spec and (self._mesh is None or
+                                  self._mesh.keeps_health(kind)):
             obs_health.fold(self.state["health"], hvals)
 
-    def _select(self, logits: torch.Tensor, stream: str) -> torch.Tensor:
+    def _payload(self, payload: torch.Tensor, kind: str) -> torch.Tensor:
+        """The step's payload as every rank's host reads it (itself
+        without a mesh)."""
+        return payload if self._mesh is None else \
+            self._mesh.payload(payload, kind)
+
+    def _select(self, logits: torch.Tensor, stream: str,
+                kind: str = "whole") -> torch.Tensor:
         """Next token per row of (B, V) logits: greedy argmax (first max on
         ties, as jnp.argmax) or a categorical draw from the stream's
         sampling generator (``torch.multinomial``'s one-sample draw,
         argmin of Exp(1) / p, without its validity check, which reads the
-        device from the host)."""
+        device from the host). A sharded tick's rows are the rank's slots:
+        it draws the one-device tick's (n_slots, V) numbers and keeps its
+        rows, so each slot samples what it samples on one device."""
         if self.greedy:
             return torch.argmax(logits, dim=-1).to(torch.int32)
         probs = torch.softmax(logits, dim=-1)
-        q = torch.empty_like(probs).exponential_(
-            1.0, generator=self._sample_gens[stream])
+        m = self._mesh
+        rows = slice(None)
+        shape = probs.shape
+        if m is not None and kind == "sharded" and m.slot_part:
+            rows = slice(m.s0, m.s0 + m.n_local)
+            shape = (self.n_slots,) + tuple(probs.shape[1:])
+        q = probs.new_empty(shape).exponential_(
+            1.0, generator=self._sample_gens[stream])[rows]
         return torch.argmin(q / probs, dim=-1).to(torch.int32)
 
     @torch.inference_mode()
@@ -978,12 +1444,12 @@ class LMServer:
         idx0 = state["cache"]["idx"]
         # the SSM family's inactive slots keep their recurrent state: a
         # slot mid-chunked-prefill carries real state between its chunks
-        with self._step_scope("decode") as hvals:
+        with self._step_scope("decode", kind="sharded") as hvals:
             logits, stepped = self.model.decode_step(
                 state["cache"], state["last_tok"][:, None],
                 active=state["active"])
-        self._fold(hvals)
-        tok = self._select(logits[:, -1, :], "decode")
+        self._fold(hvals, "sharded")
+        tok = self._select(logits[:, -1, :], "decode", "sharded")
         active = state["active"]
         emitted = state["emitted"] + active.to(torch.int32)
         hit_eos = (state["eos"] >= 0) & (tok == state["eos"])
@@ -997,7 +1463,7 @@ class LMServer:
         state["last_tok"].copy_(torch.where(active, tok, state["last_tok"]))
         state["emitted"].copy_(emitted)
         active.copy_(active & ~done)
-        return payload
+        return self._payload(payload, "sharded")
 
     @torch.inference_mode()
     def _prefill_compute(self, tokens: np.ndarray, lens: np.ndarray,
@@ -1031,17 +1497,29 @@ class LMServer:
         # instant retirement: the prefill token already hit EOS or the
         # whole budget was one token — never occupy a slot
         done0 = ((eos_d >= 0) & (tok == eos_d)) | (max_d <= 1)
+        pages = None
+        if self._mesh is not None:
+            # this rank's rows: its slots, and the pages homed here
+            pages = self._mesh.page_tables(slots) \
+                if self.alloc is not None else None
+            slots = np.array([self._mesh.local_slot(s) if s < self.n_slots
+                              and self._mesh.local_slot(s) is not None
+                              else self._mesh.n_local for s in slots],
+                             np.int64)
+        n_rows = self.n_slots if self._mesh is None else self._mesh.n_local
         slots_t = torch.from_numpy(slots)
         state = self.state
-        lm_helpers.cache_insert(state["cache"], new_cache, slots_t)
-        rows = torch.nonzero(slots_t < self.n_slots)[:, 0]  # host-side mask
+        lm_helpers.cache_insert(state["cache"], new_cache, slots_t,
+                                pages=pages)
+        rows = torch.nonzero(slots_t < n_rows)[:, 0]  # host-side mask
         dst, src = slots_t[rows].to(dev), rows.to(dev)
         for name, val in (("last_tok", tok), ("active", ~done0),
                           ("emitted", torch.ones_like(tok)),
                           ("eos", eos_d), ("max_tok", max_d)):
             state[name][dst] = val[src].to(state[name].dtype)
         self._fold(hvals)
-        return torch.stack([tok, done0.to(torch.int32)], dim=-1)
+        return self._payload(torch.stack([tok, done0.to(torch.int32)],
+                                         dim=-1), "whole")
 
     def _prefill_insert(self, tokens: np.ndarray, lens: np.ndarray,
                         slots: np.ndarray, eos: np.ndarray,
@@ -1063,10 +1541,14 @@ class LMServer:
         on the device."""
         self._seen("chunk_mid" if final is None else "chunk_last",
                    tokens.shape)
+        cache, row = self.state["cache"], slot
+        if self._mesh is not None:
+            # every data rank runs the chunk: the slot's cache as its row 0
+            cache, row = self._mesh.chunk_view(slot, pos0)[0], 0
         with self._step_scope("chunk") as hvals:
             logits, _ = self.model.prefill_chunk(
-                self.state["cache"], torch.from_numpy(tokens).to(self.device),
-                slot, pos0, true_len)
+                cache, torch.from_numpy(tokens).to(self.device), row, pos0,
+                true_len)
         self._fold(hvals)
         if final is None:
             return None
@@ -1076,13 +1558,21 @@ class LMServer:
             tok, dtype=torch.bool)
         if max_tok <= 1:
             done0 = torch.ones_like(done0)
-        state = self.state
-        state["last_tok"][slot] = tok[0]
-        state["active"][slot] = ~done0[0]
-        state["emitted"][slot] = 1
-        state["eos"][slot] = eos
-        state["max_tok"][slot] = max_tok
-        return torch.stack([tok, done0.to(torch.int32)], dim=-1)
+        ls = self._local_slot(slot)
+        if ls is not None:
+            state = self.state
+            state["last_tok"][ls] = tok[0]
+            state["active"][ls] = ~done0[0]
+            state["emitted"][ls] = 1
+            state["eos"][ls] = eos
+            state["max_tok"][ls] = max_tok
+        return self._payload(torch.stack([tok, done0.to(torch.int32)],
+                                         dim=-1), "whole")
+
+    def _local_slot(self, slot: int) -> Optional[int]:
+        """``slot``'s row in this rank's state (None: another data rank
+        holds it; the slot itself without a mesh)."""
+        return slot if self._mesh is None else self._mesh.local_slot(slot)
 
     @torch.inference_mode()
     def _attach(self, slot: int, last_tok: int, idx: int, eos: int,
@@ -1092,6 +1582,9 @@ class LMServer:
         ``idx = L-1``, ``last_tok = prompt[-1]``, ``emitted = 0`` (the next
         decode tick produces the request's FIRST token)."""
         self._seen("attach", ())
+        slot = self._local_slot(slot)
+        if slot is None:
+            return
         state = self.state
         state["cache"]["idx"][slot] = idx
         state["last_tok"][slot] = last_tok
@@ -1114,9 +1607,9 @@ class LMServer:
         dev = self.device
         drafts_d = self._drafts
         tokens = torch.cat([state["last_tok"][:, None], drafts_d], dim=1)
-        with self._step_scope("decode") as hvals:
+        with self._step_scope("decode", kind="sharded") as hvals:
             logits, _, steps = self.model.verify_step(state["cache"], tokens)
-        self._fold(hvals)
+        self._fold(hvals, "sharded")
         g = torch.argmax(logits, dim=-1).to(torch.int32)       # (S, k+1)
         active = state["active"]
         i32 = torch.int32
@@ -1156,7 +1649,7 @@ class LMServer:
         state["last_tok"].copy_(torch.where(active, last, state["last_tok"]))
         state["emitted"].copy_(emitted)
         active.copy_(active & ~done)
-        return payload
+        return self._payload(payload, "sharded")
 
     def _tick_step(self, name: str, step: Callable[[], torch.Tensor]
                    ) -> torch.Tensor:
@@ -1292,6 +1785,9 @@ class LMServer:
     def _copy_block(self, src: int, dst: int) -> None:
         """Device-side page copy for a copy-on-write fork (every pool
         leaf; layer dim leads, block dim is axis 1)."""
+        if self._mesh is not None:
+            self._mesh.copy_block(src, dst)
+            return
         cache = self.state["cache"]
         for leaf in lm_helpers.pool_keys(cache):
             cache[leaf][:, dst] = cache[leaf][:, src]
@@ -1749,6 +2245,10 @@ class LMServer:
                 done.extend(self._spec_tick(decode_slots))
             elif decode_slots:
                 done.extend(self._plain_tick(decode_slots))
+        if self._mesh is not None and self._health_spec:
+            # the summed counts the metrics collector exports: every rank
+            # ends its tick here in lockstep
+            self._health_host = self.health_snapshot()
         self.scheduler.metrics["ticks"] += 1
         self._chaos_tick += 1
         self._h_tick.observe(time.perf_counter() - t_tick)
@@ -1784,13 +2284,29 @@ class LMServer:
         are skipped until their scatter lands (the worker's job still
         holds them); they expire on the next tick."""
         now = time.perf_counter()
-        done: List[Request] = list(self.scheduler.expire_queued(now))
         pipe_mid = {e["slot"] for e in self.prefilling} \
             if self._pipe is not None else set()
+        waiting = list(self.scheduler.waiting)
+        due_q = [r.queue_deadline(now) for r in waiting]
+        due_s = [req is not None and i not in pipe_mid and req.deadline(now)
+                 for i, req in enumerate(self.slot_req)]
+        if self._mesh is not None and any(
+                r.ttl_s is not None or r.queue_ttl_s is not None
+                for r in waiting + [x for x in self.slot_req if x]):
+            # every rank's clock: a deadline any rank saw pass expires on
+            # all of them, so the hosts stay in lockstep
+            flags = torch.tensor(due_q + due_s, dtype=torch.int32,
+                                 device=self.device)
+            flags = self._mesh.comm.all_reduce(
+                flags, "world", op=dist.ReduceOp.MAX)
+            flags = flags.tolist()
+            due_q = [bool(f) for f in flags[:len(waiting)]]
+            due_s = [bool(f) for f in flags[len(waiting):]]
+        done: List[Request] = list(self.scheduler.expire_queued(due_q))
         for i, req in enumerate(self.slot_req):
             if req is None or i in pipe_mid:
                 continue
-            if req.deadline(now):
+            if due_s[i]:
                 req.error = "deadline exceeded mid-flight"
                 self._abort_slot(i)
                 done.append(self.scheduler.retire(req, status="timed_out"))
@@ -1808,7 +2324,9 @@ class LMServer:
         self._slot_pos[slot] = 0
         self._slot_budget[slot] = 0
         self._slot_poscap[slot] = 0
-        self.state["active"][slot] = False
+        ls = self._local_slot(slot)
+        if ls is not None:
+            self.state["active"][ls] = False
 
     def _corrupt(self, payload: np.ndarray, cols) -> np.ndarray:
         """The host payload after the chaos site ``host_corruption`` (a
@@ -1834,8 +2352,12 @@ class LMServer:
             self._sync_tables()
         tr = obs_trace.get_tracer()
         self._tick_count += 1
+        wrote = None if self._mesh is None else \
+            self._mesh.before_tick(decode_slots, 1)
         with tr.span("serve.decode", {"slots": len(decode_slots)}):
             payload = self._tick_step("decode_tick", self._decode_tick)
+        if wrote:
+            self._mesh.write_back(wrote)
         with tr.span("serve.host_sync"):
             payload = self._to_host(payload)      # the ONE transfer
         self.scheduler.metrics["decode_steps"] += 1
@@ -1898,11 +2420,18 @@ class LMServer:
                 self.alloc.ensure(i, min(
                     p0 + 1 + k, max(self._slot_poscap[i], p0 + 1), cap_pos))
             self._sync_tables()
+        wrote = None
+        if self._mesh is not None:
+            mine = self._mesh.slots_of(self._mesh.comm.dp_rank)
+            drafts = drafts[mine.start:mine.stop]
+            wrote = self._mesh.before_tick(decode_slots, k + 1)
         self._drafts.copy_(torch.from_numpy(drafts))
         tr = obs_trace.get_tracer()
         self._tick_count += 1
         with tr.span("serve.verify", {"slots": len(decode_slots), "k": k}):
             payload = self._tick_step("verify_tick", self._verify_tick)
+        if wrote:
+            self._mesh.write_back(wrote)
         with tr.span("serve.host_sync"):
             payload = self._to_host(payload)      # the ONE transfer
         vocab = self.model.cfg.vocab_size
@@ -2022,6 +2551,12 @@ class LMServer:
 
         Records ``serve_warmup_seconds`` / ``serve_warmup_compiled`` gauges
         and returns ``{"seconds", "compiled", "graphs"}``."""
+        if self._mesh is not None:
+            raise NotImplementedError(
+                "warmup() on a mesh: the tick's collectives (gloo stages "
+                "them through the host) cannot be captured in a CUDA "
+                "graph; warmup and NCCL capture on a mesh wait in "
+                "ROADMAP.md queue 1, slice 8c")
         if self.scheduler.waiting or self.prefilling or \
                 any(r is not None for r in self.slot_req):
             raise RuntimeError(
@@ -2206,13 +2741,24 @@ class LMServer:
                 f"cannot shrink to {new_slots} slots with {len(keep)} active")
         self._graphs.clear()
         with torch.inference_mode():
-            self.state = resize_serving_state(self.model, self.state,
-                                              self.cap, new_slots, keep)
+            state = self.state if self._mesh is None else \
+                self._mesh.full(self.state)
+            state = resize_serving_state(self.model, state, self.cap,
+                                         new_slots, keep)
         if self.alloc is not None:
             freed = self.alloc.remap_slots(keep, new_slots)
             if freed and self.prefix_index is not None:
                 self.prefix_index.evict_blocks(freed)
-            self._sync_tables()
+            if self._mesh is not None:
+                # the slot count moves the slots' homes: the same shard
+                # geometry the engine would be built with
+                self.alloc.reshard(sharding.serve_block_shards(
+                    self._mesh.comm.sizes, self.alloc.n_blocks, new_slots))
+                state["cache"]["bt"] = torch.from_numpy(
+                    np.array(self.alloc.tables))
+        self.n_slots = new_slots
+        self.state = self._refresh_placement(state)
+        self._sync_tables()
         pad = new_slots - len(keep)
         self.slot_req = [self.slot_req[i] for i in keep] + [None] * pad
         self._slot_pos = [self._slot_pos[i] for i in keep] + [0] * pad
@@ -2220,8 +2766,17 @@ class LMServer:
         self._slot_poscap = [self._slot_poscap[i] for i in keep] + [0] * pad
         self._fork_pending = [self._fork_pending[i] for i in keep] + \
             [0] * pad
-        self.n_slots = new_slots
         self._drafts = self._init_drafts(new_slots)
+
+    def _refresh_placement(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        """A whole state as this engine holds it: itself without a mesh; on
+        one, the placements recomputed for the engine's slots and pool
+        (a resize changed them) and this rank's part cut from it (the
+        JAX engine's ``_refresh_placement``)."""
+        if self._mesh is None:
+            return state
+        self._mesh.place(self.n_slots)
+        return self._mesh.local(state)
 
     def resize_block_pool(self, new_n_blocks: int) -> None:
         """Elastic block-pool resize (grow under admission pressure, shrink
@@ -2235,10 +2790,12 @@ class LMServer:
                 "block pool resize requires cache_layout='paged'")
         from repro_torch.runtime.elastic import resize_block_pool
         with torch.inference_mode():
+            state = self.state if self._mesh is None else \
+                self._mesh.full(self.state)
             state, old_ids, new_ids = resize_block_pool(
-                self.state, self.alloc, new_n_blocks)
+                state, self.alloc, new_n_blocks)
         self._graphs.clear()
-        self.state = state
+        self.state = self._refresh_placement(state)
         if self.prefix_index is not None:
             self.prefix_index.remap(
                 {int(o): int(n) for o, n in zip(old_ids, new_ids)})
@@ -2290,7 +2847,8 @@ class LMServer:
             "version": self._SNAP_VERSION,
             "n_slots": self.n_slots,
             "state": _tree_map(lambda t: t.detach().to("cpu", copy=True),
-                               self.state),
+                               self.state if self._mesh is None else
+                               self._mesh.full(self.state)),
             "alloc": copy.deepcopy(self.alloc.__dict__)
             if self.alloc is not None else None,
             "prefix": copy.deepcopy(self.prefix_index.__dict__)
@@ -2336,13 +2894,20 @@ class LMServer:
         if self._pipe is not None and self._pipe.inflight:
             raise RuntimeError("cannot restore over in-flight prefills")
         with torch.inference_mode():
-            if not _load_tree(self.state, snap["state"]):
+            if self._mesh is not None:
+                self.state = self._mesh.local(snap["state"])
+            elif not _load_tree(self.state, snap["state"]):
                 self._graphs.clear()
                 self.state = _tree_map(
                     lambda t: t.to(self.device, copy=True), snap["state"])
         if self.alloc is not None and snap["alloc"] is not None:
+            n_shards = self.alloc.n_shards
             self.alloc.__dict__.clear()
             self.alloc.__dict__.update(copy.deepcopy(snap["alloc"]))
+            # a snapshot of another mesh (or of one device): this engine's
+            # shards
+            if self.alloc.n_shards != n_shards:
+                self.alloc.reshard(n_shards)
             self.alloc.dirty = True
             self._sync_tables()
         if self.prefix_index is not None and snap["prefix"] is not None:
@@ -2429,6 +2994,9 @@ class LMServer:
         if self._health_spec:
             self.state["health"] = obs_health.init(self._health_spec,
                                                    self.device)
+        if self._mesh is not None:
+            # the health leaves changed: their placements with them
+            self._mesh.place(self.n_slots)
         self._reseed_noise(new_policy)
         self._compute_fault_ctl()
 
@@ -2499,8 +3067,12 @@ class LMServer:
 
     def _collect_health(self, reg) -> None:
         """The analog-health counters as ``serve_health_<name>`` gauges (a
-        ``channel`` label per modulus), one transfer a scrape."""
-        for name, val in self.health_snapshot().items():
+        ``channel`` label per modulus), one transfer a scrape; on a mesh
+        the counts summed over the ranks at the end of the last tick (a
+        scrape runs on one rank's thread and cannot join a collective)."""
+        vals = self._health_host if self._mesh is not None \
+            else self.health_snapshot()
+        for name, val in vals.items():
             if isinstance(val, list):
                 g = reg.gauge(f"serve_health_{name}",
                               help="per-channel analog fault counter",
@@ -2513,13 +3085,20 @@ class LMServer:
 
     def health_snapshot(self) -> Dict[str, Any]:
         """The analog-health counters as plain ints (per-channel ones as
-        lists), in ONE device->host transfer; never called on a tick.
-        Empty for policies without counters."""
+        lists), in ONE device->host transfer; never called on a tick but
+        a meshed one's end. Empty for policies without counters. On a
+        mesh the ranks' counts summed (a collective: every rank calls
+        it)."""
         h = self.state.get("health")
         if not h:
             return {}
         names = list(h)
-        flat = torch.cat([h[k].reshape(-1) for k in names]).cpu().tolist()
+        flat = torch.cat([h[k].reshape(-1) for k in names])
+        if self._mesh is not None:
+            # each rank counted distinct elements: the sum is the one
+            # device's count
+            flat = self._mesh.comm.all_reduce(flat, "world")
+        flat = flat.cpu().tolist()
         out, i = {}, 0
         for k in names:
             n = h[k].numel()

@@ -173,10 +173,12 @@ def test_sampled_decode_deterministic_per_seed(model):
     ("default_queue_ttl_s", 1.0), ("max_queue_depth", 4),
 ])
 def test_unported_options_raise(model, option, value):
-    """Only ``mesh`` still waits (slice 8b); the options of slice 7 build
-    an engine that holds them."""
+    """Every JAX-engine option is ported: ``mesh`` (slice 8b) takes a
+    mesh and refuses anything else; the options of slice 7 build an engine
+    that holds them. (The meshed engine itself runs in
+    ``tests/test_torch_serving_mesh.py``.)"""
     if option == "mesh":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             LMServer(model, cap=24, batch_slots=2, **{option: value})
         return
     s = LMServer(model, cap=24, batch_slots=2, **{option: value})
